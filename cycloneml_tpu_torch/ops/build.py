@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface, at first use, into
+``cycloneml_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
+``ctypes``. A library is keyed by a hash of its source and flags, so an
+edited source rebuilds and a stale library is never loaded. Independent
+sources compile in parallel (:func:`build_all`).
+
+Nothing here runs at import: the CPU test tier imports every module and has
+no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: on PATH, else under ``$CUDA_HOME`` or the
+    toolkit's default prefix. Raises when none exists."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def ptxas_report(name: str) -> Path:
+    """Where the ``-Xptxas -v`` output of the last build of ``name`` is
+    kept (registers, shared memory and spills of every kernel)."""
+    return BUILD_DIR / f"{name}.ptxas.txt"
+
+
+def _start(name: str):
+    """Start compiling ``name`` unless its library is built; returns the
+    running process (or None) and the target path."""
+    target = _target(name)
+    if target.exists():
+        return None, target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return (proc, tmp), target
+
+
+def _finish(name: str, started, target: Path) -> None:
+    if started is None:
+        return
+    proc, tmp = started
+    out, _ = proc.communicate()
+    ptxas_report(name).write_text(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, target)  # atomic: a concurrent build sees all or none
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that is not built yet, all nvcc
+    processes at once, and return the library paths."""
+    names = list(names)
+    with _lock:
+        started = {n: _start(n) for n in names}
+        for n, (proc, target) in started.items():
+            _finish(n, proc, target)
+    return {n: target for n, (_, target) in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = build_all([name])[name]
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = _libs[name] = ctypes.CDLL(str(path))
+    return lib

@@ -28,6 +28,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: scale/ledger tests (minutes, subprocesses)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
 
 from cycloneml_tpu import mesh as mesh_mod  # noqa: E402
 from cycloneml_tpu.conf import CycloneConf  # noqa: E402
