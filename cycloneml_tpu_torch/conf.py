@@ -212,11 +212,13 @@ LBFGS_DEVICE_CHUNK = (
 
 USE_PALLAS_KERNELS = (
     ConfigBuilder("cyclone.ml.usePallasKernels")
-    .doc("Route the binomial LogisticRegression sweep through the "
-         "hand-written CUDA kernel (ops/kernels.py K1). The name is the "
-         "reference's, so configurations carry over. 'auto' (default): on "
-         "when the data lives on CUDA; 'true'/'false' force one path (on "
-         "the CPU 'true' runs the kernel's plain version).")
+    .doc("Route the dense passes through the hand-written CUDA kernels "
+         "(ops/kernels.py): the LogisticRegression sweep (K1), the "
+         "LinearRegression sweep (K2), KMeans' assignments (K3) and "
+         "RowMatrix's Gramian (K4). The name is the reference's, so "
+         "configurations carry over. 'auto' (default): on when the data "
+         "lives on CUDA; 'true'/'false' force one path (on the CPU 'true' "
+         "runs the kernels' plain versions).")
     .check_value(lambda v: str(v).lower() in ("auto", "true", "false"),
                  "must be auto, true or false")
     .str_conf("auto")

@@ -1,20 +1,27 @@
-// GLM row sweep for Hopper (sm_90a): one pass over X computing the
-// logistic loss, its gradient, sum(mult) and sum(w).
+// GLM row sweep for Hopper (sm_90a): one pass over X computing a GLM
+// loss, its gradient, sum(mult) and sum(w), for two links.
 //
-// Replaces cycloneml_tpu/ops/kernels.py:_run_glm (kind="logistic"), the
-// Pallas kernel behind fused_binary_logistic_scaled. Per row r:
+// Replaces cycloneml_tpu/ops/kernels.py:_run_glm, the Pallas kernel behind
+// fused_binary_logistic_scaled (kind="logistic", K1) and
+// fused_least_squares_scaled (kind="squared", K2). Per row r:
 //   margin = x_r . beta + off
-//   mult   = w_r (sigmoid(margin) - y_r)
-//   loss  += w_r (softplus(margin) - y_r margin)
+//   logistic: mult = w_r (sigmoid(margin) - y_r)
+//             loss += w_r (softplus(margin) - y_r margin)
+//   squared:  err = margin - ys y_r; mult = w_r err
+//             loss += 0.5 w_r err^2
 //   grad  += mult x_r
 //   aux   += [mult, w_r]
 // The wrapper folds standardization around it (beta = inv_std o coef,
-// off = b0 - mu_hat . coef), so X is read raw at its storage width.
+// off = b0 - mu_hat . coef for the logistic link, off = y_mean_hat -
+// mu_hat . coef and ys = 1/sigma_y for the squared one), so X is read raw
+// at its storage width. The link is a template parameter: both instances
+// share every load, reduction and the launch path.
 //
 // Bound: bytes. One sweep must read X once (n*d*2 bytes in bf16, n*d*4 in
 // f32) plus y and w; the arithmetic is ~4 flops per element, far below
 // the card's rate. At n=2M, d=1280 that is 5.12 GB (bf16) or 10.24 GB
-// (f32): at least 1.53 ms or 3.06 ms at 3.35 TB/s.
+// (f32): at least 1.53 ms or 3.06 ms at 3.35 TB/s; K2 at the LinearRegression
+// configuration (n=400k, d=2000, bf16) reads 1.6 GB: at least 0.48 ms.
 //
 // Design, and what it does about the bound:
 // - One warp owns one row at a time (grid-stride over rows). Each lane
@@ -149,7 +156,7 @@ __device__ __forceinline__ void link_eval(float m, float y, float w, float ys,
     const float softplus = fmaxf(m, 0.0f) + log1pf(e);
     mult = w * (sig - y);
     loss = w * (softplus - y * m);
-  } else {  // squared: the least-squares residual (not launched yet)
+  } else {  // squared: the least-squares residual
     const float err = m - ys * y;
     mult = w * err;
     loss = 0.5f * w * err * err;
@@ -281,11 +288,11 @@ using KernelFn = const void*;  // a glm_sweep_kernel instance
 // E rounded up to a multiple of 8 covers both load widths (4 f32, 8 bf16).
 int elems_per_lane(int d) { return ((d + 255) / 256) * 8; }
 
-template <typename T>
+template <typename T, int LINK>
 KernelFn pick_kernel(int e) {
 #define CYCLONE_GLM_CASE(E)                                               \
   case E:                                                                 \
-    return reinterpret_cast<KernelFn>(&glm_sweep_kernel<T, E, kLogistic>);
+    return reinterpret_cast<KernelFn>(&glm_sweep_kernel<T, E, LINK>);
   switch (e) {
     CYCLONE_GLM_CASE(8)
     CYCLONE_GLM_CASE(16)
@@ -301,12 +308,19 @@ KernelFn pick_kernel(int e) {
 #undef CYCLONE_GLM_CASE
 }
 
-KernelFn kernel_for(int dtype, int d) {
+template <typename T>
+KernelFn pick_link(int link, int e) {
+  if (link == kLogistic) return pick_kernel<T, kLogistic>(e);
+  if (link == kSquared) return pick_kernel<T, kSquared>(e);
+  return nullptr;
+}
+
+KernelFn kernel_for(int dtype, int link, int d) {
   if (d < 1) return nullptr;
   const int e = elems_per_lane(d);
   if (e > kMaxE) return nullptr;
-  if (dtype == 0) return pick_kernel<float>(e);
-  if (dtype == 1) return pick_kernel<__nv_bfloat16>(e);
+  if (dtype == 0) return pick_link<float>(link, e);
+  if (dtype == 1) return pick_link<__nv_bfloat16>(link, e);
   return nullptr;
 }
 
@@ -318,9 +332,10 @@ extern "C" {
 int glm_sweep_max_d() { return 32 * kMaxE; }
 
 // CTAs (= partial rows) a sweep of n rows uses on the current device.
-// dtype: 0 = float32 X, 1 = bfloat16 X.
-int glm_sweep_num_parts(int dtype, int d, long long n, int* n_parts) {
-  KernelFn k = kernel_for(dtype, d);
+// dtype: 0 = float32 X, 1 = bfloat16 X; link: 0 = logistic, 1 = squared.
+int glm_sweep_num_parts(int dtype, int link, int d, long long n,
+                        int* n_parts) {
+  KernelFn k = kernel_for(dtype, link, d);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -340,14 +355,14 @@ int glm_sweep_num_parts(int dtype, int d, long long n, int* n_parts) {
 }
 
 // One sweep. x: (n, d) row-major at storage width; y, w: (n,) f32;
-// beta: (d,) f32; scalars: [off, ys] f32 on the device; partials:
-// n_parts * (d + 3) doubles of scratch; out: d + 3 floats, written as
-// [grad(d), loss, sum(mult), sum(w)].
-int glm_sweep_launch(int dtype, const void* x, const float* y, const float* w,
-                     const float* beta, const float* scalars, long long n,
-                     int d, double* partials, int n_parts, float* out,
-                     void* stream) {
-  KernelFn k = kernel_for(dtype, d);
+// beta: (d,) f32; scalars: [off, ys] f32 on the device (ys is read by the
+// squared link only); partials: n_parts * (d + 3) doubles of scratch;
+// out: d + 3 floats, written as [grad(d), loss, sum(mult), sum(w)].
+int glm_sweep_launch(int dtype, int link, const void* x, const float* y,
+                     const float* w, const float* beta, const float* scalars,
+                     long long n, int d, double* partials, int n_parts,
+                     float* out, void* stream) {
+  KernelFn k = kernel_for(dtype, link, d);
   if (k == nullptr || n_parts < 1 || n < 0) return (int)cudaErrorInvalidValue;
   const size_t item = (dtype == 0) ? sizeof(float) : sizeof(__nv_bfloat16);
   const int vec_ok = ((reinterpret_cast<uintptr_t>(x) % 16) == 0) &&

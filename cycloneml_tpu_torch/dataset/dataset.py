@@ -59,6 +59,36 @@ class InstanceDataset:
         self._yw_host = (y, w)
         return self
 
+    def derive(self, x=None, y=None, w=None,
+               n_features: Optional[int] = None) -> "InstanceDataset":
+        """A dataset with some arrays replaced and this dataset's row
+        metadata kept: the row count, and the host twins of (y, w) when
+        neither changes. Row-aligned transformations (normalization, X.B
+        products) build their result through this."""
+        ds = InstanceDataset(self.ctx, self._x if x is None else x,
+                             self._y if y is None else y,
+                             self._w if w is None else w, self.n_rows,
+                             self.n_features if n_features is None
+                             else n_features)
+        if y is None and w is None:
+            ds._yw_host = self._yw_host
+        return ds
+
+    def valid_indices(self) -> np.ndarray:
+        """Padded-array positions of the real (non-padding) rows: the
+        first ``n_rows`` (the port pads at the end only)."""
+        return np.arange(self.n_rows)
+
+    def gather_rows(self, idx) -> np.ndarray:
+        """Host copy of the given padded row positions at the accumulator
+        width (w's dtype): O(len(idx) d) moved, X itself is indexed in
+        place on its device and never copied whole."""
+        idx = np.asarray(idx, dtype=np.int64).ravel()
+        if len(idx) == 0:
+            return np.zeros((0, self.n_features))
+        rows = self._x[torch.as_tensor(idx, device=self._x.device)]
+        return rows.to(self._w.dtype).cpu().numpy()
+
     def to_instance_dataset(self, *args, **kwargs) -> "InstanceDataset":
         """Already an InstanceDataset: estimators accept one as a frame."""
         return self

@@ -2,7 +2,8 @@
 
 The port never imports ``cycloneml_tpu`` (or jax); what crosses between the
 two packages is plain numpy: the same host arrays as a dataset, a fitted
-model's coefficients, or an optimizer state's ``to_pytree()`` dict.
+model's parameters (logistic and linear regression, KMeans, PCA), or an
+optimizer state's ``to_pytree()`` dict (L-BFGS and OWL-QN alike).
 """
 
 from __future__ import annotations
@@ -16,7 +17,12 @@ from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
 from cycloneml_tpu_torch.ml.classification.logistic_regression import (
     LogisticRegressionModel,
 )
+from cycloneml_tpu_torch.ml.clustering.kmeans import KMeansModel
+from cycloneml_tpu_torch.ml.feature.pca import PCAModel
 from cycloneml_tpu_torch.ml.optim.lbfgs import OptimState
+from cycloneml_tpu_torch.ml.regression.linear_regression import (
+    LinearRegressionModel,
+)
 
 
 def dataset_from_numpy(x, y=None, w=None, ctx: Optional[CycloneContext] = None,
@@ -36,14 +42,52 @@ def model_from_reference(coefficients, intercept,
     model = LogisticRegressionModel(
         coefficient_matrix=coef,
         intercept_vector=np.array([float(intercept)]), num_classes=2)
+    return _with_params(model, params)
+
+
+def _with_params(model, params: dict):
     for k, v in params.items():
         model.set(k, v)
     return model
 
 
+def linear_model_from_reference(coefficients, intercept,
+                                **params) -> LinearRegressionModel:
+    """A :class:`LinearRegressionModel` from a reference model's
+    ``coefficients`` (d,) and ``intercept``."""
+    return _with_params(LinearRegressionModel(
+        np.asarray(coefficients, dtype=np.float64), float(intercept)),
+        params)
+
+
+def kmeans_model_from_reference(centers, training_cost: float = 0.0,
+                                num_iterations: int = 0,
+                                **params) -> KMeansModel:
+    """A :class:`KMeansModel` from a reference model's centers (k, d) (its
+    ``cluster_centers`` rows or ``cluster_centers_matrix().to_array()``),
+    training cost and iteration count; ``params`` (e.g.
+    ``distanceMeasure``) are set on the new model."""
+    model = KMeansModel(np.asarray(centers, dtype=np.float64),
+                        training_cost=float(training_cost))
+    model.num_iterations = int(num_iterations)
+    model.set("k", model._centers.shape[0])
+    return _with_params(model, params)
+
+
+def pca_model_from_reference(pc, explained_variance, **params) -> PCAModel:
+    """A :class:`PCAModel` from a reference model's ``pc`` (d, k) and
+    ``explained_variance`` (k,)."""
+    pc = np.asarray(pc, dtype=np.float64)
+    model = PCAModel(pc, np.asarray(explained_variance, dtype=np.float64))
+    model.set("k", pc.shape[1])
+    return _with_params(model, params)
+
+
 def optim_state_from_pytree(d: dict) -> OptimState:
     """The port's :class:`OptimState` from the dict of a reference
-    ``OptimState.to_pytree()`` (arrays become float64 numpy)."""
+    ``OptimState.to_pytree()`` (arrays become float64 numpy), with the
+    curvature pairs and OWL-QN's ``raw_grad``, so either optimizer resumes
+    the reference's run exactly."""
     def f64(a):
         return np.asarray(a, dtype=np.float64)
 

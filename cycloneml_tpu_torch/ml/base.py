@@ -52,6 +52,9 @@ class Model(Transformer):
         self.parent = parent
         return self
 
+    def save(self, path: str) -> None:
+        raise NotImplementedError("model persistence is ROADMAP slice 9")
+
 
 class Predictor(Estimator, HasFeaturesCol, HasLabelCol, HasPredictionCol,
                 HasWeightCol):
@@ -93,6 +96,13 @@ class PredictionModel(Model, HasFeaturesCol, HasPredictionCol):
 
     def _predict_batch(self, x: np.ndarray) -> np.ndarray:
         raise NotImplementedError
+
+    def _transform(self, frame):
+        x = frame[self.get("featuresCol")]
+        if x.ndim == 1:
+            x = x[:, None]
+        return frame.with_column(self.get("predictionCol"),
+                                 self._predict_batch(x))
 
 
 class ClassificationModel(PredictionModel, HasRawPredictionCol):

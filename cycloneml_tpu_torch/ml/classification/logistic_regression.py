@@ -6,12 +6,13 @@ the label histogram and feature moments from one Summarizer pass, training
 in standardized feature space with standardization folded into the
 aggregator's read (no standardized copy of X), fitWithMean centering, the
 log-odds intercept start, the L2 penalty, L-BFGS — chunked on the device
-under ``cyclone.ml.lbfgs.deviceChunk`` — and unscaling back to the original
-feature space. Under ``cyclone.ml.usePallasKernels`` the sweep is kernel K1.
+under ``cyclone.ml.lbfgs.deviceChunk`` — or OWL-QN when elastic net has an
+L1 part, and unscaling back to the original feature space. Under
+``cyclone.ml.usePallasKernels`` the sweep is kernel K1.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-slice: multinomial fits, L1 / elastic net (OWL-QN) and coefficient bounds
-(L-BFGS-B), checkpointed training, stacked fits.
+slice: multinomial fits, coefficient bounds (L-BFGS-B), checkpointed
+training, stacked fits.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from cycloneml_tpu_torch.linalg.vectors import DenseVector, Vectors
 from cycloneml_tpu_torch.ml.base import (Predictor,
                                          ProbabilisticClassificationModel)
 from cycloneml_tpu_torch.ml.optim import aggregators
-from cycloneml_tpu_torch.ml.optim.lbfgs import LBFGS
+from cycloneml_tpu_torch.ml.optim.lbfgs import LBFGS, OWLQN
 from cycloneml_tpu_torch.ml.optim.loss import (DistributedLossFunction,
                                                inv_std_vector,
                                                l2_regularization)
@@ -121,13 +122,10 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
     def fit_stacked(self, frame, y_stack=None, reg_params=None):
         raise NotImplementedError("stacked fits are ROADMAP slice 4")
 
-    def _check_ported(self, is_multinomial: bool, l1: float) -> None:
+    def _check_ported(self, is_multinomial: bool) -> None:
         if is_multinomial:
             raise NotImplementedError(
                 "multinomial LogisticRegression is ROADMAP slice 2")
-        if l1 > 0:
-            raise NotImplementedError(
-                "L1 / elastic-net fits (OWL-QN) are ROADMAP slice 2")
         if self._has_bounds():
             raise NotImplementedError(
                 "coefficient bounds (L-BFGS-B) are ROADMAP slice 2")
@@ -163,7 +161,8 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         reg = self.get("regParam")
         alpha = self.get("elasticNetParam")
         l2 = (1.0 - alpha) * reg
-        self._check_ported(is_multinomial, alpha * reg)
+        l1 = alpha * reg
+        self._check_ported(is_multinomial)
 
         # fitWithMean (ref LogisticRegression.scala:946-955, SPARK-34448):
         # with a free intercept, train on CENTERED standardized features;
@@ -198,9 +197,21 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         loss_fn = DistributedLossFunction(ds, agg, l2_fn, weight_sum,
                                           extra_args=extras)
 
-        opt = LBFGS(max_iter=self.get("maxIter"), tol=self.get("tol"))
-        from cycloneml_tpu_torch.conf import LBFGS_DEVICE_CHUNK
-        chunk = int(conf.get(LBFGS_DEVICE_CHUNK)) if conf is not None else 0
+        if l1 > 0:
+            # the L1 part on the feature coordinates, never the intercept;
+            # in the original feature space under standardization=false
+            l1_vec = np.zeros(n_coef)
+            l1_vec[:d] = l1 if standardize else np.where(
+                features_std > 0,
+                l1 / np.where(features_std > 0, features_std, 1.0), 0.0)
+            opt = OWLQN(max_iter=self.get("maxIter"), tol=self.get("tol"),
+                        l1_reg=l1_vec)
+            chunk = 0
+        else:
+            opt = LBFGS(max_iter=self.get("maxIter"), tol=self.get("tol"))
+            from cycloneml_tpu_torch.conf import LBFGS_DEVICE_CHUNK
+            chunk = int(conf.get(LBFGS_DEVICE_CHUNK)) \
+                if conf is not None else 0
         if chunk > 0 and (l2_fn is None or hasattr(l2_fn, "traceable")):
             from cycloneml_tpu_torch.ml.optim.device_lbfgs import DeviceLBFGS
             opt = DeviceLBFGS(max_iter=self.get("maxIter"),

@@ -1,14 +1,15 @@
 """Block aggregators — the per-shard loss/gradient sums.
 
 The port's counterpart of ``cycloneml_tpu/ml/optim/aggregators.py`` (binary
-logistic family). Every aggregator has the signature ``agg(x, y, w, ...,
+logistic and least-squares families). Every aggregator has the signature ``agg(x, y, w, ...,
 coef) -> {"loss", "grad", "count"}`` over a shard whose padding rows carry
 w=0, and returns SUMS; ``tree_aggregate`` adds them over the mesh and the
 loss function divides by the weight sum. Coefficient layout:
 ``[w_0 .. w_{d-1}, intercept?]``.
 
-The ``binary_logistic*`` aggregators are plain PyTorch; the ``_pallas``
-twin (the reference's name, so the two packages line up) runs kernel K1.
+The ``binary_logistic*`` and ``least_squares*`` aggregators are plain
+PyTorch; the ``_pallas`` twins (the reference's names, so the two packages
+line up) run kernels K1 and K2.
 """
 
 from __future__ import annotations
@@ -41,13 +42,18 @@ def _tier_dot(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
 
     Full-width operands multiply as they are, the narrower one promoted
     (the reference's dtype promotion). When ``a`` is narrow (a bf16 X or
-    its transpose), ``b`` is rounded to ``a``'s width and the products
-    accumulate in ``acc`` (default ``b``'s dtype) — the reference's
-    ``preferred_element_type`` recipe: narrow multiplicands, wide sums.
-    A torch bf16 product would round its output to bf16, so X is instead
-    upcast ``ROW_CHUNK`` rows at a time (never a full-width copy) and
-    multiplied at ``acc`` width, where the bf16 x bf16 products are
-    exact.
+    its transpose), X is upcast ``ROW_CHUNK`` rows at a time (never a
+    full-width copy) and multiplied by ``b`` at ``acc`` width (default
+    ``b``'s dtype), so the products and sums are those of the kernels,
+    which read X narrow and keep the vector operand at full width.
+
+    This differs from the reference's recipe, which rounds ``b`` (the
+    coefficients, the multipliers) down to X's width for the TPU's bf16
+    matrix unit. For least squares that rounding is not benign: the
+    residual x.b - y/sigma_y cancels to ~1e-3 of the margin, and a
+    bf16-rounded b moves the margin by about as much. At the
+    LinearRegression configuration (400,000 x 2,000, bf16 tier) it left the
+    plain fit's objective 4.5e-3 above the kernel fit's.
     """
     if not is_narrow_dtype(a.dtype):
         if a.dtype != b.dtype:
@@ -56,15 +62,15 @@ def _tier_dot(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
         return a @ b
     if acc is None:
         acc = b.dtype
-    bn = b.to(a.dtype).to(acc)
+    bw = b.to(acc)
     # chunk along X's rows, a's long axis: a's rows for X @ beta, its
     # contraction axis for X.T @ mult (chunk products summed in order)
     if a.shape[0] >= a.shape[1]:
-        return torch.cat([a[lo:lo + ROW_CHUNK].to(acc) @ bn
+        return torch.cat([a[lo:lo + ROW_CHUNK].to(acc) @ bw
                           for lo in range(0, a.shape[0], ROW_CHUNK)])
     out = torch.zeros(a.shape[0], dtype=acc, device=a.device)
     for lo in range(0, a.shape[1], ROW_CHUNK):
-        out += a[:, lo:lo + ROW_CHUNK].to(acc) @ bn[lo:lo + ROW_CHUNK]
+        out += a[:, lo:lo + ROW_CHUNK].to(acc) @ bw[lo:lo + ROW_CHUNK]
     return out
 
 
@@ -118,5 +124,64 @@ def binary_logistic_pallas_scaled(d: int, fit_intercept: bool = True) -> Agg:
     def agg(x, y, w, inv_std, scaled_mean, coef):
         return fused_binary_logistic_scaled(
             x, y, w, inv_std, scaled_mean, coef, d, fit_intercept)
+
+    return agg
+
+
+def least_squares(d: int, fit_intercept: bool = True) -> Agg:
+    """Squared loss 1/2 w (x.beta + b0 - y)^2 (ref
+    LeastSquaresBlockAggregator)."""
+
+    def agg(x, y, w, coef):
+        beta, b0 = _split_coef(coef, d, fit_intercept)
+        err = _tier_dot(x, beta) + b0 - y
+        loss = 0.5 * torch.sum(w * err * err)
+        mult = w * err
+        g = _tier_dot(x.T, mult)
+        grad = torch.cat([g, torch.sum(mult).reshape(1)]) \
+            if fit_intercept else g
+        return {"loss": loss, "grad": grad, "count": torch.sum(w)}
+
+    return agg
+
+
+def least_squares_scaled(d: int) -> Agg:
+    """Least-squares twin of :func:`binary_logistic_scaled`: the
+    LinearRegression l-bfgs objective over RAW feature rows with the
+    doubly-standardized problem folded into the read. With
+    ``sb = inv_std o beta`` and ``y_pars = [1/sigma_y, y_mean_hat]``:
+
+      err = x.sb - (scaled_mean.beta - y_mean_hat) - y / sigma_y
+      grad = inv_std o (x.T mult) - scaled_mean sum(mult)
+
+    so neither a standardized X nor a scaled y exists. Signature
+    ``agg(x, y, w, inv_std, scaled_mean, y_pars, coef)``; pass
+    ``scaled_mean = zeros`` and ``y_pars[1] = 0`` for the uncentered
+    objective. No intercept coordinate: the caller recovers it in closed
+    form."""
+
+    def agg(x, y, w, inv_std, scaled_mean, y_pars, coef):
+        sb = inv_std * coef
+        off = torch.dot(scaled_mean, coef) - y_pars[1]
+        err = _tier_dot(x, sb) - off - y * y_pars[0]
+        loss = 0.5 * torch.sum(w * err * err)
+        mult = w * err
+        msum = torch.sum(mult)
+        g = inv_std * _tier_dot(x.T, mult) - scaled_mean * msum
+        return {"loss": loss, "grad": g, "count": torch.sum(w)}
+
+    return agg
+
+
+def least_squares_pallas_scaled(d: int) -> Agg:
+    """Kernel twin of :func:`least_squares_scaled`: the residual sweep is
+    K2 (``ops/kernels.fused_least_squares_scaled``), standardization and
+    the label scaling are folded around it, and X is read once per
+    evaluation at its storage width."""
+    from cycloneml_tpu_torch.ops.kernels import fused_least_squares_scaled
+
+    def agg(x, y, w, inv_std, scaled_mean, y_pars, coef):
+        return fused_least_squares_scaled(
+            x, y, w, inv_std, scaled_mean, y_pars, coef, d)
 
     return agg

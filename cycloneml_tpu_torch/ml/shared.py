@@ -89,6 +89,17 @@ class HasThreshold(Params):
 
 
 
+class HasSeed(Params):
+    def _p_seed(self, default=17):
+        self.seed = self._param("seed", "random seed", default=default)
+
+
+class HasSolver(Params):
+    def _p_solver(self, allowed, default):
+        self.solver = self._param("solver", f"solver, one of {allowed}",
+                                  V.in_array(allowed), default=default)
+
+
 class HasAggregationDepth(Params):
     def _p_aggregation_depth(self, default=2):
         self.aggregationDepth = self._param(

@@ -67,15 +67,36 @@ def test_port_sources_name_nothing_of_the_jax_package(path):
 
 
 def test_kernels_import_without_cuda():
+    """Every kernel wrapper imports and runs its plain version on CPU
+    tensors with no card and no nvcc, launching nothing."""
     r = _run("import torch\n"
              "assert not torch.cuda.is_available()\n"
              "from cycloneml_tpu_torch.ops import build, kernels\n"
              "x = torch.randn(20, 3); y = (x[:, 0] > 0).float()\n"
              "out = kernels.glm_sweep(x, y, torch.ones(20), torch.ones(3), 0.)\n"
+             "sq = kernels.glm_sweep(x, y, torch.ones(20), torch.ones(3), 0.,\n"
+             "                       link='squared', ys=1.0)\n"
+             "best, dist = kernels.kmeans_assign(x, x[:4])\n"
+             "g = kernels.gramian(x, torch.ones(20))\n"
              "assert kernels.glm_sweep.launches == 0\n"
-             "assert torch.isfinite(out[0])\n",
+             "assert kernels.kmeans_assign.launches == 0\n"
+             "assert kernels.gramian.launches == 0\n"
+             "assert torch.isfinite(out[0]) and torch.isfinite(sq[0])\n"
+             "assert best.tolist()[:4] == [0, 1, 2, 3]\n"
+             "assert torch.equal(g, g.T)\n",
              CUDA_VISIBLE_DEVICES="")
     assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("name", ["glm_sweep", "kmeans_assign", "gramian"])
+def test_every_kernel_source_has_a_binding(name):
+    """Each CUDA source the wrappers load exists, declares its C entry
+    points with ``extern "C"``, and has its argument types declared."""
+    from cycloneml_tpu_torch.ops import build, kernels
+    src = (build.CSRC_DIR / f"{name}.cu").read_text()
+    assert 'extern "C"' in src
+    for fn in kernels._SIGNATURES[name]:
+        assert re.search(rf"\bint {fn}\(", src), f"{name}.cu lacks {fn}"
 
 
 def test_cuda_master_without_a_card_raises():

@@ -65,6 +65,22 @@ def test_f64_fit_matches_reference(ctx, pctx, fit_intercept, reg):
     _assert_same_path(ref, got)
 
 
+@pytest.mark.parametrize("standardization", [True, False])
+def test_f64_elastic_net_fit_takes_owlqn_like_the_reference(ctx, pctx,
+                                                            standardization):
+    """elasticNetParam > 0 selects OWL-QN in both packages, with the L1
+    part on the feature coordinates only (original-space under
+    standardization=false): the same path, coefficients to 1e-8."""
+    x, y = _data(n=400, d=10, seed=8)
+    kw = dict(maxIter=40, regParam=0.03, elasticNetParam=0.6, tol=1e-9,
+              standardization=standardization)
+    ref = JaxLR(**kw).fit(JaxDataset.from_numpy(ctx, x, y))
+    got = LogisticRegression(**kw).fit(interop.dataset_from_numpy(x, y))
+    _assert_same_path(ref, got)
+    np.testing.assert_array_equal(got.coefficients.values == 0,
+                                  np.asarray(ref.coefficients) == 0)
+
+
 def test_f64_weighted_unstandardized_host_lbfgs_matches_reference(ctx, pctx):
     """Instance weights, the original-space penalty
     (standardization=false) and deviceChunk=0 (host L-BFGS, whole line
