@@ -60,8 +60,26 @@ the final result line:
    through the plain Gramian: K4 launched once per Gramian, |cos| between
    matched components >= 1 - 1e-6, explained variance and singular values
    to 1e-5 relative; both against Q[:, :10] (min |cos| printed, >= 0.99);
-11. a ``{"kernels": [...]}`` JSON line with K1-K4, the total wall time;
-   the last line is ``{"ok": true, "device": {...}}``.
+11. the fp8 rung (``cyclone.data.dtype=float8``): K1 and K2 on e4m3 codes
+   quantized on the card (``quantize_fp8``) with their per-column
+   ``x_scale``, held against their float64 plain versions on the
+   dequantized values with phase 3's checks, at the fit shapes and the
+   ragged one, and timed (the bound: the bytes of the 1-byte codes);
+12. LogisticRegression on the fp8 rung: phase 4's data (generated bf16 on
+   the card) quantized on the card, fitted through K1's e4m3 instance and
+   through the plain aggregator on identical codes: e4m3 launches equal to
+   the evaluations and no bf16/f32 launch, no fp8 fallback, coefficients
+   within rtol 5e-3 / atol 5e-4 and objectives to 1e-4 of each other, and
+   within the reference's 20% fp8 envelope of the bf16 K1 fit on the same
+   rows;
+13. LinearRegression at configuration 2 on the fp8 rung through K2's e4m3
+   instance, with phase 12's checks;
+14. K3 and K4 on e4m3 codes with their x_scale, with phases 7 and 9's
+   checks against float64 on the dequantized values, at the same shapes
+   (KMeans and PCA are not fp8-capable: no fit launches these instances);
+15. a ``{"kernels": [...]}`` JSON line with K1-K4 and their e4m3
+   instances, the total wall time; the last line is ``{"ok": true,
+   "device": {...}}``.
 
 Each path's launch counts are set to 0 just before its fit and read just
 after. It exits non-zero, printing no result, when no CUDA device is
@@ -87,6 +105,8 @@ GRAM_RAGGED = (300_007, 777)
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
+H100_FP8_FLOPS = 1979e12     # fp8 tensor cores, dense
+FP8_COEF_NORMREL = 0.20      # the reference's fp8 coefficient envelope
 KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian"]
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
@@ -131,13 +151,13 @@ def _kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel instance: its X dtype and
     integer template arguments (glm_sweep_kernel: elements per lane and
     the link, 0 logistic, 1 squared)."""
-    m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|f)((?:Li\d+E)*))?",
-                  mangled)
+    m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f)"
+                  r"((?:Li\d+E)*))?", mangled)
     if m is None:
         return mangled
     if m.group(2) is None:
         return m.group(1)
-    args = ["f32" if m.group(3) == "f" else "bf16"]
+    args = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(m.group(3), "e4m3")]
     ints = re.findall(r"Li(\d+)E", m.group(4))
     if len(ints) == 2:
         args += [f"E={ints[0]}", ("logistic", "squared")[int(ints[1])]]
@@ -179,15 +199,16 @@ def _k1_inputs(n, d, seed):
     return x, y, w, coef, inv_std, mu
 
 
-def _fold_truth(x, y, w, inv_std, mu, coef, d):
-    """The scaled sweep in float64 through the plain version."""
+def _fold_truth(x, y, w, inv_std, mu, coef, d, x_scale=None):
+    """The scaled sweep in float64 through the plain version (on the
+    dequantized values when ``x_scale`` is given)."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     c = coef.double()
     beta = inv_std.double() * c[:d]
     off = c[d] - torch.dot(mu.double(), c[:d])
     loss, g, msum, wsum = kernels.glm_sweep_plain(
-        x, y, w, beta, off, acc_dtype=torch.float64)
+        x, y, w, beta, off, acc_dtype=torch.float64, x_scale=x_scale)
     grad = torch.cat([inv_std.double() * g - mu.double() * msum,
                       msum.reshape(1)])
     return loss, grad, wsum
@@ -203,6 +224,34 @@ def _randn(n, d, g, dtype=None):
     return x
 
 
+def _x_forms(x32, fp8):
+    """``(X, x_scale float32, x_scale float64)`` for each form of X a
+    kernel phase holds: float32 and bfloat16 X (no scale), or, with
+    ``fp8``, the e4m3 codes of x32 quantized on the card
+    (``quantize_fp8``) with their per-column scale, float32 for the kernel
+    and float64 for the truth."""
+    import torch
+    if not fp8:
+        yield x32, None, None
+        yield x32.to(torch.bfloat16), None, None
+        return
+    from cycloneml_tpu_torch.dataset.instance import quantize_fp8
+    x8, scale, _ = quantize_fp8(x32)
+    yield (x8, torch.as_tensor(scale, dtype=torch.float32, device=DEVICE),
+           torch.as_tensor(scale, dtype=torch.float64, device=DEVICE))
+
+
+def _dt(x) -> str:
+    return str(x.dtype)[6:]
+
+
+def _main_dtype(fp8):
+    """The dtype whose numbers at the main shape go into the kernels
+    line: bfloat16, or e4m3 for the fp8 entries."""
+    import torch
+    return torch.float8_e4m3fn if fp8 else torch.bfloat16
+
+
 def _bound(n_bytes, flops, peak_flops=H100_F32_FLOPS):
     """(bound ms, what bounds it): the larger of the bytes over the
     memory rate and the operations over the peak rate of their type."""
@@ -210,25 +259,27 @@ def _bound(n_bytes, flops, peak_flops=H100_F32_FLOPS):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def phase_kernel():
-    """K1 against its plain version; returns the main-shape (bf16)
+def phase_kernel(fp8=False):
+    """K1 against its plain version (on float32 and bf16 X, or with
+    ``fp8`` on e4m3 codes with their x_scale); returns the main-shape
     numbers for the kernels line."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     results = {}
+    main_dt = _main_dtype(fp8)
     for n, d, seed in ((FIT_N, FIT_D, 1), (RAGGED_N, RAGGED_D, 2)):
         x32, y, w, coef, inv_std, mu = _k1_inputs(n, d, seed)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32 if dtype == torch.float32 else x32.to(torch.bfloat16)
+        for x, s32, s64 in _x_forms(x32, fp8):
+            dtype = x.dtype
             for centered in (False, True):
                 m = mu if centered else torch.zeros_like(mu)
                 got = kernels.fused_binary_logistic_scaled(
-                    x, y, w, inv_std, m, coef, d)
+                    x, y, w, inv_std, m, coef, d, x_scale=s32)
                 again = kernels.fused_binary_logistic_scaled(
-                    x, y, w, inv_std, m, coef, d)
+                    x, y, w, inv_std, m, coef, d, x_scale=s32)
                 torch.cuda.synchronize()
                 t_loss, t_grad, t_w = _fold_truth(x, y, w, inv_std, m,
-                                                  coef, d)
+                                                  coef, d, s64)
                 rel_loss = abs(float(got["loss"]) - float(t_loss)) \
                     / abs(float(t_loss))
                 err = float((got["grad"].double() - t_grad).abs().max())
@@ -238,44 +289,56 @@ def phase_kernel():
                 ok = (rel_loss <= 1e-5 and err <= 1e-4 * gmax
                       and float(got["count"]) == n and float(t_w) == n
                       and bitwise)
-                _line("k1_check", n=n, d=d, dtype=str(dtype)[6:],
-                      centered=centered, rel_loss=rel_loss,
+                _line("k1_check", n=n, d=d, dtype=_dt(x),
+                      x_scale=s32 is not None, centered=centered,
+                      rel_loss=rel_loss,
                       max_abs_grad_err=err, max_abs_grad=gmax,
                       count=float(got["count"]), bitwise_equal=bitwise,
                       ok=ok)
                 if not ok:
                     raise AssertionError(f"K1 disagrees with its plain "
                                          f"version at n={n} d={d} {dtype}")
-                if n == FIT_N and dtype == torch.bfloat16:
+                if n == FIT_N and dtype == main_dt:
                     results["max_abs_err"] = max(
                         results.get("max_abs_err", 0.0), err)
-            results.update(_k1_times(x, y, w, coef, inv_std, d, n))
+            results.update(_k1_times(x, y, w, coef, inv_std, d, n, s32,
+                                     main_dt))
             del x
         del x32
         torch.cuda.empty_cache()
     return results
 
 
-def _k1_times(x, y, w, coef, inv_std, d, n):
+def _gemv_yardstick(x, beta, residual):
+    """The sweep's two gemvs in cuBLAS at X's dtype (``residual(m)`` maps
+    the margins to the multipliers); None for e4m3 codes, which torch.mv
+    does not take."""
+    import torch
+    if x.dtype == torch.float8_e4m3fn:
+        return None
+    xb = beta.to(x.dtype)
+    mult = residual(torch.mv(x, xb).float()).to(x.dtype)
+    return _time_ms(lambda: (torch.mv(x, xb), torch.mv(x.t(), mult)), 10, 2)
+
+
+def _k1_times(x, y, w, coef, inv_std, d, n, x_scale, main_dt):
     import torch
     from cycloneml_tpu_torch.ops import kernels
     beta = inv_std * coef[:d]
     off = coef[d]
-    dt = str(x.dtype)[6:]
-    k_ms = _time_ms(lambda: kernels.glm_sweep(x, y, w, beta, off), 20, 3)
-    p_ms = _time_ms(lambda: kernels.glm_sweep_plain(x, y, w, beta, off),
-                    3, 1)
-    # yardstick: the sweep's two gemvs in cuBLAS at X's dtype
-    xb = beta.to(x.dtype)
-    mult = (w * (torch.sigmoid(torch.mv(x, xb).float() + off) - y)).to(x.dtype)
-    yard_ms = _time_ms(lambda: (torch.mv(x, xb), torch.mv(x.t(), mult)),
-                       10, 2)
+    dt = _dt(x)
+    k_ms = _time_ms(lambda: kernels.glm_sweep(x, y, w, beta, off,
+                                              x_scale=x_scale), 20, 3)
+    p_ms = _time_ms(lambda: kernels.glm_sweep_plain(x, y, w, beta, off,
+                                                    x_scale=x_scale), 3, 1)
+    yard_ms = _gemv_yardstick(
+        x, beta, lambda m: w * (torch.sigmoid(m + off) - y))
     n_bytes = n * d * x.element_size() + 2 * n * 4 + d * 4 + (d + 3) * 4
     bound, bound_by = _bound(n_bytes, 4.0 * n * d)
     _line("k1_time", n=n, d=d, dtype=dt, kernel_ms=k_ms, plain_ms=p_ms,
           bound_ms=bound, bound_by=bound_by, yardstick_two_gemv_ms=yard_ms,
           achieved_gb_s=n_bytes / k_ms / 1e6)
-    if n == FIT_N and dt == "bfloat16":
+    if n == FIT_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": bound_by, "yardstick_ms": yard_ms}
     return {}
@@ -418,12 +481,14 @@ def _check(tag: str, checks: dict) -> None:
 
 # -- K2 and LinearRegression ---------------------------------------------------
 
-def phase_k2():
-    """K2 against its plain version in float64; returns the main-shape
-    (bf16) numbers for the kernels line."""
+def phase_k2(fp8=False):
+    """K2 against its plain version in float64 (on float32 and bf16 X, or
+    with ``fp8`` on e4m3 codes with their x_scale); returns the main-shape
+    numbers for the kernels line."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     results = {}
+    main_dt = _main_dtype(fp8)
     for n, d, seed in ((LIN_N, LIN_D, 3), (RAGGED_N, RAGGED_D, 4)):
         g = torch.Generator(device=DEVICE).manual_seed(seed)
         x32 = _randn(n, d, g)
@@ -431,23 +496,24 @@ def phase_k2():
         w = torch.ones(n, device=DEVICE)
         coef = torch.randn(d, generator=g, device=DEVICE) / d ** 0.5
         inv_std = torch.rand(d, generator=g, device=DEVICE) + 0.5
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32 if dtype == torch.float32 else x32.to(torch.bfloat16)
+        for x, s32, s64 in _x_forms(x32, fp8):
+            dtype = x.dtype
             for centered in (False, True):
                 mu = (torch.randn(d, generator=g, device=DEVICE) * 0.5
                       if centered else torch.zeros(d, device=DEVICE))
                 y_pars = torch.tensor([0.4, 0.3 if centered else 0.0],
                                       device=DEVICE)
                 got = kernels.fused_least_squares_scaled(
-                    x, y, w, inv_std, mu, y_pars, coef, d)
+                    x, y, w, inv_std, mu, y_pars, coef, d, x_scale=s32)
                 again = kernels.fused_least_squares_scaled(
-                    x, y, w, inv_std, mu, y_pars, coef, d)
+                    x, y, w, inv_std, mu, y_pars, coef, d, x_scale=s32)
                 torch.cuda.synchronize()
                 c, s, m, yp = (t.double() for t in (coef, inv_std, mu,
                                                      y_pars))
                 t_loss, t_g, t_m, t_w = kernels.glm_sweep_plain(
                     x, y, w, s * c, yp[1] - torch.dot(m, c),
-                    acc_dtype=torch.float64, link=kernels.SQUARED, ys=yp[0])
+                    acc_dtype=torch.float64, link=kernels.SQUARED, ys=yp[0],
+                    x_scale=s64)
                 t_grad = s * t_g - m * t_m
                 rel_loss = abs(float(got["loss"]) - float(t_loss)) \
                     / abs(float(t_loss))
@@ -458,44 +524,42 @@ def phase_k2():
                 ok = (rel_loss <= 1e-5 and err <= 1e-4 * gmax
                       and float(got["count"]) == n and float(t_w) == n
                       and bitwise)
-                _line("k2_check", n=n, d=d, dtype=str(dtype)[6:],
-                      centered=centered, rel_loss=rel_loss,
+                _line("k2_check", n=n, d=d, dtype=_dt(x),
+                      x_scale=s32 is not None, centered=centered,
+                      rel_loss=rel_loss,
                       max_abs_grad_err=err, max_abs_grad=gmax,
                       count=float(got["count"]), bitwise_equal=bitwise,
                       ok=ok)
                 if not ok:
                     raise AssertionError(f"K2 disagrees with its plain "
                                          f"version at n={n} d={d} {dtype}")
-                if n == LIN_N and dtype == torch.bfloat16:
+                if n == LIN_N and dtype == main_dt:
                     results["max_abs_err"] = max(
                         results.get("max_abs_err", 0.0), err)
-            results.update(_k2_times(x, y, w, coef, inv_std, n, d))
+            results.update(_k2_times(x, y, w, coef, inv_std, n, d, s32,
+                                     main_dt))
             del x
         del x32
         torch.cuda.empty_cache()
     return results
 
 
-def _k2_times(x, y, w, coef, inv_std, n, d):
-    import torch
+def _k2_times(x, y, w, coef, inv_std, n, d, x_scale, main_dt):
     from cycloneml_tpu_torch.ops import kernels
     beta, off, ys = inv_std * coef, 0.1, 0.4
     sq = kernels.SQUARED
     k_ms = _time_ms(lambda: kernels.glm_sweep(x, y, w, beta, off, link=sq,
-                                              ys=ys), 20, 3)
-    p_ms = _time_ms(lambda: kernels.glm_sweep_plain(x, y, w, beta, off,
-                                                    link=sq, ys=ys), 3, 1)
-    xb = beta.to(x.dtype)
-    mult = (w * (torch.mv(x, xb).float() + off - ys * y)).to(x.dtype)
-    yard_ms = _time_ms(lambda: (torch.mv(x, xb), torch.mv(x.t(), mult)),
-                       10, 2)
+                                              ys=ys, x_scale=x_scale), 20, 3)
+    p_ms = _time_ms(lambda: kernels.glm_sweep_plain(
+        x, y, w, beta, off, link=sq, ys=ys, x_scale=x_scale), 3, 1)
+    yard_ms = _gemv_yardstick(x, beta, lambda m: w * (m + off - ys * y))
     n_bytes = n * d * x.element_size() + 2 * n * 4 + d * 4 + (d + 3) * 4
     bound, bound_by = _bound(n_bytes, 4.0 * n * d)
-    dt = str(x.dtype)[6:]
+    dt = _dt(x)
     _line("k2_time", n=n, d=d, dtype=dt, kernel_ms=k_ms, plain_ms=p_ms,
           bound_ms=bound, bound_by=bound_by, yardstick_two_gemv_ms=yard_ms,
           achieved_gb_s=n_bytes / k_ms / 1e6)
-    if n == LIN_N and dt == "bfloat16":
+    if n == LIN_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": bound_by, "yardstick_ms": yard_ms}
     return {}
@@ -570,29 +634,156 @@ def phase_linreg():
         ctx.stop()
 
 
+# -- the fp8 rung: LogisticRegression and LinearRegression on e4m3 codes -------
+
+def _norm_rel(a, b) -> float:
+    """max|a - b| / max|b|: the reference's fp8 envelope metric."""
+    import numpy as np
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-9))
+
+
+def _fp8_fit_phase(tag, name, generate, estimator, link):
+    """One fp8 path: data generated on the card (bf16, the rung the
+    generators store under the fp8 tiers), a bf16 fit through the kernel
+    for the envelope, the same rows quantized on the card
+    (``InstanceDataset.quantized``), then the fp8 fit through the kernel
+    (the main path: counts zeroed just before, read just after) and
+    through the plain aggregator on identical codes. Returns the e4m3
+    launches of the kernel fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context(name)
+    ctx.conf.set("cyclone.data.dtype", "float8")
+    f8 = torch.float8_e4m3fn
+    try:
+        ds16, gen_s = _timed(lambda: generate(ctx))
+
+        def fit(ds, mode):
+            ctx.conf.set("cyclone.ml.usePallasKernels", mode)
+            return _timed(lambda: estimator().fit(ds))
+
+        ref16, ref16_s = fit(ds16, "auto")
+        ds8, quant_s = _timed(ds16.quantized)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        k_model, k_warm = fit(ds8, "auto")
+        by_dtype = dict(kernels.glm_sweep.launches_by_dtype)
+        by_link = dict(kernels.glm_sweep.launches_by_link)
+        others = (kernels.kmeans_assign.launches + kernels.gramian.launches
+                  + sum(v for k, v in by_link.items() if k != link))
+        k_again, k_steady = fit(ds8, "auto")
+        p_model, p_warm = fit(ds8, "false")
+        _, p_steady = fit(ds8, "false")
+        peak = torch.cuda.max_memory_allocated()
+        ks, ps = k_model.summary, p_model.summary
+        kc, pc = k_model.coefficients.values, p_model.coefficients.values
+        obj_rel = abs(ks.objective_history[-1] - ps.objective_history[-1]) \
+            / abs(ps.objective_history[-1])
+        envelope = _norm_rel(kc, ref16.coefficients.values)
+        _line(tag, n=ds8.n_rows, d=ds8.n_features,
+              data_dtype=_dt(ds8.x), x_bytes=ds8.x.numel(),
+              generate_s=gen_s, quantize_s=quant_s,
+              kernel={"iterations": ks.total_iterations,
+                      "evals": ks.total_evals,
+                      "e4m3_launches": by_dtype[f8], "warm_s": k_warm,
+                      "steady_s": k_steady,
+                      "final_objective": ks.objective_history[-1]},
+              plain={"iterations": ps.total_iterations,
+                     "evals": ps.total_evals, "warm_s": p_warm,
+                     "steady_s": p_steady,
+                     "final_objective": ps.objective_history[-1]},
+              bf16_kernel_fit={"iterations": ref16.summary.total_iterations,
+                               "seconds": ref16_s},
+              max_abs_coef_diff=float(np.max(np.abs(kc - pc))),
+              intercepts=[k_model.intercept, p_model.intercept],
+              objective_rel_diff=obj_rel,
+              coef_norm_rel_to_bf16_fit=envelope,
+              fallbacks=ctx.precision_fallbacks,
+              max_memory_allocated=peak)
+        _check(tag, {
+            "X is e4m3 codes with a float64 x_scale":
+                ds8.x.dtype == f8 and ds8.x_scale is not None
+                and ds8.x_scale.dtype == np.float64,
+            "e4m3 instance launched once per evaluation":
+                by_dtype[f8] == ks.total_evals == by_link[link],
+            "no bf16 or f32 instance launched":
+                by_dtype[torch.bfloat16] == by_dtype[torch.float32] == 0,
+            "no other kernel launched": others == 0,
+            "no fp8 fallback fired": not ctx.precision_fallbacks,
+            "coefficients agree (rtol 5e-3, atol 5e-4)": bool(np.allclose(
+                kc, pc, rtol=5e-3, atol=5e-4)) and abs(
+                k_model.intercept - p_model.intercept) <=
+                5e-4 + 5e-3 * abs(p_model.intercept),
+            "final objectives agree to 1e-4": obj_rel <= 1e-4,
+            "within the fp8 envelope (20%) of the bf16 fit":
+                envelope < FP8_COEF_NORMREL,
+            "finite model": bool(np.all(np.isfinite(kc))),
+            "repeat fit reproduces the model": bool(np.array_equal(
+                k_again.coefficients.values, kc)),
+        })
+        return by_dtype[f8]
+    finally:
+        ctx.stop()
+
+
+def phase_fp8_fit():
+    """LogisticRegression at bench.py's shape on the fp8 rung through K1's
+    e4m3 instance and through the plain aggregator."""
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ops import kernels
+    return _fp8_fit_phase(
+        "fp8_fit", "chip_smoke_fp8",
+        lambda ctx: generate_classification(ctx, FIT_N, FIT_D, seed=0),
+        lambda: LogisticRegression(maxIter=25, regParam=0.01, tol=0.0),
+        kernels.LOGISTIC)
+
+
+def phase_fp8_linreg():
+    """LinearRegression at configuration 2 on the fp8 rung through K2's
+    e4m3 instance and through the plain aggregator."""
+    from cycloneml_tpu_torch.dataset.random import generate_regression
+    from cycloneml_tpu_torch.ml.regression import LinearRegression
+    from cycloneml_tpu_torch.ops import kernels
+    return _fp8_fit_phase(
+        "fp8_linreg_fit", "chip_smoke_fp8_linreg",
+        lambda ctx: generate_regression(ctx, LIN_N, LIN_D, seed=11,
+                                        noise=0.1),
+        lambda: LinearRegression(regParam=0.001, elasticNetParam=0.5,
+                                 maxIter=100, tol=1e-7, solver="l-bfgs"),
+        kernels.SQUARED)
+
+
 # -- K3 and KMeans -------------------------------------------------------------
 
-def phase_k3():
-    """K3 against its plain version in float64; returns the main-shape
-    (bf16) numbers for the kernels line."""
+def phase_k3(fp8=False):
+    """K3 against its plain version in float64 (on float32 and bf16 X, or
+    with ``fp8`` on e4m3 codes with their x_scale, held on the dequantized
+    values); returns the main-shape numbers for the kernels line."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     results = {}
+    main_dt = _main_dtype(fp8)
     for n, d, k, seed in ((KM_N, KM_D, KM_K, 5), (*KM_RAGGED, 6)):
         g = torch.Generator(device=DEVICE).manual_seed(seed)
         x32 = _randn(n, d, g)
         c = torch.randn(k, d, generator=g, device=DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32 if dtype == torch.float32 else x32.to(torch.bfloat16)
-            best, dist = kernels.kmeans_assign(x, c)
-            best2, dist2 = kernels.kmeans_assign(x, c)
+        for x, s32, s64 in _x_forms(x32, fp8):
+            dtype = x.dtype
+            best, dist = kernels.kmeans_assign(x, c, x_scale=s32)
+            best2, dist2 = kernels.kmeans_assign(x, c, x_scale=s32)
             torch.cuda.synchronize()
             bitwise = torch.equal(best, best2) and torch.equal(dist, dist2)
-            b64, d64 = kernels.kmeans_assign_plain(x, c, torch.float64)
+            b64, d64 = kernels.kmeans_assign_plain(x, c, torch.float64,
+                                                   x_scale=s64)
             c64 = c.double()
             differ = worst_pick = worst_dist = max_err = 0.0
             for lo in range(0, n, ROWS):
                 xc = x[lo:lo + ROWS].double()
+                if s64 is not None:
+                    xc = xc * s64
                 bc, tc = best[lo:lo + ROWS].long(), d64[lo:lo + ROWS]
                 scale = torch.maximum(tc, (xc * xc).sum(1))
                 picked = ((xc - c64[bc]) ** 2).sum(1)
@@ -604,8 +795,8 @@ def phase_k3():
                 max_err = max(max_err, float(e.max()))
             ok = (worst_pick <= 1e-5 and worst_dist <= 1e-4 and bitwise
                   and int(best.max()) < k and int(best.min()) >= 0)
-            _line("k3_check", n=n, d=d, k=k, dtype=str(dtype)[6:],
-                  argmin_differs_at=int(differ),
+            _line("k3_check", n=n, d=d, k=k, dtype=_dt(x),
+                  x_scale=s32 is not None, argmin_differs_at=int(differ),
                   worst_pick_excess_rel=worst_pick,
                   worst_dist_err_rel=worst_dist, max_abs_dist_err=max_err,
                   bitwise_equal=bitwise, ok=ok)
@@ -613,20 +804,22 @@ def phase_k3():
                 raise AssertionError(f"K3 disagrees with its plain version "
                                      f"at n={n} d={d} k={k} {dtype}")
             del b64, d64
-            if n == KM_N and dtype == torch.bfloat16:
+            if n == KM_N and dtype == main_dt:
                 results["max_abs_err"] = max_err
-            results.update(_k3_times(x, c, n, d, k))
+            results.update(_k3_times(x, c, n, d, k, s32, main_dt))
             del x
         del x32
         torch.cuda.empty_cache()
     return results
 
 
-def _k3_times(x, c, n, d, k):
-    import torch
+def _k3_times(x, c, n, d, k, x_scale, main_dt):
     from cycloneml_tpu_torch.ops import kernels
-    k_ms = _time_ms(lambda: kernels.kmeans_assign(x, c), 3, 1)
-    p_ms = _time_ms(lambda: kernels.kmeans_assign_plain(x, c), 2, 1)
+    k_ms = _time_ms(lambda: kernels.kmeans_assign(x, c, x_scale=x_scale),
+                    3, 1)
+    p_ms = _time_ms(lambda: kernels.kmeans_assign_plain(x, c,
+                                                        x_scale=x_scale),
+                    2, 1)
     ct = c.t().contiguous()
 
     def product():  # the distance product alone, f32 with TF32 off
@@ -635,12 +828,11 @@ def _k3_times(x, c, n, d, k):
     yard_ms = _time_ms(product, 3, 1)
     n_bytes = n * d * x.element_size() + k * d * 4 + k * 4 + n * 8
     bound, bound_by = _bound(n_bytes, 2.0 * n * k * d)
-    dt = str(x.dtype)[6:]
-    _line("k3_time", n=n, d=d, k=k, dtype=dt, kernel_ms=k_ms,
+    _line("k3_time", n=n, d=d, k=k, dtype=_dt(x), kernel_ms=k_ms,
           plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
           yardstick_f32_product_ms=yard_ms,
           achieved_tflop_s=2.0 * n * k * d / k_ms / 1e9)
-    if n == KM_N and dt == "bfloat16":
+    if n == KM_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": bound_by, "yardstick_ms": yard_ms}
     return {}
@@ -712,29 +904,31 @@ def phase_kmeans():
 
 # -- K4 and PCA ----------------------------------------------------------------
 
-def phase_k4():
-    """K4 against its plain version in float64; returns the main-shape
-    (bf16) numbers for the kernels line."""
+def phase_k4(fp8=False):
+    """K4 against its plain version in float64 (on float32 and bf16 X, or
+    with ``fp8`` on e4m3 codes with their x_scale, held on the dequantized
+    values); returns the main-shape numbers for the kernels line."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     results = {}
+    main_dt = _main_dtype(fp8)
     for n, d, masked, seed in ((GRAM_N, GRAM_D, False, 7),
                                (*GRAM_RAGGED, True, 8)):
         g = torch.Generator(device=DEVICE).manual_seed(seed)
         x32 = _randn(n, d, g)
         w = ((torch.arange(n, device=DEVICE) % 3 != 2).float() if masked
              else torch.ones(n, device=DEVICE))
-        for dtype in (torch.float32, torch.bfloat16):
-            x = x32 if dtype == torch.float32 else x32.to(torch.bfloat16)
-            got = kernels.gramian(x, w)
-            again = kernels.gramian(x, w)
+        for x, s32, s64 in _x_forms(x32, fp8):
+            dtype = x.dtype
+            got = kernels.gramian(x, w, x_scale=s32)
+            again = kernels.gramian(x, w, x_scale=s32)
             torch.cuda.synchronize()
-            truth = kernels.gramian_plain(x, w, torch.float64)
+            truth = kernels.gramian_plain(x, w, torch.float64, x_scale=s64)
             diag = truth.diagonal().clamp(min=0)
             scale = torch.sqrt(torch.outer(diag, diag))
             err = (got.double() - truth).abs()
             worst = float((err / scale.clamp(min=1e-300)).max())
-            plain = kernels.gramian_plain(x, w).double()
+            plain = kernels.gramian_plain(x, w, x_scale=s32).double()
             plain_worst = float(((plain - truth).abs()
                                  / scale.clamp(min=1e-300)).max())
             # the trace's relative error: a bias on the diagonal shows here
@@ -745,8 +939,8 @@ def phase_k4():
             bitwise = torch.equal(got, again)
             symmetric = torch.equal(got, got.T)
             ok = worst <= 1e-4 and bitwise and symmetric
-            _line("k4_check", n=n, d=d, masked=masked, dtype=str(dtype)[6:],
-                  worst_err_over_sqrt_gii_gjj=worst,
+            _line("k4_check", n=n, d=d, masked=masked, dtype=_dt(x),
+                  x_scale=s32 is not None, worst_err_over_sqrt_gii_gjj=worst,
                   plain_f32_worst_err_over_sqrt_gii_gjj=plain_worst,
                   trace_rel_err_kernel_plain=trace_rel,
                   max_abs_err=float(err.max()), bitwise_equal=bitwise,
@@ -754,34 +948,41 @@ def phase_k4():
             if not ok:
                 raise AssertionError(f"K4 disagrees with its plain version "
                                      f"at n={n} d={d} {dtype}")
-            if n == GRAM_N and dtype == torch.bfloat16:
+            if n == GRAM_N and dtype == main_dt:
                 results["max_abs_err"] = float(err.max())
-            results.update(_k4_times(x, x32, w, n, d))
+            if s32 is not None:
+                # the library call's input: the dequantized values in f32
+                for lo in range(0, n, ROWS):
+                    x32[lo:lo + ROWS] = x[lo:lo + ROWS].float() * s32
+            results.update(_k4_times(x, x32, w, n, d, s32, main_dt))
             del x, truth
         del x32
         torch.cuda.empty_cache()
     return results
 
 
-def _k4_times(x, x32, w, n, d):
+# bf16 and e4m3 products are exact in f32: the tensor cores' rate for their
+# type bounds them; f32 products need the f32 FMA rate
+_K4_PEAK = {"bfloat16": H100_BF16_FLOPS, "float8_e4m3fn": H100_FP8_FLOPS}
+
+
+def _k4_times(x, x32, w, n, d, x_scale, main_dt):
     from cycloneml_tpu_torch.ops import kernels
-    k_ms = _time_ms(lambda: kernels.gramian(x, w), 3, 1)
-    p_ms = _time_ms(lambda: kernels.gramian_plain(x, w), 3, 1)
+    k_ms = _time_ms(lambda: kernels.gramian(x, w, x_scale=x_scale), 3, 1)
+    p_ms = _time_ms(lambda: kernels.gramian_plain(x, w, x_scale=x_scale),
+                    3, 1)
     # the library call on the same values in f32 (TF32 off), unmasked
     lib_ms = _time_ms(lambda: x32.T @ x32, 3, 1)
     n_bytes = n * d * x.element_size() + n * 4 + d * d * 4
-    dt = str(x.dtype)[6:]
-    # bf16 products are exact in f32: the tensor cores' bf16 rate bounds
-    # them; f32 products need the f32 FMA rate
+    dt = _dt(x)
     bound, bound_by = _bound(n_bytes, float(n) * d * (d + 1),
-                             H100_BF16_FLOPS if dt == "bfloat16"
-                             else H100_F32_FLOPS)
+                             _K4_PEAK.get(dt, H100_F32_FLOPS))
     f32_bound, _ = _bound(n_bytes, float(n) * d * (d + 1))
     _line("k4_time", n=n, d=d, dtype=dt, kernel_ms=k_ms, plain_ms=p_ms,
           bound_ms=bound, bound_by=bound_by, f32_fma_bound_ms=f32_bound,
           library_f32_xtx_ms=lib_ms,
           achieved_tflop_s=float(n) * d * (d + 1) / k_ms / 1e9)
-    if n == GRAM_N and dt == "bfloat16":
+    if n == GRAM_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": lib_ms}
     return {}
@@ -899,7 +1100,7 @@ def main() -> int:
     phase_build()
     entries = []
 
-    def entry(name, source, replaces, numbers, launches):
+    def entry(name, source, replaces, numbers, launches, **extra):
         entries.append({
             "name": name, "route": "cuda",
             "source": f"cycloneml_tpu_torch/csrc/{source}.cu",
@@ -909,7 +1110,8 @@ def main() -> int:
             "bound_ms": numbers["bound_ms"],
             "bound_by": numbers["bound_by"],
             "library_ms": numbers.get("library_ms"),
-            "yardstick_ms": numbers.get("yardstick_ms"), "card": card})
+            "yardstick_ms": numbers.get("yardstick_ms"), "card": card,
+            **extra})
 
     k1 = phase_kernel()
     entry("glm_sweep (logistic, K1)", "glm_sweep", 270, k1, phase_fit())
@@ -919,6 +1121,22 @@ def main() -> int:
     entry("kmeans_assign (K3)", "kmeans_assign", 384, k3, phase_kmeans())
     k4 = phase_k4()
     entry("gramian (K4)", "gramian", 461, k4, phase_pca())
+    # the fp8 rung: e4m3 codes with the x_scale operand (:309, :422, :501)
+    k1 = phase_kernel(fp8=True)
+    entry("glm_sweep (logistic, K1, e4m3)", "glm_sweep", 309, k1,
+          phase_fp8_fit())
+    k2 = phase_k2(fp8=True)
+    entry("glm_sweep (squared, K2, e4m3)", "glm_sweep", 309, k2,
+          phase_fp8_linreg())
+    # KMeans and PCA are not fp8-capable (they take the bf16 rung under the
+    # fp8 tiers), so no fit launches these two instances: their wrappers
+    # are held at the fits' shapes above, and their launches are 0
+    no_path = {"main_path": "none: KMeans and RowMatrix/PCA take the bf16 "
+               "rung under the fp8 tiers"}
+    entry("kmeans_assign (K3, e4m3)", "kmeans_assign", 422,
+          phase_k3(fp8=True), 0, **no_path)
+    entry("gramian (K4, e4m3)", "gramian", 501, phase_k4(fp8=True), 0,
+          **no_path)
     print(json.dumps({"kernels": entries}), flush=True)
     _line("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

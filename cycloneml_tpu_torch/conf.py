@@ -194,10 +194,19 @@ DATA_DTYPE = (
          "fit's speed — except under cyclone.compute.dtype=float64, where "
          "it is float64 so parity runs see full-width data. 'float32' and "
          "'bfloat16' force a tier; the kernels upcast to float32 inside. "
-         "The fp8 tiers ('auto8', 'float8') are not ported yet (ROADMAP "
-         "slice 3).")
-    .check_value(lambda v: v in ("auto", "bfloat16", "float32", "float64"),
-                 "must be auto, bfloat16, float32 or float64")
+         "The SECOND precision rung: 'auto8' resolves to float8_e4m3fn "
+         "(1 byte, per-column scales at accumulator width, float32 "
+         "accumulation in the kernels) for fp8-capable estimators "
+         "(LogisticRegression, LinearRegression l-bfgs) and to bfloat16 "
+         "for everything else, except under cyclone.compute.dtype=float64, "
+         "where it keeps the parity tier like 'auto'; 'float8' forces the "
+         "same split through parity configurations. fp8-capable fits run "
+         "a pre-fit envelope probe that falls back to bfloat16 (a logged "
+         "warning and a recorded reason) when e4m3's 3-bit mantissa would "
+         "break the documented accuracy envelope.")
+    .check_value(lambda v: v in ("auto", "auto8", "bfloat16", "float8",
+                                 "float32", "float64"),
+                 "must be auto, auto8, bfloat16, float8, float32 or float64")
     .str_conf("auto")
 )
 

@@ -1,7 +1,8 @@
 """CycloneContext — the driver entry point of the port.
 
 The counterpart of ``cycloneml_tpu/context.py:CycloneContext``: it owns the
-conf and the mesh runtime and counts the optimizer steps the fits record.
+conf and the mesh runtime, counts the optimizer steps the fits record and
+keeps the fp8 storage fallbacks they took.
 The listener bus, event journal, UI, storage tiers and heartbeats are
 host-side layers (ROADMAP slice 10).
 """
@@ -9,7 +10,7 @@ host-side layers (ROADMAP slice 10).
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -46,6 +47,10 @@ class CycloneContext:
             self.mesh_runtime = mesh_mod.get_or_create(self.conf.get(MASTER))
             self.steps = 0
             self.last_step: Dict[str, float] = {}
+            # every fp8 -> bfloat16 storage fallback of this context's fits
+            # (dataset.fp8_fallback): the reference posts them on its
+            # listener bus, which is ROADMAP slice 10
+            self.precision_fallbacks: List[Dict[str, str]] = []
             self._stopped = False
             _active_context = self
 

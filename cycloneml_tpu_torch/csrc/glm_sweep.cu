@@ -17,11 +17,21 @@
 // at its storage width. The link is a template parameter: both instances
 // share every load, reduction and the launch path.
 //
-// Bound: bytes. One sweep must read X once (n*d*2 bytes in bf16, n*d*4 in
-// f32) plus y and w; the arithmetic is ~4 flops per element, far below
-// the card's rate. At n=2M, d=1280 that is 5.12 GB (bf16) or 10.24 GB
-// (f32): at least 1.53 ms or 3.06 ms at 3.35 TB/s; K2 at the LinearRegression
-// configuration (n=400k, d=2000, bf16) reads 1.6 GB: at least 0.48 ms.
+// X is float32, bfloat16 or float8_e4m3fn CODES (the fp8 rung). The fp8
+// rung's per-column dequantization scale (the reference's x_scale operand,
+// kernels.py:309) is NOT applied here: the wrapper folds it into the (d,)
+// vectors, beta o scale forward and grad_row o scale after the sweep, as
+// the reference's fits fold it into inv_std (logistic_regression.py:763).
+// x . (beta o s) = (x o s) . beta and sum(mult x) o s = sum(mult (x o s)),
+// so the C interface is the same for every dtype and the scale costs no
+// work per element.
+//
+// Bound: bytes. One sweep must read X once (n*d bytes in e4m3, n*d*2 in
+// bf16, n*d*4 in f32) plus y and w; the arithmetic is ~4 flops per
+// element, far below the card's rate. At n=2M, d=1280 that is 2.56 GB
+// (e4m3), 5.12 GB (bf16) or 10.24 GB (f32): at least 0.77, 1.53 or 3.06 ms
+// at 3.35 TB/s; K2 at the LinearRegression configuration (n=400k, d=2000)
+// reads 0.8 GB (e4m3) or 1.6 GB (bf16): at least 0.24 or 0.48 ms.
 //
 // Design, and what it does about the bound:
 // - One warp owns one row at a time (grid-stride over rows). Each lane
@@ -32,7 +42,9 @@
 //   the bitwise-same margin), and the SAME registers feed the gradient
 //   update: X is read from device memory exactly once per sweep; the
 //   "second read" of the row for the gradient never leaves the register
-//   file. beta lives in shared memory. bf16 unpacks to f32 by a shift.
+//   file. beta lives in shared memory. bf16 unpacks to f32 by a shift;
+//   e4m3 pairs by the hardware conversion (cvt.rn.f16x2.e4m3x2, exact:
+//   every e4m3 value is an f16 value) and then f16 -> f32.
 //   (Loading and using one slot at a time left the sweep at under a
 //   third of its bound on an H100: a warp waited on memory several times
 //   per row, with nothing else on the SM to cover the wait.)
@@ -46,18 +58,22 @@
 //   f32. No atomics: two launches on the same inputs are bitwise equal.
 //   sum(w) is exact for n < 2^24 unit weights.
 // - Ragged edges are masked in the kernel: no padded copy of X is made
-//   and d need not be a multiple of anything. 16-byte loads are used
-//   when the row start is 16-byte aligned (d*sizeof(T) % 16 == 0 and an
+//   and d need not be a multiple of anything. A slot is one vector load:
+//   16 bytes (4 f32, 8 bf16) or, for e4m3, 8 bytes (8 codes), so that a
+//   lane holds the same E elements in every dtype. Vector loads are used
+//   when the row start is slot-aligned (d*sizeof(T) % slot == 0 and an
 //   aligned base); otherwise, and for the tail of every row, elements
 //   are loaded one at a time.
 // - Limit: a lane holds E = 8*ceil(d/256) elements of its row in
 //   registers (with two f32 accumulators each), and E is at most 64,
-//   so d <= 2048. The wrapper raises beyond that.
+//   so d <= 2048 in every dtype. The wrapper raises beyond that.
 //
 // Plain C interface (loaded with ctypes): every entry point returns a
 // cudaError_t, 0 on success.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,23 +85,31 @@ constexpr int kMaxE = 64;  // elements of a row one lane holds, at most
 
 enum Link { kLogistic = 0, kSquared = 1 };
 
+// One slot: the raw bits of one vector load and the elements it holds.
 template <typename T>
-struct VecWidth;  // elements in one 16-byte load
+struct Slot;
 template <>
-struct VecWidth<float> {
-  static constexpr int value = 4;
+struct Slot<float> {
+  using Raw = uint4;
+  static constexpr int V = 4;
 };
 template <>
-struct VecWidth<__nv_bfloat16> {
-  static constexpr int value = 8;
+struct Slot<__nv_bfloat16> {
+  using Raw = uint4;
+  static constexpr int V = 8;
+};
+template <>
+struct Slot<__nv_fp8_e4m3> {
+  using Raw = uint2;  // 8 codes: the same 8 elements a lane slot of bf16 has
+  static constexpr int V = 8;
 };
 
-// The 16-byte slot of a row starting at column col, as raw bits; zero
-// past d. One vector load when the slot is whole and aligned, else
-// element by element.
+// The slot of a row starting at column col, as raw bits; zero past d.
+// One vector load when the slot is whole and aligned, else element by
+// element.
 template <typename T>
-__device__ __forceinline__ uint4 load_raw(const T* __restrict__ row, int col,
-                                          int d, bool vec_ok);
+__device__ __forceinline__ typename Slot<T>::Raw load_raw(
+    const T* __restrict__ row, int col, int d, bool vec_ok);
 
 template <>
 __device__ __forceinline__ uint4 load_raw<float>(const float* __restrict__ row,
@@ -116,9 +140,23 @@ __device__ __forceinline__ uint4 load_raw<__nv_bfloat16>(
   return make_uint4(u[0], u[1], u[2], u[3]);
 }
 
+template <>
+__device__ __forceinline__ uint2 load_raw<__nv_fp8_e4m3>(
+    const __nv_fp8_e4m3* __restrict__ row, int col, int d, bool vec_ok) {
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(row);
+  if (vec_ok && col + 8 <= d)
+    return __ldcs(reinterpret_cast<const uint2*>(p + col));
+  uint32_t u[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (col + i < d) u[i >> 2] |= (uint32_t)p[col + i] << (8 * (i & 3));
+  return make_uint2(u[0], u[1]);
+}
+
 // The raw bits of a slot as f32 values (a bf16 is the top half of an f32).
 template <typename T>
-__device__ __forceinline__ void unpack(const uint4& raw, float* out);
+__device__ __forceinline__ void unpack(const typename Slot<T>::Raw& raw,
+                                       float* out);
 
 template <>
 __device__ __forceinline__ void unpack<float>(const uint4& raw, float* out) {
@@ -136,6 +174,26 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw,
   for (int i = 0; i < 4; ++i) {
     out[2 * i] = __uint_as_float(u[i] << 16);
     out[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// e4m3 codes, lowest byte first: two at a time through the hardware
+// conversion to an f16 pair (exact), then to f32.
+template <>
+__device__ __forceinline__ void unpack<__nv_fp8_e4m3>(const uint2& raw,
+                                                      float* out) {
+  const uint32_t u[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_fp8x2_storage_t pair =
+          (__nv_fp8x2_storage_t)((u[i] >> (16 * h)) & 0xffffu);
+      const float2 f =
+          __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
+      out[4 * i + 2 * h] = f.x;
+      out[4 * i + 2 * h + 1] = f.y;
+    }
   }
 }
 
@@ -171,8 +229,9 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ beta,
                      const float* __restrict__ scalars, long long n, int d,
                      int vec_ok, double* __restrict__ partials) {
-  constexpr int V = VecWidth<T>::value;
-  constexpr int kSlots = E / V;   // 16-byte slots per lane
+  using Raw = typename Slot<T>::Raw;
+  constexpr int V = Slot<T>::V;
+  constexpr int kSlots = E / V;   // vector-load slots per lane
   constexpr int kWidth = 32 * E;  // padded row width this instance holds
   __shared__ float s_beta[kWidth];
   __shared__ double s_red[kWidth + 3];
@@ -198,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long n_warps = (long long)gridDim.x * kWarps;
   long long r = (long long)blockIdx.x * kWarps + warp;
   // the next row's slots, y and w are in flight while this row computes
-  uint4 nxt[kSlots];
+  Raw nxt[kSlots];
   float y_nxt = 0.0f, w_nxt = 0.0f;
   if (r < n) {
 #pragma unroll
@@ -209,7 +268,7 @@ __global__ void __launch_bounds__(kThreads)
     w_nxt = __ldg(w + r);
   }
   for (; r < n; r += n_warps) {
-    uint4 cur[kSlots];
+    Raw cur[kSlots];
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) cur[k] = nxt[k];
     const float yr = y_nxt, wr = w_nxt;
@@ -285,7 +344,8 @@ __global__ void glm_reduce_kernel(const double* __restrict__ partials,
 
 using KernelFn = const void*;  // a glm_sweep_kernel instance
 
-// E rounded up to a multiple of 8 covers both load widths (4 f32, 8 bf16).
+// E rounded up to a multiple of 8 covers every slot width (4 f32, 8 bf16,
+// 8 e4m3).
 int elems_per_lane(int d) { return ((d + 255) / 256) * 8; }
 
 template <typename T, int LINK>
@@ -321,6 +381,7 @@ KernelFn kernel_for(int dtype, int link, int d) {
   if (e > kMaxE) return nullptr;
   if (dtype == 0) return pick_link<float>(link, e);
   if (dtype == 1) return pick_link<__nv_bfloat16>(link, e);
+  if (dtype == 2) return pick_link<__nv_fp8_e4m3>(link, e);
   return nullptr;
 }
 
@@ -332,7 +393,8 @@ extern "C" {
 int glm_sweep_max_d() { return 32 * kMaxE; }
 
 // CTAs (= partial rows) a sweep of n rows uses on the current device.
-// dtype: 0 = float32 X, 1 = bfloat16 X; link: 0 = logistic, 1 = squared.
+// dtype: 0 = float32 X, 1 = bfloat16 X, 2 = float8_e4m3fn codes;
+// link: 0 = logistic, 1 = squared.
 int glm_sweep_num_parts(int dtype, int link, int d, long long n,
                         int* n_parts) {
   KernelFn k = kernel_for(dtype, link, d);
@@ -364,9 +426,13 @@ int glm_sweep_launch(int dtype, int link, const void* x, const float* y,
                      float* out, void* stream) {
   KernelFn k = kernel_for(dtype, link, d);
   if (k == nullptr || n_parts < 1 || n < 0) return (int)cudaErrorInvalidValue;
-  const size_t item = (dtype == 0) ? sizeof(float) : sizeof(__nv_bfloat16);
-  const int vec_ok = ((reinterpret_cast<uintptr_t>(x) % 16) == 0) &&
-                     (((size_t)d * item) % 16 == 0);
+  // bytes per element and per vector load of the instance kernel_for chose
+  const size_t item = (dtype == 0) ? sizeof(float)
+                      : (dtype == 1) ? sizeof(__nv_bfloat16)
+                                     : sizeof(__nv_fp8_e4m3);
+  const size_t slot = (dtype == 2) ? sizeof(uint2) : sizeof(uint4);
+  const int vec_ok = ((reinterpret_cast<uintptr_t>(x) % slot) == 0) &&
+                     (((size_t)d * item) % slot == 0);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   // the instance's X parameter is const T*; a pointer argument of the
   // same width is passed through the untyped launch

@@ -3,8 +3,10 @@
 // Replaces cycloneml_tpu/ops/kernels.py:fused_gramian (the Pallas kernel
 // behind RowMatrix.compute_gramian, and through it covariance, principal
 // components, the small-d SVD and PCA):
-//   G = sum over rows r of (x_r [w_r > 0])^T (x_r [w_r > 0])
-// in float32, from float32 or bfloat16 X (upcast on load).
+//   G = sum over rows r of (x~_r [w_r > 0])^T (x~_r [w_r > 0])
+// in float32, from float32, bfloat16 or float8_e4m3fn X (upcast on load),
+// where x~ = x o s with the fp8 rung's per-column scale s (the reference's
+// x_scale operand, kernels.py:501; null for no scale).
 //
 // Bound: operations. The upper triangle is n d (d + 1) / 2 FMAs, n d (d + 1)
 // flops. The reference runs them at Precision.HIGHEST, so they are full
@@ -33,6 +35,12 @@
 // - The mask w > 0 is applied as rows are staged: a masked row is staged as
 //   zeros, with no masked copy of X. A null w masks nothing.
 // - Ragged d and n are masked in the loads; nothing is padded in memory.
+// - The scale is applied once per element of G, in the double reduction
+//   pass: G_ij = s_i s_j sum_r x_ri x_rj. The main pass sums the raw
+//   (upcast) values, so its instances are the same for every scale, and
+//   for e4m3 codes every product is exact in float32 (4-bit significands).
+//   The reduction multiplies the sum of element (min, max) by s_min s_max,
+//   so G stays exactly symmetric and launches stay bitwise equal.
 // - Not done here (later work): wgmma/TMA, bf16 tensor cores, double
 //   buffering beyond the two CTAs per SM that cover each other's loads.
 //
@@ -40,6 +48,8 @@
 // cudaError_t, 0 on success.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +65,10 @@ constexpr int kTileElems = kTile * kTile;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+// the hardware conversion e4m3 -> f16 (exact), then f16 -> f32
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(v.__x, __NV_E4M3)));
 }
 
 __host__ __device__ inline int tiles_per_side(int d) {
@@ -161,8 +175,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // g[r][c] = sum over splits s, in order, of the partial of element
-// (min(r, c), max(r, c)); rounded once to float32
+// (min(r, c), max(r, c)), times scale[min] scale[max] when a scale is
+// given; rounded once to float32
 __global__ void gramian_reduce_kernel(const double* __restrict__ partials,
+                                      const float* __restrict__ scale,
                                       int splits, int tiles, int d,
                                       float* __restrict__ g) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -178,6 +194,7 @@ __global__ void gramian_reduce_kernel(const double* __restrict__ partials,
   double s = 0.0;
   for (int p = 0; p < splits; ++p)
     s += partials[(long long)p * tiles * kTileElems + off];
+  if (scale != nullptr) s *= (double)scale[lo] * (double)scale[hi];
   g[e] = (float)s;
 }
 
@@ -208,12 +225,13 @@ int gramian_plan(int d, long long n, int* tiles, int* splits) {
   return 0;
 }
 
-// One Gramian. dtype: 0 = float32 X, 1 = bfloat16 X. x: (n, d) row-major;
-// w: (n,) float32 or null; partials: scratch of gramian_plan's size;
-// g: (d, d) float32 out.
-int gramian_launch(int dtype, const void* x, const float* w, long long n,
-                   int d, int tiles, int splits, double* partials, float* g,
-                   void* stream) {
+// One Gramian. dtype: 0 = float32 X, 1 = bfloat16 X, 2 = float8_e4m3fn
+// codes. x: (n, d) row-major; w: (n,) float32 or null; scale: (d,) float32
+// per-column dequantization, or null; partials: scratch of gramian_plan's
+// size; g: (d, d) float32 out.
+int gramian_launch(int dtype, const void* x, const float* w,
+                   const float* scale, long long n, int d, int tiles,
+                   int splits, double* partials, float* g, void* stream) {
   const int side = tiles_per_side(d);
   if (d < 1 || n < 0 || splits < 1 || tiles != side * (side + 1) / 2)
     return (int)cudaErrorInvalidValue;
@@ -227,6 +245,9 @@ int gramian_launch(int dtype, const void* x, const float* w, long long n,
   } else if (dtype == 1) {
     gramian_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), w, n, d, per, partials);
+  } else if (dtype == 2) {
+    gramian_kernel<__nv_fp8_e4m3><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_fp8_e4m3*>(x), w, n, d, per, partials);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -234,8 +255,8 @@ int gramian_launch(int dtype, const void* x, const float* w, long long n,
   if (err != cudaSuccess) return (int)err;
   const long long elems = (long long)d * d;
   const long long blocks = (elems + 255) / 256;
-  gramian_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(partials, splits,
-                                                        tiles, d, g);
+  gramian_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(partials, scale,
+                                                        splits, tiles, d, g);
   return (int)cudaGetLastError();
 }
 

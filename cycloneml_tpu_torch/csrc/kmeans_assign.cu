@@ -8,7 +8,12 @@
 //              as jnp.argmin breaks them)
 //   dist[r]  = max(d2[r, best[r]], 0)
 // |c|^2 comes from the wrapper, computed once per call; |x_r|^2 is summed
-// here. Centers are float32, X float32 or bfloat16 (upcast on load).
+// here. Centers are float32 in value space; X is float32, bfloat16 or
+// float8_e4m3fn codes (the fp8 rung), upcast on load. The fp8 rung's
+// per-column scale (the reference's x_scale operand, kernels.py:422, null
+// for no scale) multiplies every element as it is staged, before it enters
+// shared memory and before |x_r|^2, so every distance is one of the scaled
+// row x~ = upcast(x) o s, as the reference's is.
 //
 // Bound: operations. The products are 2 n k d flops, and they must be full
 // float32: the reference runs them at Precision.HIGHEST because near-tie
@@ -40,6 +45,8 @@
 // cudaError_t, 0 on success.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,12 +63,25 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+// the hardware conversion e4m3 -> f16 (exact), then f16 -> f32
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(v.__x, __NV_E4M3)));
+}
+
+// element f of a row, upcast and scaled (scale is null for no scale)
+template <typename T>
+__device__ __forceinline__ float value(const T* __restrict__ xr, int f,
+                                       const float* __restrict__ scale) {
+  const float v = to_f32(xr[f]);
+  return scale == nullptr ? v : v * __ldg(scale + f);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
     kmeans_assign_kernel(const T* __restrict__ x,
                          const float* __restrict__ centers,
-                         const float* __restrict__ c_norm, long long n,
+                         const float* __restrict__ c_norm,
+                         const float* __restrict__ scale, long long n,
                          int d, int k, int* __restrict__ best,
                          float* __restrict__ dist) {
   __shared__ __align__(16) float xs[kChunk][kStride];
@@ -83,7 +103,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (gr < n) {
       const T* xr = x + gr * (long long)d;
       for (int f = lane; f < d; f += 32) {
-        const float v = to_f32(xr[f]);
+        const float v = value(xr, f, scale);
         s = fmaf(v, v, s);
       }
     }
@@ -118,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int m = 0; m < kRows / 16; ++m) {
         const int r = lr + 16 * m;
         const long long gr = row0 + r;
-        xs[lf][r] = (gr < n && f < d) ? to_f32(x[gr * (long long)d + f])
+        xs[lf][r] = (gr < n && f < d) ? value(x + gr * (long long)d, f, scale)
                                       : 0.0f;
         const int c = c0 + r;
         cs[lf][r] = (c < k && f < d) ? centers[(long long)c * d + f] : 0.0f;
@@ -187,12 +207,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 extern "C" {
 
-// One assignment pass. dtype: 0 = float32 X, 1 = bfloat16 X. x: (n, d)
-// row-major; centers: (k, d) float32 row-major; c_norm: (k,) float32 |c|^2;
-// best: (n,) int32 out; dist: (n,) float32 out.
+// One assignment pass. dtype: 0 = float32 X, 1 = bfloat16 X, 2 =
+// float8_e4m3fn codes. x: (n, d) row-major; centers: (k, d) float32
+// row-major; c_norm: (k,) float32 |c|^2; scale: (d,) float32 per-column
+// dequantization, or null; best: (n,) int32 out; dist: (n,) float32 out.
 int kmeans_assign_launch(int dtype, const void* x, const float* centers,
-                         const float* c_norm, long long n, int d, int k,
-                         int* best, float* dist, void* stream) {
+                         const float* c_norm, const float* scale, long long n,
+                         int d, int k, int* best, float* dist, void* stream) {
   if (n < 0 || d < 1 || k < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const long long blocks = (n + kRows - 1) / kRows;
@@ -200,11 +221,16 @@ int kmeans_assign_launch(int dtype, const void* x, const float* centers,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     kmeans_assign_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), centers, c_norm, n, d, k, best, dist);
+        static_cast<const float*>(x), centers, c_norm, scale, n, d, k, best,
+        dist);
   } else if (dtype == 1) {
     kmeans_assign_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), centers, c_norm, n, d, k, best,
-        dist);
+        static_cast<const __nv_bfloat16*>(x), centers, c_norm, scale, n, d, k,
+        best, dist);
+  } else if (dtype == 2) {
+    kmeans_assign_kernel<__nv_fp8_e4m3><<<(unsigned)blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_fp8_e4m3*>(x), centers, c_norm, scale, n, d, k,
+        best, dist);
   } else {
     return (int)cudaErrorInvalidValue;
   }

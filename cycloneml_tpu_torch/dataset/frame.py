@@ -60,13 +60,20 @@ class MLFrame:
     def to_instance_dataset(self, features_col: str = "features",
                             label_col: Optional[str] = "label",
                             weight_col: Optional[str] = None,
-                            dtype=None) -> InstanceDataset:
+                            dtype=None,
+                            fp8_capable: bool = False) -> InstanceDataset:
         """The frame's columns as a device-placed dataset, cached per
         column selection and dtype (the frame is immutable, so repeated
-        fits reuse one placement)."""
+        fits reuse one placement). ``fp8_capable`` is the second rung's
+        opt-in (:func:`instance.data_dtype`): only callers that fold the
+        per-column scales into their read get e4m3 codes under the fp8
+        tiers; every other caller gets bfloat16."""
         if dtype is None:
             from cycloneml_tpu_torch.dataset.instance import data_dtype
-            dtype = data_dtype(getattr(self.ctx, "conf", None))
+            dtype = data_dtype(getattr(self.ctx, "conf", None),
+                               fp8_capable=fp8_capable)
+        # keyed on the dtype's NAME: a quantized dataset is never served to
+        # a caller that asked for the bf16 rung
         key = (features_col, label_col, weight_col, str(dtype))
         ds = self._ds_cache.get(key)
         if ds is None:

@@ -42,6 +42,8 @@ def _generate_labeled(ctx, n_rows: int, n_cols: int, seed: int,
     nd = rt.data_parallelism
     per = max(((n_rows + nd - 1) // nd + 7) // 8 * 8, 8)
     total = per * nd
+    # not fp8-capable: under the fp8 tiers the generators store bfloat16,
+    # as the reference's do; quantize with InstanceDataset.quantized()
     cdt, xdt = compute_dtype(conf), data_dtype(conf)
     f32 = torch.float32
     beta = torch.randn(n_cols, generator=_generator(dev, seed, _BETA_STREAM),

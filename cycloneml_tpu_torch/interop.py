@@ -1,9 +1,10 @@
 """Carrying state across from the reference package, through numpy only.
 
 The port never imports ``cycloneml_tpu`` (or jax); what crosses between the
-two packages is plain numpy: the same host arrays as a dataset, a fitted
-model's parameters (logistic and linear regression, KMeans, PCA), or an
-optimizer state's ``to_pytree()`` dict (L-BFGS and OWL-QN alike).
+two packages is plain numpy: the same host arrays (or fp8 codes) as a
+dataset, a fitted model's parameters (logistic and linear regression,
+KMeans, PCA), or an optimizer state's ``to_pytree()`` dict (L-BFGS and
+OWL-QN alike).
 """
 
 from __future__ import annotations
@@ -26,10 +27,19 @@ from cycloneml_tpu_torch.ml.regression.linear_regression import (
 
 
 def dataset_from_numpy(x, y=None, w=None, ctx: Optional[CycloneContext] = None,
-                       dtype=None) -> InstanceDataset:
+                       dtype=None, x_scale=None,
+                       probe_ratio=None) -> InstanceDataset:
     """Host arrays (the same ones handed to the reference) as an
-    :class:`InstanceDataset` of the given (default: active) context."""
+    :class:`InstanceDataset` of the given (default: active) context.
+
+    With ``x_scale`` given, ``x`` is a reference fp8 dataset's e4m3 codes
+    (its real rows, as a 1-byte numpy array: ``np.asarray`` of its X, or a
+    ``uint8`` view) and they come across bit for bit, with the scale and
+    the probe ratio, so both packages fit the identical bytes."""
     ctx = ctx if ctx is not None else CycloneContext.get_or_create()
+    if x_scale is not None:
+        return InstanceDataset.from_fp8_codes(ctx, np.asarray(x), x_scale,
+                                              y, w, probe_ratio)
     return InstanceDataset.from_numpy(ctx, np.asarray(x), y, w, dtype=dtype)
 
 

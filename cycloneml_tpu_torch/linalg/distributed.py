@@ -48,7 +48,9 @@ class RowMatrix:
         if not isinstance(dataset, InstanceDataset):
             raise NotImplementedError(
                 "RowMatrix over the sparse tier is ROADMAP slice 2")
-        self.dataset = dataset
+        # not fp8-capable: a quantized dataset is dequantized to bf16 (a
+        # logged fallback); its codes are never read as values
+        self.dataset = dataset.to_instance_dataset()
 
     @classmethod
     def from_numpy(cls, ctx, x: np.ndarray) -> "RowMatrix":

@@ -10,6 +10,11 @@ under ``cyclone.ml.lbfgs.deviceChunk`` — or OWL-QN when elastic net has an
 L1 part, and unscaling back to the original feature space. Under
 ``cyclone.ml.usePallasKernels`` the sweep is kernel K1.
 
+The fit is fp8-capable: under ``cyclone.data.dtype=auto8|float8`` it reads
+e4m3 codes, with the per-column scales folded into the aggregator's
+``inv_std``, after the envelope probe (``dataset.resolve_fp8_fit``); a
+non-finite fp8 solution refits on the bfloat16 rung.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 slice: multinomial fits, coefficient bounds (L-BFGS-B), checkpointed
 training, stacked fits.
@@ -23,7 +28,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
+from cycloneml_tpu_torch.dataset.dataset import (InstanceDataset,
+                                                 fp8_fallback,
+                                                 resolve_fp8_fit)
 from cycloneml_tpu_torch.dataset.instance import compute_dtype
 from cycloneml_tpu_torch.linalg.vectors import DenseVector, Vectors
 from cycloneml_tpu_torch.ml.base import (Predictor,
@@ -114,9 +121,11 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         return self.set("threshold", v)
 
     def _fit(self, frame) -> "LogisticRegressionModel":
+        # fp8-capable: the scaled aggregators fold the per-column scales
+        # into inv_std, so this fit may take the e4m3 rung
         ds = frame.to_instance_dataset(
             self.get("featuresCol"), self.get("labelCol"),
-            self.get("weightCol") or None)
+            self.get("weightCol") or None, fp8_capable=True)
         return self._fit_dataset(ds)
 
     def fit_stacked(self, frame, y_stack=None, reg_params=None):
@@ -137,6 +146,10 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         conf = getattr(ds.ctx, "conf", None)
         d = ds.n_features
         stats = Summarizer.summarize(ds)
+        # the fp8 safety rail: the envelope probe may swap the quantized
+        # dataset for its bfloat16 dequantization (logged and recorded)
+        ds = resolve_fp8_fit(ds, stats, "LogisticRegression")
+        fp8_scale = ds.x_scale
         features_std = stats.std
         weight_sum = stats.weight_sum
 
@@ -174,6 +187,11 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         # no standardized copy of X exists
         inv_std = inv_std_vector(features_std)
         scaled_mean = stats.mean * inv_std if fit_with_mean else None
+        # fp8 rung: x_hat = (codes o scale - mu) / sigma = codes o (scale /
+        # sigma) - mu / sigma, so the AGGREGATOR reads inv_std o scale, while
+        # scaled_mean and the final unscaling keep the original inv_std
+        inv_std_agg = inv_std * fp8_scale if fp8_scale is not None \
+            else inv_std
         if use_fused_kernels(ds.ctx, ds.x):
             agg = aggregators.binary_logistic_pallas_scaled(d, fit_intercept)
         else:
@@ -192,7 +210,7 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         # fold's corrections must not round through a bf16 data tier
         adt = compute_dtype(conf)
         dev = ds.x.device
-        extras = (torch.as_tensor(inv_std, device=dev).to(adt),
+        extras = (torch.as_tensor(inv_std_agg, device=dev).to(adt),
                   torch.as_tensor(mu_or_zero, device=dev).to(adt))
         loss_fn = DistributedLossFunction(ds, agg, l2_fn, weight_sum,
                                           extra_args=extras)
@@ -223,6 +241,11 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
                 self.get("maxIter"))
 
         sol = np.asarray(state.x, dtype=np.float64)
+        if fp8_scale is not None and not np.all(np.isfinite(sol)):
+            # e4m3 has no inf: an overflowing fp8 fit surfaces as NaN in
+            # the solution; refit on the bfloat16 rung
+            return self._fit_dataset(fp8_fallback(
+                ds, "LogisticRegression", "non-finite fp8 solution"))
         beta = sol[:d] * inv_std
         icpt = float(sol[d]) if fit_intercept else 0.0
         if fit_with_mean:

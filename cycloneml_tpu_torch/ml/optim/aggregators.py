@@ -41,19 +41,26 @@ def _tier_dot(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
     boundary.
 
     Full-width operands multiply as they are, the narrower one promoted
-    (the reference's dtype promotion). When ``a`` is narrow (a bf16 X or
-    its transpose), X is upcast ``ROW_CHUNK`` rows at a time (never a
-    full-width copy) and multiplied by ``b`` at ``acc`` width (default
+    (the reference's dtype promotion). When ``a`` is narrow (a bf16 X, the
+    fp8 rung's e4m3 codes, or a transpose of either), X is upcast
+    ``ROW_CHUNK`` rows at a time (never a full-width copy; the upcast of a
+    code is exact) and multiplied by ``b`` at ``acc`` width (default
     ``b``'s dtype), so the products and sums are those of the kernels,
     which read X narrow and keep the vector operand at full width.
 
-    This differs from the reference's recipe, which rounds ``b`` (the
-    coefficients, the multipliers) down to X's width for the TPU's bf16
-    matrix unit. For least squares that rounding is not benign: the
-    residual x.b - y/sigma_y cancels to ~1e-3 of the margin, and a
-    bf16-rounded b moves the margin by about as much. At the
-    LinearRegression configuration (400,000 x 2,000, bf16 tier) it left the
-    plain fit's objective 4.5e-3 above the kernel fit's.
+    This is the reference's KERNEL route, and the port follows it on both
+    narrow rungs. The reference's jnp route (its ``_tier_dot``) instead
+    rounds ``b`` (the coefficients, the multipliers) down to X's width:
+    bf16, or e4m3 on the fp8 rung. For least squares that rounding is not
+    benign even at bf16: the residual x.b - y/sigma_y cancels to ~1e-3 of
+    the margin, and a bf16-rounded b moves the margin by about as much (at
+    the LinearRegression configuration, 400,000 x 2,000, it left the plain
+    fit's objective 4.5e-3 above the kernel fit's). On the fp8 rung, a
+    600 x 12 logistic fit (regParam 0.01) lands 9.0% (max|dcoef| /
+    max|coef|) from the float32-tier fit through the reference's jnp route
+    and 1.2% through its kernel route, 8.4% apart from each other; the
+    port's plain path agrees with the kernel route to the kernel-vs-plain
+    bound (tests/test_torch_fp8.py).
     """
     if not is_narrow_dtype(a.dtype):
         if a.dtype != b.dtype:

@@ -12,11 +12,14 @@ constant-label cases, ``eff_reg = regParam / sigma_y``, the standardization
 folded into the aggregator's read (no standardized copy of X, no scaled y),
 L-BFGS for a pure L2 penalty and OWL-QN when elastic net has an L1 part,
 and the intercept recovered in closed form ``y_mean - coef.mu``. Under
-``cyclone.ml.usePallasKernels`` the sweep is kernel K2.
+``cyclone.ml.usePallasKernels`` the sweep is kernel K2. The quasi-Newton
+path is fp8-capable: on e4m3 codes the per-column scales fold into the
+aggregator's ``inv_std``, after the envelope probe.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 slice: ``solver="normal"`` and ``"auto"`` where it resolves to the normal
-equations (``ml/optim/wls.py``), streamed and fp8 datasets, persistence.
+equations (``ml/optim/wls.py``, with its fp8 fallback), streamed datasets,
+persistence.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
+from cycloneml_tpu_torch.dataset.dataset import (InstanceDataset,
+                                                 fp8_fallback,
+                                                 resolve_fp8_fit)
 from cycloneml_tpu_torch.dataset.instance import compute_dtype
 from cycloneml_tpu_torch.linalg.vectors import DenseVector, Vectors
 from cycloneml_tpu_torch.ml.base import PredictionModel, Predictor
@@ -89,9 +94,12 @@ class LinearRegression(Predictor, _LinearRegressionParams):
         return self.set("solver", v)
 
     def _fit(self, frame) -> "LinearRegressionModel":
+        # fp8-capable: the l-bfgs path folds the per-column scales into
+        # inv_std (the normal solver, and with it its fp8 fallback, is
+        # ROADMAP slice 2)
         ds = frame.to_instance_dataset(
             self.get("featuresCol"), self.get("labelCol"),
-            self.get("weightCol") or None)
+            self.get("weightCol") or None, fp8_capable=True)
         return self._fit_dataset(ds)
 
     def _model(self, coef, icpt, history, total_iterations,
@@ -120,6 +128,8 @@ class LinearRegression(Predictor, _LinearRegressionParams):
                 "part) is ROADMAP slice 2; use solver='l-bfgs'")
 
         stats = Summarizer.summarize(ds)
+        # the fp8 safety rail: envelope probe, bfloat16 fallback on failure
+        ds = resolve_fp8_fit(ds, stats, "LinearRegression")
         w_sum = stats.weight_sum
         ymom = ds.tree_aggregate_fn(_label_moments)()
         y_mean = float(ymom["s1"]) / w_sum
@@ -159,6 +169,12 @@ class LinearRegression(Predictor, _LinearRegressionParams):
         scaled_mean = x_mean * inv_std if fit_intercept else np.zeros(d)
         y_mean_std = y_mean / y_std if fit_intercept else 0.0
         y_pars = np.array([1.0 / y_std, y_mean_std])
+        # fp8 rung: the per-column scale folds into the aggregator's inv_std
+        # (x_hat = codes o (scale / sigma) - mu / sigma); the final
+        # unscaling keeps the original inv_std
+        fp8_scale = ds.x_scale
+        inv_std_agg = inv_std * fp8_scale if fp8_scale is not None \
+            else inv_std
 
         from cycloneml_tpu_torch.ops.kernels import use_fused_kernels
         agg = (aggregators.least_squares_pallas_scaled(d)
@@ -173,7 +189,7 @@ class LinearRegression(Predictor, _LinearRegressionParams):
         adt = compute_dtype(getattr(ds.ctx, "conf", None))
         dev = ds.x.device
         extras = tuple(torch.as_tensor(a, device=dev).to(adt)
-                       for a in (inv_std, scaled_mean, y_pars))
+                       for a in (inv_std_agg, scaled_mean, y_pars))
         loss_fn = DistributedLossFunction(ds, agg, l2_fn, stats.weight_sum,
                                           extra_args=extras)
         if l1 > 0:
@@ -187,6 +203,12 @@ class LinearRegression(Predictor, _LinearRegressionParams):
         if state.converged_reason == "max iterations reached":
             logger.warning("LinearRegression did not converge in %d "
                            "iterations", self.get("maxIter"))
+        if fp8_scale is not None and not np.all(np.isfinite(state.x)):
+            # an overflowing fp8 fit surfaces as NaN: refit on bfloat16
+            return self._solve_quasi_newton(
+                fp8_fallback(ds, "LinearRegression",
+                             "non-finite fp8 solution"),
+                stats, y_mean, y_std, reg, alpha)
 
         # standardized-space coefficients back to the original space
         coef = np.asarray(state.x, np.float64) * inv_std * y_std

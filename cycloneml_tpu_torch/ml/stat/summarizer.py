@@ -6,7 +6,10 @@ variance (the reference's formula), count, numNonzeros, max, min, normL1,
 normL2, sum and weightSum. Padding rows (w=0) are neutral in every
 statistic, max/min included. Sums accumulate at w's dtype (the accumulator
 tier), and X is upcast a chunk of rows at a time, so a bf16 X is never
-copied whole at full width.
+copied whole at full width. On the fp8 rung the pass sums the e4m3 codes
+(torch reduces no float8 tensor, and the upcast of a code is exact) and
+``_finalize`` rescales every per-column statistic by the dataset's
+``x_scale`` on the host.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ class Summarizer:
         if cached is not None:
             return cached
         agg = dataset.tree_aggregate_fn(_moments, auto_psum=False)
-        out = _finalize(agg())
+        out = _finalize(agg(), getattr(dataset, "x_scale", None))
         dataset._summary_cache = out
         return out
 
@@ -96,9 +99,16 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().double().numpy()
 
 
-def _finalize(out) -> SummaryStats:
+def _finalize(out, scale=None) -> SummaryStats:
     w = float(out["w"])
     s1, s2 = _host(out["s1"]), _host(out["s2"])
+    mx, mn, l1 = _host(out["mx"]), _host(out["mn"]), _host(out["l1"])
+    if scale is not None:
+        # fp8 rung: the pass summed codes; the moments are those of the
+        # quantized values codes * scale (the tier the fit trains on). nnz
+        # is exact on codes, and positive scales keep max/min in order
+        s1, s2 = s1 * scale, s2 * scale * scale
+        mx, mn, l1 = mx * scale, mn * scale, l1 * scale
     mean = s1 / w
     # unbiased weighted variance — the reference's formula
     # (MultivariateOnlineSummarizer.variance): (s2 - w mean^2) w/(w - w2/w)
@@ -109,6 +119,5 @@ def _finalize(out) -> SummaryStats:
         variance = np.zeros_like(mean)
     return SummaryStats(
         mean=mean, variance=variance, count=int(round(float(out["cnt"]))),
-        num_nonzeros=_host(out["nnz"]), max=_host(out["mx"]),
-        min=_host(out["mn"]), norm_l1=_host(out["l1"]),
+        num_nonzeros=_host(out["nnz"]), max=mx, min=mn, norm_l1=l1,
         norm_l2=np.sqrt(s2), sum=s1, weight_sum=w)

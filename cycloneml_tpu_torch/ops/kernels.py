@@ -14,13 +14,19 @@ replaces, what bounds it on the card, what the design does about that):
 - K4, ``gramian`` (``csrc/gramian.cu``): ``fused_gramian``, the presence-
   masked X^T X (RowMatrix, PCA); bound by float32 FMAs.
 
+X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
+(the fp8 rung), each upcast to float32 inside the kernel. Every wrapper takes
+the fp8 rung's optional per-column dequantization vector ``x_scale`` (the
+reference's ``x_scale`` operand): the value of X is ``x * x_scale``. K1/K2
+fold it into their (d,) vectors; K3 applies it as X is staged, K4 in its
+double reduction pass.
+
 Each wrapper launches its kernel for a CUDA tensor and runs its ``*_plain``
 version only for a tensor that lies on the CPU. There is no fallback from
 one to the other: a CUDA tensor the kernel cannot take raises. Each wrapper
 counts its launches in ``<wrapper>.launches`` (``glm_sweep`` also by link,
-in ``glm_sweep.launches_by_link``).
-
-Not ported yet (ROADMAP slice 3): the fp8 ``x_scale`` operand of K1-K4.
+in ``glm_sweep.launches_by_link``, and by X's dtype, in
+``glm_sweep.launches_by_dtype``).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 ROW_CHUNK = 1 << 16  # rows upcast at a time by the plain versions
 GRAM_CHUNK = 1 << 13  # rows per product in the plain Gramian
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 
 def use_fused_kernels(ctx, x: Optional[torch.Tensor] = None) -> bool:
@@ -41,7 +47,7 @@ def use_fused_kernels(ctx, x: Optional[torch.Tensor] = None) -> bool:
     kernels: ``cyclone.ml.usePallasKernels`` 'true'/'false' force one path
     (the key keeps the reference's name, so configurations carry over);
     'auto' (default) says yes when the data ``x`` lives on CUDA in a dtype
-    the kernel reads (float32 or bfloat16)."""
+    the kernels read (float32, bfloat16 or float8_e4m3fn codes)."""
     from cycloneml_tpu_torch.conf import USE_PALLAS_KERNELS
     conf = getattr(ctx, "conf", None)
     mode = str(conf.get(USE_PALLAS_KERNELS)).lower() if conf is not None \
@@ -65,22 +71,45 @@ LOGISTIC, SQUARED = "logistic", "squared"
 _LINK_CODE = {LOGISTIC: 0, SQUARED: 1}
 
 
+def _scale_operand(x_scale, d: int, device, dtype=torch.float32
+                   ) -> Optional[torch.Tensor]:
+    """The per-column dequantization vector as a contiguous ``(d,)``
+    tensor (the reference's ``_pad_scale``; the port pads no columns), or
+    None."""
+    if x_scale is None:
+        return None
+    s = torch.as_tensor(x_scale).to(device=device, dtype=dtype).reshape(-1)
+    if s.shape[0] != d:
+        raise ValueError(f"x_scale has {s.shape[0]} entries, expected {d}")
+    return s.contiguous()
+
+
+def _upcast(x: torch.Tensor, lo: int, rows: int, acc_dtype,
+            s: Optional[torch.Tensor]) -> torch.Tensor:
+    """Rows ``lo:lo+rows`` of X at ``acc_dtype``, times the scale."""
+    xc = x[lo:lo + rows].to(acc_dtype)
+    return xc if s is None else xc * s
+
+
 def glm_sweep_plain(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                     beta: torch.Tensor, off, acc_dtype=torch.float32,
                     chunk_rows: int = ROW_CHUNK, link: str = LOGISTIC,
-                    ys=0.0) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor, torch.Tensor]:
+                    ys=0.0, x_scale=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
     """The sweep in plain PyTorch, accumulated in ``acc_dtype``:
     returns ``(loss, grad_row (d,), sum(mult), sum(w))``. The logistic
     link takes mult = w(sigmoid(m) - y), loss = w(softplus(m) - y m); the
     squared link err = m - ys y, mult = w err, loss = w err^2 / 2, where
-    m = x.beta + off. X is upcast ``chunk_rows`` rows at a time, so no
-    full-width copy of X is held. With ``acc_dtype=torch.float64`` it is
-    the truth the kernel is held against on the card."""
+    m = x.beta + off. X is upcast ``chunk_rows`` rows at a time (and
+    multiplied by ``x_scale`` when given), so no full-width copy of X is
+    held. With ``acc_dtype=torch.float64`` it is the truth the kernel is
+    held against on the card."""
     if link not in _LINK_CODE:
         raise ValueError(f"glm_sweep: unknown link {link!r}")
     n, d = x.shape
     dev = x.device
+    s = _scale_operand(x_scale, d, dev, acc_dtype)
     beta_a = beta.to(acc_dtype)
     off_a = torch.as_tensor(off, dtype=acc_dtype, device=dev)
     ys_a = torch.as_tensor(ys, dtype=acc_dtype, device=dev)
@@ -89,7 +118,7 @@ def glm_sweep_plain(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     msum = torch.zeros((), dtype=acc_dtype, device=dev)
     wsum = torch.zeros((), dtype=acc_dtype, device=dev)
     for lo in range(0, n, chunk_rows):
-        xc = x[lo:lo + chunk_rows].to(acc_dtype)
+        xc = _upcast(x, lo, chunk_rows, acc_dtype, s)
         yc = y[lo:lo + chunk_rows].to(acc_dtype)
         wc = w[lo:lo + chunk_rows].to(acc_dtype)
         m = xc @ beta_a + off_a
@@ -118,11 +147,12 @@ _SIGNATURES = {
                              _P, _P],
     },
     "kmeans_assign": {
-        "kmeans_assign_launch": [_I, _P, _P, _P, _LL, _I, _I, _P, _P, _P],
+        "kmeans_assign_launch": [_I, _P, _P, _P, _P, _LL, _I, _I, _P, _P,
+                                 _P],
     },
     "gramian": {
         "gramian_plan": [_I, _LL, _PI, _PI],
-        "gramian_launch": [_I, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
+        "gramian_launch": [_I, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     },
 }
 
@@ -145,31 +175,40 @@ def _cuda_check(rc: int, what: str) -> None:
 
 
 def _check_x(x: torch.Tensor, what: str) -> None:
-    """A CUDA X the kernels take: 2-D, float32 or bfloat16, contiguous."""
+    """A CUDA X the kernels take: 2-D, float32, bfloat16 or float8_e4m3fn,
+    contiguous."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{what}: X must be 2-D float32 or bfloat16 on "
-                         f"CUDA; got {tuple(x.shape)} {x.dtype}")
+        raise ValueError(f"{what}: X must be 2-D float32, bfloat16 or "
+                         f"float8_e4m3fn on CUDA; got {tuple(x.shape)} "
+                         f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: X must be contiguous (a copy of X "
                          "would double the pass's memory)")
 
 
 def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-              beta: torch.Tensor, off, link: str = LOGISTIC, ys=0.0
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                         torch.Tensor]:
+              beta: torch.Tensor, off, link: str = LOGISTIC, ys=0.0,
+              x_scale=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
     """K1 (``link="logistic"``) and K2 (``link="squared"``, label scale
     ``ys``): ``(loss, grad_row (d,), sum(mult), sum(w))`` in float32 for X
     ``(n, d)`` at storage width, y, w ``(n,)``, beta ``(d,)`` and the
-    margin offset ``off`` (a scalar or 0-d tensor). A CPU tensor runs
+    margin offset ``off`` (a scalar or 0-d tensor); the value of X is
+    ``x * x_scale`` when the scale is given. A CPU tensor runs
     :func:`glm_sweep_plain`; a CUDA tensor launches the kernel or
-    raises."""
+    raises.
+
+    The scale is folded into the (d,) vectors, as the reference's fits
+    fold it into ``inv_std``: the kernel sweeps the raw codes with
+    ``beta o x_scale`` and the gradient row comes back times ``x_scale``.
+    """
     if link not in _LINK_CODE:
         raise ValueError(f"glm_sweep: unknown link {link!r}")
     if x.device.type == "cpu":
-        return glm_sweep_plain(x, y, w, beta, off, link=link, ys=ys)
+        return glm_sweep_plain(x, y, w, beta, off, link=link, ys=ys,
+                               x_scale=x_scale)
     _check_x(x, "glm_sweep")
     n, d = x.shape
     lib = _library("glm_sweep")
@@ -181,7 +220,11 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     # the f32 accumulator tier the card runs
     y = y.to(device=dev, dtype=torch.float32).contiguous()
     w = w.to(device=dev, dtype=torch.float32).contiguous()
-    beta = beta.to(device=dev, dtype=torch.float32).contiguous()
+    beta = beta.to(device=dev, dtype=torch.float32)
+    s = _scale_operand(x_scale, d, dev)
+    if s is not None:
+        beta = beta * s
+    beta = beta.contiguous()
     if y.shape != (n,) or w.shape != (n,) or beta.shape != (d,):
         raise ValueError("glm_sweep: shapes do not match X "
                          f"{(n, d)}: y {tuple(y.shape)}, w {tuple(w.shape)}, "
@@ -206,24 +249,23 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
             parts.value, out.data_ptr(), stream), "glm_sweep launch")
     glm_sweep.launches += 1
     glm_sweep.launches_by_link[link] += 1
-    return out[d], out[:d], out[d + 1], out[d + 2]
-
-
-glm_sweep.launches = 0
-glm_sweep.launches_by_link = {LOGISTIC: 0, SQUARED: 0}
+    glm_sweep.launches_by_dtype[x.dtype] += 1
+    grad_row = out[:d] if s is None else out[:d] * s
+    return out[d], grad_row, out[d + 1], out[d + 2]
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     glm_sweep.launches = 0
     glm_sweep.launches_by_link = {LOGISTIC: 0, SQUARED: 0}
+    glm_sweep.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
     kmeans_assign.launches = 0
     gramian.launches = 0
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
-                                 d: int, fit_intercept: bool = True
-                                 ) -> Dict[str, torch.Tensor]:
+                                 d: int, fit_intercept: bool = True,
+                                 x_scale=None) -> Dict[str, torch.Tensor]:
     """K1 with standardization folded around the row pass (the
     counterpart of the reference's ``fused_binary_logistic_scaled``):
 
@@ -231,6 +273,7 @@ def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
       grad_beta = inv_std o grad_row - scaled_mean * sum(mult)
 
     so X is read raw. The fold runs in float32, as the reference's does.
+    ``x_scale`` is the fp8 rung's per-column scale (see :func:`glm_sweep`).
     Returns ``{"loss", "grad", "count"}`` (float32 sums)."""
     f32 = torch.float32
     coef = coef.to(f32)
@@ -241,23 +284,25 @@ def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
                                                     device=coef.device)
     sb = inv_std * beta
     off = b0 - torch.dot(scaled_mean, beta)
-    loss, grad_row, msum, wsum = glm_sweep(x, y, w, sb, off)
+    loss, grad_row, msum, wsum = glm_sweep(x, y, w, sb, off,
+                                           x_scale=x_scale)
     g = inv_std * grad_row - scaled_mean * msum
     grad = torch.cat([g, msum.reshape(1)]) if fit_intercept else g
     return {"loss": loss, "grad": grad, "count": wsum}
 
 
-def fused_binary_logistic(x, y, w, coef, d: int, fit_intercept: bool = True
-                          ) -> Dict[str, torch.Tensor]:
+def fused_binary_logistic(x, y, w, coef, d: int, fit_intercept: bool = True,
+                          x_scale=None) -> Dict[str, torch.Tensor]:
     """The unscaled twin of :func:`fused_binary_logistic_scaled`
     (inv_std = 1, scaled_mean = 0)."""
     ones = torch.ones(d, dtype=torch.float32, device=coef.device)
     return fused_binary_logistic_scaled(x, y, w, ones, torch.zeros_like(ones),
-                                        coef, d, fit_intercept)
+                                        coef, d, fit_intercept, x_scale)
 
 
 def fused_least_squares_scaled(x, y, w, inv_std, scaled_mean, y_pars, coef,
-                               d: int) -> Dict[str, torch.Tensor]:
+                               d: int, x_scale=None
+                               ) -> Dict[str, torch.Tensor]:
     """K2 with the doubly-standardized least-squares objective folded
     around the row pass (the counterpart of the reference's
     ``fused_least_squares_scaled``), ``y_pars = [1/sigma_y, y_mean_hat]``:
@@ -267,8 +312,8 @@ def fused_least_squares_scaled(x, y, w, inv_std, scaled_mean, y_pars, coef,
       grad = inv_std o grad_row - scaled_mean * sum(mult)
 
     X is read raw; there is no intercept coordinate. The fold runs in
-    float32, as the reference's does. Returns ``{"loss", "grad",
-    "count"}`` (float32 sums)."""
+    float32, as the reference's does; ``x_scale`` as in :func:`glm_sweep`.
+    Returns ``{"loss", "grad", "count"}`` (float32 sums)."""
     f32 = torch.float32
     coef = coef.to(f32)
     inv_std = inv_std.to(f32)
@@ -277,7 +322,7 @@ def fused_least_squares_scaled(x, y, w, inv_std, scaled_mean, y_pars, coef,
     sb = inv_std * coef
     off = y_pars[1] - torch.dot(scaled_mean, coef)
     loss, grad_row, msum, wsum = glm_sweep(x, y, w, sb, off, link=SQUARED,
-                                           ys=y_pars[0])
+                                           ys=y_pars[0], x_scale=x_scale)
     g = inv_std * grad_row - scaled_mean * msum
     return {"loss": loss, "grad": g, "count": wsum}
 
@@ -286,20 +331,22 @@ def fused_least_squares_scaled(x, y, w, inv_std, scaled_mean, y_pars, coef,
 
 def kmeans_assign_plain(x: torch.Tensor, centers: torch.Tensor,
                         acc_dtype=torch.float32,
-                        chunk_rows: int = ROW_CHUNK
+                        chunk_rows: int = ROW_CHUNK, x_scale=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The assignment in plain PyTorch at ``acc_dtype``: ``(best int64
     (n,), min_d2 (n,))`` with d2 = (|x|^2 - 2 x.c) + |c|^2, the first
     least index, and the minimum clamped at 0. X is upcast ``chunk_rows``
-    rows at a time, so neither a full-width copy of X nor an (n, k)
+    rows at a time (and multiplied by ``x_scale`` when given; centers are
+    in value space), so neither a full-width copy of X nor an (n, k)
     distance matrix is held."""
-    n = x.shape[0]
+    n, d = x.shape
+    s = _scale_operand(x_scale, d, x.device, acc_dtype)
     c = centers.to(acc_dtype)
     c_norm = torch.sum(c * c, dim=1)
     best = torch.empty(n, dtype=torch.int64, device=x.device)
     dist = torch.empty(n, dtype=acc_dtype, device=x.device)
     for lo in range(0, n, chunk_rows):
-        xc = x[lo:lo + chunk_rows].to(acc_dtype)
+        xc = _upcast(x, lo, chunk_rows, acc_dtype, s)
         x2 = torch.sum(xc * xc, dim=1)
         d2 = (x2[:, None] - 2.0 * (xc @ c.T)) + c_norm[None, :]
         mn, idx = torch.min(d2, dim=1)  # the first index of the minimum
@@ -308,15 +355,16 @@ def kmeans_assign_plain(x: torch.Tensor, centers: torch.Tensor,
     return best, dist
 
 
-def kmeans_assign(x: torch.Tensor, centers: torch.Tensor
+def kmeans_assign(x: torch.Tensor, centers: torch.Tensor, x_scale=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 wrapper (the counterpart of the reference's
     ``fused_kmeans_assign``): ``(best (n,), min_d2 float32 (n,))`` for X
-    ``(n, d)`` at storage width and centers ``(k, d)``, which are taken in
+    ``(n, d)`` at storage width, whose value is ``x * x_scale`` when the
+    scale is given, and centers ``(k, d)`` in value space, taken in
     float32. A CPU tensor runs :func:`kmeans_assign_plain` in float32; a
     CUDA tensor launches the kernel (int32 ``best``) or raises."""
     if x.device.type == "cpu":
-        return kmeans_assign_plain(x, centers)
+        return kmeans_assign_plain(x, centers, x_scale=x_scale)
     _check_x(x, "kmeans_assign")
     n, d = x.shape
     dev = x.device
@@ -325,6 +373,7 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor
         raise ValueError(f"kmeans_assign: centers {tuple(c.shape)} do not "
                          f"match X {(n, d)}")
     k = c.shape[0]
+    s = _scale_operand(x_scale, d, dev)
     c_norm = torch.sum(c * c, dim=1).contiguous()
     best = torch.empty(n, dtype=torch.int32, device=dev)
     dist = torch.empty(n, dtype=torch.float32, device=dev)
@@ -333,30 +382,31 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda_check(lib.kmeans_assign_launch(
             _DTYPE_CODE[x.dtype], x.data_ptr(), c.data_ptr(),
-            c_norm.data_ptr(), n, d, k, best.data_ptr(), dist.data_ptr(),
-            stream), "kmeans_assign launch")
+            c_norm.data_ptr(), s.data_ptr() if s is not None else None, n,
+            d, k, best.data_ptr(), dist.data_ptr(), stream),
+            "kmeans_assign launch")
     kmeans_assign.launches += 1
     return best, dist
 
-
-kmeans_assign.launches = 0
 
 
 # -- K4: the Gramian -----------------------------------------------------------
 
 def gramian_plain(x: torch.Tensor, w: Optional[torch.Tensor] = None,
                   acc_dtype=torch.float32,
-                  chunk_rows: int = GRAM_CHUNK) -> torch.Tensor:
+                  chunk_rows: int = GRAM_CHUNK, x_scale=None) -> torch.Tensor:
     """X^T X over the rows with w > 0 (all rows when ``w`` is None), in
     plain PyTorch at ``acc_dtype``, exactly symmetric; X is upcast
-    ``chunk_rows`` rows at a time (chunk products summed in order), so no
-    full-width copy of X or masked copy is held. The chunks are short
-    because a float32 product sums each chunk's rows in one accumulator,
-    and long sums of squares drift (see ``csrc/gramian.cu``)."""
+    ``chunk_rows`` rows at a time (and multiplied by ``x_scale`` when
+    given; chunk products summed in order), so no full-width copy of X or
+    masked copy is held. The chunks are short because a float32 product
+    sums each chunk's rows in one accumulator, and long sums of squares
+    drift (see ``csrc/gramian.cu``)."""
     n, d = x.shape
+    s = _scale_operand(x_scale, d, x.device, acc_dtype)
     g = torch.zeros((d, d), dtype=acc_dtype, device=x.device)
     for lo in range(0, n, chunk_rows):
-        xc = x[lo:lo + chunk_rows].to(acc_dtype)
+        xc = _upcast(x, lo, chunk_rows, acc_dtype, s)
         if w is not None:
             xm = xc * (w[lo:lo + chunk_rows] > 0)[:, None].to(acc_dtype)
         else:
@@ -366,14 +416,15 @@ def gramian_plain(x: torch.Tensor, w: Optional[torch.Tensor] = None,
     return torch.triu(g) + torch.triu(g, 1).T
 
 
-def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
+def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None,
+            x_scale=None) -> torch.Tensor:
     """K4 wrapper (the counterpart of the reference's ``fused_gramian``):
     the ``(d, d)`` float32 X^T X over the rows with w > 0, for X ``(n, d)``
-    at storage width. A CPU tensor runs :func:`gramian_plain` in float32;
-    a CUDA tensor launches the kernel or raises."""
+    at storage width, whose value is ``x * x_scale`` when the scale is
+    given. A CPU tensor runs :func:`gramian_plain` in float32; a CUDA
+    tensor launches the kernel or raises."""
     if x.device.type == "cpu":
-        return gramian_plain(x, w)
+        return gramian_plain(x, w, x_scale=x_scale)
     _check_x(x, "gramian")
     n, d = x.shape
     dev = x.device
@@ -382,6 +433,7 @@ def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None
         if w.shape != (n,):
             raise ValueError(f"gramian: w {tuple(w.shape)} does not match "
                              f"X {(n, d)}")
+    s = _scale_operand(x_scale, d, dev)
     lib = _library("gramian")
     with torch.cuda.device(dev):
         tiles, splits = ctypes.c_int(0), ctypes.c_int(0)
@@ -393,11 +445,12 @@ def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda_check(lib.gramian_launch(
             _DTYPE_CODE[x.dtype], x.data_ptr(),
-            w.data_ptr() if w is not None else None, n, d, tiles.value,
+            w.data_ptr() if w is not None else None,
+            s.data_ptr() if s is not None else None, n, d, tiles.value,
             splits.value, partials.data_ptr(), g.data_ptr(), stream),
             "gramian launch")
     gramian.launches += 1
     return g
 
 
-gramian.launches = 0
+reset_launch_counts()  # every count starts at 0

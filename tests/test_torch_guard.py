@@ -114,3 +114,49 @@ def test_cuda_master_without_a_card_raises():
 def test_default_master_is_the_card():
     from cycloneml_tpu_torch.conf import MASTER, CycloneConf
     assert CycloneConf(load_defaults=False).get(MASTER) == "cuda"
+
+
+def test_port_never_imports_ml_dtypes():
+    """The card's machine has no ml_dtypes: e4m3 is torch.float8_e4m3fn
+    throughout, and importing every module of the port loads no
+    ml_dtypes."""
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert all(n.split(".")[0] != "ml_dtypes" for n in names), \
+                f"{path}:{node.lineno} imports ml_dtypes"
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "assert 'ml_dtypes' not in sys.modules\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+
+
+def test_fp8_wrappers_import_and_run_without_cuda():
+    """The fp8 rung's pieces (quantize_fp8, the x_scale operand of every
+    wrapper) run their plain versions on CPU tensors with no card and no
+    nvcc, launching nothing."""
+    r = _run("import torch\n"
+             "assert not torch.cuda.is_available()\n"
+             "from cycloneml_tpu_torch.dataset.instance import quantize_fp8\n"
+             "from cycloneml_tpu_torch.ops import kernels\n"
+             "x8, s, _ = quantize_fp8(torch.randn(20, 3))\n"
+             "assert x8.dtype == torch.float8_e4m3fn\n"
+             "y = torch.ones(20)\n"
+             "out = kernels.glm_sweep(x8, y, y, torch.ones(3), 0., x_scale=s)\n"
+             "best, _ = kernels.kmeans_assign(x8, torch.zeros(2, 3),\n"
+             "                                x_scale=s)\n"
+             "g = kernels.gramian(x8, y, x_scale=s)\n"
+             "assert kernels.glm_sweep.launches == 0\n"
+             "assert sum(kernels.glm_sweep.launches_by_dtype.values()) == 0\n"
+             "assert kernels.kmeans_assign.launches == 0\n"
+             "assert kernels.gramian.launches == 0\n"
+             "assert torch.isfinite(out[0]) and torch.equal(g, g.T)\n",
+             CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr

@@ -6,9 +6,10 @@ with the tolerances of tests/test_pallas_ops.py (K1: loss rtol 1e-5 and grad
 1e-4 for f32 X, 1e-3 and 5e-3 for bf16 X; K2: 1e-3 and 5e-3; K3: equal
 argmin, distances 1e-4; K4: rtol 1e-4, atol 1e-3, exact symmetry). The CUDA
 kernels themselves are held against their plain versions in float64 by the
-``gpu``-marked tests, on the card; the machine with the card has no jax, so
-the reference is imported inside the tests that use it and the card's
-command skips tests/conftest.py:
+``gpu``-marked tests, on the card (float32, bfloat16 and e4m3 codes, with
+and without the fp8 rung's ``x_scale``); the machine with the card has no
+jax, so the reference is imported inside the tests that use it and the
+card's command skips tests/conftest.py:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 """
@@ -408,3 +409,131 @@ def test_cuda_k4_matches_plain(n, d, dtype):
     assert bool(((got.double() - ref).abs() <= 1e-4 * diag + 1e-6).all())
     assert torch.equal(tk.gramian(x), tk.gramian(x, torch.ones(n,
                                                                 device=dev)))
+
+
+# -- the e4m3 instances (the fp8 rung) on the card -----------------------------
+
+_FP8_SHAPES = [(1, 1), (1003, 15), (2049, 17), (777, 777)]
+
+
+def _fp8_codes(n, d, seed, dev):
+    """e4m3 codes of N(0, 1) columns of unequal spread, quantized on the
+    card, and their per-column scale as a float32 tensor."""
+    from cycloneml_tpu_torch.dataset.instance import quantize_fp8
+    g = torch.Generator(device=dev).manual_seed(seed)
+    spread = torch.rand(d, generator=g, device=dev) * 4 + 0.1
+    x = torch.randn(n, d, generator=g, device=dev) * spread
+    codes, scale, _ = quantize_fp8(x)
+    return codes, torch.as_tensor(scale, dtype=torch.float32, device=dev), g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("link", [tk.LOGISTIC, tk.SQUARED])
+@pytest.mark.parametrize("n,d", _FP8_SHAPES)
+def test_cuda_fp8_glm_sweep_matches_plain(n, d, link, scaled):
+    """K1/K2 on e4m3 codes, with and without x_scale, against the plain
+    version in float64 on the same (dequantized) values: loss to 1e-5
+    relative, grad to 1e-4 of its largest entry, sum(w) exact, launches
+    bitwise equal and counted under float8_e4m3fn."""
+    dev = _cuda()
+    x8, scale, g = _fp8_codes(n, d, n + d, dev)
+    s = scale if scaled else None
+    beta = torch.randn(d, generator=g, device=dev) / d ** 0.5
+    if not scaled:
+        beta = beta / 448.0  # raw codes reach 448: keep the margins O(1)
+    y = ((torch.rand(n, generator=g, device=dev) > 0.5).float()
+         if link == tk.LOGISTIC else torch.randn(n, generator=g, device=dev))
+    w = torch.ones(n, device=dev)
+    off, ys = torch.tensor(0.25, device=dev), torch.tensor(0.7, device=dev)
+    before = dict(tk.glm_sweep.launches_by_dtype)
+    out = tk.glm_sweep(x8, y, w, beta, off, link=link, ys=ys, x_scale=s)
+    again = tk.glm_sweep(x8, y, w, beta, off, link=link, ys=ys, x_scale=s)
+    torch.cuda.synchronize()
+    assert tk.glm_sweep.launches_by_dtype[torch.float8_e4m3fn] == \
+        before[torch.float8_e4m3fn] + 2
+    assert tk.glm_sweep.launches_by_dtype[torch.bfloat16] == \
+        before[torch.bfloat16]
+    tl, tg, tm, tw = tk.glm_sweep_plain(x8, y, w, beta, off,
+                                        acc_dtype=torch.float64, link=link,
+                                        ys=ys, x_scale=s)
+    loss, grad, msum, wsum = out
+    assert abs(float(loss) - float(tl)) <= 1e-5 * abs(float(tl))
+    assert float((grad.double() - tg).abs().max()) <= \
+        1e-4 * float(tg.abs().max()) + 1e-6
+    assert abs(float(msum) - float(tm)) <= 1e-4 * float(tw)
+    assert float(wsum) == n
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("n,d", _FP8_SHAPES)
+def test_cuda_fp8_k3_matches_plain(n, d, scaled):
+    """K3 on e4m3 codes against its plain version in float64 on the
+    dequantized values (x_scale applied before |x|^2 and the product):
+    the near-tie rule and distances as for the wider dtypes, bitwise-equal
+    launches."""
+    dev = _cuda()
+    x8, scale, g = _fp8_codes(n, d, 3 * n + d, dev)
+    s = scale if scaled else None
+    xv = x8.double() * (scale.double() if scaled else 1.0)
+    k = 37
+    pick = torch.randint(0, n, (k,), generator=g, device=dev)
+    spread = 0.1 * float(xv.abs().max().clamp(min=1.0))
+    c = (xv[pick] + torch.randn(k, d, generator=g, device=dev,
+                                dtype=torch.float64) * spread).float()
+    before = tk.kmeans_assign.launches
+    best, dist = tk.kmeans_assign(x8, c, x_scale=s)
+    best2, dist2 = tk.kmeans_assign(x8, c, x_scale=s)
+    torch.cuda.synchronize()
+    assert tk.kmeans_assign.launches == before + 2
+    assert best.dtype == torch.int32 and int(best.max()) < k
+    assert torch.equal(best, best2) and torch.equal(dist, dist2)
+    b64, d64 = tk.kmeans_assign_plain(x8, c, acc_dtype=torch.float64,
+                                      x_scale=s)
+    c64 = c.double()
+    scale_r = torch.maximum(d64, (xv * xv).sum(1))
+    picked = ((xv - c64[best.long()]) ** 2).sum(1)
+    assert bool((picked - d64 <= 1e-5 * scale_r).all())
+    assert bool(((dist.double() - d64).abs() <= 1e-4 * scale_r + 1e-6).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("n,d", _FP8_SHAPES)
+def test_cuda_fp8_k4_matches_plain(n, d, scaled):
+    """K4 on e4m3 codes, a third of the rows masked: |dG_ij| <= 1e-4
+    sqrt(G_ii G_jj) against float64 on the dequantized values, exactly
+    symmetric, two launches bitwise equal."""
+    dev = _cuda()
+    x8, scale, _ = _fp8_codes(n, d, 5 * n + d, dev)
+    s = scale if scaled else None
+    w = (torch.arange(n, device=dev) % 3 != 2).float()
+    got = tk.gramian(x8, w, x_scale=s)
+    again = tk.gramian(x8, w, x_scale=s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    ref = tk.gramian_plain(x8, w, acc_dtype=torch.float64, x_scale=s)
+    diag = torch.sqrt(torch.outer(ref.diagonal(), ref.diagonal()))
+    assert bool(((got.double() - ref).abs() <= 1e-4 * diag + 1e-6).all())
+
+
+@pytest.mark.gpu
+def test_cuda_fp8_never_takes_the_plain_version():
+    """A CUDA e4m3 tensor launches the e4m3 instance of every kernel (the
+    counts move), and a wrong-length x_scale raises before any launch."""
+    dev = _cuda()
+    x8, scale, _ = _fp8_codes(64, 16, 1, dev)
+    counts = (tk.glm_sweep.launches, tk.kmeans_assign.launches,
+              tk.gramian.launches)
+    tk.fused_binary_logistic(x8, torch.zeros(64, device=dev),
+                             torch.ones(64, device=dev),
+                             torch.zeros(17, device=dev), 16, x_scale=scale)
+    tk.kmeans_assign(x8, torch.zeros(2, 16, device=dev), x_scale=scale)
+    tk.gramian(x8, x_scale=scale)
+    torch.cuda.synchronize()
+    assert (tk.glm_sweep.launches, tk.kmeans_assign.launches,
+            tk.gramian.launches) == tuple(c + 1 for c in counts)
+    with pytest.raises(ValueError, match="x_scale"):
+        tk.gramian(x8, x_scale=scale[:3])
