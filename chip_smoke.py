@@ -10,8 +10,9 @@ the final result line:
 
 1. the card: name and power limit (nvidia-smi), torch device name, count;
 2. the build of every kernel from ``cycloneml_tpu_torch/csrc`` (one nvcc per
-   source, started together), with each kernel's registers, shared memory
-   and spills from ``-Xptxas -v``;
+   source, started together), with each kernel instance's registers,
+   shared memory and spills from ``-Xptxas -v`` (K3 and K4: the
+   tensor-core instances for bf16 and e4m3 X, the FMA ones for f32);
 3. K1 (the GLM sweep, logistic link) against its plain PyTorch version run
    in float64 on the card, at the LogisticRegression fit's shape
    (n=2,000,000, d=1280) for f32 and bf16 X with and without centering,
@@ -41,23 +42,31 @@ the final result line:
    bf16 and f32) and a ragged one (n=1,000,003, d=100, k=37): where the
    argmins differ, d2_64[best] - d2_64[best64] <= 1e-5 max(d2_64, |x|^2)
    (the count of such rows is printed), |dist - dist64| <= 1e-4 of the
-   same scale, two launches bitwise equal; times beside the plain f32
-   version, the bound, and a yardstick of the chunked f32 product x c^T
-   with TF32 off;
+   same scale, two launches bitwise equal, counted under the instance the
+   dtype picks (tensor cores for bf16, FMA for f32); the same rule on bf16
+   X at the main shape against 500 center pairs c, c + delta (delta ~
+   1e-6, so float32 rounding decides which of a pair wins); times beside
+   the plain f32 version, the bound (three bf16 tensor-core passes for
+   bf16 and e4m3, with the f32 FMA bound beside it), and a yardstick of
+   the chunked f32 product x c^T with TF32 off;
 8. KMeans at configuration 3 (``RandomDatasets.normal(seed=12)``, 10M x
    128, bf16 tier; ``k=1000, maxIter=10, tol=1e-5, seed=3``) through K3 and
    through the plain assignment: K3 launched exactly Lloyd steps +
-   k-means|| passes times, training costs to 1e-4 relative; and one Lloyd
-   step from identical initial centers, max|dcenter| <= 1e-4 max|center|;
+   k-means|| passes times, all of them the tensor-core instance, training
+   costs to 1e-4 relative; and one Lloyd step from identical initial
+   centers, max|dcenter| <= 1e-4 max|center|;
 9. K4 (the Gramian) against its plain version in float64 (row chunks) at
    400,000 x 2,000 (bf16 and f32) and at a ragged shape with a third of the
    rows masked by w = 0: |dG_ij| <= 1e-4 sqrt(G_ii G_jj), G == G^T
-   bitwise, two launches bitwise equal; times beside the plain f32
-   version, the bound and the library call x^T x (f32, TF32 off);
+   bitwise, two launches bitwise equal, counted under the dtype's
+   instance; times beside the plain f32 version, the bound, the library
+   call x^T x (f32, TF32 off) and, as a rate reference that is not the
+   same function (its output is bf16), cuBLAS's bf16 x^T x;
 10. PCA: ``PCA(k=10).fit`` and ``RowMatrix.compute_svd(k=10)`` on data
    with a known spectrum, X = (Z diag(s)) Q^T at 400,000 x 2,000 (bf16 tier,
    s_j = (j+1)^-1/2, Q orthogonal from a float64 QR), through K4 and
-   through the plain Gramian: K4 launched once per Gramian, |cos| between
+   through the plain Gramian: K4 launched once per Gramian (its
+   tensor-core instance), |cos| between
    matched components >= 1 - 1e-6, explained variance and singular values
    to 1e-5 relative; both against Q[:, :10] (min |cos| printed, >= 0.99);
 11. the fp8 rung (``cyclone.data.dtype=float8``): K1 and K2 on e4m3 codes
@@ -78,8 +87,10 @@ the final result line:
    checks against float64 on the dequantized values, at the same shapes
    (KMeans and PCA are not fp8-capable: no fit launches these instances);
 15. a ``{"kernels": [...]}`` JSON line with K1-K4 and their e4m3
-   instances, the total wall time; the last line is ``{"ok": true,
-   "device": {...}}``.
+   instances (K3 and K4 marked as redesigned for the tensor cores, with
+   their f32 FMA bounds and ptxas lines), the total wall time; the last
+   line is
+   ``{"ok": true, "device": {...}}``.
 
 Each path's launch counts are set to 0 just before its fit and read just
 after. It exits non-zero, printing no result, when no CUDA device is
@@ -148,27 +159,37 @@ def phase_card():
 
 
 def _kernel_name(mangled: str) -> str:
-    """A readable name for a mangled kernel instance: its X dtype and
-    integer template arguments (glm_sweep_kernel: elements per lane and
-    the link, 0 logistic, 1 squared)."""
-    m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f)"
-                  r"((?:Li\d+E)*))?", mangled)
+    """A readable name for a mangled kernel instance: its X (or partial)
+    dtype and its other template arguments (glm_sweep_kernel: elements
+    per lane and the link, 0 logistic, 1 squared; gramian_tc_kernel: the
+    staging; kmeans_assign_tc_kernel: whether X is resident)."""
+    m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f|d)"
+                  r"((?:L[ib]\d+E)*))?", mangled)
     if m is None:
         return mangled
     if m.group(2) is None:
         return m.group(1)
-    args = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(m.group(3), "e4m3")]
+    args = [{"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}.get(
+        m.group(3), "e4m3")]
     ints = re.findall(r"Li(\d+)E", m.group(4))
     if len(ints) == 2:
         args += [f"E={ints[0]}", ("logistic", "squared")[int(ints[1])]]
+    if len(ints) == 1:  # the tensor-core Gramian's staging
+        args.append(("cp.async", "cp.async codes", "ld.global")[int(ints[0])])
+    bools = re.findall(r"Lb(\d)E", m.group(4))
+    if bools:  # the tensor-core assignment: X resident or staged per block
+        args.append(("X per block", "X resident")[int(bools[0])])
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def phase_build():
+    """Builds every kernel; returns ptxas's lines (registers, shared
+    memory, spills) by kernel instance."""
     from cycloneml_tpu_torch.ops import build
     t0 = time.perf_counter()
     build.build_all(KERNEL_SOURCES)
     secs = time.perf_counter() - t0
+    ptxas = {}
     for name in KERNEL_SOURCES:
         report = build.ptxas_report(name)
         func = None
@@ -178,8 +199,11 @@ def phase_build():
             if "Compiling entry function" in ln:
                 func = _kernel_name(ln.split("'")[1] if "'" in ln else ln)
             elif func and ("registers" in ln or "spill" in ln):
-                print(f"ptxas {name} {func}: {ln.split(':')[-1].strip()}")
+                info = ln.split(':')[-1].strip()
+                print(f"ptxas {name} {func}: {info}")
+                ptxas.setdefault(func, []).append(info)
     _line("build", sources=KERNEL_SOURCES, seconds=round(secs, 2))
+    return ptxas
 
 
 def _k1_inputs(n, d, seed):
@@ -758,10 +782,37 @@ def phase_fp8_linreg():
 
 # -- K3 and KMeans -------------------------------------------------------------
 
+def _k3_rule(x, c, best, dist, x_scale64):
+    """K3's rule against float64 (row chunks) on the same values: the
+    count of rows whose argmin differs, the worst pick excess and distance
+    error over max(d2, |x|^2), and the largest absolute distance error."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    n = x.shape[0]
+    b64, d64 = kernels.kmeans_assign_plain(x, c, torch.float64,
+                                           x_scale=x_scale64)
+    c64 = c.double()
+    differ = worst_pick = worst_dist = max_err = 0.0
+    for lo in range(0, n, ROWS):
+        xc = x[lo:lo + ROWS].double()
+        if x_scale64 is not None:
+            xc = xc * x_scale64
+        bc, tc = best[lo:lo + ROWS].long(), d64[lo:lo + ROWS]
+        scale = torch.maximum(tc, (xc * xc).sum(1))
+        picked = ((xc - c64[bc]) ** 2).sum(1)
+        differ += int((bc != b64[lo:lo + ROWS]).sum())
+        worst_pick = max(worst_pick, float(((picked - tc) / scale).max()))
+        e = (dist[lo:lo + ROWS].double() - tc).abs()
+        worst_dist = max(worst_dist, float((e / scale).max()))
+        max_err = max(max_err, float(e.max()))
+    return int(differ), worst_pick, worst_dist, max_err
+
+
 def phase_k3(fp8=False):
     """K3 against its plain version in float64 (on float32 and bf16 X, or
     with ``fp8`` on e4m3 codes with their x_scale, held on the dequantized
-    values); returns the main-shape numbers for the kernels line."""
+    values), and on bf16 X at the main shape against centers in near-tie
+    pairs; returns the main-shape numbers for the kernels line."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     results = {}
@@ -772,40 +823,32 @@ def phase_k3(fp8=False):
         c = torch.randn(k, d, generator=g, device=DEVICE)
         for x, s32, s64 in _x_forms(x32, fp8):
             dtype = x.dtype
+            instance = kernels.INSTANCE[dtype]
+            before = kernels.kmeans_assign.launches_by_instance[instance]
             best, dist = kernels.kmeans_assign(x, c, x_scale=s32)
             best2, dist2 = kernels.kmeans_assign(x, c, x_scale=s32)
             torch.cuda.synchronize()
+            launched = kernels.kmeans_assign.launches_by_instance[
+                instance] - before == 2
             bitwise = torch.equal(best, best2) and torch.equal(dist, dist2)
-            b64, d64 = kernels.kmeans_assign_plain(x, c, torch.float64,
-                                                   x_scale=s64)
-            c64 = c.double()
-            differ = worst_pick = worst_dist = max_err = 0.0
-            for lo in range(0, n, ROWS):
-                xc = x[lo:lo + ROWS].double()
-                if s64 is not None:
-                    xc = xc * s64
-                bc, tc = best[lo:lo + ROWS].long(), d64[lo:lo + ROWS]
-                scale = torch.maximum(tc, (xc * xc).sum(1))
-                picked = ((xc - c64[bc]) ** 2).sum(1)
-                differ += int((bc != b64[lo:lo + ROWS]).sum())
-                worst_pick = max(worst_pick,
-                                 float(((picked - tc) / scale).max()))
-                e = (dist[lo:lo + ROWS].double() - tc).abs()
-                worst_dist = max(worst_dist, float((e / scale).max()))
-                max_err = max(max_err, float(e.max()))
+            differ, worst_pick, worst_dist, max_err = _k3_rule(
+                x, c, best, dist, s64)
             ok = (worst_pick <= 1e-5 and worst_dist <= 1e-4 and bitwise
+                  and launched
                   and int(best.max()) < k and int(best.min()) >= 0)
             _line("k3_check", n=n, d=d, k=k, dtype=_dt(x),
-                  x_scale=s32 is not None, argmin_differs_at=int(differ),
+                  x_scale=s32 is not None, instance=instance,
+                  argmin_differs_at=differ,
                   worst_pick_excess_rel=worst_pick,
                   worst_dist_err_rel=worst_dist, max_abs_dist_err=max_err,
                   bitwise_equal=bitwise, ok=ok)
             if not ok:
                 raise AssertionError(f"K3 disagrees with its plain version "
                                      f"at n={n} d={d} k={k} {dtype}")
-            del b64, d64
             if n == KM_N and dtype == main_dt:
                 results["max_abs_err"] = max_err
+                if not fp8:
+                    _k3_near_ties(x, c, g)
             results.update(_k3_times(x, c, n, d, k, s32, main_dt))
             del x
         del x32
@@ -813,7 +856,35 @@ def phase_k3(fp8=False):
     return results
 
 
+def _k3_near_ties(x, c, g):
+    """K3 on the same rows against centers in pairs c and c + delta, delta
+    ~ 1e-6 per feature: float32 rounding decides which of a pair wins, and
+    every pick is held by the same rule (excess <= 1e-5)."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    k, d = c.shape
+    half = c[:k // 2]
+    pairs = torch.stack([half, half + 1e-6 * torch.randn(
+        half.shape, generator=g, device=DEVICE)], 1).reshape(-1, d)
+    best, dist = kernels.kmeans_assign(x, pairs)
+    best2, dist2 = kernels.kmeans_assign(x, pairs)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(best, best2) and torch.equal(dist, dist2)
+    differ, worst_pick, worst_dist, _ = _k3_rule(x, pairs, best, dist, None)
+    # rows whose pick is the other center of its pair than float64's
+    _line("k3_near_ties", n=x.shape[0], d=d, k=pairs.shape[0],
+          dtype=_dt(x), delta=1e-6, argmin_differs_at=differ,
+          worst_pick_excess_rel=worst_pick, worst_dist_err_rel=worst_dist,
+          bitwise_equal=bitwise)
+    _check("k3 near ties", {
+        "picks within 1e-5 of max(d2, |x|^2)": worst_pick <= 1e-5,
+        "distances within 1e-4 of it": worst_dist <= 1e-4,
+        "two launches bitwise equal": bitwise,
+    })
+
+
 def _k3_times(x, c, n, d, k, x_scale, main_dt):
+    import torch
     from cycloneml_tpu_torch.ops import kernels
     k_ms = _time_ms(lambda: kernels.kmeans_assign(x, c, x_scale=x_scale),
                     3, 1)
@@ -827,14 +898,24 @@ def _k3_times(x, c, n, d, k, x_scale, main_dt):
             x[lo:lo + ROWS].float() @ ct
     yard_ms = _time_ms(product, 3, 1)
     n_bytes = n * d * x.element_size() + k * d * 4 + k * 4 + n * 8
-    bound, bound_by = _bound(n_bytes, 2.0 * n * k * d)
+    f32_bound, _ = _bound(n_bytes, 2.0 * n * k * d)
+    if kernels.INSTANCE[x.dtype] == kernels.TENSOR_CORE:
+        # float32-accurate products on the tensor cores: three bf16 passes
+        flops, rate, rate_name = (3 * 2.0 * n * k * d, H100_BF16_FLOPS,
+                                  "bf16 tensor cores, three passes")
+    else:
+        flops, rate, rate_name = 2.0 * n * k * d, H100_F32_FLOPS, "f32 FMA"
+    bound, bound_by = _bound(n_bytes, flops, rate)
     _line("k3_time", n=n, d=d, k=k, dtype=_dt(x), kernel_ms=k_ms,
           plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+          bound_rate=rate_name, f32_fma_bound_ms=f32_bound,
           yardstick_f32_product_ms=yard_ms,
-          achieved_tflop_s=2.0 * n * k * d / k_ms / 1e9)
+          achieved_tflop_s=flops / k_ms / 1e9,
+          share_of_bound=bound / k_ms)
     if n == KM_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": bound_by, "yardstick_ms": yard_ms}
+                "bound_by": bound_by, "yardstick_ms": yard_ms,
+                "f32_fma_bound_ms": f32_bound}
     return {}
 
 
@@ -863,6 +944,7 @@ def phase_kmeans():
         kernels.reset_launch_counts()
         k_model, k_s = fit("auto")
         launches = kernels.kmeans_assign.launches
+        by_instance = dict(kernels.kmeans_assign.launches_by_instance)
         others = _other_launches(kernels, "kmeans_assign")
         p_model, p_s = fit("false")
         peak = torch.cuda.max_memory_allocated()
@@ -879,7 +961,8 @@ def phase_kmeans():
               data_dtype=str(ds.x.dtype)[6:], generate_s=gen_s,
               kernel={"iterations": k_model.num_iterations,
                       "init_passes": k_model.init_distance_passes,
-                      "k3_launches": launches, "fit_s": k_s,
+                      "k3_launches": launches,
+                      "k3_launches_by_instance": by_instance, "fit_s": k_s,
                       "training_cost": k_model.training_cost},
               plain={"iterations": p_model.num_iterations,
                      "init_passes": p_model.init_distance_passes,
@@ -891,6 +974,9 @@ def phase_kmeans():
                 launches == k_model.num_iterations
                 + k_model.init_distance_passes,
             "no other kernel launched": others == 0,
+            "bf16 X launched only the tensor-core instance":
+                by_instance[kernels.TENSOR_CORE] == launches
+                and kernels.INSTANCE[ds.x.dtype] == kernels.TENSOR_CORE,
             "training costs agree to 1e-4": cost_rel <= 1e-4,
             "one Lloyd step agrees (1e-4 of max|center|)":
                 step_diff <= 1e-4 * step_scale,
@@ -920,9 +1006,13 @@ def phase_k4(fp8=False):
              else torch.ones(n, device=DEVICE))
         for x, s32, s64 in _x_forms(x32, fp8):
             dtype = x.dtype
+            instance = kernels.INSTANCE[dtype]
+            before = kernels.gramian.launches_by_instance[instance]
             got = kernels.gramian(x, w, x_scale=s32)
             again = kernels.gramian(x, w, x_scale=s32)
             torch.cuda.synchronize()
+            launched = kernels.gramian.launches_by_instance[
+                instance] - before == 2
             truth = kernels.gramian_plain(x, w, torch.float64, x_scale=s64)
             diag = truth.diagonal().clamp(min=0)
             scale = torch.sqrt(torch.outer(diag, diag))
@@ -938,9 +1028,10 @@ def phase_k4(fp8=False):
             del plain
             bitwise = torch.equal(got, again)
             symmetric = torch.equal(got, got.T)
-            ok = worst <= 1e-4 and bitwise and symmetric
+            ok = worst <= 1e-4 and bitwise and symmetric and launched
             _line("k4_check", n=n, d=d, masked=masked, dtype=_dt(x),
-                  x_scale=s32 is not None, worst_err_over_sqrt_gii_gjj=worst,
+                  x_scale=s32 is not None, instance=instance,
+                  worst_err_over_sqrt_gii_gjj=worst,
                   plain_f32_worst_err_over_sqrt_gii_gjj=plain_worst,
                   trace_rel_err_kernel_plain=trace_rel,
                   max_abs_err=float(err.max()), bitwise_equal=bitwise,
@@ -967,24 +1058,59 @@ _K4_PEAK = {"bfloat16": H100_BF16_FLOPS, "float8_e4m3fn": H100_FP8_FLOPS}
 
 
 def _k4_times(x, x32, w, n, d, x_scale, main_dt):
+    import torch
     from cycloneml_tpu_torch.ops import kernels
     k_ms = _time_ms(lambda: kernels.gramian(x, w, x_scale=x_scale), 3, 1)
+    # the memory one call takes beyond its inputs: the partials' scratch
+    # and G
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.gramian(x, w, x_scale=x_scale)
+    torch.cuda.synchronize()
+    work_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+    extra = {}
+    if x.dtype == torch.float8_e4m3fn and d % 16 == 0 and \
+            x.data_ptr() % 16 == 0:
+        # the same codes at a base 8 bytes off 16: the kernel stages them
+        # through registers (its ragged path) instead of its cp.async ring
+        flat = torch.empty(n * d + 8, dtype=x.dtype, device=x.device)
+        xo = flat[8:].view(n, d)
+        xo.copy_(x)
+        extra["register_staged_ms"] = _time_ms(
+            lambda: kernels.gramian(xo, w, x_scale=x_scale), 3, 1)
+        extra["register_staged_bitwise_equal"] = torch.equal(
+            kernels.gramian(xo, w, x_scale=x_scale),
+            kernels.gramian(x, w, x_scale=x_scale))
+        del flat, xo
     p_ms = _time_ms(lambda: kernels.gramian_plain(x, w, x_scale=x_scale),
                     3, 1)
     # the library call on the same values in f32 (TF32 off), unmasked
     lib_ms = _time_ms(lambda: x32.T @ x32, 3, 1)
+    # a rate reference, not the same function (its output is bf16):
+    # cuBLAS's bf16 x^T x on the same values rounded to bf16
+    xb = x if x.dtype == torch.bfloat16 else x32.to(torch.bfloat16)
+    rate_ms = _time_ms(lambda: xb.T @ xb, 3, 1)
+    del xb
     n_bytes = n * d * x.element_size() + n * 4 + d * d * 4
     dt = _dt(x)
-    bound, bound_by = _bound(n_bytes, float(n) * d * (d + 1),
-                             _K4_PEAK.get(dt, H100_F32_FLOPS))
-    f32_bound, _ = _bound(n_bytes, float(n) * d * (d + 1))
+    flops = float(n) * d * (d + 1)
+    peak = _K4_PEAK.get(dt, H100_F32_FLOPS)
+    bound, bound_by = _bound(n_bytes, flops, peak)
+    f32_bound, _ = _bound(n_bytes, flops)
     _line("k4_time", n=n, d=d, dtype=dt, kernel_ms=k_ms, plain_ms=p_ms,
-          bound_ms=bound, bound_by=bound_by, f32_fma_bound_ms=f32_bound,
-          library_f32_xtx_ms=lib_ms,
-          achieved_tflop_s=float(n) * d * (d + 1) / k_ms / 1e9)
+          bound_ms=bound, bound_by=bound_by,
+          bound_rate={H100_BF16_FLOPS: "bf16 tensor cores",
+                      H100_FP8_FLOPS: "fp8 tensor cores"}.get(peak,
+                                                              "f32 FMA"),
+          f32_fma_bound_ms=f32_bound, library_f32_xtx_ms=lib_ms,
+          library_bf16_rate_ms=rate_ms, working_mem_mib=work_mib, **extra,
+          achieved_tflop_s=flops / k_ms / 1e9, share_of_bound=bound / k_ms)
     if n == GRAM_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": bound_by, "library_ms": lib_ms}
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "f32_fma_bound_ms": f32_bound,
+                "library_bf16_rate_ms": rate_ms}
     return {}
 
 
@@ -1032,6 +1158,8 @@ def phase_pca():
         kernels.reset_launch_counts()
         k_pca, k_svd, k_pca_s, k_svd_s = run("auto")
         launches = kernels.gramian.launches
+        tc_launches = kernels.gramian.launches_by_instance[
+            kernels.TENSOR_CORE]
         others = _other_launches(kernels, "gramian")
         p_pca, p_svd, p_pca_s, p_svd_s = run("false")
 
@@ -1059,6 +1187,8 @@ def phase_pca():
               min_abs_cos_to_q=truth_cos)
         _check("pca", {
             "K4 launched once per Gramian": launches == 2,
+            "bf16 X launched only the tensor-core instance":
+                tc_launches == launches,
             "no other kernel launched": others == 0,
             "principal components agree (|cos| >= 1 - 1e-6)":
                 pca_cos >= 1 - 1e-6,
@@ -1097,7 +1227,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card, kind = phase_card()
-    phase_build()
+    ptxas = phase_build()
     entries = []
 
     def entry(name, source, replaces, numbers, launches, **extra):
@@ -1113,14 +1243,28 @@ def main() -> int:
             "yardstick_ms": numbers.get("yardstick_ms"), "card": card,
             **extra})
 
+    def redesigned(numbers, *kernels_run):
+        """The fields of a kernel redesigned for the tensor cores: the
+        redesign, its f32-FMA bound and rate reference, and ptxas's lines
+        for the kernels it runs."""
+        keep = ("f32_fma_bound_ms", "library_bf16_rate_ms")
+        return {"redesigned": "PR 4",
+                **{k: numbers[k] for k in keep if k in numbers},
+                "ptxas": {f: ptxas.get(f) for f in ptxas
+                          if f.startswith(kernels_run)}}
+
     k1 = phase_kernel()
     entry("glm_sweep (logistic, K1)", "glm_sweep", 270, k1, phase_fit())
     k2 = phase_k2()
     entry("glm_sweep (squared, K2)", "glm_sweep", 226, k2, phase_linreg())
     k3 = phase_k3()
-    entry("kmeans_assign (K3)", "kmeans_assign", 384, k3, phase_kmeans())
+    entry("kmeans_assign (K3)", "kmeans_assign", 384, k3, phase_kmeans(),
+          **redesigned(k3, "kmeans_assign_tc_kernel<bf16",
+                       "kmeans_redecide_kernel<bf16"))
     k4 = phase_k4()
-    entry("gramian (K4)", "gramian", 461, k4, phase_pca())
+    entry("gramian (K4)", "gramian", 461, k4, phase_pca(),
+          **redesigned(k4, "gramian_tc_kernel<bf16",
+                       "gramian_reduce_kernel"))
     # the fp8 rung: e4m3 codes with the x_scale operand (:309, :422, :501)
     k1 = phase_kernel(fp8=True)
     entry("glm_sweep (logistic, K1, e4m3)", "glm_sweep", 309, k1,
@@ -1133,10 +1277,14 @@ def main() -> int:
     # are held at the fits' shapes above, and their launches are 0
     no_path = {"main_path": "none: KMeans and RowMatrix/PCA take the bf16 "
                "rung under the fp8 tiers"}
-    entry("kmeans_assign (K3, e4m3)", "kmeans_assign", 422,
-          phase_k3(fp8=True), 0, **no_path)
-    entry("gramian (K4, e4m3)", "gramian", 501, phase_k4(fp8=True), 0,
-          **no_path)
+    k3 = phase_k3(fp8=True)
+    entry("kmeans_assign (K3, e4m3)", "kmeans_assign", 422, k3, 0,
+          **no_path, **redesigned(k3, "kmeans_assign_tc_kernel<e4m3",
+                                  "kmeans_redecide_kernel<e4m3"))
+    k4 = phase_k4(fp8=True)
+    entry("gramian (K4, e4m3)", "gramian", 501, k4, 0, **no_path,
+          **redesigned(k4, "gramian_tc_kernel<e4m3",
+                       "gramian_reduce_kernel"))
     print(json.dumps({"kernels": entries}), flush=True)
     _line("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, at first use, into
 ``cycloneml_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``. A library is keyed by a hash of its source and flags, so an
-edited source rebuilds and a stale library is never loaded. Independent
-sources compile in parallel (:func:`build_all`).
+``ctypes``. A library is keyed by a hash of its source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source or header
+rebuilds and a stale library is never loaded. Independent sources compile
+in parallel (:func:`build_all`).
 
 Nothing here runs at import: the CPU test tier imports every module and has
 no ``nvcc``.
@@ -49,8 +50,10 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # the shared headers
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

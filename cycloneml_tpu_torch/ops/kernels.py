@@ -10,23 +10,28 @@ replaces, what bounds it on the card, what the design does about that):
   sum(mult) and sum(w); bytes-bound.
 - K3, ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``fused_kmeans_assign``,
   the nearest center and its squared distance per row (KMeans);
-  bound by float32 FMAs.
+  bound by operations.
 - K4, ``gramian`` (``csrc/gramian.cu``): ``fused_gramian``, the presence-
-  masked X^T X (RowMatrix, PCA); bound by float32 FMAs.
+  masked X^T X (RowMatrix, PCA); bound by operations.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
-(the fp8 rung), each upcast to float32 inside the kernel. Every wrapper takes
-the fp8 rung's optional per-column dequantization vector ``x_scale`` (the
-reference's ``x_scale`` operand): the value of X is ``x * x_scale``. K1/K2
-fold it into their (d,) vectors; K3 applies it as X is staged, K4 in its
-double reduction pass.
+(the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K3 and K4 pick
+an instance by X's dtype (:data:`INSTANCE`): bf16 X and e4m3 codes go to the
+tensor cores (wgmma, bf16 products summed in float32; K3 against the
+centers split in three bf16 parts, :func:`split_centers`), float32 X to
+float32 FMAs. Every wrapper takes the fp8 rung's optional per-column
+dequantization vector ``x_scale`` (the reference's ``x_scale`` operand): the
+value of X is ``x * x_scale``. K1/K2 fold it into their (d,) vectors; K3
+into the centers on the tensor cores (and applies it as X is staged on the
+FMAs), K4 in its double reduction pass.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its ``*_plain``
 version only for a tensor that lies on the CPU. There is no fallback from
 one to the other: a CUDA tensor the kernel cannot take raises. Each wrapper
 counts its launches in ``<wrapper>.launches`` (``glm_sweep`` also by link,
 in ``glm_sweep.launches_by_link``, and by X's dtype, in
-``glm_sweep.launches_by_dtype``).
+``glm_sweep.launches_by_dtype``; K3 and K4 also by instance, in
+``kmeans_assign.launches_by_instance`` and ``gramian.launches_by_instance``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ ROW_CHUNK = 1 << 16  # rows upcast at a time by the plain versions
 GRAM_CHUNK = 1 << 13  # rows per product in the plain Gramian
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+TENSOR_CORE, FMA = "tensor_core", "fma"
+# the instance of K3 and K4 that each dtype of X launches (the C entry
+# points pick by the same dtype code)
+INSTANCE = {torch.float32: FMA, torch.bfloat16: TENSOR_CORE,
+            torch.float8_e4m3fn: TENSOR_CORE}
 
 
 def use_fused_kernels(ctx, x: Optional[torch.Tensor] = None) -> bool:
@@ -82,6 +92,23 @@ def _scale_operand(x_scale, d: int, device, dtype=torch.float32
     if s.shape[0] != d:
         raise ValueError(f"x_scale has {s.shape[0]} entries, expected {d}")
     return s.contiguous()
+
+
+def split_centers(c: torch.Tensor) -> torch.Tensor:
+    """The float32 centers ``c`` ``(k, d)`` split exactly into three
+    bf16 parts, ``(3, k, d)``: hi = bf16(c), mid = bf16(c - hi), lo =
+    bf16(c - hi - mid), so that hi + mid + lo == c (three 8-bit
+    significands cover float32's 24; each difference is exact in float32).
+    Exact for every float32 value that is 0 or of magnitude at least
+    2^-110 and below bf16's overflow (the last part must stay a normal
+    bf16). K3's tensor-core instance sums x.lo, x.mid and x.hi, each
+    product exact for bf16 x, into one float32 accumulator."""
+    c = c.to(torch.float32)
+    hi = c.to(torch.bfloat16)
+    r1 = c - hi.to(torch.float32)
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
 
 
 def _upcast(x: torch.Tensor, lo: int, rows: int, acc_dtype,
@@ -260,7 +287,9 @@ def reset_launch_counts() -> None:
     glm_sweep.launches_by_link = {LOGISTIC: 0, SQUARED: 0}
     glm_sweep.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
     kmeans_assign.launches = 0
+    kmeans_assign.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
     gramian.launches = 0
+    gramian.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -362,7 +391,17 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor, x_scale=None
     ``(n, d)`` at storage width, whose value is ``x * x_scale`` when the
     scale is given, and centers ``(k, d)`` in value space, taken in
     float32. A CPU tensor runs :func:`kmeans_assign_plain` in float32; a
-    CUDA tensor launches the kernel (int32 ``best``) or raises."""
+    CUDA tensor launches the kernel (int32 ``best``) or raises.
+
+    bf16 X and e4m3 codes launch the tensor-core instance: the scale is
+    folded into the centers (x~ . c = x . (s o c)), which are then split
+    by :func:`split_centers` and padded with zeros to k and d multiples of
+    128 and 64 (|c|^2 of the padding centers is +inf); a row whose two
+    least distances lie within the products' rounding bound is then
+    re-decided in the FMA instance's arithmetic, so every pick is the one
+    the FMA instance makes. float32 X launches the FMA instance on the
+    centers as they are. ``c_norm`` = |c|^2 stays in value space either
+    way."""
     if x.device.type == "cpu":
         return kmeans_assign_plain(x, centers, x_scale=x_scale)
     _check_x(x, "kmeans_assign")
@@ -375,19 +414,36 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor, x_scale=None
     k = c.shape[0]
     s = _scale_operand(x_scale, d, dev)
     c_norm = torch.sum(c * c, dim=1).contiguous()
+    instance = INSTANCE[x.dtype]
+    if instance == TENSOR_CORE:
+        # the three parts, zero-padded, then the float32 centers (value
+        # space, transposed to (d, k)) for the rows re-decided in the FMA
+        # instance's arithmetic
+        k_pad, d_pad = -(-k // 128) * 128, -(-d // 64) * 64
+        operand = torch.zeros(3 * k_pad * d_pad + 2 * k * d,
+                              dtype=torch.bfloat16, device=dev)
+        parts = operand[:3 * k_pad * d_pad].view(3, k_pad, d_pad)
+        parts[:, :k, :d] = split_centers(c if s is None else c * s)
+        operand[3 * k_pad * d_pad:].view(torch.float32).view(d, k).copy_(
+            c.T)
+        # the padding centers' |c|^2 is +inf: they never win the argmin
+        c_norm = torch.cat([c_norm, torch.full((k_pad - k,), float("inf"),
+                                               device=dev)])
+    else:
+        operand = c
     best = torch.empty(n, dtype=torch.int32, device=dev)
     dist = torch.empty(n, dtype=torch.float32, device=dev)
     lib = _library("kmeans_assign")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda_check(lib.kmeans_assign_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), c.data_ptr(),
+            _DTYPE_CODE[x.dtype], x.data_ptr(), operand.data_ptr(),
             c_norm.data_ptr(), s.data_ptr() if s is not None else None, n,
             d, k, best.data_ptr(), dist.data_ptr(), stream),
             "kmeans_assign launch")
     kmeans_assign.launches += 1
+    kmeans_assign.launches_by_instance[instance] += 1
     return best, dist
-
 
 
 # -- K4: the Gramian -----------------------------------------------------------
@@ -422,7 +478,8 @@ def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None,
     the ``(d, d)`` float32 X^T X over the rows with w > 0, for X ``(n, d)``
     at storage width, whose value is ``x * x_scale`` when the scale is
     given. A CPU tensor runs :func:`gramian_plain` in float32; a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel (the tensor-core instance for bf16 X and
+    e4m3 codes, the FMA instance for float32 X) or raises."""
     if x.device.type == "cpu":
         return gramian_plain(x, w, x_scale=x_scale)
     _check_x(x, "gramian")
@@ -439,6 +496,8 @@ def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None,
         tiles, splits = ctypes.c_int(0), ctypes.c_int(0)
         _cuda_check(lib.gramian_plan(d, n, ctypes.byref(tiles),
                                      ctypes.byref(splits)), "gramian_plan")
+        # scratch: a (128, 128) double partial per CTA; the plan bounds the
+        # CTAs, so its size does not grow with n
         partials = torch.empty(splits.value * tiles.value * 128 * 128,
                                dtype=torch.float64, device=dev)
         g = torch.empty((d, d), dtype=torch.float32, device=dev)
@@ -450,6 +509,7 @@ def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None,
             splits.value, partials.data_ptr(), g.data_ptr(), stream),
             "gramian launch")
     gramian.launches += 1
+    gramian.launches_by_instance[INSTANCE[x.dtype]] += 1
     return g
 
 

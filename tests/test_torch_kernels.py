@@ -12,6 +12,11 @@ jax, so the reference is imported inside the tests that use it and the
 card's command skips tests/conftest.py:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+K3's tensor-core arithmetic (bf16 X, or e4m3 codes, times the float32
+centers split exactly in three bf16 parts, summed in float32) is emulated
+on the CPU and held against the reference; the `gpu` tests hold the
+tensor-core instances of K3 and K4 at the edges of their tiling.
 """
 
 import numpy as np
@@ -537,3 +542,381 @@ def test_cuda_fp8_never_takes_the_plain_version():
             tk.gramian.launches) == tuple(c + 1 for c in counts)
     with pytest.raises(ValueError, match="x_scale"):
         tk.gramian(x8, x_scale=scale[:3])
+
+
+# -- K3's three-part centers: the numerics of the tensor-core instance ---------
+#
+# K3's tensor-core instance multiplies bf16 X (or e4m3 codes, exact in bf16)
+# by the float32 centers split in three bf16 parts and sums the three exact
+# products, smallest first, in float32. These tests hold that arithmetic on
+# the CPU, emulated with float32 products of the same bf16 operands.
+
+def _f32_values(rng, shape, lo=-100, hi=100):
+    """float32 values of every sign over binades 2^lo .. 2^hi."""
+    m = rng.uniform(1.0, 2.0, size=shape)
+    e = rng.randint(lo, hi + 1, size=shape)
+    sign = rng.choice([-1.0, 1.0], size=shape)
+    return (sign * m * np.exp2(e)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_centers_is_exact(seed):
+    """hi + mid + lo == c in float64, each part a bf16 value, over a wide
+    range of exponents and signs, and for +-0 and +-1."""
+    c = _f32_values(np.random.RandomState(seed), (257, 129))
+    c[0, :4] = [0.0, -0.0, 1.0, -1.0]
+    parts = tk.split_centers(torch.from_numpy(c))
+    assert parts.dtype == torch.bfloat16 and parts.shape == (3, 257, 129)
+    np.testing.assert_array_equal(parts.double().sum(0).numpy(),
+                                  c.astype(np.float64))
+    # the signed zeros split into zeros
+    assert float(parts[:, 0, :2].double().abs().sum()) == 0.0
+
+
+def _emulated_k3(x32, centers, parts=3, x_scale=None):
+    """K3's tensor-core arithmetic on the CPU: X (bf16 values or e4m3
+    codes, in float32) times the first ``parts`` parts of the split
+    centers c~ = s o c (lo first: the three-part sum is x.lo + x.mid +
+    x.hi; one part is c~ rounded once to bf16), summed in float32;
+    d2 = (|x~|^2 - 2 x.c~) + |c|^2 with |c|^2 in value space; the first
+    least index."""
+    c = torch.as_tensor(centers, dtype=torch.float32)
+    s = None if x_scale is None else torch.as_tensor(x_scale,
+                                                     dtype=torch.float32)
+    split = tk.split_centers(c if s is None else c * s).float()
+    use = [split[0]] if parts == 1 else [split[2], split[1], split[0]]
+    acc = torch.zeros(x32.shape[0], c.shape[0], dtype=torch.float32)
+    for p in use:
+        acc = acc + x32 @ p.T
+    xs = x32 if s is None else x32 * s
+    d2 = ((xs * xs).sum(1)[:, None] - 2.0 * acc) + (c * c).sum(1)[None, :]
+    mn, idx = torch.min(d2, dim=1)
+    return idx.numpy(), torch.clamp(mn, min=0.0).numpy()
+
+
+def _pick_rule(best, dist, xv, centers):
+    """The worst pick excess and distance error over max(d2, |x|^2) against
+    float64 distances of the same values (chip_smoke.py's K3 rule)."""
+    d2 = ((xv[:, None, :] - centers[None, :, :].astype(np.float64)) ** 2
+          ).sum(-1)
+    truth = d2.min(1)
+    scale = np.maximum(truth, (xv * xv).sum(1))
+    picked = d2[np.arange(len(best)), best]
+    return (float(((picked - truth) / scale).max()),
+            float((np.abs(dist - truth) / scale).max()))
+
+
+@pytest.mark.parametrize("case", ["bf16", "fp8"])
+def test_emulated_k3_matches_pallas(case, ctx):
+    """The emulated three-part arithmetic against the interpreted
+    fused_kmeans_assign on the recipes of tests/test_pallas_ops.py:181
+    (bf16 points) and :307 (e4m3 codes; the scale folded into the centers,
+    c~ = s o c, so that x~ . c = code . c~): argmins agree or lie within
+    1e-5 of max(d2, |x|^2), distances within 1e-4 of it."""
+    import ml_dtypes
+    from cycloneml_tpu.dataset.instance import quantize_fp8
+    from cycloneml_tpu.ops import fused_kmeans_assign
+    if case == "bf16":
+        rng = np.random.RandomState(9)
+        xj = np.asarray(rng.randn(300, 17), dtype=ml_dtypes.bfloat16)
+        centers = rng.randn(5, 17)
+        rb, _ = fused_kmeans_assign(xj, centers, interpret=True,
+                                    row_tile=128)
+        codes = torch.from_numpy(np.asarray(xj, np.float32))
+        xv = np.asarray(xj, np.float64)
+        scale = None
+    else:
+        rng = np.random.RandomState(11)
+        centers = rng.randn(5, 8) * 2.0
+        x = centers[rng.randint(0, 5, 200)] + 0.05 * rng.randn(200, 8)
+        x8, scale = quantize_fp8(x)[:2]
+        rb, _ = fused_kmeans_assign(x8, centers, interpret=True,
+                                    row_tile=64, x_scale=scale)
+        codes = torch.from_numpy(np.asarray(x8, np.float32))
+        xv = np.asarray(x8, np.float64) * scale[None, :]
+    best, dist = _emulated_k3(codes, centers, x_scale=scale)
+    excess, dist_err = _pick_rule(best, dist, xv, centers)
+    same = best == np.asarray(rb)
+    assert same.all() or excess <= 1e-5
+    assert excess <= 1e-5 and dist_err <= 1e-4
+
+
+def _near_tie_set(seed, pairs=40, d=16, rows_per_pair=3):
+    """A set on which one bf16 pass picks wrong by construction, for every
+    seed: center B_i is a bf16 vector with entries in [1, 1.25) (bf16
+    spacing u = 2^-7 there) and the rows sit on it (distance 0); its twin
+    A_i = B_i + 1.9 u, at index 2i, before B_i, rounds to B_i + 2u. One pass
+    sees x . bf16(A_i) = x . A_i + 0.1 u sum(x), which overstates the
+    product by more than the true gap (3.61 u^2 d): it picks A_i, 3.61 u^2
+    / 1.5625 >= 1.4e-4 of |x|^2 too far. The three exact parts see the
+    true gap, which float32 resolves at ~1e-7 of |x|^2."""
+    import ml_dtypes
+    rng = np.random.RandomState(seed)
+    u = 2.0 ** -7
+    b = np.asarray(rng.uniform(1.0, 1.25, size=(pairs, d)),
+                   dtype=ml_dtypes.bfloat16).astype(np.float64)
+    a = (b + 1.9 * u).astype(np.float32)
+    centers = np.empty((2 * pairs, d), np.float32)
+    centers[0::2], centers[1::2] = a, b.astype(np.float32)
+    x = np.repeat(b, rows_per_pair, axis=0)
+    return x, centers
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_one_bf16_pass_is_not_enough(seed):
+    """On the near-tie set the single-pass emulation's worst pick excess
+    is above the 1e-5 rule, and the three-part one is within it."""
+    x, centers = _near_tie_set(seed)
+    x32 = torch.from_numpy(x.astype(np.float32))
+    one, one_d = _emulated_k3(x32, centers, parts=1)
+    three, three_d = _emulated_k3(x32, centers, parts=3)
+    one_excess, _ = _pick_rule(one, one_d, x, centers)
+    three_excess, three_err = _pick_rule(three, three_d, x, centers)
+    assert one_excess > 1e-5
+    assert three_excess <= 1e-5 and three_err <= 1e-4
+    # and the three parts find the rows' own centers
+    np.testing.assert_array_equal(three,
+                                  np.repeat(np.arange(1, len(centers), 2), 3))
+
+
+# -- the tensor-core instances of K3 and K4 on the card: the tiling's edges ----
+
+def _k3_holds(x, c, x_scale=None):
+    """K3 at chip_smoke.py's tolerances against float64 on the same
+    values: where the argmins differ the pick is within 1e-5 of max(d2,
+    |x|^2) of the best, distances within 1e-4 of it; two launches bitwise
+    equal; int32 indices < k. Returns the count of differing rows."""
+    k = c.shape[0]
+    best, dist = tk.kmeans_assign(x, c, x_scale=x_scale)
+    best2, dist2 = tk.kmeans_assign(x, c, x_scale=x_scale)
+    torch.cuda.synchronize()
+    assert best.dtype == torch.int32 and 0 <= int(best.min())
+    assert int(best.max()) < k
+    assert torch.equal(best, best2) and torch.equal(dist, dist2)
+    b64, d64 = tk.kmeans_assign_plain(x, c, acc_dtype=torch.float64,
+                                      x_scale=x_scale)
+    xv = x.double() * (1.0 if x_scale is None else x_scale.double())
+    scale = torch.maximum(d64, (xv * xv).sum(1))
+    picked = ((xv - c.double()[best.long()]) ** 2).sum(1)
+    assert bool((picked - d64 <= 1e-5 * scale).all())
+    assert bool(((dist.double() - d64).abs() <= 1e-4 * scale + 1e-6).all())
+    return int((best.long() != b64).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [1, 8, 100, 128, 129])
+@pytest.mark.parametrize("k", [1, 37, 64, 65, 1000, 1025])
+def test_cuda_k3_tensor_cores_edges(k, d, dtype):
+    """The tensor-core instance across the center tile's k edge, the
+    64-feature block's d edge and a row count that is not a multiple of
+    the CTA's 256 rows; e4m3 with its x_scale. The launch is counted
+    under the tensor-core instance."""
+    dev = _cuda()
+    n = 777
+    g = torch.Generator(device=dev).manual_seed(k * 131 + d)
+    c = torch.randn(k, d, generator=g, device=dev)
+    if dtype == torch.bfloat16:
+        x, s = torch.randn(n, d, generator=g, device=dev).to(dtype), None
+    else:
+        x, s, _ = _fp8_codes(n, d, k + d, dev)
+        c = c * float((x.float() * s).abs().max().clamp(min=1.0)) * 0.3
+    before = dict(tk.kmeans_assign.launches_by_instance)
+    _k3_holds(x, c, s)
+    after = tk.kmeans_assign.launches_by_instance
+    assert after[tk.TENSOR_CORE] == before[tk.TENSOR_CORE] + 2
+    assert after[tk.FMA] == before[tk.FMA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [16, 100, 300])
+def test_cuda_k3_tensor_cores_near_ties(d, dtype):
+    """Centers in pairs c and c + delta, delta ~ 1e-6: float32 rounding
+    decides which of a pair wins, and every pick stays within the 1e-5
+    rule (the rows with another argmin than float64's are counted, not
+    forbidden). d = 300 stages X per feature block."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(d)
+    base = torch.randn(50, d, generator=g, device=dev)
+    c = torch.stack([base, base + 1e-6 * torch.randn(
+        50, d, generator=g, device=dev)], 1).reshape(100, d)
+    pick = torch.randint(0, 100, (3001,), generator=g, device=dev)
+    xv = c[pick] + 0.3 * torch.randn(3001, d, generator=g, device=dev)
+    if dtype == torch.bfloat16:
+        x, s = xv.to(dtype), None
+    else:
+        from cycloneml_tpu_torch.dataset.instance import quantize_fp8
+        x, s, _ = quantize_fp8(xv)
+        s = torch.as_tensor(s, dtype=torch.float32, device=dev)
+    _k3_holds(x, c, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("d", [16, 128, 300])
+def test_cuda_k3_tensor_cores_pick_what_the_fma_instance_picks(d, scaled):
+    """Every row's pick and every re-decided distance of the tensor-core
+    instance is the FMA instance's on the same values (float32 X; with
+    x_scale, e4m3 codes against their float32 copy and the same scale):
+    rows whose two least distances lie within the products' rounding
+    bound are re-decided in the FMA instance's arithmetic, and on the
+    others the two agree by that bound. Centers in near-tie pairs."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7 * d + scaled)
+    base = torch.randn(60, d, generator=g, device=dev)
+    c = torch.stack([base, base + 1e-6 * torch.randn(
+        60, d, generator=g, device=dev)], 1).reshape(120, d)
+    pick = torch.randint(0, 120, (20_011,), generator=g, device=dev)
+    xv = c[pick] + 0.5 * torch.randn(20_011, d, generator=g, device=dev)
+    if scaled:
+        from cycloneml_tpu_torch.dataset.instance import quantize_fp8
+        x, s, _ = quantize_fp8(xv)
+        s = torch.as_tensor(s, dtype=torch.float32, device=dev)
+    else:
+        x, s = xv.to(torch.bfloat16), None
+    best, dist = tk.kmeans_assign(x, c, x_scale=s)
+    fbest, fdist = tk.kmeans_assign(x.float(), c, x_scale=s)
+    torch.cuda.synchronize()
+    assert torch.equal(best, fbest)
+    assert bool((dist >= 0).all())
+    _k3_holds(x, c, s)
+
+
+@pytest.mark.gpu
+def test_cuda_k3_f32_takes_the_fma_instance():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(500, 100, generator=g, device=dev)
+    c = torch.randn(37, 100, generator=g, device=dev)
+    before = dict(tk.kmeans_assign.launches_by_instance)
+    _k3_holds(x, c)
+    after = tk.kmeans_assign.launches_by_instance
+    assert after[tk.FMA] == before[tk.FMA] + 2
+    assert after[tk.TENSOR_CORE] == before[tk.TENSOR_CORE]
+
+
+def _k4_holds(x, w, x_scale=None):
+    """K4 at chip_smoke.py's tolerances: |dG_ij| <= 1e-4 sqrt(G_ii G_jj)
+    against float64 on the same values, G == G^T bitwise, two launches
+    bitwise equal."""
+    got = tk.gramian(x, w, x_scale=x_scale)
+    again = tk.gramian(x, w, x_scale=x_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    ref = tk.gramian_plain(x, w, acc_dtype=torch.float64, x_scale=x_scale)
+    diag = torch.sqrt(torch.outer(ref.diagonal(), ref.diagonal()))
+    assert bool(((got.double() - ref).abs() <= 1e-4 * diag + 1e-6).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [1, 127, 128, 129, 777, 2000])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_k4_tensor_cores_edges(masked, d, dtype):
+    """The tensor-core instance across the 128-column tile's edge, ragged
+    rows (d = 127, 129, 777: strides that are not 16-byte aligned, for
+    bf16 and e4m3) and a row count that is not a multiple of the 64-row
+    stage, with and without a third of the rows masked by w = 0; e4m3 with
+    its x_scale. The launch is counted under the tensor-core instance."""
+    dev = _cuda()
+    n = 2_000 if d == 2000 else 5_003
+    if dtype == torch.bfloat16:
+        g = torch.Generator(device=dev).manual_seed(n + d)
+        x, s = torch.randn(n, d, generator=g, device=dev).to(dtype), None
+    else:
+        x, s, _ = _fp8_codes(n, d, n + 7 * d, dev)
+    w = ((torch.arange(n, device=dev) % 3 != 2).float() if masked
+         else None)
+    before = dict(tk.gramian.launches_by_instance)
+    _k4_holds(x, w, s)
+    after = tk.gramian.launches_by_instance
+    assert after[tk.TENSOR_CORE] == before[tk.TENSOR_CORE] + 2
+    assert after[tk.FMA] == before[tk.FMA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_cuda_tensor_cores_misaligned_base(dtype):
+    """X whose base address is not 16-byte aligned (a view 1 element into
+    its buffer) at d = 128, where the rows' stride would allow vector
+    loads: K3 and K4 take the element-wise path and still hold."""
+    dev = _cuda()
+    n, d = 1_001, 128
+    g = torch.Generator(device=dev).manual_seed(17)
+    flat = torch.randn(n * d + 1, generator=g, device=dev).to(dtype)
+    x = flat[1:].view(n, d)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    _k4_holds(x, None)
+    _k3_holds(x, torch.randn(65, d, generator=g, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [7_168, 10_000, 20_000])
+def test_cuda_k3_tensor_cores_wide_rows(d, dtype):
+    """Rows wider than the re-decision's shared-memory tile (7,168
+    features a row): near-tie pairs mark rows for the re-decision, which
+    stages them in feature tiles; every pick is the FMA instance's, and
+    the launch holds at chip_smoke.py's tolerances."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(d)
+    base = torch.randn(19, d, generator=g, device=dev)
+    c = torch.stack([base, base + 1e-6 * torch.randn(
+        19, d, generator=g, device=dev)], 1).reshape(38, d)
+    pick = torch.randint(0, 38, (2_001,), generator=g, device=dev)
+    xv = c[pick] + 0.05 * torch.randn(2_001, d, generator=g, device=dev)
+    if dtype == torch.bfloat16:
+        x, s = xv.to(dtype), None
+    else:
+        from cycloneml_tpu_torch.dataset.instance import quantize_fp8
+        x, s, _ = quantize_fp8(xv)
+        s = torch.as_tensor(s, dtype=torch.float32, device=dev)
+    best, _ = tk.kmeans_assign(x, c, x_scale=s)
+    fbest, _ = tk.kmeans_assign(x.float(), c, x_scale=s)
+    torch.cuda.synchronize()
+    assert torch.equal(best, fbest)
+    _k3_holds(x, c, s)
+
+
+def _gramian_plan(d, n):
+    import ctypes
+    tiles, splits = ctypes.c_int(0), ctypes.c_int(0)
+    assert tk._library("gramian").gramian_plan(
+        d, n, ctypes.byref(tiles), ctypes.byref(splits)) == 0
+    return tiles.value, splits.value
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 129, 777, 2000])
+def test_cuda_k4_scratch_does_not_grow_with_n(d):
+    """The plan's CTAs, one (128, 128) double partial each, stay within 16
+    waves of one CTA per SM for any row count, and each split holds at
+    least a fold of 1024 rows where there are that many."""
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (0, 1_000, 5_003, 400_000, 10_000_000, 10**9, 10**12):
+        tiles, splits = _gramian_plan(d, n)
+        assert splits >= 1 and tiles * splits <= max(16 * sms, tiles)
+        assert splits <= max(1, n // 1024)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [129, 256])
+def test_cuda_k4_splits_of_many_windows(d, dtype):
+    """Splits of more than one 32,768-row window: each CTA adds several
+    windows' float32 sums into its double partial. Ragged (d = 129) and
+    aligned rows, a third of them masked, at chip_smoke.py's
+    tolerances."""
+    dev = _cuda()
+    n = 2_000_003
+    tiles, splits = _gramian_plan(d, n)
+    assert n / splits > 32_768  # every split walks more than one window
+    if dtype == torch.bfloat16:
+        g = torch.Generator(device=dev).manual_seed(d)
+        x, s = torch.randn(n, d, generator=g, device=dev).to(dtype), None
+    else:
+        x, s, _ = _fp8_codes(n, d, d, dev)
+    w = (torch.arange(n, device=dev) % 3 != 2).float()
+    _k4_holds(x, w, s)
