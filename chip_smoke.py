@@ -54,7 +54,12 @@ the final result line:
    through the plain assignment: K3 launched exactly Lloyd steps +
    k-means|| passes times, all of them the tensor-core instance, training
    costs to 1e-4 relative; and one Lloyd step from identical initial
-   centers, max|dcenter| <= 1e-4 max|center|;
+   centers, max|dcenter| <= 1e-4 max|center|; a second fit through K3
+   gives bitwise-equal centers and cost; the center sums of one Lloyd step
+   (``center_sums``: stable sort + fixed-order sums, no float atomics)
+   against float64 ``index_add_`` sums (1e-6 of the largest sum, counts
+   exact), two calls bitwise equal, scratch below one copy of X, timed
+   beside the ``index_add_`` update they replaced;
 9. K4 (the Gramian) against its plain version in float64 (row chunks) at
    400,000 x 2,000 (bf16 and f32) and at a ragged shape with a third of the
    rows masked by w = 0: |dG_ij| <= 1e-4 sqrt(G_ii G_jj), G == G^T
@@ -86,11 +91,32 @@ the final result line:
 14. K3 and K4 on e4m3 codes with their x_scale, with phases 7 and 9's
    checks against float64 on the dequantized values, at the same shapes
    (KMeans and PCA are not fp8-capable: no fit launches these instances);
-15. a ``{"kernels": [...]}`` JSON line with K1-K4 and their e4m3
-   instances (K3 and K4 marked as redesigned for the tensor cores, with
-   their f32 FMA bounds and ptxas lines), the total wall time; the last
-   line is
-   ``{"ok": true, "device": {...}}``.
+15. K1s (K1's sweep for K models over one X) against its plain version
+   in float64 at the fit shape (float32 and bf16 X, bf16 labels beside
+   bf16 X) and at the ragged shape with a third of the rows at w=0, for K
+   in K1S_MODELS (20 > K_MAX: two launches), with and without centering:
+   phase 3's checks per model, one launch per group counted under X's
+   dtype, and at K=1 K1s against K1 under the same bounds; times at
+   every K beside the plain version, the bound and two yardsticks the
+   port never calls (K serial K1 launches, two cuBLAS f32 GEMMs);
+16. OneVsRest at full width: 8 classes at 2,000,000 x 1280 (bf16;
+   ``generate_multiclass``, bench_ovr_stacked's recipe, on the card),
+   ``LogisticRegression(maxIter=25, regParam=0.01, tol=0)``,
+   parallelism=8 through K1s (warm, steady), through the plain stacked
+   aggregator and serially (8 fits through K1): K1s launched exactly once
+   per stacked evaluation and K1 never in the stacked fit, coefficients
+   within rtol 5e-3 / atol 5e-4 and objectives to 1e-4 of both, the
+   predictions agreeing on >= 99.9% of rows; then the same rows quantized
+   on the card, stacked through K1s's e4m3 instance;
+17. CrossValidator over regParam {0.001, 0.01, 0.1} (3 folds,
+   areaUnderROC) on phase 4's data cut to 500,000 rows at full width,
+   stacked (K1s, once per evaluation of every fold's fit) and serial: the
+   same best regParam, avgMetrics to 1e-4;
+18. K1s's e4m3 instance with phase 15's checks on codes with x_scale;
+19. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+   instances and the center sums (K3 and K4 marked as redesigned for the
+   tensor cores, with their f32 FMA bounds and ptxas lines), the total
+   wall time; the last line is ``{"ok": true, "device": {...}}``.
 
 Each path's launch counts are set to 0 just before its fit and read just
 after. It exits non-zero, printing no result, when no CUDA device is
@@ -118,7 +144,12 @@ H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
 H100_FP8_FLOPS = 1979e12     # fp8 tensor cores, dense
 FP8_COEF_NORMREL = 0.20      # the reference's fp8 coefficient envelope
-KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian"]
+KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian", "glm_stacked",
+                  "center_sums"]
+K1S_MODELS = (1, 3, 8, 16, 20)   # 20 > K_MAX: two launches of K1s
+OVR_K = 8                        # OneVsRest's classes (bench_ovr_stacked)
+CV_N = 500_000                   # CrossValidator's rows (the cut of FIT_N)
+CV_REGS = (0.001, 0.01, 0.1)
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
 
@@ -161,22 +192,29 @@ def phase_card():
 def _kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel instance: its X (or partial)
     dtype and its other template arguments (glm_sweep_kernel: elements
-    per lane and the link, 0 logistic, 1 squared; gramian_tc_kernel: the
-    staging; kmeans_assign_tc_kernel: whether X is resident)."""
+    per lane and the link, 0 logistic, 1 squared; glm_stacked_kernel:
+    columns per thread and models per launch; center_piece_kernel: w's
+    dtype; gramian_tc_kernel: the staging; kmeans_assign_tc_kernel:
+    whether X is resident)."""
     m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f|d)"
-                  r"((?:L[ib]\d+E)*))?", mangled)
+                  r"(f|d)?((?:L[ib]\d+E)*))?", mangled)
     if m is None:
         return mangled
     if m.group(2) is None:
         return m.group(1)
-    args = [{"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}.get(
-        m.group(3), "e4m3")]
-    ints = re.findall(r"Li(\d+)E", m.group(4))
-    if len(ints) == 2:
+    names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
+             "13__nv_fp8_e4m3": "e4m3"}
+    args = [names[m.group(3)]]
+    if m.group(4):  # a second type: the center sums' w
+        args.append("w " + names[m.group(4)])
+    ints = re.findall(r"Li(\d+)E", m.group(5))
+    if len(ints) == 2 and m.group(1) == "glm_stacked_kernel":
+        args += [f"C={ints[0]}", f"KG={ints[1]}"]
+    elif len(ints) == 2:
         args += [f"E={ints[0]}", ("logistic", "squared")[int(ints[1])]]
     if len(ints) == 1:  # the tensor-core Gramian's staging
         args.append(("cp.async", "cp.async codes", "ld.global")[int(ints[0])])
-    bools = re.findall(r"Lb(\d)E", m.group(4))
+    bools = re.findall(r"Lb(\d)E", m.group(5))
     if bools:  # the tensor-core assignment: X resident or staged per block
         args.append(("X per block", "X resident")[int(bools[0])])
     return f"{m.group(1)}<{', '.join(args)}>"
@@ -471,13 +509,16 @@ def phase_fit():
         ctx.stop()
 
 
-def _other_launches(kernels, own: str) -> int:
-    """Launches of every kernel but ``own`` since the last reset."""
+def _other_launches(kernels, *own: str) -> int:
+    """Launches of every kernel but those named in ``own`` since the last
+    reset."""
     counts = {"logistic": kernels.glm_sweep.launches_by_link["logistic"],
               "squared": kernels.glm_sweep.launches_by_link["squared"],
               "kmeans_assign": kernels.kmeans_assign.launches,
-              "gramian": kernels.gramian.launches}
-    return sum(v for k, v in counts.items() if k != own)
+              "gramian": kernels.gramian.launches,
+              "glm_stacked": kernels.glm_sweep_stacked.launches,
+              "center_sums": kernels.center_sums.launches}
+    return sum(v for k, v in counts.items() if k not in own)
 
 
 def _context(name):
@@ -503,7 +544,7 @@ def _check(tag: str, checks: dict) -> None:
         raise AssertionError(f"{tag} failed a check")
 
 
-# -- K2 and LinearRegression ---------------------------------------------------
+# -- K2 and LinearRegression --------------------------------------------------
 
 def phase_k2(fp8=False):
     """K2 against its plain version in float64 (on float32 and bf16 X, or
@@ -658,7 +699,7 @@ def phase_linreg():
         ctx.stop()
 
 
-# -- the fp8 rung: LogisticRegression and LinearRegression on e4m3 codes -------
+# -- the fp8 rung: LogisticRegression and LinearRegression on e4m3 codes ------
 
 def _norm_rel(a, b) -> float:
     """max|a - b| / max|b|: the reference's fp8 envelope metric."""
@@ -780,7 +821,7 @@ def phase_fp8_linreg():
         kernels.SQUARED)
 
 
-# -- K3 and KMeans -------------------------------------------------------------
+# -- K3 and KMeans ------------------------------------------------------------
 
 def _k3_rule(x, c, best, dist, x_scale64):
     """K3's rule against float64 (row chunks) on the same values: the
@@ -921,7 +962,9 @@ def _k3_times(x, c, n, d, k, x_scale, main_dt):
 
 def phase_kmeans():
     """KMeans at configuration 3 through K3 and through the plain
-    assignment; returns K3's launches in the K3 fit."""
+    assignment, twice through K3 (bitwise-equal centers), and the center
+    sums of one Lloyd step timed alone; returns K3's and the center sums'
+    launches in the K3 fit and the center sums' numbers."""
     import numpy as np
     import torch
     from cycloneml_tpu_torch.dataset.random import RandomDatasets
@@ -945,11 +988,17 @@ def phase_kmeans():
         k_model, k_s = fit("auto")
         launches = kernels.kmeans_assign.launches
         by_instance = dict(kernels.kmeans_assign.launches_by_instance)
-        others = _other_launches(kernels, "kmeans_assign")
+        sum_launches = kernels.center_sums.launches
+        others = _other_launches(kernels, "kmeans_assign", "center_sums")
+        k_again, k_again_s = fit("auto")
         p_model, p_s = fit("false")
         peak = torch.cuda.max_memory_allocated()
         cost_rel = abs(k_model.training_cost - p_model.training_cost) \
             / abs(p_model.training_cost)
+        centers = k_model.cluster_centers_matrix().to_array()
+        repeat_equal = bool(np.array_equal(
+            centers, k_again.cluster_centers_matrix().to_array())) and \
+            k_model.training_cost == k_again.training_cost
         # one Lloyd step from identical initial centers
         one = km(max_iter=1)
         init, _ = one._init_centers(ds, KM_K, False)
@@ -962,17 +1011,23 @@ def phase_kmeans():
               kernel={"iterations": k_model.num_iterations,
                       "init_passes": k_model.init_distance_passes,
                       "k3_launches": launches,
-                      "k3_launches_by_instance": by_instance, "fit_s": k_s,
+                      "k3_launches_by_instance": by_instance,
+                      "center_sums_launches": sum_launches, "fit_s": k_s,
+                      "repeat_fit_s": k_again_s,
                       "training_cost": k_model.training_cost},
               plain={"iterations": p_model.num_iterations,
                      "init_passes": p_model.init_distance_passes,
                      "fit_s": p_s, "training_cost": p_model.training_cost},
               cost_rel_diff=cost_rel, one_step_max_center_diff=step_diff,
-              one_step_max_center=step_scale, max_memory_allocated=peak)
+              one_step_max_center=step_scale,
+              repeat_fit_bitwise_equal=repeat_equal,
+              max_memory_allocated=peak)
         _check("kmeans fit", {
             "K3 launched once per Lloyd step and k-means|| pass":
                 launches == k_model.num_iterations
                 + k_model.init_distance_passes,
+            "center sums launched once per Lloyd step (no attraction pass "
+            "at this size)": sum_launches == k_model.num_iterations,
             "no other kernel launched": others == 0,
             "bf16 X launched only the tensor-core instance":
                 by_instance[kernels.TENSOR_CORE] == launches
@@ -980,15 +1035,86 @@ def phase_kmeans():
             "training costs agree to 1e-4": cost_rel <= 1e-4,
             "one Lloyd step agrees (1e-4 of max|center|)":
                 step_diff <= 1e-4 * step_scale,
-            "finite centers": bool(np.all(np.isfinite(
-                k_model.cluster_centers_matrix().to_array()))),
+            "two K3 fits give bitwise-equal centers and costs": repeat_equal,
+            "finite centers": bool(np.all(np.isfinite(centers))),
         })
-        return launches
+        return launches, sum_launches, _center_sums_phase(ds, centers)
     finally:
         ctx.stop()
 
 
-# -- K4 and PCA ----------------------------------------------------------------
+def _index_add_center_sums(x, w, best, k):
+    """The center update before PR 6 (``index_add_`` over 2^18-row
+    chunks, float atomics on CUDA): the library call the kernel is timed
+    against."""
+    import torch
+    sums = torch.zeros((k, x.shape[1]), dtype=w.dtype, device=x.device)
+    for lo in range(0, x.shape[0], 1 << 18):
+        sums.index_add_(0, best[lo:lo + (1 << 18)],
+                        x[lo:lo + (1 << 18)].to(w.dtype)
+                        * w[lo:lo + (1 << 18), None])
+    counts = torch.zeros(k, dtype=w.dtype, device=x.device).index_add_(
+        0, best, w)
+    return sums, counts
+
+
+def _center_sums_phase(ds, centers):
+    """The center sums of one Lloyd step at configuration 3, on the
+    assignment to the fit's final centers: the kernel against float64
+    index_add_ sums, two calls bitwise equal, and its time per Lloyd step
+    beside the index_add_ update it replaced and the bound."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    x, w = ds.x, ds.w
+    n, d = x.shape
+    c = torch.as_tensor(centers, dtype=torch.float32, device=x.device)
+    best, _ = kernels.kmeans_assign(x, c)
+    sums, counts = kernels.center_sums(x, w, best, KM_K)
+    sums2, counts2 = kernels.center_sums(x, w, best, KM_K)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(sums, sums2) and torch.equal(counts, counts2)
+    t_sums, t_counts = kernels.center_sums_plain(x, w, best.long(), KM_K,
+                                                 torch.float64)
+    err = float((sums.double() - t_sums).abs().max())
+    scale = float(t_sums.abs().max())
+    counts_exact = torch.equal(counts.double(), t_counts)
+    old_a, _ = _index_add_center_sums(x, w, best.long(), KM_K)
+    old_b, _ = _index_add_center_sums(x, w, best.long(), KM_K)
+    old_bitwise = torch.equal(old_a, old_b)
+    del t_sums, old_a, old_b
+    k_ms = _time_ms(lambda: kernels.center_sums(x, w, best, KM_K), 5, 1)
+    lib_ms = _time_ms(lambda: _index_add_center_sums(x, w, best.long(),
+                                                     KM_K), 5, 1)
+    p_ms = _time_ms(lambda: kernels.center_sums_plain(x, w, best.long(),
+                                                      KM_K), 3, 1)
+    n_bytes = n * d * x.element_size() + n * 4 + n * 4 + KM_K * (d + 1) * 4
+    bound, bound_by = _bound(n_bytes, float(n) * (d + 1))
+    # scratch beyond the inputs: the sort's order and the pieces' partials
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.center_sums(x, w, best, KM_K)
+    torch.cuda.synchronize()
+    work_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+    _line("center_sums", n=n, d=d, k=KM_K, dtype=_dt(x),
+          max_abs_err=err, max_abs_sum=scale, counts_exact=counts_exact,
+          bitwise_equal=bitwise, index_add_bitwise_equal=old_bitwise,
+          kernel_ms_per_lloyd_step=k_ms,
+          index_add_ms_per_lloyd_step=lib_ms, plain_ms=p_ms,
+          bound_ms=bound, bound_by=bound_by, working_mem_mib=work_mib,
+          x_mib=n * d * x.element_size() / 2**20)
+    _check("center sums", {
+        "within 1e-6 of max|sum| of the float64 sums": err <= 1e-6 * scale,
+        "counts exact": counts_exact,
+        "two calls bitwise equal": bitwise,
+        "scratch below one copy of X": work_mib * 2**20
+        < n * d * x.element_size(),
+    })
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+# -- K4 and PCA ---------------------------------------------------------------
 
 def phase_k4(fp8=False):
     """K4 against its plain version in float64 (on float32 and bf16 X, or
@@ -1204,6 +1330,420 @@ def phase_pca():
         ctx.stop()
 
 
+# -- K1s and the stacked fits (OneVsRest, CrossValidator) ---------------------
+
+def _k1s_inputs(n, d, seed, masked):
+    """X (f32), labels for max(K1S_MODELS) models (y_k = 1[x.beta_k +
+    eps > 0]), w (a third of the rows at 0 when ``masked``), coefficients
+    and standardization vectors, on the card."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    k = max(K1S_MODELS)
+    x = _randn(n, d, g)
+    truth = torch.randn(d, k, generator=g, device=DEVICE) / d ** 0.5
+    y = torch.empty((n, k), device=DEVICE)
+    for lo in range(0, n, ROWS):
+        m = x[lo:lo + ROWS] @ truth
+        y[lo:lo + ROWS] = (m + torch.randn(m.shape, generator=g,
+                                           device=DEVICE) > 0).float()
+    w = ((torch.arange(n, device=DEVICE) % 3 != 2).float() if masked
+         else torch.ones(n, device=DEVICE))
+    coef = torch.randn(k, d + 1, generator=g, device=DEVICE) / d ** 0.5
+    inv_std = torch.rand(d, generator=g, device=DEVICE) + 0.5
+    mu = torch.randn(d, generator=g, device=DEVICE) * 0.5
+    return x, y, w, coef, inv_std, mu
+
+
+def _label_dtype(x):
+    """The labels' dtype beside X: the data tier, bf16 under fp8."""
+    import torch
+    return torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+
+
+def _fold_truth_stacked(x, y, w, inv_std, mu, coef, d, x_scale=None):
+    """The scaled stacked sweep in float64 through the plain version."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    c = coef.double()
+    b = c[:, :d] * inv_std.double()
+    off = c[:, d] - c[:, :d] @ mu.double()
+    loss, g, msum, wsum = kernels.glm_sweep_stacked_plain(
+        x, y, w, b, off, acc_dtype=torch.float64, x_scale=x_scale)
+    grad = torch.cat([g * inv_std.double() - mu.double()[None] * msum[:, None],
+                      msum[:, None]], dim=1)
+    return loss, grad, wsum
+
+
+def _k1s_errors(got, t_loss, t_grad):
+    """Worst relative loss error and worst grad error over max|grad|,
+    across the models."""
+    rel_loss = float(((got["loss"].double() - t_loss).abs()
+                      / t_loss.abs()).max())
+    err = (got["grad"].double() - t_grad).abs().max(dim=1).values
+    gmax = t_grad.abs().max(dim=1).values
+    return rel_loss, float((err / gmax).max()), float(err.max())
+
+
+def phase_k1s(fp8=False):
+    """K1s against its plain version in float64 (float32 and bf16 X, or
+    with ``fp8`` e4m3 codes with their x_scale) at every K of K1S_MODELS,
+    with and without centering, at the fit shape and at the ragged shape
+    with a third of the rows at w=0; K=1 against K1; returns the
+    main-shape numbers at K=OVR_K for the kernels line."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    results = {}
+    main_dt = _main_dtype(fp8)
+    for n, d, seed, masked in ((FIT_N, FIT_D, 13, False),
+                               (RAGGED_N, RAGGED_D, 14, True)):
+        x32, y32, w, coef, inv_std, mu = _k1s_inputs(n, d, seed, masked)
+        n_w = float(w.sum())
+        for x, s32, s64 in _x_forms(x32, fp8):
+            dtype = x.dtype
+            ys = y32.to(_label_dtype(x))
+            for k in K1S_MODELS:
+                yk = ys[:, :k]
+                groups = -(-k // kernels.K_MAX)
+                for centered in (False, True):
+                    m = mu if centered else torch.zeros_like(mu)
+                    before = kernels.glm_sweep_stacked.launches_by_dtype[
+                        dtype]
+                    got = kernels.fused_binary_logistic_stacked_scaled(
+                        x, yk, w, inv_std, m, coef[:k], d, x_scale=s32)
+                    again = kernels.fused_binary_logistic_stacked_scaled(
+                        x, yk, w, inv_std, m, coef[:k], d, x_scale=s32)
+                    torch.cuda.synchronize()
+                    launched = kernels.glm_sweep_stacked.launches_by_dtype[
+                        dtype] - before == 2 * groups
+                    t_loss, t_grad, t_w = _fold_truth_stacked(
+                        x, yk, w, inv_std, m, coef[:k], d, s64)
+                    rel_loss, rel_grad, err = _k1s_errors(got, t_loss,
+                                                          t_grad)
+                    bitwise = all(torch.equal(got[q], again[q])
+                                  for q in ("loss", "grad", "count"))
+                    counts = bool((got["count"] == n_w).all())
+                    vs_k1 = None
+                    if k == 1:
+                        # K=1: K1s against K1 under the same bounds
+                        one = kernels.fused_binary_logistic_scaled(
+                            x, yk[:, 0], w, inv_std, m, coef[0], d,
+                            x_scale=s32)
+                        torch.cuda.synchronize()
+                        vs_k1 = _k1s_errors(
+                            got, one["loss"].double().reshape(1),
+                            one["grad"].double().reshape(1, -1))[:2]
+                    ok = (rel_loss <= 1e-5 and rel_grad <= 1e-4 and counts
+                          and float(t_w) == n_w and bitwise and launched
+                          and (vs_k1 is None or (vs_k1[0] <= 1e-5
+                                                 and vs_k1[1] <= 1e-4)))
+                    _line("k1s_check", n=n, d=d, k=k, dtype=_dt(x),
+                          label_dtype=_dt(yk), x_scale=s32 is not None,
+                          centered=centered, masked_rows=n - int(n_w),
+                          rel_loss=rel_loss, grad_err_over_max=rel_grad,
+                          max_abs_grad_err=err, count=float(got["count"][0]),
+                          launches=2 * groups, bitwise_equal=bitwise,
+                          vs_k1=vs_k1, ok=ok)
+                    if not ok:
+                        raise AssertionError(
+                            f"K1s disagrees with its plain version at n={n} "
+                            f"d={d} k={k} {dtype}")
+                    if n == FIT_N and dtype == main_dt and k == OVR_K:
+                        results["max_abs_err"] = max(
+                            results.get("max_abs_err", 0.0), err)
+                if n == FIT_N:
+                    results.update(_k1s_times(x, x32, yk, w, coef[:k],
+                                              inv_std, d, n, s32, main_dt))
+            del x, ys
+        del x32, y32
+        torch.cuda.empty_cache()
+    return results
+
+
+def _k1s_times(x, x32, y, w, coef, inv_std, d, n, x_scale, main_dt):
+    """K1s's time at K = y.shape[1] beside its plain version, the bound,
+    and two yardsticks the port never calls: K serial launches of K1, and
+    the two products of the sweep as cuBLAS f32 GEMMs (TF32 off)."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    k = y.shape[1]
+    b = coef[:, :d] * inv_std
+    off = coef[:, d]
+    reps = 10 if k <= 8 else 5
+    k_ms = _time_ms(lambda: kernels.glm_sweep_stacked(
+        x, y, w, b, off, x_scale=x_scale), reps, 2)
+    p_ms = _time_ms(lambda: kernels.glm_sweep_stacked_plain(
+        x, y, w, b, off, x_scale=x_scale), 2, 1)
+    cols = [y[:, j].float().contiguous() for j in range(k)]
+
+    def serial():
+        for j in range(k):
+            kernels.glm_sweep(x, cols[j], w, b[j], off[j], x_scale=x_scale)
+    serial_ms = _time_ms(serial, 3, 1)
+    yf = y.float()
+    bt = b.t().contiguous()
+
+    def gemms():  # X.B^T, then M^T.X, on the values in f32
+        m = x32 @ bt + off
+        mult = w[:, None] * (torch.sigmoid(m) - yf)
+        return mult.t() @ x32
+    gemm_ms = _time_ms(gemms, 3, 1)
+    del cols, yf
+    n_bytes = (n * d * x.element_size() + n * k * y.element_size() + n * 4
+               + k * (d + 1) * 4 + (k * (d + 2) + 1) * 4)
+    bound, bound_by = _bound(n_bytes, 4.0 * n * d * k)
+    _line("k1s_time", n=n, d=d, k=k, dtype=_dt(x), kernel_ms=k_ms,
+          plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+          yardstick_serial_k1_ms=serial_ms,
+          yardstick_two_f32_gemm_ms=gemm_ms,
+          achieved_gb_s=n_bytes / k_ms / 1e6,
+          achieved_tflop_s=4.0 * n * d * k / k_ms / 1e9,
+          share_of_bound=bound / k_ms)
+    if x.dtype == main_dt and k == OVR_K:
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                "bound_by": bound_by, "yardstick_ms": serial_ms,
+                "yardstick_two_f32_gemm_ms": gemm_ms}
+    return {}
+
+
+def _ovr_margins(ds, models):
+    """The OvR margins' argmax over the real rows, on the card."""
+    import numpy as np
+    import torch
+    w_mat = torch.as_tensor(
+        np.stack([m.coefficients.values for m in models]),
+        dtype=torch.float32, device=ds.x.device).t().contiguous()
+    b = torch.as_tensor([m.intercept for m in models], dtype=torch.float32,
+                        device=ds.x.device)
+    scale = None if ds.x_scale is None else torch.as_tensor(
+        ds.x_scale, dtype=torch.float32, device=ds.x.device)
+    out = torch.empty(ds.n_rows, dtype=torch.int64, device=ds.x.device)
+    for lo in range(0, ds.n_rows, ROWS):
+        hi = min(lo + ROWS, ds.n_rows)
+        xc = ds.x[lo:hi].float()
+        if scale is not None:
+            xc = xc * scale
+        out[lo:hi] = (xc @ w_mat + b).argmax(1)
+    return out
+
+
+def _ovr_summary(model):
+    return {"iterations": [m.summary.total_iterations for m in model.models],
+            "evals": [m.summary.total_evals for m in model.models],
+            "stacked_evals": model.models[0].summary.stacked_evals,
+            "final_objectives": [m.summary.objective_history[-1]
+                                 for m in model.models]}
+
+
+def _same_models(a, b):
+    """Coefficients within the kernel-vs-plain bound (rtol 5e-3, atol
+    5e-4), and the worst relative difference of the final objectives."""
+    import numpy as np
+    coef_ok, obj = True, 0.0
+    for ma, mb in zip(a.models, b.models):
+        coef_ok &= bool(np.allclose(ma.coefficients.values,
+                                    mb.coefficients.values, rtol=5e-3,
+                                    atol=5e-4)) and abs(
+            ma.intercept - mb.intercept) <= 5e-4 + 5e-3 * abs(mb.intercept)
+        fa, fb = (m.summary.objective_history[-1] for m in (ma, mb))
+        obj = max(obj, abs(fa - fb) / abs(fb))
+    return coef_ok, obj
+
+
+def phase_ovr():
+    """OneVsRest at full width: K=OVR_K classes at 2,000,000 x 1280 (bf16
+    tier; bench_ovr_stacked's recipe on the card), LogisticRegression(
+    maxIter=25, regParam=0.01, tol=0), parallelism=OVR_K through K1s
+    (warm and steady), through the plain stacked aggregator, and serially
+    (parallelism=1, OVR_K fits through K1); then the same rows quantized
+    on the card, stacked through K1s's e4m3 instance. Returns K1s's bf16
+    and e4m3 launches in their stacked fits."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_multiclass
+    from cycloneml_tpu_torch.ml.classification import (LogisticRegression,
+                                                       OneVsRest)
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_ovr")
+    try:
+        ds, gen_s = _timed(lambda: generate_multiclass(
+            ctx, FIT_N, FIT_D, OVR_K, seed=7))
+        labels = torch.as_tensor(ds.y_host()[:ds.n_rows],
+                                 device=ds.x.device).long()
+
+        def fit(mode, par, data=ds):
+            ctx.conf.set("cyclone.ml.usePallasKernels", mode)
+            clf = LogisticRegression(maxIter=25, regParam=0.01, tol=0.0)
+            return _timed(lambda: OneVsRest(classifier=clf,
+                                            parallelism=par).fit(data))
+
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        k_model, k_warm = fit("auto", OVR_K)
+        k1s = dict(kernels.glm_sweep_stacked.launches_by_dtype)
+        k1 = kernels.glm_sweep.launches
+        others = _other_launches(kernels, "glm_stacked")
+        k_again, k_steady = fit("auto", OVR_K)
+        p_model, p_s = fit("false", OVR_K)
+        kernels.reset_launch_counts()
+        s_model, s_s = fit("auto", 1)
+        serial_k1 = kernels.glm_sweep.launches
+        serial_k1s = kernels.glm_sweep_stacked.launches
+        peak = torch.cuda.max_memory_allocated()
+        pred_k = _ovr_margins(ds, k_model.models)
+        agree_s = float((pred_k == _ovr_margins(ds, s_model.models))
+                        .double().mean())
+        agree_p = float((pred_k == _ovr_margins(ds, p_model.models))
+                        .double().mean())
+        acc = float((pred_k == labels).double().mean())
+        coef_p, obj_p = _same_models(k_model, p_model)
+        coef_s, obj_s = _same_models(k_model, s_model)
+        stacked_evals = k_model.models[0].summary.stacked_evals
+        groups = -(-OVR_K // kernels.K_MAX)
+        serial_evals = sum(m.summary.total_evals for m in s_model.models)
+        finite = all(np.all(np.isfinite(m.coefficients.values))
+                     for m in k_model.models)
+        repeat = all(np.array_equal(a.coefficients.values,
+                                    b.coefficients.values)
+                     for a, b in zip(k_model.models, k_again.models))
+
+        # the fp8 rung: the same rows as e4m3 codes, stacked through K1s
+        ctx.conf.set("cyclone.data.dtype", "float8")
+        ds8, quant_s = _timed(ds.quantized)
+        kernels.reset_launch_counts()
+        f_model, f_s = fit("auto", OVR_K, ds8)
+        k1s8 = dict(kernels.glm_sweep_stacked.launches_by_dtype)
+        others8 = _other_launches(kernels, "glm_stacked")
+        f_evals = f_model.models[0].summary.stacked_evals
+        agree_f = float((pred_k == _ovr_margins(ds8, f_model.models))
+                        .double().mean())
+        envelope = max(_norm_rel(a.coefficients.values, b.coefficients.values)
+                       for a, b in zip(f_model.models, k_model.models))
+        _line("ovr_fit", n=FIT_N, d=FIT_D, classes=OVR_K,
+              data_dtype=_dt(ds.x), generate_s=gen_s,
+              stacked_k1s={**_ovr_summary(k_model), "k1s_launches": k1s[
+                  ds.x.dtype], "k1_launches": k1, "warm_s": k_warm,
+                  "steady_s": k_steady},
+              stacked_plain={**_ovr_summary(p_model), "fit_s": p_s},
+              serial_k1={**_ovr_summary(s_model), "k1_launches": serial_k1,
+                         "k1s_launches": serial_k1s, "fit_s": s_s},
+              fp8_stacked_k1s={**_ovr_summary(f_model),
+                               "e4m3_launches": k1s8[torch.float8_e4m3fn],
+                               "quantize_s": quant_s, "fit_s": f_s,
+                               "coef_norm_rel_to_bf16": envelope,
+                               "prediction_agreement": agree_f,
+                               "fallbacks": ctx.precision_fallbacks},
+              objective_rel_diff={"plain": obj_p, "serial": obj_s},
+              prediction_agreement={"plain": agree_p, "serial": agree_s},
+              train_accuracy=acc, max_memory_allocated=peak)
+        _check("ovr fit", {
+            "K1s launched once per stacked evaluation (x groups)":
+                k1s[ds.x.dtype] == stacked_evals * groups
+                and sum(k1s.values()) == k1s[ds.x.dtype],
+            "K1 launched 0 times in the stacked fit": k1 == 0,
+            "no other kernel launched": others == 0,
+            "the serial fits launch K1 once per evaluation, K1s never":
+                serial_k1 == serial_evals and serial_k1s == 0,
+            "coefficients agree with the plain stacked fit (rtol 5e-3, "
+            "atol 5e-4)": coef_p,
+            "coefficients agree with the serial fits": coef_s,
+            "final objectives agree to 1e-4": max(obj_p, obj_s) <= 1e-4,
+            "predictions agree on >= 99.9% of rows":
+                min(agree_p, agree_s) >= 0.999,
+            "repeat fit reproduces the models": repeat,
+            "finite models": finite,
+            "fp8: e4m3 K1s launched once per stacked evaluation, no other "
+            "instance": k1s8[torch.float8_e4m3fn] == f_evals * groups
+                and sum(k1s8.values()) == k1s8[torch.float8_e4m3fn]
+                and others8 == 0,
+        })
+        return k1s[ds.x.dtype], k1s8[torch.float8_e4m3fn]
+    finally:
+        ctx.stop()
+
+
+def phase_cv():
+    """CrossValidator over regParam in CV_REGS (3 folds, areaUnderROC) on
+    phase 4's data cut to CV_N rows (full width), stacked (parallelism=3,
+    K1s) and serial (parallelism=1, K1): the same best regParam and
+    avgMetrics to 1e-4. Returns K1s's launches in the stacked run."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ml.evaluation import \
+        BinaryClassificationEvaluator
+    from cycloneml_tpu_torch.ml.tuning import CrossValidator, \
+        ParamGridBuilder
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_cv")
+    try:
+        ds = generate_classification(ctx, FIT_N, FIT_D, seed=0)
+        # bf16 values are exact in f32: the frame's bf16 tier gets them back
+        frame = MLFrame(ctx, {"features": ds.x[:CV_N].float().cpu().numpy(),
+                              "label": ds.y_host()[:CV_N]})
+        del ds
+        torch.cuda.empty_cache()
+        lr = LogisticRegression(maxIter=25, tol=0.0)
+        grid = ParamGridBuilder().add_grid(lr.regParam, list(CV_REGS)).build()
+        # each stacked fit's lockstep evaluations, recorded on the way
+        evals = []
+        fit_stacked = LogisticRegression.fit_stacked
+
+        def recording(self, *args, **kwargs):
+            models = fit_stacked(self, *args, **kwargs)
+            evals.append(models[0].summary.stacked_evals)
+            return models
+
+        def cv(par):
+            return _timed(lambda: CrossValidator(
+                estimator=lr, estimator_param_maps=grid,
+                evaluator=BinaryClassificationEvaluator(), numFolds=3,
+                parallelism=par).fit(frame))
+
+        LogisticRegression.fit_stacked = recording
+        try:
+            kernels.reset_launch_counts()
+            st, st_s = cv(3)
+            st_k1s = kernels.glm_sweep_stacked.launches
+            st_k1 = kernels.glm_sweep.launches
+        finally:
+            LogisticRegression.fit_stacked = fit_stacked
+        kernels.reset_launch_counts()
+        se, se_s = cv(1)
+        se_k1s = kernels.glm_sweep_stacked.launches
+        se_k1 = kernels.glm_sweep.launches
+        diff = float(np.max(np.abs(np.asarray(st.avg_metrics)
+                                   - np.asarray(se.avg_metrics))))
+        best = [CV_REGS[int(np.argmax(m.avg_metrics))] for m in (st, se)]
+        _line("cv_fit", n=CV_N, d=FIT_D, folds=3, grid=list(CV_REGS),
+              reduced={"n": f"{FIT_N} -> {CV_N} rows (phase 4's first "
+                            f"{CV_N}), so the run stays in its time limit"},
+              stacked={"avg_metrics": st.avg_metrics, "fit_s": st_s,
+                       "k1s_launches": st_k1s, "k1_launches": st_k1,
+                       "stacked_evals_per_fold": evals,
+                       "best_reg": best[0]},
+              serial={"avg_metrics": se.avg_metrics, "fit_s": se_s,
+                      "k1s_launches": se_k1s, "k1_launches": se_k1,
+                      "best_reg": best[1]},
+              max_avg_metric_diff=diff)
+        _check("cv fit", {
+            "K1s launched once per stacked evaluation of every fold":
+                st_k1s == sum(evals) and len(evals) == 3,
+            "the stacked CV ran K1 only in its final refit":
+                st_k1 == st.best_model.summary.total_evals,
+            "the serial CV launched no K1s": se_k1s == 0 and se_k1 > 0,
+            "both choose the same regParam": best[0] == best[1],
+            "avgMetrics agree to 1e-4": diff <= 1e-4,
+        })
+        return st_k1s
+    finally:
+        ctx.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -1234,7 +1774,8 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"cycloneml_tpu_torch/csrc/{source}.cu",
-            "replaces": f"cycloneml_tpu/ops/kernels.py:{replaces}",
+            "replaces": replaces if isinstance(replaces, str)
+            else f"cycloneml_tpu/ops/kernels.py:{replaces}",
             "launches": launches, "max_abs_err": numbers["max_abs_err"],
             "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
             "bound_ms": numbers["bound_ms"],
@@ -1258,7 +1799,8 @@ def main() -> int:
     k2 = phase_k2()
     entry("glm_sweep (squared, K2)", "glm_sweep", 226, k2, phase_linreg())
     k3 = phase_k3()
-    entry("kmeans_assign (K3)", "kmeans_assign", 384, k3, phase_kmeans(),
+    km_launches, sum_launches, sums = phase_kmeans()
+    entry("kmeans_assign (K3)", "kmeans_assign", 384, k3, km_launches,
           **redesigned(k3, "kmeans_assign_tc_kernel<bf16",
                        "kmeans_redecide_kernel<bf16"))
     k4 = phase_k4()
@@ -1285,6 +1827,24 @@ def main() -> int:
     entry("gramian (K4, e4m3)", "gramian", 501, k4, 0, **no_path,
           **redesigned(k4, "gramian_tc_kernel<e4m3",
                        "gramian_reduce_kernel"))
+    # the stacked slice: K1s, OneVsRest and CrossValidator through it
+    k1s = phase_k1s()
+    ovr_launches, ovr8_launches = phase_ovr()
+    entry("glm_sweep_stacked (logistic, K models, K1s)", "glm_stacked", 270,
+          k1s, ovr_launches, models=OVR_K,
+          vmapped_by="cycloneml_tpu/ml/optim/aggregators.py:394",
+          cv_fit_launches=phase_cv(),
+          yardstick="K serial launches of K1",
+          yardstick_two_f32_gemm_ms=k1s["yardstick_two_f32_gemm_ms"])
+    k1s8 = phase_k1s(fp8=True)
+    entry("glm_sweep_stacked (K1s, e4m3)", "glm_stacked", 309, k1s8,
+          ovr8_launches, models=OVR_K,
+          yardstick="K serial launches of K1 (e4m3)",
+          yardstick_two_f32_gemm_ms=k1s8["yardstick_two_f32_gemm_ms"])
+    entry("center_sums (KMeans center update)", "center_sums",
+          "cycloneml_tpu/ml/clustering/kmeans.py:122", sums, sum_launches,
+          note="jax.ops.segment_sum of the Lloyd step, not a Pallas "
+               "kernel; library_ms is the index_add_ update it replaced")
     print(json.dumps({"kernels": entries}), flush=True)
     _line("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

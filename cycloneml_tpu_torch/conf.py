@@ -232,3 +232,14 @@ USE_PALLAS_KERNELS = (
                  "must be auto, true or false")
     .str_conf("auto")
 )
+
+OOCORE_MODE = (
+    ConfigBuilder("cyclone.oocore.mode")
+    .doc("Out-of-core streaming fit mode, the reference's key: 'auto' "
+         "(default) and 'off' fit in core; 'force' asks for the streaming "
+         "epoch engine, which is ROADMAP slice 6 (stacked fits raise "
+         "NotImplementedError under it).")
+    .check_value(lambda v: v in ("auto", "force", "off"),
+                 "must be auto, force or off")
+    .str_conf("auto")
+)

@@ -57,6 +57,11 @@ class MLFrame:
         cols[name] = self._coerce(values)
         return MLFrame(self.ctx, cols)
 
+    def filter_rows(self, mask: np.ndarray) -> "MLFrame":
+        """A frame of the rows where ``mask`` is True (a boolean mask or an
+        index array), every column alike."""
+        return MLFrame(self.ctx, {k: v[mask] for k, v in self._cols.items()})
+
     def to_instance_dataset(self, features_col: str = "features",
                             label_col: Optional[str] = "label",
                             weight_col: Optional[str] = None,

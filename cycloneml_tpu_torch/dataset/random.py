@@ -2,7 +2,9 @@
 
 The port's counterpart of ``cycloneml_tpu/dataset/random.py``
 (``generate_classification``, ``generate_regression`` and
-``RandomDatasets.normal``). Each mesh shard draws its rows from its own
+``RandomDatasets.normal``), plus ``generate_multiclass``, the recipe of the
+reference's OneVsRest benchmark (bench.py ``bench_ovr_stacked``) drawn on
+the device. Each mesh shard draws its rows from its own
 seeded ``torch.Generator`` (seed, shard), and a shared ground-truth weight
 vector comes from the generator (seed, 2**31 - 1) — the reference's
 per-shard ``fold_in`` scheme. The bits differ from ``jax.random``'s, so "the
@@ -84,12 +86,52 @@ def generate_regression(ctx, n_rows: int, n_cols: int, seed: int = 0,
                              lambda m: m)
 
 
+def generate_multiclass(ctx, n_rows: int, n_cols: int, n_classes: int,
+                        seed: int = 0, center_scale: float = 3.0
+                        ) -> InstanceDataset:
+    """Labeled synthetic k-class data on the device, the recipe of
+    bench.py's ``bench_ovr_stacked``: class centers ``N(0, I) *
+    center_scale`` (k, d), labels uniform over the k classes, rows ``x =
+    center[y] + N(0, I)``. X in the data tier, labels 0..k-1 in the
+    accumulator tier; padding rows carry w=0."""
+    conf = getattr(ctx, "conf", None)
+    rt = ctx.mesh_runtime
+    dev = rt.device
+    nd = rt.data_parallelism
+    per = max(((n_rows + nd - 1) // nd + 7) // 8 * 8, 8)
+    total = per * nd
+    cdt, xdt = compute_dtype(conf), data_dtype(conf)
+    f32 = torch.float32
+    centers = torch.randn((n_classes, n_cols), dtype=f32, device=dev,
+                          generator=_generator(dev, seed, _BETA_STREAM)) \
+        * center_scale
+    x = torch.empty((total, n_cols), dtype=xdt, device=dev)
+    y = torch.empty(total, dtype=cdt, device=dev)
+    for shard in range(nd):
+        g = _generator(dev, seed, shard)
+        for lo in range(0, per, _GEN_ROWS):
+            rows = min(_GEN_ROWS, per - lo)
+            yc = torch.randint(0, n_classes, (rows,), generator=g,
+                               device=dev)
+            xc = torch.randn((rows, n_cols), generator=g, device=dev,
+                             dtype=f32)
+            at = shard * per + lo
+            x[at:at + rows] = (centers[yc] + xc).to(xdt)
+            y[at:at + rows] = yc.to(cdt)
+    w_host = np.zeros(total, dtype=np.float64)
+    w_host[:n_rows] = 1.0
+    w = rt.device_put_sharded_rows(w_host).to(cdt)
+    ds = InstanceDataset(ctx, x, y, w, n_rows, n_cols)
+    return ds.attach_host_labels(y.cpu().double().numpy(), w_host)
+
+
 class RandomDatasets:
     """Static factory surface mirroring RandomRDDs (the vector variants
     this slice uses)."""
 
     classification = staticmethod(generate_classification)
     regression = staticmethod(generate_regression)
+    multiclass = staticmethod(generate_multiclass)
 
     @staticmethod
     def normal(ctx, n_rows: int, n_cols: int = 1, seed: int = 0,

@@ -3,8 +3,9 @@
 The port never imports ``cycloneml_tpu`` (or jax); what crosses between the
 two packages is plain numpy: the same host arrays (or fp8 codes) as a
 dataset, a fitted model's parameters (logistic and linear regression,
-KMeans, PCA), or an optimizer state's ``to_pytree()`` dict (L-BFGS and
-OWL-QN alike).
+KMeans, PCA, OneVsRest's binary models), a stack of coefficients of K
+models, or an optimizer state's ``to_pytree()`` dict (L-BFGS and OWL-QN
+alike).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
 from cycloneml_tpu_torch.ml.classification.logistic_regression import (
     LogisticRegressionModel,
 )
+from cycloneml_tpu_torch.ml.classification.one_vs_rest import OneVsRestModel
 from cycloneml_tpu_torch.ml.clustering.kmeans import KMeansModel
 from cycloneml_tpu_torch.ml.feature.pca import PCAModel
 from cycloneml_tpu_torch.ml.optim.lbfgs import OptimState
@@ -53,6 +55,26 @@ def model_from_reference(coefficients, intercept,
         coefficient_matrix=coef,
         intercept_vector=np.array([float(intercept)]), num_classes=2)
     return _with_params(model, params)
+
+
+def coef_stack_from_reference(models) -> np.ndarray:
+    """The ``(K, d + 1)`` float64 stack ``[coefficients, intercept]`` of K
+    binomial models (a reference ``fit_stacked`` result, or any sequence
+    of objects with ``coefficients`` and ``intercept``), the layout the
+    stacked aggregators take."""
+    return np.stack([np.concatenate([np.asarray(m.coefficients,
+                                                dtype=np.float64).ravel(),
+                                     [float(m.intercept)]])
+                     for m in models])
+
+
+def ovr_model_from_reference(models, **params) -> OneVsRestModel:
+    """A :class:`OneVsRestModel` over the binary models of a reference
+    ``OneVsRestModel`` (its ``models`` list), each carried by
+    :func:`model_from_reference`; ``params`` are set on the new model."""
+    return _with_params(OneVsRestModel(
+        [model_from_reference(m.coefficients, m.intercept) for m in models]),
+        params)
 
 
 def _with_params(model, params: dict):

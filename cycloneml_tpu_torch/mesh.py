@@ -97,6 +97,28 @@ def active() -> Optional[MeshRuntime]:
     return _active
 
 
+def safe_fit_parallelism(requested: int, stacked_width: int = 0) -> int:
+    """Effective parallelism of concurrent estimator fits (the reference's
+    ``mesh.safe_fit_parallelism``); the width the caller may use and
+    report.
+
+    A stacked fit (``stacked_width > 0``) runs that many models as one fit
+    with a leading model axis, so its width is returned. Thread pools are
+    capped at 1 on a mesh of several devices, where two fits dispatched
+    from two threads could interleave their collectives; on this slice's
+    one-device mesh the requested width is returned. The port's estimators
+    build no pools (they stack or run serially) and call this for the
+    width they report."""
+    if stacked_width > 0:
+        return stacked_width
+    if requested <= 1:
+        return requested
+    rt = active()
+    if rt is not None and rt.n_devices > 1:
+        return 1
+    return requested
+
+
 def reset() -> None:
     global _active
     with _active_lock:

@@ -15,9 +15,15 @@ e4m3 codes, with the per-column scales folded into the aggregator's
 ``inv_std``, after the envelope probe (``dataset.resolve_fp8_fit``); a
 non-finite fp8 solution refits on the bfloat16 rung.
 
+Stacked fits (:meth:`LogisticRegression.fit_stacked`, the reference's
+:214-410): K binomial models over ONE shared X (OneVsRest's relabelings or
+CrossValidator's regParam grid) train together in the stacked device
+L-BFGS, every evaluation one model-axis aggregation: kernel K1s under
+``cyclone.ml.usePallasKernels``, which reads X once for all K models.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 slice: multinomial fits, coefficient bounds (L-BFGS-B), checkpointed
-training, stacked fits.
+training, the streamed (out-of-core) leg of stacked fits.
 """
 
 from __future__ import annotations
@@ -128,8 +134,166 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
             self.get("weightCol") or None, fp8_capable=True)
         return self._fit_dataset(ds)
 
+    # -- stacked (model-axis) fits -------------------------------------------
+    def can_fit_stacked(self) -> bool:
+        """Param-level eligibility for :meth:`fit_stacked`: binomial, pure
+        L2 (``elasticNetParam == 0``), no coefficient bounds, no
+        checkpointing (the reference's rule). The labels are checked inside
+        the fit."""
+        return (self.get("family") != "multinomial"
+                and float(self.get("elasticNetParam")) == 0.0
+                and not self._has_bounds()
+                and not self.get("checkpointDir"))
+
     def fit_stacked(self, frame, y_stack=None, reg_params=None):
-        raise NotImplementedError("stacked fits are ROADMAP slice 4")
+        """Fit K binomial models over ONE shared X in one stacked fit (the
+        reference's ``fit_stacked``): every evaluation covers all K models
+        in one aggregation (K1s on the kernel route, reading X once), and
+        every model walks its own L-BFGS path, frozen once it converges.
+
+        ``y_stack``: (K, n) per-model {0, 1} labels (OneVsRest's
+        relabelings); default the frame's own labels, once per entry of
+        ``reg_params``. ``reg_params``: per-model L2 strength
+        (CrossValidator's regParam grid); default this estimator's
+        ``regParam`` for every model. One of the two must be given. Returns
+        K :class:`LogisticRegressionModel` whose summaries carry
+        ``n_models``, the shared ``total_dispatches`` and their own
+        ``total_iterations``/``total_evals``."""
+        from cycloneml_tpu_torch.ml.optim.device_lbfgs import \
+            StackedDeviceLBFGS
+        from cycloneml_tpu_torch.ml.optim.loss import (
+            StackedDistributedLossFunction, stacked_l2_scale,
+            validate_binary_labels)
+        from cycloneml_tpu_torch.ops.kernels import use_fused_kernels
+
+        if not self.can_fit_stacked():
+            raise ValueError(
+                "fit_stacked requires a binomial, pure-L2, unbounded, "
+                "non-checkpointed configuration (can_fit_stacked)")
+        ds = frame.to_instance_dataset(
+            self.get("featuresCol"), self.get("labelCol"),
+            self.get("weightCol") or None, fp8_capable=True)
+        conf = getattr(ds.ctx, "conf", None)
+        from cycloneml_tpu_torch.conf import OOCORE_MODE
+        if conf is not None and conf.get(OOCORE_MODE) == "force":
+            raise NotImplementedError(
+                "streamed (out-of-core) stacked fits are ROADMAP slice 6")
+        if y_stack is None and reg_params is None:
+            raise ValueError("fit_stacked needs y_stack or reg_params")
+        if y_stack is None:
+            y = np.asarray(ds.y_host()[:ds.n_rows], dtype=np.float64)
+            y_stack = np.broadcast_to(y, (len(reg_params), len(y)))
+        # the caller's storage is kept (OvR hands a data-tier stack, numpy
+        # or torch); host math converts one (n,) model row at a time
+        if not torch.is_tensor(y_stack):
+            y_stack = np.asarray(y_stack)
+        n_models = y_stack.shape[0]
+        if y_stack.shape[1] != ds.n_rows:
+            raise ValueError(
+                f"y_stack has {y_stack.shape[1]} rows per model; dataset "
+                f"has {ds.n_rows}")
+        for kk in range(n_models):
+            validate_binary_labels(_row64(y_stack, kk), "fit_stacked")
+        if reg_params is None:
+            reg_params = np.full(n_models, float(self.get("regParam")))
+        reg_params = np.asarray(reg_params, dtype=np.float64)
+        if len(reg_params) != n_models:
+            raise ValueError("reg_params length != number of stacked models")
+
+        d = ds.n_features
+        stats = Summarizer.summarize(ds)
+        ds = resolve_fp8_fit(ds, stats, "LogisticRegression(stacked)")
+        fp8_scale = ds.x_scale
+        features_std = stats.std
+        weight_sum = stats.weight_sum
+        fit_intercept = self.get("fitIntercept")
+        standardize = self.get("standardization")
+        fit_with_mean = fit_intercept  # bounds are excluded by eligibility
+        inv_std = inv_std_vector(features_std)
+        scaled_mean = stats.mean * inv_std if fit_with_mean else np.zeros(d)
+        # fp8: the scales fold into the aggregator's inv_std (as in
+        # _fit_dataset); the unscaling below keeps the original
+        inv_std_agg = inv_std * fp8_scale if fp8_scale is not None \
+            else inv_std
+
+        n_coef = d + (1 if fit_intercept else 0)
+        x0 = np.zeros((n_models, n_coef))
+        if fit_intercept:
+            w_real = np.asarray(ds.w_host()[:ds.n_rows], dtype=np.float64)
+            # per-model weighted positive mass, one float64 row at a time
+            pos = np.array([_row64(y_stack, kk) @ w_real
+                            for kk in range(n_models)])
+            ok = (pos > 0) & (pos < weight_sum)
+            p1 = np.where(ok, pos / weight_sum, 0.5)
+            x0[:, d] = np.where(ok, np.log(p1 / (1.0 - p1)), 0.0)
+
+        # the (n_pad, K) label matrix in the data tier ({0, 1} is exact in
+        # bf16), bf16 under the fp8 tier (labels mix with f32 margins);
+        # built on the host in the data tier, so no (n, K) float64 copy
+        # exists, and placed on X's device; X itself is shared via derive
+        ydt = torch.bfloat16 if fp8_scale is not None else ds.x.dtype
+        n_pad = ds.x.shape[0]
+        y_pad = torch.zeros((n_pad, n_models), dtype=ydt)
+        for kk in range(n_models):
+            y_pad[:ds.n_rows, kk] = torch.as_tensor(_row64(y_stack, kk))
+        rt = ds.ctx.mesh_runtime
+        ds_stacked = ds.derive(y=rt.device_put_sharded_rows(y_pad))
+
+        if use_fused_kernels(ds.ctx, ds.x):
+            base_agg = aggregators.binary_logistic_pallas_scaled(
+                d, fit_intercept)
+        else:
+            base_agg = aggregators.binary_logistic_scaled(d, fit_intercept)
+        agg = aggregators.stack_scaled_aggregator(base_agg)
+        l2s = stacked_l2_scale(d, n_coef, features_std, standardize)
+        adt = compute_dtype(conf)
+        dev = ds.x.device
+        loss_fn = StackedDistributedLossFunction(
+            ds_stacked, agg, n_models, reg=reg_params, l2_scale=l2s,
+            weight_sum=weight_sum,
+            extra_args=(torch.as_tensor(inv_std_agg, device=dev).to(adt),
+                        torch.as_tensor(scaled_mean, device=dev).to(adt)))
+
+        from cycloneml_tpu_torch.conf import LBFGS_DEVICE_CHUNK
+        chunk = int(conf.get(LBFGS_DEVICE_CHUNK)) if conf is not None else 0
+        # deviceChunk=0 means one dispatch per iteration: chunk 1 here
+        opt = StackedDeviceLBFGS(max_iter=self.get("maxIter"),
+                                 tol=self.get("tol"), chunk=max(chunk, 1))
+        res = opt.minimize(loss_fn, x0)
+        if fp8_scale is not None and not np.all(np.isfinite(res.x)):
+            return self.fit_stacked(
+                fp8_fallback(ds, "LogisticRegression(stacked)",
+                             "non-finite fp8 solution"),
+                y_stack=y_stack, reg_params=reg_params)
+        n_unconverged = sum(
+            1 for r in res.converged_reasons if r == "max iterations reached")
+        if n_unconverged:
+            logger.warning(
+                "stacked LogisticRegression: %d of %d models did not "
+                "converge in %d iterations", n_unconverged, n_models,
+                self.get("maxIter"))
+
+        models = []
+        for kk in range(n_models):
+            sol = res.x[kk]
+            beta = sol[:d] * inv_std
+            icpt = float(sol[d]) if fit_intercept else 0.0
+            if fit_with_mean:
+                icpt -= float(sol[:d] @ scaled_mean)
+            model = LogisticRegressionModel(
+                coefficient_matrix=beta[None, :],
+                intercept_vector=np.array([icpt]),
+                num_classes=2, is_multinomial=False)
+            self._copy_values(model)
+            model._set_parent(self)
+            model.summary = LogisticRegressionTrainingSummary(
+                objective_history=list(res.loss_histories[kk]),
+                total_iterations=int(res.iterations[kk]),
+                total_evals=int(res.evals[kk]),
+                total_dispatches=loss_fn.n_dispatches,
+                n_models=n_models, stacked_evals=loss_fn.n_evals)
+            models.append(model)
+        return models
 
     def _check_ported(self, is_multinomial: bool) -> None:
         if is_multinomial:
@@ -264,6 +428,15 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         return model
 
 
+def _row64(y_stack, kk: int) -> np.ndarray:
+    """Model ``kk``'s labels of a (K, n) stack (numpy or torch, any dtype)
+    as a float64 host vector."""
+    row = y_stack[kk]
+    if torch.is_tensor(row):
+        return row.to(torch.float64).cpu().numpy()
+    return np.asarray(row, dtype=np.float64)
+
+
 class LogisticRegressionModel(ProbabilisticClassificationModel,
                               _LogisticRegressionParams, HasLabelCol):
     """Fitted binomial model: margins, sigmoid probabilities and
@@ -326,11 +499,17 @@ class LogisticRegressionModel(ProbabilisticClassificationModel,
 class LogisticRegressionTrainingSummary:
     """Objective history and optimizer counts of a fit: iterations, loss/
     gradient evaluations and host round trips (one per line search or
-    device chunk)."""
+    device chunk); ``n_models`` > 1 when the model trained in a stacked fit
+    of that many models, whose dispatches and ``stacked_evals`` (the
+    lockstep evaluations of all of them, each one aggregation) it
+    shared."""
 
     def __init__(self, objective_history, total_iterations,
-                 total_evals=None, total_dispatches=None):
+                 total_evals=None, total_dispatches=None, n_models=1,
+                 stacked_evals=None):
         self.objective_history = objective_history
         self.total_iterations = total_iterations
         self.total_evals = total_evals
         self.total_dispatches = total_dispatches
+        self.n_models = n_models
+        self.stacked_evals = stacked_evals

@@ -15,6 +15,11 @@ mechanisms differ from the reference, not the results: "auto" takes K3 on
 CUDA (the reference keeps its XLA path unless the kernel is forced), and
 the k-means|| passes go through the assignment instead of an (n x
 candidates) distance matrix (160 GB at 10M rows and ~4,000 candidates).
+
+The center sums and counts of each step (and the candidates' attraction)
+run in one fixed order (``ops/kernels.center_sums``: a stable sort of the
+assignment and per-cluster sums, no float atomics), so two fits of the same
+data end with bitwise-equal centers, on the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +42,6 @@ from cycloneml_tpu_torch.ml.shared import (
 )
 from cycloneml_tpu_torch.ops import kernels
 
-ROW_CHUNK = 1 << 18  # rows of X upcast at a time by the center update
 # candidates x padded rows above which k-means|| weighs candidates equally
 # instead of by attraction (the reference's gate, kmeans.py:219)
 ATTRACT_LIMIT = 5e7
@@ -74,17 +78,12 @@ def _assign(x: torch.Tensor, c: torch.Tensor, use_kernel: bool):
 
 
 def _center_sums(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor,
-                 k: int) -> torch.Tensor:
-    """Per-cluster sums of w x, at w's (accumulator) width. X is upcast a
-    chunk of rows at a time. On CUDA ``index_add_`` adds with float
-    atomics, whose order changes from run to run, so these sums (and a
-    fit's centers) may differ in the last bits between two runs."""
-    sums = torch.zeros((k, x.shape[1]), dtype=w.dtype, device=x.device)
-    for lo in range(0, x.shape[0], ROW_CHUNK):
-        xc = x[lo:lo + ROW_CHUNK].to(w.dtype)
-        sums.index_add_(0, best[lo:lo + ROW_CHUNK],
-                        xc * w[lo:lo + ROW_CHUNK, None])
-    return sums
+                 k: int):
+    """Per-cluster sums of w x ``(k, d)`` and of w ``(k,)``, at w's
+    (accumulator) width, in one fixed order (``ops/kernels.center_sums``;
+    its plain version on the CPU), so a fit's centers are the same on
+    every run."""
+    return kernels.center_sums(x, w, best, k)
 
 
 class KMeans(Estimator, _KMeansParams):
@@ -142,9 +141,8 @@ class KMeans(Estimator, _KMeansParams):
 
         def step(x, y, w, c):
             best, dist = _assign(x, c, use_kernel)
-            return {"sums": _center_sums(x, w, best, k),
-                    "counts": torch.zeros(k, dtype=w.dtype, device=x.device)
-                    .index_add_(0, best, w),
+            sums, counts = _center_sums(x, w, best, k)
+            return {"sums": sums, "counts": counts,
                     "cost": torch.sum(w * dist.to(w.dtype))}
 
         run = ds.tree_aggregate_fn(step)
@@ -220,8 +218,9 @@ class KMeans(Estimator, _KMeansParams):
             # weigh each candidate by the weight of the rows it attracts
             best, _ = _assign(ds.x, torch.as_tensor(cand, device=dev)
                               .to(dtype), use_kernel)
-            attract = torch.zeros(m, dtype=ds.w.dtype, device=dev) \
-                .index_add_(0, best, ds.w).cpu().double().numpy()
+            _, attract = kernels.center_sums(ds.x, ds.w, best, m,
+                                             with_sums=False)
+            attract = attract.cpu().double().numpy()
             passes += 1
             attract = np.maximum(attract, 0.0) + 1e-12
         else:

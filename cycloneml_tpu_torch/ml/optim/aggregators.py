@@ -10,6 +10,13 @@ loss function divides by the weight sum. Coefficient layout:
 The ``binary_logistic*`` and ``least_squares*`` aggregators are plain
 PyTorch; the ``_pallas`` twins (the reference's names, so the two packages
 line up) run kernels K1 and K2.
+
+Model-axis twins (:func:`stack_aggregator`, :func:`stack_scaled_aggregator`,
+the reference's ``jax.vmap`` of a binomial aggregator) take labels ``(n, K)``
+and coefficients ``(K, n_coef)`` over one shared X and return ``{"loss"
+(K,), "grad" (K, n_coef), "count" (K,)}``: a batched plain PyTorch twin of
+each plain binomial aggregator, and for the kernel twin one launch of K1s
+(``ops/kernels.glm_sweep_stacked``) per evaluation, never K launches of K1.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ def _softplus(m: torch.Tensor) -> torch.Tensor:
 
 
 def _tier_dot(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
-    """``a @ b`` (``a`` 2-D, ``b`` 1-D) across the data/accumulator tier
+    """``a @ b`` (``a`` 2-D, ``b`` 1-D, or 2-D for the model-axis twins)
+    across the data/accumulator tier
     boundary.
 
     Full-width operands multiply as they are, the narrower one promoted
@@ -75,7 +83,8 @@ def _tier_dot(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
     if a.shape[0] >= a.shape[1]:
         return torch.cat([a[lo:lo + ROW_CHUNK].to(acc) @ bw
                           for lo in range(0, a.shape[0], ROW_CHUNK)])
-    out = torch.zeros(a.shape[0], dtype=acc, device=a.device)
+    out = torch.zeros((a.shape[0],) + tuple(bw.shape[1:]), dtype=acc,
+                      device=a.device)
     for lo in range(0, a.shape[1], ROW_CHUNK):
         out += a[:, lo:lo + ROW_CHUNK].to(acc) @ bw[lo:lo + ROW_CHUNK]
     return out
@@ -95,7 +104,27 @@ def binary_logistic(d: int, fit_intercept: bool = True) -> Agg:
             if fit_intercept else g
         return {"loss": loss, "grad": grad, "count": torch.sum(w)}
 
+    def stacked(x, Y, w, coef):
+        beta, b0 = _split_stack(coef, d, fit_intercept)
+        margin = _tier_dot(x, beta.T) + b0
+        loss = torch.sum(w[:, None] * (_softplus(margin) - Y * margin), dim=0)
+        mult = w[:, None] * (torch.sigmoid(margin) - Y)
+        g = _tier_dot(x.T, mult).T
+        grad = torch.cat([g, torch.sum(mult, dim=0)[:, None]], dim=1) \
+            if fit_intercept else g
+        return {"loss": loss, "grad": grad,
+                "count": torch.sum(w).expand(coef.shape[0])}
+
+    agg.stacked = stacked
     return agg
+
+
+def _split_stack(coef, d, fit_intercept):
+    """``(beta (K, d), b0 (K,))`` of stacked coefficients ``(K, n_coef)``."""
+    if fit_intercept:
+        return coef[:, :d], coef[:, d]
+    return coef, torch.zeros(coef.shape[0], dtype=coef.dtype,
+                             device=coef.device)
 
 
 def binary_logistic_scaled(d: int, fit_intercept: bool = True) -> Agg:
@@ -118,6 +147,20 @@ def binary_logistic_scaled(d: int, fit_intercept: bool = True) -> Agg:
         grad = torch.cat([g, msum.reshape(1)]) if fit_intercept else g
         return {"loss": loss, "grad": grad, "count": torch.sum(w)}
 
+    def stacked(x, Y, w, inv_std, scaled_mean, coef):
+        beta, b0 = _split_stack(coef, d, fit_intercept)
+        sb = beta * inv_std
+        margin = _tier_dot(x, sb.T) - beta @ scaled_mean + b0
+        loss = torch.sum(w[:, None] * (_softplus(margin) - Y * margin), dim=0)
+        mult = w[:, None] * (torch.sigmoid(margin) - Y)
+        msum = torch.sum(mult, dim=0)
+        g = inv_std * _tier_dot(x.T, mult).T \
+            - scaled_mean[None, :] * msum[:, None]
+        grad = torch.cat([g, msum[:, None]], dim=1) if fit_intercept else g
+        return {"loss": loss, "grad": grad,
+                "count": torch.sum(w).expand(coef.shape[0])}
+
+    agg.stacked = stacked
     return agg
 
 
@@ -126,12 +169,18 @@ def binary_logistic_pallas_scaled(d: int, fit_intercept: bool = True) -> Agg:
     (``ops/kernels.fused_binary_logistic_scaled``), standardization is
     folded around it, and X is read once per evaluation at its storage
     width."""
-    from cycloneml_tpu_torch.ops.kernels import fused_binary_logistic_scaled
+    from cycloneml_tpu_torch.ops.kernels import (
+        fused_binary_logistic_scaled, fused_binary_logistic_stacked_scaled)
 
     def agg(x, y, w, inv_std, scaled_mean, coef):
         return fused_binary_logistic_scaled(
             x, y, w, inv_std, scaled_mean, coef, d, fit_intercept)
 
+    def stacked(x, Y, w, inv_std, scaled_mean, coef):
+        return fused_binary_logistic_stacked_scaled(
+            x, Y, w, inv_std, scaled_mean, coef, d, fit_intercept)
+
+    agg.stacked = stacked
     return agg
 
 
@@ -192,3 +241,27 @@ def least_squares_pallas_scaled(d: int) -> Agg:
             x, y, w, inv_std, scaled_mean, y_pars, coef, d)
 
     return agg
+
+
+def stack_aggregator(agg: Agg) -> Agg:
+    """Model-axis twin of a plain ``(x, y, w, coef)`` binomial aggregator
+    (the reference's ``jax.vmap(agg, in_axes=(None, 1, None, 0))``): labels
+    ``(n, K)``, coefficients ``(K, n_coef)``, x and w shared; returns
+    ``{loss (K,), grad (K, n_coef), count (K,)}``, so ``tree_aggregate``
+    sums all K models' partials in one reduction with a leading model
+    axis."""
+    twin = getattr(agg, "stacked", None)
+    if twin is None:
+        raise ValueError(f"aggregator {agg!r} has no model-axis twin (the "
+                         "port stacks the binomial logistic aggregators)")
+    return twin
+
+
+def stack_scaled_aggregator(agg: Agg) -> Agg:
+    """Model-axis twin of a scaled aggregator ``(x, y, w, inv_std,
+    scaled_mean, coef)`` (the reference's ``jax.vmap(agg, in_axes=(None, 1,
+    None, None, None, 0))``): labels ``(n, K)`` and coefficients ``(K,
+    n_coef)``, everything else, the standardization vectors too, shared.
+    For :func:`binary_logistic_pallas_scaled` it is one K1s launch per
+    evaluation (per group of ``ops/kernels.K_MAX`` models)."""
+    return stack_aggregator(agg)

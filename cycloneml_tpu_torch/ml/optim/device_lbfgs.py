@@ -12,11 +12,17 @@ evaluation, the descent test, the curvature test and the convergence
 norms per iteration). The decisions, the evaluation and dispatch counts,
 the first-iteration and restart step rule and the convergence-code
 precedence are the reference's, so a fit takes the same path.
+
+:class:`StackedDeviceLBFGS` is the model-axis twin (the reference's
+``StackedDeviceLBFGS``): K models over one X advance together, each with
+its own curvature history, line search and convergence code, and a model
+that converged stays frozen while the others go on.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -201,3 +207,196 @@ class DeviceLBFGS(LBFGS):
             yield state
             if state.converged:
                 return
+
+
+def _two_loop_stacked(S: torch.Tensor, Y: torch.Tensor, k: torch.Tensor,
+                      g: torch.Tensor) -> torch.Tensor:
+    """The L-BFGS directions ``(K, n)`` of K models from their ring buffers
+    ``(K, m, n)`` (slot m-1 newest), model i using its newest ``k[i]``
+    pairs: the reference's masked two-loop, batched over the model axis (a
+    masked slot has rho = 0 and leaves q and r unchanged)."""
+    m = S.shape[1]
+    q = g
+    coeffs = {}
+    for i in range(m - 1, -1, -1):
+        valid = i >= m - k
+        sy = torch.sum(Y[:, i] * S[:, i], dim=1)
+        rho = torch.where(valid, 1.0 / torch.where(valid, sy, 1.0),
+                          torch.zeros_like(sy))
+        a = rho * torch.sum(S[:, i] * q, dim=1)
+        q = q - a[:, None] * Y[:, i]
+        coeffs[i] = (a, rho)
+    last_sy = torch.sum(S[:, m - 1] * Y[:, m - 1], dim=1)
+    last_yy = torch.sum(Y[:, m - 1] * Y[:, m - 1], dim=1)
+    gamma = torch.where(k > 0, last_sy / torch.clamp(last_yy, min=1e-300),
+                        torch.ones_like(last_sy))
+    r = gamma[:, None] * q
+    for i in range(m):
+        a, rho = coeffs[i]
+        beta = rho * torch.sum(Y[:, i] * r, dim=1)
+        r = r + (a - beta)[:, None] * S[:, i]
+    return -r
+
+
+@dataclass
+class StackedOptimResult:
+    """Terminal state of a stacked fit, every field per model."""
+
+    x: np.ndarray                       # (K, n) float64
+    values: np.ndarray                  # (K,)
+    iterations: np.ndarray              # (K,) live iterations per model
+    converged_reasons: List[str] = field(default_factory=list)
+    loss_histories: List[List[float]] = field(default_factory=list)
+    evals: Optional[np.ndarray] = None  # (K,) evaluations per model
+
+
+class StackedDeviceLBFGS:
+    """Chunked L-BFGS over a stack of K models sharing one X (the
+    reference's ``StackedDeviceLBFGS``, as a host loop over device-resident
+    ``(K, ...)`` state).
+
+    Each iteration runs the masked two-loop for every model, one batched
+    strong-Wolfe search (:func:`loss.wolfe_search`, every model its own
+    bracket+zoom in lockstep evaluations of all K), the curvature test and
+    the convergence tests per model; a model whose convergence code fired
+    is frozen (its state selected through unchanged) and starts every later
+    chunk frozen, so the result does not depend on ``chunk``. A chunk ends
+    when every model converged, after ``chunk`` iterations, or when the
+    budget is spent; one chunk is one dispatch. The host reads back per
+    evaluation the K values and directional derivatives, and per iteration
+    the K descent, curvature and norm scalars. ``f`` is a
+    ``StackedDistributedLossFunction``.
+    """
+
+    def __init__(self, max_iter: int = 100, m: int = 10, tol: float = 1e-6,
+                 grad_tol: Optional[float] = None, chunk: int = 8,
+                 c1: float = 1e-4, c2: float = 0.9, max_ls: int = 30):
+        self.max_iter = max_iter
+        self.m = m
+        self.tol = tol
+        self.grad_tol = grad_tol if grad_tol is not None else tol
+        self.chunk = max(int(chunk), 1)
+        self.c1, self.c2, self.max_ls = c1, c2, max_ls
+
+    def minimize(self, f, x0: np.ndarray) -> StackedOptimResult:
+        x0 = np.asarray(x0, dtype=np.float64)
+        n_models, n = x0.shape
+        if n_models != f.n_models:
+            raise ValueError(f"x0 stacks {n_models} models but the loss "
+                             f"carries {f.n_models}")
+        cdt, dev, m = f.cdt, f.device, self.m
+        t = np.float64 if cdt == torch.float64 else np.float32
+        where = np.where
+
+        def read(*vectors: torch.Tensor):
+            # (K,) device vectors back in one transfer
+            return list(torch.stack([v.to(cdt) for v in vectors])
+                        .cpu().numpy().astype(t))
+
+        def dev_mask(mask):
+            return torch.as_tensor(mask, device=dev)
+
+        coef = torch.as_tensor(x0, device=dev).to(cdt)
+        S = torch.zeros((n_models, m, n), dtype=cdt, device=dev)
+        Y = torch.zeros((n_models, m, n), dtype=cdt, device=dev)
+        k = np.zeros(n_models, dtype=np.int64)
+        f_val = np.zeros(n_models, dtype=t)
+        g = torch.zeros((n_models, n), dtype=cdt, device=dev)
+        code = np.zeros(n_models, dtype=np.int64)
+        iters = np.zeros(n_models, dtype=np.int64)
+        evals = np.zeros(n_models, dtype=np.int64)
+        histories: List[List[float]] = [[] for _ in range(n_models)]
+        first, need_init, total_iter = True, True, 0
+        while True:
+            it_limit = min(self.chunk, max(self.max_iter - total_iter, 0))
+            ev_global, steps, chunk_losses = 0, 0, []
+            if need_init:
+                f_d, g = f.f_and_g(coef)
+                f_val, = read(f_d)
+                for kk in range(n_models):
+                    histories[kk].append(float(f_val[kk]))
+                evals += 1
+                ev_global = 1
+            while steps < it_limit and (code == 0).any():
+                live = code == 0
+                k_d = torch.as_tensor(k, device=dev)
+                d = _two_loop_stacked(S, Y, k_d, g)
+                dg0, gg = read(torch.sum(d * g, dim=1),
+                               torch.sum(g * g, dim=1))
+                # non-descent: reset the history, steepest descent
+                bad = dg0 >= 0
+                d = torch.where(dev_mask(bad)[:, None], -g, d)
+                k = where(bad, 0, k)
+                dg0 = where(bad, -gg, dg0)
+                gnorm = np.sqrt(np.maximum(gg, t(1e-300)))
+                # the scaled first step on the very first iteration and on
+                # every steepest-descent restart
+                init_alpha = where((first and steps == 0) | bad,
+                                   np.minimum(t(1.0), t(1.0) / gnorm),
+                                   t(1.0)).astype(t)
+
+                def phi(alpha):
+                    a = torch.as_tensor(alpha, device=dev).to(cdt)
+                    v, grad = f.f_and_g(coef + a[:, None] * d)
+                    return v, grad, torch.sum(d * grad, dim=1)
+
+                alpha, f_new, g_new, ev = wolfe_search(
+                    phi, torch.zeros_like(g), f_val, dg0, init_alpha,
+                    self.c1, self.c2, self.max_ls, cdt, active=live)
+                s = torch.as_tensor(alpha, device=dev).to(cdt)[:, None] * d
+                y = g_new - g
+                x_new = coef + s
+                sy, yy, gn2, xn2 = read(
+                    torch.sum(s * y, dim=1), torch.sum(y * y, dim=1),
+                    torch.sum(g_new * g_new, dim=1),
+                    torch.sum(x_new * x_new, dim=1))
+                # curvature condition, per model
+                keep = live & (sy > t(1e-10) * yy)
+                keep_d = dev_mask(keep)[:, None, None]
+                S = torch.where(keep_d, torch.cat(
+                    [S[:, 1:], s[:, None]], dim=1), S)
+                Y = torch.where(keep_d, torch.cat(
+                    [Y[:, 1:], y[:, None]], dim=1), Y)
+                k = where(keep, np.minimum(k + 1, m), k)
+                # Breeze-style convergence, per model
+                denom = np.maximum(np.maximum(np.abs(f_new), np.abs(f_val)),
+                                   t(1e-6))
+                f_conv = np.abs(f_val - f_new) <= t(self.tol) * denom
+                g_conv = np.sqrt(np.maximum(gn2, t(0.0))) <= \
+                    t(self.grad_tol) * np.maximum(
+                        np.sqrt(np.maximum(xn2, t(0.0))), t(1.0))
+                code_new = where(f_conv, 1, where(g_conv, 2, 0))
+                for kk in np.nonzero(live)[0]:
+                    if not np.isnan(f_new[kk]):
+                        histories[kk].append(float(f_new[kk]))
+                chunk_losses.append(float(np.nanmean(f_new[live])))
+                live_d = dev_mask(live)[:, None]
+                coef = torch.where(live_d, x_new, coef)
+                g = torch.where(live_d, g_new, g)
+                f_val = where(live, f_new, f_val).astype(t)
+                iters += live
+                evals += ev
+                ev_global += int(ev.max())
+                code = where(live, code_new, code)
+                steps += 1
+            f.n_evals += ev_global
+            f.n_dispatches += 1
+            need_init = first = False
+            total_iter += steps
+            if hasattr(f, "_ctx") and hasattr(f._ctx, "record_step"):
+                f._ctx.record_step({
+                    "loss": chunk_losses[-1] if chunk_losses
+                    else float(np.mean(f_val)),
+                    "chunk_iterations": steps, "n_models": n_models})
+            if (code != 0).all() or total_iter >= self.max_iter:
+                break
+        # the budget stop outranks the value and gradient tests, as in the
+        # serial paths
+        reasons = ["function value converged" if c == 1 else
+                   "gradient converged" if c == 2 else
+                   "max iterations reached" for c in code]
+        return StackedOptimResult(
+            x=coef.cpu().double().numpy(),
+            values=np.asarray(f_val, dtype=np.float64),
+            iterations=iters, converged_reasons=reasons,
+            loss_histories=histories, evals=evals)

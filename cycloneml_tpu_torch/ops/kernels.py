@@ -8,11 +8,21 @@ replaces, what bounds it on the card, what the design does about that):
   logistic link (LogisticRegression) and the squared link
   (LinearRegression). One pass over X computing the loss, the gradient,
   sum(mult) and sum(w); bytes-bound.
+- K1s, ``glm_sweep_stacked`` (``csrc/glm_stacked.cu``): K1's logistic sweep
+  for K models over one X, the batched kernel ``jax.vmap`` makes of
+  ``_run_glm`` in the reference's stacked fits (OneVsRest, CrossValidator,
+  TrainValidationSplit): X is read once for all K models (at most
+  :data:`K_MAX` a launch); bytes-bound for few models, bound by operations
+  for many.
 - K3, ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``fused_kmeans_assign``,
   the nearest center and its squared distance per row (KMeans);
   bound by operations.
 - K4, ``gramian`` (``csrc/gramian.cu``): ``fused_gramian``, the presence-
   masked X^T X (RowMatrix, PCA); bound by operations.
+
+Beside them, ``center_sums`` (``csrc/center_sums.cu``) sums KMeans' centers
+in a fixed order (the reference's ``jax.ops.segment_sum``, not a Pallas
+kernel), so that two fits of the same data end with the same centers.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K3 and K4 pick
@@ -30,7 +40,9 @@ version only for a tensor that lies on the CPU. There is no fallback from
 one to the other: a CUDA tensor the kernel cannot take raises. Each wrapper
 counts its launches in ``<wrapper>.launches`` (``glm_sweep`` also by link,
 in ``glm_sweep.launches_by_link``, and by X's dtype, in
-``glm_sweep.launches_by_dtype``; K3 and K4 also by instance, in
+``glm_sweep.launches_by_dtype``; K1s by X's dtype in
+``glm_sweep_stacked.launches_by_dtype``, one launch per group of at most
+:data:`K_MAX` models; K3 and K4 also by instance, in
 ``kmeans_assign.launches_by_instance`` and ``gramian.launches_by_instance``).
 """
 
@@ -70,7 +82,7 @@ def use_fused_kernels(ctx, x: Optional[torch.Tensor] = None) -> bool:
             and x.dtype in _DTYPE_CODE)
 
 
-# -- K1: the GLM row sweep -----------------------------------------------------
+# -- K1: the GLM row sweep ----------------------------------------------------
 
 def _softplus(m: torch.Tensor) -> torch.Tensor:
     # exact at every magnitude (torch's softplus goes linear past 20)
@@ -181,6 +193,18 @@ _SIGNATURES = {
         "gramian_plan": [_I, _LL, _PI, _PI],
         "gramian_launch": [_I, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P],
     },
+    "glm_stacked": {
+        "glm_stacked_max_d": [],
+        "glm_stacked_max_models": [],
+        "glm_stacked_num_parts": [_I, _I, _I, _LL, _PI],
+        "glm_stacked_launch": [_I, _P, _P, _I, _LL, _P, _P, _P, _LL, _I, _I,
+                               _P, _I, _P, _P],
+    },
+    "center_sums": {
+        "center_sums_piece_rows": [],
+        "center_sums_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _LL, _I, _LL,
+                               _P, _P, _P, _P],
+    },
 }
 
 
@@ -290,6 +314,9 @@ def reset_launch_counts() -> None:
     kmeans_assign.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
     gramian.launches = 0
     gramian.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
+    glm_sweep_stacked.launches = 0
+    glm_sweep_stacked.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
+    center_sums.launches = 0
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -356,7 +383,7 @@ def fused_least_squares_scaled(x, y, w, inv_std, scaled_mean, y_pars, coef,
     return {"loss": loss, "grad": g, "count": wsum}
 
 
-# -- K3: nearest-center assignment ---------------------------------------------
+# -- K3: nearest-center assignment --------------------------------------------
 
 def kmeans_assign_plain(x: torch.Tensor, centers: torch.Tensor,
                         acc_dtype=torch.float32,
@@ -446,7 +473,7 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor, x_scale=None
     return best, dist
 
 
-# -- K4: the Gramian -----------------------------------------------------------
+# -- K4: the Gramian ----------------------------------------------------------
 
 def gramian_plain(x: torch.Tensor, w: Optional[torch.Tensor] = None,
                   acc_dtype=torch.float32,
@@ -511,6 +538,244 @@ def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None,
     gramian.launches += 1
     gramian.launches_by_instance[INSTANCE[x.dtype]] += 1
     return g
+
+
+# -- K1s: the logistic sweep for K models over one X --------------------------
+
+K_MAX = 16  # models one K1s launch sweeps (csrc/glm_stacked.cu)
+
+
+def glm_sweep_stacked_plain(x: torch.Tensor, Y: torch.Tensor,
+                            w: torch.Tensor, B: torch.Tensor, off,
+                            acc_dtype=torch.float32,
+                            chunk_rows: int = ROW_CHUNK, x_scale=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """K1's logistic sweep for K models over one X in plain PyTorch,
+    accumulated in ``acc_dtype``: labels ``Y`` (n, K), coefficients ``B``
+    (K, d) and margin offsets ``off`` (K,); returns ``(loss (K,), grad_row
+    (K, d), sum(mult) (K,), sum(w))``. Model k's margins are x.B_k +
+    off_k, its multipliers w (sigmoid(m) - y_k). X is upcast
+    ``chunk_rows`` rows at a time (times ``x_scale`` when given); with
+    ``acc_dtype=torch.float64`` it is the truth the kernel is held against
+    on the card."""
+    n, d = x.shape
+    dev = x.device
+    s = _scale_operand(x_scale, d, dev, acc_dtype)
+    b = B.to(acc_dtype)
+    k = b.shape[0]
+    off_a = torch.as_tensor(off, device=dev).to(acc_dtype).reshape(k)
+    loss = torch.zeros(k, dtype=acc_dtype, device=dev)
+    grad = torch.zeros((k, d), dtype=acc_dtype, device=dev)
+    msum = torch.zeros(k, dtype=acc_dtype, device=dev)
+    wsum = torch.zeros((), dtype=acc_dtype, device=dev)
+    for lo in range(0, n, chunk_rows):
+        xc = _upcast(x, lo, chunk_rows, acc_dtype, s)
+        yc = Y[lo:lo + chunk_rows].to(acc_dtype)
+        wc = w[lo:lo + chunk_rows].to(acc_dtype)
+        m = xc @ b.T + off_a
+        mult = wc[:, None] * (torch.sigmoid(m) - yc)
+        loss += torch.sum(wc[:, None] * (_softplus(m) - yc * m), dim=0)
+        grad += mult.T @ xc
+        msum += torch.sum(mult, dim=0)
+        wsum += torch.sum(wc)
+    return loss, grad, msum, wsum
+
+
+def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
+                      B: torch.Tensor, off, x_scale=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """K1s wrapper: ``(loss (K,), grad_row (K, d), sum(mult) (K,),
+    sum(w))`` in float32 for X ``(n, d)`` at storage width, labels ``Y``
+    ``(n, K)`` (float32 or bfloat16; other dtypes are taken as float32),
+    w ``(n,)``, coefficients ``B`` ``(K, d)`` and offsets ``off`` ``(K,)``;
+    the value of X is ``x * x_scale`` when the scale is given. A CPU tensor
+    runs :func:`glm_sweep_stacked_plain`; a CUDA tensor launches the kernel
+    once per group of at most :data:`K_MAX` models, each launch reading X
+    once, or raises. The scale is folded into B and into the gradient rows,
+    as :func:`glm_sweep` folds it."""
+    if x.device.type == "cpu":
+        return glm_sweep_stacked_plain(x, Y, w, B, off, x_scale=x_scale)
+    _check_x(x, "glm_sweep_stacked")
+    n, d = x.shape
+    lib = _library("glm_stacked")
+    if d > lib.glm_stacked_max_d():
+        raise ValueError(f"glm_sweep_stacked: d={d} exceeds the kernel's "
+                         f"limit of {lib.glm_stacked_max_d()} features")
+    dev = x.device
+    if Y.dim() != 2 or Y.shape[0] != n or Y.device != dev:
+        raise ValueError(f"glm_sweep_stacked: labels {tuple(Y.shape)} on "
+                         f"{Y.device} do not match X {(n, d)} on {dev}")
+    if Y.dtype not in (torch.float32, torch.bfloat16):
+        Y = Y.to(torch.float32)
+    if Y.stride(1) != 1:
+        Y = Y.contiguous()
+    k = Y.shape[1]
+    w = w.to(device=dev, dtype=torch.float32).contiguous()
+    B = B.to(device=dev, dtype=torch.float32)
+    s = _scale_operand(x_scale, d, dev)
+    if s is not None:
+        B = B * s
+    off = torch.as_tensor(off, device=dev).to(torch.float32).reshape(-1)
+    if w.shape != (n,) or B.shape != (k, d) or off.shape != (k,):
+        raise ValueError("glm_sweep_stacked: shapes do not match X "
+                         f"{(n, d)} and {k} models: w {tuple(w.shape)}, "
+                         f"B {tuple(B.shape)}, off {tuple(off.shape)}")
+    code = _DTYPE_CODE[x.dtype]
+    y_bf16 = int(Y.dtype == torch.bfloat16)
+    kmax = lib.glm_stacked_max_models()
+    loss = torch.empty(k, dtype=torch.float32, device=dev)
+    grad = torch.empty((k, d), dtype=torch.float32, device=dev)
+    msum = torch.empty(k, dtype=torch.float32, device=dev)
+    wsum = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k0 in range(0, k, kmax):
+            kg = min(kmax, k - k0)
+            parts = ctypes.c_int(0)
+            _cuda_check(lib.glm_stacked_num_parts(code, d, kg, n,
+                                                  ctypes.byref(parts)),
+                        "glm_stacked_num_parts")
+            width = kg * (d + 2) + 1
+            # scratch: one double partial row per CTA, (SMs x CTAs per SM)
+            # rows whatever n
+            partials = torch.empty(parts.value * width, dtype=torch.float64,
+                                   device=dev)
+            out = torch.empty(width, dtype=torch.float32, device=dev)
+            bg = B[k0:k0 + kg].contiguous()
+            og = off[k0:k0 + kg].contiguous()
+            _cuda_check(lib.glm_stacked_launch(
+                code, x.data_ptr(), Y.data_ptr() + k0 * Y.element_size(),
+                y_bf16, Y.stride(0), w.data_ptr(), bg.data_ptr(),
+                og.data_ptr(), n, d, kg, partials.data_ptr(), parts.value,
+                out.data_ptr(), stream), "glm_stacked launch")
+            glm_sweep_stacked.launches += 1
+            glm_sweep_stacked.launches_by_dtype[x.dtype] += 1
+            body = out[:kg * (d + 2)].view(kg, d + 2)
+            grad[k0:k0 + kg] = body[:, :d]
+            loss[k0:k0 + kg] = body[:, d]
+            msum[k0:k0 + kg] = body[:, d + 1]
+            wsum = out[-1]
+    if s is not None:
+        grad = grad * s
+    return loss, grad, msum, wsum
+
+
+def fused_binary_logistic_stacked_scaled(x, Y, w, inv_std, scaled_mean,
+                                         coef, d: int,
+                                         fit_intercept: bool = True,
+                                         x_scale=None
+                                         ) -> Dict[str, torch.Tensor]:
+    """K1s with standardization folded around the row pass, for the
+    coefficients of K models ``coef`` ``(K, n_coef)`` and labels ``Y``
+    ``(n, K)``: the counterpart of the reference's
+    ``jax.vmap(fused_binary_logistic_scaled, in_axes=(None, 1, None, None,
+    None, 0))``. Per model k, as :func:`fused_binary_logistic_scaled`:
+
+      margin_k = x.(inv_std o beta_k) + (b0_k - scaled_mean.beta_k)
+      grad_k = inv_std o grad_row_k - scaled_mean * sum(mult_k)
+
+    The fold runs in float32. Returns ``{"loss" (K,), "grad" (K, n_coef),
+    "count" (K,)}`` (float32 sums)."""
+    f32 = torch.float32
+    coef = coef.to(f32)
+    inv_std = inv_std.to(f32)
+    scaled_mean = scaled_mean.to(f32)
+    beta = coef[:, :d]
+    k = coef.shape[0]
+    b0 = coef[:, d] if fit_intercept else torch.zeros(
+        k, dtype=f32, device=coef.device)
+    sb = beta * inv_std
+    off = b0 - beta @ scaled_mean
+    loss, grad_row, msum, wsum = glm_sweep_stacked(x, Y, w, sb, off,
+                                                   x_scale=x_scale)
+    g = grad_row * inv_std - scaled_mean[None, :] * msum[:, None]
+    grad = torch.cat([g, msum[:, None]], dim=1) if fit_intercept else g
+    return {"loss": loss, "grad": grad, "count": wsum.expand(k)}
+
+
+# -- KMeans' center sums in a fixed order -------------------------------------
+
+_SUM_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 3}
+
+
+def center_sums_plain(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor,
+                      k: int, acc_dtype=None, chunk_rows: int = ROW_CHUNK,
+                      with_sums: bool = True
+                      ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Per-cluster sums of w x ``(k, d)`` (None without ``with_sums``) and
+    of w ``(k,)`` in plain PyTorch at ``acc_dtype`` (default w's dtype), X
+    upcast ``chunk_rows`` rows at a time. ``index_add_`` adds in row order
+    on the CPU; on CUDA its float atomics add in a run-dependent order, so
+    there it serves only as the float64 truth the kernel is held
+    against."""
+    acc = w.dtype if acc_dtype is None else acc_dtype
+    counts = torch.zeros(k, dtype=acc, device=x.device).index_add_(
+        0, best, w.to(acc))
+    if not with_sums:
+        return None, counts
+    sums = torch.zeros((k, x.shape[1]), dtype=acc, device=x.device)
+    for lo in range(0, x.shape[0], chunk_rows):
+        sums.index_add_(0, best[lo:lo + chunk_rows],
+                        x[lo:lo + chunk_rows].to(acc)
+                        * w[lo:lo + chunk_rows, None].to(acc))
+    return sums, counts
+
+
+def center_sums(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor, k: int,
+                with_sums: bool = True
+                ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """KMeans' center sums at w's (accumulator) width: ``(sums (k, d) of
+    w x, or None without with_sums; counts (k,) of w)`` over the rows
+    assigned to each of the k clusters by ``best`` (n,). A CPU tensor runs
+    :func:`center_sums_plain`; a CUDA tensor sorts ``best`` stably, counts
+    rows per cluster (integer results), and launches ``csrc/center_sums.cu``
+    (X at its storage width, float32, bfloat16 or float64), whose sums run
+    in one fixed order: two calls on the same inputs are bitwise equal. No
+    float atomics."""
+    if x.device.type == "cpu":
+        return center_sums_plain(x, w, best, k, with_sums=with_sums)
+    dev = x.device
+    if x.dim() != 2 or x.dtype not in _SUM_DTYPE_CODE or \
+            w.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"center_sums: X must be 2-D float32, bfloat16 or "
+                         f"float64 and w float32 or float64 on CUDA; got "
+                         f"{tuple(x.shape)} {x.dtype}, w {w.dtype}")
+    if x.stride(1) != 1:
+        raise ValueError("center_sums: X's rows must be contiguous")
+    n, d = x.shape
+    w = w.contiguous()
+    if best.shape != (n,) or w.shape != (n,):
+        raise ValueError(f"center_sums: best {tuple(best.shape)} and w "
+                         f"{tuple(w.shape)} do not match X {(n, d)}")
+    lib = _library("center_sums")
+    piece = lib.center_sums_piece_rows()
+    best = best.to(device=dev, dtype=torch.int64)
+    # the rows of each cluster in row order, and the clusters' row and
+    # piece offsets: integer results, the same on every run
+    order = torch.sort(best, stable=True).indices
+    rows = torch.bincount(best, minlength=k)[:k]
+    offsets = torch.zeros(k + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(rows, 0)
+    pieces = torch.zeros(k + 1, dtype=torch.int64, device=dev)
+    pieces[1:] = torch.cumsum((rows + piece - 1) // piece, 0)
+    max_pieces = -(-n // piece) + k
+    n_cols = d if with_sums else 0
+    partials = torch.empty(max_pieces * (n_cols + 1), dtype=torch.float64,
+                           device=dev)
+    sums = torch.empty((k, n_cols), dtype=torch.float64, device=dev)
+    counts = torch.empty(k, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _cuda_check(lib.center_sums_launch(
+            _SUM_DTYPE_CODE[x.dtype], _SUM_DTYPE_CODE[w.dtype], x.data_ptr(),
+            w.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+            pieces.data_ptr(), k, x.stride(0), n_cols, max_pieces,
+            partials.data_ptr(), sums.data_ptr(), counts.data_ptr(), stream),
+            "center_sums launch")
+    center_sums.launches += 1
+    return (sums.to(w.dtype) if with_sums else None), counts.to(w.dtype)
 
 
 reset_launch_counts()  # every count starts at 0

@@ -88,7 +88,8 @@ def test_kernels_import_without_cuda():
     assert r.returncode == 0, r.stderr
 
 
-@pytest.mark.parametrize("name", ["glm_sweep", "kmeans_assign", "gramian"])
+@pytest.mark.parametrize("name", ["glm_sweep", "kmeans_assign", "gramian",
+                                  "glm_stacked", "center_sums"])
 def test_every_kernel_source_has_a_binding(name):
     """Each CUDA source the wrappers load exists, declares its C entry
     points with ``extern "C"``, and has its argument types declared."""
@@ -158,5 +159,35 @@ def test_fp8_wrappers_import_and_run_without_cuda():
              "assert kernels.kmeans_assign.launches == 0\n"
              "assert kernels.gramian.launches == 0\n"
              "assert torch.isfinite(out[0]) and torch.equal(g, g.T)\n",
+             CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+
+
+def test_stacked_slice_modules_are_guarded():
+    """The stacked slice's modules (OneVsRest, tuning, the evaluators) are
+    among the modules whose imports are checked above."""
+    mods = _port_modules()
+    for name in ("cycloneml_tpu_torch.ml.classification.one_vs_rest",
+                 "cycloneml_tpu_torch.ml.tuning.tuning",
+                 "cycloneml_tpu_torch.ml.evaluation.evaluators"):
+        assert name in mods
+        assert PKG.joinpath(*name.split(".")[1:]).with_suffix(".py") in \
+            _port_sources()
+
+
+def test_stacked_wrappers_import_and_run_without_cuda():
+    """K1s and the center sums run their plain versions on CPU tensors
+    with no card and no nvcc, launching nothing."""
+    r = _run("import torch\n"
+             "assert not torch.cuda.is_available()\n"
+             "from cycloneml_tpu_torch.ops import kernels\n"
+             "x = torch.randn(20, 3); y = (torch.rand(20, 4) > 0.5).float()\n"
+             "out = kernels.glm_sweep_stacked(x, y, torch.ones(20),\n"
+             "                                torch.ones(4, 3), torch.zeros(4))\n"
+             "s, c = kernels.center_sums(x, torch.ones(20),\n"
+             "                           torch.arange(20) % 3, 3)\n"
+             "assert kernels.glm_sweep_stacked.launches == 0\n"
+             "assert kernels.center_sums.launches == 0\n"
+             "assert out[1].shape == (4, 3) and c.tolist() == [7., 7., 6.]\n",
              CUDA_VISIBLE_DEVICES="")
     assert r.returncode == 0, r.stderr
