@@ -96,9 +96,12 @@ the final result line:
    bf16 X) and at the ragged shape with a third of the rows at w=0, for K
    in K1S_MODELS (20 > K_MAX: two launches), with and without centering:
    phase 3's checks per model, one launch per group counted under X's
-   dtype, and at K=1 K1s against K1 under the same bounds; times at
-   every K beside the plain version, the bound and two yardsticks the
-   port never calls (K serial K1 launches, two cuBLAS f32 GEMMs);
+   dtype and under the instance it picks (tensor cores for bf16 and e4m3,
+   FMA for f32), and at K=1 K1s against K1 under the same bounds; times at
+   every K beside the plain version, both bounds (the tensor-core one,
+   B and the multipliers in three bf16 parts, and the f32-FMA figure) and
+   two yardsticks the port never calls (K serial K1 launches, two cuBLAS
+   f32 GEMMs);
 16. OneVsRest at full width: 8 classes at 2,000,000 x 1280 (bf16;
    ``generate_multiclass``, bench_ovr_stacked's recipe, on the card),
    ``LogisticRegression(maxIter=25, regParam=0.01, tol=0)``,
@@ -114,8 +117,9 @@ the final result line:
    same best regParam, avgMetrics to 1e-4;
 18. K1s's e4m3 instance with phase 15's checks on codes with x_scale;
 19. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
-   instances and the center sums (K3 and K4 marked as redesigned for the
-   tensor cores, with their f32 FMA bounds and ptxas lines), the total
+   instances and the center sums (K3, K4 and K1s marked as redesigned for
+   the tensor cores, with their instance, f32 FMA bounds and ptxas lines),
+   the total
    wall time; the last line is ``{"ok": true, "device": {...}}``.
 
 Each path's launch counts are set to 0 just before its fit and read just
@@ -193,10 +197,11 @@ def _kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel instance: its X (or partial)
     dtype and its other template arguments (glm_sweep_kernel: elements
     per lane and the link, 0 logistic, 1 squared; glm_stacked_kernel:
-    columns per thread and models per launch; center_piece_kernel: w's
+    columns per thread and models per launch; glm_stacked_tc_kernel:
+    k-blocks per warp and models per launch; center_piece_kernel: w's
     dtype; gramian_tc_kernel: the staging; kmeans_assign_tc_kernel:
     whether X is resident)."""
-    m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f|d)"
+    m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f|d)?"
                   r"(f|d)?((?:L[ib]\d+E)*))?", mangled)
     if m is None:
         return mangled
@@ -204,12 +209,15 @@ def _kernel_name(mangled: str) -> str:
         return m.group(1)
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
              "13__nv_fp8_e4m3": "e4m3"}
-    args = [names[m.group(3)]]
+    # the FMA K1s instance takes float32 X only: no type argument
+    args = [names[m.group(3)] if m.group(3) else "f32"]
     if m.group(4):  # a second type: the center sums' w
         args.append("w " + names[m.group(4)])
     ints = re.findall(r"Li(\d+)E", m.group(5))
     if len(ints) == 2 and m.group(1) == "glm_stacked_kernel":
         args += [f"C={ints[0]}", f"KG={ints[1]}"]
+    elif len(ints) == 2 and m.group(1) == "glm_stacked_tc_kernel":
+        args += [f"NB={ints[0]}", f"KG={ints[1]}"]
     elif len(ints) == 2:
         args += [f"E={ints[0]}", ("logistic", "squared")[int(ints[1])]]
     if len(ints) == 1:  # the tensor-core Gramian's staging
@@ -1401,20 +1409,28 @@ def phase_k1s(fp8=False):
         for x, s32, s64 in _x_forms(x32, fp8):
             dtype = x.dtype
             ys = y32.to(_label_dtype(x))
+            instance = kernels.INSTANCE[dtype]
             for k in K1S_MODELS:
                 yk = ys[:, :k]
-                groups = -(-k // kernels.K_MAX)
+                groups = -(-k // kernels.glm_sweep_stacked_group(dtype, d))
                 for centered in (False, True):
                     m = mu if centered else torch.zeros_like(mu)
                     before = kernels.glm_sweep_stacked.launches_by_dtype[
                         dtype]
+                    before_i = dict(
+                        kernels.glm_sweep_stacked.launches_by_instance)
                     got = kernels.fused_binary_logistic_stacked_scaled(
                         x, yk, w, inv_std, m, coef[:k], d, x_scale=s32)
                     again = kernels.fused_binary_logistic_stacked_scaled(
                         x, yk, w, inv_std, m, coef[:k], d, x_scale=s32)
                     torch.cuda.synchronize()
-                    launched = kernels.glm_sweep_stacked.launches_by_dtype[
+                    after_i = kernels.glm_sweep_stacked.launches_by_instance
+                    launched = (kernels.glm_sweep_stacked.launches_by_dtype[
                         dtype] - before == 2 * groups
+                        and after_i[instance] - before_i[instance]
+                        == 2 * groups
+                        and sum(after_i.values()) - sum(before_i.values())
+                        == 2 * groups)
                     t_loss, t_grad, t_w = _fold_truth_stacked(
                         x, yk, w, inv_std, m, coef[:k], d, s64)
                     rel_loss, rel_grad, err = _k1s_errors(got, t_loss,
@@ -1437,6 +1453,7 @@ def phase_k1s(fp8=False):
                           and (vs_k1 is None or (vs_k1[0] <= 1e-5
                                                  and vs_k1[1] <= 1e-4)))
                     _line("k1s_check", n=n, d=d, k=k, dtype=_dt(x),
+                          instance=instance,
                           label_dtype=_dt(yk), x_scale=s32 is not None,
                           centered=centered, masked_rows=n - int(n_w),
                           rel_loss=rel_loss, grad_err_over_max=rel_grad,
@@ -1490,18 +1507,30 @@ def _k1s_times(x, x32, y, w, coef, inv_std, d, n, x_scale, main_dt):
     del cols, yf
     n_bytes = (n * d * x.element_size() + n * k * y.element_size() + n * 4
                + k * (d + 1) * 4 + (k * (d + 2) + 1) * 4)
-    bound, bound_by = _bound(n_bytes, 4.0 * n * d * k)
-    _line("k1s_time", n=n, d=d, k=k, dtype=_dt(x), kernel_ms=k_ms,
-          plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+    # the f32-FMA figure: 4 n d K flops at the FMA rate; the tensor-core
+    # instance's: B and the multipliers in three bf16 parts, 12 n d K flops
+    # at the bf16 tensor-core rate
+    fma_bound, fma_by = _bound(n_bytes, 4.0 * n * d * k)
+    tc_bound, tc_by = _bound(n_bytes, 12.0 * n * d * k, H100_BF16_FLOPS)
+    instance = kernels.INSTANCE[x.dtype]
+    if instance == kernels.TENSOR_CORE:
+        bound, bound_by, flops = tc_bound, tc_by, 12.0 * n * d * k
+    else:
+        bound, bound_by, flops = fma_bound, fma_by, 4.0 * n * d * k
+    _line("k1s_time", n=n, d=d, k=k, dtype=_dt(x), instance=instance,
+          kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+          tensor_core_bound_ms=tc_bound, tensor_core_bound_by=tc_by,
+          f32_fma_bound_ms=fma_bound, f32_fma_bound_by=fma_by,
           yardstick_serial_k1_ms=serial_ms,
           yardstick_two_f32_gemm_ms=gemm_ms,
           achieved_gb_s=n_bytes / k_ms / 1e6,
-          achieved_tflop_s=4.0 * n * d * k / k_ms / 1e9,
+          achieved_tflop_s=flops / k_ms / 1e9,
           share_of_bound=bound / k_ms)
     if x.dtype == main_dt and k == OVR_K:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": bound_by, "yardstick_ms": serial_ms,
-                "yardstick_two_f32_gemm_ms": gemm_ms}
+                "yardstick_two_f32_gemm_ms": gemm_ms,
+                "f32_fma_bound_ms": fma_bound, "instance": instance}
     return {}
 
 
@@ -1582,6 +1611,8 @@ def phase_ovr():
         kernels.reset_launch_counts()
         k_model, k_warm = fit("auto", OVR_K)
         k1s = dict(kernels.glm_sweep_stacked.launches_by_dtype)
+        k1s_tc = kernels.glm_sweep_stacked.launches_by_instance[
+            kernels.TENSOR_CORE]
         k1 = kernels.glm_sweep.launches
         others = _other_launches(kernels, "glm_stacked")
         k_again, k_steady = fit("auto", OVR_K)
@@ -1600,7 +1631,8 @@ def phase_ovr():
         coef_p, obj_p = _same_models(k_model, p_model)
         coef_s, obj_s = _same_models(k_model, s_model)
         stacked_evals = k_model.models[0].summary.stacked_evals
-        groups = -(-OVR_K // kernels.K_MAX)
+        groups = -(-OVR_K // kernels.glm_sweep_stacked_group(ds.x.dtype,
+                                                             FIT_D))
         serial_evals = sum(m.summary.total_evals for m in s_model.models)
         finite = all(np.all(np.isfinite(m.coefficients.values))
                      for m in k_model.models)
@@ -1614,7 +1646,11 @@ def phase_ovr():
         kernels.reset_launch_counts()
         f_model, f_s = fit("auto", OVR_K, ds8)
         k1s8 = dict(kernels.glm_sweep_stacked.launches_by_dtype)
+        k1s8_tc = kernels.glm_sweep_stacked.launches_by_instance[
+            kernels.TENSOR_CORE]
         others8 = _other_launches(kernels, "glm_stacked")
+        groups8 = -(-OVR_K // kernels.glm_sweep_stacked_group(ds8.x.dtype,
+                                                              FIT_D))
         f_evals = f_model.models[0].summary.stacked_evals
         agree_f = float((pred_k == _ovr_margins(ds8, f_model.models))
                         .double().mean())
@@ -1638,9 +1674,11 @@ def phase_ovr():
               prediction_agreement={"plain": agree_p, "serial": agree_s},
               train_accuracy=acc, max_memory_allocated=peak)
         _check("ovr fit", {
-            "K1s launched once per stacked evaluation (x groups)":
+            "K1s launched once per stacked evaluation (x groups), all on "
+            "the tensor cores":
                 k1s[ds.x.dtype] == stacked_evals * groups
-                and sum(k1s.values()) == k1s[ds.x.dtype],
+                and sum(k1s.values()) == k1s[ds.x.dtype]
+                and k1s_tc == k1s[ds.x.dtype],
             "K1 launched 0 times in the stacked fit": k1 == 0,
             "no other kernel launched": others == 0,
             "the serial fits launch K1 once per evaluation, K1s never":
@@ -1654,9 +1692,10 @@ def phase_ovr():
             "repeat fit reproduces the models": repeat,
             "finite models": finite,
             "fp8: e4m3 K1s launched once per stacked evaluation, no other "
-            "instance": k1s8[torch.float8_e4m3fn] == f_evals * groups
+            "dtype, all on the tensor cores":
+                k1s8[torch.float8_e4m3fn] == f_evals * groups8
                 and sum(k1s8.values()) == k1s8[torch.float8_e4m3fn]
-                and others8 == 0,
+                and k1s8_tc == k1s8[torch.float8_e4m3fn] and others8 == 0,
         })
         return k1s[ds.x.dtype], k1s8[torch.float8_e4m3fn]
     finally:
@@ -1784,12 +1823,12 @@ def main() -> int:
             "yardstick_ms": numbers.get("yardstick_ms"), "card": card,
             **extra})
 
-    def redesigned(numbers, *kernels_run):
+    def redesigned(numbers, *kernels_run, how="tensor cores, wgmma"):
         """The fields of a kernel redesigned for the tensor cores: the
         redesign, its f32-FMA bound and rate reference, and ptxas's lines
         for the kernels it runs."""
-        keep = ("f32_fma_bound_ms", "library_bf16_rate_ms")
-        return {"redesigned": "PR 4",
+        keep = ("f32_fma_bound_ms", "library_bf16_rate_ms", "instance")
+        return {"redesigned": how,
                 **{k: numbers[k] for k in keep if k in numbers},
                 "ptxas": {f: ptxas.get(f) for f in ptxas
                           if f.startswith(kernels_run)}}
@@ -1835,12 +1874,16 @@ def main() -> int:
           vmapped_by="cycloneml_tpu/ml/optim/aggregators.py:394",
           cv_fit_launches=phase_cv(),
           yardstick="K serial launches of K1",
-          yardstick_two_f32_gemm_ms=k1s["yardstick_two_f32_gemm_ms"])
+          yardstick_two_f32_gemm_ms=k1s["yardstick_two_f32_gemm_ms"],
+          **redesigned(k1s, "glm_stacked_tc_kernel<bf16",
+                       how="tensor cores, mma.sync"))
     k1s8 = phase_k1s(fp8=True)
     entry("glm_sweep_stacked (K1s, e4m3)", "glm_stacked", 309, k1s8,
           ovr8_launches, models=OVR_K,
           yardstick="K serial launches of K1 (e4m3)",
-          yardstick_two_f32_gemm_ms=k1s8["yardstick_two_f32_gemm_ms"])
+          yardstick_two_f32_gemm_ms=k1s8["yardstick_two_f32_gemm_ms"],
+          **redesigned(k1s8, "glm_stacked_tc_kernel<e4m3",
+                       how="tensor cores, mma.sync"))
     entry("center_sums (KMeans center update)", "center_sums",
           "cycloneml_tpu/ml/clustering/kmeans.py:122", sums, sum_launches,
           note="jax.ops.segment_sum of the Lloyd step, not a Pallas "

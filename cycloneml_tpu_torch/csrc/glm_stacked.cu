@@ -16,42 +16,121 @@
 // (d,) vectors, so X is read raw at its storage width (float32, bfloat16 or
 // float8_e4m3fn codes).
 //
-// Bound: bytes for small K, operations for large K. X is read once per
-// sweep for all K models (n*d bytes in e4m3, 2n*d in bf16, 4n*d in f32)
-// plus the (n, K) labels; the arithmetic is 2*n*d*K FMAs (margins and
-// gradient). At n=2M, d=1280 in bf16 that is 5.12 GB (1.53 ms at an
-// H100 SXM's 3.35 TB/s) against 41 GFMA at K=16 (2.45 ms at its 67 TFLOP/s
-// of f32 FMAs; data-sheet rates, not measurements).
+// Two instances, picked by X's dtype:
+// - bf16 X and e4m3 codes: the tensor cores (glm_stacked_tc_kernel). It
+//   took these dtypes over from the FMA instance because it measured
+//   faster at the OneVsRest shape (chip_smoke.py's k1s_time lines; PERF.md
+//   section 6 keeps the numbers).
+// - f32 X: float32 FMAs (glm_stacked_kernel), the first design. On the
+//   tensor cores an f32 X would need 3xTF32 or six bf16 passes; that is
+//   later work (ROADMAP Queue 2 B7).
 //
-// Design (right and simple first; the tensor cores are a later step):
-// - A CTA of 256 threads walks tiles of R consecutive rows (grid-stride).
-//   Each tile is one contiguous stretch of X, copied into shared memory at
-//   storage width by cp.async (16, 8 or 4 bytes a copy, whatever the row
-//   width and base allow; element by element otherwise), the next tile's
-//   copy in flight while this one computes (two stages where shared memory
-//   allows). Rows past n are zero in shared memory and carry w = 0 and
-//   y = 0, so they add exactly nothing.
-// - Margins: warp w owns R/8 rows of the tile; lane l sums x_rj B_kj over
-//   the columns j = l (mod 32) for its rows and all models, B (f32) in
-//   shared memory, and xor shuffles finish the sums (every lane ends with
-//   the same bits). Lane k then turns model k's margins into multipliers
-//   (into shared memory) and keeps Kahan-compensated f32 sums of the loss
-//   and sum(mult); lane 0 those of w.
-// - Gradient by column: thread t owns the columns t, t+256, ... (C of
-//   them, C = ceil(d/256) rounded up to even) and keeps one f32 sum per
-//   column and model in registers, so X's tile is read from shared memory
-//   once per row and column for all K models. Every 4,096 rows a thread
-//   adds its f32 sums, in double, into its CTA's partial row in device
-//   memory (only this thread ever touches those entries) and restarts
-//   them, so no f32 sum runs over more than 4,096 rows.
+// Bound. X is read once per sweep for all K models (n*d bytes in e4m3,
+// 2n*d in bf16, 4n*d in f32) plus the (n, K) labels. The arithmetic is
+// 4*n*d*K flops on FMAs (margins and gradient); on the tensor cores, with
+// B and the multipliers each in three bf16 parts, 12*n*d*K. At n=2M,
+// d=1280, K=8 in bf16: 5.16 GB, 1.54 ms at an H100 SXM's 3.35 TB/s,
+// against 246 GFLOP, 0.25 ms at its 989 TFLOP/s of bf16 tensor work (82
+// GFLOP, 1.22 ms at its 67 TFLOP/s of f32 FMAs). So the tensor-core
+// instance is bound by bytes at every K <= 16 (K=16: 1.55 ms of bytes,
+// 0.50 ms of tensor work; on FMAs 2.45 ms), and e4m3 at K=8 by its 2.6 GB
+// of codes and labels, 0.78 ms. Data-sheet rates, not measurements.
+//
+// The tensor-core instance, and the arithmetic behind it:
+// - Exact operands, f32 sums. The wrapper splits B (after the fold)
+//   exactly into three bf16 parts, B = hi + mid + lo (three 8-bit
+//   significands cover float32's 24; ops/kernels.split_bf16x3). bf16 X is
+//   exact as it is and every e4m3 code converts exactly to bf16, so each
+//   product x * part is exact in f32 and the tensor cores sum exact
+//   products in f32: the FMA instance's function to f32 rounding. The
+//   multipliers are computed in f32 with the FMA instance's sigmoid and
+//   softplus and Kahan sums of loss, sum(mult) and sum(w), then split in
+//   registers the same way, so the gradient is sum_p X^T M_p.
+// - mma.sync.m16n8k16 (bf16 in, f32 sums) with ldmatrix for both
+//   products. wgmma would need 64 whole rows of X in shared memory at
+//   once (160 KB at d = 1280, 256 KB at d = 2048), leaving no room for a
+//   second stage; mma works on 16-row blocks, so a tile is 16 rows and
+//   the models are the N side in n8 blocks (KG = 8 or 16 a launch).
+// - A CTA is 16 warps, one CTA an SM (shared memory allows no second):
+//   every phase below is a chain of latencies, and 16 warps hide more of
+//   them than 8.
+// - Margins: the 16-column k-blocks are split across the 16 warps (warp w
+//   takes blocks w, w + 16, ...), so each part of B is read from shared
+//   memory once a tile by the CTA (splitting the rows instead would make
+//   every warp read all of B). Each X fragment is loaded once and used for
+//   the three parts; each part sums into its own accumulator (three
+//   independent chains), and a warp's margin is (lo + mid) + hi, smallest
+//   first. The warps' partial margins (16 x KG f32) are summed in warp
+//   order: a fixed order, so launches stay bitwise equal.
+// - Epilogue: two threads for each (row, model) entry of the tile, in
+//   different warps so that the two run side by side: one sums the
+//   partial margins and turns the margin into the multiplier (its Kahan
+//   sums, and sum(w) for model 0) and the multiplier's three bf16 parts
+//   (model-major, the gradient's B operand), the other sums the same
+//   partials in the same order and adds the loss. At KG = 8 that is half
+//   the CTA; for e4m3 the other half copies and converts codes meanwhile
+//   (bf16 X is copied by all threads as a tile starts).
+// - Gradient: warp w owns the same 16-column blocks as mma's M side (X^T
+//   through ldmatrix.trans), the models as N and the tile's 16 rows as K;
+//   per block one X fragment and three products (lo, mid, hi) into one
+//   f32 accumulator. The accumulators stay in registers (d x KG f32 over
+//   512 threads: 20 at d = 1280, K = 8), and every 4,096 rows a thread
+//   adds them, in double, into its CTA's partial row in device memory
+//   (only this thread touches those entries) and restarts them.
+// - Staging: tiles are 16 rows at a row pitch of d rounded up to 64
+//   columns, the 16-byte chunks XOR-swizzled by the row (chunk c of row r
+//   at c ^ (r % 8)), so ldmatrix's eight rows fall on eight bank groups at
+//   every d (a plain 2,560-byte pitch at d = 1280 is 8-way conflicts). The
+//   pad columns and B's pad columns are zeros. bf16 X goes by cp.async
+//   (16, 8 or 4 bytes, as the row width and base allow; element by
+//   element otherwise) into a ring of S tiles, S - 1 in flight while one
+//   computes. e4m3 codes go by cp.async at one byte each into a ring of S
+//   code tiles, S in flight; each copier converts exactly the codes it
+//   copied itself (so no barrier stands between its copy and its
+//   conversion) into one of two bf16 tiles during the tile before, or,
+//   where two bf16 tiles do not fit, into one between tiles. A tile's
+//   labels and weights go by 4-byte cp.async in the same group as its X,
+//   into a ring of S + 2 label stages (global loads of them in the loop
+//   measured slower). Rows past n are zeros with w = 0, so they add
+//   exactly nothing.
 // - A second kernel sums the partial rows column by column in CTA order,
 //   in double, and rounds once to f32. No atomics: two launches on the
 //   same inputs are bitwise equal. sum(w) is exact for n < 2^24 unit
-//   weights per warp.
-// - Limits: d <= 2048 (C <= 8, K1's limit too) and at most 16 models a
-//   launch (K_MAX); the wrapper runs groups of at most 16 models, each one
-//   launch and one more read of X. Instances: X's dtype x C in {2, 4, 6,
-//   8} x the group's models rounded up to 4, 8 or 16.
+//   weights per thread.
+// - Shared memory and groups. An instance is (dtype, NB, KG): NB k-blocks
+//   a warp at most (d <= 256 NB), KG models. B's parts take 6 KG d bytes,
+//   a bf16 tile 32 d, a code tile 16 d, the partial margins 1,024 KG, a
+//   label stage 64 KG + 64. The most stages (up to 4) that fit 227 KB are
+//   taken; at d = 1280: bf16
+//   three tiles at KG = 8 and two at KG = 16; e4m3 three code tiles and
+//   two bf16 tiles at KG = 8, two code tiles and one bf16 tile at KG = 16.
+//   For d > 1280 sixteen models leave no room for two stages (at d = 2048
+//   the parts alone take 196,608 B), so the wrapper runs groups of 8
+//   models there (glm_stacked_group), each one read of X; for d > 1536
+//   even eight leave room for one bf16 stage only, and a tile's copy
+//   waits for the one before.
+// - Registers (ptxas, no spills): 74-115 a thread at KG = 8 and 92-123 at
+//   KG = 16 for bf16, 76-105 and 80-128 for e4m3, within the 128 that 512
+//   threads allow.
+// - What holds it back (k1s_phases.py times the kernel with each phase
+//   taken out; PERF.md section 6): a tile's phases run one after another
+//   between three barriers, the epilogue's exp, division and log1p on 256
+//   threads the longest of them at K = 8 in bf16; e4m3 adds the
+//   conversion of every code.
+//
+// The FMA instance (f32 X), right and simple first: a CTA of 256 threads
+// walks tiles of R rows, staged contiguously by cp.async (two stages where
+// shared memory allows); warp w owns R/8 rows for the margins, lane l
+// summing x_rj B_kj over j = l (mod 32) with B (f32) in shared memory and
+// xor shuffles finishing the sums; lane k turns model k's margins into
+// multipliers; thread t owns columns t, t + 256, ... for the gradient (C
+// of them, one f32 sum per column and model in registers, flushed in
+// double every 4,096 rows). Instances: C in {2, 4, 6, 8} x KG in {4, 8,
+// 16}.
+//
+// Limits: d <= 2048 and at most 16 models a launch (8 on the tensor cores
+// for d > 1280); the wrapper runs groups, each one launch and one more
+// read of X.
 //
 // Plain C interface (loaded with ctypes): every entry point returns a
 // cudaError_t, 0 on success.
@@ -62,75 +141,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxModels = 16;   // K_MAX: models one launch sweeps
-constexpr int kMaxCols = 8;      // columns a thread owns: d <= 2048
+constexpr int kMaxModels = 16;   // K_MAX: models one launch sweeps at most
+constexpr int kMaxD = 2048;
 constexpr int kFlushRows = 4096; // rows an f32 gradient sum runs over
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// Shared memory of an instance for d columns: S stages of R rows of X at
-// storage width, B (KG x d f32), the labels, weights and multipliers of a
-// tile, and the warps' loss/msum/w sums. Every section is 16-byte aligned.
 __host__ __device__ constexpr size_t align16(size_t v) {
   return (v + 15) & ~(size_t)15;
 }
-__host__ __device__ constexpr size_t smem_bytes(size_t item, int S, int R,
-                                                int KG, int d) {
-  return S * align16((size_t)R * d * item)       // X tiles
-         + align16((size_t)KG * d * 4)           // B
-         + align16((size_t)KG * 4)               // offsets
-         + 2 * align16((size_t)R * KG * 4)       // labels, multipliers
-         + align16((size_t)R * 4)                // weights
-         + (size_t)kWarps * (2 * KG + 1) * 8;    // warp sums (double)
-}
-
-// Rows per tile and stages of an instance, for its widest d (256*C): the
-// most rows (32, 16 or 8) whose two stages fit, else one stage of 8.
-template <typename T, int C, int KG>
-struct Plan {
-  static constexpr int kDMax = 256 * C;
-  static constexpr bool fits(int S, int R) {
-    return smem_bytes(sizeof(T), S, R, KG, kDMax) <= kSmemLimit;
-  }
-  static constexpr int kRows = fits(2, 32) ? 32 : fits(2, 16) ? 16 : 8;
-  static constexpr int kStages = fits(2, kRows) ? 2 : 1;
-  static_assert(fits(kStages, kRows), "instance does not fit shared memory");
-};
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_fp8_e4m3>(__nv_fp8_e4m3 v) {
-  // every e4m3 value is an f16 value: exact
-  return __half2float(__half(__nv_cvt_fp8_to_halfraw(v.__x, __NV_E4M3)));
-}
-
-// the raw bits of one element, for the element-by-element copy
-template <typename T>
-struct Raw;
-template <>
-struct Raw<float> {
-  using U = uint32_t;
-};
-template <>
-struct Raw<__nv_bfloat16> {
-  using U = uint16_t;
-};
-template <>
-struct Raw<__nv_fp8_e4m3> {
-  using U = uint8_t;
-};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -158,6 +182,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// `bytes` (16, 8, 4, 2 or 1) zero bytes at p
+__device__ __forceinline__ void store_zeros(unsigned char* p, int bytes) {
+  if (bytes == 16)
+    *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+  else if (bytes == 8)
+    *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
+  else if (bytes == 4)
+    *reinterpret_cast<uint32_t*>(p) = 0u;
+  else if (bytes == 2)
+    *reinterpret_cast<uint16_t*>(p) = 0;
+  else
+    *p = 0;
+}
+
 // Kahan step: the true sum is s - c.
 __device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
   const float y = v - c;
@@ -166,39 +204,78 @@ __device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
   s = t;
 }
 
+// the logistic link of margin m, label y and weight w: the multiplier
+// w (sigmoid(m) - y) and the loss term w (softplus(m) - y m)
+__device__ __forceinline__ float logistic_mult(float m, float y, float w) {
+  const float e = expf(-fabsf(m));  // in (0, 1]
+  const float sig = (m >= 0.0f) ? 1.0f / (1.0f + e) : e / (1.0f + e);
+  return w * (sig - y);
+}
+__device__ __forceinline__ float logistic_loss(float m, float y, float w) {
+  const float softplus = fmaxf(m, 0.0f) + log1pf(expf(-fabsf(m)));
+  return w * (softplus - y * m);
+}
+
+// partials: gridDim.x rows of kg*(d+2)+1 doubles: per model k, grad (d),
+// loss, msum at k*(d+2); then sum(w). Both instances write this layout.
+
+// ===========================================================================
+// The FMA instance (f32 X)
+// ===========================================================================
+
+// Shared memory for d columns: S stages of R rows of X, B (KG x d f32),
+// the labels, weights and multipliers of a tile, and the warps' loss/msum/
+// w sums. Every section is 16-byte aligned.
+__host__ __device__ constexpr size_t smem_bytes(int S, int R, int KG,
+                                                int d) {
+  return S * align16((size_t)R * d * 4)          // X tiles
+         + align16((size_t)KG * d * 4)           // B
+         + align16((size_t)KG * 4)               // offsets
+         + 2 * align16((size_t)R * KG * 4)       // labels, multipliers
+         + align16((size_t)R * 4)                // weights
+         + (size_t)kWarps * (2 * KG + 1) * 8;    // warp sums (double)
+}
+
+// Rows per tile and stages of an instance, for its widest d (256*C): the
+// most rows (32, 16 or 8) whose two stages fit, else one stage of 8.
+template <int C, int KG>
+struct Plan {
+  static constexpr int kDMax = 256 * C;
+  static constexpr bool fits(int S, int R) {
+    return smem_bytes(S, R, KG, kDMax) <= kSmemLimit;
+  }
+  static constexpr int kRows = fits(2, 32) ? 32 : fits(2, 16) ? 16 : 8;
+  static constexpr int kStages = fits(2, kRows) ? 2 : 1;
+  static_assert(fits(kStages, kRows), "instance does not fit shared memory");
+};
+
 // Tile `tile` of X (R rows from row tile*R) into shared memory at `dst`:
 // cp.async of vec_bytes (16, 8 or 4) a copy, or element by element when
 // vec_bytes is 0; bytes past row n are zeros.
-template <typename T, int R>
-__device__ __forceinline__ void copy_tile(const T* __restrict__ x,
+template <int R>
+__device__ __forceinline__ void copy_tile(const float* __restrict__ x,
                                           long long n, int d, long long tile,
-                                          int vec_bytes, T* dst) {
+                                          int vec_bytes, float* dst) {
   const long long r0 = tile * R;
   const long long rows = (n - r0 < R) ? (n - r0) : R;
-  const size_t tile_bytes = (size_t)R * d * sizeof(T);
-  const size_t valid = (size_t)rows * d * sizeof(T);
+  const size_t tile_bytes = (size_t)R * d * 4;
+  const size_t valid = (size_t)rows * d * 4;
   const char* src = reinterpret_cast<const char*>(x + r0 * (long long)d);
-  char* out = reinterpret_cast<char*>(dst);
+  unsigned char* out = reinterpret_cast<unsigned char*>(dst);
   if (vec_bytes > 0) {
     for (size_t b = (size_t)threadIdx.x * vec_bytes; b < tile_bytes;
          b += (size_t)kThreads * vec_bytes) {
-      if (b < valid) {
+      if (b < valid)
         cp_async(smem_u32(out + b), src + b, vec_bytes);
-      } else if (vec_bytes == 16) {
-        *reinterpret_cast<uint4*>(out + b) = make_uint4(0u, 0u, 0u, 0u);
-      } else if (vec_bytes == 8) {
-        *reinterpret_cast<uint2*>(out + b) = make_uint2(0u, 0u);
-      } else {
-        *reinterpret_cast<uint32_t*>(out + b) = 0u;
-      }
+      else
+        store_zeros(out + b, vec_bytes);
     }
   } else {
-    using U = typename Raw<T>::U;
-    const U* s = reinterpret_cast<const U*>(src);
-    U* o = reinterpret_cast<U*>(out);
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+    uint32_t* o = reinterpret_cast<uint32_t*>(out);
     const size_t n_el = (size_t)R * d, n_valid = (size_t)rows * d;
     for (size_t e = threadIdx.x; e < n_el; e += kThreads)
-      o[e] = (e < n_valid) ? s[e] : (U)0;
+      o[e] = (e < n_valid) ? s[e] : 0u;
   }
 }
 
@@ -265,23 +342,21 @@ __device__ __forceinline__ void flush(float (&acc)[C][KG],
   flushed = true;
 }
 
-// partials: gridDim.x rows of kg*(d+2)+1 doubles: per model k, grad (d),
-// loss, msum at k*(d+2); then sum(w).
-template <typename T, int C, int KG>
+template <int C, int KG>
 __global__ void __launch_bounds__(kThreads, 1)
-    glm_stacked_kernel(const T* __restrict__ x, const void* __restrict__ y,
+    glm_stacked_kernel(const float* __restrict__ x, const void* __restrict__ y,
                        int y_bf16, long long ldy, const float* __restrict__ w,
                        const float* __restrict__ B,
                        const float* __restrict__ off, long long n, int d,
                        int kg, int vec_bytes, double* __restrict__ partials) {
-  using P = Plan<T, C, KG>;
+  using P = Plan<C, KG>;
   constexpr int R = P::kRows;
   constexpr int S = P::kStages;
   constexpr int RW = R / kWarps;  // rows of a tile each warp owns
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* p = smem;
-  T* s_x = reinterpret_cast<T*>(p);
-  const size_t stage_bytes = align16((size_t)R * d * sizeof(T));
+  float* s_x = reinterpret_cast<float*>(p);
+  const size_t stage_bytes = align16((size_t)R * d * 4);
   p += S * stage_bytes;
   float* s_b = reinterpret_cast<float*>(p);
   p += align16((size_t)KG * d * 4);
@@ -318,23 +393,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   long long tile = blockIdx.x;
   TileLabels<R, KG> lab;
   if (tile < n_tiles) {
-    copy_tile<T, R>(x, n, d, tile, vec_bytes, s_x);
+    copy_tile<R>(x, n, d, tile, vec_bytes, s_x);
     lab.load(y, y_bf16, ldy, w, n, kg, tile);
     lab.store(s_y, s_w);
   }
   cp_async_commit();
   for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
     const int cur = (S == 2) ? (it & 1) : 0;
-    const T* xt = reinterpret_cast<const T*>(
+    const float* xt = reinterpret_cast<const float*>(
         reinterpret_cast<const unsigned char*>(s_x) + cur * stage_bytes);
     const long long nxt = tile + gridDim.x;
     if (nxt < n_tiles) lab.load(y, y_bf16, ldy, w, n, kg, nxt);
     if (S == 2) {
       if (nxt < n_tiles)
-        copy_tile<T, R>(x, n, d, nxt, vec_bytes,
-                        reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(
-                                                 s_x) +
-                                             (cur ^ 1) * stage_bytes));
+        copy_tile<R>(x, n, d, nxt, vec_bytes,
+                     reinterpret_cast<float*>(
+                         reinterpret_cast<unsigned char*>(s_x) +
+                         (cur ^ 1) * stage_bytes));
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -352,8 +427,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = lane; j < d; j += 32) {
       float xv[RW];
 #pragma unroll
-      for (int rr = 0; rr < RW; ++rr)
-        xv[rr] = to_f32<T>(xt[(warp * RW + rr) * d + j]);
+      for (int rr = 0; rr < RW; ++rr) xv[rr] = xt[(warp * RW + rr) * d + j];
 #pragma unroll
       for (int k = 0; k < KG; ++k) {
         const float b = s_b[k * d + j];
@@ -377,13 +451,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane < KG) {
         float mult = 0.0f;
         if (lane < kg) {
-          const float m = dot + s_off[lane];
-          const float yr = s_y[r * KG + lane], wr = s_w[r];
-          const float e = expf(-fabsf(m));  // in (0, 1]
-          const float sig = (m >= 0.0f) ? 1.0f / (1.0f + e) : e / (1.0f + e);
-          const float softplus = fmaxf(m, 0.0f) + log1pf(e);
-          mult = wr * (sig - yr);
-          kahan_add(loss_s, loss_c, wr * (softplus - yr * m));
+          const float m = dot + s_off[lane], yr = s_y[r * KG + lane];
+          mult = logistic_mult(m, yr, s_w[r]);
+          kahan_add(loss_s, loss_c, logistic_loss(m, yr, s_w[r]));
           kahan_add(mult_s, mult_c, mult);
         }
         s_m[r * KG + lane] = mult;
@@ -408,7 +478,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < C; ++c) {
         const int col = tid + kThreads * c;
         if (col < d) {
-          const float xv = to_f32<T>(xt[r * d + col]);
+          const float xv = xt[r * d + col];
 #pragma unroll
           for (int k = 0; k < KG; ++k) acc[c][k] = fmaf(m[k], xv, acc[c][k]);
         }
@@ -421,7 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     lab.store(s_y, s_w);  // the next tile's; this tile's are read
     __syncthreads();      // this tile's X buffer is free again
     if (S == 1) {
-      if (nxt < n_tiles) copy_tile<T, R>(x, n, d, nxt, vec_bytes, s_x);
+      if (nxt < n_tiles) copy_tile<R>(x, n, d, nxt, vec_bytes, s_x);
       cp_async_commit();
     }
   }
@@ -453,6 +523,576 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ===========================================================================
+// The tensor-core instance (bf16 X and e4m3 codes)
+// ===========================================================================
+
+constexpr int kTcWarps = 16;      // a CTA of the tensor-core instance
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcRows = 16;       // rows of a tile: mma's M (margins), K
+                                  // (gradient)
+constexpr int kKb = 16;           // columns of a k-block
+constexpr int kParts = 3;         // hi, mid, lo (index 0, 1, 2)
+constexpr int kTcMaxNb16 = 5;     // KG = 16 up to d = 16 kTcWarps 5 = 1280
+
+// columns of a staged row: d rounded up to 64 (whole 8-chunk swizzle groups)
+__host__ __device__ constexpr int pad64(int d) { return (d + 63) & ~63; }
+
+// a tile's labels (16 x KG slots of 4 bytes; bf16 labels use the first
+// half of each row) and weights (16 f32) in the label ring
+__host__ __device__ constexpr int lab_bytes(int KG) {
+  return kTcRows * KG * 4 + kTcRows * 4;
+}
+// stages of the label ring: S + 2, so that a tile's labels stay until its
+// epilogue whichever path copies the tiles ahead
+__host__ __device__ constexpr int lab_stages(int S) { return S + 2; }
+
+// Shared memory of a tensor-core instance at padded width dp: the X ring
+// (S bf16 tiles; for e4m3 `tiles` bf16 tiles and S code tiles), B's three
+// parts (KG x dp bf16 each), the warps' partial margins (warps x 16 x KG
+// f32), the multipliers' three parts (KG x 16 bf16 each) and the label
+// ring. Every section is a multiple of 16 bytes.
+__host__ __device__ constexpr size_t tc_smem(int item, int S, int tiles,
+                                             int KG, int dp) {
+  return (item == 2 ? (size_t)S * kTcRows * dp * 2
+                    : (size_t)tiles * kTcRows * dp * 2 +
+                          (size_t)S * kTcRows * dp) +
+         (size_t)kParts * KG * dp * 2 + (size_t)kTcWarps * kTcRows * KG * 4 +
+         (size_t)kParts * KG * kTcRows * 2 +
+         (size_t)lab_stages(S) * lab_bytes(KG);
+}
+
+// The ring of an instance, for its widest d (16 kTcWarps NB): the most
+// stages (up to 4) that fit; for e4m3 two bf16 tiles where they fit with a
+// code stage (each tile's codes are converted while the tile before it
+// computes), else one (converted between tiles).
+template <typename T, int NB, int KG>
+struct TcPlan {
+  static constexpr int kDMax = 16 * kTcWarps * NB;
+  static constexpr bool kCodes = sizeof(T) == 1;
+  static constexpr bool fits(int S, int tiles) {
+    return tc_smem(sizeof(T), S, tiles, KG, kDMax) <= kSmemLimit;
+  }
+  static constexpr int kTiles = kCodes ? (fits(1, 2) ? 2 : 1) : 0;
+  static constexpr int kStages = fits(4, kTiles)   ? 4
+                                 : fits(3, kTiles) ? 3
+                                 : fits(2, kTiles) ? 2
+                                                   : 1;
+  static_assert(fits(kStages, kTiles), "instance does not fit shared memory");
+};
+static_assert(TcPlan<__nv_bfloat16, kTcMaxNb16, 16>::kStages >= 2 &&
+                  TcPlan<__nv_fp8_e4m3, kTcMaxNb16, 16>::kStages >= 2,
+              "16 models a launch need two stages up to d = 1280");
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+// c (16 x 8 f32) += a (16 x 16 bf16, row) b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// byte offset of byte b of row r in a swizzled region of rows `pitch`
+// bytes apart (a multiple of 128): 16-byte chunk c at c ^ (r % 8)
+__device__ __forceinline__ int swz(int r, int b, int pitch) {
+  return r * pitch + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15));
+}
+
+// Copier ct's share of a 16-row tile, kCount copiers: kCount / 16 a row,
+// row ct / that, units of vec bytes from byte b0 in steps of `step`.
+template <int kCount>
+struct RowShare {
+  static constexpr int kPerRow = kCount / kTcRows;
+  int r, b0, step;
+  __device__ __forceinline__ RowShare(int vec, int ct)
+      : r(ct / kPerRow), b0((ct % kPerRow) * vec), step(kPerRow * vec) {}
+};
+
+// Copier ct's share of rows [r0, r0 + 16) of X (row_bytes each) into a
+// stage, byte b of row r at swz(r, b, pitch) (kSwizzle) or r * pitch + b:
+// cp.async units of vec bytes (16, 8 or 4), or, for vec < 4, element by
+// element (vec = the element's bytes); rows past n are zeros.
+template <bool kSwizzle, int kCount>
+__device__ __forceinline__ void tc_copy_tile(const unsigned char* __restrict__ x,
+                                             long long n, int row_bytes,
+                                             long long r0, int vec,
+                                             unsigned char* dst, int pitch,
+                                             int ct) {
+  const RowShare<kCount> sh(vec, ct);
+  unsigned char* row = dst + sh.r * pitch;
+  const int sw = kSwizzle ? (sh.r & 7) << 4 : 0;
+  if (r0 + sh.r < n) {
+    const unsigned char* src = x + (r0 + sh.r) * (long long)row_bytes;
+    for (int b = sh.b0; b < row_bytes; b += sh.step) {
+      unsigned char* at = row + (b ^ sw);
+      if (vec >= 4)
+        cp_async(smem_u32(at), src + b, vec);
+      else if (vec == 2)
+        *reinterpret_cast<uint16_t*>(at) =
+            __ldg(reinterpret_cast<const unsigned short*>(src + b));
+      else
+        *at = __ldg(src + b);
+    }
+  } else {
+    for (int b = sh.b0; b < row_bytes; b += sh.step)
+      store_zeros(row + (b ^ sw), vec);
+  }
+}
+
+// Copier ct's share of a tile's labels and weights (rows [r0, r0 + 16))
+// into a label stage by 4-byte cp.async: f32 labels one a copy, bf16
+// labels two (the wrapper hands bf16 labels over only with an even kg and
+// row stride and a 4-byte-aligned base); zeros past n. Slots of models past
+// kg are never read.
+template <int kCount, int KG>
+__device__ __forceinline__ void tc_copy_labels(
+    const unsigned char* __restrict__ y, int y_bf16, long long ldy,
+    const float* __restrict__ w, long long n, int kg, long long r0,
+    unsigned char* lab, int ct) {
+  const int esz = y_bf16 ? 2 : 4;
+  const int per_row = y_bf16 ? kg / 2 : kg;  // 4-byte units of a row
+  for (int u = ct; u < kTcRows * (per_row + 1); u += kCount) {
+    const int r = u / (per_row + 1), c = u - r * (per_row + 1);
+    // unit per_row of a row is its weight
+    unsigned char* at = c < per_row ? lab + (r * KG) * esz + 4 * c
+                                    : lab + kTcRows * KG * 4 + 4 * r;
+    if (r0 + r < n) {
+      const void* src =
+          c < per_row
+              ? static_cast<const void*>(y + ((r0 + r) * ldy) * esz + 4 * c)
+              : static_cast<const void*>(w + r0 + r);
+      cp_async(smem_u32(at), src, 4);
+    } else {
+      *reinterpret_cast<uint32_t*>(at) = 0u;
+    }
+  }
+}
+
+// Copier ct's own units of a code tile (as tc_copy_tile<false, kCount>
+// copied them, so no barrier is needed between its copy and this)
+// converted exactly to bf16 into a swizzled bf16 tile: vec codes at byte b
+// of row r become 2 vec bytes at byte 2 b.
+template <int kCount>
+__device__ __forceinline__ void tc_convert_own(const unsigned char* codes,
+                                               int dp, int row_bytes,
+                                               int vec, unsigned char* tile,
+                                               int pitch, int ct) {
+  using hopper::e4m3x2_to_bf16x2;
+  const RowShare<kCount> sh(vec, ct);
+  const unsigned char* src = codes + sh.r * dp;
+  unsigned char* row = tile + sh.r * pitch;
+  const int sw = (sh.r & 7) << 4;
+  for (int b = sh.b0; b < row_bytes; b += sh.step) {
+    if (vec == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src + b);
+      *reinterpret_cast<uint4*>(row + ((2 * b) ^ sw)) = make_uint4(
+          e4m3x2_to_bf16x2((uint16_t)v.x),
+          e4m3x2_to_bf16x2((uint16_t)(v.x >> 16)),
+          e4m3x2_to_bf16x2((uint16_t)v.y),
+          e4m3x2_to_bf16x2((uint16_t)(v.y >> 16)));
+      *reinterpret_cast<uint4*>(row + ((2 * b + 16) ^ sw)) = make_uint4(
+          e4m3x2_to_bf16x2((uint16_t)v.z),
+          e4m3x2_to_bf16x2((uint16_t)(v.z >> 16)),
+          e4m3x2_to_bf16x2((uint16_t)v.w),
+          e4m3x2_to_bf16x2((uint16_t)(v.w >> 16)));
+    } else if (vec == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(src + b);
+      *reinterpret_cast<uint4*>(row + ((2 * b) ^ sw)) = make_uint4(
+          e4m3x2_to_bf16x2((uint16_t)v.x),
+          e4m3x2_to_bf16x2((uint16_t)(v.x >> 16)),
+          e4m3x2_to_bf16x2((uint16_t)v.y),
+          e4m3x2_to_bf16x2((uint16_t)(v.y >> 16)));
+    } else if (vec == 4) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(src + b);
+      *reinterpret_cast<uint2*>(row + ((2 * b) ^ sw)) =
+          make_uint2(e4m3x2_to_bf16x2((uint16_t)v),
+                     e4m3x2_to_bf16x2((uint16_t)(v >> 16)));
+    } else {
+      *reinterpret_cast<uint16_t*>(row + ((2 * b) ^ sw)) =
+          (uint16_t)e4m3x2_to_bf16x2(src[b]);
+    }
+  }
+}
+
+// parts: (3, kg, dp) bf16, B's hi, mid and lo parts, zero past d; vec: the
+// copy unit of X's rows in bytes (16, 8, 4, or the element's bytes).
+template <typename T, int NB, int KG>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    glm_stacked_tc_kernel(const T* __restrict__ x, const void* __restrict__ y,
+                          int y_bf16, long long ldy,
+                          const float* __restrict__ w,
+                          const __nv_bfloat16* __restrict__ parts,
+                          const float* __restrict__ off, long long n, int d,
+                          int kg, int vec, double* __restrict__ partials) {
+  using P = TcPlan<T, NB, KG>;
+  constexpr int R = kTcRows;
+  constexpr int S = P::kStages;
+  constexpr int NT = KG / 8;  // n8 blocks of models
+  constexpr bool kCodes = P::kCodes;
+  constexpr int kTiles = P::kTiles;  // e4m3's bf16 tiles
+  // the epilogue: two threads for each of the tile's R KG (row, model)
+  // entries, one in each half of kEpi; the threads from kCopyFrom on copy
+  // X: all of them for bf16 (at the top of a tile); for e4m3 those past
+  // the epilogue, which copy and convert the codes during it (where
+  // there are any; else all, after the margins). Each measured faster.
+  constexpr int kEntries = R * KG;
+  constexpr int kEpi = 2 * kEntries;
+  static_assert(kEpi <= kTcThreads, "two threads an entry");
+  constexpr int kCopyFrom = (kCodes && kEpi < kTcThreads) ? kEpi : 0;
+  constexpr int kCopiers = kTcThreads - kCopyFrom;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int dp = pad64(d);
+  const int pitch = dp * 2;               // bytes of a bf16 row
+  const int nkb = (d + kKb - 1) / kKb;    // 16-column blocks
+  const int tile_bytes = R * pitch;       // a bf16 tile
+  const int ring_pitch = kCodes ? dp : pitch;
+  const int stage_bytes = R * ring_pitch;
+  unsigned char* s_x = smem;  // e4m3: the bf16 tiles
+  unsigned char* s_ring = smem + kTiles * tile_bytes;
+  unsigned char* s_p = s_ring + S * stage_bytes;  // [3][KG] rows of B
+  float* s_pm = reinterpret_cast<float*>(s_p + kParts * KG * pitch);
+  __nv_bfloat16* s_mp =  // [3][KG][R]: the multipliers' parts
+      reinterpret_cast<__nv_bfloat16*>(s_pm + kTcWarps * R * KG);
+  unsigned char* s_lab =  // the label ring
+      reinterpret_cast<unsigned char*>(s_mp + kParts * KG * R);
+  constexpr int kLab = lab_stages(S);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i8 = lane & 7, q = lane >> 3;
+  const long long n_tiles = (n + R - 1) / R;
+  const int width = kg * (d + 2) + 1;
+  double* part = partials + (long long)blockIdx.x * width;
+  const int row_bytes = d * (int)sizeof(T);
+  // this lane's ldmatrix offsets at the warp's first k-block (2 warp + h
+  // is 16-byte chunk h of it); the warp's block i is 2 kTcWarps chunks
+  // (kStep bytes) further, since the swizzle moves only the low 3 bits of
+  // a chunk index. Margins, A = X: matrix q is rows 8 (q & 1) + i8, chunk
+  // q >> 1; B = part p: models 8 (q >> 1) + i8 (8 x NT models), chunk
+  // q & 1. Gradient, A = X^T by ldmatrix.trans: rows 8 (q >> 1) + i8,
+  // chunk q & 1. Every row is 8k + i8, so row % 8 == i8.
+  const int a_off = (i8 + 8 * (q & 1)) * pitch +
+                    (((2 * warp + (q >> 1)) ^ i8) << 4);
+  const int b_off = (8 * ((q >> 1) % NT) + i8) * pitch +
+                    (((2 * warp + (q & 1)) ^ i8) << 4);
+  const int t_off = (i8 + 8 * (q >> 1)) * pitch +
+                    (((2 * warp + (q & 1)) ^ i8) << 4);
+  constexpr int kStep = 32 * kTcWarps;
+
+  // zero the X ring (pad columns stay zero), then B's parts, swizzled
+  for (int b = tid * 16; b < (int)(s_p - smem); b += kTcThreads * 16)
+    store_zeros(smem + b, 16);
+  for (int u = tid; u < kParts * KG * (dp / 8); u += kTcThreads) {
+    const int row = u / (dp / 8), c = u - row * (dp / 8);
+    const int p = row / KG, k = row - p * KG;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (k < kg)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          parts + ((long long)p * kg + k) * dp + c * 8));
+    *reinterpret_cast<uint4*>(s_p + p * KG * pitch + swz(k, c * 16, pitch)) =
+        v;
+  }
+  __syncthreads();  // the zeros are down before the first copies land
+
+  const long long grid = gridDim.x;
+  const bool copier = tid >= kCopyFrom;
+  const int ct = tid - kCopyFrom;
+  // a copier's share of the j-th tile of this CTA into ring stage
+  // `stage`, with its labels and weights into label stage j % kLab, in one
+  // group (global loads of the labels in the loop would wait behind the
+  // ring's cp.async waits)
+  auto issue = [&](long long j, int stage) {
+    const long long t = blockIdx.x + j * grid;
+    if (t < n_tiles) {
+      tc_copy_tile<!kCodes, kCopiers>(
+          reinterpret_cast<const unsigned char*>(x), n, row_bytes, t * R,
+          vec, s_ring + stage * stage_bytes, ring_pitch, ct);
+      tc_copy_labels<kCopiers, KG>(
+          reinterpret_cast<const unsigned char*>(y), y_bf16, ldy, w, n, kg,
+          t * R, s_lab + (int)(j % kLab) * lab_bytes(KG), ct);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  // a copier's own codes of the j-th tile, once they landed, into bf16
+  // tile `dst`, then its share of the (j + S)-th tile into the freed stage
+  auto convert = [&](long long j, unsigned char* dst) {
+    cp_async_wait<S - 1>();
+    if (blockIdx.x + j * grid < n_tiles)
+      tc_convert_own<kCopiers>(s_ring + (int)(j % S) * stage_bytes, dp,
+                               row_bytes, vec, dst, pitch, ct);
+    issue(j + S, (int)(j % S));
+  };
+  // e4m3 with two bf16 tiles: the next tile's conversion, during the j-th
+  auto ahead = [&](long long j) {
+    if constexpr (kTiles == 2)
+      convert(j + 1, s_x + (int)((j + 1) & 1) * tile_bytes);
+  };
+
+  // the epilogue's entry (row er, model ek) and this thread's part in it:
+  // sub 0 the multiplier, sum(mult) and sum(w), sub 1 the loss
+  const int entry = tid % kEntries, sub = tid / kEntries;
+  const int er = entry / KG, ek = entry % KG;
+  const float off_k = (ek < kg) ? off[ek] : 0.0f;
+
+  float acc[NB][NT][4];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.0f;
+  float sum_s = 0.0f, sum_c = 0.0f;  // sub 0: sum(mult); sub 1: the loss
+  float w_s = 0.0f, w_c = 0.0f;      // sub 0 of model 0: sum(w)
+  bool flushed = false;
+  constexpr int kFlushTiles = kFlushRows / R;
+  int since_flush = 0;
+
+  // prologue: bf16 keeps S - 1 tiles in flight (one with a single stage);
+  // e4m3 S code tiles, and with two bf16 tiles the first converted
+  constexpr int kAhead = kCodes ? S : (S >= 2 ? S - 1 : 1);
+  if (copier) {
+#pragma unroll
+    for (int s = 0; s < kAhead; ++s) issue(s, s);
+    if constexpr (kTiles == 2) convert(0, s_x);
+  }
+
+  for (long long j = 0; blockIdx.x + j * grid < n_tiles; ++j) {
+    const long long tile = blockIdx.x + j * grid;
+    const unsigned char* xt;
+    if constexpr (kTiles == 2) {
+      __syncthreads();  // this tile's bf16 tile is in place
+      xt = s_x + (int)(j & 1) * tile_bytes;
+    } else if constexpr (kCodes) {
+      __syncthreads();  // the last tile's gradient is done with the tile
+      if (copier) convert(j, s_x);
+      __syncthreads();  // the bf16 tile is in place
+      xt = s_x;
+    } else if constexpr (S >= 2) {
+      cp_async_wait<S - 2>();
+      __syncthreads();  // this tile is in place; the last one's stage free
+      xt = s_ring + (int)(j % S) * stage_bytes;
+      if (copier) issue(j + S - 1, (int)((j + S - 1) % S));
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();
+      xt = s_ring;
+    }
+    const uint32_t xb = smem_u32(xt);
+    const uint32_t pb = smem_u32(s_p);
+
+    // -- margins: warp w takes k-blocks w, w + kTcWarps, ...; one
+    // accumulator per part of B
+    float pm[kParts][NT][4];
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pm[p][nt][e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int kb = warp + kTcWarps * i;
+      if (kb < nkb) {
+        uint32_t a[4];
+        ldsm_x4(a, xb + a_off + kStep * i);
+#pragma unroll
+        for (int p = 0; p < kParts; ++p) {
+          // B = part p (16 columns x models), model-major
+          const uint32_t at = pb + p * KG * pitch + b_off + kStep * i;
+          if constexpr (NT == 2) {
+            uint32_t b[4];
+            ldsm_x4(b, at);
+            mma_bf16(pm[p][0], a, b[0], b[1]);
+            mma_bf16(pm[p][1], a, b[2], b[3]);
+          } else {
+            uint32_t b[2];
+            ldsm_x2(b, at);
+            mma_bf16(pm[p][0], a, b[0], b[1]);
+          }
+        }
+      }
+    }
+    // this warp's partial margins, (lo + mid) + hi: c0, c1 at row g,
+    // models 2 (lane % 4) + {0, 1}; c2, c3 at row g + 8
+    {
+      const int g = lane >> 2, m0 = 2 * (lane & 3);
+      float* dst = s_pm + warp * R * KG;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = (pm[2][nt][e] + pm[1][nt][e]) + pm[0][nt][e];
+        *reinterpret_cast<float2*>(dst + g * KG + nt * 8 + m0) =
+            make_float2(v[0], v[1]);
+        *reinterpret_cast<float2*>(dst + (g + 8) * KG + nt * 8 + m0) =
+            make_float2(v[2], v[3]);
+      }
+    }
+    // e4m3's next conversion: here by every thread when all of them take
+    // part in the epilogue, else by the copiers during it
+    if constexpr (kCopyFrom == 0) ahead(j);
+    __syncthreads();  // every warp's partial margins are in place
+
+    // -- epilogue: the entry's two threads each sum the warps' margins in
+    // warp order (the same bits); sub 0 the multiplier, its sums and its
+    // three bf16 parts (model-major) for the gradient, sub 1 (other warps,
+    // so the two run side by side) the loss; the copiers copy meanwhile
+    if (tid < kEpi) {
+      // this tile's label and weight, from the label ring
+      const unsigned char* lab = s_lab + (int)(j % kLab) * lab_bytes(KG);
+      const float wv =
+          *reinterpret_cast<const float*>(lab + R * KG * 4 + 4 * er);
+      float yv = 0.0f;
+      if (ek < kg)
+        yv = y_bf16 ? __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                          lab + (er * KG + ek) * 2))
+                    : *reinterpret_cast<const float*>(lab + (er * KG + ek) * 4);
+      float dot = 0.0f;
+#pragma unroll
+      for (int wi = 0; wi < kTcWarps; ++wi) dot += s_pm[wi * kEntries + entry];
+      const float m = dot + off_k;
+      if (sub == 0) {
+        float mult = 0.0f;
+        if (ek < kg) {
+          mult = logistic_mult(m, yv, wv);
+          kahan_add(sum_s, sum_c, mult);
+        }
+        if (ek == 0) kahan_add(w_s, w_c, wv);
+        const __nv_bfloat16 hi = __float2bfloat16_rn(mult);
+        const float r1 = mult - __bfloat162float(hi);
+        const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+        const __nv_bfloat16 lo =
+            __float2bfloat16_rn(r1 - __bfloat162float(mid));
+        s_mp[(0 * KG + ek) * R + er] = hi;
+        s_mp[(1 * KG + ek) * R + er] = mid;
+        s_mp[(2 * KG + ek) * R + er] = lo;
+      } else if (ek < kg) {
+        kahan_add(sum_s, sum_c, logistic_loss(m, yv, wv));
+      }
+    } else if constexpr (kCopyFrom > 0) {
+      ahead(j);
+    }
+    __syncthreads();  // the multipliers' parts are in place
+
+    // -- gradient: G^T (columns x models) += X^T (columns x rows) M_p
+    // (rows x models); B fragments of the parts: matrix q is models
+    // nt 8 + i8, rows 8 (q & 1)
+    uint32_t bm[kParts][NT][2];
+    {
+      const uint32_t mb = smem_u32(s_mp);
+#pragma unroll
+      for (int p = 0; p < kParts; ++p)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          ldsm_x2(bm[p][nt],
+                  mb + ((p * KG + nt * 8 + i8) * R + 8 * (q & 1)) * 2);
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int cb = warp + kTcWarps * i;
+      if (cb < nkb) {
+        // A = X^T (16 columns x 16 rows) by ldmatrix.trans
+        uint32_t a[4];
+        ldsm_x4_trans(a, xb + t_off + kStep * i);
+#pragma unroll
+        for (int p = kParts - 1; p >= 0; --p)  // lo, mid, hi
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            mma_bf16(acc[i][nt], a, bm[p][nt][0], bm[p][nt][1]);
+      }
+    }
+
+    if (++since_flush == kFlushTiles || tile + grid >= n_tiles) {
+      // add the f32 sums, in double, into this CTA's partial row (the
+      // first flush writes it): c0, c1 at column g, models 2 (lane % 4) +
+      // {0, 1}; c2, c3 at column g + 8
+      const int g = lane >> 2, m0 = 2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int cb = warp + kTcWarps * i;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = cb * kKb + g + 8 * (e >> 1);
+            const int k = nt * 8 + m0 + (e & 1);
+            if (cb < nkb && col < d && k < kg) {
+              double* at = part + (long long)k * (d + 2) + col;
+              *at = (flushed ? *at : 0.0) + (double)acc[i][nt][e];
+            }
+            acc[i][nt][e] = 0.0f;
+          }
+      }
+      flushed = true;
+      since_flush = 0;
+    }
+    if constexpr (!kCodes && S == 1) {
+      __syncthreads();  // the stage is free
+      if (copier) issue(j + 1, 0);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is idle: the final sums reuse it
+
+  // a CTA with no tile still writes its (zero) partial row
+  if (!flushed) {
+    const int g = lane >> 2, m0 = 2 * (lane & 3);
+    for (int i = 0; i < NB; ++i)
+      for (int nt = 0; nt < NT; ++nt)
+        for (int e = 0; e < 4; ++e) {
+          const int cb = warp + kTcWarps * i;
+          const int col = cb * kKb + g + 8 * (e >> 1);
+          const int k = nt * 8 + m0 + (e & 1);
+          if (cb < nkb && col < d && k < kg)
+            part[(long long)k * (d + 2) + col] = 0.0;
+        }
+  }
+
+  // fold the entries' loss, msum and w sums in row order, in double
+  double* s_red = reinterpret_cast<double*>(smem);  // [R * KG][2], [R]
+  if (tid < kEpi) s_red[2 * entry + 1 - sub] = (double)sum_s - (double)sum_c;
+  if (sub == 0 && ek == 0) s_red[2 * R * KG + er] = (double)w_s - (double)w_c;
+  __syncthreads();
+  if (tid < kg) {
+    double l = 0.0, ms = 0.0;
+    for (int r = 0; r < R; ++r) {
+      l += s_red[2 * (r * KG + tid)];
+      ms += s_red[2 * (r * KG + tid) + 1];
+    }
+    part[(long long)tid * (d + 2) + d] = l;
+    part[(long long)tid * (d + 2) + d + 1] = ms;
+  }
+  if (tid == 0) {
+    double ws = 0.0;
+    for (int r = 0; r < R; ++r) ws += s_red[2 * R * KG + r];
+    part[(long long)kg * (d + 2)] = ws;
+  }
+}
+
 // out[j] = sum over CTAs c, in order, of partials[c][j]; rounded to f32.
 __global__ void glm_stacked_reduce_kernel(const double* __restrict__ partials,
                                           int n_parts, int width,
@@ -464,67 +1104,127 @@ __global__ void glm_stacked_reduce_kernel(const double* __restrict__ partials,
   out[j] = (float)s;
 }
 
+// ===========================================================================
+// Host side: instances
+// ===========================================================================
+
 struct Instance {
-  const void* fn;  // a glm_stacked_kernel instance
-  size_t item;     // bytes per element of X
-  int rows, stages;
+  const void* fn;  // a kernel instance, nullptr when none takes the shape
+  int threads;     // a CTA's
+  int item;        // bytes per element of X
+  int rows;        // rows of a tile
+  int stages;
+  int tiles;       // e4m3 on the tensor cores: bf16 tiles
+  int kg;          // models of the instance (KG)
+  bool tc;         // the tensor-core instance
 };
 
-template <typename T, int C, int KG>
-Instance make_instance() {
-  using P = Plan<T, C, KG>;
-  return {reinterpret_cast<const void*>(&glm_stacked_kernel<T, C, KG>),
-          sizeof(T), P::kRows, P::kStages};
+template <int C, int KG>
+Instance make_fma() {
+  using P = Plan<C, KG>;
+  return {reinterpret_cast<const void*>(&glm_stacked_kernel<C, KG>),
+          kThreads, 4, P::kRows, P::kStages, 0, KG, false};
 }
 
-template <typename T, int C>
-Instance pick_models(int kg) {
-  if (kg <= 4) return make_instance<T, C, 4>();
-  if (kg <= 8) return make_instance<T, C, 8>();
-  return make_instance<T, C, 16>();
+template <int C>
+Instance fma_models(int kg) {
+  if (kg <= 4) return make_fma<C, 4>();
+  if (kg <= 8) return make_fma<C, 8>();
+  return make_fma<C, 16>();
+}
+
+Instance fma_instance(int d, int kg) {
+  const int c = (d + 255) / 256;
+  if (c <= 2) return fma_models<2>(kg);
+  if (c <= 4) return fma_models<4>(kg);
+  if (c <= 6) return fma_models<6>(kg);
+  return fma_models<8>(kg);
+}
+
+template <typename T, int NB, int KG>
+Instance make_tc() {
+  return {reinterpret_cast<const void*>(&glm_stacked_tc_kernel<T, NB, KG>),
+          kTcThreads, (int)sizeof(T), kTcRows, TcPlan<T, NB, KG>::kStages,
+          TcPlan<T, NB, KG>::kTiles, KG, true};
+}
+
+// k-blocks a warp takes at width d, rounded up to an instance's NB
+constexpr int kNbs[] = {1, 2, 3, 4, 5, 6, 8};
+int nb_of(int d) {
+  const int per_warp = ((d + kKb - 1) / kKb + kTcWarps - 1) / kTcWarps;
+  for (int nb : kNbs)
+    if (per_warp <= nb) return nb;
+  return 0;
 }
 
 template <typename T>
-Instance pick_cols(int d, int kg) {
-  const int c = (d + 255) / 256;
-  if (c <= 2) return pick_models<T, 2>(kg);
-  if (c <= 4) return pick_models<T, 4>(kg);
-  if (c <= 6) return pick_models<T, 6>(kg);
-  return pick_models<T, 8>(kg);
+Instance tc_instance(int d, int kg) {
+  const Instance none = {nullptr, 0, 0, 0, 0, 0, 0, false};
+  const int nb = nb_of(d);
+  if (kg <= 8) {
+    switch (nb) {
+      case 1: return make_tc<T, 1, 8>();
+      case 2: return make_tc<T, 2, 8>();
+      case 3: return make_tc<T, 3, 8>();
+      case 4: return make_tc<T, 4, 8>();
+      case 5: return make_tc<T, 5, 8>();
+      case 6: return make_tc<T, 6, 8>();
+      case 8: return make_tc<T, 8, 8>();
+      default: return none;
+    }
+  }
+  switch (nb) {
+    case 1: return make_tc<T, 1, 16>();
+    case 2: return make_tc<T, 2, 16>();
+    case 3: return make_tc<T, 3, 16>();
+    case 4: return make_tc<T, 4, 16>();
+    case 5: return make_tc<T, 5, 16>();
+    default: return none;
+  }
 }
 
-// the instance for (dtype, d, kg), or fn == nullptr when none takes them
+// models one launch takes for (dtype, d): 16, or 8 on the tensor cores
+// past d = 1280; 0 for a shape no instance takes
+int group_of(int dtype, int d) {
+  if (d < 1 || d > kMaxD || dtype < 0 || dtype > 2) return 0;
+  if (dtype == 0) return kMaxModels;
+  return nb_of(d) <= kTcMaxNb16 ? 16 : 8;
+}
+
+// the instance for (dtype, d, kg); fn == nullptr when none takes them
 Instance instance_for(int dtype, int d, int kg) {
-  if (d < 1 || d > 256 * kMaxCols || kg < 1 || kg > kMaxModels)
-    return {nullptr, 0, 0, 0};
-  if (dtype == 0) return pick_cols<float>(d, kg);
-  if (dtype == 1) return pick_cols<__nv_bfloat16>(d, kg);
-  if (dtype == 2) return pick_cols<__nv_fp8_e4m3>(d, kg);
-  return {nullptr, 0, 0, 0};
+  if (kg < 1 || kg > group_of(dtype, d))
+    return {nullptr, 0, 0, 0, 0, 0, 0, false};
+  if (dtype == 0) return fma_instance(d, kg);
+  if (dtype == 1) return tc_instance<__nv_bfloat16>(d, kg);
+  return tc_instance<__nv_fp8_e4m3>(d, kg);
 }
 
-int kg_of(int kg) { return kg <= 4 ? 4 : kg <= 8 ? 8 : 16; }
-
-size_t smem_for(const Instance& inst, int d, int kg) {
-  return smem_bytes(inst.item, inst.stages, inst.rows, kg_of(kg), d);
+size_t smem_for(const Instance& inst, int d) {
+  return inst.tc ? tc_smem(inst.item, inst.stages, inst.tiles, inst.kg,
+                           pad64(d))
+                 : smem_bytes(inst.stages, inst.rows, inst.kg, d);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest d and largest number of models one launch takes.
-int glm_stacked_max_d() { return 256 * kMaxCols; }
-int glm_stacked_max_models() { return kMaxModels; }
+// Largest d one launch takes.
+int glm_stacked_max_d() { return kMaxD; }
+
+// Models one launch takes for X of (dtype, d): the wrapper's group size
+// (0 when no instance takes d). dtype: 0 = float32 X, 1 = bfloat16 X,
+// 2 = float8_e4m3fn codes.
+int glm_stacked_group(int dtype, int d) { return group_of(dtype, d); }
 
 // CTAs (= partial rows) a sweep of n rows of (dtype, d) for kg models uses
-// on the current device. dtype: 0 = float32 X, 1 = bfloat16 X,
-// 2 = float8_e4m3fn codes.
+// on the current device.
 int glm_stacked_num_parts(int dtype, int d, int kg, long long n,
                           int* n_parts) {
   const Instance inst = instance_for(dtype, d, kg);
   if (inst.fn == nullptr || n < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_for(inst, d, kg);
+  const size_t smem = smem_for(inst, d);
   cudaError_t err = cudaFuncSetAttribute(
       inst.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -534,7 +1234,7 @@ int glm_stacked_num_parts(int dtype, int d, int kg, long long n,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inst.fn,
-                                                      kThreads, smem);
+                                                      inst.threads, smem);
   if (err != cudaSuccess) return (int)err;
   long long parts = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long tiles = (n + inst.rows - 1) / inst.rows;
@@ -544,40 +1244,49 @@ int glm_stacked_num_parts(int dtype, int d, int kg, long long n,
   return 0;
 }
 
-// One sweep of kg <= 16 models. x: (n, d) row-major at storage width;
-// y: labels of the group's first model, row stride ldy elements, float32
-// (y_bf16 = 0) or bfloat16 (1); w: (n,) f32; B: (kg, d) f32 row-major;
-// off: (kg,) f32; partials: n_parts * (kg*(d+2)+1) doubles of scratch;
-// out: kg*(d+2)+1 floats, written as [grad_k (d), loss_k, msum_k] for each
-// model k, then sum(w).
+// One sweep of kg models (kg <= glm_stacked_group(dtype, d)). x: (n, d)
+// row-major at storage width; y: labels of the group's first model, row
+// stride ldy elements, float32 (y_bf16 = 0) or bfloat16 (1; for bf16 X and
+// e4m3 codes only with kg and ldy even and y 4-byte aligned); w: (n,) f32;
+// B: for float32 X the (kg, d) f32 coefficients, row-major; for bf16 X
+// and e4m3 codes their three bf16 parts (hi, mid, lo), (3, kg, dp) with dp
+// = d rounded up to 64, zero past d; off: (kg,) f32; partials: n_parts *
+// (kg*(d+2)+1) doubles of scratch; out: kg*(d+2)+1 floats, written as
+// [grad_k (d), loss_k, msum_k] for each model k, then sum(w).
 int glm_stacked_launch(int dtype, const void* x, const void* y, int y_bf16,
-                       long long ldy, const float* w, const float* B,
+                       long long ldy, const float* w, const void* B,
                        const float* off, long long n, int d, int kg,
                        double* partials, int n_parts, float* out,
                        void* stream) {
   const Instance inst = instance_for(dtype, d, kg);
   if (inst.fn == nullptr || n_parts < 1 || n < 0 || ldy < kg)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_for(inst, d, kg);
+  // the tensor-core instance copies bf16 labels two at a time
+  if (inst.tc && y_bf16 &&
+      (kg % 2 != 0 || ldy % 2 != 0 || reinterpret_cast<uintptr_t>(y) % 4))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_for(inst, d);
   cudaError_t err = cudaFuncSetAttribute(
       inst.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // the widest copy that the row width and X's base both allow
+  // the widest copy that the row width and X's base both allow: 16, 8 or
+  // 4 bytes; else element by element (the FMA instance's 0, the
+  // tensor-core instance's element bytes)
   const size_t row_bytes = (size_t)d * inst.item;
   const uintptr_t base = reinterpret_cast<uintptr_t>(x);
-  int vec_bytes = 0;
+  int vec = inst.tc ? inst.item : 0;
   for (int v = 16; v >= 4; v >>= 1) {
     if (row_bytes % v == 0 && base % v == 0) {
-      vec_bytes = v;
+      vec = v;
       break;
     }
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   void* args[] = {const_cast<void**>(&x), const_cast<void**>(&y),
-                  &y_bf16, &ldy, &w, &B, &off, &n, &d, &kg, &vec_bytes,
-                  &partials};
-  err = cudaLaunchKernel(inst.fn, dim3(n_parts), dim3(kThreads), args, smem,
-                         s);
+                  &y_bf16, &ldy, &w, const_cast<void**>(&B), &off, &n, &d,
+                  &kg, &vec, &partials};
+  err = cudaLaunchKernel(inst.fn, dim3(n_parts), dim3(inst.threads), args,
+                         smem, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int width = kg * (d + 2) + 1;

@@ -263,5 +263,6 @@ def stack_scaled_aggregator(agg: Agg) -> Agg:
     None, None, None, 0))``): labels ``(n, K)`` and coefficients ``(K,
     n_coef)``, everything else, the standardization vectors too, shared.
     For :func:`binary_logistic_pallas_scaled` it is one K1s launch per
-    evaluation (per group of ``ops/kernels.K_MAX`` models)."""
+    evaluation (per group of models,
+    ``ops/kernels.glm_sweep_stacked_group``)."""
     return stack_aggregator(agg)

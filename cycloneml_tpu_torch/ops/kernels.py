@@ -12,8 +12,9 @@ replaces, what bounds it on the card, what the design does about that):
   for K models over one X, the batched kernel ``jax.vmap`` makes of
   ``_run_glm`` in the reference's stacked fits (OneVsRest, CrossValidator,
   TrainValidationSplit): X is read once for all K models (at most
-  :data:`K_MAX` a launch); bytes-bound for few models, bound by operations
-  for many.
+  :data:`K_MAX` a launch, 8 on the tensor cores past d = 1280,
+  :func:`glm_sweep_stacked_group`); on the tensor cores bytes-bound at
+  every K <= 16.
 - K3, ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``fused_kmeans_assign``,
   the nearest center and its squared distance per row (KMeans);
   bound by operations.
@@ -25,13 +26,15 @@ in a fixed order (the reference's ``jax.ops.segment_sum``, not a Pallas
 kernel), so that two fits of the same data end with the same centers.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
-(the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K3 and K4 pick
-an instance by X's dtype (:data:`INSTANCE`): bf16 X and e4m3 codes go to the
-tensor cores (wgmma, bf16 products summed in float32; K3 against the
-centers split in three bf16 parts, :func:`split_centers`), float32 X to
-float32 FMAs. Every wrapper takes the fp8 rung's optional per-column
-dequantization vector ``x_scale`` (the reference's ``x_scale`` operand): the
-value of X is ``x * x_scale``. K1/K2 fold it into their (d,) vectors; K3
+(the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
+K4 pick an instance by X's dtype (:data:`INSTANCE`): bf16 X and e4m3 codes
+go to the tensor cores (bf16 products summed in float32: K3 and K4 by
+wgmma, K3 against the centers split in three bf16 parts; K1s by mma.sync,
+against its coefficients and multipliers split the same way,
+:func:`split_bf16x3`), float32 X to float32 FMAs. Every wrapper takes the
+fp8 rung's optional per-column dequantization vector ``x_scale`` (the
+reference's ``x_scale`` operand): the value of X is ``x * x_scale``. K1/K2
+fold it into their (d,) vectors and K1s into its (K, d) coefficients; K3
 into the centers on the tensor cores (and applies it as X is staged on the
 FMAs), K4 in its double reduction pass.
 
@@ -40,9 +43,9 @@ version only for a tensor that lies on the CPU. There is no fallback from
 one to the other: a CUDA tensor the kernel cannot take raises. Each wrapper
 counts its launches in ``<wrapper>.launches`` (``glm_sweep`` also by link,
 in ``glm_sweep.launches_by_link``, and by X's dtype, in
-``glm_sweep.launches_by_dtype``; K1s by X's dtype in
-``glm_sweep_stacked.launches_by_dtype``, one launch per group of at most
-:data:`K_MAX` models; K3 and K4 also by instance, in
+``glm_sweep.launches_by_dtype``; K1s, one launch per group of models, by
+X's dtype in ``glm_sweep_stacked.launches_by_dtype`` and by instance in
+``glm_sweep_stacked.launches_by_instance``; K3 and K4 also by instance, in
 ``kmeans_assign.launches_by_instance`` and ``gramian.launches_by_instance``).
 """
 
@@ -58,7 +61,7 @@ GRAM_CHUNK = 1 << 13  # rows per product in the plain Gramian
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 TENSOR_CORE, FMA = "tensor_core", "fma"
-# the instance of K3 and K4 that each dtype of X launches (the C entry
+# the instance of K1s, K3 and K4 that each dtype of X launches (the C entry
 # points pick by the same dtype code)
 INSTANCE = {torch.float32: FMA, torch.bfloat16: TENSOR_CORE,
             torch.float8_e4m3fn: TENSOR_CORE}
@@ -106,15 +109,16 @@ def _scale_operand(x_scale, d: int, device, dtype=torch.float32
     return s.contiguous()
 
 
-def split_centers(c: torch.Tensor) -> torch.Tensor:
-    """The float32 centers ``c`` ``(k, d)`` split exactly into three
-    bf16 parts, ``(3, k, d)``: hi = bf16(c), mid = bf16(c - hi), lo =
-    bf16(c - hi - mid), so that hi + mid + lo == c (three 8-bit
-    significands cover float32's 24; each difference is exact in float32).
-    Exact for every float32 value that is 0 or of magnitude at least
-    2^-110 and below bf16's overflow (the last part must stay a normal
-    bf16). K3's tensor-core instance sums x.lo, x.mid and x.hi, each
-    product exact for bf16 x, into one float32 accumulator."""
+def split_bf16x3(c: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor ``c`` split exactly into three bf16 parts, stacked
+    on a new first axis (``(k, d)`` -> ``(3, k, d)``): hi = bf16(c), mid =
+    bf16(c - hi), lo = bf16(c - hi - mid), so that hi + mid + lo == c
+    (three 8-bit significands cover float32's 24; each difference is exact
+    in float32). Exact for every float32 value that is 0 or of magnitude
+    at least 2^-110 and below bf16's overflow (the last part must stay a
+    normal bf16). The tensor-core instances multiply bf16 X by each part,
+    every product exact in float32, and sum them in float32, smallest part
+    first: K3 its centers, K1s its coefficients and its multipliers."""
     c = c.to(torch.float32)
     hi = c.to(torch.bfloat16)
     r1 = c - hi.to(torch.float32)
@@ -195,7 +199,7 @@ _SIGNATURES = {
     },
     "glm_stacked": {
         "glm_stacked_max_d": [],
-        "glm_stacked_max_models": [],
+        "glm_stacked_group": [_I, _I],
         "glm_stacked_num_parts": [_I, _I, _I, _LL, _PI],
         "glm_stacked_launch": [_I, _P, _P, _I, _LL, _P, _P, _P, _LL, _I, _I,
                                _P, _I, _P, _P],
@@ -316,6 +320,7 @@ def reset_launch_counts() -> None:
     gramian.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
     glm_sweep_stacked.launches = 0
     glm_sweep_stacked.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
+    glm_sweep_stacked.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
     center_sums.launches = 0
 
 
@@ -422,7 +427,7 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor, x_scale=None
 
     bf16 X and e4m3 codes launch the tensor-core instance: the scale is
     folded into the centers (x~ . c = x . (s o c)), which are then split
-    by :func:`split_centers` and padded with zeros to k and d multiples of
+    by :func:`split_bf16x3` and padded with zeros to k and d multiples of
     128 and 64 (|c|^2 of the padding centers is +inf); a row whose two
     least distances lie within the products' rounding bound is then
     re-decided in the FMA instance's arithmetic, so every pick is the one
@@ -450,7 +455,7 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor, x_scale=None
         operand = torch.zeros(3 * k_pad * d_pad + 2 * k * d,
                               dtype=torch.bfloat16, device=dev)
         parts = operand[:3 * k_pad * d_pad].view(3, k_pad, d_pad)
-        parts[:, :k, :d] = split_centers(c if s is None else c * s)
+        parts[:, :k, :d] = split_bf16x3(c if s is None else c * s)
         operand[3 * k_pad * d_pad:].view(torch.float32).view(d, k).copy_(
             c.T)
         # the padding centers' |c|^2 is +inf: they never win the argmin
@@ -542,7 +547,22 @@ def gramian(x: torch.Tensor, w: Optional[torch.Tensor] = None,
 
 # -- K1s: the logistic sweep for K models over one X --------------------------
 
-K_MAX = 16  # models one K1s launch sweeps (csrc/glm_stacked.cu)
+K_MAX = 16  # models one K1s launch sweeps at most (csrc/glm_stacked.cu)
+K1S_PAD = 64  # the tensor-core instance takes B's parts at d rounded up to 64
+
+
+def glm_sweep_stacked_group(dtype: torch.dtype, d: int) -> int:
+    """Models one K1s launch takes for X of ``dtype`` and width ``d``: the
+    group size :func:`glm_sweep_stacked` launches by, :data:`K_MAX`, or 8
+    on the tensor cores past d = 1280 (where sixteen models' parts leave no
+    room for two stages of X). Asks the built kernel (CUDA only)."""
+    lib = _library("glm_stacked")
+    group = lib.glm_stacked_group(_DTYPE_CODE[dtype], d)
+    if group < 1:
+        raise ValueError(f"glm_sweep_stacked: no instance takes X of "
+                         f"{dtype} at d={d} (limit {lib.glm_stacked_max_d()}"
+                         " features)")
+    return group
 
 
 def glm_sweep_stacked_plain(x: torch.Tensor, Y: torch.Tensor,
@@ -592,9 +612,14 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     w ``(n,)``, coefficients ``B`` ``(K, d)`` and offsets ``off`` ``(K,)``;
     the value of X is ``x * x_scale`` when the scale is given. A CPU tensor
     runs :func:`glm_sweep_stacked_plain`; a CUDA tensor launches the kernel
-    once per group of at most :data:`K_MAX` models, each launch reading X
-    once, or raises. The scale is folded into B and into the gradient rows,
-    as :func:`glm_sweep` folds it."""
+    once per group of :func:`glm_sweep_stacked_group` models, each launch
+    reading X once, or raises. The scale is folded into B and into the
+    gradient rows, as :func:`glm_sweep` folds it. bf16 X and e4m3 codes
+    launch the tensor-core instance, which takes each group's B split by
+    :func:`split_bf16x3` and zero-padded to :data:`K1S_PAD` columns, and
+    bf16 labels in pairs (a group of odd size or odd row stride goes over
+    as float32 labels); float32 X the FMA instance, which takes B as it
+    is."""
     if x.device.type == "cpu":
         return glm_sweep_stacked_plain(x, Y, w, B, off, x_scale=x_scale)
     _check_x(x, "glm_sweep_stacked")
@@ -624,15 +649,17 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
                          f"B {tuple(B.shape)}, off {tuple(off.shape)}")
     code = _DTYPE_CODE[x.dtype]
     y_bf16 = int(Y.dtype == torch.bfloat16)
-    kmax = lib.glm_stacked_max_models()
+    instance = INSTANCE[x.dtype]
+    group = glm_sweep_stacked_group(x.dtype, d)
+    d_pad = -(-d // K1S_PAD) * K1S_PAD
     loss = torch.empty(k, dtype=torch.float32, device=dev)
     grad = torch.empty((k, d), dtype=torch.float32, device=dev)
     msum = torch.empty(k, dtype=torch.float32, device=dev)
     wsum = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for k0 in range(0, k, kmax):
-            kg = min(kmax, k - k0)
+        for k0 in range(0, k, group):
+            kg = min(group, k - k0)
             parts = ctypes.c_int(0)
             _cuda_check(lib.glm_stacked_num_parts(code, d, kg, n,
                                                   ctypes.byref(parts)),
@@ -643,15 +670,28 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
             partials = torch.empty(parts.value * width, dtype=torch.float64,
                                    device=dev)
             out = torch.empty(width, dtype=torch.float32, device=dev)
-            bg = B[k0:k0 + kg].contiguous()
+            if instance == TENSOR_CORE:
+                bg = torch.zeros((3, kg, d_pad), dtype=torch.bfloat16,
+                                 device=dev)
+                bg[:, :, :d] = split_bf16x3(B[k0:k0 + kg])
+            else:
+                bg = B[k0:k0 + kg].contiguous()
             og = off[k0:k0 + kg].contiguous()
+            yg, y_ptr, ldy, yb = Y, Y.data_ptr() + k0 * Y.element_size(), \
+                Y.stride(0), y_bf16
+            if instance == TENSOR_CORE and yb and (kg % 2 or ldy % 2
+                                                   or y_ptr % 4):
+                # the tensor-core instance copies bf16 labels in pairs;
+                # a group that cannot be read so goes over as float32
+                yg = Y[:, k0:k0 + kg].float()
+                y_ptr, ldy, yb = yg.data_ptr(), kg, 0
             _cuda_check(lib.glm_stacked_launch(
-                code, x.data_ptr(), Y.data_ptr() + k0 * Y.element_size(),
-                y_bf16, Y.stride(0), w.data_ptr(), bg.data_ptr(),
-                og.data_ptr(), n, d, kg, partials.data_ptr(), parts.value,
-                out.data_ptr(), stream), "glm_stacked launch")
+                code, x.data_ptr(), y_ptr, yb, ldy, w.data_ptr(),
+                bg.data_ptr(), og.data_ptr(), n, d, kg, partials.data_ptr(),
+                parts.value, out.data_ptr(), stream), "glm_stacked launch")
             glm_sweep_stacked.launches += 1
             glm_sweep_stacked.launches_by_dtype[x.dtype] += 1
+            glm_sweep_stacked.launches_by_instance[instance] += 1
             body = out[:kg * (d + 2)].view(kg, d + 2)
             grad[k0:k0 + kg] = body[:, :d]
             loss[k0:k0 + kg] = body[:, d]

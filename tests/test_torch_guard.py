@@ -23,7 +23,8 @@ def _port_modules():
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "k1s_phases.py"]
 
 
 def _run(code: str, **env):

@@ -565,7 +565,7 @@ def test_split_centers_is_exact(seed):
     range of exponents and signs, and for +-0 and +-1."""
     c = _f32_values(np.random.RandomState(seed), (257, 129))
     c[0, :4] = [0.0, -0.0, 1.0, -1.0]
-    parts = tk.split_centers(torch.from_numpy(c))
+    parts = tk.split_bf16x3(torch.from_numpy(c))
     assert parts.dtype == torch.bfloat16 and parts.shape == (3, 257, 129)
     np.testing.assert_array_equal(parts.double().sum(0).numpy(),
                                   c.astype(np.float64))
@@ -583,7 +583,7 @@ def _emulated_k3(x32, centers, parts=3, x_scale=None):
     c = torch.as_tensor(centers, dtype=torch.float32)
     s = None if x_scale is None else torch.as_tensor(x_scale,
                                                      dtype=torch.float32)
-    split = tk.split_centers(c if s is None else c * s).float()
+    split = tk.split_bf16x3(c if s is None else c * s).float()
     use = [split[0]] if parts == 1 else [split[2], split[1], split[0]]
     acc = torch.zeros(x32.shape[0], c.shape[0], dtype=torch.float32)
     for p in use:

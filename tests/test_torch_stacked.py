@@ -17,9 +17,13 @@ and kernel K1s against its plain version.
   reference's kernel route.
 - The stacked optimizer's convergence masks (tests/test_stacked.py:213-316).
 - KMeans' center sums against float64 segment sums.
+- K1s's tensor-core arithmetic (B and the multipliers split exactly into
+  three bf16 parts, exact products summed in float32), emulated on the CPU
+  against float64.
 
 The ``gpu`` tests hold K1s (every K, ragged shapes, padding rows, e4m3
-codes with x_scale, K=1 against K1) and the center-sum kernel on the card;
+codes with x_scale, K=1 against K1, the instance each dtype launches, the
+groups of 8 past d = 1280) and the center-sum kernel on the card;
 the card's machine has no jax, so the reference is imported inside the
 tests that use it:
 
@@ -459,6 +463,112 @@ def test_center_sums_equal_float64_segment_sums(with_sums):
     assert tk.center_sums.launches == 0
 
 
+# -- K1s's tensor-core arithmetic, emulated on the CPU -------------------------
+#
+# The tensor-core instance multiplies bf16 X (or e4m3 codes, exact in bf16)
+# by B split exactly into three bf16 parts, sums each part's exact products
+# in float32 and the parts smallest first; it splits the float32
+# multipliers the same way for the gradient. These tests hold the split and
+# that arithmetic on the CPU, against float64.
+
+@pytest.mark.parametrize("shape", [(8, 1280), (16, 2048), (16, 8)])
+def test_split_bf16x3_is_exact_at_k1s_shapes(shape):
+    """hi + mid + lo == value in float64, each part a bf16 value, for B at
+    K1s's shapes (models x columns) and a tile's multipliers (rows x
+    models): normal values over a wide range of exponents, zeros,
+    negatives and tiny entries."""
+    rng = np.random.RandomState(shape[0] + shape[1])
+    v = rng.randn(*shape) * np.exp2(rng.randint(-60, 20, size=shape))
+    v[0, :4] = [0.0, -0.0, 1.0, -1.0]
+    v[1] = -np.abs(v[1])                                 # negatives
+    v[-1, :4] = [1e-30, -3e-33, 2.0 ** -110, -2.0 ** -100]  # tiny
+    v = v.astype(np.float32)
+    parts = tk.split_bf16x3(torch.from_numpy(v))
+    assert parts.dtype == torch.bfloat16 and parts.shape == (3, *shape)
+    np.testing.assert_array_equal(parts.double().sum(0).numpy(),
+                                  v.astype(np.float64))
+    assert float(parts[:, 0, :2].double().abs().sum()) == 0.0
+
+
+def _emulated_k1s(x, y, w, b, off):
+    """The tensor-core instance's arithmetic: X's values (bf16, or e4m3
+    codes) in float32 times B's three parts, each part's products summed in
+    float32 and the margin (lo + mid) + hi; the multipliers in float32,
+    split in three parts, and the gradient sum_p M_p^T X in float32, lo
+    first."""
+    xf = x.float()
+    parts = tk.split_bf16x3(b).float()
+    acc = [xf @ parts[p].T for p in range(3)]
+    m = (acc[2] + acc[1]) + acc[0] + off.float()
+    wf, yf = w.float(), y.float()
+    mult = wf[:, None] * (torch.sigmoid(m) - yf)
+    loss = torch.sum(wf[:, None] * (tk._softplus(m) - yf * m), dim=0)
+    mp = tk.split_bf16x3(mult).float()
+    grad = torch.zeros(b.shape, dtype=torch.float32)
+    for p in (2, 1, 0):
+        grad = grad + mp[p].T @ xf
+    return loss, grad, mult.sum(0), wf.sum()
+
+
+@pytest.mark.parametrize("form", ["bf16", "e4m3"])
+@pytest.mark.parametrize("n,d,k", [(1003, 37, 3), (517, 999, 17)])
+def test_emulated_k1s_matches_float64(form, n, d, k):
+    """The emulated tensor-core arithmetic within chip_smoke.py's K1s
+    bounds of glm_sweep_stacked_plain in float64 on the same values: loss
+    to 1e-5 relative, grad to 1e-4 of its largest entry, on a ragged shape
+    with a third of the rows at w=0; for e4m3 codes with x_scale folded
+    into B and into the gradient, as the wrapper folds it."""
+    from cycloneml_tpu_torch.dataset.instance import quantize_fp8
+    rng = np.random.RandomState(n + d + k)
+    x = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+    y = torch.from_numpy((rng.rand(n, k) > 0.5).astype(np.float32))
+    w = torch.from_numpy((np.arange(n) % 3 != 2).astype(np.float32))
+    b = torch.from_numpy((rng.randn(k, d) / np.sqrt(d)).astype(np.float32))
+    off = torch.from_numpy((rng.randn(k) * 0.3).astype(np.float32))
+    if form == "bf16":
+        xs, s = x.to(torch.bfloat16), None
+        loss, grad, msum, wsum = _emulated_k1s(xs, y, w, b, off)
+    else:
+        xs, scale, _ = quantize_fp8(x)
+        s = torch.from_numpy(scale)
+        loss, grad, msum, wsum = _emulated_k1s(xs, y, w, b * s.float(), off)
+        grad = grad * s.float()
+    tl, tg, tm, tw = tk.glm_sweep_stacked_plain(
+        xs, y, w, b.double(), off.double(), acc_dtype=torch.float64,
+        x_scale=s)
+    rel_loss = ((loss.double() - tl).abs() / tl.abs()).max()
+    rel_grad = ((grad.double() - tg).abs().max(dim=1).values
+                / tg.abs().max(dim=1).values).max()
+    assert float(rel_loss) <= 1e-5
+    assert float(rel_grad) <= 1e-4
+    np.testing.assert_allclose(msum.double().numpy(), tm.numpy(),
+                               atol=1e-4 * float(w.sum()))
+    assert float(wsum) == float(tw)
+
+
+@pytest.mark.parametrize("n,d,k", [(1003, 37, 3), (517, 999, 17)])
+def test_one_bf16_pass_is_not_enough_for_k1s(n, d, k):
+    """B and the multipliers rounded once to bf16 (one tensor-core pass
+    each) miss the grad bound by an order of magnitude: the split is what
+    keeps K1s within 1e-4."""
+    rng = np.random.RandomState(n + d + k)
+    x = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(
+        torch.bfloat16)
+    y = torch.from_numpy((rng.rand(n, k) > 0.5).astype(np.float32))
+    w = torch.from_numpy((np.arange(n) % 3 != 2).astype(np.float32))
+    b = torch.from_numpy((rng.randn(k, d) / np.sqrt(d)).astype(np.float32))
+    off = torch.from_numpy((rng.randn(k) * 0.3).astype(np.float32))
+    xf = x.float()
+    m = xf @ b.to(torch.bfloat16).float().T + off
+    mult = w[:, None] * (torch.sigmoid(m) - y)
+    grad = mult.to(torch.bfloat16).float().T @ xf
+    _, tg, _, _ = tk.glm_sweep_stacked_plain(
+        x, y, w, b.double(), off.double(), acc_dtype=torch.float64)
+    rel_grad = ((grad.double() - tg).abs().max(dim=1).values
+                / tg.abs().max(dim=1).values).max()
+    assert float(rel_grad) > 1e-3
+
+
 # -- on the card --------------------------------------------------------------
 
 def _cuda():
@@ -506,7 +616,7 @@ def test_cuda_k1s_matches_plain(n, d, dtype, k):
     got = tk.glm_sweep_stacked(x, y, w, b, off)
     again = tk.glm_sweep_stacked(x, y, w, b, off)
     torch.cuda.synchronize()
-    groups = -(-k // tk.K_MAX)
+    groups = -(-k // tk.glm_sweep_stacked_group(dtype, d))
     assert tk.glm_sweep_stacked.launches_by_dtype[dtype] == \
         before + 2 * groups
     truth = tk.glm_sweep_stacked_plain(x, y, w, b, off,
@@ -558,6 +668,80 @@ def test_cuda_k1s_at_one_model_agrees_with_k1(dtype):
     _assert_k1s(as_stack + (single[3],), truth, float(w.sum()))
     assert abs(float(stacked[0][0]) - float(single[0])) <= \
         2e-5 * abs(float(truth[0][0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 17])
+@pytest.mark.parametrize("n,d", [(1003, 37), (2049, 1000)])
+def test_cuda_k1s_e4m3_ragged_on_the_tensor_cores(n, d, k):
+    """e4m3 codes with x_scale at ragged d (codes copied one byte at a
+    time at d = 37, 8 at d = 1000) and K over one group: within the bounds
+    of float64 on the dequantized values, two launches bitwise equal, every
+    launch the tensor-core instance."""
+    from cycloneml_tpu_torch.dataset.instance import quantize_fp8
+    dev = _cuda()
+    x, y, w, b, off = _k1s_inputs(n, d, k, 7 * n + d + k, dev, torch.float32)
+    x8, scale, _ = quantize_fp8(x)
+    s32 = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    s64 = torch.as_tensor(scale, dtype=torch.float64, device=dev)
+    yb = y.to(torch.bfloat16)
+    before = dict(tk.glm_sweep_stacked.launches_by_instance)
+    got = tk.glm_sweep_stacked(x8, yb, w, b, off, x_scale=s32)
+    again = tk.glm_sweep_stacked(x8, yb, w, b, off, x_scale=s32)
+    torch.cuda.synchronize()
+    groups = -(-k // tk.glm_sweep_stacked_group(F8, d))
+    after = tk.glm_sweep_stacked.launches_by_instance
+    assert after[tk.TENSOR_CORE] == before[tk.TENSOR_CORE] + 2 * groups
+    assert after[tk.FMA] == before[tk.FMA]
+    truth = tk.glm_sweep_stacked_plain(x8, yb, w, b, off,
+                                       acc_dtype=torch.float64, x_scale=s64)
+    _assert_k1s(got, truth, float(w.sum()))
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, F8])
+def test_cuda_k1s_instance_by_dtype(dtype):
+    """bf16 X and e4m3 codes launch the tensor-core instance, float32 X the
+    FMA instance (tk.INSTANCE), each launch counted once under it."""
+    dev = _cuda()
+    x, y, w, b, off = _k1s_inputs(4099, 1280, 8, 29, dev, torch.float32)
+    xq = x.to(dtype)
+    before = dict(tk.glm_sweep_stacked.launches_by_instance)
+    got = tk.glm_sweep_stacked(xq, y, w, b, off)
+    torch.cuda.synchronize()
+    after = tk.glm_sweep_stacked.launches_by_instance
+    other = tk.FMA if tk.INSTANCE[dtype] == tk.TENSOR_CORE else \
+        tk.TENSOR_CORE
+    assert after[tk.INSTANCE[dtype]] == before[tk.INSTANCE[dtype]] + 1
+    assert after[other] == before[other]
+    assert tk.INSTANCE[dtype] == (tk.FMA if dtype == torch.float32
+                                  else tk.TENSOR_CORE)
+    truth = tk.glm_sweep_stacked_plain(xq, y, w, b, off,
+                                       acc_dtype=torch.float64)
+    _assert_k1s(got, truth, float(w.sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F8])
+def test_cuda_k1s_sixteen_models_at_d_2048_run_as_two_groups(dtype):
+    """At d = 2048 sixteen models' three parts leave no room for X: the
+    tensor-core instance takes groups of 8, so K = 16 is two counted
+    launches (one at d = 1280), right in both."""
+    dev = _cuda()
+    assert tk.glm_sweep_stacked_group(dtype, 2048) == 8
+    assert tk.glm_sweep_stacked_group(dtype, 1280) == 16
+    assert tk.glm_sweep_stacked_group(torch.float32, 2048) == 16
+    x, y, w, b, off = _k1s_inputs(1531, 2048, 16, 31, dev, torch.float32)
+    xq = x.to(dtype)
+    before = tk.glm_sweep_stacked.launches_by_instance[tk.TENSOR_CORE]
+    got = tk.glm_sweep_stacked(xq, y, w, b, off)
+    torch.cuda.synchronize()
+    assert tk.glm_sweep_stacked.launches_by_instance[tk.TENSOR_CORE] == \
+        before + 2
+    truth = tk.glm_sweep_stacked_plain(xq, y, w, b, off,
+                                       acc_dtype=torch.float64)
+    _assert_k1s(got, truth, float(w.sum()))
 
 
 @pytest.mark.gpu
