@@ -19,14 +19,18 @@ the final result line:
    and at a ragged shape (n=1,000,003, d=1000): |dloss|/|loss| <= 1e-5,
    max|dgrad| <= 1e-4 max|grad|, sum(w) = n exactly, two launches bitwise
    equal; then its time (CUDA events) beside the plain version's, the
-   bound, and a yardstick of two cuBLAS gemvs the port never calls;
+   bound, and a yardstick of two cuBLAS gemvs the port never calls, with
+   the instance's plan (ring stages, block rows, shared memory, CTAs
+   resident on each SM);
 4. LogisticRegression: ``LogisticRegression(maxIter=25, regParam=0.01,
    tol=0.0).fit`` on data generated on the card at bench.py's shape (bf16
    tier, seed 0), through K1 (usePallasKernels=auto) and through the plain
    aggregator (false). K1 must be launched exactly ``total_evals`` times;
    each fit runs 25 iterations or stops on an exact float32 stall; the
    models agree within the reference's kernel-vs-plain bound (rtol 5e-3,
-   atol 5e-4) and their final objectives to 1e-4;
+   atol 5e-4) and their final objectives to 1e-4; its iterations and
+   evaluations are printed beside those of the sweep's per-row order
+   (``ROW_ORDER_COUNTS``), as they are for phases 6, 12 and 13;
 5. K2 (the GLM sweep, squared link) with K1's checks, at the
    LinearRegression configuration's shape (n=400,000, d=2000) and a ragged
    one (n=1,000,003, d=1000), timed likewise;
@@ -118,9 +122,10 @@ the final result line:
 18. K1s's e4m3 instance with phase 15's checks on codes with x_scale;
 19. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances and the center sums (K3, K4 and K1s marked as redesigned for
-   the tensor cores, with their instance, f32 FMA bounds and ptxas lines),
-   the total
-   wall time; the last line is ``{"ok": true, "device": {...}}``.
+   the tensor cores, with their instance, f32 FMA bounds and ptxas lines;
+   K2 in both instances and K1's e4m3 instance marked as redesigned around
+   a per-lane cp.async ring, and every GLM sweep with its instance, ring
+   plan and ptxas lines), the total wall time; the last line is ``{"ok": true, "device": {...}}``.
 
 Each path's launch counts are set to 0 just before its fit and read just
 after. It exits non-zero, printing no result, when no CUDA device is
@@ -154,6 +159,11 @@ K1S_MODELS = (1, 3, 8, 16, 20)   # 20 > K_MAX: two launches of K1s
 OVR_K = 8                        # OneVsRest's classes (bench_ovr_stacked)
 CV_N = 500_000                   # CrossValidator's rows (the cut of FIT_N)
 CV_REGS = (0.001, 0.01, 0.1)
+# (iterations, evaluations) of the sweep's fits at these configurations
+# when its lanes summed the gradient with a Kahan step a row (PERF.md §6);
+# the block order may move them, and a move past 2 is explained there
+ROW_ORDER_COUNTS = {"fit": (9, 10), "linreg_fit": (6, 37),
+                    "fp8_fit": (9, 10), "fp8_linreg_fit": (6, 37)}
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
 
@@ -405,12 +415,13 @@ def _k1_times(x, y, w, coef, inv_std, d, n, x_scale, main_dt):
         x, beta, lambda m: w * (torch.sigmoid(m + off) - y))
     n_bytes = n * d * x.element_size() + 2 * n * 4 + d * 4 + (d + 3) * 4
     bound, bound_by = _bound(n_bytes, 4.0 * n * d)
+    plan = kernels.glm_sweep_plan(x.dtype, kernels.LOGISTIC, d)
     _line("k1_time", n=n, d=d, dtype=dt, kernel_ms=k_ms, plain_ms=p_ms,
           bound_ms=bound, bound_by=bound_by, yardstick_two_gemv_ms=yard_ms,
-          achieved_gb_s=n_bytes / k_ms / 1e6)
+          achieved_gb_s=n_bytes / k_ms / 1e6, **plan)
     if n == FIT_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": bound_by, "yardstick_ms": yard_ms}
+                "bound_by": bound_by, "yardstick_ms": yard_ms, "plan": plan}
     return {}
 
 
@@ -483,6 +494,7 @@ def phase_fit():
               generate_s=gen_s,
               kernel={"iterations": ks.total_iterations,
                       "evals": ks.total_evals,
+                      "row_order_counts": ROW_ORDER_COUNTS["fit"],
                       "dispatches": ks.total_dispatches,
                       "k1_launches": launches, "warm_s": k_warm,
                       "steady_s": k_steady,
@@ -629,12 +641,13 @@ def _k2_times(x, y, w, coef, inv_std, n, d, x_scale, main_dt):
     n_bytes = n * d * x.element_size() + 2 * n * 4 + d * 4 + (d + 3) * 4
     bound, bound_by = _bound(n_bytes, 4.0 * n * d)
     dt = _dt(x)
+    plan = kernels.glm_sweep_plan(x.dtype, sq, d)
     _line("k2_time", n=n, d=d, dtype=dt, kernel_ms=k_ms, plain_ms=p_ms,
           bound_ms=bound, bound_by=bound_by, yardstick_two_gemv_ms=yard_ms,
-          achieved_gb_s=n_bytes / k_ms / 1e6)
+          achieved_gb_s=n_bytes / k_ms / 1e6, **plan)
     if n == LIN_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": bound_by, "yardstick_ms": yard_ms}
+                "bound_by": bound_by, "yardstick_ms": yard_ms, "plan": plan}
     return {}
 
 
@@ -675,7 +688,9 @@ def phase_linreg():
         _line("linreg_fit", n=LIN_N, d=LIN_D, data_dtype=str(ds.x.dtype)[6:],
               generate_s=gen_s,
               kernel={"iterations": ks.total_iterations,
-                      "evals": ks.total_evals, "k2_launches": launches,
+                      "evals": ks.total_evals,
+                      "row_order_counts": ROW_ORDER_COUNTS["linreg_fit"],
+                      "k2_launches": launches,
                       "warm_s": k_warm, "steady_s": k_steady,
                       "final_objective": ks.objective_history[-1],
                       "zero_coefficients": int(np.sum(kc == 0))},
@@ -760,6 +775,7 @@ def _fp8_fit_phase(tag, name, generate, estimator, link):
               generate_s=gen_s, quantize_s=quant_s,
               kernel={"iterations": ks.total_iterations,
                       "evals": ks.total_evals,
+                      "row_order_counts": ROW_ORDER_COUNTS[tag],
                       "e4m3_launches": by_dtype[f8], "warm_s": k_warm,
                       "steady_s": k_steady,
                       "final_objective": ks.objective_history[-1]},
@@ -1833,10 +1849,21 @@ def main() -> int:
                 "ptxas": {f: ptxas.get(f) for f in ptxas
                           if f.startswith(kernels_run)}}
 
+    def sweep(numbers, dtype, d, link, how=None):
+        """The fields of a GLM sweep entry: the main shape's instance, its
+        ring plan and ptxas's lines, and the redesign where it was one."""
+        inst = f"glm_sweep_kernel<{dtype}, E={8 * -(-d // 256)}, {link}>"
+        out = {"instance": inst, **numbers["plan"],
+               "ptxas": {f: ptxas.get(f) for f in ptxas if f == inst}}
+        return {**out, "redesigned": how} if how else out
+
+    ring = "per-lane cp.async row ring, gradient summed in row blocks"
     k1 = phase_kernel()
-    entry("glm_sweep (logistic, K1)", "glm_sweep", 270, k1, phase_fit())
+    entry("glm_sweep (logistic, K1)", "glm_sweep", 270, k1, phase_fit(),
+          **sweep(k1, "bf16", FIT_D, "logistic"))
     k2 = phase_k2()
-    entry("glm_sweep (squared, K2)", "glm_sweep", 226, k2, phase_linreg())
+    entry("glm_sweep (squared, K2)", "glm_sweep", 226, k2, phase_linreg(),
+          **sweep(k2, "bf16", LIN_D, "squared", ring))
     k3 = phase_k3()
     km_launches, sum_launches, sums = phase_kmeans()
     entry("kmeans_assign (K3)", "kmeans_assign", 384, k3, km_launches,
@@ -1849,10 +1876,10 @@ def main() -> int:
     # the fp8 rung: e4m3 codes with the x_scale operand (:309, :422, :501)
     k1 = phase_kernel(fp8=True)
     entry("glm_sweep (logistic, K1, e4m3)", "glm_sweep", 309, k1,
-          phase_fp8_fit())
+          phase_fp8_fit(), **sweep(k1, "e4m3", FIT_D, "logistic", ring))
     k2 = phase_k2(fp8=True)
     entry("glm_sweep (squared, K2, e4m3)", "glm_sweep", 309, k2,
-          phase_fp8_linreg())
+          phase_fp8_linreg(), **sweep(k2, "e4m3", LIN_D, "squared", ring))
     # KMeans and PCA are not fp8-capable (they take the bf16 rung under the
     # fp8 tiers), so no fit launches these two instances: their wrappers
     # are held at the fits' shapes above, and their launches are 0

@@ -159,20 +159,15 @@ __host__ __device__ constexpr size_t align16(size_t v) {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+// `bytes` (16, 8 or 4) bytes global -> shared, by hopper.cuh's copies
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
                                          int bytes) {
   if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
+    hopper::cp_async16(dst, src, 16);
   else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
+    hopper::cp_async8(dst, src, 8);
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                 "l"(src)
-                 : "memory");
+    hopper::cp_async4(dst, src, 4);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

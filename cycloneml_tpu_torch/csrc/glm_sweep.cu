@@ -14,59 +14,81 @@
 // The wrapper folds standardization around it (beta = inv_std o coef,
 // off = b0 - mu_hat . coef for the logistic link, off = y_mean_hat -
 // mu_hat . coef and ys = 1/sigma_y for the squared one), so X is read raw
-// at its storage width. The link is a template parameter: both instances
-// share every load, reduction and the launch path.
+// at its storage width, float32, bfloat16 or float8_e4m3fn codes. The fp8
+// rung's per-column scale (the reference's x_scale, kernels.py:309) is
+// folded by the wrapper into the (d,) vectors: x . (beta o s) and
+// sum(mult x) o s, so it costs no work per element here.
 //
-// X is float32, bfloat16 or float8_e4m3fn CODES (the fp8 rung). The fp8
-// rung's per-column dequantization scale (the reference's x_scale operand,
-// kernels.py:309) is NOT applied here: the wrapper folds it into the (d,)
-// vectors, beta o scale forward and grad_row o scale after the sweep, as
-// the reference's fits fold it into inv_std (logistic_regression.py:763).
-// x . (beta o s) = (x o s) . beta and sum(mult x) o s = sum(mult (x o s)),
-// so the C interface is the same for every dtype and the scale costs no
-// work per element.
+// Bound: bytes. One sweep must read X once (n*d bytes in e4m3, 2*n*d in
+// bf16, 4*n*d in f32) plus y and w. At n=2M, d=1280 (LogisticRegression)
+// that is 0.77, 1.53 or 3.06 ms at 3.35 TB/s; at n=400k, d=2000 (K2 at
+// the LinearRegression configuration) 0.24 or 0.48 ms in e4m3 or bf16.
+// The arithmetic is a few operations an element: little beside the bytes,
+// but not nothing (below).
 //
-// Bound: bytes. One sweep must read X once (n*d bytes in e4m3, n*d*2 in
-// bf16, n*d*4 in f32) plus y and w; the arithmetic is ~4 flops per
-// element, far below the card's rate. At n=2M, d=1280 that is 2.56 GB
-// (e4m3), 5.12 GB (bf16) or 10.24 GB (f32): at least 0.77, 1.53 or 3.06 ms
-// at 3.35 TB/s; K2 at the LinearRegression configuration (n=400k, d=2000)
-// reads 0.8 GB (e4m3) or 1.6 GB (bf16): at least 0.24 or 0.48 ms.
+// Design. One warp owns one row at a time (grid-stride over rows); lane l
+// holds the slots l, l + 32, ... of a row, a slot being one 16-byte copy
+// (4 f32 or 8 bf16) or one 8-byte copy (8 e4m3 codes), so a lane holds the
+// same E = 8 * ceil(d / 256) elements in every dtype and d <= 32 * 64.
 //
-// Design, and what it does about the bound:
-// - One warp owns one row at a time (grid-stride over rows). Each lane
-//   issues all of its 16-byte loads of the row before using any, and the
-//   NEXT row's loads (with its y and w) are issued before the current row
-//   is computed, so two rows per warp are in flight while it computes.
-//   The warp reduces the margin with xor shuffles (every lane ends with
-//   the bitwise-same margin), and the SAME registers feed the gradient
-//   update: X is read from device memory exactly once per sweep; the
-//   "second read" of the row for the gradient never leaves the register
-//   file. beta lives in shared memory. bf16 unpacks to f32 by a shift;
-//   e4m3 pairs by the hardware conversion (cvt.rn.f16x2.e4m3x2, exact:
-//   every e4m3 value is an f16 value) and then f16 -> f32.
-//   (Loading and using one slot at a time left the sweep at under a
-//   third of its bound on an H100: a warp waited on memory several times
-//   per row, with nothing else on the SM to cover the wait.)
-// - Sums are kept as exact as the Pallas kernel's Kahan-compensated
-//   grid: every lane keeps Kahan-compensated f32 partials of grad over
-//   the rows its warp visits, and of loss, sum(mult) and sum(w). Each
-//   CTA then folds its warps, in a fixed order, in double, and writes
-//   one partial row [grad(d), loss, sum(mult), sum(w)] as doubles to a
-//   scratch buffer the wrapper allocates. A second kernel sums those
-//   rows column by column in CTA order, in double, and rounds once to
-//   f32. No atomics: two launches on the same inputs are bitwise equal.
-//   sum(w) is exact for n < 2^24 unit weights.
-// - Ragged edges are masked in the kernel: no padded copy of X is made
-//   and d need not be a multiple of anything. A slot is one vector load:
-//   16 bytes (4 f32, 8 bf16) or, for e4m3, 8 bytes (8 codes), so that a
-//   lane holds the same E elements in every dtype. Vector loads are used
-//   when the row start is slot-aligned (d*sizeof(T) % slot == 0 and an
-//   aligned base); otherwise, and for the tail of every row, elements
-//   are loaded one at a time.
-// - Limit: a lane holds E = 8*ceil(d/256) elements of its row in
-//   registers (with two f32 accumulators each), and E is at most 64,
-//   so d <= 2048 in every dtype. The wrapper raises beyond that.
+// - The ring. Each warp owns S stages of one row in dynamic shared memory.
+//   Each lane copies its own slots of the warp's next rows into them with
+//   cp.async (16 bytes .cg, or 8 bytes .ca for e4m3; hopper.cuh), lanes 0
+//   and 1 the row's y and w (4 bytes each), one commit group per row.
+//   Before a block of R rows the lane waits with cp.async.wait_group<S-R>
+//   and reads back only the X bytes it copied itself, so X needs no
+//   barrier (y and w need one __syncwarp). S * sizeof(T) = 8 in every
+//   dtype, S = 2, 4, 8 rows for f32, bf16, e4m3 and R = S/2: while a warp
+//   computes one block the next is in flight, and a warp's ring is
+//   8 * 32E bytes, 80 KB a CTA of 8 warps at d = 1280 and 128 KB at
+//   d = 2000: 40 to 128 KB in flight on an SM. Rows past n and columns
+//   past d are zero-filled copies that read nothing (w = 0 makes a dead
+//   row inert).
+// - The block order, the reference's. _run_glm sums a row tile in plain
+//   f32 (jnp.sum(mult * xv, axis=0), kernels.py:329) and compensates only
+//   across tiles (:330-343), which its comment says keeps the device
+//   L-BFGS's Wolfe search at 10 evaluations instead of 46. Here a tile is
+//   a warp's block of R rows: the R margins reduce with interleaved xor
+//   shuffles (every lane ends with the bitwise-same margins); lane j
+//   evaluates row j's link and the multipliers go to every lane by
+//   shuffles; each element's block sum sum_r mult_r x_r[e] is taken in
+//   plain f32 (fmaf over r, X re-read from the ring and unpacked again)
+//   and added to the lane's Kahan pair in one step; the loss, sum(mult)
+//   and sum(w) are summed the same way, in row order. The gradient costs
+//   1 + 4/R operations an element-row where a Kahan step a row took 5;
+//   f32 (R = 1) keeps the per-row order. Each CTA then folds its warps,
+//   in warp order, in double, and writes one partial row [grad(d), loss,
+//   sum(mult), sum(w)] of doubles; a second kernel sums those rows column
+//   by column in CTA order, in double, and rounds once to f32. No
+//   atomics: two launches on the same inputs are bitwise equal. sum(w) is
+//   exact for n < 2^24 unit weights.
+// - The register budget. No copy of a row is kept in registers: a lane
+//   holds its Kahan sums, one slot of each of the block's rows while it
+//   sums them, and the R margins and multipliers. The margins walk the
+//   slots in a loop that is not unrolled (unrolled, ptxas hoisted every
+//   slot's loads and spilled at E = 64), and each slot's block sums are
+//   unrolled, since they index the sums. Up to E = 40 the Kahan pairs are
+//   registers (190-204 of them at E = 40); past it the compensations live
+//   in shared memory (E floats a thread, 64 KB a CTA at E = 64), read and
+//   written once a block, 16 bytes at a time, and the sums stay in
+//   registers (158-167 at E = 64). Every instance has 0 bytes of spill
+//   (chip_smoke.py prints ptxas's lines; a gpu test holds it) and runs one
+//   CTA of 8 warps an SM: held to 128 registers for two CTAs, the E = 40
+//   instances spilled ~1 KB and ran 30-50% slower.
+// - Unaligned rows. A slot is copied by cp.async when the row start is
+//   slot-aligned (d * sizeof(T) % slot == 0 and an aligned base, vec_ok);
+//   otherwise each lane loads its slots element by element, one slot at a
+//   time, and stores them into its own ring slots, and the ring runs as
+//   before (the copy waits for its loads: slower, and only off the main
+//   paths).
+//
+// What holds each instance back (glm_phases.py: one build per phase taken
+// out, timed at the fits' shapes; the numbers are in PERF.md): the f32
+// and bf16 instances of K1 run within a tenth of their bytes bound. e4m3
+// is bound by its instructions, not its bytes: taking the copies out
+// saves nothing, taking out the margins or the gradient, each of which
+// converts every code again, saves a fifth of K1's time each. K2 (400k x
+// 2000, 379 rows a warp) loses its last fifth (bf16) to no single phase.
 //
 // Plain C interface (loaded with ctypes): every entry point returns a
 // cudaError_t, 0 on success.
@@ -77,58 +99,116 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxE = 64;  // elements of a row one lane holds, at most
+constexpr int kMaxE = 64;        // elements of a row one lane holds, at most
+constexpr int kMaxDevices = 64;  // devices whose attributes are remembered
 
 enum Link { kLogistic = 0, kSquared = 1 };
 
-// One slot: the raw bits of one vector load and the elements it holds.
+// One slot: V elements in W 32-bit words, copied as one piece.
 template <typename T>
 struct Slot;
 template <>
 struct Slot<float> {
-  using Raw = uint4;
-  static constexpr int V = 4;
+  static constexpr int V = 4, W = 4;
 };
 template <>
 struct Slot<__nv_bfloat16> {
-  using Raw = uint4;
-  static constexpr int V = 8;
+  static constexpr int V = 8, W = 4;
 };
 template <>
 struct Slot<__nv_fp8_e4m3> {
-  using Raw = uint2;  // 8 codes: the same 8 elements a lane slot of bf16 has
-  static constexpr int V = 8;
+  static constexpr int V = 8, W = 2;  // the same 8 elements as a bf16 slot
 };
 
-// The slot of a row starting at column col, as raw bits; zero past d.
-// One vector load when the slot is whole and aligned, else element by
-// element.
-template <typename T>
-__device__ __forceinline__ typename Slot<T>::Raw load_raw(
-    const T* __restrict__ row, int col, int d, bool vec_ok);
+// The shape of one instance: S ring stages of one row for each warp,
+// taken R rows (a block) at a time; S * sizeof(T) = 8 in every dtype.
+template <typename T, int E>
+struct Plan {
+  static constexpr int S = 8 / (int)sizeof(T);  // 2 f32, 4 bf16, 8 e4m3
+  static constexpr int R = S / 2;               // 1, 2, 4
+  static constexpr int kWidth = 32 * E;         // padded row width
+  static constexpr int kRowBytes = kWidth * (int)sizeof(T);
+  static constexpr int kRingBytes = kWarps * S * kRowBytes;
+  // past E = 40 the Kahan pairs' compensations live in shared memory (E
+  // floats a thread): 2E registers of pairs leave too few for the rest
+  // at 255
+  static constexpr bool kCompShared = E > 40;
+  static constexpr int kCompBytes = kCompShared ? E * 4 * kThreads : 0;
+  // beta, the X stages, the y and w stages, the compensations
+  static constexpr int kSmem =
+      kWidth * 4 + kRingBytes + kWarps * S * 8 + kCompBytes;
+  static_assert(kRingBytes >= (kWidth + 3) * 8,
+                "the fold's doubles must fit in the drained ring");
+};
+
+// A lane's slot, W words, from its ring stage.
+template <int W>
+__device__ __forceinline__ void ld_slot(const uint8_t* p, uint32_t (&u)[W]) {
+  if constexpr (W == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    u[0] = v.x;
+    u[1] = v.y;
+    u[2] = v.z;
+    u[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    u[0] = v.x;
+    u[1] = v.y;
+  }
+}
+
+// Elements 2h and 2h + 1 of a slot as f32 (a bf16 is the top half of an
+// f32; e4m3 pairs go through the hardware conversion to an f16 pair,
+// exact, then to f32).
+template <typename T, int W>
+__device__ __forceinline__ float2 pair(const uint32_t (&u)[W], int h);
 
 template <>
-__device__ __forceinline__ uint4 load_raw<float>(const float* __restrict__ row,
-                                                 int col, int d, bool vec_ok) {
-  if (vec_ok && col + 4 <= d)
-    return __ldcs(reinterpret_cast<const uint4*>(row + col));
-  uint32_t u[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    u[i] = (col + i < d) ? __float_as_uint(row[col + i]) : 0u;
-  return make_uint4(u[0], u[1], u[2], u[3]);
+__device__ __forceinline__ float2 pair<float, 4>(const uint32_t (&u)[4],
+                                                 int h) {
+  return make_float2(__uint_as_float(u[2 * h]), __uint_as_float(u[2 * h + 1]));
 }
 
 template <>
-__device__ __forceinline__ uint4 load_raw<__nv_bfloat16>(
-    const __nv_bfloat16* __restrict__ row, int col, int d, bool vec_ok) {
-  if (vec_ok && col + 8 <= d)
-    return __ldcs(reinterpret_cast<const uint4*>(row + col));
-  uint32_t u[4];
+__device__ __forceinline__ float2 pair<__nv_bfloat16, 4>(
+    const uint32_t (&u)[4], int h) {
+  return make_float2(__uint_as_float(u[h] << 16),
+                     __uint_as_float(u[h] & 0xffff0000u));
+}
+
+template <>
+__device__ __forceinline__ float2 pair<__nv_fp8_e4m3, 2>(
+    const uint32_t (&u)[2], int h) {
+  const __nv_fp8x2_storage_t two =
+      (__nv_fp8x2_storage_t)((u[h >> 1] >> (16 * (h & 1))) & 0xffffu);
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3)));
+}
+
+// The slot of a row starting at column col, element by element, zero past
+// d: the copy of a row that is not slot-aligned.
+template <typename T, int W>
+__device__ __forceinline__ void load_elems(const T* __restrict__ row, int col,
+                                           int d, uint32_t (&u)[W]);
+
+template <>
+__device__ __forceinline__ void load_elems<float, 4>(
+    const float* __restrict__ row, int col, int d, uint32_t (&u)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    u[i] = (col + i < d) ? __float_as_uint(row[col + i]) : 0u;
+}
+
+template <>
+__device__ __forceinline__ void load_elems<__nv_bfloat16, 4>(
+    const __nv_bfloat16* __restrict__ row, int col, int d, uint32_t (&u)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const uint32_t lo = (col + 2 * i < d)
@@ -137,64 +217,16 @@ __device__ __forceinline__ uint4 load_raw<__nv_bfloat16>(
         ? (uint32_t)__bfloat16_as_ushort(row[col + 2 * i + 1]) : 0u;
     u[i] = lo | (hi << 16);
   }
-  return make_uint4(u[0], u[1], u[2], u[3]);
 }
 
 template <>
-__device__ __forceinline__ uint2 load_raw<__nv_fp8_e4m3>(
-    const __nv_fp8_e4m3* __restrict__ row, int col, int d, bool vec_ok) {
+__device__ __forceinline__ void load_elems<__nv_fp8_e4m3, 2>(
+    const __nv_fp8_e4m3* __restrict__ row, int col, int d, uint32_t (&u)[2]) {
   const uint8_t* p = reinterpret_cast<const uint8_t*>(row);
-  if (vec_ok && col + 8 <= d)
-    return __ldcs(reinterpret_cast<const uint2*>(p + col));
-  uint32_t u[2] = {0u, 0u};
+  u[0] = u[1] = 0u;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     if (col + i < d) u[i >> 2] |= (uint32_t)p[col + i] << (8 * (i & 3));
-  return make_uint2(u[0], u[1]);
-}
-
-// The raw bits of a slot as f32 values (a bf16 is the top half of an f32).
-template <typename T>
-__device__ __forceinline__ void unpack(const typename Slot<T>::Raw& raw,
-                                       float* out);
-
-template <>
-__device__ __forceinline__ void unpack<float>(const uint4& raw, float* out) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw,
-                                                      float* out) {
-  const uint32_t u[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(u[i] << 16);
-    out[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-// e4m3 codes, lowest byte first: two at a time through the hardware
-// conversion to an f16 pair (exact), then to f32.
-template <>
-__device__ __forceinline__ void unpack<__nv_fp8_e4m3>(const uint2& raw,
-                                                      float* out) {
-  const uint32_t u[2] = {raw.x, raw.y};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const __nv_fp8x2_storage_t pair =
-          (__nv_fp8x2_storage_t)((u[i] >> (16 * h)) & 0xffffu);
-      const float2 f =
-          __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
-      out[4 * i + 2 * h] = f.x;
-      out[4 * i + 2 * h + 1] = f.y;
-    }
-  }
 }
 
 // Kahan step: s + c_lost is the running sum; the true sum is s - c.
@@ -221,20 +253,29 @@ __device__ __forceinline__ void link_eval(float m, float y, float w, float ys,
   }
 }
 
-// scalars = [off, ys]; partials: gridDim.x rows of (d + 3) doubles.
+// scalars = [off, ys]; partials: gridDim.x rows of (d + 3) doubles; dynamic
+// shared memory: Plan<T, E>::kSmem bytes.
 template <typename T, int E, int LINK>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     glm_sweep_kernel(const T* __restrict__ x, const float* __restrict__ y,
                      const float* __restrict__ w,
                      const float* __restrict__ beta,
                      const float* __restrict__ scalars, long long n, int d,
                      int vec_ok, double* __restrict__ partials) {
-  using Raw = typename Slot<T>::Raw;
-  constexpr int V = Slot<T>::V;
-  constexpr int kSlots = E / V;   // vector-load slots per lane
-  constexpr int kWidth = 32 * E;  // padded row width this instance holds
-  __shared__ float s_beta[kWidth];
-  __shared__ double s_red[kWidth + 3];
+  using P = Plan<T, E>;
+  constexpr int V = Slot<T>::V, W = Slot<T>::W;
+  constexpr int kSlotBytes = 4 * W;
+  constexpr int kSlots = E / V;  // slots per lane
+  constexpr int S = P::S, R = P::R;
+  constexpr int kWidth = P::kWidth, kRowBytes = P::kRowBytes;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* s_beta = reinterpret_cast<float*>(smem);
+  uint8_t* s_x = smem + kWidth * sizeof(float);
+  float* s_yw = reinterpret_cast<float*>(s_x + P::kRingBytes);
+  // this thread's compensations e..e+3 at my_comp[(e / 4) * kThreads]
+  float4* const my_comp =
+      reinterpret_cast<float4*>(s_yw + kWarps * S * 2) + threadIdx.x;
+  double* s_red = reinterpret_cast<double*>(s_x);  // once the ring drained
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -244,64 +285,172 @@ __global__ void __launch_bounds__(kThreads)
   const float ys = scalars[1];
   __syncthreads();
 
-  float acc[E], comp[E];
+  // this lane's slot k of stage s is at my_x + s * kRowBytes + k * 32 *
+  // kSlotBytes; the warp's y and w of stage s at my_yw[2s], my_yw[2s + 1]
+  uint8_t* const my_x = s_x + warp * S * kRowBytes + lane * kSlotBytes;
+  float* const my_yw = s_yw + warp * S * 2;
+  const uint32_t my_x_sh = hopper::smem_u32(my_x);
+  const uint32_t my_yw_sh = hopper::smem_u32(my_yw);
+  const long long n_warps = (long long)gridDim.x * kWarps;
+  const long long first = (long long)blockIdx.x * kWarps + warp;
+  const float* const yw_src = (lane == 0) ? y : w;  // lanes 0 and 1
+
+  // row r (zeros past n) into stage s, one commit group. A zero-filled
+  // copy reads nothing from its source address.
+  auto stage_row = [&](long long r, int s) {
+    const bool live = r < n;
+    const long long rr = live ? r : 0LL;
+    const uint32_t dst = my_x_sh + s * kRowBytes;
+    if (vec_ok) {
+      const T* src = x + rr * d + lane * V;
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    acc[e] = 0.0f;
-    comp[e] = 0.0f;
+      for (int k = 0; k < kSlots; ++k) {
+        const int bytes =
+            (live && (k * 32 + lane) * V < d) ? kSlotBytes : 0;
+        if constexpr (kSlotBytes == 16)
+          hopper::cp_async16(dst + k * 32 * kSlotBytes, src + k * 32 * V,
+                             bytes);
+        else
+          hopper::cp_async8(dst + k * 32 * kSlotBytes, src + k * 32 * V,
+                            bytes);
+      }
+    } else {  // one slot at a time: its loads are the only ones live
+      const T* row = x + rr * d;
+#pragma unroll 1
+      for (int k = 0; k < kSlots; ++k) {
+        uint32_t u[W];
+        load_elems<T, W>(row, (k * 32 + lane) * V, live ? d : 0, u);
+        uint8_t* const at = my_x + s * kRowBytes + k * 32 * kSlotBytes;
+        if constexpr (W == 4)
+          *reinterpret_cast<uint4*>(at) = make_uint4(u[0], u[1], u[2], u[3]);
+        else
+          *reinterpret_cast<uint2*>(at) = make_uint2(u[0], u[1]);
+      }
+    }
+    if (lane < 2)
+      hopper::cp_async4(my_yw_sh + (2 * s + lane) * 4, yw_src + rr,
+                        live ? 4 : 0);
+    hopper::cp_async_commit();
+  };
+
+  float acc[E], comp[P::kCompShared ? 1 : E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+  if constexpr (P::kCompShared) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q)
+      my_comp[q * kThreads] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) comp[e] = 0.0f;
   }
   float loss_s = 0.0f, loss_c = 0.0f;
   float mult_s = 0.0f, mult_c = 0.0f;
   float w_s = 0.0f, w_c = 0.0f;
 
-  const long long n_warps = (long long)gridDim.x * kWarps;
-  long long r = (long long)blockIdx.x * kWarps + warp;
-  // the next row's slots, y and w are in flight while this row computes
-  Raw nxt[kSlots];
-  float y_nxt = 0.0f, w_nxt = 0.0f;
-  if (r < n) {
+  // row i of this warp is first + i * n_warps and goes to stage i % S
+  if (first < n) {
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k)
-      nxt[k] = load_raw<T>(x + r * (long long)d, (k * 32 + lane) * V, d,
-                           vec_ok != 0);
-    y_nxt = __ldg(y + r);
-    w_nxt = __ldg(w + r);
+    for (int s = 0; s < S; ++s) stage_row(first + s * n_warps, s);
   }
-  for (; r < n; r += n_warps) {
-    Raw cur[kSlots];
+  int s0 = 0;  // the stage of the block's first row
+  for (long long r = first; r < n; r += R * n_warps) {
+    hopper::cp_async_wait<S - R>();  // this lane's copies of the block
+    __syncwarp();                    // and lanes 0 and 1's y and w
+    const uint8_t* const blk = my_x + s0 * kRowBytes;
+
+    // the block's R margins, R chains interleaved
+    float m[R];
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k) cur[k] = nxt[k];
-    const float yr = y_nxt, wr = w_nxt;
-    const long long rn = r + n_warps;
-    if (rn < n) {
+    for (int j = 0; j < R; ++j) m[j] = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < kSlots; ++k) {
+      const float* bk = s_beta + (k * 32 + lane) * V;
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k)
-        nxt[k] = load_raw<T>(x + rn * (long long)d, (k * 32 + lane) * V, d,
-                             vec_ok != 0);
-      y_nxt = __ldg(y + rn);
-      w_nxt = __ldg(w + rn);
+      for (int j = 0; j < R; ++j) {
+        uint32_t u[W];
+        ld_slot<W>(blk + j * kRowBytes + k * 32 * kSlotBytes, u);
+#pragma unroll
+        for (int h = 0; h < V / 2; ++h) {
+          const float2 xv = pair<T, W>(u, h);
+          m[j] = fmaf(xv.x, bk[2 * h], m[j]);
+          m[j] = fmaf(xv.y, bk[2 * h + 1], m[j]);
+        }
+      }
     }
-    float xv[E];
-    float part = 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        m[j] += __shfl_xor_sync(0xffffffffu, m[j], o);
+    }
+
+    // row j's link on lane j (lanes past R repeat one), its multiplier to
+    // every lane; the block's loss, sum(mult) and sum(w) in plain f32, in
+    // row order
+    const int jl = lane & (R - 1);
+    float mj = m[0];
+#pragma unroll
+    for (int j = 1; j < R; ++j)
+      if (jl == j) mj = m[j];
+    const float yl = my_yw[2 * (s0 + jl)], wl = my_yw[2 * (s0 + jl) + 1];
+    float mult_l, loss_l;
+    link_eval<LINK>(mj + off, yl, wl, ys, mult_l, loss_l);
+    float mult[R];
+    float loss_b = 0.0f, mult_b = 0.0f, w_b = 0.0f;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      mult[j] = __shfl_sync(0xffffffffu, mult_l, j);
+      loss_b += __shfl_sync(0xffffffffu, loss_l, j);
+      mult_b += mult[j];
+      w_b += __shfl_sync(0xffffffffu, wl, j);
+    }
+    kahan_add(loss_s, loss_c, loss_b);
+    kahan_add(mult_s, mult_c, mult_b);
+    kahan_add(w_s, w_c, w_b);
+
+    // the gradient: each element's block sum in plain f32, one Kahan step
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
-      const int col = (k * 32 + lane) * V;
-      unpack<T>(cur[k], xv + k * V);
+      uint32_t u[R][W];
 #pragma unroll
-      for (int i = 0; i < V; ++i)
-        part = fmaf(xv[k * V + i], s_beta[col + i], part);
+      for (int j = 0; j < R; ++j)
+        ld_slot<W>(blk + j * kRowBytes + k * 32 * kSlotBytes, u[j]);
+      float b[V];
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h) {
+        b[2 * h] = b[2 * h + 1] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const float2 xv = pair<T, W>(u[j], h);
+          b[2 * h] = fmaf(mult[j], xv.x, b[2 * h]);
+          b[2 * h + 1] = fmaf(mult[j], xv.y, b[2 * h + 1]);
+        }
+      }
+      float* const a = acc + k * V;
+      if constexpr (P::kCompShared) {
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q) {
+          float4 c = my_comp[(k * V / 4 + q) * kThreads];
+          kahan_add(a[4 * q], c.x, b[4 * q]);
+          kahan_add(a[4 * q + 1], c.y, b[4 * q + 1]);
+          kahan_add(a[4 * q + 2], c.z, b[4 * q + 2]);
+          kahan_add(a[4 * q + 3], c.w, b[4 * q + 3]);
+          my_comp[(k * V / 4 + q) * kThreads] = c;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) kahan_add(a[i], comp[k * V + i], b[i]);
+      }
     }
+
+    __syncwarp();  // every lane has read the block's y and w
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    float mult, loss;
-    link_eval<LINK>(part + off, yr, wr, ys, mult, loss);
-    kahan_add(loss_s, loss_c, loss);
-    kahan_add(mult_s, mult_c, mult);
-    kahan_add(w_s, w_c, wr);
-#pragma unroll
-    for (int e = 0; e < E; ++e) kahan_add(acc[e], comp[e], mult * xv[e]);
+    for (int j = 0; j < R; ++j) stage_row(r + (S + j) * n_warps, s0 + j);
+    s0 = (s0 + R) % S;
   }
+  hopper::cp_async_wait<0>();  // the zero-filled copies past n
+  __syncthreads();             // every warp is done with its ring
 
   // fold the warps into one CTA partial, in warp order, in double
   for (int wi = 0; wi < kWarps; ++wi) {
@@ -310,8 +459,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < kSlots; ++k) {
 #pragma unroll
         for (int i = 0; i < V; ++i) {
+          const int e = k * V + i;
+          float c;
+          if constexpr (P::kCompShared)
+            c = reinterpret_cast<const float*>(my_comp + (e / 4) * kThreads)
+                [e % 4];
+          else
+            c = comp[e];
           const int j = (k * 32 + lane) * V + i;
-          const double v = (double)acc[k * V + i] - (double)comp[k * V + i];
+          const double v = (double)acc[e] - (double)c;
           s_red[j] = (wi == 0) ? v : s_red[j] + v;
         }
       }
@@ -332,27 +488,46 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out[j] = sum over CTAs c, in order, of partials[c][j]; rounded to f32.
+// The loads run ahead of the (ordered) adds.
 __global__ void glm_reduce_kernel(const double* __restrict__ partials,
                                   int n_parts, int width,
                                   float* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= width) return;
   double s = 0.0;
+#pragma unroll 8
   for (int c = 0; c < n_parts; ++c) s += partials[(long long)c * width + j];
   out[j] = (float)s;
 }
 
-using KernelFn = const void*;  // a glm_sweep_kernel instance
+// One instance and what its launch needs.
+struct Instance {
+  const void* fn;  // a glm_sweep_kernel instance
+  int smem;        // dynamic shared memory, bytes
+  int stages;      // S
+  int block;       // R
+  int bit;         // its bit in ready[] below
+};
+
+// per device, the instances whose shared-memory limit has been raised
+std::atomic<uint64_t> ready[kMaxDevices];
 
 // E rounded up to a multiple of 8 covers every slot width (4 f32, 8 bf16,
 // 8 e4m3).
 int elems_per_lane(int d) { return ((d + 255) / 256) * 8; }
 
+template <typename T, int E, int LINK>
+Instance make_instance(int dtype) {
+  using P = Plan<T, E>;
+  return {reinterpret_cast<const void*>(&glm_sweep_kernel<T, E, LINK>),
+          P::kSmem, P::S, P::R, dtype * 16 + LINK * 8 + E / 8 - 1};
+}
+
 template <typename T, int LINK>
-KernelFn pick_kernel(int e) {
-#define CYCLONE_GLM_CASE(E)                                               \
-  case E:                                                                 \
-    return reinterpret_cast<KernelFn>(&glm_sweep_kernel<T, E, LINK>);
+Instance pick_kernel(int dtype, int e) {
+#define CYCLONE_GLM_CASE(E) \
+  case E:                   \
+    return make_instance<T, E, LINK>(dtype);
   switch (e) {
     CYCLONE_GLM_CASE(8)
     CYCLONE_GLM_CASE(16)
@@ -363,26 +538,55 @@ KernelFn pick_kernel(int e) {
     CYCLONE_GLM_CASE(56)
     CYCLONE_GLM_CASE(64)
     default:
-      return nullptr;
+      return {nullptr, 0, 0, 0, 0};
   }
 #undef CYCLONE_GLM_CASE
 }
 
 template <typename T>
-KernelFn pick_link(int link, int e) {
-  if (link == kLogistic) return pick_kernel<T, kLogistic>(e);
-  if (link == kSquared) return pick_kernel<T, kSquared>(e);
-  return nullptr;
+Instance pick_link(int dtype, int link, int e) {
+  if (link == kLogistic) return pick_kernel<T, kLogistic>(dtype, e);
+  if (link == kSquared) return pick_kernel<T, kSquared>(dtype, e);
+  return {nullptr, 0, 0, 0, 0};
 }
 
-KernelFn kernel_for(int dtype, int link, int d) {
-  if (d < 1) return nullptr;
+Instance kernel_for(int dtype, int link, int d) {
+  const Instance none = {nullptr, 0, 0, 0, 0};
+  if (d < 1) return none;
   const int e = elems_per_lane(d);
-  if (e > kMaxE) return nullptr;
-  if (dtype == 0) return pick_link<float>(link, e);
-  if (dtype == 1) return pick_link<__nv_bfloat16>(link, e);
-  if (dtype == 2) return pick_link<__nv_fp8_e4m3>(link, e);
-  return nullptr;
+  if (e > kMaxE) return none;
+  if (dtype == 0) return pick_link<float>(dtype, link, e);
+  if (dtype == 1) return pick_link<__nv_bfloat16>(dtype, link, e);
+  if (dtype == 2) return pick_link<__nv_fp8_e4m3>(dtype, link, e);
+  return none;
+}
+
+// Raises the instance's dynamic shared-memory limit on the current device,
+// once per device.
+cudaError_t prepare(const Instance& k) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ull << k.bit;
+  if (dev < kMaxDevices && (ready[dev].load() & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             k.smem);
+  if (err == cudaSuccess && dev < kMaxDevices) ready[dev].fetch_or(bit);
+  return err;
+}
+
+// CTAs of the instance resident on one SM of the current device, and the
+// device's SMs.
+cudaError_t residency(const Instance& k, int* per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t err = prepare(k);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k.fn,
+                                                        kThreads, k.smem);
+  return err;
 }
 
 }  // namespace
@@ -392,20 +596,16 @@ extern "C" {
 // Largest d the kernel takes.
 int glm_sweep_max_d() { return 32 * kMaxE; }
 
-// CTAs (= partial rows) a sweep of n rows uses on the current device.
+// CTAs (= partial rows) a sweep of n rows uses on the current device: as
+// many as are resident at once, at most one per 32 rows, at least one.
 // dtype: 0 = float32 X, 1 = bfloat16 X, 2 = float8_e4m3fn codes;
 // link: 0 = logistic, 1 = squared.
 int glm_sweep_num_parts(int dtype, int link, int d, long long n,
                         int* n_parts) {
-  KernelFn k = kernel_for(dtype, link, d);
-  if (k == nullptr) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, k, kThreads, 0);
+  const Instance k = kernel_for(dtype, link, d);
+  if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = residency(k, &per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
   long long parts = (long long)sms * (per_sm > 0 ? per_sm : 1);
   // at least a few rows per warp, and at least one CTA
@@ -413,6 +613,22 @@ int glm_sweep_num_parts(int dtype, int link, int d, long long n,
   if (by_rows < parts) parts = by_rows;
   if (parts < 1) parts = 1;
   *n_parts = (int)parts;
+  return 0;
+}
+
+// The instance a sweep of (dtype, link, d) launches, as four ints: its
+// ring stages S, its block rows R, its dynamic shared memory in bytes and
+// its CTAs resident on one SM of the current device.
+int glm_sweep_plan(int dtype, int link, int d, int* plan) {
+  const Instance k = kernel_for(dtype, link, d);
+  if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = residency(k, &per_sm, &sms);
+  if (err != cudaSuccess) return (int)err;
+  plan[0] = k.stages;
+  plan[1] = k.block;
+  plan[2] = k.smem;
+  plan[3] = per_sm;
   return 0;
 }
 
@@ -424,13 +640,16 @@ int glm_sweep_launch(int dtype, int link, const void* x, const float* y,
                      const float* w, const float* beta, const float* scalars,
                      long long n, int d, double* partials, int n_parts,
                      float* out, void* stream) {
-  KernelFn k = kernel_for(dtype, link, d);
-  if (k == nullptr || n_parts < 1 || n < 0) return (int)cudaErrorInvalidValue;
-  // bytes per element and per vector load of the instance kernel_for chose
+  const Instance k = kernel_for(dtype, link, d);
+  if (k.fn == nullptr || n_parts < 1 || n < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(k);
+  if (err != cudaSuccess) return (int)err;
+  // bytes per element and per slot of the instance kernel_for chose
   const size_t item = (dtype == 0) ? sizeof(float)
                       : (dtype == 1) ? sizeof(__nv_bfloat16)
                                      : sizeof(__nv_fp8_e4m3);
-  const size_t slot = (dtype == 2) ? sizeof(uint2) : sizeof(uint4);
+  const size_t slot = (dtype == 2) ? 8 : 16;
   const int vec_ok = ((reinterpret_cast<uintptr_t>(x) % slot) == 0) &&
                      (((size_t)d * item) % slot == 0);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -438,8 +657,8 @@ int glm_sweep_launch(int dtype, int link, const void* x, const float* y,
   // same width is passed through the untyped launch
   void* args[] = {const_cast<void**>(&x), &y,  &w,      &beta,    &scalars,
                   &n,                     &d,  (void*)&vec_ok, &partials};
-  cudaError_t err = cudaLaunchKernel(k, dim3(n_parts), dim3(kThreads), args,
-                                     0, s);
+  err = cudaLaunchKernel(k.fn, dim3(n_parts), dim3(kThreads), args,
+                         (size_t)k.smem, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int width = d + 3;

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (gramian.cu, kmeans_assign.cu): shared-memory matrix descriptors for
-// wgmma, the bf16 m64n128k16 product with float32 sums, the fences around
-// it, and cp.async copies into shared memory.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (gramian.cu, kmeans_assign.cu, glm_stacked.cu, glm_sweep.cu):
+// shared-memory matrix descriptors for wgmma, the bf16 m64n128k16 product
+// with float32 sums, the fences around it, and cp.async copies of 16, 8
+// and 4 bytes into shared memory.
 //
 // Layout. Every wgmma operand here lives in shared memory in the 128-byte
 // swizzled layout (the one TMA's SWIZZLE_128B writes): a region of rows of
@@ -70,6 +71,20 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 8 or 4 bytes global -> shared (the .cg form takes 16 bytes only, so
+// these go through L1); src_bytes < the size fills the rest with zeros
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
 }

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -111,3 +111,47 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def edited_sources(src: str, variants: Dict[str, List[Tuple[str, str]]]
+                   ) -> Dict[str, str]:
+    """``{"full": src}`` and, for each variant, ``src`` with its (old,
+    new) text replacements made; every old text must occur exactly once,
+    so a variant fails loudly when the kernel's text changes."""
+    out = {"full": src}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: the kernel text {old!r} is not "
+                                   "found exactly once; update the variants")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def build_variants(name: str, sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+    """Versions of ``csrc/<name>.cu`` (variant name -> source text), all
+    nvcc processes started together, into ``_build/<name>_variants/``
+    (the shared headers come from ``csrc/``); returns the loaded
+    libraries. For measuring what a phase of a kernel costs."""
+    out_dir = BUILD_DIR / f"{name}_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for variant, text in sources.items():
+        cu = out_dir / f"{name}_{variant}.cu"
+        cu.write_text(text)
+        so = out_dir / f"lib{name}_{variant}.so"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(so),
+               str(cu)]
+        procs[variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), so)
+    libs = {}
+    for variant, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {variant} build of "
+                               f"csrc/{name}.cu:\n{log}")
+        libs[variant] = ctypes.CDLL(str(so))
+    return libs

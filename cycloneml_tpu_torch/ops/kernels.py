@@ -243,6 +243,57 @@ def _check_x(x: torch.Tensor, what: str) -> None:
                          "would double the pass's memory)")
 
 
+def _device_scalars(values, dev) -> torch.Tensor:
+    """Scalars (numbers or 0-d tensors) as one float32 vector on ``dev``,
+    without reading a device value back: one copy from the host when all
+    are numbers, else one stack on the device."""
+    if not any(torch.is_tensor(v) for v in values):
+        return torch.tensor([float(v) for v in values], dtype=torch.float32,
+                            device=dev)
+    return torch.stack([
+        v.to(device=dev, dtype=torch.float32).reshape(())
+        if torch.is_tensor(v)
+        else torch.full((), float(v), dtype=torch.float32, device=dev)
+        for v in values])
+
+
+# the sweep's CTA count by (library, device, dtype, link, d, n): the
+# occupancy query behind it is asked once, not per sweep
+_GLM_PARTS: Dict[tuple, int] = {}
+
+
+def _glm_parts(lib, dev, code: int, lcode: int, d: int, n: int) -> int:
+    key = (id(lib), dev.index, code, lcode, d, n)
+    parts = _GLM_PARTS.get(key)
+    if parts is None:
+        out = ctypes.c_int(0)
+        _cuda_check(lib.glm_sweep_num_parts(code, lcode, d, n,
+                                            ctypes.byref(out)),
+                    "glm_sweep_num_parts")
+        parts = _GLM_PARTS[key] = out.value
+    return parts
+
+
+def glm_sweep_plan(dtype: torch.dtype, link: str, d: int,
+                   device=None) -> Dict[str, int]:
+    """The kernel instance a CUDA sweep of X ``(n, d)`` of ``dtype``
+    launches: its ring stages ``S``, its block rows ``R``, its dynamic
+    shared memory in bytes and its CTAs resident on one SM of ``device``
+    (the current CUDA device by default)."""
+    lib = _library("glm_sweep")
+    # declared here and not in _SIGNATURES: an older build of the source
+    # without this entry point (glm_phases.py --parent) still loads
+    fn = lib.glm_sweep_plan
+    fn.argtypes, fn.restype = [_I, _I, _I, _PI], _I
+    plan = (ctypes.c_int * 4)()
+    with torch.cuda.device(device if device is not None
+                           else torch.cuda.current_device()):
+        _cuda_check(fn(_DTYPE_CODE[dtype], _LINK_CODE[link], d, plan),
+                    "glm_sweep_plan")
+    return {"stages": plan[0], "block_rows": plan[1], "smem_bytes": plan[2],
+            "ctas_per_sm": plan[3]}
+
+
 def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
               beta: torch.Tensor, off, link: str = LOGISTIC, ys=0.0,
               x_scale=None) -> Tuple[torch.Tensor, torch.Tensor,
@@ -284,24 +335,18 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         raise ValueError("glm_sweep: shapes do not match X "
                          f"{(n, d)}: y {tuple(y.shape)}, w {tuple(w.shape)}, "
                          f"beta {tuple(beta.shape)}")
-    # [off, ys] stay on the device: reading off back would sync per sweep
-    scalars = torch.zeros(2, dtype=torch.float32, device=dev)
-    scalars[0] = torch.as_tensor(off, device=dev)
-    scalars[1] = torch.as_tensor(ys, device=dev)
+    scalars = _device_scalars((off, ys), dev)
     code, lcode = _DTYPE_CODE[x.dtype], _LINK_CODE[link]
     with torch.cuda.device(dev):
-        parts = ctypes.c_int(0)
-        _cuda_check(lib.glm_sweep_num_parts(code, lcode, d, n,
-                                            ctypes.byref(parts)),
-                    "glm_sweep_num_parts")
-        partials = torch.empty(parts.value * (d + 3), dtype=torch.float64,
+        parts = _glm_parts(lib, dev, code, lcode, d, n)
+        partials = torch.empty(parts * (d + 3), dtype=torch.float64,
                                device=dev)
         out = torch.empty(d + 3, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda_check(lib.glm_sweep_launch(
             code, lcode, x.data_ptr(), y.data_ptr(), w.data_ptr(),
             beta.data_ptr(), scalars.data_ptr(), n, d, partials.data_ptr(),
-            parts.value, out.data_ptr(), stream), "glm_sweep launch")
+            parts, out.data_ptr(), stream), "glm_sweep launch")
     glm_sweep.launches += 1
     glm_sweep.launches_by_link[link] += 1
     glm_sweep.launches_by_dtype[x.dtype] += 1

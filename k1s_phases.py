@@ -9,8 +9,9 @@ It builds ``cycloneml_tpu_torch/csrc/glm_stacked.cu`` as it is and four
 variants of it, each with one phase of the tensor-core kernel taken out
 (the margins' products, the gradient's products, the epilogue's
 sigmoid/softplus arithmetic, the copies of X; a tile's labels are still
-copied), all nvcc processes started
-together, into ``cycloneml_tpu_torch/_build/k1s_phases/``. Then it times
+copied), all nvcc processes started together
+(``ops/build.build_variants``, into
+``cycloneml_tpu_torch/_build/glm_stacked_variants/``). Then it times
 ``ops/kernels.glm_sweep_stacked`` through each build (CUDA events, 10
 launches after 2) at the OneVsRest shape, 2,000,000 x 1280, for K = 8 and
 16 models, on bf16 X and on e4m3 codes with their x_scale, and prints one
@@ -22,7 +23,6 @@ no CUDA device is present.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import subprocess
@@ -48,41 +48,6 @@ VARIANTS = {
 }
 
 
-def _sources(src: str) -> dict:
-    out = {"full": src}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the kernel text {old!r} is not "
-                                   "found exactly once; update VARIANTS")
-            text = text.replace(old, new)
-        out[name] = text
-    return out
-
-
-def _build(build, sources: dict) -> dict:
-    """All variants compiled at once; returns the loaded libraries."""
-    out_dir = build.BUILD_DIR / "k1s_phases"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        cu = out_dir / f"glm_stacked_{name}.cu"
-        cu.write_text(text)
-        so = out_dir / f"libglm_stacked_{name}.so"
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR),
-               "-o", str(so), str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {name} variant:\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -99,8 +64,8 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip() or "not measured (nvidia-smi gave nothing)",
           flush=True)
-    libs = _build(build, _sources((build.CSRC_DIR / "glm_stacked.cu")
-                                  .read_text()))
+    libs = build.build_variants("glm_stacked", build.edited_sources(
+        (build.CSRC_DIR / "glm_stacked.cu").read_text(), VARIANTS))
     g = torch.Generator(device="cuda").manual_seed(0)
     x32 = torch.empty((N, D), device="cuda")
     for lo in range(0, N, ROWS):

@@ -139,37 +139,58 @@ def test_plain_k1_f64_accumulation_is_the_truth(data):
     assert float(wsum) == pytest.approx(w.sum(), rel=1e-14)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(1, 1), (1003, 37), (4096, 256),
-                                 (2049, 1000), (777, 2048)])
-def test_cuda_k1_matches_plain(n, d, dtype):
-    """The CUDA kernel against its plain version in float64 on the same
-    card, at ragged and aligned shapes: loss to 1e-5 relative, grad to
-    1e-4 of its largest entry, sum(w) exact, launches bitwise equal."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(n * 7 + d)
-    x = torch.randn(n, d, generator=g, device=dev).to(dtype)
-    beta = torch.randn(d, generator=g, device=dev) / d ** 0.5
-    y = (torch.rand(n, generator=g, device=dev) > 0.5).float()
-    w = torch.ones(n, device=dev)
-    off = torch.tensor(0.25, device=dev)
-    before = tk.glm_sweep.launches
-    loss, grad, msum, wsum = tk.glm_sweep(x, y, w, beta, off)
-    again = tk.glm_sweep(x, y, w, beta, off)
+# rows past every whole round of blocks (132 SMs x 8 warps x R = 4 rows x
+# 3, plus 5), and fewer rows than one warp's ring
+_RAGGED_ROWS = 132 * 8 * 4 * 3 + 5
+_SWEEP_SHAPES = [(1, 1), (1003, 37), (4096, 256), (2049, 1000), (777, 2048),
+                 (777, 2000), (_RAGGED_ROWS, 1280), (_RAGGED_ROWS, 2000),
+                 (5, 1280), (3, 2000)]
+
+
+def _sweep_holds(x, y, w, beta, off, link=tk.LOGISTIC, ys=0.0,
+                 x_scale=None):
+    """The CUDA sweep against its plain version in float64 on the same
+    card: loss to 1e-5 relative, grad to 1e-4 of its largest entry,
+    sum(mult) to 1e-4 of sum(w), sum(w) exact, two launches bitwise equal
+    and counted under the link and X's dtype and no other."""
+    n = x.shape[0]
+    before = dict(tk.glm_sweep.launches_by_link)
+    before_dt = dict(tk.glm_sweep.launches_by_dtype)
+    out = tk.glm_sweep(x, y, w, beta, off, link=link, ys=ys, x_scale=x_scale)
+    again = tk.glm_sweep(x, y, w, beta, off, link=link, ys=ys,
+                         x_scale=x_scale)
     torch.cuda.synchronize()
-    assert tk.glm_sweep.launches == before + 2
+    assert tk.glm_sweep.launches_by_link == {
+        k: v + (2 if k == link else 0) for k, v in before.items()}
+    assert tk.glm_sweep.launches_by_dtype == {
+        k: v + (2 if k == x.dtype else 0) for k, v in before_dt.items()}
     tl, tg, tm, tw = tk.glm_sweep_plain(x, y, w, beta, off,
-                                        acc_dtype=torch.float64)
+                                        acc_dtype=torch.float64, link=link,
+                                        ys=ys, x_scale=x_scale)
+    loss, grad, msum, wsum = out
     assert abs(float(loss) - float(tl)) <= 1e-5 * abs(float(tl))
     assert float((grad.double() - tg).abs().max()) <= \
         1e-4 * float(tg.abs().max()) + 1e-6
     assert abs(float(msum) - float(tm)) <= 1e-4 * float(tw)
     assert float(wsum) == n
-    assert all(torch.equal(a, b) for a, b in zip((loss, grad, msum, wsum),
-                                                 again))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", _SWEEP_SHAPES)
+def test_cuda_k1_matches_plain(n, d, dtype):
+    """The CUDA kernel against its plain version in float64 on the same
+    card (:func:`_sweep_holds`), at ragged and aligned shapes, the fits'
+    widths (1,280 and 2,000) and the widest (2,048), with rows past the
+    last whole round of blocks and fewer rows than one ring."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(n * 7 + d)
+    x = torch.randn(n, d, generator=g, device=dev).to(dtype)
+    beta = torch.randn(d, generator=g, device=dev) / d ** 0.5
+    y = (torch.rand(n, generator=g, device=dev) > 0.5).float()
+    w = torch.ones(n, device=dev)
+    _sweep_holds(x, y, w, beta, torch.tensor(0.25, device=dev))
 
 
 # -- K2: the squared link ------------------------------------------------------
@@ -247,6 +268,109 @@ def test_plain_k2_padding_rows_inert(ctx):
     np.testing.assert_allclose(big["grad"].numpy(), small["grad"].numpy(),
                                rtol=1e-5, atol=1e-5)
     assert float(big["count"]) == 90.0
+
+
+# -- K1/K2's summation order, emulated -----------------------------------------
+
+def _block_sums(v, block, kahan=True):
+    """The sums of one float32 term array ``v`` (rows, warps, ...) the way
+    the CUDA sweep's lanes take them: row i of warp w is ``v[i, w]``; each
+    block of ``block`` rows is summed in plain float32, one rounding a row
+    (an FMA: the product is exact, the sum rounds), and each block sum goes
+    into the lane's running sum by one Kahan step (or by a plain float32
+    add). Returns the lanes' sums ``s - c`` in float64."""
+    s = torch.zeros(v.shape[1:], dtype=torch.float32)
+    c = torch.zeros_like(s)
+    for lo in range(0, v.shape[0], block):
+        b = torch.zeros_like(s)
+        for t in v[lo:lo + block].double():
+            b = (b.double() + t).float()
+        if kahan:
+            y = b - c
+            t = s + y
+            c = (t - s) - y
+            s = t
+        else:
+            s = s + b
+    return s.double() - c.double()
+
+
+def _emulated_squared_sweep(x, y, w, beta, off, ys, block, warps,
+                            products=None, kahan=True):
+    """K2 in the CUDA sweep's float32 arithmetic and order on the CPU:
+    margins and the link per row in float32, rows dealt to ``warps``
+    warps (grid-stride), each lane's sums by :func:`_block_sums`, then the
+    warps folded in double in warp order (the CTA fold and the second
+    pass add the same terms in double). ``products`` (rows, d), when
+    given, are the float64 terms mult * x the gradient sums, so two orders
+    can be held to the same terms. Returns float64 ``(loss, grad,
+    sum(mult), sum(w))``."""
+    n, d = x.shape
+    m = x @ beta + off
+    err = m - ys * y
+    mult = w * err
+    loss = 0.5 * w * err * err
+    pad = -n % warps
+    rows = (n + pad) // warps
+
+    def lanes(v):
+        v = torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+        return v.reshape((rows, warps) + v.shape[1:])
+
+    terms = (mult[:, None] * x if products is None else products).float()
+    folded = [_block_sums(lanes(v), block, kahan).sum(0)
+              for v in (loss, terms, mult, w)]
+    return tuple(folded)
+
+
+@pytest.mark.parametrize("block", [2, 4])
+def test_emulated_glm_sweep_block_order(block, capsys):
+    """The CUDA sweep sums the gradient as the reference's _run_glm does:
+    a block of rows in plain float32, Kahan across blocks (block = 2 for
+    bf16 X, 4 for e4m3 codes; float32 X keeps one row a block). Emulated
+    in float32 on the CPU at a point where the gradient cancels to <= 1e-3
+    of sum|mult x| (the least-squares fit, nudged): within the kernel's
+    check bounds of float64 (loss 1e-5 relative, grad 1e-4 of its largest
+    entry), and its summation error within 4x that of the per-row Kahan
+    order on the same float32 terms. The error of an uncompensated order
+    is printed beside them: it is why Kahan across blocks stays."""
+    rng = np.random.RandomState(block)
+    n, d, warps = 32_768, 64, 32   # 1,024 rows a lane, as at the fit shapes
+    x = rng.randn(n, d).astype(np.float32).astype(np.float64)
+    y = x @ rng.randn(d) + 0.5 * rng.randn(n)
+    coef = np.linalg.lstsq(x, y, rcond=None)[0] + 5e-5 * rng.randn(d)
+    x32, y32 = torch.from_numpy(x).float(), torch.from_numpy(y).float()
+    beta32, w32 = torch.from_numpy(coef).float(), torch.ones(n)
+    off, ys = 0.0, 1.0
+    t_loss, t_grad, t_m, t_w = tk.glm_sweep_plain(
+        x32, y32, w32, beta32, off, acc_dtype=torch.float64, link=tk.SQUARED,
+        ys=ys)
+    scale = float((t_grad.abs().max()))
+    mult32 = (x32 @ beta32 + off) - ys * y32
+    products = mult32.double()[:, None] * x32.double()
+    assert scale <= 1e-3 * float(products.abs().sum(0).max())
+
+    loss, grad, msum, wsum = _emulated_squared_sweep(
+        x32, y32, w32, beta32, off, ys, block, warps)
+    assert abs(float(loss) - float(t_loss)) <= 1e-5 * abs(float(t_loss))
+    assert float((grad - t_grad).abs().max()) <= 1e-4 * scale
+    assert abs(float(msum) - float(t_m)) <= 1e-4 * float(t_w)
+    assert float(wsum) == n
+
+    # summation error alone: every order on the same float32 terms
+    exact = products.sum(0)
+    errs = {}
+    for name, blk, kahan in (("block", block, True), ("row", 1, True),
+                             ("uncompensated", block, False)):
+        g = _emulated_squared_sweep(x32, y32, w32, beta32, off, ys, blk,
+                                    warps, products=products,
+                                    kahan=kahan)[1]
+        errs[name] = float((g - exact).abs().max()) / scale
+    with capsys.disabled():
+        print(f"\nblock={block}: grad error / max|grad|: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()))
+    assert errs["block"] <= 4 * errs["row"]
+    assert errs["block"] <= 1e-4
 
 
 # -- K3: nearest-center assignment ---------------------------------------------
@@ -335,12 +459,10 @@ def _cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(1, 1), (1003, 37), (2049, 1000),
-                                 (777, 2000)])
+@pytest.mark.parametrize("n,d", _SWEEP_SHAPES)
 def test_cuda_k2_matches_plain(n, d, dtype):
-    """The squared link against its plain version in float64: loss to
-    1e-5 relative, grad to 1e-4 of its largest entry, sum(w) exact,
-    launches bitwise equal and counted by link."""
+    """The squared link against its plain version in float64
+    (:func:`_sweep_holds`), at K1's shapes."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(n * 5 + d)
     x = torch.randn(n, d, generator=g, device=dev).to(dtype)
@@ -348,23 +470,53 @@ def test_cuda_k2_matches_plain(n, d, dtype):
     y = torch.randn(n, generator=g, device=dev)
     w = torch.ones(n, device=dev)
     off, ys = torch.tensor(0.25, device=dev), torch.tensor(0.7, device=dev)
-    before = dict(tk.glm_sweep.launches_by_link)
-    out = tk.glm_sweep(x, y, w, beta, off, link=tk.SQUARED, ys=ys)
-    again = tk.glm_sweep(x, y, w, beta, off, link=tk.SQUARED, ys=ys)
-    torch.cuda.synchronize()
-    assert tk.glm_sweep.launches_by_link[tk.SQUARED] == \
-        before[tk.SQUARED] + 2
-    assert tk.glm_sweep.launches_by_link[tk.LOGISTIC] == before[tk.LOGISTIC]
-    tl, tg, tm, tw = tk.glm_sweep_plain(x, y, w, beta, off,
-                                        acc_dtype=torch.float64,
-                                        link=tk.SQUARED, ys=ys)
-    loss, grad, msum, wsum = out
-    assert abs(float(loss) - float(tl)) <= 1e-5 * abs(float(tl))
-    assert float((grad.double() - tg).abs().max()) <= \
-        1e-4 * float(tg.abs().max()) + 1e-6
-    assert abs(float(msum) - float(tm)) <= 1e-4 * float(tw)
-    assert float(wsum) == n
-    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    _sweep_holds(x, y, w, beta, off, link=tk.SQUARED, ys=ys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("link", [tk.LOGISTIC, tk.SQUARED])
+@pytest.mark.parametrize("d", [1280, 2000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn])
+def test_cuda_glm_sweep_misaligned_base(dtype, d, link):
+    """X a contiguous (n, d) view one element into a flat buffer, so its
+    base is not slot-aligned although its rows' width is: the sweep takes
+    its element-wise copies and still holds (:func:`_sweep_holds`)."""
+    dev = _cuda()
+    n = _RAGGED_ROWS
+    g = torch.Generator(device=dev).manual_seed(d + 3)
+    flat = torch.randn(n * d + 1, generator=g, device=dev)
+    if dtype == torch.float8_e4m3fn:
+        flat = flat.clamp(-448, 448)
+    x = flat.to(dtype)[1:].view(n, d)
+    assert x.is_contiguous() and x.data_ptr() % 8 != 0
+    beta = torch.randn(d, generator=g, device=dev) / d ** 0.5
+    y = ((torch.rand(n, generator=g, device=dev) > 0.5).float()
+         if link == tk.LOGISTIC else torch.randn(n, generator=g, device=dev))
+    w = torch.ones(n, device=dev)
+    off, ys = torch.tensor(0.25, device=dev), torch.tensor(0.7, device=dev)
+    _sweep_holds(x, y, w, beta, off, link=link, ys=ys)
+
+
+@pytest.mark.gpu
+def test_cuda_glm_sweep_instances_do_not_spill():
+    """Every glm_sweep_kernel instance (3 dtypes x 2 links x 8 widths, the
+    E = 64 ones of d = 2,000 included) reports 0 spill bytes in ptxas's
+    lines of the build."""
+    _cuda()
+    from cycloneml_tpu_torch.ops import build
+    tk._library("glm_sweep")
+    spills, func = {}, None
+    for ln in build.ptxas_report("glm_sweep").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            func = ln.split("'")[1]
+        elif func and "spill stores" in ln:
+            spills[func] = ln.split(":")[-1].strip()
+    sweeps = {f: s for f, s in spills.items() if "glm_sweep_kernel" in f}
+    assert len(sweeps) == 48
+    bad = {f: s for f, s in sweeps.items()
+           if "0 bytes spill stores, 0 bytes spill loads" not in s}
+    assert not bad, bad
 
 
 @pytest.mark.gpu
@@ -435,12 +587,14 @@ def _fp8_codes(n, d, seed, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("scaled", [True, False])
 @pytest.mark.parametrize("link", [tk.LOGISTIC, tk.SQUARED])
-@pytest.mark.parametrize("n,d", _FP8_SHAPES)
+@pytest.mark.parametrize("n,d", _FP8_SHAPES + [
+    (2049, 1000), (_RAGGED_ROWS, 1280), (_RAGGED_ROWS, 2000), (5, 2000),
+    (777, 2048)])
 def test_cuda_fp8_glm_sweep_matches_plain(n, d, link, scaled):
     """K1/K2 on e4m3 codes, with and without x_scale, against the plain
-    version in float64 on the same (dequantized) values: loss to 1e-5
-    relative, grad to 1e-4 of its largest entry, sum(w) exact, launches
-    bitwise equal and counted under float8_e4m3fn."""
+    version in float64 on the same (dequantized) values
+    (:func:`_sweep_holds`: launches counted under float8_e4m3fn), at the
+    fits' widths too."""
     dev = _cuda()
     x8, scale, g = _fp8_codes(n, d, n + d, dev)
     s = scale if scaled else None
@@ -451,24 +605,7 @@ def test_cuda_fp8_glm_sweep_matches_plain(n, d, link, scaled):
          if link == tk.LOGISTIC else torch.randn(n, generator=g, device=dev))
     w = torch.ones(n, device=dev)
     off, ys = torch.tensor(0.25, device=dev), torch.tensor(0.7, device=dev)
-    before = dict(tk.glm_sweep.launches_by_dtype)
-    out = tk.glm_sweep(x8, y, w, beta, off, link=link, ys=ys, x_scale=s)
-    again = tk.glm_sweep(x8, y, w, beta, off, link=link, ys=ys, x_scale=s)
-    torch.cuda.synchronize()
-    assert tk.glm_sweep.launches_by_dtype[torch.float8_e4m3fn] == \
-        before[torch.float8_e4m3fn] + 2
-    assert tk.glm_sweep.launches_by_dtype[torch.bfloat16] == \
-        before[torch.bfloat16]
-    tl, tg, tm, tw = tk.glm_sweep_plain(x8, y, w, beta, off,
-                                        acc_dtype=torch.float64, link=link,
-                                        ys=ys, x_scale=s)
-    loss, grad, msum, wsum = out
-    assert abs(float(loss) - float(tl)) <= 1e-5 * abs(float(tl))
-    assert float((grad.double() - tg).abs().max()) <= \
-        1e-4 * float(tg.abs().max()) + 1e-6
-    assert abs(float(msum) - float(tm)) <= 1e-4 * float(tw)
-    assert float(wsum) == n
-    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    _sweep_holds(x8, y, w, beta, off, link=link, ys=ys, x_scale=s)
 
 
 @pytest.mark.gpu
