@@ -120,12 +120,52 @@ the final result line:
    stacked (K1s, once per evaluation of every fold's fit) and serial: the
    same best regParam, avgMetrics to 1e-4;
 18. K1s's e4m3 instance with phase 15's checks on codes with x_scale;
-19. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+19. LinearRegression through the WLS component (the normal solver) at
+   configuration 2's data: a default ``LinearRegression()`` (auto resolves
+   to normal, Cholesky) and ``solver="normal", regParam=0.001,
+   elasticNetParam=0.5`` (OWL-QN over the moments). The moments against
+   float64 moments of the same bf16 rows (|dA_ij| <= 1e-4 sqrt(A_ii A_jj),
+   vectors and sums to 1e-5), both fits' coefficients within rtol 5e-3 /
+   atol 5e-4 of the float64-moment solve, the elastic-net solution's
+   objective, evaluated on the float64 moments, within 1e-4 of phase 6's
+   K2 fit's (the objective the fit reports from float32 moments is
+   printed beside it), no kernel launched; on the fp8 rung a
+   default fit records exactly one precision fallback and launches
+   nothing. The moments pass is timed beside its bound (2 n d^2 float32
+   operations), with the host solve and the fits;
+20. bounded binomial LogisticRegression on phase 4's data
+   (``lowerBoundsOnCoefficients = 0``, regParam=0.01, maxIter=25, tol=0;
+   L-BFGS-B with host line searches) through K1 and through the plain
+   aggregator: K1 launched exactly ``total_evals`` times and no other
+   kernel, every coefficient >= 0 exactly (the count at the bound
+   printed), models within rtol 5e-3 / atol 5e-4 and objectives to 1e-4;
+21. multinomial LogisticRegression on phase 16's data (8 classes,
+   maxIter=25, regParam=0.01, tol=0, family auto): one evaluation of the
+   plain multinomial aggregator against float64 on the same rows (loss to
+   1e-5, gradient to 1e-4 of its largest entry), the fit warm and steady
+   (no kernel), the share of its predictions that agree with phase 16's
+   OneVsRest model, and the same rows quantized on the card, fitted within
+   the 20% fp8 envelope of the bf16 fit;
+22. LinearSVC on phase 4's data (regParam=0.01, maxIter=25): one hinge
+   evaluation on the standardized copy against float64 (phase 21's
+   bounds), the count of rows whose side of the hinge differs, the fit's
+   time and peak memory beside X's bytes;
+23. GeneralizedLinearRegression (poisson, log link) at 400,000 x 2,000
+   bf16 (x from the seeded generator scaled by 1/sqrt(d), y ~ Poisson(
+   exp(x.beta)) with beta from numpy): the first IRLS pass's XᵀWX against
+   float64 (phase 19's rule), the coefficients within rtol 5e-3 / atol
+   5e-4 of a float64 IRLS on the card with as many passes, the pass timed
+   beside its bound, the summary's and the fit's times;
+24. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances and the center sums (K3, K4 and K1s marked as redesigned for
    the tensor cores, with their instance, f32 FMA bounds and ptxas lines;
    K2 in both instances and K1's e4m3 instance marked as redesigned around
    a per-lane cp.async ring, and every GLM sweep with its instance, ring
-   plan and ptxas lines), the total wall time; the last line is ``{"ok": true, "device": {...}}``.
+   plan and ptxas lines; K1's entry also carries its launches in phase
+   20's bounded fit), the total wall time; the last line is ``{"ok":
+   true, "device": {...}}``.
+
+Phases 19-23 begin by asserting that TF32 is off.
 
 Each path's launch counts are set to 0 just before its fit and read just
 after. It exits non-zero, printing no result, when no CUDA device is
@@ -166,6 +206,7 @@ ROW_ORDER_COUNTS = {"fit": (9, 10), "linreg_fit": (6, 37),
                     "fp8_fit": (9, 10), "fp8_linreg_fit": (6, 37)}
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
+ROWS64 = 1 << 16             # rows widened to float64 at a time
 
 
 def _line(tag: str, **fields) -> None:
@@ -653,7 +694,8 @@ def _k2_times(x, y, w, coef, inv_std, n, d, x_scale, main_dt):
 
 def phase_linreg():
     """LinearRegression at configuration 2 through K2 and through the
-    plain aggregator; returns K2's launches in the K2 fit."""
+    plain aggregator; returns K2's launches in the K2 fit and that fit's
+    final objective."""
     import numpy as np
     import torch
     from cycloneml_tpu_torch.dataset.random import generate_regression
@@ -717,7 +759,7 @@ def phase_linreg():
             "repeat fit reproduces the model": bool(np.array_equal(
                 k_again.coefficients.values, kc)),
         })
-        return launches
+        return launches, ks.objective_history[-1]
     finally:
         ctx.stop()
 
@@ -1553,12 +1595,17 @@ def _k1s_times(x, x32, y, w, coef, inv_std, d, n, x_scale, main_dt):
 def _ovr_margins(ds, models):
     """The OvR margins' argmax over the real rows, on the card."""
     import numpy as np
+    return _argmax_margins(
+        ds, np.stack([m.coefficients.values for m in models]),
+        [m.intercept for m in models])
+
+
+def _argmax_margins(ds, coef_matrix, intercepts):
+    """argmax over classes of x.W^T + b for the real rows, on the card."""
     import torch
-    w_mat = torch.as_tensor(
-        np.stack([m.coefficients.values for m in models]),
-        dtype=torch.float32, device=ds.x.device).t().contiguous()
-    b = torch.as_tensor([m.intercept for m in models], dtype=torch.float32,
-                        device=ds.x.device)
+    w_mat = torch.as_tensor(coef_matrix, dtype=torch.float32,
+                            device=ds.x.device).t().contiguous()
+    b = torch.as_tensor(intercepts, dtype=torch.float32, device=ds.x.device)
     scale = None if ds.x_scale is None else torch.as_tensor(
         ds.x_scale, dtype=torch.float32, device=ds.x.device)
     out = torch.empty(ds.n_rows, dtype=torch.int64, device=ds.x.device)
@@ -1601,7 +1648,7 @@ def phase_ovr():
     (warm and steady), through the plain stacked aggregator, and serially
     (parallelism=1, OVR_K fits through K1); then the same rows quantized
     on the card, stacked through K1s's e4m3 instance. Returns K1s's bf16
-    and e4m3 launches in their stacked fits."""
+    and e4m3 launches in their stacked fits, and the K1s fit's models."""
     import numpy as np
     import torch
     from cycloneml_tpu_torch.dataset.random import generate_multiclass
@@ -1713,7 +1760,7 @@ def phase_ovr():
                 and sum(k1s8.values()) == k1s8[torch.float8_e4m3fn]
                 and k1s8_tc == k1s8[torch.float8_e4m3fn] and others8 == 0,
         })
-        return k1s[ds.x.dtype], k1s8[torch.float8_e4m3fn]
+        return k1s[ds.x.dtype], k1s8[torch.float8_e4m3fn], k_model.models
     finally:
         ctx.stop()
 
@@ -1799,6 +1846,569 @@ def phase_cv():
         ctx.stop()
 
 
+# -- the dense linear family: WLS, bounds, multinomial, LinearSVC, GLM --------
+
+def _tf32_off():
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 must be off for the float32 products")
+
+
+def _gram_ok(a, truth) -> bool:
+    """Phase 19's rule for a (d, d) matrix of weighted sums:
+    |dA_ij| <= 1e-4 sqrt(A_ii A_jj)."""
+    import numpy as np
+    diag = np.diag(truth)
+    return bool(np.all(np.abs(a - truth)
+                       <= 1e-4 * np.sqrt(np.outer(diag, diag))))
+
+
+def _rel_max(a, truth) -> float:
+    """max|a - truth| / max|truth|."""
+    import numpy as np
+    a, truth = np.asarray(a), np.asarray(truth)
+    return float(np.max(np.abs(a - truth))
+                 / max(float(np.max(np.abs(truth))), 1e-300))
+
+
+def _close(a, b, a_icpt, b_icpt) -> bool:
+    """Models within the kernel-vs-plain bound (rtol 5e-3, atol 5e-4)."""
+    import numpy as np
+    return bool(np.allclose(a, b, rtol=5e-3, atol=5e-4)) and bool(
+        np.allclose(a_icpt, b_icpt, rtol=5e-3, atol=5e-4))
+
+
+def _wls_objective64(m, coef, icpt, reg, alpha) -> float:
+    """The normal solver's objective at an original-space solution, from
+    float64 moments: 1/2 E_w[(y - x.coef - icpt)^2] / var_y + the elastic
+    net on the standardized coefficients coef_j sigma_j / sigma_y, with
+    population sigmas (WLS's convention)."""
+    import numpy as np
+    ws = float(m["w_sum"])
+    ybar, yy = float(m["b_sum"]) / ws, float(m["bb_sum"]) / ws
+    abar, ab, aa = m["a_sum"] / ws, m["ab_sum"] / ws, m["aa_sum"] / ws
+    var_y = yy - ybar * ybar
+    sx = np.sqrt(np.maximum(np.diag(aa) - abar * abar, 0.0))
+    mse = (yy - 2.0 * coef @ ab - 2.0 * icpt * ybar + coef @ aa @ coef
+           + 2.0 * icpt * (coef @ abar) + icpt * icpt)
+    eff = reg / np.sqrt(var_y)
+    b = coef * sx / np.sqrt(var_y)
+    return float(0.5 * mse / var_y + alpha * eff * np.sum(np.abs(b))
+                 + 0.5 * (1.0 - alpha) * eff * np.sum(b * b))
+
+
+def phase_wls(k2_objective):
+    """LinearRegression through the WLS component at configuration 2's
+    shape: a default fit (auto resolves to normal, Cholesky) and
+    solver='normal' with regParam=0.001, elasticNetParam=0.5 (OWL-QN over
+    the moments); the moments against float64 sums of the same bf16 rows,
+    the coefficients against the float64-moment solve, the elastic-net
+    objective beside phase 6's K2 fit's, no kernel launched, and on the
+    fp8 rung one fallback and no launch. ``k2_objective`` is phase 6's
+    final objective. Times: the moments pass beside its bound, the host
+    solve, the fits."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_regression
+    from cycloneml_tpu_torch.ml.optim import wls
+    from cycloneml_tpu_torch.ml.regression import LinearRegression
+    from cycloneml_tpu_torch.ops import kernels
+
+    _tf32_off()
+    ctx = _context("chip_smoke_wls")
+    try:
+        ds, gen_s = _timed(lambda: generate_regression(
+            ctx, LIN_N, LIN_D, seed=11, noise=0.1))
+        enet_kw = dict(regParam=0.001, elasticNetParam=0.5, maxIter=100,
+                       tol=1e-7, solver="normal")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        default, default_s = _timed(lambda: LinearRegression().fit(ds))
+        enet, enet_s = _timed(lambda: LinearRegression(**enet_kw).fit(ds))
+        launches = _other_launches(kernels)
+        _, steady_s = _timed(lambda: LinearRegression().fit(ds))
+        peak = torch.cuda.max_memory_allocated()
+
+        m32 = wls._moments(ds.x, ds.y, ds.w)
+        mom_ms = _time_ms(lambda: wls._moment_sums(ds.x, ds.y, ds.w),
+                          reps=3, warm=1)
+        bound, bound_by = _bound(ds.x.numel() * ds.x.element_size(),
+                                 2.0 * LIN_N * LIN_D * LIN_D)
+        m64 = wls._moments(ds.x, ds.y.double(), ds.w.double(),
+                           acc=torch.float64)
+        vec_err = max(_rel_max(m32[k], m64[k]) for k in ("a_sum", "ab_sum"))
+        scal_err = max(abs(float(m32[k]) - float(m64[k])) / abs(float(m64[k]))
+                       for k in ("w_sum", "b_sum", "bb_sum"))
+
+        def solver(**kw):
+            return wls.WeightedLeastSquares(
+                fit_intercept=True, standardize_label=True,
+                solver_type=wls.AUTO, **kw)
+
+        _, solve_s = _timed(lambda: solver()._solve_from_moments(m32, LIN_D))
+        t_def = solver()._solve_from_moments(m64, LIN_D)
+        t_enet = solver(reg_param=0.001, elastic_net_param=0.5, max_iter=100,
+                        tol=1e-7)._solve_from_moments(m64, LIN_D)
+        ok_def = _close(default.coefficients.values, t_def.coefficients,
+                        default.intercept, t_def.intercept)
+        ok_enet = _close(enet.coefficients.values, t_enet.coefficients,
+                         enet.intercept, t_enet.intercept)
+        # the objective the fit reports is 0.5 bb - atb.c + 0.5 c.ata.c
+        # over float32 moments: ~4e-4 left of terms ~0.5, so it carries
+        # the moments' rounding times ~1e3 (1% here); the solution's
+        # objective is evaluated again on the float64 moments
+        obj = enet.summary.objective_history[-1]
+        obj64 = _wls_objective64(m64, enet.coefficients.values,
+                                 enet.intercept, 0.001, 0.5)
+        k2_obj = k2_objective
+        obj_rel = abs(obj64 - k2_obj) / abs(k2_obj)
+
+        # the fp8 rung: the normal solver leaves it, once, visibly
+        ctx.conf.set("cyclone.data.dtype", "float8")
+        ds8 = ds.quantized()
+        kernels.reset_launch_counts()
+        before = len(ctx.precision_fallbacks)
+        m8, fp8_s = _timed(lambda: LinearRegression().fit(ds8))
+        fp8_launches = _other_launches(kernels)
+        fallbacks = ctx.precision_fallbacks[before:]
+        _line("wls_fit", n=LIN_N, d=LIN_D, data_dtype=_dt(ds.x),
+              generate_s=gen_s,
+              default={"solver": "normal (cholesky)", "warm_s": default_s,
+                       "steady_s": steady_s,
+                       "max_abs_coef_diff_to_f64": float(np.max(np.abs(
+                           default.coefficients.values - t_def.coefficients)))},
+              elastic_net={"solver": "normal (OWL-QN over the moments)",
+                           "iterations": enet.summary.total_iterations,
+                           "fit_s": enet_s,
+                           "final_objective_reported": obj,
+                           "reported_rel_diff": abs(obj - k2_obj) / k2_obj,
+                           "final_objective_on_f64_moments": obj64,
+                           "f64_solve_objective":
+                               t_enet.objective_history[-1],
+                           "k2_fit_final_objective": k2_obj,
+                           "objective_rel_diff": obj_rel,
+                           "zero_coefficients": int(np.sum(
+                               enet.coefficients.values == 0))},
+              moments={"ms": mom_ms, "bound_ms": bound, "bound_by": bound_by,
+                       "aa_max_rel_to_diag": float(np.max(
+                           np.abs(m32["aa_sum"] - m64["aa_sum"]) / np.sqrt(
+                               np.outer(np.diag(m64["aa_sum"]),
+                                        np.diag(m64["aa_sum"]))))),
+                       "vector_rel_err": vec_err, "scalar_rel_err": scal_err},
+              host_solve_s=solve_s, kernel_launches=launches,
+              fp8={"fit_s": fp8_s, "fallbacks": fallbacks,
+                   "kernel_launches": fp8_launches},
+              max_memory_allocated=peak)
+        _check("wls fit", {
+            "XᵀWX within 1e-4 sqrt(A_ii A_jj) of float64":
+                _gram_ok(m32["aa_sum"], m64["aa_sum"]),
+            "moment vectors and sums within 1e-5 of float64":
+                vec_err <= 1e-5 and scal_err <= 1e-5,
+            "default fit within rtol 5e-3, atol 5e-4 of the float64-moment "
+            "solve": ok_def,
+            "elastic-net fit within rtol 5e-3, atol 5e-4 of the "
+            "float64-moment solve": ok_enet,
+            "elastic-net solution's objective (float64 moments) within "
+            "1e-4 of phase 6's K2 fit": obj_rel <= 1e-4,
+            "neither fit launched a kernel (K2 included)": launches == 0,
+            "fp8: one precision fallback, no kernel launched":
+                len(fallbacks) == 1 and fp8_launches == 0,
+            "finite models": bool(np.all(np.isfinite(
+                default.coefficients.values))) and bool(np.all(np.isfinite(
+                    m8.coefficients.values))),
+        })
+    finally:
+        ctx.stop()
+
+
+def phase_bounded():
+    """Bounded binomial LogisticRegression on phase 4's data
+    (lowerBoundsOnCoefficients = 0, regParam=0.01, maxIter=25, tol=0):
+    L-BFGS-B through K1 and through the plain aggregator. Returns K1's
+    launches in the K1 fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ops import kernels
+
+    _tf32_off()
+    ctx = _context("chip_smoke_bounds")
+    try:
+        ds, gen_s = _timed(lambda: generate_classification(
+            ctx, FIT_N, FIT_D, seed=0))
+
+        def fit(mode):
+            ctx.conf.set("cyclone.ml.usePallasKernels", mode)
+            return _timed(lambda: LogisticRegression(
+                regParam=0.01, maxIter=25, tol=0.0,
+                lowerBoundsOnCoefficients=np.zeros((1, FIT_D))).fit(ds))
+
+        # the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        k_model, k_s = fit("auto")
+        launches = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+        others = _other_launches(kernels, "logistic")
+        p_model, p_s = fit("false")
+        ks, ps = k_model.summary, p_model.summary
+        kc, pc = k_model.coefficients.values, p_model.coefficients.values
+        obj_rel = abs(ks.objective_history[-1] - ps.objective_history[-1]) \
+            / abs(ps.objective_history[-1])
+        _line("bounded_fit", n=FIT_N, d=FIT_D, data_dtype=_dt(ds.x),
+              generate_s=gen_s,
+              kernel={"iterations": ks.total_iterations,
+                      "evals": ks.total_evals, "k1_launches": launches,
+                      "fit_s": k_s,
+                      "final_objective": ks.objective_history[-1],
+                      "at_the_bound": int(np.sum(kc == 0.0))},
+              plain={"iterations": ps.total_iterations,
+                     "evals": ps.total_evals, "fit_s": p_s,
+                     "final_objective": ps.objective_history[-1],
+                     "at_the_bound": int(np.sum(pc == 0.0))},
+              max_abs_coef_diff=float(np.max(np.abs(kc - pc))),
+              objective_rel_diff=obj_rel,
+              train_accuracy=_train_accuracy(ds, kc, k_model.intercept))
+        _check("bounded fit", {
+            "K1 launched once per evaluation": launches == ks.total_evals,
+            "no other kernel launched": others == 0,
+            "every coefficient >= 0 exactly": bool(np.all(kc >= 0.0))
+            and bool(np.all(pc >= 0.0)),
+            "coefficients agree (rtol 5e-3, atol 5e-4)": _close(
+                kc, pc, k_model.intercept, p_model.intercept),
+            "final objectives agree to 1e-4": obj_rel <= 1e-4,
+            "finite model": bool(np.all(np.isfinite(kc))),
+        })
+        return launches
+    finally:
+        ctx.stop()
+
+
+def phase_multinomial(ovr_models):
+    """Multinomial LogisticRegression on phase 16's data (8 classes,
+    maxIter=25, regParam=0.01, tol=0, family auto): one aggregator
+    evaluation against float64 on the same rows, the fit (warm, steady),
+    its predictions beside those of phase 16's OneVsRest ``ovr_models``,
+    and the same rows quantized on the card within the fp8 envelope of
+    the bf16 fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_multiclass
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ml.optim import aggregators
+    from cycloneml_tpu_torch.ml.optim.loss import inv_std_vector
+    from cycloneml_tpu_torch.ml.stat import Summarizer
+    from cycloneml_tpu_torch.ops import kernels
+
+    _tf32_off()
+    ctx = _context("chip_smoke_multinomial")
+    try:
+        ds, gen_s = _timed(lambda: generate_multiclass(
+            ctx, FIT_N, FIT_D, OVR_K, seed=7))
+        stats = Summarizer.summarize(ds)
+        inv = inv_std_vector(stats.std)
+        coef = np.random.RandomState(5).randn(FIT_D * OVR_K + OVR_K) * 0.05
+        agg = aggregators.multinomial_logistic_scaled(FIT_D, OVR_K, True)
+        dev = ds.x.device
+        f32, f64 = torch.float32, torch.float64
+
+        def evaluate(dt):
+            t = [torch.as_tensor(a, device=dev).to(dt)
+                 for a in (inv, stats.mean * inv, coef)]
+            return agg(ds.x, ds.y.to(dt), ds.w.to(dt), *t)
+
+        got, truth = evaluate(f32), evaluate(f64)
+        loss_rel = abs(float(got["loss"]) - float(truth["loss"])) \
+            / abs(float(truth["loss"]))
+        grad_err = _rel_max(got["grad"].double().cpu().numpy(),
+                            truth["grad"].cpu().numpy())
+        agg_ms = _time_ms(lambda: evaluate(f32), reps=3, warm=1)
+
+        def fit(data):
+            return _timed(lambda: LogisticRegression(
+                maxIter=25, regParam=0.01, tol=0.0).fit(data))
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        model, warm_s = fit(ds)
+        launches = _other_launches(kernels)
+        again, steady_s = fit(ds)
+        peak = torch.cuda.max_memory_allocated()
+        wm = model.coefficient_matrix.to_array()
+        pred = _argmax_margins(ds, wm, model.intercept_vector.values)
+        labels = torch.as_tensor(ds.y_host()[:ds.n_rows], device=dev).long()
+        acc = float((pred == labels).double().mean())
+        agree_ovr = float((pred == _ovr_margins(ds, ovr_models))
+                          .double().mean())
+
+        ctx.conf.set("cyclone.data.dtype", "float8")
+        ds8, quant_s = _timed(ds.quantized)
+        kernels.reset_launch_counts()
+        m8, fp8_s = fit(ds8)
+        fp8_launches = _other_launches(kernels)
+        envelope = _norm_rel(m8.coefficient_matrix.to_array(), wm)
+        s = model.summary
+        _line("multinomial_fit", n=FIT_N, d=FIT_D, classes=OVR_K,
+              data_dtype=_dt(ds.x), generate_s=gen_s,
+              aggregator={"loss_rel_err": loss_rel,
+                          "grad_err_rel_to_max": grad_err,
+                          "ms": agg_ms},
+              fit={"iterations": s.total_iterations, "evals": s.total_evals,
+                   "dispatches": s.total_dispatches, "warm_s": warm_s,
+                   "steady_s": steady_s,
+                   "final_objective": s.objective_history[-1],
+                   "kernel_launches": launches},
+              train_accuracy=acc, prediction_agreement_with_ovr=agree_ovr,
+              fp8={"iterations": m8.summary.total_iterations,
+                   "quantize_s": quant_s, "fit_s": fp8_s,
+                   "coef_norm_rel_to_bf16": envelope,
+                   "kernel_launches": fp8_launches,
+                   "fallbacks": ctx.precision_fallbacks},
+              max_memory_allocated=peak)
+        _check("multinomial fit", {
+            "one evaluation: loss within 1e-5 of float64": loss_rel <= 1e-5,
+            "one evaluation: gradient within 1e-4 of its largest entry":
+                grad_err <= 1e-4,
+            "no kernel launched (the multinomial aggregator is plain)":
+                launches == 0 and fp8_launches == 0,
+            "ran 25 iterations or stopped on an exact float32 stall":
+                _ran_to_stop(s),
+            "repeat fit reproduces the model": bool(np.array_equal(
+                again.coefficient_matrix.to_array(), wm)),
+            "finite model": bool(np.all(np.isfinite(wm))),
+            "fp8: X is e4m3 codes, no fp8 fallback fired":
+                ds8.x.dtype == torch.float8_e4m3fn
+                and not ctx.precision_fallbacks,
+            "fp8: within the fp8 envelope (20%) of the bf16 fit":
+                envelope < FP8_COEF_NORMREL,
+        })
+    finally:
+        ctx.stop()
+
+
+def _hinge_sides_differ(ds, coef32, coef64) -> int:
+    """Rows whose side of the hinge (1 - y m > 0) differs between the
+    float32 and the float64 margins of the same rows."""
+    import torch
+    d = ds.n_features
+    dev = ds.x.device
+    c32 = torch.as_tensor(coef32, device=dev)
+    c64 = torch.as_tensor(coef64, device=dev)
+    differ = 0
+    for lo in range(0, ds.n_rows, ROWS64):
+        hi = min(lo + ROWS64, ds.n_rows)
+        ys = 2.0 * ds.y[lo:hi].double() - 1.0
+        m32 = ds.x[lo:hi].float() @ c32[:d] + c32[d]
+        m64 = ds.x[lo:hi].double() @ c64[:d] + c64[d]
+        differ += int(((1.0 - ys * m32.double() > 0)
+                       != (1.0 - ys * m64 > 0)).sum())
+    return differ
+
+
+def phase_svc():
+    """LinearSVC on phase 4's data (regParam=0.01, maxIter=25): one hinge
+    evaluation on the standardized copy against float64, the rows whose
+    side of the hinge differs, the fit's time and its peak memory beside
+    X's bytes."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.classification import LinearSVC
+    from cycloneml_tpu_torch.ml.optim import aggregators
+    from cycloneml_tpu_torch.ml.optim.loss import standardize_dataset
+    from cycloneml_tpu_torch.ml.stat import Summarizer
+    from cycloneml_tpu_torch.ops import kernels
+
+    _tf32_off()
+    ctx = _context("chip_smoke_svc")
+    try:
+        ds, gen_s = _timed(lambda: generate_classification(
+            ctx, FIT_N, FIT_D, seed=0))
+        x_bytes = ds.x.numel() * ds.x.element_size()
+        stats = Summarizer.summarize(ds)
+        std_ds, _ = standardize_dataset(ds, stats.std)
+        coef = np.random.RandomState(6).randn(FIT_D + 1) * 0.03
+        agg = aggregators.hinge(FIT_D, True)
+        dev = ds.x.device
+
+        def evaluate(dt):
+            return agg(std_ds.x, std_ds.y.to(dt), std_ds.w.to(dt),
+                       torch.as_tensor(coef, device=dev).to(dt))
+
+        got, truth = evaluate(torch.float32), evaluate(torch.float64)
+        loss_rel = abs(float(got["loss"]) - float(truth["loss"])) \
+            / abs(float(truth["loss"]))
+        grad_err = _rel_max(got["grad"].double().cpu().numpy(),
+                            truth["grad"].cpu().numpy())
+        differ = _hinge_sides_differ(std_ds, coef.astype(np.float32), coef)
+        agg_ms = _time_ms(lambda: evaluate(torch.float32), reps=3, warm=1)
+        del std_ds, got, truth
+        torch.cuda.empty_cache()
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        model, fit_s = _timed(lambda: LinearSVC(regParam=0.01,
+                                                maxIter=25).fit(ds))
+        launches = _other_launches(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        coefs = model.coefficients.values
+        hist = model.objective_history
+        acc = _train_accuracy(ds, coefs, model.intercept)
+        _line("svc_fit", n=FIT_N, d=FIT_D, data_dtype=_dt(ds.x),
+              generate_s=gen_s,
+              hinge={"loss_rel_err": loss_rel,
+                     "grad_err_rel_to_max": grad_err,
+                     "rows_on_other_side": differ, "ms": agg_ms},
+              fit={"iterations": model.total_iterations,
+                   "evals": model.total_evals, "fit_s": fit_s,
+                   "final_objective": hist[-1], "kernel_launches": launches},
+              train_accuracy=acc, x_bytes=x_bytes,
+              peak_above_start_bytes=peak - base,
+              peak_over_x_bytes=(peak - base) / x_bytes)
+        _check("svc fit", {
+            "one evaluation: loss within 1e-5 of float64": loss_rel <= 1e-5,
+            "one evaluation: gradient within 1e-4 of its largest entry":
+                grad_err <= 1e-4,
+            "no kernel launched (the hinge aggregator is plain)":
+                launches == 0,
+            "the objective fell": hist[-1] < hist[0],
+            "finite model": bool(np.all(np.isfinite(coefs))),
+        })
+    finally:
+        ctx.stop()
+
+
+def _poisson_irls64(ds, n_iter):
+    """A float64 IRLS for the Poisson family with the log link over the
+    same rows, on the card and independent of the port's GLM: returns
+    the first pass's XᵀWX and the coefficients after ``n_iter`` passes."""
+    import torch
+    f64 = torch.float64
+    n, d = ds.n_rows, ds.n_features
+    dev = ds.x.device
+    y = ds.y[:n].to(f64)
+    beta, icpt, first = torch.zeros(d, dtype=f64, device=dev), 0.0, None
+    for it in range(n_iter):
+        xtx = torch.zeros((d, d), dtype=f64, device=dev)
+        xty = torch.zeros(d, dtype=f64, device=dev)
+        xsum = torch.zeros(d, dtype=f64, device=dev)
+        wsum = zsum = 0.0
+        for lo in range(0, n, ROWS64):
+            xc = ds.x[lo:lo + ROWS64].to(f64)
+            yc = y[lo:lo + ROWS64]
+            if it == 0:
+                mu = yc.clamp(min=0.1)
+                eta = mu.log()
+            else:
+                eta = xc @ beta + icpt
+                mu = eta.exp()
+            z = eta + (yc - mu) / mu        # d eta / d mu = 1 / mu
+            xw = xc * mu[:, None]           # W = 1 / (g^2 V) = mu
+            xtx += xw.T @ xc
+            xty += xw.T @ z
+            xsum += xw.sum(0)
+            wsum += float(mu.sum())
+            zsum += float((mu * z).sum())
+        if it == 0:
+            first = xtx.cpu().numpy()
+        a = torch.zeros((d + 1, d + 1), dtype=f64, device=dev)
+        a[:d, :d], a[:d, d], a[d, :d], a[d, d] = xtx, xsum, xsum, wsum
+        b = torch.cat([xty, torch.tensor([zsum], dtype=f64, device=dev)])
+        sol = torch.linalg.solve(a, b)
+        beta, icpt = sol[:d], float(sol[d])
+    return first, beta.cpu().numpy(), icpt
+
+
+def phase_glm():
+    """GeneralizedLinearRegression(family="poisson", link="log") at
+    400,000 x 2,000 bf16: x from the seeded generator scaled by 1/sqrt(d),
+    y ~ Poisson(exp(x.beta)) with beta from numpy; the first IRLS pass's
+    XᵀWX against float64, the coefficients against a float64 IRLS over the
+    same rows with as many passes, the pass's time beside its bound, the
+    summary's time and the fit's."""
+    import math
+
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_regression
+    from cycloneml_tpu_torch.ml.regression import glm
+    from cycloneml_tpu_torch.ops import kernels
+
+    _tf32_off()
+    ctx = _context("chip_smoke_glm")
+    try:
+        def make():
+            base = generate_regression(ctx, LIN_N, LIN_D, seed=13)
+            x, dev = base.x, base.x.device
+            beta = torch.as_tensor(
+                np.random.RandomState(13).randn(LIN_D) * 0.5,
+                dtype=torch.float32, device=dev)
+            g = torch.Generator(device=dev).manual_seed(13)
+            y = torch.zeros_like(base.y)
+            for lo in range(0, base.n_rows, ROWS):
+                hi = min(lo + ROWS, base.n_rows)
+                xs = x[lo:hi].float() / math.sqrt(LIN_D)
+                x[lo:hi] = xs.to(x.dtype)
+                y[lo:hi] = torch.poisson(torch.exp(x[lo:hi].float() @ beta),
+                                         generator=g).to(y.dtype)
+            return base.derive(y=y).attach_host_labels(
+                y.cpu().double().numpy(), base.w_host())
+
+        ds, gen_s = _timed(make)
+        est = glm.GeneralizedLinearRegression(family="poisson", link="log")
+        fam, link = glm._family_link(est)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        model, fit_s = _timed(lambda: est.fit(ds))
+        launches = _other_launches(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        n_iter = model.summary.num_iterations
+        off = torch.zeros_like(ds.w)
+
+        first32 = glm._irls_pass(ds.x, ds.y, ds.w, off, np.zeros(LIN_D), 0.0,
+                                 True, fam, link)["xtx"].double().cpu().numpy()
+        first64, beta64, icpt64 = _poisson_irls64(ds, n_iter)
+        pass_ms = _time_ms(lambda: glm._irls_pass(
+            ds.x, ds.y, ds.w, off, model._coef, model._icpt, False, fam,
+            link), reps=3, warm=1)
+        bound, bound_by = _bound(ds.x.numel() * ds.x.element_size(),
+                                 2.0 * LIN_N * LIN_D * LIN_D)
+        _, summary_s = _timed(lambda: est._summarize(
+            model, ds, off, False, fam, link, n_iter))
+        coefs = model.coefficients.values
+        s = model.summary
+        _line("glm_fit", n=LIN_N, d=LIN_D, data_dtype=_dt(ds.x),
+              family="poisson", link="log", generate_s=gen_s,
+              fit={"iterations": n_iter, "fit_s": fit_s,
+                   "deviance_history": s.objective_history,
+                   "kernel_launches": launches},
+              irls_pass={"ms": pass_ms, "bound_ms": bound,
+                         "bound_by": bound_by},
+              summary_s=summary_s, deviance=s.deviance,
+              null_deviance=s.null_deviance, aic=s.aic,
+              max_abs_coef_diff_to_f64=float(np.max(np.abs(coefs - beta64))),
+              intercepts=[model.intercept, icpt64],
+              first_pass_xtwx_max_rel_to_diag=float(np.max(
+                  np.abs(first32 - first64) / np.sqrt(np.outer(
+                      np.diag(first64), np.diag(first64))))),
+              max_memory_allocated=peak)
+        _check("glm fit", {
+            "first pass XᵀWX within 1e-4 sqrt(A_ii A_jj) of float64":
+                _gram_ok(first32, first64),
+            "coefficients within rtol 5e-3, atol 5e-4 of the float64 IRLS "
+            "with as many passes": _close(coefs, beta64, model.intercept,
+                                          icpt64),
+            "no kernel launched": launches == 0,
+            "the deviance fell below the null deviance":
+                s.deviance < s.null_deviance,
+            "finite model and standard errors": bool(np.all(np.isfinite(
+                coefs))) and bool(np.all(np.isfinite(
+                    s.coefficient_standard_errors))),
+        })
+    finally:
+        ctx.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -1862,7 +2472,8 @@ def main() -> int:
     entry("glm_sweep (logistic, K1)", "glm_sweep", 270, k1, phase_fit(),
           **sweep(k1, "bf16", FIT_D, "logistic"))
     k2 = phase_k2()
-    entry("glm_sweep (squared, K2)", "glm_sweep", 226, k2, phase_linreg(),
+    k2_launches, k2_objective = phase_linreg()
+    entry("glm_sweep (squared, K2)", "glm_sweep", 226, k2, k2_launches,
           **sweep(k2, "bf16", LIN_D, "squared", ring))
     k3 = phase_k3()
     km_launches, sum_launches, sums = phase_kmeans()
@@ -1895,7 +2506,7 @@ def main() -> int:
                        "gramian_reduce_kernel"))
     # the stacked slice: K1s, OneVsRest and CrossValidator through it
     k1s = phase_k1s()
-    ovr_launches, ovr8_launches = phase_ovr()
+    ovr_launches, ovr8_launches, ovr_models = phase_ovr()
     entry("glm_sweep_stacked (logistic, K models, K1s)", "glm_stacked", 270,
           k1s, ovr_launches, models=OVR_K,
           vmapped_by="cycloneml_tpu/ml/optim/aggregators.py:394",
@@ -1915,6 +2526,13 @@ def main() -> int:
           "cycloneml_tpu/ml/clustering/kmeans.py:122", sums, sum_launches,
           note="jax.ops.segment_sum of the Lloyd step, not a Pallas "
                "kernel; library_ms is the index_add_ update it replaced")
+    # the rest of the dense linear family: no new kernel; K1 carries the
+    # bounded fit, the other four paths launch none
+    phase_wls(k2_objective)
+    entries[0]["bounded_fit_launches"] = phase_bounded()   # K1's entry
+    phase_multinomial(ovr_models)
+    phase_svc()
+    phase_glm()
     print(json.dumps({"kernels": entries}), flush=True)
     _line("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 The port never imports ``cycloneml_tpu`` (or jax); what crosses between the
 two packages is plain numpy: the same host arrays (or fp8 codes) as a
-dataset, a fitted model's parameters (logistic and linear regression,
-KMeans, PCA, OneVsRest's binary models), a stack of coefficients of K
-models, or an optimizer state's ``to_pytree()`` dict (L-BFGS and OWL-QN
+dataset, a fitted model's parameters (binomial and multinomial logistic
+regression, linear regression, LinearSVC, GLM, KMeans, PCA, OneVsRest's
+binary models), a stack of coefficients of K models, or an optimizer state's ``to_pytree()`` dict (L-BFGS and OWL-QN
 alike).
 """
 
@@ -16,6 +16,7 @@ import numpy as np
 
 from cycloneml_tpu_torch.context import CycloneContext
 from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
+from cycloneml_tpu_torch.ml.classification.linear_svc import LinearSVCModel
 from cycloneml_tpu_torch.ml.classification.logistic_regression import (
     LogisticRegressionModel,
 )
@@ -23,6 +24,9 @@ from cycloneml_tpu_torch.ml.classification.one_vs_rest import OneVsRestModel
 from cycloneml_tpu_torch.ml.clustering.kmeans import KMeansModel
 from cycloneml_tpu_torch.ml.feature.pca import PCAModel
 from cycloneml_tpu_torch.ml.optim.lbfgs import OptimState
+from cycloneml_tpu_torch.ml.regression.glm import (
+    GeneralizedLinearRegressionModel,
+)
 from cycloneml_tpu_torch.ml.regression.linear_regression import (
     LinearRegressionModel,
 )
@@ -55,6 +59,41 @@ def model_from_reference(coefficients, intercept,
         coefficient_matrix=coef,
         intercept_vector=np.array([float(intercept)]), num_classes=2)
     return _with_params(model, params)
+
+
+def multinomial_model_from_reference(coefficient_matrix, intercept_vector,
+                                    **params) -> LogisticRegressionModel:
+    """A multinomial model from a reference ``LogisticRegressionModel``'s
+    ``coefficient_matrix`` (k, d) (its ``to_array()``) and
+    ``intercept_vector`` (k,)."""
+    coef = np.asarray(coefficient_matrix, dtype=np.float64)
+    model = LogisticRegressionModel(
+        coefficient_matrix=coef,
+        intercept_vector=np.asarray(intercept_vector,
+                                    dtype=np.float64).ravel(),
+        num_classes=coef.shape[0], is_multinomial=True)
+    return _with_params(model, params)
+
+
+def svc_model_from_reference(coefficients, intercept,
+                             **params) -> LinearSVCModel:
+    """A :class:`LinearSVCModel` from a reference model's ``coefficients``
+    (d,) and ``intercept``; ``params`` (e.g. ``threshold``) are set on the
+    new model."""
+    return _with_params(LinearSVCModel(
+        np.asarray(coefficients, dtype=np.float64), float(intercept)),
+        params)
+
+
+def glm_model_from_reference(coefficients, intercept,
+                             **params) -> GeneralizedLinearRegressionModel:
+    """A :class:`GeneralizedLinearRegressionModel` from a reference model's
+    ``coefficients`` (d,) and ``intercept``; ``params`` (``family``,
+    ``link``, ``variancePower``, ``linkPower``, ``offsetCol``,
+    ``linkPredictionCol``) are set on the new model."""
+    return _with_params(GeneralizedLinearRegressionModel(
+        np.asarray(coefficients, dtype=np.float64), float(intercept)),
+        params)
 
 
 def coef_stack_from_reference(models) -> np.ndarray:

@@ -123,6 +123,19 @@ class ClassificationModel(PredictionModel, HasRawPredictionCol):
         # predict() consistent with transform()
         return self._raw_to_prediction(self._raw_prediction(x))
 
+    def _transform(self, frame):
+        x = frame[self.get("featuresCol")]
+        if x.ndim == 1:
+            x = x[:, None]
+        raw = self._raw_prediction(x)
+        out = frame
+        if self.get("rawPredictionCol"):
+            out = out.with_column(self.get("rawPredictionCol"), raw)
+        if self.get("predictionCol"):
+            out = out.with_column(self.get("predictionCol"),
+                                  self._raw_to_prediction(raw))
+        return out
+
     def _raw_to_prediction(self, raw: np.ndarray) -> np.ndarray:
         return np.argmax(raw, axis=1).astype(np.float64)
 

@@ -1,4 +1,7 @@
 """Classifiers."""
+from cycloneml_tpu_torch.ml.classification.linear_svc import (
+    LinearSVC, LinearSVCModel,
+)
 from cycloneml_tpu_torch.ml.classification.logistic_regression import (
     LogisticRegression, LogisticRegressionModel,
     LogisticRegressionTrainingSummary,
@@ -7,6 +10,6 @@ from cycloneml_tpu_torch.ml.classification.one_vs_rest import (
     OneVsRest, OneVsRestModel,
 )
 
-__all__ = ["LogisticRegression", "LogisticRegressionModel",
-           "LogisticRegressionTrainingSummary", "OneVsRest",
-           "OneVsRestModel"]
+__all__ = ["LinearSVC", "LinearSVCModel", "LogisticRegression",
+           "LogisticRegressionModel", "LogisticRegressionTrainingSummary",
+           "OneVsRest", "OneVsRestModel"]

@@ -1,14 +1,19 @@
-"""Logistic regression — the binomial dense fit.
+"""Logistic regression — the binomial and multinomial dense fits.
 
 The port's counterpart of ``cycloneml_tpu/ml/classification/
-logistic_regression.py`` (``_fit_dataset``, binomial dense branch, :663-950):
-the label histogram and feature moments from one Summarizer pass, training
-in standardized feature space with standardization folded into the
-aggregator's read (no standardized copy of X), fitWithMean centering, the
-log-odds intercept start, the L2 penalty, L-BFGS — chunked on the device
-under ``cyclone.ml.lbfgs.deviceChunk`` — or OWL-QN when elastic net has an
-L1 part, and unscaling back to the original feature space. Under
-``cyclone.ml.usePallasKernels`` the sweep is kernel K1.
+logistic_regression.py`` (``_fit_dataset``, dense branch, :663-950): the
+label histogram and feature moments from one Summarizer pass, the family
+(``auto`` is multinomial past two classes), training in standardized
+feature space with standardization folded into the aggregator's read (no
+standardized copy of X), fitWithMean centering, the log-odds intercept
+start (binomial) or the centered log class histogram (multinomial), the L2
+penalty, and the optimizer the reference's ``createOptimizer`` picks:
+L-BFGS-B when any coefficient or intercept bound is set, OWL-QN when
+elastic net has an L1 part, else L-BFGS — chunked on the device under
+``cyclone.ml.lbfgs.deviceChunk``. Then unscaling back to the original
+feature space. Under ``cyclone.ml.usePallasKernels`` the binomial sweep is
+kernel K1, bounded fits included (one launch per L-BFGS-B trial point);
+the multinomial aggregator is plain PyTorch, as the reference's is.
 
 The fit is fp8-capable: under ``cyclone.data.dtype=auto8|float8`` it reads
 e4m3 codes, with the per-column scales folded into the aggregator's
@@ -22,8 +27,8 @@ L-BFGS, every evaluation one model-axis aggregation: kernel K1s under
 ``cyclone.ml.usePallasKernels``, which reads X once for all K models.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-slice: multinomial fits, coefficient bounds (L-BFGS-B), checkpointed
-training, the streamed (out-of-core) leg of stacked fits.
+slice: checkpointed training, the streamed (out-of-core) leg of stacked
+fits.
 """
 
 from __future__ import annotations
@@ -38,11 +43,12 @@ from cycloneml_tpu_torch.dataset.dataset import (InstanceDataset,
                                                  fp8_fallback,
                                                  resolve_fp8_fit)
 from cycloneml_tpu_torch.dataset.instance import compute_dtype
+from cycloneml_tpu_torch.linalg.matrices import DenseMatrix
 from cycloneml_tpu_torch.linalg.vectors import DenseVector, Vectors
 from cycloneml_tpu_torch.ml.base import (Predictor,
                                          ProbabilisticClassificationModel)
 from cycloneml_tpu_torch.ml.optim import aggregators
-from cycloneml_tpu_torch.ml.optim.lbfgs import LBFGS, OWLQN
+from cycloneml_tpu_torch.ml.optim.lbfgs import LBFGS, LBFGSB, OWLQN
 from cycloneml_tpu_torch.ml.optim.loss import (DistributedLossFunction,
                                                inv_std_vector,
                                                l2_regularization)
@@ -125,6 +131,45 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
 
     def set_threshold(self, v):
         return self.set("threshold", v)
+
+    def _flat_bounds(self, d, num_classes, is_multinomial, fit_intercept,
+                     n_coef, features_std):
+        """The user's bounds in the optimizer's coefficient layout, in
+        STANDARDIZED space: beta_std = beta_orig * std, so coefficient
+        bounds scale by the feature std (the reference's createBounds);
+        intercept bounds are unscaled. Returns ``(lower, upper)``."""
+        k_rows = num_classes if is_multinomial else 1
+        n_feat = d * k_rows
+        out = []
+        for cp, ip, fill in (
+                ("lowerBoundsOnCoefficients", "lowerBoundsOnIntercepts",
+                 -np.inf),
+                ("upperBoundsOnCoefficients", "upperBoundsOnIntercepts",
+                 np.inf)):
+            b = np.full(n_coef, fill)
+            cb = self._opt(cp)
+            if cb is not None:
+                cb = np.asarray(cb, dtype=np.float64)
+                if cb.ndim == 1 and k_rows == 1 and cb.size == d:
+                    cb = cb[None, :]  # binomial convenience: a plain vector
+                if cb.shape != (k_rows, d):
+                    # the exact shape: a transposed multinomial matrix of
+                    # the right size would scramble the box
+                    raise ValueError(f"{cp} must have shape ({k_rows}, {d}); "
+                                     f"got {cb.shape}")
+                b[:n_feat] = (cb * np.asarray(features_std)[None, :]
+                              ).reshape(-1)
+            ib = self._opt(ip)
+            if ib is not None:
+                if not fit_intercept:
+                    raise ValueError(f"{ip} requires fitIntercept=True")
+                ib = np.asarray(ib, dtype=np.float64).reshape(-1)
+                if ib.size != k_rows:
+                    raise ValueError(
+                        f"{ip} must have {k_rows} entries; got {ib.size}")
+                b[n_feat:] = ib
+            out.append(b)
+        return out[0], out[1]
 
     def _fit(self, frame) -> "LogisticRegressionModel":
         # fp8-capable: the scaled aggregators fold the per-column scales
@@ -295,13 +340,7 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
             models.append(model)
         return models
 
-    def _check_ported(self, is_multinomial: bool) -> None:
-        if is_multinomial:
-            raise NotImplementedError(
-                "multinomial LogisticRegression is ROADMAP slice 2")
-        if self._has_bounds():
-            raise NotImplementedError(
-                "coefficient bounds (L-BFGS-B) are ROADMAP slice 2")
+    def _check_ported(self) -> None:
         if self.get("checkpointDir"):
             raise NotImplementedError(
                 "checkpointed training is ROADMAP slice 8")
@@ -339,12 +378,15 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         alpha = self.get("elasticNetParam")
         l2 = (1.0 - alpha) * reg
         l1 = alpha * reg
-        self._check_ported(is_multinomial)
+        self._check_ported()
 
         # fitWithMean (ref LogisticRegression.scala:946-955, SPARK-34448):
         # with a free intercept, train on CENTERED standardized features;
-        # the intercept is mapped back after optimization
-        fit_with_mean = fit_intercept
+        # the intercept is mapped back after optimization. Intercept
+        # bounds pin the intercept, so they turn it off
+        fit_with_mean = fit_intercept and all(
+            self._opt(p) is None for p in ("lowerBoundsOnIntercepts",
+                                           "upperBoundsOnIntercepts"))
 
         from cycloneml_tpu_torch.ops.kernels import use_fused_kernels
         # standardization folds INTO the aggregator read on every path:
@@ -356,18 +398,34 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         # scaled_mean and the final unscaling keep the original inv_std
         inv_std_agg = inv_std * fp8_scale if fp8_scale is not None \
             else inv_std
-        if use_fused_kernels(ds.ctx, ds.x):
-            agg = aggregators.binary_logistic_pallas_scaled(d, fit_intercept)
+        k = num_classes
+        if is_multinomial:
+            # no kernel in either package: the plain aggregator
+            agg = aggregators.multinomial_logistic_scaled(d, k,
+                                                          fit_intercept)
+            n_coef = d * k + (k if fit_intercept else 0)
+            x0 = np.zeros(n_coef)
+            if fit_intercept and histogram.min() > 0:
+                logs = np.log(histogram / histogram.sum())
+                x0[d * k:] = logs - logs.mean()
+            l2_fn = l2_regularization(
+                l2, d * k, fit_intercept,
+                features_std=np.tile(features_std, k),
+                standardize=standardize) if l2 > 0 else None
         else:
-            agg = aggregators.binary_logistic_scaled(d, fit_intercept)
-        n_coef = d + (1 if fit_intercept else 0)
-        x0 = np.zeros(n_coef)
-        if fit_intercept and 0 < histogram[1:].sum() < weight_sum:
-            p1 = histogram[1:].sum() / weight_sum
-            x0[d] = np.log(p1 / (1.0 - p1))
-        l2_fn = l2_regularization(
-            l2, d, fit_intercept, features_std=features_std,
-            standardize=standardize) if l2 > 0 else None
+            if use_fused_kernels(ds.ctx, ds.x):
+                agg = aggregators.binary_logistic_pallas_scaled(
+                    d, fit_intercept)
+            else:
+                agg = aggregators.binary_logistic_scaled(d, fit_intercept)
+            n_coef = d + (1 if fit_intercept else 0)
+            x0 = np.zeros(n_coef)
+            if fit_intercept and 0 < histogram[1:].sum() < weight_sum:
+                p1 = histogram[1:].sum() / weight_sum
+                x0[d] = np.log(p1 / (1.0 - p1))
+            l2_fn = l2_regularization(
+                l2, d, fit_intercept, features_std=features_std,
+                standardize=standardize) if l2 > 0 else None
 
         mu_or_zero = scaled_mean if fit_with_mean else np.zeros(d)
         # the standardization vectors ride in the ACCUMULATOR tier: the
@@ -379,25 +437,40 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         loss_fn = DistributedLossFunction(ds, agg, l2_fn, weight_sum,
                                           extra_args=extras)
 
-        if l1 > 0:
+        if self._has_bounds():
+            # ref createOptimizer: L-BFGS-B whenever bounds are set, and
+            # bounds only with none or L2 regularization (any nonzero
+            # elasticNetParam is refused, whatever regParam is)
+            if alpha != 0.0:
+                raise ValueError(
+                    "coefficient bounds are only supported with none or L2 "
+                    "regularization (elasticNetParam must be 0, as the "
+                    "reference enforces)")
+            lo, hi = self._flat_bounds(d, k, is_multinomial, fit_intercept,
+                                       n_coef, features_std)
+            opt = LBFGSB(lo, hi, max_iter=self.get("maxIter"),
+                         tol=self.get("tol"))
+        elif l1 > 0:
             # the L1 part on the feature coordinates, never the intercept;
             # in the original feature space under standardization=false
+            n_feat = d * k if is_multinomial else d
+            stds = np.tile(features_std, k) if is_multinomial \
+                else features_std
             l1_vec = np.zeros(n_coef)
-            l1_vec[:d] = l1 if standardize else np.where(
-                features_std > 0,
-                l1 / np.where(features_std > 0, features_std, 1.0), 0.0)
+            l1_vec[:n_feat] = l1 if standardize else np.where(
+                stds > 0, l1 / np.where(stds > 0, stds, 1.0), 0.0)
             opt = OWLQN(max_iter=self.get("maxIter"), tol=self.get("tol"),
                         l1_reg=l1_vec)
-            chunk = 0
         else:
             opt = LBFGS(max_iter=self.get("maxIter"), tol=self.get("tol"))
             from cycloneml_tpu_torch.conf import LBFGS_DEVICE_CHUNK
             chunk = int(conf.get(LBFGS_DEVICE_CHUNK)) \
                 if conf is not None else 0
-        if chunk > 0 and (l2_fn is None or hasattr(l2_fn, "traceable")):
-            from cycloneml_tpu_torch.ml.optim.device_lbfgs import DeviceLBFGS
-            opt = DeviceLBFGS(max_iter=self.get("maxIter"),
-                              tol=self.get("tol"), chunk=chunk)
+            if chunk > 0 and (l2_fn is None or hasattr(l2_fn, "traceable")):
+                from cycloneml_tpu_torch.ml.optim.device_lbfgs import \
+                    DeviceLBFGS
+                opt = DeviceLBFGS(max_iter=self.get("maxIter"),
+                                  tol=self.get("tol"), chunk=chunk)
         state = opt.minimize(loss_fn, x0)
         if state.converged_reason == "max iterations reached":
             logger.warning(
@@ -410,14 +483,36 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
             # the solution; refit on the bfloat16 rung
             return self._fit_dataset(fp8_fallback(
                 ds, "LogisticRegression", "non-finite fp8 solution"))
-        beta = sol[:d] * inv_std
-        icpt = float(sol[d]) if fit_intercept else 0.0
-        if fit_with_mean:
-            # ref LogisticRegression.scala:1027-1031: solution(num) -= adapt
-            icpt -= float(sol[:d] @ scaled_mean)
-        model = LogisticRegressionModel(
-            coefficient_matrix=beta[None, :], intercept_vector=np.array([icpt]),
-            num_classes=2, is_multinomial=False, uid=self.uid)
+        if is_multinomial:
+            wstd = sol[:d * k].reshape(k, d)
+            wmat = wstd * inv_std[None, :]
+            icpt = sol[d * k:] if fit_intercept else np.zeros(k)
+            if fit_with_mean:
+                # centered-problem intercepts back to the original space
+                # (ref LogisticRegression.scala:1018-1024)
+                icpt = icpt - wstd @ scaled_mean
+            if not self._has_bounds():
+                if reg == 0.0:
+                    # identifiability without regularization: center the
+                    # coefficients over the classes (ref :656-674, glmnet)
+                    wmat = wmat - wmat.mean(axis=0, keepdims=True)
+                if fit_intercept:
+                    # intercepts are never regularized: their common
+                    # constant is free under any regParam (ref :676-681)
+                    icpt = icpt - icpt.mean()
+            model = LogisticRegressionModel(
+                coefficient_matrix=wmat, intercept_vector=icpt,
+                num_classes=k, is_multinomial=True, uid=self.uid)
+        else:
+            beta = sol[:d] * inv_std
+            icpt = float(sol[d]) if fit_intercept else 0.0
+            if fit_with_mean:
+                # ref LogisticRegression.scala:1027-1031: solution(num) -= adapt
+                icpt -= float(sol[:d] @ scaled_mean)
+            model = LogisticRegressionModel(
+                coefficient_matrix=beta[None, :],
+                intercept_vector=np.array([icpt]), num_classes=2,
+                is_multinomial=False, uid=self.uid)
         self._copy_values(model)
         model._set_parent(self)
         model.summary = LogisticRegressionTrainingSummary(
@@ -439,17 +534,15 @@ def _row64(y_stack, kk: int) -> np.ndarray:
 
 class LogisticRegressionModel(ProbabilisticClassificationModel,
                               _LogisticRegressionParams, HasLabelCol):
-    """Fitted binomial model: margins, sigmoid probabilities and
-    threshold-aware predictions."""
+    """Fitted model: margins, sigmoid (binomial) or softmax (multinomial,
+    a ``(k, d)`` coefficient matrix and ``(k,)`` intercepts)
+    probabilities, threshold-aware binomial predictions."""
 
     def __init__(self, coefficient_matrix: Optional[np.ndarray] = None,
                  intercept_vector: Optional[np.ndarray] = None,
                  num_classes: int = 2, is_multinomial: bool = False,
                  uid=None):
         super().__init__(uid)
-        if is_multinomial:
-            raise NotImplementedError(
-                "multinomial LogisticRegressionModel is ROADMAP slice 2")
         self._declare_lr_params()
         self._p_label_col()
         self._coef = np.asarray(coefficient_matrix, dtype=np.float64) \
@@ -457,16 +550,28 @@ class LogisticRegressionModel(ProbabilisticClassificationModel,
         self._icpt = np.asarray(intercept_vector, dtype=np.float64) \
             if intercept_vector is not None else None
         self._num_classes = num_classes
-        self._is_multinomial = False
+        self._is_multinomial = bool(is_multinomial)
         self.summary: Optional[LogisticRegressionTrainingSummary] = None
 
     @property
     def coefficients(self) -> DenseVector:
+        if self._is_multinomial:
+            raise ValueError("use coefficient_matrix for multinomial models")
         return Vectors.dense(self._coef[0])
 
     @property
     def intercept(self) -> float:
+        if self._is_multinomial:
+            raise ValueError("use intercept_vector for multinomial models")
         return float(self._icpt[0])
+
+    @property
+    def coefficient_matrix(self) -> DenseMatrix:
+        return DenseMatrix.from_array(self._coef)
+
+    @property
+    def intercept_vector(self) -> DenseVector:
+        return Vectors.dense(self._icpt)
 
     @property
     def num_classes(self) -> int:
@@ -477,16 +582,23 @@ class LogisticRegressionModel(ProbabilisticClassificationModel,
         return self._coef.shape[1]
 
     def _raw_prediction(self, x: np.ndarray) -> np.ndarray:
+        if self._is_multinomial:
+            return x @ self._coef.T + self._icpt[None, :]
         m = x @ self._coef[0] + self._icpt[0]
         return np.stack([-m, m], axis=1)
 
     def _raw_to_probability(self, raw: np.ndarray) -> np.ndarray:
+        if self._is_multinomial:
+            e = np.exp(raw - raw.max(axis=1, keepdims=True))
+            return e / e.sum(axis=1, keepdims=True)
         # binomial raw is (-m, m): probability is sigmoid(m), not the
         # softmax of the pair (the reference's raw2probabilityInPlace)
         p1 = 1.0 / (1.0 + np.exp(-raw[:, 1]))
         return np.stack([1.0 - p1, p1], axis=1)
 
     def _raw_to_prediction(self, raw: np.ndarray) -> np.ndarray:
+        if self._is_multinomial:
+            return np.argmax(raw, axis=1).astype(np.float64)
         prob1 = 1.0 / (1.0 + np.exp(-raw[:, 1]))
         return (prob1 > self.get("threshold")).astype(np.float64)
 

@@ -1,8 +1,8 @@
 """Evaluators."""
 from cycloneml_tpu_torch.ml.evaluation.evaluators import (
     BinaryClassificationEvaluator, Evaluator,
-    MulticlassClassificationEvaluator,
+    MulticlassClassificationEvaluator, RegressionEvaluator,
 )
 
 __all__ = ["Evaluator", "BinaryClassificationEvaluator",
-           "MulticlassClassificationEvaluator"]
+           "MulticlassClassificationEvaluator", "RegressionEvaluator"]

@@ -3,8 +3,8 @@
 The port's copy of ``cycloneml_tpu/ml/evaluation/evaluators.py`` (ref
 ml/evaluation: Evaluator.scala, BinaryClassificationEvaluator with
 areaUnderROC/areaUnderPR from the mllib BinaryClassificationMetrics curves,
-MulticlassClassificationEvaluator). The regression, clustering, multilabel
-and ranking evaluators are not ported yet.
+MulticlassClassificationEvaluator, RegressionEvaluator). The clustering,
+multilabel and ranking evaluators are not ported yet.
 """
 
 from __future__ import annotations
@@ -145,3 +145,39 @@ class MulticlassClassificationEvaluator(Evaluator):
                  else 1.0) ** 2
         f = (1 + beta2) * prec * rec / np.maximum(beta2 * prec + rec, 1e-300)
         return float((weights * f).sum())
+
+
+class RegressionEvaluator(Evaluator):
+    """rmse, mse, mae, r2 (1 - SSE/SST) and var (of the predictions)."""
+
+    def __init__(self, uid=None, **kw):
+        super().__init__(uid)
+        self.predictionCol = self._param("predictionCol", "prediction column",
+                                         default="prediction")
+        self.labelCol = self._param("labelCol", "label column",
+                                    default="label")
+        self.metricName = self._param(
+            "metricName", "rmse|mse|mae|r2|var",
+            V.in_array(["rmse", "mse", "mae", "r2", "var"]), default="rmse")
+        for k, v in kw.items():
+            self.set(k, v)
+
+    @property
+    def is_larger_better(self) -> bool:
+        return self.get("metricName") in ("r2", "var")
+
+    def evaluate(self, frame) -> float:
+        y = np.asarray(frame[self.get("labelCol")], dtype=np.float64)
+        pred = np.asarray(frame[self.get("predictionCol")], dtype=np.float64)
+        resid = y - pred
+        m = self.get("metricName")
+        if m == "rmse":
+            return float(np.sqrt((resid ** 2).mean()))
+        if m == "mse":
+            return float((resid ** 2).mean())
+        if m == "mae":
+            return float(np.abs(resid).mean())
+        if m == "var":
+            return float(pred.var())
+        sst = ((y - y.mean()) ** 2).sum()
+        return float(1.0 - (resid ** 2).sum() / max(sst, 1e-300))

@@ -1,15 +1,21 @@
 """Block aggregators — the per-shard loss/gradient sums.
 
-The port's counterpart of ``cycloneml_tpu/ml/optim/aggregators.py`` (binary
-logistic and least-squares families). Every aggregator has the signature ``agg(x, y, w, ...,
-coef) -> {"loss", "grad", "count"}`` over a shard whose padding rows carry
-w=0, and returns SUMS; ``tree_aggregate`` adds them over the mesh and the
-loss function divides by the weight sum. Coefficient layout:
-``[w_0 .. w_{d-1}, intercept?]``.
+The port's counterpart of ``cycloneml_tpu/ml/optim/aggregators.py``
+(binary and multinomial logistic, least squares, hinge and Huber). Every
+aggregator has the signature ``agg(x, y, w, ..., coef) -> {"loss",
+"grad", "count"}`` over a shard whose padding rows carry w=0, and returns
+SUMS; ``tree_aggregate`` adds them over the mesh and the loss function
+divides by the weight sum. Coefficient layouts (the reference's):
 
-The ``binary_logistic*`` and ``least_squares*`` aggregators are plain
-PyTorch; the ``_pallas`` twins (the reference's names, so the two packages
-line up) run kernels K1 and K2.
+- binary logistic, least squares, hinge: ``[w_0 .. w_{d-1}, intercept?]``;
+- multinomial: ``[W.flatten() (k, d) row-major, intercepts (k,)?]``;
+- Huber: ``[w_0 .. w_{d-1}, intercept?, sigma]``.
+
+The aggregators are plain PyTorch; the ``_pallas`` twins (the reference's
+names, so the two packages line up) run kernels K1 and K2. Every product
+with X goes through :func:`_tier_dot`, the reference's kernel route, the
+multinomial family too (the reference has no kernel for it, and its jnp
+route would round the coefficients to X's width).
 
 Model-axis twins (:func:`stack_aggregator`, :func:`stack_scaled_aggregator`,
 the reference's ``jax.vmap`` of a binomial aggregator) take labels ``(n, K)``
@@ -181,6 +187,117 @@ def binary_logistic_pallas_scaled(d: int, fit_intercept: bool = True) -> Agg:
             x, Y, w, inv_std, scaled_mean, coef, d, fit_intercept)
 
     agg.stacked = stacked
+    return agg
+
+
+def _split_multinomial(coef, d, k, fit_intercept):
+    """``(W (k, d), b (k,))`` of the flat multinomial coefficients."""
+    if fit_intercept:
+        return coef[:d * k].reshape(k, d), coef[d * k:]
+    return coef.reshape(k, d), torch.zeros(k, dtype=coef.dtype,
+                                           device=coef.device)
+
+
+def _softmax_terms(margins, y, w, k):
+    """Loss sum and multipliers ``w (softmax(m) - onehot(y))`` of the
+    softmax cross-entropy over margins ``(n, k)``."""
+    log_z = torch.logsumexp(margins, dim=1)
+    y_idx = y.to(torch.int64)
+    picked = torch.gather(margins, 1, y_idx[:, None])[:, 0]
+    loss = torch.sum(w * (log_z - picked))
+    probs = torch.softmax(margins, dim=1)
+    onehot = torch.nn.functional.one_hot(y_idx, k).to(probs.dtype)
+    return loss, w[:, None] * (probs - onehot)
+
+
+def multinomial_logistic(d: int, k: int, fit_intercept: bool = True) -> Agg:
+    """Softmax cross-entropy over k classes with k full coefficient
+    vectors (ref MultinomialLogisticBlockAggregator; over-parameterised,
+    as the reference's)."""
+
+    def agg(x, y, w, coef):
+        wmat, b = _split_multinomial(coef, d, k, fit_intercept)
+        margins = _tier_dot(x, wmat.T) + b
+        loss, mult = _softmax_terms(margins, y, w, k)
+        gw = _tier_dot(x.T, mult).T
+        grad = torch.cat([gw.reshape(-1), torch.sum(mult, dim=0)]) \
+            if fit_intercept else gw.reshape(-1)
+        return {"loss": loss, "grad": grad, "count": torch.sum(w)}
+
+    return agg
+
+
+def multinomial_logistic_scaled(d: int, k: int,
+                                fit_intercept: bool = True) -> Agg:
+    """Multinomial twin of :func:`binary_logistic_scaled`: margins
+    ``x.(W o inv_std)^T - W.scaled_mean + b`` and per-class gradients
+    ``inv_std o (mult^T x) - sum(mult) scaled_mean``, so no standardized
+    copy of X exists. Signature ``agg(x, y, w, inv_std, scaled_mean,
+    coef)``."""
+
+    def agg(x, y, w, inv_std, scaled_mean, coef):
+        wmat, b = _split_multinomial(coef, d, k, fit_intercept)
+        offset = wmat @ scaled_mean
+        margins = _tier_dot(x, (wmat * inv_std[None, :]).T) \
+            - offset[None, :] + b
+        loss, mult = _softmax_terms(margins, y, w, k)
+        msum = torch.sum(mult, dim=0)
+        gw = _tier_dot(x.T, mult).T * inv_std[None, :] \
+            - msum[:, None] * scaled_mean[None, :]
+        grad = torch.cat([gw.reshape(-1), msum]) if fit_intercept \
+            else gw.reshape(-1)
+        return {"loss": loss, "grad": grad, "count": torch.sum(w)}
+
+    return agg
+
+
+def hinge(d: int, fit_intercept: bool = True) -> Agg:
+    """Hinge loss for LinearSVC (ref HingeBlockAggregator): labels {0, 1}
+    map to +-1 as 2y - 1; loss_i = w_i max(0, 1 - y_i m_i)."""
+
+    def agg(x, y, w, coef):
+        beta, b0 = _split_coef(coef, d, fit_intercept)
+        margin = _tier_dot(x, beta) + b0
+        ysign = 2.0 * y - 1.0
+        slack = 1.0 - ysign * margin
+        loss = torch.sum(w * torch.clamp(slack, min=0.0))
+        mult = torch.where(slack > 0, -ysign * w, torch.zeros_like(w))
+        g = _tier_dot(x.T, mult)
+        grad = torch.cat([g, torch.sum(mult).reshape(1)]) \
+            if fit_intercept else g
+        return {"loss": loss, "grad": grad, "count": torch.sum(w)}
+
+    return agg
+
+
+def huber(d: int, fit_intercept: bool = True, epsilon: float = 1.35) -> Agg:
+    """Huber loss with a jointly optimised scale sigma (ref
+    HuberBlockAggregator, after Owen 2007): coef = [beta, b0?, sigma],
+    loss_i = w_i (sigma + l_eps((y - mu) / sigma) sigma)."""
+    epsilon = float(epsilon)
+
+    def agg(x, y, w, coef):
+        beta, b0 = _split_coef(coef[:-1], d, fit_intercept)
+        sigma = coef[-1]
+        r = (y - (_tier_dot(x, beta) + b0)) / sigma
+        abs_r = r.abs()
+        outlier = abs_r > epsilon
+        loss_i = torch.where(
+            outlier,
+            sigma + (2.0 * epsilon * abs_r - epsilon * epsilon) * sigma,
+            sigma + r * r * sigma)
+        mult = w * torch.where(outlier, -2.0 * epsilon * torch.sign(r),
+                               -2.0 * r)
+        dsig = torch.sum(w * torch.where(
+            outlier, torch.full_like(r, 1.0 - epsilon * epsilon),
+            1.0 - r * r))
+        parts = [_tier_dot(x.T, mult)]
+        if fit_intercept:
+            parts.append(torch.sum(mult).reshape(1))
+        parts.append(dsig.reshape(1))
+        return {"loss": torch.sum(w * loss_i), "grad": torch.cat(parts),
+                "count": torch.sum(w)}
+
     return agg
 
 

@@ -1,13 +1,14 @@
 """Driver-side L-BFGS.
 
-The port's counterpart of ``cycloneml_tpu/ml/optim/lbfgs.py`` (L-BFGS and
-OWL-QN; L-BFGS-B is ROADMAP slice 2): a Nocedal-Wright L-BFGS with a
-strong-Wolfe line search, two-loop recursion over m=10 curvature pairs,
-initial Hessian scaling gamma = s.y / y.y, and Breeze-compatible convergence
-tests; OWL-QN adds the L1 pseudo-gradient and the orthant projection.
-Optimizer state is host float64; a loss function with a
+The port's counterpart of ``cycloneml_tpu/ml/optim/lbfgs.py`` (L-BFGS,
+L-BFGS-B and OWL-QN): a Nocedal-Wright L-BFGS with a strong-Wolfe line
+search, two-loop recursion over m=10 curvature pairs, initial Hessian
+scaling gamma = s.y / y.y, and Breeze-compatible convergence tests; OWL-QN
+adds the L1 pseudo-gradient and the orthant projection, L-BFGS-B the box
+projection. Optimizer state is host float64; a loss function with a
 ``device_line_search`` runs each whole L-BFGS search on the device (OWL-QN
-projects every trial point, so its searches run on the host).
+and L-BFGS-B project every trial point, so their searches run on the
+host, one loss evaluation and one readback per trial).
 """
 
 from __future__ import annotations
@@ -242,6 +243,119 @@ class LBFGS:
         for state in self.iterations(f, x0, resume=resume):
             pass
         return state
+
+
+class LBFGSB(LBFGS):
+    """Box-constrained L-BFGS (Breeze-LBFGSB semantics; the reference
+    selects it whenever coefficient bounds are set).
+
+    Projected-gradient form: the quasi-Newton direction is built from the
+    projected gradient (components at an active bound that point outward
+    are zeroed), every line-search trial point is clipped into the box,
+    convergence is tested on the projected gradient, and the curvature
+    pairs are dropped whenever the active set changes (within one face, y
+    is masked to the free coordinates)."""
+
+    def __init__(self, lower: np.ndarray, upper: np.ndarray,
+                 max_iter: int = 100, m: int = 10, tol: float = 1e-6,
+                 grad_tol: Optional[float] = None):
+        super().__init__(max_iter, m, tol, grad_tol)
+        self.lower = np.asarray(lower, dtype=np.float64)
+        self.upper = np.asarray(upper, dtype=np.float64)
+        if np.any(self.lower > self.upper):
+            raise ValueError("lower bound exceeds upper bound")
+
+    def _clip(self, x: np.ndarray) -> np.ndarray:
+        return np.clip(x, self.lower, self.upper)
+
+    def _projected_grad(self, x: np.ndarray, grad: np.ndarray) -> np.ndarray:
+        at_lo = (x <= self.lower) & (grad > 0)
+        at_hi = (x >= self.upper) & (grad < 0)
+        return np.where(at_lo | at_hi, 0.0, grad)
+
+    def _active(self, x: np.ndarray) -> np.ndarray:
+        return (x <= self.lower) | (x >= self.upper)
+
+    def iterations(self, f: LossGrad, x0: np.ndarray,
+                   resume: Optional[OptimState] = None):
+        hist = _History(self.m)
+        if resume is not None:
+            state = _reopen(resume, self.max_iter)
+            hist.s = [np.asarray(s) for s in resume.hist_s]
+            hist.y = [np.asarray(y) for y in resume.hist_y]
+            raw_grad = (np.asarray(resume.raw_grad)
+                        if resume.raw_grad is not None else resume.grad)
+        else:
+            x = self._clip(np.asarray(x0, dtype=np.float64))
+            value, grad = f(x)
+            raw_grad = np.asarray(grad, dtype=np.float64)
+            state = OptimState(x=x, value=float(value),
+                               grad=self._projected_grad(x, raw_grad),
+                               raw_grad=raw_grad)
+            state.loss_history.append(state.value)
+            if not np.any(state.grad):
+                # the clipped start is already a KKT point of the box
+                # (degenerate bounds, lower == upper, land here too)
+                state.converged = True
+                state.converged_reason = "gradient converged"
+        yield state
+        if state.converged:
+            return
+
+        def f_boxed(xt: np.ndarray):
+            v, g = f(self._clip(xt))
+            return float(v), np.asarray(g, dtype=np.float64)
+
+        while True:
+            if not np.any(state.grad):
+                yield dataclasses.replace(
+                    state, converged=True,
+                    converged_reason="gradient converged")
+                return
+            d = hist.direction(state.grad)
+            # direction components that would leave the box at once
+            out = ((state.x <= self.lower) & (d < 0)) | \
+                ((state.x >= self.upper) & (d > 0))
+            d = np.where(out, 0.0, d)
+            if not np.any(d):
+                d = -state.grad
+            init_alpha = 1.0 if state.iteration > 0 else \
+                min(1.0, 1.0 / max(float(np.linalg.norm(state.grad)), 1e-12))
+            try:
+                alpha, v_new, g_new = _strong_wolfe(
+                    f_boxed, state.x, state.value, state.grad, d, init_alpha)
+            except ValueError:
+                hist = _History(self.m)
+                d = -state.grad
+                alpha, v_new, g_new = _strong_wolfe(
+                    f_boxed, state.x, state.value, state.grad, d,
+                    min(1.0, 1.0 / max(float(np.linalg.norm(state.grad)),
+                                       1e-12)))
+            x_new = self._clip(state.x + alpha * d)
+            raw_grad_new = np.asarray(g_new, dtype=np.float64)
+            active_new = self._active(x_new)
+            if not np.array_equal(active_new, self._active(state.x)):
+                hist = _History(self.m)  # another face: old pairs are stale
+            else:
+                free = ~active_new
+                hist.update((x_new - state.x) * free,
+                            (raw_grad_new - raw_grad) * free)
+            f_old = state.value
+            raw_grad = raw_grad_new
+            state = OptimState(
+                x=x_new, value=float(v_new),
+                grad=self._projected_grad(x_new, raw_grad_new),
+                iteration=state.iteration + 1,
+                loss_history=state.loss_history + [float(v_new)],
+                hist_s=list(hist.s), hist_y=list(hist.y),
+                raw_grad=raw_grad_new)
+            reason = self._converged(state, f_old)
+            if reason is not None:
+                state.converged = True
+                state.converged_reason = reason
+            yield state
+            if state.converged:
+                return
 
 
 class OWLQN(LBFGS):

@@ -400,6 +400,36 @@ def inv_std_vector(features_std: np.ndarray) -> np.ndarray:
         features_std > 0, features_std, 1.0), 0.0)
 
 
+_STANDARDIZE_ROWS = 1 << 16  # rows of X standardized at a time
+
+
+def standardize_dataset(ds: InstanceDataset, features_std: np.ndarray,
+                        center_mean: Optional[np.ndarray] = None):
+    """A standardized copy of X, ``(x - mu) / sigma`` (``x / sigma`` without
+    ``center_mean``), in X's data tier (a bf16 X gives a bf16 copy), built
+    a chunk of rows at a time at the accumulator width, so the copy is the
+    only buffer the size of X. Zero-variance features scale to 0 (the
+    reference's exclusion); padding rows keep w = 0. The reference keeps
+    this copy for LinearSVC (its other fits fold standardization into the
+    aggregator's read). Returns ``(standardized dataset, inv_std)``."""
+    if ds.x_scale is not None:
+        raise ValueError("standardize_dataset reads X as values: dequantize "
+                         "fp8 codes first (fp8_fallback)")
+    inv_std = inv_std_vector(features_std)
+    x = ds.x
+    cdt = ds.w.dtype
+    s = torch.as_tensor(inv_std, device=x.device).to(cdt)
+    mu = None if center_mean is None else torch.as_tensor(
+        np.asarray(center_mean), device=x.device).to(cdt)
+    out = torch.empty_like(x)
+    for lo in range(0, x.shape[0], _STANDARDIZE_ROWS):
+        xc = x[lo:lo + _STANDARDIZE_ROWS].to(cdt)
+        if mu is not None:
+            xc = xc - mu
+        out[lo:lo + _STANDARDIZE_ROWS] = (xc * s).to(x.dtype)
+    return ds.derive(x=out), inv_std
+
+
 def l2_regularization(reg_param: float, d: int, fit_intercept: bool,
                       features_std: Optional[np.ndarray] = None,
                       standardize: bool = True) -> Optional[Callable]:

@@ -1,4 +1,4 @@
-"""Linear regression with elastic net — the quasi-Newton path.
+"""Linear regression with elastic net — the normal and quasi-Newton paths.
 
 The port's counterpart of ``cycloneml_tpu/ml/regression/linear_regression.py``
 with the reference's objective
@@ -16,10 +16,13 @@ and the intercept recovered in closed form ``y_mean - coef.mu``. Under
 path is fp8-capable: on e4m3 codes the per-column scales fold into the
 aggregator's ``inv_std``, after the envelope probe.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-slice: ``solver="normal"`` and ``"auto"`` where it resolves to the normal
-equations (``ml/optim/wls.py``, with its fp8 fallback), streamed datasets,
-persistence.
+``solver="normal"``, and ``"auto"`` when regParam * elasticNetParam = 0
+and d <= 4096 (so a default ``LinearRegression()``), delegate to
+``ml/optim/wls.WeightedLeastSquares`` as the reference does: one moments
+pass, then the float64 host solve. That solver is not fp8-capable: on e4m3
+codes it first leaves the fp8 rung through ``fp8_fallback``.
+
+Not ported yet: streamed datasets, persistence.
 """
 
 from __future__ import annotations
@@ -49,9 +52,10 @@ from cycloneml_tpu_torch.ml.stat import Summarizer
 
 logger = logging.getLogger(__name__)
 
-# the normal-equation solver's feature cap (ref WeightedLeastSquares
-# MAX_NUM_FEATURES); here it only steers what "auto" resolves to
-MAX_FEATURES_FOR_NORMAL = 4096
+# the component owns the real cap (wls.py raises at fit time); this alias
+# only steers what "auto" resolves to
+from cycloneml_tpu_torch.ml.optim.wls import \
+    MAX_NUM_FEATURES as MAX_FEATURES_FOR_NORMAL  # noqa: E402
 
 
 class _LinearRegressionParams(HasMaxIter, HasRegParam, HasElasticNetParam,
@@ -95,8 +99,7 @@ class LinearRegression(Predictor, _LinearRegressionParams):
 
     def _fit(self, frame) -> "LinearRegressionModel":
         # fp8-capable: the l-bfgs path folds the per-column scales into
-        # inv_std (the normal solver, and with it its fp8 fallback, is
-        # ROADMAP slice 2)
+        # inv_std; the normal solver leaves the fp8 rung (fp8_fallback)
         ds = frame.to_instance_dataset(
             self.get("featuresCol"), self.get("labelCol"),
             self.get("weightCol") or None, fp8_capable=True)
@@ -122,10 +125,7 @@ class LinearRegression(Predictor, _LinearRegressionParams):
                                   and d <= MAX_FEATURES_FOR_NORMAL) \
                 else "l-bfgs"
         if solver == "normal":
-            raise NotImplementedError(
-                "LinearRegression's normal-equation solver (ml/optim/wls.py; "
-                "also what solver='auto' picks for d <= 4096 without an L1 "
-                "part) is ROADMAP slice 2; use solver='l-bfgs'")
+            return self._solve_normal(ds)
 
         stats = Summarizer.summarize(ds)
         # the fp8 safety rail: envelope probe, bfloat16 fallback on failure
@@ -159,6 +159,28 @@ class LinearRegression(Predictor, _LinearRegressionParams):
         eff_reg = reg / y_std
         return self._solve_quasi_newton(ds, stats, y_mean, y_std, eff_reg,
                                         alpha)
+
+    def _solve_normal(self, ds: InstanceDataset) -> "LinearRegressionModel":
+        """The WLS component, exactly as the reference delegates to it
+        (LinearRegression.scala:446-448): standardizeLabel=true,
+        solverType=auto."""
+        if ds.x_scale is not None:
+            # the moments read X as values; e4m3 codes are not values
+            ds = fp8_fallback(ds, "LinearRegression",
+                              "solver='normal' is not fp8-eligible")
+        from cycloneml_tpu_torch.ml.optim.wls import (AUTO,
+                                                      WeightedLeastSquares)
+        wm = WeightedLeastSquares(
+            fit_intercept=self.get("fitIntercept"),
+            reg_param=self.get("regParam"),
+            elastic_net_param=self.get("elasticNetParam"),
+            standardize_features=self.get("standardization"),
+            standardize_label=True, solver_type=AUTO,
+            max_iter=self.get("maxIter"), tol=self.get("tol")
+        ).fit(ds.x, ds.y, ds.w)
+        return self._model(wm.coefficients, wm.intercept,
+                           wm.objective_history,
+                           max(len(wm.objective_history) - 1, 0))
 
     def _solve_quasi_newton(self, ds, stats, y_mean, y_std, reg, alpha):
         d = ds.n_features

@@ -106,10 +106,15 @@ def test_constant_label_refuses_regularization_without_intercept(pctx):
 @pytest.mark.parametrize("kw", [dict(solver="normal"), dict(solver="auto"),
                                 dict(solver="auto", regParam=0.1,
                                      elasticNetParam=0.0)])
-def test_normal_solver_is_not_ported(pctx, kw):
+def test_normal_solver_is_not_ported(ctx, pctx, kw):
+    """These three configurations reach the normal-equation solver (the
+    WLS component; ``auto`` resolves to it when regParam * elasticNetParam
+    is 0 and d <= 4096). They once raised here; now each fits as the
+    reference's does: the same coefficients, intercept and history."""
     x, y = _data(n=50, d=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 2"):
-        LinearRegression(**kw).fit(interop.dataset_from_numpy(x, y))
+    ref = JaxLinReg(**kw).fit(JaxDataset.from_numpy(ctx, x, y))
+    got = LinearRegression(**kw).fit(interop.dataset_from_numpy(x, y))
+    _assert_same_fit(ref, got)
 
 
 def test_auto_with_an_l1_part_takes_owlqn(ctx, pctx):

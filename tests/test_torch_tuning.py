@@ -273,23 +273,34 @@ def test_heterogeneous_maps_fall_back(ctx, pctx):
                                atol=1e-10)
 
 
-def test_array_valued_param_falls_back_cleanly(pctx):
+def test_array_valued_param_falls_back_cleanly(ctx, pctx):
     """A grid carrying an array-valued param, even held constant, falls
-    back serially instead of crashing while planning."""
+    back serially instead of crashing while planning, and the serial
+    bounded fits (L-BFGS-B) give the reference's metrics and best
+    model."""
     x, y = _binary(seed=33, n=120)
-    frame = MLFrame(pctx, {"features": x, "label": y})
-    lr = LogisticRegression(maxIter=5, tol=0.0)
-    grid = (ParamGridBuilder()
-            .add_grid(lr.regParam, [0.0, 0.1])
-            .add_grid(lr.lowerBoundsOnCoefficients, [np.full((1, 4), -10.0)])
-            .build())
-    cv = CrossValidator(estimator=lr, estimator_param_maps=grid,
+    jf, frame = _frames(ctx, pctx, x, y)
+    lr, jlr = LogisticRegression(maxIter=5, tol=0.0), JaxLR(maxIter=5,
+                                                            tol=0.0)
+    bound = [np.full((1, 4), -10.0)]
+
+    def grid(grid_maker, est):
+        return (grid_maker.add_grid(est.regParam, [0.0, 0.1])
+                .add_grid(est.lowerBoundsOnCoefficients, bound).build())
+
+    cv = CrossValidator(estimator=lr,
+                        estimator_param_maps=grid(ParamGridBuilder(), lr),
                         evaluator=BinaryClassificationEvaluator(),
                         parallelism=4, numFolds=2)
     assert cv._stack_plan(frame) is None  # bounded fits are serial
-    # (the port's bounded fit itself is ROADMAP slice 2)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        cv.fit(frame)
+    model = cv.fit(frame)
+    ref = JaxCV(estimator=jlr, estimator_param_maps=grid(JaxGrid(), jlr),
+                evaluator=JaxBinEval(), parallelism=4, numFolds=2).fit(jf)
+    np.testing.assert_allclose(model.avg_metrics, ref.avg_metrics, rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(model.best_model.coefficients.values,
+                               np.asarray(ref.best_model.coefficients),
+                               rtol=1e-8, atol=1e-10)
 
 
 def test_multiclass_labels_fall_back(pctx):
