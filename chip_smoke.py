@@ -156,8 +156,40 @@ the final result line:
    float64 (phase 19's rule), the coefficients within rtol 5e-3 / atol
    5e-4 of a float64 IRLS on the card with as many passes, the pass timed
    beside its bound, the summary's and the fit's times;
-24. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
-   instances and the center sums (K3, K4 and K1s marked as redesigned for
+24. S1 and S2 (the sparse tier's row and column passes,
+   ``csrc/ell_sweep.cu``) against their plain versions in float64 on
+   Criteo-class rows drawn on the card (45,840,617 rows, the Criteo
+   display-advertising training set's, x 39 slots: 13 integer fields at
+   columns 0-12 with log1p(count), 26 categorical fields of zipf(1.1)
+   ranks hashed into 2^20 columns; 1.79e9 nonzeros, 14.3 GB of ELL), one
+   evaluation per link (logistic with a standardizing scale, squared,
+   hinge, Gram) and the moments mode: |dloss| <= 1e-5 |loss|, max|dgrad|
+   <= 1e-4 max|grad|, sum(w) exact, two launches bitwise equal; their
+   times beside the plain versions, the bounds (bytes, and with one
+   32-byte sector a gather) and cuSPARSE CSR SpMV (X beta, X^T r);
+25. sparse LogisticRegression on those rows (``maxIter=25,
+   regParam=0.01``): the column copy's set-up time and peak memory, a fit
+   through S1 and S2 (S1 launched ``total_evals`` times, S2 once more for
+   the summary, nothing else), a second one bitwise equal, and the plain
+   aggregator's fit: objectives to 1e-4; the two again on the float64
+   accumulator tier (``cyclone.compute.dtype=float64``): objectives to
+   1e-4, coefficients within rtol 5e-3 / atol 5e-4 (on the float32 tier
+   their distance is printed beside that of two plain fits, float32 and
+   float64); the split into kernel and host time, peak memory against the
+   ELL's bytes, training AUC;
+26. BASELINE configuration 5: ``RowMatrix.compute_svd(20, max_gram_dim=
+   4096, tol=1e-9, max_iter=300)`` by Lanczos over the NYTimes-shape bag
+   of words (300,000 x 102,660, 232 slots, the reference's numpy recipe),
+   one Gram matvec (S1 then S2) against float64 and bitwise repeatable,
+   S1 and S2 once per Lanczos step, all 20 singular values within 5e-3 of
+   scipy's float64 svds on the same CSR (times of both printed);
+27. the rest of RowMatrix on phase 10's data: Lanczos
+   (``compute_svd(10, max_gram_dim=1024)``) within 1e-4 of the Gramian
+   branch, ``multiply`` by a seeded 2,000 x 64 matrix within 1e-5 of
+   float64, ``column_similarities`` within 1e-5 of the float64 Gramian's
+   cosines (K4 once per Gramian);
+28. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+   instances, the center sums and S1/S2 (K3, K4 and K1s marked as redesigned for
    the tensor cores, with their instance, f32 FMA bounds and ptxas lines;
    K2 in both instances and K1's e4m3 instance marked as redesigned around
    a per-lane cp.async ring, and every GLM sweep with its instance, ring
@@ -194,7 +226,7 @@ H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
 H100_FP8_FLOPS = 1979e12     # fp8 tensor cores, dense
 FP8_COEF_NORMREL = 0.20      # the reference's fp8 coefficient envelope
 KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian", "glm_stacked",
-                  "center_sums"]
+                  "center_sums", "ell_sweep"]
 K1S_MODELS = (1, 3, 8, 16, 20)   # 20 > K_MAX: two launches of K1s
 OVR_K = 8                        # OneVsRest's classes (bench_ovr_stacked)
 CV_N = 500_000                   # CrossValidator's rows (the cut of FIT_N)
@@ -204,6 +236,11 @@ CV_REGS = (0.001, 0.01, 0.1)
 # the block order may move them, and a move past 2 is explained there
 ROW_ORDER_COUNTS = {"fit": (9, 10), "linreg_fit": (6, 37),
                     "fp8_fit": (9, 10), "fp8_linreg_fit": (6, 37)}
+CRITEO_N = 45_840_617   # rows of the Criteo display-advertising training set
+CRITEO_D = 1 << 20      # hashed columns (the reference demo's default width)
+NYT_N, NYT_D, NYT_K = 300_000, 102_660, 232   # configuration 5 (NYTimes)
+NYT_SV = 20                                   # its singular values
+MULTIPLY_COLS = 64
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
 ROWS64 = 1 << 16             # rows widened to float64 at a time
@@ -258,6 +295,15 @@ def _kernel_name(mangled: str) -> str:
         return mangled
     if m.group(2) is None:
         return m.group(1)
+    if m.group(1).startswith("ell_"):  # S1's link, S2's mode or width
+        arg = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(5))]
+        label = {"ell_rows_kernel": ("logistic", "squared", "hinge", "gram"),
+                 "ell_cols_piece_kernel": ("gradient", "moments")}.get(
+                     m.group(1))
+        text = label[arg[0]] if label else f"M={arg[0]}"
+        if len(arg) > 1 and arg[1]:
+            text += ", scaled"
+        return f"{m.group(1)}<{text}>"
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
              "13__nv_fp8_e4m3": "e4m3"}
     # the FMA K1s instance takes float32 X only: no type argument
@@ -578,7 +624,9 @@ def _other_launches(kernels, *own: str) -> int:
               "kmeans_assign": kernels.kmeans_assign.launches,
               "gramian": kernels.gramian.launches,
               "glm_stacked": kernels.glm_sweep_stacked.launches,
-              "center_sums": kernels.center_sums.launches}
+              "center_sums": kernels.center_sums.launches,
+              "ell_rows": kernels.ell_rows.launches,
+              "ell_cols": kernels.ell_cols.launches}
     return sum(v for k, v in counts.items() if k not in own)
 
 
@@ -2409,6 +2457,438 @@ def phase_glm():
         ctx.stop()
 
 
+# -- the sparse tier: S1 and S2, Criteo-class LR, configuration 5 -------------
+
+def _ell_pair(ds, beta, b0, link, scale, columns=None, plain=False):
+    """S1 then S2 on the dataset's rows: ``(mult, loss, sum(mult), sum(w),
+    grad)``; the kernels, or with ``plain`` their plain versions at
+    beta's dtype (the float64 truth for a float64 beta)."""
+    from cycloneml_tpu_torch.ops import kernels
+    rows = kernels.ell_rows_plain if plain else kernels.ell_rows
+    mult, loss, msum, wsum = rows(ds.indices, ds.values, ds.y, ds.w, beta, b0,
+                                  link, scale, ds.tail())
+    if plain:
+        grad = kernels.ell_cols_plain(ds.indices, ds.values, mult,
+                                      ds.n_features, scale=scale,
+                                      tail=ds.tail())
+    else:
+        grad = kernels.ell_cols(ds.indices, ds.values, mult, ds.n_features,
+                                scale=scale, tail=ds.tail(), columns=columns)
+    return mult, loss, msum, wsum, grad
+
+
+def phase_ell(ds, columns):
+    """S1 and S2 against their plain versions in float64 on the
+    Criteo-class rows: one evaluation per link (logistic with the fit's
+    standardizing scale; squared, hinge, Gram) and the moments mode;
+    |dloss| <= 1e-5 |loss|, max|dgrad| <= 1e-4 max|grad|, sum(w) exact,
+    two launches bitwise equal; then the times of each beside its plain
+    version (float32), its bounds and cuSPARSE CSR SpMV (X beta, a
+    yardstick for S1; X^T r, the same function as S2's gradient). Returns
+    the kernels line's numbers of S1 and S2."""
+    import torch
+    from cycloneml_tpu_torch.dataset.sparse import sparse_feature_std
+    from cycloneml_tpu_torch.ops import kernels
+
+    dev = ds.device
+    n, k = ds.indices.shape
+    d = ds.n_features
+    g = torch.Generator(device=dev).manual_seed(21)
+    beta = torch.randn(d, generator=g, device=dev) * 0.1
+    inv = torch.as_tensor(sparse_feature_std(ds), device=dev)
+    inv = torch.where(inv > 0, 1.0 / torch.where(inv > 0, inv, 1.0),
+                      0.0).float()
+    errs, checks = {}, {}
+    for link, scale in ((kernels.LOGISTIC, inv), (kernels.SQUARED, None),
+                        (kernels.HINGE, None), (kernels.GRAM, None)):
+        a = _ell_pair(ds, beta, -1.0, link, scale, columns)
+        b = _ell_pair(ds, beta, -1.0, link, scale, columns)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(u, v) for u, v in zip(a, b))
+        del b
+        t = _ell_pair(ds, beta.double(), -1.0, link, scale, plain=True)
+        loss_rel = abs(float(a[1]) - float(t[1])) / max(abs(float(t[1])),
+                                                        1e-300)
+        grad_err = float((a[4].double() - t[4]).abs().max())
+        grad_scale = float(t[4].abs().max())
+        wsum_exact = float(a[3]) == float(t[3])
+        errs[link] = {"loss_rel": loss_rel, "max_abs_grad_err": grad_err,
+                      "max_abs_grad": grad_scale,
+                      "mult_max_abs_err": float((a[0].double() - t[0])
+                                                .abs().max()),
+                      "bitwise_equal": bitwise, "sum_w": float(a[3])}
+        checks.update({
+            f"{link}: |dloss| <= 1e-5 |loss|": loss_rel <= 1e-5
+            or float(t[1]) == 0.0,
+            f"{link}: max|dgrad| <= 1e-4 max|grad|":
+                grad_err <= 1e-4 * grad_scale,
+            f"{link}: sum(w) exact": wsum_exact,
+            f"{link}: two launches bitwise equal": bitwise,
+        })
+        del a, t
+    m1 = kernels.ell_cols(ds.indices, ds.values, ds.w, d, moments=True,
+                          columns=columns)
+    m2 = kernels.ell_cols(ds.indices, ds.values, ds.w, d, moments=True,
+                          columns=columns)
+    tm = kernels.ell_cols_plain(ds.indices, ds.values, ds.w, d, moments=True,
+                                acc_dtype=torch.float64)
+    mom_err = [float((m1[q].double() - tm[q]).abs().max()
+                     / tm[q].abs().max()) for q in range(3)]
+    checks["moments: max|d| <= 1e-4 max|moment|"] = max(mom_err) <= 1e-4
+    checks["moments: two launches bitwise equal"] = torch.equal(m1, m2)
+    del m1, m2, tm
+
+    # times at the fit's form: the logistic link with the scale
+    mult = kernels.ell_rows(ds.indices, ds.values, ds.y, ds.w, beta, -1.0,
+                            kernels.LOGISTIC, inv)[0]
+    s1_ms = _time_ms(lambda: kernels.ell_rows(
+        ds.indices, ds.values, ds.y, ds.w, beta, -1.0, kernels.LOGISTIC,
+        inv), 5, 1)
+    s2_ms = _time_ms(lambda: kernels.ell_cols(
+        ds.indices, ds.values, mult, d, scale=inv, columns=columns), 5, 1)
+    mom_ms = _time_ms(lambda: kernels.ell_cols(
+        ds.indices, ds.values, ds.w, d, moments=True, columns=columns), 3, 1)
+    s1_plain = _time_ms(lambda: kernels.ell_rows_plain(
+        ds.indices, ds.values, ds.y, ds.w, beta, -1.0, kernels.LOGISTIC,
+        inv), 2, 1)
+    s2_plain = _time_ms(lambda: kernels.ell_cols_plain(
+        ds.indices, ds.values, mult, d, scale=inv), 2, 1)
+    # cuSPARSE yardsticks over the same buffers (no copy of the nonzeros):
+    # the ELL as CSR rows of k slots, the column copy as CSR rows of X^T
+    crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
+    x_csr = torch.sparse_csr_tensor(crow, ds.indices.view(-1),
+                                    ds.values.view(-1), size=(n, d),
+                                    check_invariants=False)
+    xt_csr = torch.sparse_csr_tensor(columns.col_ptr.int(), columns.rows,
+                                     columns.vals, size=(d, n),
+                                     check_invariants=False)
+    spmv_x = _time_ms(lambda: torch.mv(x_csr, beta), 5, 1)
+    spmv_xt = _time_ms(lambda: torch.mv(xt_csr, mult), 5, 1)
+    del x_csr, xt_csr, crow
+    nnz = int(columns.col_ptr[-1])
+    n_pieces = columns.piece_col.shape[0]
+    s1_bytes = n * k * 8 + n * 12 + d * 8
+    s2_bytes = nnz * 8 + n * 4 + d * 4 + (d + 1) * 16 + n_pieces * 4
+    s1_bound, s1_by = _bound(s1_bytes, 2.0 * n * k)
+    s2_bound, s2_by = _bound(s2_bytes, 2.0 * nnz)
+    gather = {"s1_with_beta_sector_gathers_ms":
+              (s1_bytes + n * k * 32) / H100_BYTES_PER_S * 1e3,
+              "s2_with_mult_sector_gathers_ms":
+              (s2_bytes + nnz * 32) / H100_BYTES_PER_S * 1e3}
+    _line("ell_check", n=n, k=k, d=d, nnz=nnz, pieces=n_pieces, links=errs,
+          moments_rel_err=mom_err)
+    _line("ell_time", s1_ms=s1_ms, s2_ms=s2_ms, s2_moments_ms=mom_ms,
+          s1_plain_ms=s1_plain, s2_plain_ms=s2_plain, s1_bound_ms=s1_bound,
+          s2_bound_ms=s2_bound, bound_by=[s1_by, s2_by],
+          spmv_x_beta_ms=spmv_x, spmv_xt_r_ms=spmv_xt, **gather)
+    _check("ell", checks)
+    s1 = {"max_abs_err": errs[kernels.LOGISTIC]["mult_max_abs_err"],
+          "ms": s1_ms, "plain_ms": s1_plain, "bound_ms": s1_bound,
+          "bound_by": s1_by, "library_ms": None, "yardstick_ms": spmv_x,
+          "bound_with_sector_gathers_ms":
+              gather["s1_with_beta_sector_gathers_ms"]}
+    s2 = {"max_abs_err": errs[kernels.LOGISTIC]["max_abs_grad_err"],
+          "ms": s2_ms, "plain_ms": s2_plain, "bound_ms": s2_bound,
+          "bound_by": s2_by, "library_ms": spmv_xt, "moments_ms": mom_ms,
+          "bound_with_sector_gathers_ms":
+              gather["s2_with_mult_sector_gathers_ms"]}
+    return s1, s2
+
+
+def _sparse_margins(ds, coef, intercept):
+    """X coef + intercept of the real rows, float32, on the card."""
+    import torch
+    c = torch.as_tensor(coef, dtype=torch.float32, device=ds.device)
+    out = torch.empty(ds.n_rows, dtype=torch.float32, device=ds.device)
+    for lo in range(0, ds.n_rows, ROWS):
+        hi = min(lo + ROWS, ds.n_rows)
+        out[lo:hi] = torch.sum(ds.values[lo:hi] * c[ds.indices[lo:hi].long()],
+                               1) + intercept
+    return out
+
+
+def _auc(scores, labels) -> float:
+    """Area under the ROC curve by the rank sum (ties have probability 0
+    for continuous scores), on the card in float64."""
+    import torch
+    n = scores.shape[0]
+    ranks = torch.empty(n, dtype=torch.float64, device=scores.device)
+    ranks[torch.argsort(scores)] = torch.arange(
+        1, n + 1, dtype=torch.float64, device=scores.device)
+    pos = labels > 0.5
+    p = float(pos.sum())
+    return (float(ranks[pos].sum()) - p * (p + 1) / 2) / (p * (n - p))
+
+
+def _sparse_fit(ctx, ds, mode):
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    ctx.conf.set("cyclone.ml.usePallasKernels", mode)
+    return _timed(lambda: LogisticRegression(maxIter=25, regParam=0.01)
+                  .fit(ds))
+
+
+def phase_criteo():
+    """Criteo-class sparse LogisticRegression at full size: the rows drawn
+    on the card, the column copy built, phase_ell's checks on them, then
+    ``LogisticRegression(maxIter=25, regParam=0.01).fit`` through S1 and
+    S2 (twice: bitwise-equal models) and through the plain aggregator, on
+    the card's float32 accumulator tier and again on the float64 tier.
+    After 25 iterations short of convergence on these ill-conditioned
+    hashed columns, float32 line searches that round differently part by
+    ~4e-3 in single coefficients (two plain fits alone, float32 and
+    float64 sums, do), so the coefficients are compared on the float64
+    tier, the objectives on both. Returns S1's and S2's numbers and
+    launches."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_criteo_like
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_criteo")
+    try:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ds, gen_s = _timed(lambda: generate_criteo_like(
+            ctx, CRITEO_N, seed=0, hash_dim=CRITEO_D))
+        ell_bytes = ds.indices.numel() * 8
+        columns, sort_s = _timed(ds.columns)
+        setup_peak = torch.cuda.max_memory_allocated() - base
+        _, labels_s = _timed(ds.y_host)
+        nnz = int(columns.col_ptr[-1])
+        counts = columns.col_ptr.diff()
+        _line("criteo_data", n=CRITEO_N, k=ds.k_max, d=CRITEO_D, nnz=nnz,
+              ell_bytes=ell_bytes, column_copy_bytes=nnz * 8,
+              largest_column=int(counts.max()),
+              empty_columns=int((counts == 0).sum()),
+              positive_share=float(ds.y[:CRITEO_N].mean()),
+              generate_s=gen_s, column_copy_s=sort_s,
+              label_readback_s=labels_s,
+              setup_peak_bytes=setup_peak)
+        s1, s2 = phase_ell(ds, columns)
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        k_model, k_warm = _sparse_fit(ctx, ds, "auto")
+        s1_launches = kernels.ell_rows.launches
+        s2_launches = kernels.ell_cols.launches
+        others = _other_launches(kernels, "ell_rows", "ell_cols")
+        k_again, k_steady = _sparse_fit(ctx, ds, "auto")
+        peak = torch.cuda.max_memory_allocated() - base
+        p_model, p_s = _sparse_fit(ctx, ds, "false")
+        # the same two fits on the float64 accumulator tier (float64
+        # coefficients, line search and plain sums; the kernels as ever)
+        ctx.conf.set("cyclone.compute.dtype", "float64")
+        k64, k64_s = _sparse_fit(ctx, ds, "auto")
+        p64, p64_s = _sparse_fit(ctx, ds, "false")
+        ks, ps = k_model.summary, p_model.summary
+        kc, pc = k_model.coefficients.values, p_model.coefficients.values
+
+        def coef_close(a, b):
+            return bool(np.allclose(a.coefficients.values,
+                                    b.coefficients.values, rtol=5e-3,
+                                    atol=5e-4)) and \
+                abs(a.intercept - b.intercept) <= 5e-4 + 5e-3 * abs(
+                    b.intercept)
+
+        def max_dcoef(a, b):
+            return float(np.max(np.abs(a.coefficients.values
+                                       - b.coefficients.values)))
+
+        def obj_rel(a, b):
+            fa = a.summary.objective_history[-1]
+            fb = b.summary.objective_history[-1]
+            return abs(fa - fb) / abs(fb)
+
+        bitwise = bool(np.array_equal(kc, k_again.coefficients.values)) and \
+            k_model.intercept == k_again.intercept
+        evals = ks.total_evals
+        kernel_s = evals * (s1["ms"] + s2["ms"]) / 1e3 + s2["moments_ms"] / 1e3
+        margins = _sparse_margins(ds, kc, k_model.intercept)
+        auc = _auc(margins, ds.y[:CRITEO_N])
+        del margins
+        _line("criteo_fit", iterations=ks.total_iterations, evals=evals,
+              dispatches=ks.total_dispatches, s1_launches=s1_launches,
+              s2_launches=s2_launches, warm_s=k_warm, steady_s=k_steady,
+              kernels_s=kernel_s, host_s=k_steady - kernel_s,
+              final_objective=ks.objective_history[-1],
+              plain={"iterations": ps.total_iterations,
+                     "evals": ps.total_evals, "fit_s": p_s,
+                     "final_objective": ps.objective_history[-1]},
+              float64_tier={"kernel_fit_s": k64_s, "plain_fit_s": p64_s,
+                            "kernel_evals": k64.summary.total_evals,
+                            "plain_evals": p64.summary.total_evals,
+                            "objective_rel_diff": obj_rel(k64, p64),
+                            "max_abs_coef_diff": max_dcoef(k64, p64)},
+              objective_rel_diff=obj_rel(k_model, p_model),
+              max_abs_coef_diff=max_dcoef(k_model, p_model),
+              max_abs_coef=float(np.max(np.abs(pc))),
+              plain_f32_to_f64_max_abs_coef_diff=max_dcoef(p_model, p64),
+              kernel_f32_to_plain_f64_max_abs_coef_diff=max_dcoef(k_model,
+                                                                  p64),
+              bitwise_equal_refit=bitwise, train_auc=auc,
+              max_memory_allocated=peak, ell_bytes=ell_bytes,
+              peak_over_ell=peak / ell_bytes)
+        _check("criteo fit", {
+            "S1 launched once per evaluation": s1_launches == evals,
+            "S2 launched once per evaluation and once for the summary":
+                s2_launches == evals + 1,
+            "no other kernel launched": others == 0,
+            "final objectives agree to 1e-4 (float32 tier)":
+                obj_rel(k_model, p_model) <= 1e-4,
+            "final objectives agree to 1e-4 (float64 tier)":
+                obj_rel(k64, p64) <= 1e-4,
+            "coefficients agree, rtol 5e-3, atol 5e-4 (float64 tier)":
+                coef_close(k64, p64),
+            "two kernel fits bitwise equal": bitwise,
+            "finite model": bool(np.all(np.isfinite(kc))),
+            "training AUC above 0.5": auc > 0.5,
+        })
+        return {"s1": s1, "s2": s2, "s1_launches": s1_launches,
+                "s2_launches": s2_launches}
+    finally:
+        ctx.stop()
+
+
+def phase_config5():
+    """BASELINE configuration 5: RowMatrix.compute_svd(20) by Lanczos over
+    the NYTimes-shape bag of words (the reference's numpy recipe), the
+    matvec S1 (Gram link) then S2; one matvec against float64, then all 20
+    singular values against scipy's svds in float64 on the same CSR.
+    Returns the launches."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+    from cycloneml_tpu_torch.dataset.random import nytimes_like
+    from cycloneml_tpu_torch.dataset.sparse import SparseInstanceDataset
+    from cycloneml_tpu_torch.linalg.distributed import RowMatrix
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_config5")
+    try:
+        (idx, val), gen_s = _timed(lambda: nytimes_like(NYT_N, NYT_D, NYT_K))
+        ds, ingest_s = _timed(lambda: SparseInstanceDataset.from_ell(
+            ctx, idx, val, n_features=NYT_D))
+        columns, sort_s = _timed(ds.columns)
+        g = torch.Generator(device=ds.device).manual_seed(5)
+        q = torch.randn(NYT_D, generator=g, device=ds.device)
+        a = _ell_pair(ds, q, 0.0, kernels.GRAM, None, columns)
+        b = _ell_pair(ds, q, 0.0, kernels.GRAM, None, columns)
+        t = _ell_pair(ds, q.double(), 0.0, kernels.GRAM, None, plain=True)
+        mv_err = float((a[4].double() - t[4]).abs().max() / t[4].abs().max())
+        mv_bitwise = all(torch.equal(u, v) for u, v in zip(a, b))
+        del a, b, t
+
+        kernels.reset_launch_counts()
+        res, svd_s = _timed(lambda: RowMatrix(ds).compute_svd(
+            NYT_SV, max_gram_dim=4096, tol=1e-9, max_iter=300))
+        steps = kernels.ell_rows.launches_by_link[kernels.GRAM]
+        s1, s2 = kernels.ell_rows.launches, kernels.ell_cols.launches
+        others = _other_launches(kernels, "ell_rows", "ell_cols")
+        sig = res.s.to_array()
+        rows = np.repeat(np.arange(NYT_N), NYT_K)
+        csr = sp.csr_matrix((val.reshape(-1).astype(np.float64),
+                             (rows, idx.reshape(-1))), shape=(NYT_N, NYT_D))
+        t0 = time.perf_counter()
+        ref = np.sort(spla.svds(csr, k=NYT_SV,
+                                return_singular_vectors=False))[::-1]
+        scipy_s = time.perf_counter() - t0
+        rel = np.abs(sig[:NYT_SV] - ref) / ref if sig.size == NYT_SV \
+            else np.full(NYT_SV, np.inf)
+        _line("config5", n=NYT_N, d=NYT_D, k_slots=NYT_K, nnz=NYT_N * NYT_K,
+              singular_values=NYT_SV, reduced=None, generate_s=gen_s,
+              ingest_s=ingest_s, column_copy_s=sort_s,
+              matvec_rel_err=mv_err, matvec_bitwise_equal=mv_bitwise,
+              lanczos_steps=steps, s1_launches=s1, s2_launches=s2,
+              svd_s=svd_s, scipy_s=scipy_s, sigma_top5=sig[:5].tolist(),
+              rel_err_by_index=rel.tolist(), max_rel_err=float(rel.max()))
+        _check("config5", {
+            "one matvec within 1e-4 of float64": mv_err <= 1e-4,
+            "two matvecs bitwise equal": mv_bitwise,
+            "S1 (Gram link) and S2 launched once per Lanczos step":
+                s1 == steps and s2 == steps and steps > 0,
+            "no other kernel launched": others == 0,
+            "20 singular values within 5e-3 of scipy's": bool(
+                rel.max() <= 5e-3),
+        })
+        return {"s1_launches": s1, "s2_launches": s2}
+    finally:
+        ctx.stop()
+
+
+def phase_rowmatrix():
+    """The rest of RowMatrix on phase 10's spectrum data: Lanczos
+    (compute_svd(10, max_gram_dim=1024)) against the Gramian branch,
+    multiply by a seeded 2,000 x 64 matrix against float64, and
+    column_similarities against the float64 Gramian's cosines."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.linalg.distributed import RowMatrix
+    from cycloneml_tpu_torch.linalg.matrices import Matrices
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_rowmatrix")
+    try:
+        ds, _ = _spectrum_dataset(ctx, GRAM_N, GRAM_D, seed=9)
+        rm = RowMatrix(ds)
+        kernels.reset_launch_counts()
+        gram, gram_s = _timed(lambda: rm.compute_svd(10))
+        steps = []
+        base_fn = rm._gram_matvec_fn
+
+        def counted():
+            matvec, dt = base_fn()
+
+            def mv(q):
+                steps.append(1)
+                return matvec(q)
+            return mv, dt
+
+        rm._gram_matvec_fn = counted
+        lan, lan_s = _timed(lambda: rm.compute_svd(10, max_gram_dim=1024))
+        s_rel = float(np.max(np.abs(lan.s.to_array() - gram.s.to_array())
+                             / gram.s.to_array()))
+        b = np.random.RandomState(64).randn(GRAM_D, MULTIPLY_COLS)
+        prod, mult_s = _timed(lambda: rm.multiply(Matrices.from_array(b)))
+        bt = torch.as_tensor(b, device=ds.x.device)
+        err = scale = 0.0
+        g64 = torch.zeros((GRAM_D, GRAM_D), dtype=torch.float64,
+                          device=ds.x.device)
+        for lo in range(0, GRAM_N, ROWS64):
+            x64 = ds.x[lo:lo + ROWS64].double()
+            t = x64 @ bt
+            err = max(err, float((prod.dataset.x[lo:lo + ROWS64].double()
+                                  - t).abs().max()))
+            scale = max(scale, float(t.abs().max()))
+            g64 += x64.T @ x64
+        del x64, t
+        sims, sim_s = _timed(rm.column_similarities)
+        g64 = g64.cpu().numpy()
+        norms = np.sqrt(np.diag(g64))
+        cos64 = np.triu(g64 / norms[:, None] / norms[None, :], 1)
+        sim_err = float(np.max(np.abs(sims.to_array() - cos64)))
+        k4 = kernels.gramian.launches
+        others = _other_launches(kernels, "gramian")
+        _line("rowmatrix", n=GRAM_N, d=GRAM_D, gramian_svd_s=gram_s,
+              lanczos_svd_s=lan_s, lanczos_steps=len(steps),
+              sigma_rel_diff=s_rel, multiply_s=mult_s,
+              multiply_max_abs_err=err, multiply_max_abs=scale,
+              column_similarities_s=sim_s, similarity_max_abs_err=sim_err,
+              k4_launches=k4)
+        _check("rowmatrix", {
+            "Lanczos singular values within 1e-4 of the Gramian branch's":
+                s_rel <= 1e-4,
+            "multiply within 1e-5 of max|X B| of float64":
+                err <= 1e-5 * scale,
+            "column similarities within 1e-5 of float64": sim_err <= 1e-5,
+            "K4 launched once per Gramian (SVD, similarities)": k4 == 2,
+            "no other kernel launched": others == 0,
+        })
+    finally:
+        ctx.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -2533,6 +3013,28 @@ def main() -> int:
     phase_multinomial(ovr_models)
     phase_svc()
     phase_glm()
+    # the sparse tier: S1 and S2 carry the Criteo-class fit (the main
+    # path) and configuration 5's Lanczos matvec
+    crit = phase_criteo()
+    nyt = phase_config5()
+    phase_rowmatrix()
+    sparse = "cycloneml_tpu/ml/optim/sparse_aggregators.py"
+    ell_ptxas = {f: ptxas.get(f) for f in ptxas if f.startswith("ell_")}
+    entry("ell_rows (S1, the sparse row pass)", "ell_sweep",
+          f"{sparse}:34", crit["s1"], crit["s1_launches"],
+          config5_launches=nyt["s1_launches"], ptxas=ell_ptxas,
+          bound_with_sector_gathers_ms=crit["s1"][
+              "bound_with_sector_gathers_ms"],
+          yardstick="cuSPARSE CSR SpMV X beta (the margins alone)",
+          note="jnp.take gathers and the link, not a Pallas kernel")
+    entry("ell_cols (S2, the sparse column pass)", "ell_sweep",
+          f"{sparse}:40", crit["s2"], crit["s2_launches"],
+          config5_launches=nyt["s2_launches"],
+          moments_ms=crit["s2"]["moments_ms"],
+          bound_with_sector_gathers_ms=crit["s2"][
+              "bound_with_sector_gathers_ms"],
+          note="jax.ops.segment_sum, not a Pallas kernel; library_ms is "
+               "cuSPARSE CSR SpMV X^T r over the column copy")
     print(json.dumps({"kernels": entries}), flush=True)
     _line("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 The port never imports ``cycloneml_tpu`` (or jax); what crosses between the
 two packages is plain numpy: the same host arrays (or fp8 codes) as a
-dataset, a fitted model's parameters (binomial and multinomial logistic
-regression, linear regression, LinearSVC, GLM, KMeans, PCA, OneVsRest's
-binary models), a stack of coefficients of K models, or an optimizer state's ``to_pytree()`` dict (L-BFGS and OWL-QN
-alike).
+dataset, the same ELL (or hybrid) rows as a sparse dataset, a fitted
+model's parameters (binomial and multinomial logistic regression, linear
+regression, LinearSVC, GLM, KMeans, PCA, OneVsRest's binary models), a
+stack of coefficients of K models, or an optimizer state's
+``to_pytree()`` dict (L-BFGS and OWL-QN alike).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 
 from cycloneml_tpu_torch.context import CycloneContext
 from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
+from cycloneml_tpu_torch.dataset.sparse import SparseInstanceDataset
 from cycloneml_tpu_torch.ml.classification.linear_svc import LinearSVCModel
 from cycloneml_tpu_torch.ml.classification.logistic_regression import (
     LogisticRegressionModel,
@@ -47,6 +49,25 @@ def dataset_from_numpy(x, y=None, w=None, ctx: Optional[CycloneContext] = None,
         return InstanceDataset.from_fp8_codes(ctx, np.asarray(x), x_scale,
                                               y, w, probe_ratio)
     return InstanceDataset.from_numpy(ctx, np.asarray(x), y, w, dtype=dtype)
+
+
+def sparse_dataset_from_reference(indices=None, values=None, y=None, w=None,
+                                  n_features: Optional[int] = None,
+                                  rows=None, k_ell: int = 16,
+                                  ctx: Optional[CycloneContext] = None
+                                  ) -> SparseInstanceDataset:
+    """A :class:`SparseInstanceDataset` from the numpy arrays handed to the
+    reference's sparse constructors: ``indices``/``values`` (n, k) as for its
+    ``from_ell``, or ``rows`` ([(indices, values)]) and ``k_ell`` as for
+    its ``from_rows_hybrid``; ``y``, ``w`` and ``n_features`` as there.
+    Both packages then hold the identical float32 rows."""
+    ctx = ctx if ctx is not None else CycloneContext.get_or_create()
+    if rows is not None:
+        return SparseInstanceDataset.from_rows_hybrid(
+            ctx, rows, y, w, n_features=n_features, k_ell=k_ell)
+    return SparseInstanceDataset.from_ell(ctx, np.asarray(indices),
+                                          np.asarray(values), y, w,
+                                          n_features=n_features)
 
 
 def model_from_reference(coefficients, intercept,

@@ -1,7 +1,9 @@
 """Local dense matrices — the port's copy of the ``DenseMatrix`` part of
 ``cycloneml_tpu/linalg/matrices.py`` (ref Matrices.scala:300), as far as
 KMeans, RowMatrix and PCA use it: a float64 numpy-backed matrix stored
-row-major, built with ``from_array`` and read with ``to_array``."""
+row-major, built with ``from_array`` (or ``Matrices.from_array``) and read
+with ``to_array``. The rest of the reference's module (sparse matrices,
+the other factories) waits with ``linalg/blas.py`` and ``block.py``."""
 
 from __future__ import annotations
 
@@ -56,3 +58,12 @@ class DenseMatrix(Matrix):
 
     def __repr__(self) -> str:
         return f"DenseMatrix({self.num_rows}x{self.num_cols})"
+
+
+class Matrices:
+    """Factory methods (ref Matrices.scala object Matrices), as far as
+    ``RowMatrix.multiply`` and its callers use them."""
+
+    @staticmethod
+    def from_array(arr: np.ndarray) -> DenseMatrix:
+        return DenseMatrix.from_array(arr)

@@ -26,6 +26,12 @@ CrossValidator's regParam grid) train together in the stacked device
 L-BFGS, every evaluation one model-axis aggregation: kernel K1s under
 ``cyclone.ml.usePallasKernels``, which reads X once for all K models.
 
+A :class:`~cycloneml_tpu_torch.dataset.sparse.SparseInstanceDataset`
+trains binomially on the sparse tier (:meth:`LogisticRegression.
+_fit_sparse`, the reference's :563-650), through the sparse aggregators:
+on the card, kernels S1 and S2 (``csrc/ell_sweep.cu``) once per
+evaluation of the host optimizer.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 slice: checkpointed training, the streamed (out-of-core) leg of stacked
 fits.
@@ -43,6 +49,7 @@ from cycloneml_tpu_torch.dataset.dataset import (InstanceDataset,
                                                  fp8_fallback,
                                                  resolve_fp8_fit)
 from cycloneml_tpu_torch.dataset.instance import compute_dtype
+from cycloneml_tpu_torch.dataset.sparse import SparseInstanceDataset
 from cycloneml_tpu_torch.linalg.matrices import DenseMatrix
 from cycloneml_tpu_torch.linalg.vectors import DenseVector, Vectors
 from cycloneml_tpu_torch.ml.base import (Predictor,
@@ -172,6 +179,9 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
         return out[0], out[1]
 
     def _fit(self, frame) -> "LogisticRegressionModel":
+        if isinstance(frame, SparseInstanceDataset):
+            # the sparse tier has its own fit (the ELL/hybrid aggregators)
+            return self._fit_sparse(frame)
         # fp8-capable: the scaled aggregators fold the per-column scales
         # into inv_std, so this fit may take the e4m3 rung
         ds = frame.to_instance_dataset(
@@ -513,6 +523,106 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
                 coefficient_matrix=beta[None, :],
                 intercept_vector=np.array([icpt]), num_classes=2,
                 is_multinomial=False, uid=self.uid)
+        self._copy_values(model)
+        model._set_parent(self)
+        model.summary = LogisticRegressionTrainingSummary(
+            objective_history=list(state.loss_history),
+            total_iterations=state.iteration,
+            total_evals=loss_fn.n_evals,
+            total_dispatches=loss_fn.n_dispatches)
+        return model
+
+
+    def _fit_sparse(self, ds: SparseInstanceDataset
+                    ) -> "LogisticRegressionModel":
+        """Binomial logistic regression over the sparse (ELL / hybrid)
+        tier (the reference's ``_fit_sparse``, :563-650): std-only
+        standardization folded into the read (sparsity kept), the log-odds
+        intercept start, and the host optimizer the reference picks —
+        L-BFGS-B under bounds, OWL-QN with an L1 part (per feature when
+        ``standardization=False``), else L-BFGS, each evaluation one pass
+        of the sparse aggregator (S1 + S2 on the card) and one readback.
+        Coefficients are unscaled by inv_std."""
+        from cycloneml_tpu_torch.dataset.sparse import (
+            sparse_feature_std, standardize_sparse_dataset)
+        from cycloneml_tpu_torch.ml.optim.sparse_aggregators import (
+            binary_logistic_sparse, binary_logistic_sparse_hybrid)
+
+        d = ds.n_features
+        w_host = ds.w_host()
+        y_host = ds.y_host()
+        mask = w_host > 0
+        num_classes = int(y_host[mask].max()) + 1 if mask.any() else 2
+        family = self.get("family")
+        if family == "multinomial" or (family == "auto" and num_classes > 2):
+            raise NotImplementedError(
+                "sparse-tier training is binomial only; hash or densify "
+                "for multinomial")
+        if num_classes > 2:
+            raise ValueError(
+                f"Binomial family requires <= 2 label classes, found "
+                f"{num_classes} (the reference rejects this too)")
+        self._check_ported()
+        histogram = np.bincount(y_host[mask].astype(np.int64),
+                                weights=w_host[mask], minlength=2)[:2]
+        weight_sum = float(w_host[mask].sum())
+
+        fit_intercept = self.get("fitIntercept")
+        standardize = self.get("standardization")
+        reg = self.get("regParam")
+        alpha = self.get("elasticNetParam")
+        l2 = (1.0 - alpha) * reg
+        l1 = alpha * reg
+
+        features_std = sparse_feature_std(ds)
+        ds_std, inv_std = standardize_sparse_dataset(ds, features_std)
+        agg = (binary_logistic_sparse_hybrid(d, fit_intercept)
+               if ds.is_hybrid else binary_logistic_sparse(d, fit_intercept))
+        n_coef = d + (1 if fit_intercept else 0)
+        x0 = np.zeros(n_coef)
+        if fit_intercept and 0 < histogram[1] < weight_sum:
+            p1 = histogram[1] / weight_sum
+            x0[d] = np.log(p1 / (1.0 - p1))
+        l2_fn = l2_regularization(
+            l2, d, fit_intercept, features_std=features_std,
+            standardize=standardize) if l2 > 0 else None
+        loss_fn = DistributedLossFunction(ds_std, agg, l2_fn, weight_sum)
+
+        if self._has_bounds():
+            if alpha != 0.0:
+                raise ValueError(
+                    "coefficient bounds are only supported with none or L2 "
+                    "regularization (elasticNetParam must be 0, as the "
+                    "reference enforces)")
+            lo, hi = self._flat_bounds(d, 2, False, fit_intercept, n_coef,
+                                       features_std)
+            opt = LBFGSB(lo, hi, max_iter=self.get("maxIter"),
+                         tol=self.get("tol"))
+        elif l1 > 0:
+            l1_vec = np.zeros(n_coef)
+            per = np.full(d, l1)
+            if not standardize:
+                per = np.where(features_std > 0,
+                               l1 / np.where(features_std > 0,
+                                             features_std, 1.0), 0.0)
+            l1_vec[:d] = per
+            opt = OWLQN(max_iter=self.get("maxIter"), tol=self.get("tol"),
+                        l1_reg=l1_vec)
+        else:
+            opt = LBFGS(max_iter=self.get("maxIter"), tol=self.get("tol"))
+        state = opt.minimize(loss_fn, x0)
+        if state.converged_reason == "max iterations reached":
+            logger.warning(
+                "LogisticRegression did not converge in %d iterations",
+                self.get("maxIter"))
+
+        sol = np.asarray(state.x, dtype=np.float64)
+        beta = sol[:d] * inv_std
+        icpt = float(sol[d]) if fit_intercept else 0.0
+        model = LogisticRegressionModel(
+            coefficient_matrix=beta[None, :],
+            intercept_vector=np.array([icpt]),
+            num_classes=2, is_multinomial=False, uid=self.uid)
         self._copy_values(model)
         model._set_parent(self)
         model.summary = LogisticRegressionTrainingSummary(

@@ -34,6 +34,9 @@ class DistributedLossFunction:
     """Callable ``(coef) -> (loss, grad)`` in float64 host space, plus the
     device-side :meth:`f_and_g` the device optimizer evaluates.
 
+    - ``dataset``: an ``InstanceDataset`` or a ``SparseInstanceDataset``
+      (whose aggregators, ``sparse_aggregators``, take its rows as one
+      block);
     - ``agg``: a block aggregator (sums, not means);
     - ``l2_reg_fn``: optional L2 penalty from :func:`l2_regularization`;
     - ``extra_args``: replicated tensors the aggregator takes before the
@@ -56,10 +59,13 @@ class DistributedLossFunction:
         call.arrays = lambda: base.arrays() + extra
         self._agg_call = call
         self._ctx = dataset.ctx
-        self.device = dataset.x.device
+        # w lies beside the rows on both tiers (a sparse dataset has no x)
+        self.device = dataset.w.device
         self.cdt = compute_dtype(getattr(dataset.ctx, "conf", None))
         self.l2_reg_fn = l2_reg_fn
-        if weight_sum is None:
+        if weight_sum is None and not isinstance(dataset, InstanceDataset):
+            weight_sum = float(torch.sum(dataset.w))
+        elif weight_sum is None:
             weight_sum = float(dataset.tree_aggregate_fn(_weight_sum_agg)()["ws"])
         self.weight_sum = weight_sum
         self.n_evals = 0

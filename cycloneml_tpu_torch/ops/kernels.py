@@ -23,7 +23,14 @@ replaces, what bounds it on the card, what the design does about that):
 
 Beside them, ``center_sums`` (``csrc/center_sums.cu``) sums KMeans' centers
 in a fixed order (the reference's ``jax.ops.segment_sum``, not a Pallas
-kernel), so that two fits of the same data end with the same centers.
+kernel), so that two fits of the same data end with the same centers; and
+the sparse (ELL) tier's two passes (``csrc/ell_sweep.cu``, the reference's
+``jnp.take`` gathers and ``segment_sum`` scatters of its sparse
+aggregators, not Pallas kernels): S1, ``ell_rows``, the margins, the link
+and the per-row multipliers with the loss, sum(mult) and sum(w); S2,
+``ell_cols``, the column sums X^T r over a column-ordered copy of the
+nonzeros (:func:`ell_columns`), for the gradient or the weighted feature
+moments. Both sum in one fixed order, with no float atomics.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -46,13 +53,15 @@ in ``glm_sweep.launches_by_link``, and by X's dtype, in
 ``glm_sweep.launches_by_dtype``; K1s, one launch per group of models, by
 X's dtype in ``glm_sweep_stacked.launches_by_dtype`` and by instance in
 ``glm_sweep_stacked.launches_by_instance``; K3 and K4 also by instance, in
-``kmeans_assign.launches_by_instance`` and ``gramian.launches_by_instance``).
+``kmeans_assign.launches_by_instance`` and ``gramian.launches_by_instance``;
+S1 by link in ``ell_rows.launches_by_link`` and S2 by mode in
+``ell_cols.launches_by_mode``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -208,6 +217,14 @@ _SIGNATURES = {
         "center_sums_piece_rows": [],
         "center_sums_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _LL, _I, _LL,
                                _P, _P, _P, _P],
+    },
+    "ell_sweep": {
+        "ell_row_blocks": [_LL],
+        "ell_piece_entries": [],
+        "ell_rows_launch": [_I, _I, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _I, _P, _P],
+        "ell_cols_launch": [_I, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P,
+                            _P],
     },
 }
 
@@ -367,6 +384,10 @@ def reset_launch_counts() -> None:
     glm_sweep_stacked.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
     glm_sweep_stacked.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
     center_sums.launches = 0
+    ell_rows.launches = 0
+    ell_rows.launches_by_link = {link: 0 for link in _ELL_LINK_CODE}
+    ell_cols.launches = 0
+    ell_cols.launches_by_mode = {GRADIENT: 0, MOMENTS: 0}
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -861,6 +882,330 @@ def center_sums(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor, k: int,
             "center_sums launch")
     center_sums.launches += 1
     return (sums.to(w.dtype) if with_sums else None), counts.to(w.dtype)
+
+
+# -- S1 and S2: the sparse (ELL) tier's row and column passes ----------------
+
+GRAM, HINGE = "gram", "hinge"
+GRADIENT, MOMENTS = "gradient", "moments"
+_ELL_LINK_CODE = {LOGISTIC: 0, SQUARED: 1, HINGE: 2, GRAM: 3}
+ELL_CHUNK = 1 << 18  # rows the plain versions take at a time
+ELL_PIECE = 1024     # nonzeros of one S2 piece, at most (csrc/ell_sweep.cu)
+
+
+class EllTail(NamedTuple):
+    """A hybrid dataset's COO tail grouped by row: the entries of row r are
+    ``cols[ptr[r]:ptr[r + 1]]`` and ``vals[...]``, in their stored order."""
+    ptr: torch.Tensor   # (n + 1,) int64
+    cols: torch.Tensor  # int32
+    vals: torch.Tensor  # float32
+
+
+class EllColumns(NamedTuple):
+    """The nonzeros in column order, S2's operand: column c holds
+    ``rows[col_ptr[c]:col_ptr[c + 1]]`` (in row order, the COO tail after
+    the ELL entries) and their ``vals``; its entries are cut into pieces of
+    at most ``piece``, numbered ``piece_start[c]`` on, each of column
+    ``piece_col[p]``."""
+    col_ptr: torch.Tensor      # (d + 1,) int64
+    rows: torch.Tensor         # (nnz,) int32
+    vals: torch.Tensor         # (nnz,) float32
+    piece_start: torch.Tensor  # (d + 1,) int64
+    piece_col: torch.Tensor    # (n_pieces,) int32
+    piece: int
+
+
+def ell_tail(coo_row: torch.Tensor, coo_idx: torch.Tensor,
+             coo_val: torch.Tensor, n: int) -> EllTail:
+    """The COO tail (row ids, column ids, values) grouped by row with a
+    stable sort, entries of value 0 (the padding) dropped: integer results,
+    the same on every run."""
+    keep = coo_val != 0
+    rows = coo_row[keep].long()
+    order = torch.sort(rows, stable=True).indices
+    ptr = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n)[:n], 0)
+    return EllTail(ptr, coo_idx[keep][order].int().contiguous(),
+                   coo_val[keep][order].float().contiguous())
+
+
+def tail_row_ids(tail: EllTail) -> torch.Tensor:
+    """The row id (int64) of each entry of a row-grouped tail."""
+    n = tail.ptr.shape[0] - 1
+    return torch.repeat_interleave(
+        torch.arange(n, device=tail.ptr.device), tail.ptr.diff())
+
+
+def _nonzero_chunks(indices, values, tail, chunk_rows):
+    """(columns int64, rows int32, values) of the nonzeros, the ELL rows a
+    chunk at a time in row-major order, then the COO tail."""
+    n, k = indices.shape
+    dev = indices.device
+    for lo in range(0, n, chunk_rows):
+        hi = min(lo + chunk_rows, n)
+        v = values[lo:hi].reshape(-1)
+        keep = v != 0
+        rows = torch.arange(lo, hi, dtype=torch.int32,
+                            device=dev).repeat_interleave(k)
+        yield indices[lo:hi].reshape(-1)[keep].long(), rows[keep], v[keep]
+    if tail is not None:
+        yield tail.cols.long(), tail_row_ids(tail).int(), tail.vals
+
+
+def ell_columns(indices: torch.Tensor, values: torch.Tensor, d: int,
+                tail: Optional[EllTail] = None, piece: int = ELL_PIECE,
+                chunk_rows: int = 1 << 20) -> EllColumns:
+    """The column-ordered copy of the nonzeros of ELL rows ``indices``,
+    ``values`` (n, k) (and of the COO ``tail``) that S2 reads: a counting
+    sort by column, a chunk of rows at a time (a stable sort inside the
+    chunk), so entries of a column keep their row order and the scratch is
+    bounded by the chunk, not by the nonzeros. Every step has an integer
+    result: two builds are equal."""
+    dev = indices.device
+    counts = torch.zeros(d, dtype=torch.int64, device=dev)
+    for cols, _, _ in _nonzero_chunks(indices, values, tail, chunk_rows):
+        counts += torch.bincount(cols, minlength=d)[:d]
+    col_ptr = torch.zeros(d + 1, dtype=torch.int64, device=dev)
+    col_ptr[1:] = torch.cumsum(counts, 0)
+    nnz = int(col_ptr[-1])
+    rows_out = torch.empty(nnz, dtype=torch.int32, device=dev)
+    vals_out = torch.empty(nnz, dtype=torch.float32, device=dev)
+    fill = col_ptr[:-1].clone()
+    for cols, rows, vals in _nonzero_chunks(indices, values, tail,
+                                            chunk_rows):
+        order = torch.sort(cols, stable=True).indices
+        sc = cols[order]
+        cc = torch.bincount(cols, minlength=d)[:d]
+        first = torch.cumsum(cc, 0) - cc  # each column's first sorted slot
+        dest = fill[sc] + (torch.arange(sc.shape[0], device=dev) - first[sc])
+        rows_out[dest] = rows[order]
+        vals_out[dest] = vals[order].float()
+        fill += cc
+        del order, sc, dest
+    pieces = (counts + piece - 1) // piece
+    piece_start = torch.zeros(d + 1, dtype=torch.int64, device=dev)
+    piece_start[1:] = torch.cumsum(pieces, 0)
+    piece_col = torch.repeat_interleave(
+        torch.arange(d, dtype=torch.int32, device=dev), pieces)
+    return EllColumns(col_ptr, rows_out, vals_out, piece_start, piece_col,
+                      piece)
+
+
+def _ell_chunk_values(indices, values, scale, lo, hi):
+    """Rows ``lo:hi`` of the values, times ``scale[index]`` in float32
+    (the product the reference stores as its standardized values)."""
+    v = values[lo:hi]
+    return v if scale is None else v * scale[indices[lo:hi].long()]
+
+
+def tail_values(tail: EllTail, scale):
+    """The tail's values, times ``scale[column]`` in float32 when given."""
+    return tail.vals if scale is None else tail.vals * scale[tail.cols.long()]
+
+
+def _ell_link(margin, y, w, link: str):
+    """(loss, mult) of the rows at ``margin`` in its dtype."""
+    if link == LOGISTIC:
+        return (torch.sum(w * (_softplus(margin) - y * margin)),
+                w * (torch.sigmoid(margin) - y))
+    if link == SQUARED:
+        err = margin - y
+        return 0.5 * torch.sum(w * err * err), w * err
+    if link == HINGE:
+        ysign = 2.0 * y - 1.0
+        slack = 1.0 - ysign * margin
+        return (torch.sum(w * torch.clamp(slack, min=0.0)),
+                torch.where(slack > 0, -ysign * w, torch.zeros_like(w)))
+    return (torch.zeros((), dtype=margin.dtype, device=margin.device),
+            margin * (w > 0).to(margin.dtype))
+
+
+def ell_rows_plain(indices: torch.Tensor, values: torch.Tensor,
+                   y: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
+                   b0=0.0, link: str = LOGISTIC, scale=None,
+                   tail: Optional[EllTail] = None,
+                   chunk_rows: int = ELL_CHUNK):
+    """S1 in plain PyTorch at beta's dtype: margins sum(v beta[index]) + b0
+    (gathers, the COO tail by ``index_add_`` over its rows), then the
+    link. Returns ``(mult (n,), loss, sum(mult), sum(w))``."""
+    acc = beta.dtype
+    n = indices.shape[0]
+    margin = torch.empty(n, dtype=acc, device=indices.device)
+    for lo in range(0, n, chunk_rows):
+        hi = min(lo + chunk_rows, n)
+        v = _ell_chunk_values(indices, values, scale, lo, hi)
+        margin[lo:hi] = torch.sum(v.to(acc) * beta[indices[lo:hi].long()],
+                                  dim=1)
+    if tail is not None:
+        margin.index_add_(0, tail_row_ids(tail),
+                          tail_values(tail, scale).to(acc)
+                          * beta[tail.cols.long()])
+    margin = margin + b0
+    yy, ww = y.to(acc), w.to(acc)
+    loss, mult = _ell_link(margin, yy, ww, link)
+    return mult, loss, torch.sum(mult), torch.sum(ww)
+
+
+def _check_ell(indices, values, what: str) -> None:
+    if indices.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {indices.device}")
+    if (indices.dim() != 2 or indices.dtype != torch.int32
+            or values.shape != indices.shape
+            or values.dtype != torch.float32):
+        raise ValueError(f"{what}: ELL rows must be (n, k) int32 indices and "
+                         f"float32 values on CUDA; got {tuple(indices.shape)} "
+                         f"{indices.dtype}, {tuple(values.shape)} "
+                         f"{values.dtype}")
+    if not (indices.is_contiguous() and values.is_contiguous()):
+        raise ValueError(f"{what}: ELL rows must be contiguous")
+
+
+def _f32_operand(t, n: int, dev, what: str) -> torch.Tensor:
+    t = t.to(device=dev, dtype=torch.float32).contiguous()
+    if t.shape != (n,):
+        raise ValueError(f"{what}: expected shape ({n},), got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def ell_rows(indices: torch.Tensor, values: torch.Tensor, y: torch.Tensor,
+             w: torch.Tensor, beta: torch.Tensor, b0=0.0,
+             link: str = LOGISTIC, scale=None,
+             tail: Optional[EllTail] = None):
+    """S1, the row pass: ``(mult (n,), loss, sum(mult), sum(w))`` for ELL
+    rows ``indices`` (n, k) int32 and ``values`` (n, k) float32 (value
+    times ``scale[index]`` when a (d,) scale is given), y, w (n,), beta
+    (d,), the margin offset ``b0`` and the row-grouped COO ``tail``;
+    ``link`` is logistic, squared, hinge or gram (mult = margin [w > 0]).
+    Every index must be below d. A CPU tensor runs :func:`ell_rows_plain`;
+    a CUDA tensor launches ``csrc/ell_sweep.cu`` (mult in float32, the
+    three sums as float64 0-d tensors, summed in double in one fixed order:
+    two launches are bitwise equal) or raises."""
+    if link not in _ELL_LINK_CODE:
+        raise ValueError(f"ell_rows: unknown link {link!r}")
+    if indices.device.type == "cpu":
+        return ell_rows_plain(indices, values, y, w, beta, b0, link, scale,
+                              tail)
+    _check_ell(indices, values, "ell_rows")
+    n, k = indices.shape
+    dev = indices.device
+    beta = beta.to(device=dev, dtype=torch.float32).contiguous()
+    d = beta.shape[0]
+    y = _f32_operand(y, n, dev, "ell_rows y")
+    w = _f32_operand(w, n, dev, "ell_rows w")
+    s = None if scale is None else _f32_operand(scale, d, dev,
+                                                "ell_rows scale")
+    if tail is not None and tail.ptr.shape != (n + 1,):
+        raise ValueError(f"ell_rows: the tail has {tail.ptr.shape[0] - 1} "
+                         f"rows, X {n}")
+    b0t = _device_scalars((b0,), dev)
+    # with a scale, one (d, 2) table of (scale, beta) pairs: one gather a
+    # slot serves both
+    coef = beta if s is None else torch.stack([s, beta], 1).contiguous()
+    lib = _library("ell_sweep")
+    with torch.cuda.device(dev):
+        blocks = lib.ell_row_blocks(n)
+        partials = torch.empty(blocks * 3, dtype=torch.float64, device=dev)
+        out = torch.empty(3, dtype=torch.float64, device=dev)
+        mult = torch.empty(n, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _cuda_check(lib.ell_rows_launch(
+            _ELL_LINK_CODE[link], int(s is not None), indices.data_ptr(),
+            values.data_ptr(), n, k, _ptr(tail.ptr if tail else None),
+            _ptr(tail.cols if tail else None),
+            _ptr(tail.vals if tail else None), coef.data_ptr(),
+            b0t.data_ptr(), y.data_ptr(), w.data_ptr(), mult.data_ptr(),
+            partials.data_ptr(), blocks, out.data_ptr(), stream),
+            "ell_rows launch")
+    ell_rows.launches += 1
+    ell_rows.launches_by_link[link] += 1
+    return mult, out[0], out[1], out[2]
+
+
+def ell_cols_plain(indices: torch.Tensor, values: torch.Tensor,
+                   r: torch.Tensor, d: int, moments: bool = False,
+                   scale=None, tail: Optional[EllTail] = None,
+                   acc_dtype=None, chunk_rows: int = ELL_CHUNK):
+    """S2 in plain PyTorch with ``index_add_`` over the ELL rows (and the
+    tail): the gradient sum_i r_i x_i (d,), or with ``moments`` the (3, d)
+    sums of r v, (r v) v and r [v != 0]. The products are formed at r's
+    dtype (float32 for float32 r, as the reference's summary forms them),
+    summed in float64 as the kernel sums them in double, and returned at
+    ``acc_dtype`` (default r's). ``index_add_`` adds in order on the CPU;
+    on CUDA its float atomics add in a run-dependent order."""
+    f64 = torch.float64
+    out = torch.zeros((3 if moments else 1, d), dtype=f64,
+                      device=indices.device)
+
+    def add(cols, rr, v):
+        if moments:
+            wk = rr * v
+            out[0].index_add_(0, cols, wk.reshape(-1).to(f64))
+            out[1].index_add_(0, cols, (wk * v).reshape(-1).to(f64))
+            out[2].index_add_(0, cols, (rr * (v != 0)).reshape(-1).to(f64))
+        else:
+            out[0].index_add_(0, cols,
+                              (rr * v.to(rr.dtype)).reshape(-1).to(f64))
+
+    n = indices.shape[0]
+    for lo in range(0, n, chunk_rows):
+        hi = min(lo + chunk_rows, n)
+        add(indices[lo:hi].reshape(-1).long(), r[lo:hi, None],
+            _ell_chunk_values(indices, values, scale, lo, hi))
+    if tail is not None:
+        add(tail.cols.long(), r[tail_row_ids(tail)],
+            tail_values(tail, scale))
+    out = out.to(r.dtype if acc_dtype is None else acc_dtype)
+    return out if moments else out[0]
+
+
+def ell_cols(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor,
+             d: int, moments: bool = False, scale=None,
+             tail: Optional[EllTail] = None,
+             columns: Optional[EllColumns] = None):
+    """S2, the column pass: sum_i r_i x_i (d,) over the ELL rows (value
+    times ``scale[index]`` when given) and the COO ``tail``, or with
+    ``moments`` the (3, d) weighted moments of :func:`ell_cols_plain`. A
+    CPU tensor runs :func:`ell_cols_plain`; a CUDA tensor launches
+    ``csrc/ell_sweep.cu`` over ``columns`` (:func:`ell_columns` of the
+    same rows and tail; float32 results, sums in double in one fixed
+    order: two launches are bitwise equal) or raises."""
+    if indices.device.type == "cpu":
+        return ell_cols_plain(indices, values, r, d, moments, scale, tail)
+    _check_ell(indices, values, "ell_cols")
+    if columns is None:
+        raise ValueError("ell_cols: a CUDA launch reads the column-ordered "
+                         "copy of the nonzeros (ell_columns)")
+    dev = indices.device
+    n = indices.shape[0]
+    r = _f32_operand(r, n, dev, "ell_cols r")
+    s = None if scale is None else _f32_operand(scale, d, dev,
+                                                "ell_cols scale")
+    lib = _library("ell_sweep")
+    if columns.col_ptr.shape != (d + 1,) or \
+            columns.piece != lib.ell_piece_entries():
+        raise ValueError(f"ell_cols: the column copy is not one of {d} "
+                         f"columns in pieces of {lib.ell_piece_entries()}")
+    m = 3 if moments else 1
+    n_pieces = columns.piece_col.shape[0]
+    with torch.cuda.device(dev):
+        partials = torch.empty(max(n_pieces, 1) * m, dtype=torch.float64,
+                               device=dev)
+        out = torch.empty((m, d), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _cuda_check(lib.ell_cols_launch(
+            int(moments), columns.col_ptr.data_ptr(),
+            columns.piece_start.data_ptr(), columns.piece_col.data_ptr(),
+            n_pieces, d, columns.rows.data_ptr(), columns.vals.data_ptr(),
+            _ptr(s), r.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            stream), "ell_cols launch")
+    ell_cols.launches += 1
+    ell_cols.launches_by_mode[MOMENTS if moments else GRADIENT] += 1
+    return out if moments else out[0]
 
 
 reset_launch_counts()  # every count starts at 0

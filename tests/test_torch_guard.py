@@ -91,7 +91,7 @@ def test_kernels_import_without_cuda():
 
 
 @pytest.mark.parametrize("name", ["glm_sweep", "kmeans_assign", "gramian",
-                                  "glm_stacked", "center_sums"])
+                                  "glm_stacked", "center_sums", "ell_sweep"])
 def test_every_kernel_source_has_a_binding(name):
     """Each CUDA source the wrappers load exists, declares its C entry
     points with ``extern "C"``, and has its argument types declared."""
@@ -191,5 +191,42 @@ def test_stacked_wrappers_import_and_run_without_cuda():
              "assert kernels.glm_sweep_stacked.launches == 0\n"
              "assert kernels.center_sums.launches == 0\n"
              "assert out[1].shape == (4, 3) and c.tolist() == [7., 7., 6.]\n",
+             CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+
+
+def test_sparse_tier_modules_are_guarded():
+    """The sparse tier's modules are among the modules whose imports are
+    checked above."""
+    mods = _port_modules()
+    for name in ("cycloneml_tpu_torch.dataset.sparse",
+                 "cycloneml_tpu_torch.ml.optim.sparse_aggregators",
+                 "cycloneml_tpu_torch.linalg.distributed",
+                 "cycloneml_tpu_torch.linalg.matrices",
+                 "cycloneml_tpu_torch.interop"):
+        assert name in mods
+        assert PKG.joinpath(*name.split(".")[1:]).with_suffix(".py") in \
+            _port_sources()
+
+
+def test_sparse_wrappers_import_and_run_without_cuda():
+    """S1 and S2 run their plain versions on CPU tensors with no card and
+    no nvcc, launching nothing; the column copy builds on the CPU."""
+    r = _run("import torch\n"
+             "assert not torch.cuda.is_available()\n"
+             "from cycloneml_tpu_torch.ops import kernels\n"
+             "idx = torch.randint(0, 6, (20, 3), dtype=torch.int32)\n"
+             "val = torch.rand(20, 3)\n"
+             "y = (torch.rand(20) > 0.5).float(); w = torch.ones(20)\n"
+             "for link in ('logistic', 'squared', 'hinge', 'gram'):\n"
+             "    mult, loss, _, ws = kernels.ell_rows(idx, val, y, w,\n"
+             "                                         torch.ones(6), 0.1,\n"
+             "                                         link)\n"
+             "    g = kernels.ell_cols(idx, val, mult, 6)\n"
+             "    assert g.shape == (6,) and float(ws) == 20.0\n"
+             "cols = kernels.ell_columns(idx, val, 6)\n"
+             "assert int(cols.col_ptr[-1]) == int((val != 0).sum())\n"
+             "assert kernels.ell_rows.launches == 0\n"
+             "assert kernels.ell_cols.launches == 0\n",
              CUDA_VISIBLE_DEVICES="")
     assert r.returncode == 0, r.stderr
