@@ -27,6 +27,7 @@ Not ported yet: the streamed libsvm ingest (``from_libsvm_stream``,
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -115,6 +116,18 @@ def hash_features_torch(indices: torch.Tensor,
             % num_features).int()
 
 
+def _check_ids(ids: torch.Tensor, bound: int, what: str) -> None:
+    """Raise unless every id lies in [0, bound): one min/max reduction on
+    the ids' device and one readback. The kernels gather by these ids
+    unchecked, so a stray id is stopped here, at ingest."""
+    if ids.numel() == 0:
+        return
+    lo, hi = torch.stack(torch.aminmax(ids)).tolist()
+    if lo < 0 or hi >= bound:
+        raise ValueError(f"{what} ids must lie in [0, {bound}); found "
+                         f"{lo} to {hi}")
+
+
 def _pad_rows(n: int) -> int:
     """Rows after padding: a multiple of 8 (the dense tier's rule on the
     port's one-shard mesh), at least 8."""
@@ -126,7 +139,8 @@ class SparseInstanceDataset:
     ``y``/``w`` (n_pad,) float32, padding rows with w = 0; optionally the
     COO tail ``coo_row``/``coo_idx``/``coo_val`` (row ids local to the
     one shard); optionally a float32 ``scale`` (d,) that every pass
-    multiplies into the values (a standardized view)."""
+    multiplies into the values (a standardized view). Column ids outside
+    [0, n_features) and tail row ids outside the rows raise ValueError."""
 
     def __init__(self, ctx, indices: torch.Tensor, values: torch.Tensor,
                  y: torch.Tensor, w: torch.Tensor, n_rows: int,
@@ -135,6 +149,10 @@ class SparseInstanceDataset:
         if ctx.mesh_runtime.data_parallelism != 1:
             raise NotImplementedError(
                 "a sparse dataset over several shards is ROADMAP slice 8")
+        _check_ids(indices, n_features, "column")
+        if coo_row is not None:
+            _check_ids(coo_idx, n_features, "COO column")
+            _check_ids(coo_row, indices.shape[0], "COO row")
         self.ctx = ctx
         self.indices = indices
         self.values = values
@@ -287,12 +305,8 @@ class SparseInstanceDataset:
         (float32); arrays, host labels and the built layouts are shared."""
         if self.scale is not None:
             raise ValueError("the dataset is already scaled")
-        ds = SparseInstanceDataset(
-            self.ctx, self.indices, self.values, self.y, self.w, self.n_rows,
-            self.n_features, self.coo_row, self.coo_idx, self.coo_val,
-            scale=scale.to(device=self.device, dtype=torch.float32))
-        ds._layout = self._layout
-        ds._yw_host = self._yw_host
+        ds = copy.copy(self)  # shares the arrays and the layouts' dict
+        ds.scale = scale.to(device=self.device, dtype=torch.float32)
         return ds
 
     def tree_aggregate_fn(self, fn: Callable, auto_psum: bool = True):

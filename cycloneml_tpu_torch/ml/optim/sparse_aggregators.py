@@ -57,9 +57,9 @@ def sparse_gradient_pass(block, beta: torch.Tensor, b0, link: str, d: int):
         mult, loss, msum, wsum = kernels.ell_rows(
             block.indices, block.values, block.y, block.w, beta, b0, link,
             block.scale, tail)
-        columns = block.columns() if block.values.is_cuda else None
         g = kernels.ell_cols(block.indices, block.values, mult, d,
-                             scale=block.scale, tail=tail, columns=columns)
+                             scale=block.scale, tail=tail,
+                             columns=block.columns)
     else:
         mult, loss, msum, wsum = kernels.ell_rows_plain(
             block.indices, block.values, block.y, block.w, beta, b0, link,
@@ -124,10 +124,9 @@ def _summary(d: int, hybrid: bool, name: str) -> Agg:
         w = block.w
         tail = block.tail()
         if _fused(block):
-            columns = block.columns() if block.values.is_cuda else None
             mom = kernels.ell_cols(block.indices, block.values, w, d,
                                    moments=True, scale=block.scale,
-                                   tail=tail, columns=columns)
+                                   tail=tail, columns=block.columns)
         else:
             mom = kernels.ell_cols_plain(block.indices, block.values, w, d,
                                          moments=True, scale=block.scale,

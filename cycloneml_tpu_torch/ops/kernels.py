@@ -61,7 +61,7 @@ S1 by link in ``ell_rows.launches_by_link`` and S2 by mode in
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -1166,17 +1166,22 @@ def ell_cols_plain(indices: torch.Tensor, values: torch.Tensor,
 def ell_cols(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor,
              d: int, moments: bool = False, scale=None,
              tail: Optional[EllTail] = None,
-             columns: Optional[EllColumns] = None):
+             columns: Union[EllColumns, Callable[[], EllColumns],
+                            None] = None):
     """S2, the column pass: sum_i r_i x_i (d,) over the ELL rows (value
     times ``scale[index]`` when given) and the COO ``tail``, or with
     ``moments`` the (3, d) weighted moments of :func:`ell_cols_plain`. A
     CPU tensor runs :func:`ell_cols_plain`; a CUDA tensor launches
     ``csrc/ell_sweep.cu`` over ``columns`` (:func:`ell_columns` of the
-    same rows and tail; float32 results, sums in double in one fixed
-    order: two launches are bitwise equal) or raises."""
+    same rows and tail, or a zero-argument callable that returns it, such
+    as a dataset's ``columns``, called only here; float32 results, sums in
+    double in one fixed order: two launches are bitwise equal) or
+    raises."""
     if indices.device.type == "cpu":
         return ell_cols_plain(indices, values, r, d, moments, scale, tail)
     _check_ell(indices, values, "ell_cols")
+    if callable(columns):
+        columns = columns()
     if columns is None:
         raise ValueError("ell_cols: a CUDA launch reads the column-ordered "
                          "copy of the nonzeros (ell_columns)")

@@ -201,6 +201,33 @@ _SHAPES = [(1, 1, 3), (1000, 1, 50), (1037, 39, 300), (4099, 72, 2000),
            (333, 232, 5000)]
 
 
+# S1 forms each slot's product v s beta in float32 (the float64 truth forms
+# it from the same float32 factors) and sums in double, so a row's margin is
+# off by at most 2^-24 sum |v s beta| and its mult by the link's slope times
+# that, plus float32's rounding of mult. S2 forms r v s in float32 as its
+# plain version does and sums in double: a column is off by float32's
+# rounding of its sum and double roundings of sum |r v s|. Every row and
+# every column is held to its own bound, at twice the unit roundoff.
+ROW_RTOL, COL_RTOL, COL_ATOL = 1.2e-7, 1e-7, 1e-9
+
+
+def _abs_tail(tail):
+    return None if tail is None else tail._replace(vals=tail.vals.abs())
+
+
+def _row_scale(idx, val, beta, scale, tail):
+    """sum |v s beta| of each row (float64): the scale of its margin."""
+    ones = torch.ones(idx.shape[0], device=idx.device)
+    return tk.ell_rows_plain(idx, val.abs(), ones, ones, beta.double().abs(),
+                             0.0, tk.GRAM, scale, _abs_tail(tail))[0]
+
+
+def _assert_columns(got, truth, abs_sum):
+    """Every column within COL_RTOL |truth| + COL_ATOL sum |terms|."""
+    err = (got.double() - truth).abs()
+    assert torch.all(err <= COL_RTOL * truth.abs() + COL_ATOL * abs_sum)
+
+
 def _run_both(dev, n, k, d, link, hybrid, scaled, seed):
     idx, val, tail, _ = _ell(n, k, d, seed, hot=True, empty=(1, 2),
                              tail_rows=3 if hybrid else 0, device=dev)
@@ -214,15 +241,23 @@ def _run_both(dev, n, k, d, link, hybrid, scaled, seed):
     again = tk.ell_rows(idx, val, y, w, beta, b0, link, scale, tail)
     truth = tk.ell_rows_plain(idx, val, y, w, beta.double(), b0.double(),
                               link, scale, tail)
+    ones = torch.ones_like(w)
+    margin = tk.ell_rows_plain(idx, val, y, ones, beta.double(), b0.double(),
+                               tk.GRAM, scale, tail)[0]
+    m_scale = _row_scale(idx, val, beta, scale, tail)
     cols = tk.ell_columns(idx, val, d, tail)
     grad = tk.ell_cols(idx, val, out[0], d, scale=scale, tail=tail,
                        columns=cols)
     grad2 = tk.ell_cols(idx, val, out[0], d, scale=scale, tail=tail,
                         columns=cols)
-    t_grad = tk.ell_cols_plain(idx, val, truth[0], d, scale=scale,
-                               tail=tail)
+    # S2's truth on S1's own mult, and the columns' sums of |r v s|
+    t_grad = tk.ell_cols_plain(idx, val, out[0], d, scale=scale, tail=tail,
+                               acc_dtype=torch.float64)
+    a_grad = tk.ell_cols_plain(idx, val.abs(), out[0].abs(), d, scale=scale,
+                               tail=_abs_tail(tail), acc_dtype=torch.float64)
     torch.cuda.synchronize()
-    return out, again, truth, grad, grad2, t_grad, w
+    return (out, again, truth, grad, grad2, t_grad, a_grad, y, w, margin,
+            m_scale)
 
 
 @pytest.mark.gpu
@@ -230,23 +265,39 @@ def _run_both(dev, n, k, d, link, hybrid, scaled, seed):
 @pytest.mark.parametrize("n,k,d", _SHAPES)
 @pytest.mark.parametrize("hybrid,scaled", [(False, False), (True, True)])
 def test_cuda_passes_match_plain(n, k, d, link, hybrid, scaled):
-    """S1 then S2 against their plain versions in float64 on the card:
-    |dloss| <= 1e-5 |loss|, max|dmult| and max|dgrad| <= 1e-4 of their
-    largest entries, sum(w) exact, two launches of each bitwise equal."""
+    """S1 then S2 against float64 on the card, each row and each column
+    to its own scale: every row's mult within its slope times 1.2e-7 sum
+    |v s beta| plus 1.2e-7 |mult| (a hinge row exact unless its margin
+    lies that close to the kink); the loss within the bound those margins
+    allow; sum(mult) the double sum of mult; S2 on S1's mult within 1e-7
+    of each column plus 1e-9 of its sum |r v s|; sum(w) exact; two
+    launches of each bitwise equal."""
     dev = _cuda()
     before = (tk.ell_rows.launches, tk.ell_cols.launches)
-    (mult, loss, msum, wsum), again, truth, grad, grad2, t_grad, w = \
-        _run_both(dev, n, k, d, link, hybrid, scaled, seed=n + k)
-    t_mult, t_loss, t_msum, t_wsum = truth
-    assert abs(float(loss) - float(t_loss)) <= 1e-5 * abs(float(t_loss)) \
-        + 1e-6
-    scale_m = float(t_mult.abs().max()) + 1e-12
-    assert float((mult.double() - t_mult).abs().max()) <= 1e-4 * scale_m
-    assert abs(float(msum) - float(t_msum)) <= 1e-5 * float(
-        t_mult.abs().sum()) + 1e-6
-    assert float(wsum) == float(w.double().sum())  # exact in double
-    scale_g = float(t_grad.abs().max()) + 1e-12
-    assert float((grad.double() - t_grad).abs().max()) <= 1e-4 * scale_g
+    ((mult, loss, msum, wsum), again, truth, grad, grad2, t_grad, a_grad,
+     y, w, margin, m_scale) = _run_both(dev, n, k, d, link, hybrid, scaled,
+                                        seed=n + k)
+    t_mult, t_loss = truth[0], truth[1]
+    w64 = w.double()
+    dmult = (mult.double() - t_mult).abs()
+    if link == tk.HINGE:
+        near = (1.0 - (2.0 * y.double() - 1.0) * margin).abs() \
+            <= ROW_RTOL * m_scale
+        assert torch.all(dmult[~near] == 0)
+        deriv = w64
+    else:
+        slope = {tk.LOGISTIC: w64 / 4, tk.SQUARED: w64,
+                 tk.GRAM: (w64 > 0).double()}[link]
+        assert torch.all(dmult <= ROW_RTOL * (slope * m_scale
+                                              + t_mult.abs()))
+        deriv = t_mult.abs() if link != tk.GRAM else torch.zeros_like(w64)
+    loss_tol = ROW_RTOL * float(torch.sum(deriv * m_scale)) \
+        + 1e-12 * abs(float(t_loss))
+    assert abs(float(loss) - float(t_loss)) <= loss_tol
+    assert abs(float(msum) - float(mult.double().sum())) <= \
+        1e-12 * float(mult.double().abs().sum())
+    assert float(wsum) == float(w64.sum())  # exact in double
+    _assert_columns(grad, t_grad, a_grad)
     assert torch.equal(mult, again[0]) and torch.equal(grad, grad2)
     assert all(torch.equal(a, b) for a, b in zip((loss, msum, wsum),
                                                  again[1:]))
@@ -258,7 +309,8 @@ def test_cuda_passes_match_plain(n, k, d, link, hybrid, scaled):
 @pytest.mark.parametrize("n,k,d", _SHAPES[1:])
 def test_cuda_moments_match_plain(n, k, d):
     """S2's moments mode (the sparse summary) against float64 sums, with
-    a tail; two launches bitwise equal."""
+    a tail, each column to its own scale (sum |w v| for sum w v; the other
+    two have no negative term); two launches bitwise equal."""
     dev = _cuda()
     idx, val, tail, _ = _ell(n, k, d, n, hot=True, empty=(3,), tail_rows=4,
                              device=dev)
@@ -268,18 +320,20 @@ def test_cuda_moments_match_plain(n, k, d):
     mom2 = tk.ell_cols(idx, val, w, d, moments=True, tail=tail, columns=cols)
     truth = tk.ell_cols_plain(idx, val, w, d, moments=True, tail=tail,
                               acc_dtype=torch.float64)
+    a0 = tk.ell_cols_plain(idx, val.abs(), w, d, moments=True,
+                           tail=_abs_tail(tail), acc_dtype=torch.float64)[0]
     torch.cuda.synchronize()
     assert torch.equal(mom, mom2)
     for q in range(3):
-        err = float((mom[q].double() - truth[q]).abs().max())
-        assert err <= 1e-5 * float(truth[q].abs().max()) + 1e-6
+        _assert_columns(mom[q], truth[q], a0 if q == 0 else truth[q].abs())
     assert float(mom[0, 3]) == 0.0  # the empty column
 
 
 @pytest.mark.gpu
 def test_cuda_column_holding_every_row_spans_many_pieces():
     """One column in all 300,000 rows (293 pieces) and the rest sparse:
-    the pieces' fixed-order combine against float64."""
+    the pieces' fixed-order combine against float64, each column to its
+    own scale."""
     dev = _cuda()
     n, d = 300_000, 64
     g = torch.Generator(device=dev).manual_seed(9)
@@ -291,10 +345,11 @@ def test_cuda_column_holding_every_row_spans_many_pieces():
     cols = tk.ell_columns(idx, val, d)
     assert int(cols.piece_start[1]) == -(-n // tk.ELL_PIECE)
     got = tk.ell_cols(idx, val, r, d, columns=cols)
-    truth = tk.ell_cols_plain(idx, val, r.double(), d)
+    truth = tk.ell_cols_plain(idx, val, r, d, acc_dtype=torch.float64)
+    abs_sum = tk.ell_cols_plain(idx, val.abs(), r.abs(), d,
+                                acc_dtype=torch.float64)
     torch.cuda.synchronize()
-    assert float((got.double() - truth).abs().max()) <= \
-        1e-5 * float(truth.abs().max())
+    _assert_columns(got, truth, abs_sum)
 
 
 @pytest.mark.gpu

@@ -223,6 +223,36 @@ def test_aggregators_check_the_tier(pctx):
         ell.tree_aggregate_fn(psa.least_squares_sparse_hybrid(20))(coef)
 
 
+@pytest.mark.parametrize("case", ["ell_past_d", "ell_negative",
+                                  "tail_past_d", "tail_row_past_n",
+                                  "constructor"])
+def test_ids_outside_the_dataset_raise_at_ingest(pctx, case):
+    """A column id outside [0, n_features) or a tail row id outside the
+    rows raises ValueError when the dataset is built (the kernels gather
+    by these ids unchecked); ids at the edges are accepted."""
+    idx = np.array([[0, 3], [2, 1]], np.int32)
+    val = np.ones((2, 2), np.float32)
+    SparseInstanceDataset.from_ell(pctx, idx, val, n_features=4)
+    rows = [(np.array([0, 1, 3]), np.ones(3)), (np.array([2]), np.ones(1))]
+    SparseInstanceDataset.from_rows_hybrid(pctx, rows, n_features=4, k_ell=1)
+    with pytest.raises(ValueError, match="ids must lie in"):
+        if case == "ell_past_d":
+            SparseInstanceDataset.from_ell(pctx, idx, val, n_features=3)
+        elif case == "ell_negative":
+            SparseInstanceDataset.from_ell(pctx, -idx, val, n_features=4)
+        else:
+            ds = SparseInstanceDataset.from_rows_hybrid(
+                pctx, rows, n_features=4, k_ell=1)
+            coo_row, coo_idx = ds.coo_row.clone(), ds.coo_idx.clone()
+            d = 3 if case == "constructor" else 4
+            if case == "tail_past_d":
+                coo_idx[1] = 4
+            if case == "tail_row_past_n":
+                coo_row[0] = ds.indices.shape[0]
+            SparseInstanceDataset(pctx, ds.indices, ds.values, ds.y, ds.w, 2,
+                                  d, coo_row, coo_idx, ds.coo_val)
+
+
 def test_kernel_route_on_the_cpu_runs_the_plain_passes(pctx):
     """usePallasKernels=true with CPU tensors: the wrappers run their plain
     versions (identical results), nothing is launched, and no column copy
