@@ -188,8 +188,44 @@ the final result line:
    branch, ``multiply`` by a seeded 2,000 x 64 matrix within 1e-5 of
    float64, ``column_similarities`` within 1e-5 of the float64 Gramian's
    cosines (K4 once per Gramian);
-28. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
-   instances, the center sums and S1/S2 (K3, K4 and K1s marked as redesigned for
+28. the wide instances of K1 and K2 (d > 2,048: two passes over X by
+   column block) against their plain versions in float64 on the card, with
+   phase 3's limits plus sum(mult) to 1e-4 of sum(w), counted as wide: at
+   1,281,167 x 4,096 (ImageNet-1k's training set through VGG-16's 4,096-wide
+   fc7) in bf16 and e4m3 with x_scale, at 500,000 x 4,096 in f32, and at
+   the ragged 100,003 x 2,049, 100,003 x 5,000 and 250,000 x 8,192 in all
+   three; their times beside the plain version (f32), the bound (one read
+   of X), two cuBLAS gemvs and the wide plan;
+29. the wide K1s with phase 15's checks (and sum(mult) to 1e-4 of sum(w))
+   at 50,000 x 3,072 with K = 8 and K = 2 (CIFAR-10's OneVsRest groups) and
+   250,000 x 8,192 with K = 8, in bf16, e4m3 and f32, timed beside the
+   plain version, the bound and the yardstick X B^T plus M^T X;
+30. binomial LogisticRegression (phase 4's settings) on
+   ``generate_classification`` at 1,281,167 x 4,096, bf16 (10.5 GB of X),
+   through K1's wide instance and through the plain aggregator, warm and
+   steady: the wide K1 launched exactly ``total_evals`` times and no
+   narrow one, coefficients within rtol 5e-3 / atol 5e-4, objectives to
+   1e-4, a bitwise-equal refit, peak memory;
+31. LinearRegression at configuration 2's settings (OWL-QN) on
+   ``generate_regression(seed=11, noise=0.1)`` at 1,281,167 x 4,096, bf16,
+   through K2's wide instance, phase 6's checks;
+32. OneVsRest at CIFAR-10's size (``generate_multiclass`` at 50,000 x
+   3,072, 10 classes, bf16, class centers at CIFAR_CENTER_SCALE so that the
+   classes overlap as CIFAR-10's do; phase 16's classifier) through the
+   wide K1s (a
+   group of 8 and a group of 2 a stacked evaluation), through the plain
+   stacked aggregator and serially (10 fits through the wide K1), phase
+   16's checks;
+33. the float32 tier's sparse intercept: phase 25's fits (float32 kernel,
+   float32 plain, float64 plain) on Criteo-class rows drawn at seeds 1 and
+   2, cut to an eighth of the rows, their distances and the iteration
+   where their objectives part printed, the objectives held to 1e-4; and
+   (in phase 25) one evaluation at the float64 plain fit's solution
+   through the kernels against float64, the intercept's gradient to 1e-6
+   of sum(w);
+34. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+   instances, the wide instances of K1, K2 and K1s, the center sums and
+   S1/S2 (K3, K4 and K1s marked as redesigned for
    the tensor cores, with their instance, f32 FMA bounds and ptxas lines;
    K2 in both instances and K1's e4m3 instance marked as redesigned around
    a per-lane cp.async ring, and every GLM sweep with its instance, ring
@@ -241,6 +277,21 @@ CRITEO_D = 1 << 20      # hashed columns (the reference demo's default width)
 NYT_N, NYT_D, NYT_K = 300_000, 102_660, 232   # configuration 5 (NYTimes)
 NYT_SV = 20                                   # its singular values
 MULTIPLY_COLS = 64
+# the wide slice (d > 2048): a linear probe on VGG-16 fc7 features (4,096
+# wide) over ImageNet-1k's training set, and CIFAR-10's OneVsRest
+WIDE_N, WIDE_D = 1_281_167, 4096
+WIDE_F32_N = 500_000             # f32 X at the probe's width (8.2 GB)
+WIDE_RAGGED = ((100_003, 2049), (100_003, 5000), (250_000, 8192))
+CIFAR_N, CIFAR_D, CIFAR_K = 50_000, 3072, 10
+# class centers N(0, 0.02^2 I), about 1.6 sigma apart (0.02 sqrt(2 d)), so
+# that the classes overlap as CIFAR-10's do for a linear model (the fit's
+# training accuracy is printed); the generator's default 3.0 would set
+# them ~235 sigma apart at this width, every class separable
+CIFAR_CENTER_SCALE = 0.02
+K1S_WIDE = ((CIFAR_N, CIFAR_D, (8, 2)), (250_000, 8192, (8,)))
+CRITEO_SEEDS = (1, 2)            # the intercept inquiry's two more draws
+CRITEO_SEED_N = CRITEO_N // 8    # ... cut to an eighth of the rows (the
+                                 # phase's time; a quarter took 25 s)
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
 ROWS64 = 1 << 16             # rows widened to float64 at a time
@@ -284,7 +335,8 @@ def phase_card():
 def _kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel instance: its X (or partial)
     dtype and its other template arguments (glm_sweep_kernel: elements
-    per lane and the link, 0 logistic, 1 squared; glm_stacked_kernel:
+    per lane and the link, 0 logistic, 1 squared; glm_wide_margin_kernel:
+    the link; glm_wide_fma_*: models per launch; glm_stacked_kernel:
     columns per thread and models per launch; glm_stacked_tc_kernel:
     k-blocks per warp and models per launch; center_piece_kernel: w's
     dtype; gramian_tc_kernel: the staging; kmeans_assign_tc_kernel:
@@ -311,6 +363,12 @@ def _kernel_name(mangled: str) -> str:
     if m.group(4):  # a second type: the center sums' w
         args.append("w " + names[m.group(4)])
     ints = re.findall(r"Li(\d+)E", m.group(5))
+    if m.group(1).startswith("glm_wide_"):  # the wide instances
+        if "_fma_" in m.group(1):
+            args.append(f"KG={ints[0]}")
+        elif ints:
+            args.append(("logistic", "squared")[int(ints[0])])
+        return f"{m.group(1)}<{', '.join(args)}>"
     if len(ints) == 2 and m.group(1) == "glm_stacked_kernel":
         args += [f"C={ints[0]}", f"KG={ints[1]}"]
     elif len(ints) == 2 and m.group(1) == "glm_stacked_tc_kernel":
@@ -2902,6 +2960,15 @@ def phase_criteo():
         ctx.conf.set("cyclone.compute.dtype", "float64")
         k64, k64_s = _sparse_fit(ctx, ds, "auto")
         p64, p64_s = _sparse_fit(ctx, ds, "false")
+        # the intercept's gradient at the float64 plain fit's solution: a
+        # fault in how S1 and S2 fold the intercept and the scale shows
+        # here, where line searches cannot part
+        icpt_eval = _intercept_eval(ds, columns, p64)
+        _line("criteo_intercept_eval", **icpt_eval,
+              objectives_part_at_iteration={
+                  "kernel_f32": _history_parts(k_model, p64),
+                  "plain_f32": _history_parts(p_model, p64),
+                  "kernel_f64": _history_parts(k64, p64)})
         ks, ps = k_model.summary, p_model.summary
         kc, pc = k_model.coefficients.values, p_model.coefficients.values
 
@@ -2974,11 +3041,46 @@ def phase_criteo():
             "three kernel fits bitwise equal": bitwise,
             "finite model": bool(np.all(np.isfinite(kc))),
             "training AUC above 0.5": auc > 0.5,
+            "at one point, the kernels' intercept gradient within its rows' "
+            "bounds of float64": icpt_eval["msum_err"]
+                <= icpt_eval["msum_bound"],
         })
         return {"s1": s1, "s2": s2, "s1_launches": s1_launches,
                 "s2_launches": s2_launches}
     finally:
         ctx.stop()
+
+
+def _intercept_eval(ds, columns, model):
+    """One evaluation of the fit's pass (S1 with the standardizing scale,
+    then S2) at ``model``'s solution, through the kernels and through the
+    plain versions in float64: the intercept's gradient sum(mult) against
+    the sum of its rows' bounds (phase 24's: 2x float32's unit roundoff of
+    w/4 sum|v s beta| + |mult| a row), the loss and the gradient."""
+    import torch
+    from cycloneml_tpu_torch.dataset.sparse import sparse_feature_std
+    from cycloneml_tpu_torch.ops import kernels
+    std = torch.as_tensor(sparse_feature_std(ds), device=ds.device)
+    inv = torch.where(std > 0, 1.0 / torch.where(std > 0, std, 1.0),
+                      0.0).float()
+    # the fit's standardized coefficients: coef = beta_std * inv_std
+    beta = torch.as_tensor(model.coefficients.values, dtype=torch.float64,
+                           device=ds.device) * std
+    a = _ell_pair(ds, beta.float(), model.intercept, kernels.LOGISTIC, inv,
+                  columns)
+    torch.cuda.synchronize()
+    t = _ell_pair(ds, beta, model.intercept, kernels.LOGISTIC, inv,
+                  plain=True)
+    bound = ELL_ROW_RTOL * float(torch.sum(
+        ds.w.double() / 4 * _abs_sums(ds, inv, beta=beta.float())
+        + t[0].abs()))
+    wsum = float(t[3])
+    return {"msum_err": abs(float(a[2]) - float(t[2])),
+            "msum_bound": bound,
+            "msum_err_over_wsum": abs(float(a[2]) - float(t[2])) / wsum,
+            "rel_loss": abs(float(a[1]) - float(t[1])) / abs(float(t[1])),
+            "grad_err_over_max": float((a[4].double() - t[4]).abs().max())
+            / float(t[4].abs().max())}
 
 
 def phase_config5():
@@ -3120,6 +3222,495 @@ def phase_rowmatrix():
         ctx.stop()
 
 
+# -- the wide slice: K1, K2 and K1s past d = 2,048 ----------------------------
+
+def _wide_x_forms(n, d, seed, forms):
+    """X (n, d) drawn on the card in each of ``forms`` ("float32",
+    "bfloat16", "e4m3"), one at a time, with its x_scale (float32, float64)
+    for the e4m3 codes: the codes of the bf16 draw quantized on the card."""
+    import torch
+    from cycloneml_tpu_torch.dataset.instance import quantize_fp8
+    for form in forms:
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        if form == "float32":
+            yield _randn(n, d, g), None, None
+        elif form == "bfloat16":
+            yield _randn(n, d, g, torch.bfloat16), None, None
+        else:
+            xb = _randn(n, d, g, torch.bfloat16)
+            x8, scale, _ = quantize_fp8(xb)
+            del xb
+            yield (x8, torch.as_tensor(scale, dtype=torch.float32,
+                                       device=DEVICE),
+                   torch.as_tensor(scale, dtype=torch.float64, device=DEVICE))
+
+
+def _wide_sweep_check(x, y, w, beta, off, link, ys, s32, s64):
+    """One sweep of the wide instance against the plain version in float64:
+    (errors, ok)."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    before = dict(kernels.glm_sweep.launches_by_width)
+    got = kernels.glm_sweep(x, y, w, beta, off, link=link, ys=ys,
+                            x_scale=s32)
+    again = kernels.glm_sweep(x, y, w, beta, off, link=link, ys=ys,
+                              x_scale=s32)
+    torch.cuda.synchronize()
+    after = kernels.glm_sweep.launches_by_width
+    tl, tg, tm, tw = kernels.glm_sweep_plain(
+        x, y, w, beta.double(), off, acc_dtype=torch.float64, link=link,
+        ys=ys, x_scale=s64)
+    n = x.shape[0]
+    e = {"rel_loss": abs(float(got[0]) - float(tl)) / abs(float(tl)),
+         "grad_err_over_max": float((got[1].double() - tg).abs().max())
+         / float(tg.abs().max()),
+         "max_abs_grad_err": float((got[1].double() - tg).abs().max()),
+         "msum_err_over_wsum": abs(float(got[2]) - float(tm)) / float(tw),
+         "count": float(got[3]),
+         "bitwise_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
+         "wide_launches": after[kernels.WIDE] - before[kernels.WIDE],
+         "narrow_launches": after[kernels.NARROW] - before[kernels.NARROW]}
+    ok = (e["rel_loss"] <= 1e-5 and e["grad_err_over_max"] <= 1e-4
+          and e["msum_err_over_wsum"] <= 1e-4 and e["count"] == n
+          and float(tw) == n and e["bitwise_equal"]
+          and e["wide_launches"] == 2 and e["narrow_launches"] == 0)
+    return e, ok
+
+
+def phase_wide_kernel():
+    """The wide K1 and K2 against their plain versions in float64 at the
+    probe's shape (bf16, e4m3), at WIDE_F32_N rows in f32 and at the
+    ragged shapes in all three; times at the full-width shapes. Returns
+    {link: the kernels line's numbers (bf16 at WIDE_N), with every
+    dtype's time at the main shapes}."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    lg, sq = kernels.LOGISTIC, kernels.SQUARED
+    out = {lg: {"by_dtype": {}}, sq: {"by_dtype": {}}}
+    cases = [(WIDE_N, WIDE_D, ("bfloat16", "e4m3")),
+             (WIDE_F32_N, WIDE_D, ("float32",))] + [
+        (n, d, ("float32", "bfloat16", "e4m3")) for n, d in WIDE_RAGGED]
+    for n, d, forms in cases:
+        g = torch.Generator(device=DEVICE).manual_seed(n + d)
+        w = torch.ones(n, device=DEVICE)
+        beta = torch.randn(d, generator=g, device=DEVICE) / d ** 0.5
+        off = torch.tensor(0.25, device=DEVICE)
+        ys = torch.tensor(0.7, device=DEVICE)
+        ys_of = {lg: (torch.rand(n, generator=g, device=DEVICE) > 0.5)
+                 .float(),
+                 sq: torch.randn(n, generator=g, device=DEVICE) * 3 + 1}
+        for x, s32, s64 in _wide_x_forms(n, d, 11 * n + d, forms):
+            for link in (lg, sq):
+                y = ys_of[link]
+                e, ok = _wide_sweep_check(x, y, w, beta, off, link, ys, s32,
+                                          s64)
+                _line("wide_check", n=n, d=d, dtype=_dt(x), link=link,
+                      x_scale=s32 is not None, ok=ok, **e)
+                if not ok:
+                    raise AssertionError(f"the wide {link} sweep disagrees "
+                                         f"with its plain version at n={n} "
+                                         f"d={d} {x.dtype}")
+                if n in (WIDE_N, WIDE_F32_N) or d == 8192:
+                    t = _wide_times(x, y, w, beta, off, link, ys, s32)
+                    if n in (WIDE_N, WIDE_F32_N):
+                        out[link]["by_dtype"][_dt(x)] = t
+                    if n == WIDE_N and x.dtype == torch.bfloat16:
+                        out[link].update(t, max_abs_err=e["max_abs_grad_err"])
+            del x
+            torch.cuda.empty_cache()
+    return out
+
+
+def _wide_times(x, y, w, beta, off, link, ys, x_scale):
+    """The wide sweep's time beside its plain version (f32), the bound (one
+    read of X, y and w), two cuBLAS gemvs in X's dtype (none for e4m3) and
+    the wide plan."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    n, d = x.shape
+    k_ms = _time_ms(lambda: kernels.glm_sweep(
+        x, y, w, beta, off, link=link, ys=ys, x_scale=x_scale), 20, 3)
+    p_ms = _time_ms(lambda: kernels.glm_sweep_plain(
+        x, y, w, beta, off, link=link, ys=ys, x_scale=x_scale), 3, 1)
+    if link == kernels.LOGISTIC:
+        yard = _gemv_yardstick(x, beta,
+                               lambda m: w * (torch.sigmoid(m + off) - y))
+    else:
+        yard = _gemv_yardstick(x, beta, lambda m: w * (m + off - ys * y))
+    n_bytes = n * d * x.element_size() + 2 * n * 4 + d * 4 + (d + 3) * 4
+    bound, bound_by = _bound(n_bytes, 4.0 * n * d)
+    plan = kernels.glm_sweep_plan(x.dtype, link, d)
+    _line("wide_time", n=n, d=d, dtype=_dt(x), link=link, kernel_ms=k_ms,
+          plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+          share_of_bound=bound / k_ms, yardstick_two_gemv_ms=yard,
+          achieved_gb_s=n_bytes / k_ms / 1e6, **plan)
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": bound_by, "yardstick_ms": yard, "plan": plan,
+            "n": n, "d": d}
+
+
+def phase_wide_k1s():
+    """The wide K1s against its plain version in float64 (phase 15's
+    checks and sum(mult) to 1e-4 of sum(w); two launches bitwise equal,
+    one launch per group counted as wide) at K1S_WIDE in bf16, e4m3 and
+    f32, centered; times at every shape. Returns the kernels line's
+    numbers: bf16 at CIFAR-10's shape, K = 8, with the other times."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    out = {"times": []}
+    for n, d, ks in K1S_WIDE:
+        g = torch.Generator(device=DEVICE).manual_seed(3 * n + d)
+        kmax = max(ks)
+        truth = torch.randn(d, kmax, generator=g, device=DEVICE) / d ** 0.5
+        coef = torch.randn(kmax, d + 1, generator=g, device=DEVICE) \
+            / d ** 0.5
+        inv_std = torch.rand(d, generator=g, device=DEVICE) + 0.5
+        mu = torch.randn(d, generator=g, device=DEVICE) * 0.5
+        w = torch.ones(n, device=DEVICE)
+        y32 = None
+        for x, s32, s64 in _wide_x_forms(n, d, 5 * n + d,
+                                         ("bfloat16", "e4m3", "float32")):
+            if y32 is None:  # labels from the first form's rows
+                y32 = torch.empty((n, kmax), device=DEVICE)
+                for lo in range(0, n, ROWS):
+                    m = x[lo:lo + ROWS].float() @ truth
+                    y32[lo:lo + ROWS] = (m + torch.randn(
+                        m.shape, generator=g, device=DEVICE) > 0).float()
+            ys = y32.to(_label_dtype(x))
+            for k in ks:
+                yk = ys[:, :k]
+                group = kernels.glm_sweep_stacked_group(x.dtype, d)
+                groups = -(-k // group)
+                before = dict(kernels.glm_sweep_stacked.launches_by_width)
+                got = kernels.fused_binary_logistic_stacked_scaled(
+                    x, yk, w, inv_std, mu, coef[:k], d, x_scale=s32)
+                again = kernels.fused_binary_logistic_stacked_scaled(
+                    x, yk, w, inv_std, mu, coef[:k], d, x_scale=s32)
+                torch.cuda.synchronize()
+                after = kernels.glm_sweep_stacked.launches_by_width
+                t_loss, t_grad, t_w = _fold_truth_stacked(
+                    x, yk, w, inv_std, mu, coef[:k], d, s64)
+                rel_loss, rel_grad, err = _k1s_errors(got, t_loss, t_grad)
+                msum = float((got["grad"][:, d].double() - t_grad[:, d])
+                             .abs().max()) / float(t_w)
+                bitwise = all(torch.equal(got[q], again[q])
+                              for q in ("loss", "grad", "count"))
+                launched = (after[kernels.WIDE] - before[kernels.WIDE]
+                            == 2 * groups and after[kernels.NARROW]
+                            == before[kernels.NARROW])
+                ok = (rel_loss <= 1e-5 and rel_grad <= 1e-4
+                      and msum <= 1e-4 and bool((got["count"] == n).all())
+                      and float(t_w) == n and bitwise and launched)
+                _line("wide_k1s_check", n=n, d=d, k=k, dtype=_dt(x),
+                      instance=kernels.INSTANCE[x.dtype], group=group,
+                      x_scale=s32 is not None, rel_loss=rel_loss,
+                      grad_err_over_max=rel_grad, max_abs_grad_err=err,
+                      msum_err_over_wsum=msum, launches=2 * groups,
+                      bitwise_equal=bitwise, ok=ok)
+                if not ok:
+                    raise AssertionError(f"the wide K1s disagrees with its "
+                                         f"plain version at n={n} d={d} "
+                                         f"k={k} {x.dtype}")
+                t = _wide_k1s_times(x, yk, w, coef[:k], inv_std, s32)
+                out["times"].append(t)
+                if n == CIFAR_N and k == 8 and x.dtype == torch.bfloat16:
+                    out.update(t, max_abs_err=err)
+            del x, ys
+            torch.cuda.empty_cache()
+        del y32
+    return out
+
+
+def _wide_k1s_times(x, y, w, coef, inv_std, x_scale):
+    """The wide K1s's time beside its plain version (f32), the bound (X,
+    the labels and w once; the tensor-core instance's 12 n d K operations
+    at the bf16 rate, the FMA instance's 4 n d K at the f32 rate) and the
+    yardstick X B^T plus M^T X in X's dtype (none for e4m3 codes)."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    n, d = x.shape
+    k = y.shape[1]
+    b = coef[:, :d] * inv_std
+    off = coef[:, d]
+    k_ms = _time_ms(lambda: kernels.glm_sweep_stacked(
+        x, y, w, b, off, x_scale=x_scale), 10, 2)
+    p_ms = _time_ms(lambda: kernels.glm_sweep_stacked_plain(
+        x, y, w, b, off, x_scale=x_scale), 2, 1)
+    yard = None
+    if x.dtype != torch.float8_e4m3fn:
+        bt = b.t().contiguous().to(x.dtype)
+        mult = (w[:, None] * (torch.sigmoid((x @ bt).float() + off)
+                              - y.float())).to(x.dtype)
+        yard = _time_ms(lambda: (x @ bt, mult.t() @ x), 5, 1)
+        del mult
+    n_bytes = (n * d * x.element_size() + n * k * y.element_size() + n * 4
+               + k * (d + 1) * 4 + (k * (d + 2) + 1) * 4)
+    instance = kernels.INSTANCE[x.dtype]
+    if instance == kernels.TENSOR_CORE:
+        bound, bound_by = _bound(n_bytes, 12.0 * n * d * k, H100_BF16_FLOPS)
+    else:
+        bound, bound_by = _bound(n_bytes, 4.0 * n * d * k)
+    _line("wide_k1s_time", n=n, d=d, k=k, dtype=_dt(x), instance=instance,
+          kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+          share_of_bound=bound / k_ms, yardstick_xbt_mtx_ms=yard,
+          achieved_gb_s=n_bytes / k_ms / 1e6)
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": bound_by, "yardstick_ms": yard, "n": n, "d": d,
+            "k": k, "dtype": _dt(x)}
+
+
+def _wide_fit_phase(tag, generate, estimator, link):
+    """One wide fit on data drawn on the card (bf16): through the kernel
+    (usePallasKernels=auto, warm and steady; the main path: counts zeroed
+    just before, read just after) and through the plain aggregator (false,
+    warm and steady), with phase 4's checks. Returns the wide kernel's
+    launches in the first fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+
+    torch.cuda.empty_cache()
+    ctx = _context(f"chip_smoke_{tag}")
+    try:
+        ds, gen_s = _timed(lambda: generate(ctx))
+
+        def fit(mode):
+            ctx.conf.set("cyclone.ml.usePallasKernels", mode)
+            return _timed(lambda: estimator().fit(ds))
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        k_model, k_warm = fit("auto")
+        wide = kernels.glm_sweep.launches_by_width[kernels.WIDE]
+        narrow = kernels.glm_sweep.launches_by_width[kernels.NARROW]
+        by_link = kernels.glm_sweep.launches_by_link[link]
+        others = _other_launches(kernels, link)
+        k_again, k_steady = fit("auto")
+        p_model, p_warm = fit("false")
+        _, p_steady = fit("false")
+        peak = torch.cuda.max_memory_allocated()
+        ks, ps = k_model.summary, p_model.summary
+        kc, pc = k_model.coefficients.values, p_model.coefficients.values
+        obj_rel = abs(ks.objective_history[-1] - ps.objective_history[-1]) \
+            / abs(ps.objective_history[-1])
+        _line(tag, n=WIDE_N, d=WIDE_D, data_dtype=_dt(ds.x),
+              x_bytes=ds.x.numel() * ds.x.element_size(), generate_s=gen_s,
+              kernel={"iterations": ks.total_iterations,
+                      "evals": ks.total_evals, "wide_launches": wide,
+                      "warm_s": k_warm, "steady_s": k_steady,
+                      "final_objective": ks.objective_history[-1],
+                      "zero_coefficients": int(np.sum(kc == 0))},
+              plain={"iterations": ps.total_iterations,
+                     "evals": ps.total_evals, "warm_s": p_warm,
+                     "steady_s": p_steady,
+                     "final_objective": ps.objective_history[-1]},
+              max_abs_coef_diff=float(np.max(np.abs(kc - pc))),
+              intercepts=[k_model.intercept, p_model.intercept],
+              objective_rel_diff=obj_rel, max_memory_allocated=peak)
+        _check(tag, {
+            "the wide instance launched once per evaluation, the narrow "
+            "never": wide == ks.total_evals == by_link and narrow == 0,
+            "no other kernel launched": others == 0,
+            "final objectives agree to 1e-4": obj_rel <= 1e-4,
+            "coefficients agree (rtol 5e-3, atol 5e-4)": bool(np.allclose(
+                kc, pc, rtol=5e-3, atol=5e-4)) and abs(
+                k_model.intercept - p_model.intercept) <=
+                5e-4 + 5e-3 * abs(p_model.intercept),
+            "finite model": bool(np.all(np.isfinite(kc))),
+            "repeat fit reproduces the model": bool(np.array_equal(
+                k_again.coefficients.values, kc)),
+        })
+        return wide
+    finally:
+        ctx.stop()
+
+
+def phase_wide_fit():
+    """LogisticRegression(maxIter=25, regParam=0.01, tol=0) at the probe's
+    shape through K1's wide instance (:func:`_wide_fit_phase`)."""
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ops import kernels
+    return _wide_fit_phase(
+        "wide_fit", lambda ctx: generate_classification(ctx, WIDE_N, WIDE_D,
+                                                        seed=0),
+        lambda: LogisticRegression(maxIter=25, regParam=0.01, tol=0.0),
+        kernels.LOGISTIC)
+
+
+def phase_wide_linreg():
+    """LinearRegression at configuration 2's settings (OWL-QN) at the
+    probe's shape through K2's wide instance (:func:`_wide_fit_phase`)."""
+    from cycloneml_tpu_torch.dataset.random import generate_regression
+    from cycloneml_tpu_torch.ml.regression import LinearRegression
+    from cycloneml_tpu_torch.ops import kernels
+    return _wide_fit_phase(
+        "wide_linreg_fit", lambda ctx: generate_regression(
+            ctx, WIDE_N, WIDE_D, seed=11, noise=0.1),
+        lambda: LinearRegression(regParam=0.001, elasticNetParam=0.5,
+                                 maxIter=100, tol=1e-7),
+        kernels.SQUARED)
+
+
+def phase_cifar_ovr():
+    """OneVsRest at CIFAR-10's size (50,000 x 3,072, 10 classes, bf16)
+    through the wide K1s (groups of 8 and 2), through the plain stacked
+    aggregator and serially (10 fits through the wide K1), with phase 16's
+    checks. Returns K1s's launches in the stacked fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_multiclass
+    from cycloneml_tpu_torch.ml.classification import (LogisticRegression,
+                                                       OneVsRest)
+    from cycloneml_tpu_torch.ops import kernels
+
+    torch.cuda.empty_cache()
+    ctx = _context("chip_smoke_cifar")
+    try:
+        ds, gen_s = _timed(lambda: generate_multiclass(
+            ctx, CIFAR_N, CIFAR_D, CIFAR_K, seed=7,
+            center_scale=CIFAR_CENTER_SCALE))
+        labels = torch.as_tensor(ds.y_host()[:ds.n_rows],
+                                 device=ds.x.device).long()
+
+        def fit(mode, par):
+            ctx.conf.set("cyclone.ml.usePallasKernels", mode)
+            clf = LogisticRegression(maxIter=25, regParam=0.01, tol=0.0)
+            return _timed(lambda: OneVsRest(classifier=clf,
+                                            parallelism=par).fit(ds))
+
+        kernels.reset_launch_counts()
+        k_model, k_warm = fit("auto", CIFAR_K)
+        k1s = kernels.glm_sweep_stacked.launches
+        k1s_wide = kernels.glm_sweep_stacked.launches_by_width[kernels.WIDE]
+        k1s_tc = kernels.glm_sweep_stacked.launches_by_instance[
+            kernels.TENSOR_CORE]
+        k1 = kernels.glm_sweep.launches
+        others = _other_launches(kernels, "glm_stacked")
+        k_again, k_steady = fit("auto", CIFAR_K)
+        p_model, p_s = fit("false", CIFAR_K)
+        kernels.reset_launch_counts()
+        s_model, s_s = fit("auto", 1)
+        serial_k1 = kernels.glm_sweep.launches_by_width[kernels.WIDE]
+        serial_narrow = kernels.glm_sweep.launches_by_width[kernels.NARROW]
+        serial_k1s = kernels.glm_sweep_stacked.launches
+        pred_k = _ovr_margins(ds, k_model.models)
+        agree_s = float((pred_k == _ovr_margins(ds, s_model.models))
+                        .double().mean())
+        agree_p = float((pred_k == _ovr_margins(ds, p_model.models))
+                        .double().mean())
+        acc = float((pred_k == labels).double().mean())
+        coef_p, obj_p = _same_models(k_model, p_model)
+        coef_s, obj_s = _same_models(k_model, s_model)
+        stacked_evals = k_model.models[0].summary.stacked_evals
+        group = kernels.glm_sweep_stacked_group(ds.x.dtype, CIFAR_D)
+        groups = -(-CIFAR_K // group)
+        serial_evals = sum(m.summary.total_evals for m in s_model.models)
+        _line("cifar_ovr_fit", n=CIFAR_N, d=CIFAR_D, classes=CIFAR_K,
+              data_dtype=_dt(ds.x), generate_s=gen_s, group=group,
+              stacked_k1s={**_ovr_summary(k_model), "k1s_launches": k1s,
+                           "k1_launches": k1, "warm_s": k_warm,
+                           "steady_s": k_steady},
+              stacked_plain={**_ovr_summary(p_model), "fit_s": p_s},
+              serial_k1={**_ovr_summary(s_model), "k1_launches": serial_k1,
+                         "k1s_launches": serial_k1s, "fit_s": s_s},
+              objective_rel_diff={"plain": obj_p, "serial": obj_s},
+              prediction_agreement={"plain": agree_p, "serial": agree_s},
+              train_accuracy=acc)
+        _check("cifar ovr fit", {
+            "the wide K1s launched once per stacked evaluation and group "
+            "(8 + 2), all on the tensor cores":
+                k1s == stacked_evals * groups == k1s_wide == k1s_tc
+                and groups == 2,
+            "K1 launched 0 times in the stacked fit": k1 == 0,
+            "no other kernel launched": others == 0,
+            "the serial fits launch the wide K1 once per evaluation, K1s "
+            "never": serial_k1 == serial_evals and serial_narrow == 0
+                and serial_k1s == 0,
+            "coefficients agree with the plain stacked fit (rtol 5e-3, "
+            "atol 5e-4)": coef_p,
+            "coefficients agree with the serial fits": coef_s,
+            "final objectives agree to 1e-4": max(obj_p, obj_s) <= 1e-4,
+            "predictions agree on >= 99.9% of rows":
+                min(agree_p, agree_s) >= 0.999,
+            "repeat fit reproduces the models": all(
+                np.array_equal(a.coefficients.values, b.coefficients.values)
+                for a, b in zip(k_model.models, k_again.models)),
+            "finite models": all(np.all(np.isfinite(m.coefficients.values))
+                                 for m in k_model.models),
+        })
+        return k1s
+    finally:
+        ctx.stop()
+
+
+def _history_parts(a, b, rtol=1e-6) -> int:
+    """The first iteration where two objective histories part by more than
+    ``rtol`` relative (-1 when they never do)."""
+    import numpy as np
+    ha, hb = (np.asarray(m.summary.objective_history) for m in (a, b))
+    m = min(len(ha), len(hb))
+    apart = np.abs(ha[:m] - hb[:m]) > rtol * np.abs(hb[:m])
+    return int(np.argmax(apart)) if apart.any() else -1
+
+
+def phase_criteo_seeds():
+    """The float32 tier's sparse intercept at two more draws: phase 25's
+    float32 kernel fit, float32 plain fit and float64 plain fit on
+    Criteo-class rows at seeds CRITEO_SEEDS, cut to CRITEO_SEED_N rows;
+    the intercept's and coefficients' distances to the float64 plain fit,
+    the iteration where the objectives part, the objectives held to 1e-4
+    of each other."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_criteo_like
+
+    for seed in CRITEO_SEEDS:
+        torch.cuda.empty_cache()
+        ctx = _context("chip_smoke_criteo_seed")
+        ds = None
+        try:
+            ds, gen_s = _timed(lambda: generate_criteo_like(
+                ctx, CRITEO_SEED_N, seed=seed, hash_dim=CRITEO_D))
+            k32, k_s = _sparse_fit(ctx, ds, "auto")
+            p32, p_s = _sparse_fit(ctx, ds, "false")
+            ctx.conf.set("cyclone.compute.dtype", "float64")
+            p64, p64_s = _sparse_fit(ctx, ds, "false")
+            obj = {name: abs(m.summary.objective_history[-1]
+                             - p64.summary.objective_history[-1])
+                   / abs(p64.summary.objective_history[-1])
+                   for name, m in (("kernel_f32", k32), ("plain_f32", p32))}
+            _line("criteo_intercept", seed=seed, n=CRITEO_SEED_N,
+                  generate_s=gen_s, fit_s=[k_s, p_s, p64_s],
+                  intercepts={"kernel_f32": k32.intercept,
+                              "plain_f32": p32.intercept,
+                              "plain_f64": p64.intercept},
+                  intercept_diff_to_f64={
+                      "kernel_f32": abs(k32.intercept - p64.intercept),
+                      "plain_f32": abs(p32.intercept - p64.intercept)},
+                  max_abs_coef_diff_to_f64={
+                      name: float(np.max(np.abs(m.coefficients.values
+                                                - p64.coefficients.values)))
+                      for name, m in (("kernel_f32", k32),
+                                      ("plain_f32", p32))},
+                  objectives_part_at_iteration={
+                      "kernel_f32": _history_parts(k32, p64),
+                      "plain_f32": _history_parts(p32, p64)},
+                  iterations=[m.summary.total_iterations
+                              for m in (k32, p32, p64)],
+                  objective_rel_diff_to_f64=obj)
+            _check("criteo intercept", {
+                f"seed {seed}: final objectives agree to 1e-4":
+                    max(obj.values()) <= 1e-4,
+                f"seed {seed}: finite models": all(
+                    np.all(np.isfinite(m.coefficients.values))
+                    for m in (k32, p32, p64)),
+            })
+        finally:
+            ctx.stop()
+            del ds
+
+
 def main() -> int:
     try:
         import torch
@@ -3141,6 +3732,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from cycloneml_tpu_torch.ops import kernels
     t_start = time.perf_counter()
     card, kind = phase_card()
     ptxas = phase_build()
@@ -3249,6 +3841,37 @@ def main() -> int:
     crit = phase_criteo()
     nyt = phase_config5()
     phase_rowmatrix()
+    # the wide slice: K1, K2 and K1s past d = 2,048, their fits, and the
+    # sparse intercept's inquiry
+    wide = phase_wide_kernel()
+    wide_k1s = phase_wide_k1s()
+    wide_fit = phase_wide_fit()
+    wide_lin = phase_wide_linreg()
+    cifar = phase_cifar_ovr()
+    phase_criteo_seeds()
+    wide_ptxas = {f: ptxas.get(f) for f in ptxas
+                  if f.startswith("glm_wide_")}
+    how = "the wide instance: two passes over X by column block"
+    for link, line, launches, what in (
+            (kernels.LOGISTIC, 270, wide_fit, "K1"),
+            (kernels.SQUARED, 226, wide_lin, "K2")):
+        nums = wide[link]
+        entry(f"glm_sweep ({link}, {what}, wide: d > 2048)", "glm_sweep",
+              line, nums, launches, shape=[WIDE_N, WIDE_D], dtype="bf16",
+              plan=nums["plan"], redesigned=how,
+              by_dtype={dt: {k: t[k] for k in ("n", "d", "ms", "plain_ms",
+                                                "bound_ms", "yardstick_ms")}
+                        for dt, t in nums["by_dtype"].items()},
+              yardstick="two cuBLAS gemvs in X's dtype",
+              ptxas={f: v for f, v in wide_ptxas.items()
+                     if "glm_wide_margin" in f or "glm_wide_grad" in f})
+    entry("glm_sweep_stacked (K1s, wide: d > 2048)", "glm_stacked", 270,
+          wide_k1s, cifar, models=8, shape=[CIFAR_N, CIFAR_D],
+          dtype="bf16", vmapped_by="cycloneml_tpu/ml/optim/aggregators.py:394",
+          redesigned=how, yardstick="X B^T plus M^T X in X's dtype",
+          times=wide_k1s["times"],
+          ptxas={f: v for f, v in wide_ptxas.items() if "_tc_" in f
+                 or "_fma_" in f or "wide_reduce" in f})
     sparse = "cycloneml_tpu/ml/optim/sparse_aggregators.py"
     ell_ptxas = {f: ptxas.get(f) for f in ptxas if f.startswith("ell_")}
     entry("ell_rows (S1, the sparse row pass)", "ell_sweep",

@@ -237,8 +237,9 @@ OOCORE_MODE = (
     ConfigBuilder("cyclone.oocore.mode")
     .doc("Out-of-core streaming fit mode, the reference's key: 'auto' "
          "(default) and 'off' fit in core; 'force' asks for the streaming "
-         "epoch engine, which is ROADMAP slice 6 (stacked fits raise "
-         "NotImplementedError under it).")
+         "epoch engine, which is ROADMAP slice 6 (the dense "
+         "LogisticRegression and LinearRegression fits, stacked fits "
+         "included, raise NotImplementedError under it).")
     .check_value(lambda v: v in ("auto", "force", "off"),
                  "must be auto, force or off")
     .str_conf("auto")

@@ -128,9 +128,51 @@
 // double every 4,096 rows). Instances: C in {2, 4, 6, 8} x KG in {4, 8,
 // 16}.
 //
-// Limits: d <= 2048 and at most 16 models a launch (8 on the tensor cores
-// for d > 1280); the wrapper runs groups, each one launch and one more
-// read of X.
+// Limits of these two: d <= 2048 and at most 16 models a launch (8 on the
+// tensor cores for d > 1280); the wrapper runs groups, each one launch and
+// one more read of X.
+//
+// The wide instances (d > 2048). B's three parts for eight models take 6 *
+// 8 * d bytes, 98 KB at d = 2048 and 393 KB at d = 8192, and a 16-row bf16
+// tile 32 d bytes, so neither stays whole in shared memory past 2048
+// columns. Past it a sweep is two passes over X, each streaming its
+// operands by column block (design (a) of ROADMAP A1; reading X once with
+// the tile kept in L2 is later work), then one reduction:
+// - The margin pass: a CTA of 8 warps takes tiles of 128 rows (16 a
+//   warp) and walks the columns in chunks of 64, X's chunk and the chunk
+//   of B (three bf16 parts, or f32 on the FMAs) loaded into registers one
+//   chunk ahead and stored into one of two shared stages (swizzled as the
+//   narrow tensor-core instance's: ldmatrix's eight rows on eight bank
+//   groups). Tensor cores: the warp's 16 rows against the KG = 8 models,
+//   mma.sync m16n8k16, X's fragment once for the three parts, three
+//   accumulators, (lo + mid) + hi for each chunk, as the narrow instance
+//   sums, and the chunks added in column order in double (one f32 chain
+//   over all of d, 512 k-blocks at d = 8192, lost 8e-6 of the gradient's
+//   largest entry against float64; the narrow instance's chains are 8
+//   k-blocks a warp, summed over 16 warps). FMAs: thread t owns model t %
+//   KG of KG / 2 rows, an f32 chain a chunk, the chunks in double. Then
+//   the tile's
+//   epilogue: thread t the same model of its rows, the multiplier and loss
+//   of the narrow instances (f32, their sigmoid and softplus), Kahan sums
+//   of loss and sum(mult) per thread and of sum(w) by the threads of model
+//   0; the multipliers go to an (n, kg) f32 scratch. At the end the
+//   threads fold in thread order, in double, into the CTA's row of a small
+//   partial array (2 kg + 1 doubles a CTA).
+// - The gradient pass: a grid of (column block, row slab), one slab per
+//   SM. Tensor cores: a block of 512 columns (four 16-column k-blocks a
+//   warp), 16 rows a stage (mma's K) in two stages, the multipliers split
+//   by split_bf16x3's arithmetic into three bf16 parts as they are staged;
+//   G^T += X^T M_p by ldmatrix.trans and mma.sync, lo, mid, hi into one f32
+//   accumulator, flushed in double into the slab's partial row every
+//   4,096 rows, as the narrow instance flushes. FMAs: a block of 1,024
+//   columns, four a thread, the slab's multipliers staged 64 rows at a
+//   time; f32 sums flushed the same way.
+// - The reduction sums the slabs' gradient rows and the margin CTAs'
+//   scalars, each in order, in double, and rounds once to f32. Two
+//   launches are bitwise equal; rows past n are zeros and add nothing.
+// Scratch: n kg floats of multipliers, plus (slabs x kg d) doubles of
+// gradient partials. KG = 8 on the tensor cores, 16 on the FMAs
+// (glm_stacked_group past 2048).
 //
 // Plain C interface (loaded with ctypes): every entry point returns a
 // cudaError_t, 0 on success.
@@ -148,7 +190,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxModels = 16;   // K_MAX: models one launch sweeps at most
-constexpr int kMaxD = 2048;
+constexpr int kMaxD = 2048;  // the narrow instances' widest d
 constexpr int kFlushRows = 4096; // rows an f32 gradient sum runs over
 constexpr size_t kSmemLimit = 227 * 1024;
 
@@ -1100,6 +1142,580 @@ __global__ void glm_stacked_reduce_kernel(const double* __restrict__ partials,
 }
 
 // ===========================================================================
+// The wide instances (d > 2048): two passes
+// ===========================================================================
+
+constexpr int kWRows = 128;            // rows of a margin tile, 16 a warp
+constexpr int kWCols = 64;             // columns of a margin chunk
+constexpr int kWUnits = kWRows * kWCols / 8 / kThreads;  // X units a thread
+constexpr int kWGradCols = 512;        // columns of a tensor-core gradient CTA
+constexpr int kWGradRows = 16;         // rows of a gradient stage (mma's K)
+constexpr int kWFmaCols = 4 * kThreads;  // columns of an FMA gradient CTA
+constexpr int kWFmaRows = 64;          // rows of staged FMA multipliers
+constexpr int kWTcModels = 8;          // KG of the tensor-core instances
+static_assert(kWUnits == 4, "four 8-element units a thread a chunk");
+
+// 4 consecutive f32 elements of row r from column c0, zeros past d or for
+// a dead row; vec: one 16-byte load (d % 4 == 0 and an aligned base)
+__device__ __forceinline__ float4 load4(const float* __restrict__ x,
+                                        long long r, int c0, int d,
+                                        bool live, bool vec) {
+  const float* xr = x + r * d;
+  if (vec)
+    return (live && c0 < d) ? __ldg(reinterpret_cast<const float4*>(xr + c0))
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v[e] = (live && c0 + e < d) ? __ldg(xr + c0 + e) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// the label of (row r, model k) at row stride ldy, f32 or bf16
+__device__ __forceinline__ float label_at(const void* __restrict__ y,
+                                          int y_bf16, long long ldy,
+                                          long long r, int k) {
+  const long long at = r * ldy + k;
+  return y_bf16 ? __bfloat162float(
+                      reinterpret_cast<const __nv_bfloat16*>(y)[at])
+                : __ldg(reinterpret_cast<const float*>(y) + at);
+}
+
+// The margin tile's epilogue: s_m holds the tile's margins (kWRows x KG
+// f32, row-major, without the offsets). Thread t owns model t % KG of
+// rows t / KG + (kThreads / KG) i; it writes their multipliers and adds to
+// its Kahan sums (sum(w) by the threads of model 0, each row once).
+template <int KG>
+__device__ __forceinline__ void wide_epilogue(
+    const float* s_m, long long r0, long long n, int kg, float off_k,
+    const void* __restrict__ y, int y_bf16, long long ldy,
+    const float* __restrict__ w, float* __restrict__ mult_out, float& loss_s,
+    float& loss_c, float& mult_s, float& mult_c, float& w_s, float& w_c) {
+  constexpr int kPer = kWRows * KG / kThreads;
+  const int k = threadIdx.x % KG;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + kThreads * i;
+    const long long r = r0 + e / KG;
+    if (r >= n) continue;
+    const float wv = __ldg(w + r);
+    if (k == 0) kahan_add(w_s, w_c, wv);
+    if (k >= kg) continue;
+    const float m = s_m[e] + off_k;
+    const float yv = label_at(y, y_bf16, ldy, r, k);
+    const float mult = logistic_mult(m, yv, wv);
+    kahan_add(loss_s, loss_c, logistic_loss(m, yv, wv));
+    kahan_add(mult_s, mult_c, mult);
+    mult_out[r * kg + k] = mult;
+  }
+}
+
+// The threads' sums folded in thread order, in double, into this CTA's
+// row of mpart (2 kg + 1 doubles: loss and sum(mult) of each model, then
+// sum(w)). s_red: kThreads x 3 doubles of shared memory.
+template <int KG>
+__device__ __forceinline__ void wide_fold(double* s_red, int kg,
+                                          float loss_s, float loss_c,
+                                          float mult_s, float mult_c,
+                                          float w_s, float w_c,
+                                          double* __restrict__ mpart) {
+  __syncthreads();  // the stages are free
+  s_red[3 * threadIdx.x] = (double)loss_s - (double)loss_c;
+  s_red[3 * threadIdx.x + 1] = (double)mult_s - (double)mult_c;
+  s_red[3 * threadIdx.x + 2] = (double)w_s - (double)w_c;
+  __syncthreads();
+  double* row = mpart + (long long)blockIdx.x * (2 * kg + 1);
+  const int k = threadIdx.x;
+  if (k < kg) {
+    double l = 0.0, ms = 0.0;
+    for (int t = k; t < kThreads; t += KG) {
+      l += s_red[3 * t];
+      ms += s_red[3 * t + 1];
+    }
+    row[2 * k] = l;
+    row[2 * k + 1] = ms;
+  }
+  if (k == 0) {
+    double ws = 0.0;
+    for (int t = 0; t < kThreads; t += KG) ws += s_red[3 * t + 2];
+    row[2 * kg] = ws;
+  }
+}
+
+// The tensor-core margin pass (bf16 X or e4m3 codes). parts: (3, kg, dp)
+// bf16, zero past d (dp = d rounded up to 64); off: (kg,); mult_out: (n,
+// kg) f32; mpart: gridDim.x rows of 2 kg + 1 doubles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    glm_wide_tc_margin_kernel(const T* __restrict__ x,
+                              const void* __restrict__ y, int y_bf16,
+                              long long ldy, const float* __restrict__ w,
+                              const __nv_bfloat16* __restrict__ parts,
+                              const float* __restrict__ off, long long n,
+                              int d, int kg, int vec,
+                              float* __restrict__ mult_out,
+                              double* __restrict__ mpart) {
+  constexpr int KG = kWTcModels;
+  constexpr int kPitch = kWCols * 2;                 // bytes of a staged row
+  constexpr int kXBytes = kWRows * kPitch;           // 16 KB
+  constexpr int kBBytes = kParts * KG * kPitch;      // 3 KB
+  constexpr int kBUnits = kParts * KG * (kWCols / 8);
+  constexpr int kStage = kXBytes + kBBytes;
+  static_assert(kBUnits <= kThreads, "one unit of B a thread");
+  static_assert(kWRows * KG * 4 <= 2 * kStage &&
+                    kThreads * 3 * 8 <= 2 * kStage,
+                "the margins and the fold fit in the stages");
+  __shared__ __align__(128) unsigned char s_buf[2 * kStage];
+  float* s_m = reinterpret_cast<float*>(s_buf);  // after a tile's chunks
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i8 = lane & 7, q = lane >> 3;
+  const int dp = pad64(d);
+  const int n_chunks = (d + kWCols - 1) / kWCols;
+  const long long n_tiles = (n + kWRows - 1) / kWRows;
+  const float off_k = (tid % KG < kg) ? off[tid % KG] : 0.0f;
+  // this lane's ldmatrix offsets in a stage: A = X rows 16 warp + 8 (q & 1)
+  // + i8, chunk q >> 1 of k-block 0; B = part rows (models) i8, chunk q & 1
+  const int a_off = (16 * warp + i8 + 8 * (q & 1)) * kPitch;
+  const int a_chunk = q >> 1, b_chunk = q & 1;
+  const int b_off = kXBytes + i8 * kPitch;
+
+  float loss_s = 0.0f, loss_c = 0.0f, mult_s = 0.0f, mult_c = 0.0f;
+  float w_s = 0.0f, w_c = 0.0f;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * kWRows;
+    uint4 xr[kWUnits], br = make_uint4(0u, 0u, 0u, 0u);
+    // chunk c of the tile (X and B's parts) into registers
+    auto load = [&](int c) {
+#pragma unroll
+      for (int i = 0; i < kWUnits; ++i) {
+        const int u = tid + kThreads * i, row = u / 8, c8 = u % 8;
+        xr[i] = hopper::load8(x, r0 + row, c * kWCols + c8 * 8, d,
+                              r0 + row < n, vec != 0);
+      }
+      if (tid < kBUnits) {
+        const int p = tid / (KG * 8), k = (tid / 8) % KG, c8 = tid % 8;
+        br = (k < kg) ? __ldg(reinterpret_cast<const uint4*>(
+                            parts + ((long long)p * kg + k) * dp +
+                            c * kWCols + c8 * 8))
+                      : make_uint4(0u, 0u, 0u, 0u);
+      }
+    };
+    // the registers into stage st, swizzled: chunk c8 of row r at c8 ^ (r
+    // % 8); B's rows are (part, model), each model row k at k % 8
+    auto store = [&](int st) {
+      unsigned char* base = s_buf + st * kStage;
+#pragma unroll
+      for (int i = 0; i < kWUnits; ++i) {
+        const int u = tid + kThreads * i, row = u / 8, c8 = u % 8;
+        *reinterpret_cast<uint4*>(base + row * kPitch +
+                                  ((c8 ^ (row & 7)) << 4)) = xr[i];
+      }
+      if (tid < kBUnits) {
+        const int p = tid / (KG * 8), k = (tid / 8) % KG, c8 = tid % 8;
+        *reinterpret_cast<uint4*>(base + kXBytes + (p * KG + k) * kPitch +
+                                  ((c8 ^ (k & 7)) << 4)) = br;
+      }
+    };
+
+    double md[4] = {0.0, 0.0, 0.0, 0.0};  // the chunks' margins, in order
+    load(0);
+    store(0);
+    __syncthreads();
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) load(c + 1);  // in flight during the products
+      const uint32_t sb = smem_u32(s_buf + (c & 1) * kStage);
+      float pm[kParts][4];
+#pragma unroll
+      for (int p = 0; p < kParts; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pm[p][e] = 0.0f;
+#pragma unroll
+      for (int kb = 0; kb < kWCols / kKb; ++kb) {
+        uint32_t a[4];
+        ldsm_x4(a, sb + a_off + (((2 * kb + a_chunk) ^ i8) << 4));
+#pragma unroll
+        for (int p = 0; p < kParts; ++p) {
+          uint32_t b[2];
+          ldsm_x2(b, sb + b_off + p * KG * kPitch +
+                         (((2 * kb + b_chunk) ^ i8) << 4));
+          mma_bf16(pm[p], a, b[0], b[1]);
+        }
+      }
+      // the chunk's margins, (lo + mid) + hi, into the double sums
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        md[e] += (double)((pm[2][e] + pm[1][e]) + pm[0][e]);
+      if (c + 1 < n_chunks) store((c + 1) & 1);
+      __syncthreads();
+    }
+    // the warp's margins: c0, c1 at row g, models 2 (lane % 4) + {0, 1};
+    // c2, c3 at row g + 8
+    {
+      const int g = 16 * warp + (lane >> 2), m0 = 2 * (lane & 3);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = (float)md[e];
+      *reinterpret_cast<float2*>(s_m + g * KG + m0) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(s_m + (g + 8) * KG + m0) =
+          make_float2(v[2], v[3]);
+    }
+    __syncthreads();
+    wide_epilogue<KG>(s_m, r0, n, kg, off_k, y, y_bf16, ldy, w, mult_out,
+                      loss_s, loss_c, mult_s, mult_c, w_s, w_c);
+    __syncthreads();  // s_m is read before the next tile's first store
+  }
+  wide_fold<KG>(reinterpret_cast<double*>(s_buf), kg, loss_s, loss_c, mult_s,
+                mult_c, w_s, w_c, mpart);
+}
+
+// The FMA margin pass (f32 X): B (kg, d) f32 as it is; otherwise as the
+// tensor-core pass. Thread t owns model t % KG of rows t / KG + (256 /
+// KG) i; X and B are staged at a row pitch of 65 floats, so a warp's rows
+// and models fall on distinct banks.
+template <int KG>
+__global__ void __launch_bounds__(kThreads)
+    glm_wide_fma_margin_kernel(const float* __restrict__ x,
+                               const void* __restrict__ y, int y_bf16,
+                               long long ldy, const float* __restrict__ w,
+                               const float* __restrict__ B,
+                               const float* __restrict__ off, long long n,
+                               int d, int kg, int vec,
+                               float* __restrict__ mult_out,
+                               double* __restrict__ mpart) {
+  constexpr int kP = kWCols + 1;                   // floats of a staged row
+  constexpr int kXUnits = kWRows * kWCols / 4 / kThreads;  // float4 a thread
+  constexpr int kBUnits = KG * kWCols / 4;
+  constexpr int kBPer = (kBUnits + kThreads - 1) / kThreads;
+  constexpr int kStage = (kWRows + KG) * kP;       // floats
+  constexpr int kPer = kWRows * KG / kThreads;     // margins a thread
+  constexpr int kRowStep = kThreads / KG;
+  static_assert(kWRows * KG <= 2 * kStage && kThreads * 6 <= 2 * kStage,
+                "the margins and the fold fit in the stages");
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* s_buf = reinterpret_cast<float*>(dsmem);
+  float* s_m = s_buf;
+
+  const int tid = threadIdx.x, k = tid % KG, rq = tid / KG;
+  const int n_chunks = (d + kWCols - 1) / kWCols;
+  const long long n_tiles = (n + kWRows - 1) / kWRows;
+  const float off_k = (k < kg) ? off[k] : 0.0f;
+  float loss_s = 0.0f, loss_c = 0.0f, mult_s = 0.0f, mult_c = 0.0f;
+  float w_s = 0.0f, w_c = 0.0f;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * kWRows;
+    float4 xr[kXUnits], br[kBPer];
+    auto load = [&](int c) {
+#pragma unroll
+      for (int i = 0; i < kXUnits; ++i) {
+        const int u = tid + kThreads * i, row = u / (kWCols / 4),
+                  c4 = u % (kWCols / 4);
+        xr[i] = load4(x, r0 + row, c * kWCols + c4 * 4, d, r0 + row < n,
+                      vec != 0);
+      }
+#pragma unroll
+      for (int i = 0; i < kBPer; ++i) {
+        const int u = tid + kThreads * i, m = u / (kWCols / 4),
+                  c4 = u % (kWCols / 4);
+        br[i] = load4(B, m, c * kWCols + c4 * 4, d, u < kBUnits && m < kg,
+                      vec != 0);
+      }
+    };
+    auto store = [&](int st) {
+      float* base = s_buf + st * kStage;
+#pragma unroll
+      for (int i = 0; i < kXUnits; ++i) {
+        const int u = tid + kThreads * i, row = u / (kWCols / 4),
+                  c4 = u % (kWCols / 4);
+        float* at = base + row * kP + c4 * 4;
+        at[0] = xr[i].x;
+        at[1] = xr[i].y;
+        at[2] = xr[i].z;
+        at[3] = xr[i].w;
+      }
+#pragma unroll
+      for (int i = 0; i < kBPer; ++i) {
+        const int u = tid + kThreads * i, m = u / (kWCols / 4),
+                  c4 = u % (kWCols / 4);
+        if (u < kBUnits) {
+          float* at = base + (kWRows + m) * kP + c4 * 4;
+          at[0] = br[i].x;
+          at[1] = br[i].y;
+          at[2] = br[i].z;
+          at[3] = br[i].w;
+        }
+      }
+    };
+
+    double accd[kPer];  // the chunks' margins, in order
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) accd[i] = 0.0;
+    load(0);
+    store(0);
+    __syncthreads();
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) load(c + 1);
+      const float* st = s_buf + (c & 1) * kStage;
+      const float* bk = st + (kWRows + k) * kP;
+      float acc[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc[i] = 0.0f;
+#pragma unroll 8
+      for (int j = 0; j < kWCols; ++j) {
+        const float b = bk[j];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i)
+          acc[i] = fmaf(st[(rq + kRowStep * i) * kP + j], b, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) accd[i] += (double)acc[i];
+      if (c + 1 < n_chunks) store((c + 1) & 1);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      s_m[(rq + kRowStep * i) * KG + k] = (float)accd[i];
+    __syncthreads();
+    wide_epilogue<KG>(s_m, r0, n, kg, off_k, y, y_bf16, ldy, w, mult_out,
+                      loss_s, loss_c, mult_s, mult_c, w_s, w_c);
+    __syncthreads();
+  }
+  wide_fold<KG>(reinterpret_cast<double*>(dsmem), kg, loss_s, loss_c,
+                mult_s, mult_c, w_s, w_c, mpart);
+}
+
+// Adds an f32 gradient sum, in double, into its entry of the slab's row
+// (the first flush writes it).
+__device__ __forceinline__ void wide_flush_one(double* at, float v,
+                                               bool flushed) {
+  *at = (flushed ? *at : 0.0) + (double)v;
+}
+
+// The tensor-core gradient pass: CTA (block, slab) sums M_k^T X over the
+// slab's rows for the block's 512 columns and the KG = 8 models. mult:
+// (n, kg) f32; gpart: gridDim.y rows of kg d doubles (model-major).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    glm_wide_tc_grad_kernel(const T* __restrict__ x,
+                            const float* __restrict__ mult, long long n,
+                            int d, int kg, int vec, long long slab_rows,
+                            double* __restrict__ gpart) {
+  constexpr int KG = kWTcModels;
+  constexpr int R = kWGradRows;
+  constexpr int kPitch = kWGradCols * 2;        // 1,024 bytes a staged row
+  constexpr int kXBytes = R * kPitch;           // 16 KB
+  constexpr int kMBytes = kParts * KG * R * 2;  // the multipliers' parts
+  constexpr int kStage = kXBytes + kMBytes;
+  constexpr int kUnits = R * kWGradCols / 8 / kThreads;  // 4
+  constexpr int kNb = kWGradCols / kKb / kWarps;         // k-blocks a warp
+  __shared__ __align__(128) unsigned char s_buf[2 * kStage];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i8 = lane & 7, q = lane >> 3;
+  const int col0 = blockIdx.x * kWGradCols;
+  const long long lo = (long long)blockIdx.y * slab_rows;
+  const long long hi = (lo + slab_rows < n) ? lo + slab_rows : n;
+  double* part = gpart + (long long)blockIdx.y * kg * d;
+  // A = X^T by ldmatrix.trans: rows 8 (q >> 1) + i8, chunk q & 1 of the
+  // warp's k-block; every row is 8k + i8
+  const int t_row = (i8 + 8 * (q >> 1)) * kPitch;
+
+  float acc[kNb][4];
+#pragma unroll
+  for (int i = 0; i < kNb; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  bool flushed = false;
+  constexpr int kFlushStages = kFlushRows / R;
+  int since_flush = 0;
+
+  uint4 xr[kUnits];
+  float mr = 0.0f;  // one multiplier a thread (KG x R = 128 of them)
+  auto load = [&](long long r0) {
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) {
+      const int u = tid + kThreads * i, row = u / (kWGradCols / 8),
+                c8 = u % (kWGradCols / 8);
+      xr[i] = hopper::load8(x, r0 + row, col0 + c8 * 8, d, r0 + row < hi,
+                            vec != 0);
+    }
+    if (tid < KG * R) {
+      const int k = tid / R, r = tid % R;
+      mr = (k < kg && r0 + r < hi) ? __ldg(mult + (r0 + r) * kg + k) : 0.0f;
+    }
+  };
+  // X swizzled (chunk c8 of row r at c8 ^ (r % 8)), and the multiplier's
+  // three bf16 parts at [p][k][r] (models as mma's N, rows as its K)
+  auto store = [&](int st) {
+    unsigned char* base = s_buf + st * kStage;
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) {
+      const int u = tid + kThreads * i, row = u / (kWGradCols / 8),
+                c8 = u % (kWGradCols / 8);
+      *reinterpret_cast<uint4*>(base + row * kPitch +
+                                ((c8 ^ (row & 7)) << 4)) = xr[i];
+    }
+    if (tid < KG * R) {
+      __nv_bfloat16* mp = reinterpret_cast<__nv_bfloat16*>(base + kXBytes);
+      const __nv_bfloat16 h = __float2bfloat16_rn(mr);
+      const float r1 = mr - __bfloat162float(h);
+      const __nv_bfloat16 md = __float2bfloat16_rn(r1);
+      const __nv_bfloat16 l = __float2bfloat16_rn(r1 - __bfloat162float(md));
+      mp[tid] = h;  // tid = k R + r
+      mp[KG * R + tid] = md;
+      mp[2 * KG * R + tid] = l;
+    }
+  };
+
+  const long long n_stages = (hi > lo) ? (hi - lo + R - 1) / R : 0;
+  if (n_stages > 0) {
+    load(lo);
+    store(0);
+  }
+  __syncthreads();
+  for (long long j = 0; j < n_stages; ++j) {
+    const long long r0 = lo + j * R;
+    if (j + 1 < n_stages) load(r0 + R);
+    const uint32_t sb = smem_u32(s_buf + (int)(j & 1) * kStage);
+    uint32_t bm[kParts][2];
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+      ldsm_x2(bm[p], sb + kXBytes + ((p * KG + i8) * R + 8 * (q & 1)) * 2);
+#pragma unroll
+    for (int i = 0; i < kNb; ++i) {
+      const int cb = warp * kNb + i;  // the CTA's k-block
+      uint32_t a[4];
+      ldsm_x4_trans(a, sb + t_row + (((2 * cb + (q & 1)) ^ i8) << 4));
+#pragma unroll
+      for (int p = kParts - 1; p >= 0; --p)  // lo, mid, hi
+        mma_bf16(acc[i], a, bm[p][0], bm[p][1]);
+    }
+    if (j + 1 < n_stages) store((int)((j + 1) & 1));
+    if (++since_flush == kFlushStages || j + 1 == n_stages) {
+      // c0, c1 at column g, models 2 (lane % 4) + {0, 1}; c2, c3 at g + 8
+      const int g = lane >> 2, m0 = 2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < kNb; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = col0 + (warp * kNb + i) * kKb + g + 8 * (e >> 1);
+          const int k = m0 + (e & 1);
+          if (col < d && k < kg)
+            wide_flush_one(part + (long long)k * d + col, acc[i][e],
+                           flushed);
+          acc[i][e] = 0.0f;
+        }
+      flushed = true;
+      since_flush = 0;
+    }
+    __syncthreads();
+  }
+  if (!flushed) {  // an empty slab still writes its (zero) row
+    const int g = lane >> 2, m0 = 2 * (lane & 3);
+    for (int i = 0; i < kNb; ++i)
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + (warp * kNb + i) * kKb + g + 8 * (e >> 1);
+        const int k = m0 + (e & 1);
+        if (col < d && k < kg) part[(long long)k * d + col] = 0.0;
+      }
+  }
+}
+
+// The FMA gradient pass (f32 X): thread t owns columns col0 + 4t .. + 3 of
+// the block for the KG models; the slab's multipliers are staged
+// kWFmaRows rows at a time.
+template <int KG>
+__global__ void __launch_bounds__(kThreads)
+    glm_wide_fma_grad_kernel(const float* __restrict__ x,
+                             const float* __restrict__ mult, long long n,
+                             int d, int kg, int vec, long long slab_rows,
+                             double* __restrict__ gpart) {
+  __shared__ __align__(16) float s_mult[kWFmaRows * KG];
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * kWFmaCols + 4 * tid;
+  const long long lo = (long long)blockIdx.y * slab_rows;
+  const long long hi = (lo + slab_rows < n) ? lo + slab_rows : n;
+  double* part = gpart + (long long)blockIdx.y * kg * d;
+  float acc[4][KG];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int k = 0; k < KG; ++k) acc[c][k] = 0.0f;
+  bool flushed = false;
+  long long since_flush = 0;
+  auto flush = [&]() {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int k = 0; k < KG; ++k) {
+        if (c0 + c < d && k < kg)
+          wide_flush_one(part + (long long)k * d + c0 + c, acc[c][k],
+                         flushed);
+        acc[c][k] = 0.0f;
+      }
+    flushed = true;
+  };
+  for (long long t0 = lo; t0 < hi; t0 += kWFmaRows) {
+    __syncthreads();  // the last tile's multipliers are read
+    for (int i = tid; i < kWFmaRows * KG; i += kThreads) {
+      const long long r = t0 + i / KG;
+      const int k = i % KG;
+      s_mult[i] = (r < hi && k < kg) ? __ldg(mult + r * kg + k) : 0.0f;
+    }
+    __syncthreads();
+    const int rows = (int)((hi - t0 < kWFmaRows) ? hi - t0 : kWFmaRows);
+#pragma unroll 1
+    for (int r = 0; r < rows; r += 4) {
+      float4 xv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        xv[j] = load4(x, t0 + r + j, c0, d, r + j < rows, vec != 0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* m = s_mult + (r + j) * KG;  // zeros past the slab
+#pragma unroll
+        for (int k = 0; k < KG; ++k) {
+          const float mk = m[k];
+          acc[0][k] = fmaf(mk, xv[j].x, acc[0][k]);
+          acc[1][k] = fmaf(mk, xv[j].y, acc[1][k]);
+          acc[2][k] = fmaf(mk, xv[j].z, acc[2][k]);
+          acc[3][k] = fmaf(mk, xv[j].w, acc[3][k]);
+        }
+      }
+    }
+    since_flush += rows;
+    if (since_flush >= kFlushRows) {
+      flush();
+      since_flush = 0;
+    }
+  }
+  flush();  // the rest, or the (zero) row of an empty slab
+}
+
+// out: per model k, [grad_k (d), loss_k, msum_k] at k (d + 2), then
+// sum(w): the slabs' gradient rows and the margin CTAs' rows, each summed
+// in order in double, rounded once to f32.
+__global__ void glm_wide_reduce_kernel(const double* __restrict__ gpart,
+                                       int n_slabs,
+                                       const double* __restrict__ mpart,
+                                       int n_ctas, int d, int kg,
+                                       float* __restrict__ out) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n_grad = (long long)kg * d;
+  double s = 0.0;
+  if (j < n_grad) {
+    for (int c = 0; c < n_slabs; ++c) s += gpart[(long long)c * n_grad + j];
+    out[(j / d) * (d + 2) + j % d] = (float)s;
+  } else if (j < n_grad + 2 * kg + 1) {
+    const int m = (int)(j - n_grad);
+    for (int c = 0; c < n_ctas; ++c) s += mpart[(long long)c * (2 * kg + 1) + m];
+    const long long at = (m < 2 * kg) ? (long long)(m / 2) * (d + 2) + d + m % 2
+                                      : (long long)kg * (d + 2);
+    out[at] = (float)s;
+  }
+}
+
+// ===========================================================================
 // Host side: instances
 // ===========================================================================
 
@@ -1179,16 +1795,50 @@ Instance tc_instance(int d, int kg) {
 }
 
 // models one launch takes for (dtype, d): 16, or 8 on the tensor cores
-// past d = 1280; 0 for a shape no instance takes
+// past d = 1280 (the wide instances past d = 2048 too); 0 for a shape no
+// instance takes
 int group_of(int dtype, int d) {
-  if (d < 1 || d > kMaxD || dtype < 0 || dtype > 2) return 0;
+  if (d < 1 || dtype < 0 || dtype > 2) return 0;
+  if (d > kMaxD) return dtype == 0 ? kMaxModels : kWTcModels;
   if (dtype == 0) return kMaxModels;
   return nb_of(d) <= kTcMaxNb16 ? 16 : 8;
 }
 
+// A wide instance: its two kernels, the margin kernel's dynamic shared
+// memory, and the columns of a gradient CTA.
+struct WideInstance {
+  const void* margin;
+  const void* grad;
+  size_t margin_smem;
+  int cols;
+};
+
+template <int KG>
+WideInstance wide_fma() {
+  return {reinterpret_cast<const void*>(&glm_wide_fma_margin_kernel<KG>),
+          reinterpret_cast<const void*>(&glm_wide_fma_grad_kernel<KG>),
+          (size_t)2 * (kWRows + KG) * (kWCols + 1) * 4, kWFmaCols};
+}
+
+template <typename T>
+WideInstance wide_tc() {
+  return {reinterpret_cast<const void*>(&glm_wide_tc_margin_kernel<T>),
+          reinterpret_cast<const void*>(&glm_wide_tc_grad_kernel<T>), 0,
+          kWGradCols};
+}
+
+// the wide instance for (dtype, d > 2048, kg); margin == nullptr when none
+WideInstance wide_for(int dtype, int d, int kg) {
+  const WideInstance none = {nullptr, nullptr, 0, 0};
+  if (d <= kMaxD || kg < 1 || kg > group_of(dtype, d)) return none;
+  if (dtype == 0) return kg <= 8 ? wide_fma<8>() : wide_fma<16>();
+  if (dtype == 1) return wide_tc<__nv_bfloat16>();
+  return wide_tc<__nv_fp8_e4m3>();
+}
+
 // the instance for (dtype, d, kg); fn == nullptr when none takes them
 Instance instance_for(int dtype, int d, int kg) {
-  if (kg < 1 || kg > group_of(dtype, d))
+  if (d > kMaxD || kg < 1 || kg > group_of(dtype, d))
     return {nullptr, 0, 0, 0, 0, 0, 0, false};
   if (dtype == 0) return fma_instance(d, kg);
   if (dtype == 1) return tc_instance<__nv_bfloat16>(d, kg);
@@ -1205,7 +1855,7 @@ size_t smem_for(const Instance& inst, int d) {
 
 extern "C" {
 
-// Largest d one launch takes.
+// Largest d the narrow instances take; past it the wide ones run.
 int glm_stacked_max_d() { return kMaxD; }
 
 // Models one launch takes for X of (dtype, d): the wrapper's group size
@@ -1237,6 +1887,83 @@ int glm_stacked_num_parts(int dtype, int d, int kg, long long n,
   if (parts < 1) parts = 1;
   *n_parts = (int)parts;
   return 0;
+}
+
+// The partial rows of a wide sweep (d > 2048) of n rows for kg models on
+// the current device: the margin pass's CTAs (as many as are resident, at
+// most one per 128-row tile) and the gradient pass's row slabs (one per
+// SM, at most one per 16 rows), each at least one.
+int glm_stacked_wide_parts(int dtype, int d, int kg, long long n,
+                           int* n_ctas, int* n_slabs) {
+  const WideInstance inst = wide_for(dtype, d, kg);
+  if (inst.margin == nullptr || n < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      inst.margin, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)inst.margin_smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, inst.margin, kThreads, inst.margin_smem);
+  if (err != cudaSuccess) return (int)err;
+  long long ctas = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long tiles = (n + kWRows - 1) / kWRows;
+  if (tiles < ctas) ctas = tiles;
+  long long slabs = sms;
+  const long long stages = (n + kWGradRows - 1) / kWGradRows;
+  if (stages < slabs) slabs = stages;
+  *n_ctas = (int)(ctas < 1 ? 1 : ctas);
+  *n_slabs = (int)(slabs < 1 ? 1 : slabs);
+  return 0;
+}
+
+// One wide sweep (d > 2048) of kg models (kg <= glm_stacked_group(dtype,
+// d)). x, y, y_bf16, ldy, w, B, off, out as for glm_stacked_launch; mult:
+// n kg floats of scratch; mpart: n_ctas (2 kg + 1) and gpart: n_slabs kg d
+// doubles of scratch (glm_stacked_wide_parts).
+int glm_stacked_wide_launch(int dtype, const void* x, const void* y,
+                            int y_bf16, long long ldy, const float* w,
+                            const void* B, const float* off, long long n,
+                            int d, int kg, float* mult, double* mpart,
+                            int n_ctas, double* gpart, int n_slabs,
+                            float* out, void* stream) {
+  const WideInstance inst = wide_for(dtype, d, kg);
+  if (inst.margin == nullptr || n_ctas < 1 || n_slabs < 1 || n < 0 ||
+      ldy < kg)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      inst.margin, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)inst.margin_smem);
+  if (err != cudaSuccess) return (int)err;
+  // whole 16-byte loads where the row width and X's base allow them: 4
+  // f32, 8 bf16 or 8 e4m3 codes (8 bytes); else element by element
+  const int item = dtype == 0 ? 4 : dtype == 1 ? 2 : 1;
+  const int per = dtype == 0 ? 4 : 8;
+  const int vec = (d % per == 0) &&
+                  reinterpret_cast<uintptr_t>(x) % (size_t)(per * item) == 0;
+  long long slab_rows = (n + n_slabs - 1) / n_slabs;
+  if (slab_rows < 1) slab_rows = 1;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  void* margs[] = {const_cast<void**>(&x), const_cast<void**>(&y), &y_bf16,
+                   &ldy, &w, const_cast<void**>(&B), &off, &n, &d, &kg,
+                   const_cast<int*>(&vec), &mult, &mpart};
+  err = cudaLaunchKernel(inst.margin, dim3(n_ctas), dim3(kThreads), margs,
+                         inst.margin_smem, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (d + inst.cols - 1) / inst.cols;
+  void* gargs[] = {const_cast<void**>(&x), &mult, &n, &d, &kg,
+                   const_cast<int*>(&vec), &slab_rows, &gpart};
+  err = cudaLaunchKernel(inst.grad, dim3(blocks, n_slabs), dim3(kThreads),
+                         gargs, 0, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long width = (long long)kg * d + 2 * kg + 1;
+  glm_wide_reduce_kernel<<<(unsigned)((width + 255) / 256), 256, 0, s>>>(
+      gpart, n_slabs, mpart, n_ctas, d, kg, out);
+  return (int)cudaGetLastError();
 }
 
 // One sweep of kg models (kg <= glm_stacked_group(dtype, d)). x: (n, d)

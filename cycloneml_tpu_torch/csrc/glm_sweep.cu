@@ -90,6 +90,32 @@
 // converts every code again, saves a fifth of K1's time each. K2 (400k x
 // 2000, 379 rows a warp) loses its last fifth (bf16) to no single phase.
 //
+// The wide instance (d > 2048). A lane cannot hold a row of E > 64
+// elements with its sums, so past 2048 columns the sweep runs as two
+// passes over X (design (a) of ROADMAP A1; the one-read design that keeps
+// a tile in L2 for its second look is later work):
+// - the margin pass (glm_wide_margin_kernel): a warp takes G = 4
+//   consecutive rows at a time, its lanes walking their slots of the four
+//   rows with the four margins' chains interleaved (the narrow instance's
+//   products and xor shuffles, beta read from a copy zero-padded to 8
+//   columns), lane j evaluates row j's link and writes its multiplier to
+//   an (n,) f32 scratch; loss, sum(mult) and sum(w) go in blocks of R rows
+//   in plain f32 and Kahan across blocks, then the warps fold in warp
+//   order in double into the CTA's partial row (its last three columns);
+// - the gradient pass (glm_wide_grad_kernel): a grid of (column block,
+//   row slab); thread t owns one slot (4 f32 or 8 bf16/e4m3 columns) of
+//   the block and walks the slab's rows in order, G rows' slots in flight,
+//   each block of R rows summed in plain f32 (fmaf over the rows) and added
+//   to its Kahan pair, the same block order as the narrow instance; slab s
+//   writes its sums in double into columns 0..d-1 of partial row s;
+// - the reduction sums the partial rows in order in double, as above.
+//   Two launches are bitwise equal; rows past n and columns past d read
+//   nothing; unaligned rows load element by element.
+// It reads X twice (about twice the narrow instance's time at the bytes
+// bound) and keeps n floats of multipliers in scratch, plus partial rows
+// of (d + 3) doubles, up to four per SM. Its registers hold no row, so it
+// takes any d; its work per element is the narrow instance's.
+//
 // Plain C interface (loaded with ctypes): every entry point returns a
 // cudaError_t, 0 on success.
 
@@ -500,6 +526,233 @@ __global__ void glm_reduce_kernel(const double* __restrict__ partials,
   out[j] = (float)s;
 }
 
+// -- the wide instance -------------------------------------------------------
+
+constexpr int kNarrowMaxD = 32 * kMaxE;  // the narrow instances' widest d
+constexpr int kWideGroup = 4;  // rows in flight: a warp's (margins) or a
+                               // thread's (gradient)
+constexpr int kWidePartsPerSm = 4;  // partial rows (CTAs, slabs) per SM,
+                                    // at most
+
+// A slot of row r from column slot k * V: one copy when vec_ok, else
+// element by element; zeros for a dead row.
+template <typename T>
+__device__ __forceinline__ void wide_slot(const T* __restrict__ x,
+                                          long long r, int k, int d,
+                                          bool live, int vec_ok,
+                                          uint32_t (&u)[Slot<T>::W]) {
+  constexpr int V = Slot<T>::V, W = Slot<T>::W;
+  const T* row = x + r * d;
+  if (!live) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) u[i] = 0u;
+  } else if (vec_ok) {
+    if constexpr (W == 4) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + k * V));
+      u[0] = v.x;
+      u[1] = v.y;
+      u[2] = v.z;
+      u[3] = v.w;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(row + k * V));
+      u[0] = v.x;
+      u[1] = v.y;
+    }
+  } else {
+    load_elems<T, W>(row, k * V, d, u);
+  }
+}
+
+// The margin pass. beta: (d rounded up to 8,) f32, zero past d; scalars =
+// [off, ys]; mult: (n,) f32 out; partials: gridDim.x rows of (d + 3)
+// doubles, of which this pass writes the last three.
+template <typename T, int LINK>
+__global__ void __launch_bounds__(kThreads)
+    glm_wide_margin_kernel(const T* __restrict__ x,
+                           const float* __restrict__ y,
+                           const float* __restrict__ w,
+                           const float* __restrict__ beta,
+                           const float* __restrict__ scalars, long long n,
+                           int d, int vec_ok, float* __restrict__ mult_out,
+                           double* __restrict__ partials) {
+  constexpr int V = Slot<T>::V, W = Slot<T>::W, G = kWideGroup;
+  constexpr int R = Plan<T, 8>::R;
+  static_assert(G % R == 0, "a group holds whole blocks");
+  __shared__ double s_red[kWarps][3];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float off = scalars[0];
+  const float ys = scalars[1];
+  const int n_slots = (d + V - 1) / V;
+  const long long n_warps = (long long)gridDim.x * kWarps;
+  float loss_s = 0.0f, loss_c = 0.0f;
+  float mult_s = 0.0f, mult_c = 0.0f;
+  float w_s = 0.0f, w_c = 0.0f;
+
+  for (long long q = (long long)blockIdx.x * kWarps + warp; q * G < n;
+       q += n_warps) {
+    const long long r0 = q * G;
+    float m[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) m[j] = 0.0f;
+#pragma unroll 2
+    for (int k = lane; k < n_slots; k += 32) {
+      float b[V];
+#pragma unroll
+      for (int i = 0; i < V / 4; ++i) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(beta + k * V)
+                               + i);
+        b[4 * i] = v.x;
+        b[4 * i + 1] = v.y;
+        b[4 * i + 2] = v.z;
+        b[4 * i + 3] = v.w;
+      }
+      uint32_t u[G][W];
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        wide_slot<T>(x, r0 + j, k, d, r0 + j < n, vec_ok, u[j]);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+#pragma unroll
+        for (int h = 0; h < V / 2; ++h) {
+          const float2 xv = pair<T, W>(u[j], h);
+          m[j] = fmaf(xv.x, b[2 * h], m[j]);
+          m[j] = fmaf(xv.y, b[2 * h + 1], m[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        m[j] += __shfl_xor_sync(0xffffffffu, m[j], o);
+    }
+    // row j's link on lane j (lanes past G repeat one; rows past n have
+    // y = w = 0: multiplier and loss 0)
+    const int jl = lane & (G - 1);
+    float mj = m[0];
+#pragma unroll
+    for (int j = 1; j < G; ++j)
+      if (jl == j) mj = m[j];
+    const long long rl = r0 + jl;
+    const bool live = rl < n;
+    const float yl = live ? __ldg(y + rl) : 0.0f;
+    const float wl = live ? __ldg(w + rl) : 0.0f;
+    float mult_l, loss_l;
+    link_eval<LINK>(mj + off, yl, wl, ys, mult_l, loss_l);
+    if (lane < G && live) mult_out[rl] = mult_l;
+    // blocks of R rows in plain f32, in row order, Kahan across blocks
+#pragma unroll
+    for (int b0 = 0; b0 < G; b0 += R) {
+      float loss_b = 0.0f, mult_b = 0.0f, w_b = 0.0f;
+#pragma unroll
+      for (int j = b0; j < b0 + R; ++j) {
+        loss_b += __shfl_sync(0xffffffffu, loss_l, j);
+        mult_b += __shfl_sync(0xffffffffu, mult_l, j);
+        w_b += __shfl_sync(0xffffffffu, wl, j);
+      }
+      if (r0 + b0 < n) {  // no block past the last row
+        kahan_add(loss_s, loss_c, loss_b);
+        kahan_add(mult_s, mult_c, mult_b);
+        kahan_add(w_s, w_c, w_b);
+      }
+    }
+  }
+  if (lane == 0) {
+    s_red[warp][0] = (double)loss_s - (double)loss_c;
+    s_red[warp][1] = (double)mult_s - (double)mult_c;
+    s_red[warp][2] = (double)w_s - (double)w_c;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    double t = 0.0;
+    for (int wi = 0; wi < kWarps; ++wi) t += s_red[wi][threadIdx.x];
+    partials[(long long)blockIdx.x * (d + 3) + d + threadIdx.x] = t;
+  }
+}
+
+// The gradient pass: CTA (block, slab) sums mult_r x_r over the slab's
+// rows [slab * slab_rows, + slab_rows) for the block's columns, one slot a
+// thread, into columns of partial row `slab` (d + 3 doubles a row).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    glm_wide_grad_kernel(const T* __restrict__ x,
+                         const float* __restrict__ mult, long long n, int d,
+                         int vec_ok, long long slab_rows,
+                         double* __restrict__ partials) {
+  constexpr int V = Slot<T>::V, W = Slot<T>::W, G = kWideGroup;
+  constexpr int R = Plan<T, 8>::R;
+  const int k = blockIdx.x * kThreads + threadIdx.x;  // this thread's slot
+  const bool active = k * V < d;
+  const long long lo = (long long)blockIdx.y * slab_rows;
+  const long long hi = (lo + slab_rows < n) ? lo + slab_rows : n;
+  float acc[V], comp[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = comp[i] = 0.0f;
+  for (long long r0 = lo; r0 < hi; r0 += G) {
+    uint32_t u[G][W];
+    float mv[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const bool live = r0 + j < hi;
+      wide_slot<T>(x, r0 + j, k, d, live && active, vec_ok, u[j]);
+      mv[j] = live ? __ldg(mult + r0 + j) : 0.0f;
+    }
+#pragma unroll
+    for (int b0 = 0; b0 < G; b0 += R) {
+      float bs[V];
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h) {
+        bs[2 * h] = bs[2 * h + 1] = 0.0f;
+#pragma unroll
+        for (int j = b0; j < b0 + R; ++j) {
+          const float2 xv = pair<T, W>(u[j], h);
+          bs[2 * h] = fmaf(mv[j], xv.x, bs[2 * h]);
+          bs[2 * h + 1] = fmaf(mv[j], xv.y, bs[2 * h + 1]);
+        }
+      }
+      if (r0 + b0 < hi) {  // no block past the slab
+#pragma unroll
+        for (int i = 0; i < V; ++i) kahan_add(acc[i], comp[i], bs[i]);
+      }
+    }
+  }
+  if (!active) return;
+  double* out = partials + (long long)blockIdx.y * (d + 3);
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    if (k * V + i < d) out[k * V + i] = (double)acc[i] - (double)comp[i];
+}
+
+// The wide instance's two kernels for (dtype, link).
+struct Wide {
+  const void* margin;
+  const void* grad;
+  int block;  // R
+  int cols;   // columns of a gradient CTA
+};
+
+template <typename T>
+Wide make_wide(int link) {
+  return {link == kLogistic
+              ? reinterpret_cast<const void*>(
+                    &glm_wide_margin_kernel<T, kLogistic>)
+              : reinterpret_cast<const void*>(
+                    &glm_wide_margin_kernel<T, kSquared>),
+          reinterpret_cast<const void*>(&glm_wide_grad_kernel<T>),
+          Plan<T, 8>::R, kThreads * Slot<T>::V};
+}
+
+Wide wide_for(int dtype, int link, int d) {
+  const Wide none = {nullptr, nullptr, 0, 0};
+  if (d <= kNarrowMaxD || (link != kLogistic && link != kSquared))
+    return none;
+  if (dtype == 0) return make_wide<float>(link);
+  if (dtype == 1) return make_wide<__nv_bfloat16>(link);
+  if (dtype == 2) return make_wide<__nv_fp8_e4m3>(link);
+  return none;
+}
+
 // One instance and what its launch needs.
 struct Instance {
   const void* fn;  // a glm_sweep_kernel instance
@@ -593,15 +846,40 @@ cudaError_t residency(const Instance& k, int* per_sm, int* sms) {
 
 extern "C" {
 
-// Largest d the kernel takes.
-int glm_sweep_max_d() { return 32 * kMaxE; }
+// Largest d the narrow instances take; past it the wide one runs.
+int glm_sweep_max_d() { return kNarrowMaxD; }
 
-// CTAs (= partial rows) a sweep of n rows uses on the current device: as
-// many as are resident at once, at most one per 32 rows, at least one.
+// Partial rows a sweep of n rows uses on the current device. Narrow
+// instances: one per CTA, as many as are resident at once, at most one per
+// 32 rows, at least one. The wide instance: as many margin CTAs as are
+// resident at once, at most four per SM (the gradient's row slabs
+// alike), at most one per 256 rows, at least one.
 // dtype: 0 = float32 X, 1 = bfloat16 X, 2 = float8_e4m3fn codes;
 // link: 0 = logistic, 1 = squared.
 int glm_sweep_num_parts(int dtype, int link, int d, long long n,
                         int* n_parts) {
+  const Wide wide = wide_for(dtype, link, d);
+  if (wide.margin != nullptr) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, wide.margin, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    // one wave of the margin pass (its CTAs walk equal shares of the
+    // rows): a fourth CTA an SM that cannot be resident runs as a second,
+    // partial wave (measured: 3 resident of 4 asked)
+    if (per_sm < 1) per_sm = 1;
+    if (per_sm > kWidePartsPerSm) per_sm = kWidePartsPerSm;
+    long long parts = (long long)sms * per_sm;
+    const long long by_rows = (n + 255) / 256;
+    if (by_rows < parts) parts = by_rows;
+    if (parts < 1) parts = 1;
+    *n_parts = (int)parts;
+    return 0;
+  }
   const Instance k = kernel_for(dtype, link, d);
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   int per_sm = 0, sms = 0;
@@ -630,6 +908,66 @@ int glm_sweep_plan(int dtype, int link, int d, int* plan) {
   plan[2] = k.smem;
   plan[3] = per_sm;
   return 0;
+}
+
+// The wide instance a sweep of (dtype, link, d > 2048) launches, as five
+// ints: its block rows R, its rows in flight G, a gradient CTA's columns,
+// and the CTAs of its margin and gradient kernels resident on one SM.
+int glm_sweep_wide_plan(int dtype, int link, int d, int* plan) {
+  const Wide k = wide_for(dtype, link, d);
+  if (k.margin == nullptr) return (int)cudaErrorInvalidValue;
+  int margin = 0, grad = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &margin, k.margin, kThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grad, k.grad,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  plan[0] = k.block;
+  plan[1] = kWideGroup;
+  plan[2] = k.cols;
+  plan[3] = margin;
+  plan[4] = grad;
+  return 0;
+}
+
+// One sweep of the wide instance (d > 2048). x, y, w, scalars, partials
+// (n_parts * (d + 3) doubles), n_parts and out as for glm_sweep_launch;
+// beta: (d rounded up to 8,) f32, zero past d; mult: n floats of scratch.
+int glm_sweep_wide_launch(int dtype, int link, const void* x, const float* y,
+                          const float* w, const float* beta,
+                          const float* scalars, long long n, int d,
+                          double* partials, int n_parts, float* mult,
+                          float* out, void* stream) {
+  const Wide k = wide_for(dtype, link, d);
+  if (k.margin == nullptr || n_parts < 1 || n < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t item = (dtype == 0) ? sizeof(float)
+                      : (dtype == 1) ? sizeof(__nv_bfloat16)
+                                     : sizeof(__nv_fp8_e4m3);
+  const size_t slot = (dtype == 2) ? 8 : 16;
+  int vec_ok = ((reinterpret_cast<uintptr_t>(x) % slot) == 0) &&
+               (((size_t)d * item) % slot == 0);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  void* margs[] = {const_cast<void**>(&x), &y, &w, &beta, &scalars, &n, &d,
+                   &vec_ok, &mult, &partials};
+  cudaError_t err = cudaLaunchKernel(k.margin, dim3(n_parts), dim3(kThreads),
+                                     margs, 0, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  long long slab_rows = (n + n_parts - 1) / n_parts;
+  if (slab_rows < 1) slab_rows = 1;
+  const int blocks = (d + k.cols - 1) / k.cols;
+  void* gargs[] = {const_cast<void**>(&x), &mult, &n, &d, &vec_ok,
+                   &slab_rows, &partials};
+  err = cudaLaunchKernel(k.grad, dim3(blocks, n_parts), dim3(kThreads),
+                         gargs, 0, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int width = d + 3;
+  glm_reduce_kernel<<<(width + 255) / 256, 256, 0, s>>>(partials, n_parts,
+                                                        width, out);
+  return (int)cudaGetLastError();
 }
 
 // One sweep. x: (n, d) row-major at storage width; y, w: (n,) f32;

@@ -33,8 +33,9 @@ on the card, kernels S1 and S2 (``csrc/ell_sweep.cu``) once per
 evaluation of the host optimizer.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-slice: checkpointed training, the streamed (out-of-core) leg of stacked
-fits.
+slice: checkpointed training, and the streamed (out-of-core) fits that the
+reference runs under ``cyclone.oocore.mode=force`` (dense ``fit`` and
+``fit_stacked`` both raise there, where the reference would stream).
 """
 
 from __future__ import annotations
@@ -68,6 +69,17 @@ from cycloneml_tpu_torch.ml.shared import (
 from cycloneml_tpu_torch.ml.stat import Summarizer
 
 logger = logging.getLogger(__name__)
+
+
+def _refuse_forced_streaming(conf, what: str) -> None:
+    """Under ``cyclone.oocore.mode=force`` the reference spills an in-core
+    dataset to shards and streams the fit; the port has no streaming
+    engine yet, so it raises where the reference would spill."""
+    from cycloneml_tpu_torch.conf import OOCORE_MODE
+    if conf is not None and conf.get(OOCORE_MODE) == "force":
+        raise NotImplementedError(
+            f"streamed (out-of-core) {what} fits under "
+            "cyclone.oocore.mode=force are ROADMAP slice 6")
 
 
 class _LogisticRegressionParams(HasMaxIter, HasRegParam, HasElasticNetParam,
@@ -229,10 +241,7 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
             self.get("featuresCol"), self.get("labelCol"),
             self.get("weightCol") or None, fp8_capable=True)
         conf = getattr(ds.ctx, "conf", None)
-        from cycloneml_tpu_torch.conf import OOCORE_MODE
-        if conf is not None and conf.get(OOCORE_MODE) == "force":
-            raise NotImplementedError(
-                "streamed (out-of-core) stacked fits are ROADMAP slice 6")
+        _refuse_forced_streaming(conf, "stacked LogisticRegression")
         if y_stack is None and reg_params is None:
             raise ValueError("fit_stacked needs y_stack or reg_params")
         if y_stack is None:
@@ -357,6 +366,7 @@ class LogisticRegression(Predictor, _LogisticRegressionParams):
 
     def _fit_dataset(self, ds: InstanceDataset) -> "LogisticRegressionModel":
         conf = getattr(ds.ctx, "conf", None)
+        _refuse_forced_streaming(conf, "LogisticRegression")
         d = ds.n_features
         stats = Summarizer.summarize(ds)
         # the fp8 safety rail: the envelope probe may swap the quantized

@@ -22,7 +22,10 @@ and d <= 4096 (so a default ``LinearRegression()``), delegate to
 pass, then the float64 host solve. That solver is not fp8-capable: on e4m3
 codes it first leaves the fp8 rung through ``fp8_fallback``.
 
-Not ported yet: streamed datasets, persistence.
+Not ported yet: streamed datasets (under ``cyclone.oocore.mode=force`` a
+fit raises ``NotImplementedError`` where the reference would stream, after
+the reference's own check that refuses ``solver="normal"`` there),
+persistence.
 """
 
 from __future__ import annotations
@@ -116,14 +119,29 @@ class LinearRegression(Predictor, _LinearRegressionParams):
         return model
 
     def _fit_dataset(self, ds: InstanceDataset) -> "LinearRegressionModel":
+        from cycloneml_tpu_torch.conf import OOCORE_MODE
+        conf = getattr(ds.ctx, "conf", None)
+        force = conf is not None and conf.get(OOCORE_MODE) == "force"
         d = ds.n_features
         reg = self.get("regParam")
         alpha = self.get("elasticNetParam")
         solver = self.get("solver")
         if solver == "auto":
+            # a streamed fit always takes the quasi-Newton path: the
+            # normal solver's moments want the in-core design matrix
             solver = "normal" if (alpha * reg == 0.0
-                                  and d <= MAX_FEATURES_FOR_NORMAL) \
-                else "l-bfgs"
+                                  and d <= MAX_FEATURES_FOR_NORMAL
+                                  and not force) else "l-bfgs"
+        if force:
+            # the reference's order (its _fit_dataset, :107-117): an
+            # explicit normal request raises first, then the spill
+            if solver == "normal":
+                raise ValueError(
+                    "solver='normal' requires an in-core dataset; streamed "
+                    "fits use solver='l-bfgs' (or 'auto')")
+            raise NotImplementedError(
+                "streamed (out-of-core) LinearRegression fits under "
+                "cyclone.oocore.mode=force are ROADMAP slice 6")
         if solver == "normal":
             return self._solve_normal(ds)
 

@@ -14,7 +14,7 @@ replaces, what bounds it on the card, what the design does about that):
   TrainValidationSplit): X is read once for all K models (at most
   :data:`K_MAX` a launch, 8 on the tensor cores past d = 1280,
   :func:`glm_sweep_stacked_group`); on the tensor cores bytes-bound at
-  every K <= 16.
+  every K <= 16 up to d = 2048.
 - K3, ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``fused_kmeans_assign``,
   the nearest center and its squared distance per row (KMeans);
   bound by operations.
@@ -45,14 +45,21 @@ fold it into their (d,) vectors and K1s into its (K, d) coefficients; K3
 into the centers on the tensor cores (and applies it as X is staged on the
 FMAs), K4 in its double reduction pass.
 
+K1, K2 and K1s take any d: up to 2,048 columns their narrow instances
+(one read of X), past it their wide instances (two passes over X, each
+streaming by column block; :func:`glm_sweep_instance` names the instance a
+width takes).
+
 Each wrapper launches its kernel for a CUDA tensor and runs its ``*_plain``
 version only for a tensor that lies on the CPU. There is no fallback from
 one to the other: a CUDA tensor the kernel cannot take raises. Each wrapper
 counts its launches in ``<wrapper>.launches`` (``glm_sweep`` also by link,
-in ``glm_sweep.launches_by_link``, and by X's dtype, in
-``glm_sweep.launches_by_dtype``; K1s, one launch per group of models, by
-X's dtype in ``glm_sweep_stacked.launches_by_dtype`` and by instance in
-``glm_sweep_stacked.launches_by_instance``; K3 and K4 also by instance, in
+in ``glm_sweep.launches_by_link``, by X's dtype, in
+``glm_sweep.launches_by_dtype``, and by width, in
+``glm_sweep.launches_by_width``; K1s, one launch per group of models, by
+X's dtype in ``glm_sweep_stacked.launches_by_dtype``, by instance in
+``glm_sweep_stacked.launches_by_instance`` and by width in
+``glm_sweep_stacked.launches_by_width``; K3 and K4 also by instance, in
 ``kmeans_assign.launches_by_instance`` and ``gramian.launches_by_instance``;
 S1 by link in ``ell_rows.launches_by_link`` and S2 by mode in
 ``ell_cols.launches_by_mode``).
@@ -95,6 +102,24 @@ def use_fused_kernels(ctx, x: Optional[torch.Tensor] = None) -> bool:
 
 
 # -- K1: the GLM row sweep ----------------------------------------------------
+
+NARROW, WIDE = "narrow", "wide"
+NARROW_MAX_D = 2048  # the narrow instances' widest d (csrc/glm_sweep.cu,
+                     # csrc/glm_stacked.cu: glm_*_max_d)
+
+
+def glm_sweep_instance(dtype: torch.dtype, d: int) -> str:
+    """The instance of K1, K2 and K1s that a CUDA X of ``dtype`` and width
+    ``d`` launches: :data:`NARROW` up to :data:`NARROW_MAX_D` columns (one
+    read of X, a row's slots held by one warp's lanes), :data:`WIDE` past
+    it (two passes over X by column block). The same rule for every dtype
+    the kernels read; the C entry points route by the same bound."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"glm_sweep: no kernel reads X of {dtype}")
+    if d < 1:
+        raise ValueError(f"glm_sweep: X needs at least one column, got {d}")
+    return NARROW if d <= NARROW_MAX_D else WIDE
+
 
 def _softplus(m: torch.Tensor) -> torch.Tensor:
     # exact at every magnitude (torch's softplus goes linear past 20)
@@ -229,6 +254,15 @@ _SIGNATURES = {
 }
 
 
+def _entry(lib: ctypes.CDLL, fn: str, argtypes):
+    """An entry point declared at its call and not in _SIGNATURES: an
+    older build of the source without it (glm_phases.py --parent) still
+    loads."""
+    f = getattr(lib, fn)
+    f.argtypes, f.restype = argtypes, _I
+    return f
+
+
 def _library(name: str = "glm_sweep") -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with every entry point's
     argument types declared (each returns a cudaError_t as int)."""
@@ -294,19 +328,26 @@ def _glm_parts(lib, dev, code: int, lcode: int, d: int, n: int) -> int:
 def glm_sweep_plan(dtype: torch.dtype, link: str, d: int,
                    device=None) -> Dict[str, int]:
     """The kernel instance a CUDA sweep of X ``(n, d)`` of ``dtype``
-    launches: its ring stages ``S``, its block rows ``R``, its dynamic
-    shared memory in bytes and its CTAs resident on one SM of ``device``
-    (the current CUDA device by default)."""
+    launches, on ``device`` (the current CUDA device by default). A narrow
+    instance: its ring stages ``S``, its block rows ``R``, its dynamic
+    shared memory in bytes and its CTAs resident on one SM. The wide
+    instance (d > 2048): ``instance="wide"``, its block rows, the rows a
+    warp or thread has in flight, a gradient CTA's columns, and the CTAs
+    of its margin and gradient kernels resident on one SM."""
     lib = _library("glm_sweep")
-    # declared here and not in _SIGNATURES: an older build of the source
-    # without this entry point (glm_phases.py --parent) still loads
-    fn = lib.glm_sweep_plan
-    fn.argtypes, fn.restype = [_I, _I, _I, _PI], _I
-    plan = (ctypes.c_int * 4)()
+    wide = glm_sweep_instance(dtype, d) == WIDE
+    fn = _entry(lib, "glm_sweep_wide_plan" if wide else "glm_sweep_plan",
+                [_I, _I, _I, _PI])
+    plan = (ctypes.c_int * 5)()
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
         _cuda_check(fn(_DTYPE_CODE[dtype], _LINK_CODE[link], d, plan),
                     "glm_sweep_plan")
+    if wide:
+        return {"instance": WIDE, "block_rows": plan[0],
+                "group_rows": plan[1], "column_block": plan[2],
+                "margin_ctas_per_sm": plan[3],
+                "gradient_ctas_per_sm": plan[4]}
     return {"stages": plan[0], "block_rows": plan[1], "smem_bytes": plan[2],
             "ctas_per_sm": plan[3]}
 
@@ -335,9 +376,7 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     _check_x(x, "glm_sweep")
     n, d = x.shape
     lib = _library("glm_sweep")
-    if d > lib.glm_sweep_max_d():
-        raise ValueError(f"glm_sweep: d={d} exceeds the kernel's limit of "
-                         f"{lib.glm_sweep_max_d()} features")
+    width = glm_sweep_instance(x.dtype, d)
     dev = x.device
     # (n,) vectors and (d,) coefficients in the kernel's f32; a no-op on
     # the f32 accumulator tier the card runs
@@ -360,13 +399,31 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                                device=dev)
         out = torch.empty(d + 3, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _cuda_check(lib.glm_sweep_launch(
-            code, lcode, x.data_ptr(), y.data_ptr(), w.data_ptr(),
-            beta.data_ptr(), scalars.data_ptr(), n, d, partials.data_ptr(),
-            parts, out.data_ptr(), stream), "glm_sweep launch")
+        if width == NARROW:
+            _cuda_check(lib.glm_sweep_launch(
+                code, lcode, x.data_ptr(), y.data_ptr(), w.data_ptr(),
+                beta.data_ptr(), scalars.data_ptr(), n, d,
+                partials.data_ptr(), parts, out.data_ptr(), stream),
+                "glm_sweep launch")
+        else:
+            # beta zero-padded to whole 8-column slots; the multipliers'
+            # (n,) scratch between the margin and gradient passes
+            beta8 = torch.zeros(-(-d // 8) * 8, dtype=torch.float32,
+                                device=dev)
+            beta8[:d] = beta
+            mult = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+            launch = _entry(lib, "glm_sweep_wide_launch",
+                            [_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P, _I, _P,
+                             _P, _P])
+            _cuda_check(launch(
+                code, lcode, x.data_ptr(), y.data_ptr(), w.data_ptr(),
+                beta8.data_ptr(), scalars.data_ptr(), n, d,
+                partials.data_ptr(), parts, mult.data_ptr(), out.data_ptr(),
+                stream), "glm_sweep wide launch")
     glm_sweep.launches += 1
     glm_sweep.launches_by_link[link] += 1
     glm_sweep.launches_by_dtype[x.dtype] += 1
+    glm_sweep.launches_by_width[width] += 1
     grad_row = out[:d] if s is None else out[:d] * s
     return out[d], grad_row, out[d + 1], out[d + 2]
 
@@ -376,6 +433,7 @@ def reset_launch_counts() -> None:
     glm_sweep.launches = 0
     glm_sweep.launches_by_link = {LOGISTIC: 0, SQUARED: 0}
     glm_sweep.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
+    glm_sweep.launches_by_width = {NARROW: 0, WIDE: 0}
     kmeans_assign.launches = 0
     kmeans_assign.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
     gramian.launches = 0
@@ -383,6 +441,7 @@ def reset_launch_counts() -> None:
     glm_sweep_stacked.launches = 0
     glm_sweep_stacked.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
     glm_sweep_stacked.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
+    glm_sweep_stacked.launches_by_width = {NARROW: 0, WIDE: 0}
     center_sums.launches = 0
     ell_rows.launches = 0
     ell_rows.launches_by_link = {link: 0 for link in _ELL_LINK_CODE}
@@ -621,13 +680,13 @@ def glm_sweep_stacked_group(dtype: torch.dtype, d: int) -> int:
     """Models one K1s launch takes for X of ``dtype`` and width ``d``: the
     group size :func:`glm_sweep_stacked` launches by, :data:`K_MAX`, or 8
     on the tensor cores past d = 1280 (where sixteen models' parts leave no
-    room for two stages of X). Asks the built kernel (CUDA only)."""
+    room for two stages of X) and in the wide tensor-core instance past
+    d = 2048. Asks the built kernel (CUDA only)."""
     lib = _library("glm_stacked")
     group = lib.glm_stacked_group(_DTYPE_CODE[dtype], d)
     if group < 1:
         raise ValueError(f"glm_sweep_stacked: no instance takes X of "
-                         f"{dtype} at d={d} (limit {lib.glm_stacked_max_d()}"
-                         " features)")
+                         f"{dtype} at d={d}")
     return group
 
 
@@ -679,7 +738,8 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     the value of X is ``x * x_scale`` when the scale is given. A CPU tensor
     runs :func:`glm_sweep_stacked_plain`; a CUDA tensor launches the kernel
     once per group of :func:`glm_sweep_stacked_group` models, each launch
-    reading X once, or raises. The scale is folded into B and into the
+    reading X once (twice in the wide instance, past d = 2048), or
+    raises. The scale is folded into B and into the
     gradient rows, as :func:`glm_sweep` folds it. bf16 X and e4m3 codes
     launch the tensor-core instance, which takes each group's B split by
     :func:`split_bf16x3` and zero-padded to :data:`K1S_PAD` columns, and
@@ -691,9 +751,7 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     _check_x(x, "glm_sweep_stacked")
     n, d = x.shape
     lib = _library("glm_stacked")
-    if d > lib.glm_stacked_max_d():
-        raise ValueError(f"glm_sweep_stacked: d={d} exceeds the kernel's "
-                         f"limit of {lib.glm_stacked_max_d()} features")
+    width = glm_sweep_instance(x.dtype, d)
     dev = x.device
     if Y.dim() != 2 or Y.shape[0] != n or Y.device != dev:
         raise ValueError(f"glm_sweep_stacked: labels {tuple(Y.shape)} on "
@@ -726,16 +784,8 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         for k0 in range(0, k, group):
             kg = min(group, k - k0)
-            parts = ctypes.c_int(0)
-            _cuda_check(lib.glm_stacked_num_parts(code, d, kg, n,
-                                                  ctypes.byref(parts)),
-                        "glm_stacked_num_parts")
-            width = kg * (d + 2) + 1
-            # scratch: one double partial row per CTA, (SMs x CTAs per SM)
-            # rows whatever n
-            partials = torch.empty(parts.value * width, dtype=torch.float64,
-                                   device=dev)
-            out = torch.empty(width, dtype=torch.float32, device=dev)
+            out = torch.empty(kg * (d + 2) + 1, dtype=torch.float32,
+                              device=dev)
             if instance == TENSOR_CORE:
                 bg = torch.zeros((3, kg, d_pad), dtype=torch.bfloat16,
                                  device=dev)
@@ -751,13 +801,16 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
                 # a group that cannot be read so goes over as float32
                 yg = Y[:, k0:k0 + kg].float()
                 y_ptr, ldy, yb = yg.data_ptr(), kg, 0
-            _cuda_check(lib.glm_stacked_launch(
-                code, x.data_ptr(), y_ptr, yb, ldy, w.data_ptr(),
-                bg.data_ptr(), og.data_ptr(), n, d, kg, partials.data_ptr(),
-                parts.value, out.data_ptr(), stream), "glm_stacked launch")
+            args = (code, x.data_ptr(), y_ptr, yb, ldy, w.data_ptr(),
+                    bg.data_ptr(), og.data_ptr(), n, d, kg)
+            if width == NARROW:
+                _stacked_narrow(lib, args, n, d, kg, out, stream)
+            else:
+                _stacked_wide(lib, args, n, d, kg, out, stream)
             glm_sweep_stacked.launches += 1
             glm_sweep_stacked.launches_by_dtype[x.dtype] += 1
             glm_sweep_stacked.launches_by_instance[instance] += 1
+            glm_sweep_stacked.launches_by_width[width] += 1
             body = out[:kg * (d + 2)].view(kg, d + 2)
             grad[k0:k0 + kg] = body[:, :d]
             loss[k0:k0 + kg] = body[:, d]
@@ -766,6 +819,46 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     if s is not None:
         grad = grad * s
     return loss, grad, msum, wsum
+
+
+def _stacked_narrow(lib, args, n: int, d: int, kg: int, out, stream) -> None:
+    """One launch of a narrow K1s instance (``args``: dtype code through
+    kg of ``glm_stacked_launch``)."""
+    code = args[0]
+    parts = ctypes.c_int(0)
+    _cuda_check(lib.glm_stacked_num_parts(code, d, kg, n,
+                                          ctypes.byref(parts)),
+                "glm_stacked_num_parts")
+    # scratch: one double partial row per CTA, (SMs x CTAs per SM) rows
+    # whatever n
+    partials = torch.empty(parts.value * (kg * (d + 2) + 1),
+                           dtype=torch.float64, device=out.device)
+    _cuda_check(lib.glm_stacked_launch(*args, partials.data_ptr(),
+                                       parts.value, out.data_ptr(), stream),
+                "glm_stacked launch")
+
+
+def _stacked_wide(lib, args, n: int, d: int, kg: int, out, stream) -> None:
+    """One launch of a wide K1s instance (d > 2048): the (n, kg)
+    multipliers between its two passes, the margin CTAs' scalar rows and
+    the row slabs' gradient rows (one slab per SM) as scratch."""
+    code, dev = args[0], out.device
+    ctas, slabs = ctypes.c_int(0), ctypes.c_int(0)
+    _cuda_check(_entry(lib, "glm_stacked_wide_parts",
+                       [_I, _I, _I, _LL, _PI, _PI])(
+        code, d, kg, n, ctypes.byref(ctas), ctypes.byref(slabs)),
+        "glm_stacked_wide_parts")
+    mult = torch.empty(max(n, 1) * kg, dtype=torch.float32, device=dev)
+    mpart = torch.empty(ctas.value * (2 * kg + 1), dtype=torch.float64,
+                        device=dev)
+    gpart = torch.empty(slabs.value * kg * d, dtype=torch.float64,
+                        device=dev)
+    launch = _entry(lib, "glm_stacked_wide_launch",
+                    [_I, _P, _P, _I, _LL, _P, _P, _P, _LL, _I, _I, _P, _P,
+                     _I, _P, _I, _P, _P])
+    _cuda_check(launch(*args, mult.data_ptr(), mpart.data_ptr(), ctas.value,
+                       gpart.data_ptr(), slabs.value, out.data_ptr(),
+                       stream), "glm_stacked wide launch")
 
 
 def fused_binary_logistic_stacked_scaled(x, Y, w, inv_std, scaled_mean,

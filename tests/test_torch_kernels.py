@@ -501,8 +501,9 @@ def test_cuda_glm_sweep_misaligned_base(dtype, d, link):
 @pytest.mark.gpu
 def test_cuda_glm_sweep_instances_do_not_spill():
     """Every glm_sweep_kernel instance (3 dtypes x 2 links x 8 widths, the
-    E = 64 ones of d = 2,000 included) reports 0 spill bytes in ptxas's
-    lines of the build."""
+    E = 64 ones of d = 2,000 included) and every kernel of the wide
+    instance (3 dtypes x 2 links of the margin pass, 3 dtypes of the
+    gradient pass) reports 0 spill bytes in ptxas's lines of the build."""
     _cuda()
     from cycloneml_tpu_torch.ops import build
     tk._library("glm_sweep")
@@ -514,7 +515,9 @@ def test_cuda_glm_sweep_instances_do_not_spill():
             spills[func] = ln.split(":")[-1].strip()
     sweeps = {f: s for f, s in spills.items() if "glm_sweep_kernel" in f}
     assert len(sweeps) == 48
-    bad = {f: s for f, s in sweeps.items()
+    wide = {f: s for f, s in spills.items() if "glm_wide_" in f}
+    assert len(wide) == 9
+    bad = {f: s for f, s in {**sweeps, **wide}.items()
            if "0 bytes spill stores, 0 bytes spill loads" not in s}
     assert not bad, bad
 

@@ -161,3 +161,48 @@ def test_kernel_route_on_the_cpu_fits_the_same_model(pctx):
                                   plain.coefficients.values)
     assert fused.summary.total_evals == plain.summary.total_evals
     assert kernels.ell_rows.launches == 0 and kernels.ell_cols.launches == 0
+
+
+def test_float32_sums_do_not_part_a_small_criteo_fit(monkeypatch):
+    """The float32 tier's sparse intercept (ROADMAP Queue 3): a
+    Criteo-class fit (``generate_criteo_like``, 20,000 rows, 2^14 hashed
+    columns, maxIter=25 as chip_smoke.py's) through the plain passes with
+    their sums in float32 (the float32 tier), in float64 (the float64
+    tier), and in the kernels' arithmetic (float32 inputs, S1's sums in
+    double, as ``csrc/ell_sweep.cu`` takes them): the three take the same
+    iterations, their objectives agree to 1e-6 at every iteration and their
+    intercepts to 1e-5. So at this size the sums' precision does not move
+    the fit; what parts the card's full-size fits is where their line
+    searches part (chip_smoke.py phases 25 and 33)."""
+    from cycloneml_tpu_torch.dataset.random import generate_criteo_like
+    from cycloneml_tpu_torch.ml.optim import sparse_aggregators
+
+    plain_rows = kernels.ell_rows_plain
+
+    def rows_in_double(indices, values, y, w, beta, *args):
+        mult, loss, msum, wsum = plain_rows(indices, values, y, w,
+                                            beta.double(), *args)
+        return mult.float(), loss, msum, wsum
+
+    models = {}
+    for name, dtype in (("float32", "float32"), ("float64", "float64"),
+                        ("kernel arithmetic", "float32")):
+        ctx = CycloneContext(CycloneConf().set("cyclone.master", "cpu")
+                             .set("cyclone.compute.dtype", dtype))
+        try:
+            ds = generate_criteo_like(ctx, 20_000, seed=0, hash_dim=1 << 14)
+            with monkeypatch.context() as m:
+                if name == "kernel arithmetic":
+                    m.setattr(sparse_aggregators.kernels, "ell_rows_plain",
+                              rows_in_double)
+                models[name] = LogisticRegression(maxIter=25,
+                                                  regParam=0.01).fit(ds)
+        finally:
+            ctx.stop()
+    ref = models["float64"]
+    for name in ("float32", "kernel arithmetic"):
+        got = models[name]
+        assert got.summary.total_iterations == ref.summary.total_iterations
+        np.testing.assert_allclose(got.summary.objective_history,
+                                   ref.summary.objective_history, rtol=1e-6)
+        assert abs(got.intercept - ref.intercept) <= 1e-5
