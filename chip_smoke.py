@@ -12,7 +12,8 @@ the final result line:
 2. the build of every kernel from ``cycloneml_tpu_torch/csrc`` (one nvcc per
    source, started together), with each kernel instance's registers,
    shared memory and spills from ``-Xptxas -v`` (K3 and K4: the
-   tensor-core instances for bf16 and e4m3 X, the FMA ones for f32);
+   tensor-core instances for bf16 and e4m3 X, the FMA ones for f32), and
+   a check that no kernel of ``ell_sweep`` spills;
 3. K1 (the GLM sweep, logistic link) against its plain PyTorch version run
    in float64 on the card, at the LogisticRegression fit's shape
    (n=2,000,000, d=1280) for f32 and bf16 X with and without centering,
@@ -166,7 +167,11 @@ the final result line:
    hinge, Gram) and the moments mode: |dloss| <= 1e-5 |loss|, max|dgrad|
    <= 1e-4 max|grad|, sum(w) exact, two launches bitwise equal; their
    times beside the plain versions, the bounds (bytes, and with one
-   32-byte sector a gather) and cuSPARSE CSR SpMV (X beta, X^T r);
+   32-byte sector a gather) and cuSPARSE CSR SpMV (X beta, and X^T r
+   over a copy in plain column order), each kernel and its yardstick in
+   turns (kernel, library, library, kernel); the column copy's block
+   size, blocks and pieces, and the share of S1's slots its hot-column
+   table serves;
 25. sparse LogisticRegression on those rows (``maxIter=25,
    regParam=0.01``): the column copy's set-up time and peak memory, a fit
    through S1 and S2 (S1 launched ``total_evals`` times, S2 once more for
@@ -175,14 +180,16 @@ the final result line:
    accumulator tier (``cyclone.compute.dtype=float64``): objectives to
    1e-4, coefficients within rtol 5e-3 / atol 5e-4 (on the float32 tier
    their distance is printed beside that of two plain fits, float32 and
-   float64); the split into kernel and host time, peak memory against the
-   ELL's bytes, training AUC;
+   float64); the split into kernel and host time (``evals_device_s``),
+   peak memory against the ELL's bytes, training AUC;
 26. BASELINE configuration 5: ``RowMatrix.compute_svd(20, max_gram_dim=
    4096, tol=1e-9, max_iter=300)`` by Lanczos over the NYTimes-shape bag
    of words (300,000 x 102,660, 232 slots, the reference's numpy recipe),
    one Gram matvec (S1 then S2) against float64 and bitwise repeatable,
    S1 and S2 once per Lanczos step, all 20 singular values within 5e-3 of
-   scipy's float64 svds on the same CSR (times of both printed);
+   scipy's float64 svds on the same CSR (times of both printed); S1's and
+   S2's times at this shape, and the SVD's time split into the steps'
+   kernel time and the rest;
 27. the rest of RowMatrix on phase 10's data: Lanczos
    (``compute_svd(10, max_gram_dim=1024)``) within 1e-4 of the Gramian
    branch, ``multiply`` by a seeded 2,000 x 64 matrix within 1e-5 of
@@ -2523,8 +2530,9 @@ def _ell_pair(ds, beta, b0, link, scale, columns=None, plain=False):
     beta's dtype (the float64 truth for a float64 beta)."""
     from cycloneml_tpu_torch.ops import kernels
     rows = kernels.ell_rows_plain if plain else kernels.ell_rows
+    extra = {} if plain else {"hot": ds.hot_columns()}
     mult, loss, msum, wsum = rows(ds.indices, ds.values, ds.y, ds.w, beta, b0,
-                                  link, scale, ds.tail())
+                                  link, scale, ds.tail(), **extra)
     if plain:
         grad = kernels.ell_cols_plain(ds.indices, ds.values, mult,
                                       ds.n_features, scale=scale,
@@ -2715,14 +2723,53 @@ def phase_ell(ds, columns):
     checks["moments: two launches bitwise equal"] = torch.equal(m1, m2)
     del m1, m2, tm, a0
 
-    # times at the fit's form: the logistic link with the scale
-    mult = kernels.ell_rows(ds.indices, ds.values, ds.y, ds.w, beta, -1.0,
-                            kernels.LOGISTIC, inv)[0]
-    s1_ms = _time_ms(lambda: kernels.ell_rows(
-        ds.indices, ds.values, ds.y, ds.w, beta, -1.0, kernels.LOGISTIC,
-        inv), 5, 1)
-    s2_ms = _time_ms(lambda: kernels.ell_cols(
-        ds.indices, ds.values, mult, d, scale=inv, columns=columns), 5, 1)
+    # times at the fit's form: the logistic link with the scale, each
+    # kernel beside its cuSPARSE yardstick in turns (kernel, library,
+    # library, kernel) over the same buffers: the ELL as CSR rows of k
+    # slots (X beta), and a copy of the nonzeros in plain column order (one
+    # block over all rows) as CSR rows of X^T (X^T r, as PERF.md §6 has it).
+    # S2 also runs over that one-block copy, the column order of the design
+    # before the row blocks, in turns with S2 over the blocked copy
+    hot = ds.hot_columns()
+
+    def s1():
+        return kernels.ell_rows(ds.indices, ds.values, ds.y, ds.w, beta,
+                                -1.0, kernels.LOGISTIC, inv, hot=hot)
+
+    mult = s1()[0]
+    crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
+    x_csr = torch.sparse_csr_tensor(crow, ds.indices.view(-1),
+                                    ds.values.view(-1), size=(n, d),
+                                    check_invariants=False)
+    s1_turns = [_time_ms(f, 5, 1) for f in (
+        s1, lambda: torch.mv(x_csr, beta), lambda: torch.mv(x_csr, beta),
+        s1)]
+    del x_csr, crow
+    one = kernels.ell_columns(ds.indices, ds.values, d, ds.tail(),
+                              block_rows=1 << max(n - 1, 1).bit_length())
+    col_ptr = torch.zeros(d + 1, dtype=torch.int64, device=dev)
+    col_ptr[1:] = torch.cumsum(kernels.column_counts(one, d), 0)
+    xt_csr = torch.sparse_csr_tensor(col_ptr.int(), one.rows, one.vals,
+                                     size=(d, n), check_invariants=False)
+
+    def s2():
+        return kernels.ell_cols(ds.indices, ds.values, mult, d, scale=inv,
+                                columns=columns)
+
+    def s2_one_block():
+        return kernels.ell_cols(ds.indices, ds.values, mult, d, scale=inv,
+                                columns=one)
+
+    s2_turns = [_time_ms(f, 5, 1) for f in (
+        s2, lambda: torch.mv(xt_csr, mult), lambda: torch.mv(xt_csr, mult),
+        s2)]
+    one_turns = [_time_ms(f, 5, 1) for f in (
+        s2_one_block, s2, s2, s2_one_block)]
+    one_pieces = one.piece_col.shape[0]
+    del xt_csr, col_ptr, one
+    s1_ms, spmv_x = (s1_turns[0] + s1_turns[3]) / 2, min(s1_turns[1:3])
+    s2_ms, spmv_xt = (s2_turns[0] + s2_turns[3]) / 2, min(s2_turns[1:3])
+    one_ms = (one_turns[0] + one_turns[3]) / 2
     mom_ms = _time_ms(lambda: kernels.ell_cols(
         ds.indices, ds.values, ds.w, d, moments=True, columns=columns), 3, 1)
     s1_plain = _time_ms(lambda: kernels.ell_rows_plain(
@@ -2730,46 +2777,53 @@ def phase_ell(ds, columns):
         inv), 2, 1)
     s2_plain = _time_ms(lambda: kernels.ell_cols_plain(
         ds.indices, ds.values, mult, d, scale=inv), 2, 1)
-    # cuSPARSE yardsticks over the same buffers (no copy of the nonzeros):
-    # the ELL as CSR rows of k slots, the column copy as CSR rows of X^T
-    crow = torch.arange(0, n * k + 1, k, dtype=torch.int32, device=dev)
-    x_csr = torch.sparse_csr_tensor(crow, ds.indices.view(-1),
-                                    ds.values.view(-1), size=(n, d),
-                                    check_invariants=False)
-    xt_csr = torch.sparse_csr_tensor(columns.col_ptr.int(), columns.rows,
-                                     columns.vals, size=(d, n),
-                                     check_invariants=False)
-    spmv_x = _time_ms(lambda: torch.mv(x_csr, beta), 5, 1)
-    spmv_xt = _time_ms(lambda: torch.mv(xt_csr, mult), 5, 1)
-    del x_csr, xt_csr, crow
-    nnz = int(columns.col_ptr[-1])
+    nnz = int(columns.block_ptr[-1])
     n_pieces = columns.piece_col.shape[0]
     s1_bytes = n * k * 8 + n * 12 + d * 8
-    s2_bytes = nnz * 8 + n * 4 + d * 4 + (d + 1) * 16 + n_pieces * 4
+    # what X^T r must move: the nonzeros, r and the output (the copy's
+    # piece metadata is the layout's own, printed apart)
+    s2_bytes = nnz * 8 + n * 4 + d * 4
     s1_bound, s1_by = _bound(s1_bytes, 2.0 * n * k)
     s2_bound, s2_by = _bound(s2_bytes, 2.0 * nnz)
     gather = {"s1_with_beta_sector_gathers_ms":
               (s1_bytes + n * k * 32) / H100_BYTES_PER_S * 1e3,
               "s2_with_mult_sector_gathers_ms":
               (s2_bytes + nnz * 32) / H100_BYTES_PER_S * 1e3}
-    _line("ell_check", n=n, k=k, d=d, nnz=nnz, pieces=n_pieces, links=errs,
+    share = kernels.hot_share(hot, kernels.column_counts(columns, d))
+    layout = {"block_rows": columns.block_rows,
+              "blocks": columns.block_ptr.shape[0] - 1, "pieces": n_pieces,
+              "piece_metadata_bytes": (n_pieces + 1) * 8 + n_pieces * 8
+              + (d + 1) * 8, "hot_slots": hot.shape[0],
+              "hot_share_of_s1_slots": share}
+    _line("ell_check", n=n, k=k, d=d, nnz=nnz, **layout, links=errs,
           moments_rel_err=mom_err, moments_worst_over_column_bound=mom_excess,
           row_rtol=ELL_ROW_RTOL, column_rtol=ELL_COL_RTOL,
           column_atol_of_abs_sum=ELL_COL_ATOL)
     _line("ell_time", s1_ms=s1_ms, s2_ms=s2_ms, s2_moments_ms=mom_ms,
           s1_plain_ms=s1_plain, s2_plain_ms=s2_plain, s1_bound_ms=s1_bound,
           s2_bound_ms=s2_bound, bound_by=[s1_by, s2_by],
-          spmv_x_beta_ms=spmv_x, spmv_xt_r_ms=spmv_xt, **gather)
+          spmv_x_beta_ms=spmv_x, spmv_xt_r_ms=spmv_xt,
+          s1_turns_kernel_spmv_spmv_kernel_ms=s1_turns,
+          s2_turns_kernel_spmv_spmv_kernel_ms=s2_turns,
+          s2_one_block_ms=one_ms, one_block_pieces=one_pieces,
+          s2_turns_one_block_blocked_blocked_one_block_ms=one_turns,
+          **gather)
     _check("ell", checks)
     s1 = {"max_abs_err": errs[kernels.LOGISTIC]["mult_max_abs_err"],
           "ms": s1_ms, "plain_ms": s1_plain, "bound_ms": s1_bound,
           "bound_by": s1_by, "library_ms": None, "yardstick_ms": spmv_x,
+          "turns_ms": s1_turns, "hot_slots": layout["hot_slots"],
+          "hot_share": share,
           "bound_with_sector_gathers_ms":
               gather["s1_with_beta_sector_gathers_ms"]}
     s2 = {"max_abs_err":
           errs[kernels.LOGISTIC]["max_abs_grad_err_vs_float64_chain"],
           "ms": s2_ms, "plain_ms": s2_plain, "bound_ms": s2_bound,
           "bound_by": s2_by, "library_ms": spmv_xt, "moments_ms": mom_ms,
+          "turns_ms": s2_turns, "block_rows": columns.block_rows,
+          "blocks": layout["blocks"], "pieces": n_pieces,
+          "piece_metadata_bytes": layout["piece_metadata_bytes"],
+          "one_block_ms": one_ms, "one_block_turns_ms": one_turns,
           "bound_with_sector_gathers_ms":
               gather["s2_with_mult_sector_gathers_ms"]}
     return s1, s2
@@ -2932,17 +2986,26 @@ def phase_criteo():
         ell_bytes = ds.indices.numel() * 8
         columns, sort_s = _timed(ds.columns)
         setup_peak = torch.cuda.max_memory_allocated() - base
+        hot, hot_s = _timed(ds.hot_columns)
         _, labels_s = _timed(ds.y_host)
-        nnz = int(columns.col_ptr[-1])
-        counts = columns.col_ptr.diff()
+        nnz = int(columns.block_ptr[-1])
+        counts = kernels.column_counts(columns, CRITEO_D)
+        n_pieces = columns.piece_col.shape[0]
         _line("criteo_data", n=CRITEO_N, k=ds.k_max, d=CRITEO_D, nnz=nnz,
               ell_bytes=ell_bytes, column_copy_bytes=nnz * 8,
+              block_rows=columns.block_rows,
+              blocks=columns.block_ptr.shape[0] - 1, pieces=n_pieces,
+              piece_metadata_bytes=(n_pieces + 1) * 8 + n_pieces * 8
+              + (CRITEO_D + 1) * 8,
               largest_column=int(counts.max()),
               empty_columns=int((counts == 0).sum()),
+              hot_slots=hot.shape[0],
+              hot_share_of_s1_slots=kernels.hot_share(hot, counts),
               positive_share=float(ds.y[:CRITEO_N].mean()),
-              generate_s=gen_s, column_copy_s=sort_s,
+              generate_s=gen_s, column_copy_s=sort_s, hot_table_s=hot_s,
               label_readback_s=labels_s,
               setup_peak_bytes=setup_peak)
+        del counts
         s1, s2 = phase_ell(ds, columns)
 
         torch.cuda.reset_peak_memory_stats()
@@ -3022,7 +3085,8 @@ def phase_criteo():
                                                   - p64.intercept),
               bitwise_equal_refit=bitwise, train_auc=auc,
               max_memory_allocated=peak, ell_bytes=ell_bytes,
-              peak_over_ell=peak / ell_bytes)
+              peak_over_ell=peak / ell_bytes,
+              evals_device_s=split["evals_device_s"])
         _check("criteo fit", {
             "S1 launched once per evaluation": s1_launches == evals,
             "S2 launched once per evaluation and once for the summary":
@@ -3119,6 +3183,18 @@ def phase_config5():
         steps = kernels.ell_rows.launches_by_link[kernels.GRAM]
         s1, s2 = kernels.ell_rows.launches, kernels.ell_cols.launches
         others = _other_launches(kernels, "ell_rows", "ell_cols")
+        # the step's two kernels at this shape, as the Lanczos step calls
+        # them (the Gram link, the hot table, the column copy)
+        hot = ds.hot_columns()
+        mult = kernels.ell_rows(ds.indices, ds.values, ds.y, ds.w, q, 0.0,
+                                kernels.GRAM, None, hot=hot)[0]
+        s1_ms = _time_ms(lambda: kernels.ell_rows(
+            ds.indices, ds.values, ds.y, ds.w, q, 0.0, kernels.GRAM, None,
+            hot=hot), 20)
+        s2_ms = _time_ms(lambda: kernels.ell_cols(
+            ds.indices, ds.values, mult, NYT_D, columns=columns), 20)
+        del mult
+        kernel_s = steps * (s1_ms + s2_ms) / 1e3
         sig = res.s.to_array()
         rows = np.repeat(np.arange(NYT_N), NYT_K)
         csr = sp.csr_matrix((val.reshape(-1).astype(np.float64),
@@ -3134,7 +3210,12 @@ def phase_config5():
               ingest_s=ingest_s, column_copy_s=sort_s,
               matvec_rel_err=mv_err, matvec_bitwise_equal=mv_bitwise,
               lanczos_steps=steps, s1_launches=s1, s2_launches=s2,
-              svd_s=svd_s, scipy_s=scipy_s, sigma_top5=sig[:5].tolist(),
+              s1_ms=s1_ms, s2_ms=s2_ms, block_rows=columns.block_rows,
+              blocks=columns.block_ptr.shape[0] - 1,
+              pieces=columns.piece_col.shape[0], hot_slots=hot.shape[0],
+              svd_s=svd_s, svd_kernels_s=kernel_s,
+              svd_rest_s=svd_s - kernel_s,
+              scipy_s=scipy_s, sigma_top5=sig[:5].tolist(),
               rel_err_by_index=rel.tolist(), max_rel_err=float(rel.max()))
         _check("config5", {
             "one matvec within 1e-4 of float64": mv_err <= 1e-4,
@@ -3736,6 +3817,13 @@ def main() -> int:
     t_start = time.perf_counter()
     card, kind = phase_card()
     ptxas = phase_build()
+    # spill bytes (stores plus loads) of every kernel of ell_sweep
+    ell_spills = {f: sum(int(v) for ln in lines
+                         for v in re.findall(r"(\d+) bytes spill", ln))
+                  for f, lines in ptxas.items() if "ell_" in f}
+    _line("ell_ptxas_spills", **ell_spills)
+    _check("ell ptxas", {"0 spill bytes in every ell_sweep kernel":
+                         bool(ell_spills) and not any(ell_spills.values())})
     entries = []
 
     def entry(name, source, replaces, numbers, launches, **extra):
@@ -3874,21 +3962,37 @@ def main() -> int:
                  or "_fma_" in f or "wide_reduce" in f})
     sparse = "cycloneml_tpu/ml/optim/sparse_aggregators.py"
     ell_ptxas = {f: ptxas.get(f) for f in ptxas if f.startswith("ell_")}
+    keep = ("bound_with_sector_gathers_ms", "turns_ms")
     entry("ell_rows (S1, the sparse row pass)", "ell_sweep",
           f"{sparse}:34", crit["s1"], crit["s1_launches"],
           config5_launches=nyt["s1_launches"], ptxas=ell_ptxas,
-          bound_with_sector_gathers_ms=crit["s1"][
-              "bound_with_sector_gathers_ms"],
+          redesigned="flat reads of a warp's 32 rows (16-byte loads, every "
+                     "lane busy), 32-warp CTAs sharing a shared-memory "
+                     "table of the hot columns' coefficients",
+          hot_slots=crit["s1"]["hot_slots"],
+          hot_share=crit["s1"]["hot_share"],
+          **{f: crit["s1"][f] for f in keep},
           yardstick="cuSPARSE CSR SpMV X beta (the margins alone)",
-          note="jnp.take gathers and the link, not a Pallas kernel")
+          note="jnp.take gathers and the link, not a Pallas kernel; "
+               "turns_ms: kernel, yardstick, yardstick, kernel")
     entry("ell_cols (S2, the sparse column pass)", "ell_sweep",
           f"{sparse}:40", crit["s2"], crit["s2_launches"],
           config5_launches=nyt["s2_launches"],
           moments_ms=crit["s2"]["moments_ms"],
-          bound_with_sector_gathers_ms=crit["s2"][
-              "bound_with_sector_gathers_ms"],
+          redesigned="a copy of the nonzeros in (row block, column, row) "
+                     "order: the pieces in flight gather one block's "
+                     "slice of mult from L2",
+          block_rows=crit["s2"]["block_rows"], blocks=crit["s2"]["blocks"],
+          pieces=crit["s2"]["pieces"],
+          piece_metadata_bytes=crit["s2"]["piece_metadata_bytes"],
+          one_block_ms=crit["s2"]["one_block_ms"],
+          one_block_turns_ms=crit["s2"]["one_block_turns_ms"],
+          **{f: crit["s2"][f] for f in keep},
           note="jax.ops.segment_sum, not a Pallas kernel; library_ms is "
-               "cuSPARSE CSR SpMV X^T r over the column copy")
+               "cuSPARSE CSR SpMV X^T r over a copy in plain column "
+               "order; turns_ms: kernel, library, library, kernel; "
+               "one_block_ms: the same kernel over the copy in plain "
+               "column order (one block), in turns with the blocked copy")
     print(json.dumps({"kernels": entries}), flush=True)
     _line("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

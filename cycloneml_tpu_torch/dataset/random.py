@@ -31,9 +31,34 @@ _GEN_ROWS = 1 << 16  # rows drawn at a time (bounds the f32 temporary)
 _BETA_STREAM = 2 ** 31 - 1
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """SplitMix64's finalizer: a bijection of 64-bit values, 0 to 0."""
+    z &= _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def seed_value(device_type: str, seed: int, stream: int) -> int:
+    """The ``torch.Generator`` seed of stream ``stream`` of ``seed``: on
+    CUDA ``(seed << 32) + stream``, all 64 bits of which the card's Philox
+    takes. The CPU generator keeps only the low 32 bits of its seed, where
+    that value would drop the seed (every seed would draw the same rows);
+    there the stream is offset by the seed's SplitMix64 mix folded to 32
+    bits, so both count. The mix takes 0 to 0: seed 0 draws as before."""
+    value = (int(seed) << 32) + int(stream)
+    if device_type == "cuda":
+        return value
+    z = _mix64(int(seed))
+    return (int(stream) + (z ^ (z >> 32))) & 0xFFFFFFFF
+
+
 def _generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
     g = torch.Generator(device=device)
-    g.manual_seed((int(seed) << 32) + int(stream))
+    g.manual_seed(seed_value(torch.device(device).type, seed, stream))
     return g
 
 

@@ -10,10 +10,11 @@ rows carry w = 0.
 
 On the card the aggregators run the hand-written passes of
 ``csrc/ell_sweep.cu`` (``ops/kernels.ell_rows`` and ``ell_cols``). The
-column pass reads a column-ordered copy of the nonzeros
-(:meth:`SparseInstanceDataset.columns`), built at first use on the card by
-a deterministic counting sort and cached, shared with every standardized
-view of the same rows.
+column pass reads a copy of the nonzeros in (row block, column, row) order
+(:meth:`SparseInstanceDataset.columns`), and the row pass a table of the
+hot columns (:meth:`SparseInstanceDataset.hot_columns`); both are built at
+first use on the card by deterministic integer steps and cached, shared
+with every standardized view of the same rows.
 
 Standardization (:func:`standardize_sparse_dataset`) scales by 1/std
 without centering, as the reference does, but keeps no scaled copy: the
@@ -166,7 +167,7 @@ class SparseInstanceDataset:
         self.coo_val = coo_val
         self.scale = scale
         # built at first use and shared with standardized views: the
-        # row-grouped tail and the column-ordered copy of the nonzeros
+        # row-grouped tail, the blocked column copy, the hot columns
         self._layout: dict = {}
         self._yw_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
@@ -293,12 +294,22 @@ class SparseInstanceDataset:
         return self._layout["tail"]
 
     def columns(self) -> kernels.EllColumns:
-        """The column-ordered copy of the nonzeros the column pass reads
-        (:func:`kernels.ell_columns`), built at first use and cached."""
+        """The copy of the nonzeros in (row block, column, row) order that
+        the column pass reads (:func:`kernels.ell_columns`), built at first
+        use and cached."""
         if "columns" not in self._layout:
             self._layout["columns"] = kernels.ell_columns(
                 self.indices, self.values, self.n_features, self.tail())
         return self._layout["columns"]
+
+    def hot_columns(self) -> torch.Tensor:
+        """The row pass's table of hot columns
+        (:func:`kernels.ell_hot_columns`), built at first use and
+        cached."""
+        if "hot" not in self._layout:
+            self._layout["hot"] = kernels.ell_hot_columns(
+                self.indices, self.values, self.n_features, self.tail())
+        return self._layout["hot"]
 
     def scaled(self, scale: torch.Tensor) -> "SparseInstanceDataset":
         """A view of these rows whose values read ``value * scale[index]``

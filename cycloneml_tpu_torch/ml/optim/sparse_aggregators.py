@@ -13,8 +13,9 @@ An aggregator is ``agg(block, coef)``, where ``block`` is a
 plus ``index_add_`` (``ops/kernels.ell_rows_plain``/``ell_cols_plain``),
 in the dtype of the coefficients; under ``cyclone.ml.usePallasKernels``
 (a CUDA dataset by default) every evaluation is one launch of S1
-(``ell_rows``, the row pass with the link) and one of S2 (``ell_cols``, the
-column pass over the column-ordered copy), both from
+(``ell_rows``, the row pass with the link, reading the hot columns'
+coefficients from shared memory) and one of S2 (``ell_cols``, the column
+pass over the copy of the nonzeros in (row block, column) order), both from
 ``csrc/ell_sweep.cu``, which sum in one fixed order. The ``_hybrid`` twins
 take a dataset with a COO tail, the others one without, as the
 reference's signatures do.
@@ -56,7 +57,7 @@ def sparse_gradient_pass(block, beta: torch.Tensor, b0, link: str, d: int):
     if _fused(block):
         mult, loss, msum, wsum = kernels.ell_rows(
             block.indices, block.values, block.y, block.w, beta, b0, link,
-            block.scale, tail)
+            block.scale, tail, hot=block.hot_columns())
         g = kernels.ell_cols(block.indices, block.values, mult, d,
                              scale=block.scale, tail=tail,
                              columns=block.columns)

@@ -28,9 +28,9 @@ the sparse (ELL) tier's two passes (``csrc/ell_sweep.cu``, the reference's
 ``jnp.take`` gathers and ``segment_sum`` scatters of its sparse
 aggregators, not Pallas kernels): S1, ``ell_rows``, the margins, the link
 and the per-row multipliers with the loss, sum(mult) and sum(w); S2,
-``ell_cols``, the column sums X^T r over a column-ordered copy of the
-nonzeros (:func:`ell_columns`), for the gradient or the weighted feature
-moments. Both sum in one fixed order, with no float atomics.
+``ell_cols``, the column sums X^T r over a copy of the nonzeros in (row
+block, column) order (:func:`ell_columns`), for the gradient or the
+weighted feature moments. Both sum in one fixed order, with no float atomics.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -246,10 +246,11 @@ _SIGNATURES = {
     "ell_sweep": {
         "ell_row_blocks": [_LL],
         "ell_piece_entries": [],
+        "ell_max_hot_slots": [],
         "ell_rows_launch": [_I, _I, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _I, _P, _P],
-        "ell_cols_launch": [_I, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P,
-                            _P],
+                            _P, _P, _P, _I, _P, _I, _P, _P],
+        "ell_cols_launch": [_I, _P, _P, _P, _LL, _P, _I, _P, _P, _P, _P, _P,
+                            _P, _P],
     },
 }
 
@@ -984,6 +985,9 @@ GRADIENT, MOMENTS = "gradient", "moments"
 _ELL_LINK_CODE = {LOGISTIC: 0, SQUARED: 1, HINGE: 2, GRAM: 3}
 ELL_CHUNK = 1 << 18  # rows the plain versions take at a time
 ELL_PIECE = 1024     # nonzeros of one S2 piece, at most (csrc/ell_sweep.cu)
+ELL_BLOCK_ROWS = 1 << 22  # rows of one block of the column copy (16.8 MB of
+                          # mult: one block's slice of r stays in L2)
+ELL_HOT_SLOTS = 2048      # S1's shared-memory table of hot columns
 
 
 class EllTail(NamedTuple):
@@ -995,17 +999,32 @@ class EllTail(NamedTuple):
 
 
 class EllColumns(NamedTuple):
-    """The nonzeros in column order, S2's operand: column c holds
-    ``rows[col_ptr[c]:col_ptr[c + 1]]`` (in row order, the COO tail after
-    the ELL entries) and their ``vals``; its entries are cut into pieces of
-    at most ``piece``, numbered ``piece_start[c]`` on, each of column
-    ``piece_col[p]``."""
-    col_ptr: torch.Tensor      # (d + 1,) int64
-    rows: torch.Tensor         # (nnz,) int32
-    vals: torch.Tensor         # (nnz,) float32
-    piece_start: torch.Tensor  # (d + 1,) int64
-    piece_col: torch.Tensor    # (n_pieces,) int32
+    """The nonzeros in (row block, column, row) order, S2's operand. Row
+    block b, rows ``[b R, (b + 1) R)`` with R = ``block_rows``, holds
+    ``rows[block_ptr[b]:block_ptr[b + 1]]`` and their ``vals``, sorted by
+    column, rows ascending inside a column (the COO tail's entries after
+    the ELL ones). Each (block, column) segment is cut into pieces of at
+    most ``piece`` entries, numbered in storage order: piece p holds
+    entries ``piece_ptr[p]:piece_ptr[p + 1]``, all of column
+    ``piece_col[p]``, and its partial sum goes to slot ``piece_slot[p]``;
+    column c's slots are ``slot_ptr[c]:slot_ptr[c + 1]``, in block
+    order."""
+    rows: torch.Tensor        # (nnz,) int32
+    vals: torch.Tensor        # (nnz,) float32
+    block_ptr: torch.Tensor   # (n_blocks + 1,) int64
+    piece_ptr: torch.Tensor   # (n_pieces + 1,) int64
+    piece_col: torch.Tensor   # (n_pieces,) int32
+    piece_slot: torch.Tensor  # (n_pieces,) int32
+    slot_ptr: torch.Tensor    # (d + 1,) int64
+    block_rows: int
     piece: int
+
+
+def column_counts(columns: EllColumns, d: int) -> torch.Tensor:
+    """The nonzeros of each column (int64, (d,)) in a column copy."""
+    return torch.zeros(d, dtype=torch.int64,
+                       device=columns.rows.device).index_add_(
+        0, columns.piece_col.long(), columns.piece_ptr.diff())
 
 
 def ell_tail(coo_row: torch.Tensor, coo_idx: torch.Tensor,
@@ -1029,59 +1048,120 @@ def tail_row_ids(tail: EllTail) -> torch.Tensor:
         torch.arange(n, device=tail.ptr.device), tail.ptr.diff())
 
 
-def _nonzero_chunks(indices, values, tail, chunk_rows):
-    """(columns int64, rows int32, values) of the nonzeros, the ELL rows a
-    chunk at a time in row-major order, then the COO tail."""
-    n, k = indices.shape
+def _nonzero_chunks(indices, values, tail, chunk_rows, lo, hi):
+    """(columns int64, rows int32, values) of the nonzeros of rows
+    ``lo:hi``: the ELL rows a chunk at a time in row-major order, then the
+    COO tail's entries of those rows."""
+    k = indices.shape[1]
     dev = indices.device
-    for lo in range(0, n, chunk_rows):
-        hi = min(lo + chunk_rows, n)
-        v = values[lo:hi].reshape(-1)
+    for a in range(lo, hi, chunk_rows):
+        b = min(a + chunk_rows, hi)
+        v = values[a:b].reshape(-1)
         keep = v != 0
-        rows = torch.arange(lo, hi, dtype=torch.int32,
+        rows = torch.arange(a, b, dtype=torch.int32,
                             device=dev).repeat_interleave(k)
-        yield indices[lo:hi].reshape(-1)[keep].long(), rows[keep], v[keep]
+        yield indices[a:b].reshape(-1)[keep].long(), rows[keep], v[keep]
     if tail is not None:
-        yield tail.cols.long(), tail_row_ids(tail).int(), tail.vals
+        t0, t1 = int(tail.ptr[lo]), int(tail.ptr[hi])
+        if t1 > t0:
+            rows = torch.repeat_interleave(
+                torch.arange(lo, hi, dtype=torch.int32, device=dev),
+                tail.ptr[lo:hi + 1].diff())
+            yield tail.cols[t0:t1].long(), rows, tail.vals[t0:t1]
 
 
 def ell_columns(indices: torch.Tensor, values: torch.Tensor, d: int,
                 tail: Optional[EllTail] = None, piece: int = ELL_PIECE,
-                chunk_rows: int = 1 << 20) -> EllColumns:
-    """The column-ordered copy of the nonzeros of ELL rows ``indices``,
-    ``values`` (n, k) (and of the COO ``tail``) that S2 reads: a counting
-    sort by column, a chunk of rows at a time (a stable sort inside the
-    chunk), so entries of a column keep their row order and the scratch is
-    bounded by the chunk, not by the nonzeros. Every step has an integer
-    result: two builds are equal."""
+                chunk_rows: int = 1 << 20,
+                block_rows: int = ELL_BLOCK_ROWS) -> EllColumns:
+    """The copy of the nonzeros of ELL rows ``indices``, ``values`` (n, k)
+    (and of the COO ``tail``) that S2 reads, in (row block, column, row)
+    order (:class:`EllColumns`): block by block, a counting sort by column
+    a chunk of rows at a time (a stable sort inside the chunk), so entries
+    of a column keep their row order and the scratch is bounded by the
+    chunk. One block of at least n rows is the plain column order. Every
+    step has an integer result: two builds are equal."""
+    if block_rows < 1 or block_rows & (block_rows - 1):
+        raise ValueError(f"ell_columns: block_rows must be a power of two, "
+                         f"got {block_rows}")
+    n = indices.shape[0]
     dev = indices.device
-    counts = torch.zeros(d, dtype=torch.int64, device=dev)
-    for cols, _, _ in _nonzero_chunks(indices, values, tail, chunk_rows):
-        counts += torch.bincount(cols, minlength=d)[:d]
-    col_ptr = torch.zeros(d + 1, dtype=torch.int64, device=dev)
-    col_ptr[1:] = torch.cumsum(counts, 0)
-    nnz = int(col_ptr[-1])
+    bounds = [(lo, min(lo + block_rows, n))
+              for lo in range(0, max(n, 1), block_rows)]
+    # each block's nonzeros by column, then the layout they give
+    counts = torch.zeros((len(bounds), d), dtype=torch.int64, device=dev)
+    for b, (lo, hi) in enumerate(bounds):
+        for cols, _, _ in _nonzero_chunks(indices, values, tail, chunk_rows,
+                                          lo, hi):
+            counts[b] += torch.bincount(cols, minlength=d)[:d]
+    block_ptr = torch.zeros(len(bounds) + 1, dtype=torch.int64, device=dev)
+    block_ptr[1:] = torch.cumsum(counts.sum(1), 0)
+    pieces = (counts + piece - 1) // piece  # (blocks, d)
+    slot_ptr = torch.zeros(d + 1, dtype=torch.int64, device=dev)
+    slot_ptr[1:] = torch.cumsum(pieces.sum(0), 0)
+    if int(slot_ptr[-1]) >= 2 ** 31:
+        raise ValueError("ell_columns: more than 2^31 pieces")
+    # column c's first slot in block b: its slots of earlier blocks first
+    slot_base = slot_ptr[:-1] + torch.cumsum(pieces, 0) - pieces
+    nnz = int(block_ptr[-1])
     rows_out = torch.empty(nnz, dtype=torch.int32, device=dev)
     vals_out = torch.empty(nnz, dtype=torch.float32, device=dev)
-    fill = col_ptr[:-1].clone()
-    for cols, rows, vals in _nonzero_chunks(indices, values, tail,
-                                            chunk_rows):
-        order = torch.sort(cols, stable=True).indices
-        sc = cols[order]
-        cc = torch.bincount(cols, minlength=d)[:d]
-        first = torch.cumsum(cc, 0) - cc  # each column's first sorted slot
-        dest = fill[sc] + (torch.arange(sc.shape[0], device=dev) - first[sc])
-        rows_out[dest] = rows[order]
-        vals_out[dest] = vals[order].float()
-        fill += cc
-        del order, sc, dest
-    pieces = (counts + piece - 1) // piece
-    piece_start = torch.zeros(d + 1, dtype=torch.int64, device=dev)
-    piece_start[1:] = torch.cumsum(pieces, 0)
-    piece_col = torch.repeat_interleave(
-        torch.arange(d, dtype=torch.int32, device=dev), pieces)
-    return EllColumns(col_ptr, rows_out, vals_out, piece_start, piece_col,
-                      piece)
+    starts, piece_col, piece_slot = [], [], []
+    for b, (lo, hi) in enumerate(bounds):
+        seg = int(block_ptr[b]) + torch.cumsum(counts[b], 0) - counts[b]
+        fill = seg.clone()
+        for cols, rows, vals in _nonzero_chunks(indices, values, tail,
+                                                chunk_rows, lo, hi):
+            order = torch.sort(cols, stable=True).indices
+            sc = cols[order]
+            cc = torch.bincount(cols, minlength=d)[:d]
+            first = torch.cumsum(cc, 0) - cc  # each column's first slot
+            dest = fill[sc] + (torch.arange(sc.shape[0], device=dev)
+                               - first[sc])
+            rows_out[dest] = rows[order]
+            vals_out[dest] = vals[order].float()
+            fill += cc
+            del order, sc, dest
+        cols_b = torch.nonzero(counts[b]).reshape(-1)
+        reps = pieces[b, cols_b]
+        at = torch.repeat_interleave(torch.cumsum(reps, 0) - reps, reps)
+        j = torch.arange(int(reps.sum()), device=dev) - at  # piece in segment
+        starts.append(torch.repeat_interleave(seg[cols_b], reps) + j * piece)
+        piece_col.append(torch.repeat_interleave(cols_b, reps).int())
+        piece_slot.append((torch.repeat_interleave(slot_base[b, cols_b], reps)
+                           + j).int())
+    piece_ptr = torch.cat(starts + [block_ptr[-1:]])
+    return EllColumns(rows_out, vals_out, block_ptr, piece_ptr,
+                      torch.cat(piece_col), torch.cat(piece_slot), slot_ptr,
+                      block_rows, piece)
+
+
+def ell_hot_columns(indices: torch.Tensor, values: torch.Tensor, d: int,
+                    tail: Optional[EllTail] = None,
+                    slots: int = ELL_HOT_SLOTS,
+                    chunk_rows: int = 1 << 20) -> torch.Tensor:
+    """S1's hot-column table: for each of ``slots`` slots (a power of two)
+    the column c with c mod slots = slot that holds the most nonzeros of
+    these rows (the lowest id among equals), or -1 where no column does.
+    int32, (slots,)."""
+    if slots < 1 or slots & (slots - 1):
+        raise ValueError(f"ell_hot_columns: slots must be a power of two, "
+                         f"got {slots}")
+    counts = torch.zeros(-(-d // slots) * slots, dtype=torch.int64,
+                         device=indices.device)
+    for cols, _, _ in _nonzero_chunks(indices, values, tail, chunk_rows, 0,
+                                      indices.shape[0]):
+        counts[:d] += torch.bincount(cols, minlength=d)[:d]
+    best, which = counts.reshape(-1, slots).max(0)  # first of equals
+    col = which * slots + torch.arange(slots, device=indices.device)
+    return torch.where(best > 0, col, -1).int()
+
+
+def hot_share(hot: torch.Tensor, counts: torch.Tensor) -> float:
+    """The share of the nonzeros (``counts`` by column) that the hot table
+    ``hot`` serves."""
+    h = hot[hot >= 0].long()
+    return float(counts[h].sum()) / max(float(counts.sum()), 1.0)
 
 
 def _ell_chunk_values(indices, values, scale, lo, hi):
@@ -1168,7 +1248,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def ell_rows(indices: torch.Tensor, values: torch.Tensor, y: torch.Tensor,
              w: torch.Tensor, beta: torch.Tensor, b0=0.0,
              link: str = LOGISTIC, scale=None,
-             tail: Optional[EllTail] = None):
+             tail: Optional[EllTail] = None,
+             hot: Optional[torch.Tensor] = None):
     """S1, the row pass: ``(mult (n,), loss, sum(mult), sum(w))`` for ELL
     rows ``indices`` (n, k) int32 and ``values`` (n, k) float32 (value
     times ``scale[index]`` when a (d,) scale is given), y, w (n,), beta
@@ -1177,7 +1258,10 @@ def ell_rows(indices: torch.Tensor, values: torch.Tensor, y: torch.Tensor,
     Every index must be below d. A CPU tensor runs :func:`ell_rows_plain`;
     a CUDA tensor launches ``csrc/ell_sweep.cu`` (mult in float32, the
     three sums as float64 0-d tensors, summed in double in one fixed order:
-    two launches are bitwise equal) or raises."""
+    two launches are bitwise equal) or raises. ``hot``
+    (:func:`ell_hot_columns` of the same rows) lets the kernel read the
+    hot columns' coefficients from shared memory; the results are the same
+    bits with or without it."""
     if link not in _ELL_LINK_CODE:
         raise ValueError(f"ell_rows: unknown link {link!r}")
     if indices.device.type == "cpu":
@@ -1200,6 +1284,14 @@ def ell_rows(indices: torch.Tensor, values: torch.Tensor, y: torch.Tensor,
     # slot serves both
     coef = beta if s is None else torch.stack([s, beta], 1).contiguous()
     lib = _library("ell_sweep")
+    if hot is not None:
+        hot = hot.to(device=dev, dtype=torch.int32).contiguous()
+        slots = hot.shape[0]
+        if hot.dim() != 1 or slots & (slots - 1) or not \
+                32 <= slots <= lib.ell_max_hot_slots():
+            raise ValueError(f"ell_rows: the hot table must be a power of "
+                             f"two of 32 to {lib.ell_max_hot_slots()} "
+                             f"slots; got {tuple(hot.shape)}")
     with torch.cuda.device(dev):
         blocks = lib.ell_row_blocks(n)
         partials = torch.empty(blocks * 3, dtype=torch.float64, device=dev)
@@ -1212,7 +1304,8 @@ def ell_rows(indices: torch.Tensor, values: torch.Tensor, y: torch.Tensor,
             _ptr(tail.cols if tail else None),
             _ptr(tail.vals if tail else None), coef.data_ptr(),
             b0t.data_ptr(), y.data_ptr(), w.data_ptr(), mult.data_ptr(),
-            partials.data_ptr(), blocks, out.data_ptr(), stream),
+            partials.data_ptr(), blocks, _ptr(hot),
+            0 if hot is None else hot.shape[0], out.data_ptr(), stream),
             "ell_rows launch")
     ell_rows.launches += 1
     ell_rows.launches_by_link[link] += 1
@@ -1268,8 +1361,8 @@ def ell_cols(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor,
     ``csrc/ell_sweep.cu`` over ``columns`` (:func:`ell_columns` of the
     same rows and tail, or a zero-argument callable that returns it, such
     as a dataset's ``columns``, called only here; float32 results, sums in
-    double in one fixed order: two launches are bitwise equal) or
-    raises."""
+    double in one fixed order set by the copy's layout: two launches are
+    bitwise equal) or raises."""
     if indices.device.type == "cpu":
         return ell_cols_plain(indices, values, r, d, moments, scale, tail)
     _check_ell(indices, values, "ell_cols")
@@ -1284,7 +1377,7 @@ def ell_cols(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor,
     s = None if scale is None else _f32_operand(scale, d, dev,
                                                 "ell_cols scale")
     lib = _library("ell_sweep")
-    if columns.col_ptr.shape != (d + 1,) or \
+    if columns.slot_ptr.shape != (d + 1,) or \
             columns.piece != lib.ell_piece_entries():
         raise ValueError(f"ell_cols: the column copy is not one of {d} "
                          f"columns in pieces of {lib.ell_piece_entries()}")
@@ -1296,11 +1389,12 @@ def ell_cols(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor,
         out = torch.empty((m, d), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda_check(lib.ell_cols_launch(
-            int(moments), columns.col_ptr.data_ptr(),
-            columns.piece_start.data_ptr(), columns.piece_col.data_ptr(),
-            n_pieces, d, columns.rows.data_ptr(), columns.vals.data_ptr(),
-            _ptr(s), r.data_ptr(), partials.data_ptr(), out.data_ptr(),
-            stream), "ell_cols launch")
+            int(moments), columns.piece_ptr.data_ptr(),
+            columns.piece_col.data_ptr(), columns.piece_slot.data_ptr(),
+            n_pieces, columns.slot_ptr.data_ptr(), d,
+            columns.rows.data_ptr(), columns.vals.data_ptr(), _ptr(s),
+            r.data_ptr(), partials.data_ptr(), out.data_ptr(), stream),
+            "ell_cols launch")
     ell_cols.launches += 1
     ell_cols.launches_by_mode[MOMENTS if moments else GRADIENT] += 1
     return out if moments else out[0]

@@ -148,34 +148,169 @@ def test_plain_moments_match_float64():
                                    rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("hybrid", [False, True])
-def test_column_copy_holds_every_nonzero_in_row_order(hybrid):
-    """ell_columns: each nonzero once, columns in order, rows ascending
-    inside a column (the ELL entries; the tail comes after them), pieces
-    that cover each column, and two builds equal."""
-    n, k, d = 300, 7, 50
+def _copy_truth(idx, val, tail, block_rows):
+    """The (block, column, row) order of the nonzeros from the inputs alone:
+    (rows, vals, columns) of the ELL entries in row-major order and the
+    tail's after them, stably sorted by column, then by block."""
+    n, k = idx.shape
+    i, v = idx.numpy().ravel(), val.numpy().ravel()
+    keep = v != 0
+    rows = np.repeat(np.arange(n), k)[keep]
+    cols, vals = i[keep], v[keep]
+    if tail is not None:
+        rows = np.concatenate([rows, tk.tail_row_ids(tail).numpy()])
+        cols = np.concatenate([cols, tail.cols.numpy()])
+        vals = np.concatenate([vals, tail.vals.numpy()])
+    order = np.lexsort((cols, rows // block_rows), )  # stable: block, column
+    return rows[order], vals[order], cols[order]
+
+
+def _entry_columns(cols):
+    """The column of every entry of a column copy."""
+    return np.repeat(cols.piece_col.numpy(), np.diff(cols.piece_ptr.numpy()))
+
+
+# (hybrid, block_rows, chunk_rows): one block over all n = 1,000 rows (the
+# plain column order) first, under the ids the test had before the copy
+# was blocked; then blocks of 64 rows, 16 of them
+_COPY_CASES = [pytest.param(h, 1024, 64, id=str(h)) for h in (False, True)] \
+    + [pytest.param(h, b, c, id=f"{h}-block{b}-chunk{c}")
+       for h in (False, True) for b, c in ((64, 16), (64, 97), (1024, 97))]
+
+
+@pytest.mark.parametrize("hybrid,block_rows,chunk_rows", _COPY_CASES)
+def test_column_copy_holds_every_nonzero_in_row_order(hybrid, block_rows,
+                                                      chunk_rows):
+    """ell_columns: each nonzero once, in (block, column, row) order (the
+    tail's entries after the ELL ones in their row's block); pieces that
+    tile the copy, each inside one (block, column) segment and at most the
+    piece size, every segment cut into as few as that allows; partial
+    slots a permutation, each column's contiguous and in block order; two
+    builds with other chunks equal."""
+    n, k, d, piece = 1000, 7, 50, 16
     idx, val, tail, dense = _ell(n, k, d, seed=6, hot=True, empty=(7, 8),
                                  tail_rows=9 if hybrid else 0)
-    cols = tk.ell_columns(idx, val, d, tail, piece=16, chunk_rows=64)
-    again = tk.ell_columns(idx, val, d, tail, piece=16, chunk_rows=97)
-    assert all(torch.equal(a, b) for a, b in zip(cols[:5], again[:5]))
-    ptr = cols.col_ptr.numpy()
-    n_tail = 0 if tail is None else int(torch.count_nonzero(tail.vals))
-    assert ptr[-1] == int(torch.count_nonzero(val)) + n_tail
-    assert ptr[1] - ptr[0] >= n  # column 0 holds every row
-    assert ptr[7] == ptr[8] == ptr[9]  # columns 7 and 8 are empty
-    rebuilt = np.zeros((n, d))
+    cols = tk.ell_columns(idx, val, d, tail, piece=piece,
+                          chunk_rows=chunk_rows, block_rows=block_rows)
+    again = tk.ell_columns(idx, val, d, tail, piece=piece, chunk_rows=33,
+                           block_rows=block_rows)
+    assert all(torch.equal(a, b) for a, b in zip(cols[:7], again[:7]))
+    assert cols.block_rows == block_rows and cols.piece == piece
+    t_rows, t_vals, t_cols = _copy_truth(idx, val, tail, block_rows)
     rows, vals = cols.rows.numpy(), cols.vals.numpy()
-    for c in range(d):
-        r = rows[ptr[c]:ptr[c + 1]]
-        if tail is None:
-            assert np.all(np.diff(r) >= 0)
-        np.add.at(rebuilt, (r, np.full(r.size, c)), vals[ptr[c]:ptr[c + 1]])
-        pieces = cols.piece_start[c + 1] - cols.piece_start[c]
-        assert int(pieces) == -(-(ptr[c + 1] - ptr[c]) // 16)
-        assert torch.all(cols.piece_col[cols.piece_start[c]:
-                                        cols.piece_start[c + 1]] == c)
+    e_cols = _entry_columns(cols)
+    np.testing.assert_array_equal(rows, t_rows)
+    np.testing.assert_array_equal(vals, t_vals)
+    np.testing.assert_array_equal(e_cols, t_cols)
+    n_blocks = -(-n // block_rows)
+    bptr = cols.block_ptr.numpy()
+    assert bptr.shape == (n_blocks + 1,) and bptr[0] == 0
+    for b in range(n_blocks):
+        r = rows[bptr[b]:bptr[b + 1]]
+        assert np.all(r // block_rows == b)
+    counts = tk.column_counts(cols, d).numpy()
+    assert counts[0] >= n and counts[7] == counts[8] == 0
+    rebuilt = np.zeros((n, d))
+    np.add.at(rebuilt, (rows, e_cols), vals)
     np.testing.assert_allclose(rebuilt, dense, rtol=1e-6, atol=1e-6)
+    # pieces: tile the copy, one segment each, as few as the size allows
+    pptr = cols.piece_ptr.numpy()
+    lens = np.diff(pptr)
+    assert pptr[0] == 0 and pptr[-1] == rows.size
+    assert np.all(lens >= 1) and np.all(lens <= piece)
+    seg = (rows // block_rows) * d + e_cols  # each entry's segment
+    assert np.all(seg[pptr[:-1]] == seg[pptr[1:] - 1])
+    seg_len = np.bincount(seg, minlength=n_blocks * d)
+    p_seg = seg[pptr[:-1]]
+    assert np.array_equal(np.bincount(p_seg, minlength=n_blocks * d),
+                          -(-seg_len // piece))
+    # slots: a permutation; a column's slots contiguous, in storage order
+    slot = cols.piece_slot.numpy()
+    assert np.array_equal(np.sort(slot), np.arange(slot.size))
+    sptr = cols.slot_ptr.numpy()
+    p_col = cols.piece_col.numpy()
+    for c in range(d):
+        mine = np.flatnonzero(p_col == c)
+        np.testing.assert_array_equal(slot[mine],
+                                      np.arange(sptr[c], sptr[c + 1]))
+
+
+def _sum_by_pieces(cols, r, d, moments=False, scale=None):
+    """S2's sums by the copy's layout, in float64 (tests only): each
+    piece's float32 products summed into its slot, then each column's
+    slots in order."""
+    rows, v = cols.rows.numpy(), cols.vals.numpy()
+    e_cols = _entry_columns(cols)
+    if scale is not None:
+        v = v * scale.numpy()[e_cols]
+    rv = r.numpy()[rows]
+    if moments:
+        wk = rv * v
+        terms = [wk, wk * v, rv * (v != 0)]
+    else:
+        terms = [rv * v]
+    pptr, sptr = cols.piece_ptr.numpy(), cols.slot_ptr.numpy()
+    out = np.zeros((len(terms), d))
+    for q, t in enumerate(terms):
+        part = np.add.reduceat(t.astype(np.float64), pptr[:-1]) \
+            if pptr.size > 1 else np.zeros(0)
+        slots = np.zeros(part.size)
+        slots[cols.piece_slot.numpy()] = part
+        for c in range(d):
+            out[q, c] = slots[sptr[c]:sptr[c + 1]].sum()
+    return out
+
+
+@pytest.mark.parametrize("moments", [False, True])
+@pytest.mark.parametrize("hybrid", [False, True])
+@pytest.mark.parametrize("block_rows", [64, 1024])
+def test_sums_by_the_copy_layout_match_the_plain_column_pass(moments, hybrid,
+                                                             block_rows):
+    """The copy's layout summed piece by piece into its slots, then by
+    column (float64), against ell_cols_plain in float64 on the same
+    float32 products: every column within 1e-12 of its sum of |terms|, in
+    both modes, with a scale."""
+    n, k, d = 1000, 7, 50
+    idx, val, tail, _ = _ell(n, k, d, seed=8, hot=True, empty=(7,),
+                             tail_rows=6 if hybrid else 0)
+    r = torch.from_numpy(np.random.RandomState(9).randn(n)
+                         .astype(np.float32))
+    if moments:
+        r = r.abs()
+    scale = torch.from_numpy((np.random.RandomState(10).rand(d) + 0.5)
+                             .astype(np.float32))
+    cols = tk.ell_columns(idx, val, d, tail, piece=16, block_rows=block_rows)
+    got = _sum_by_pieces(cols, r, d, moments, scale)
+    truth = tk.ell_cols_plain(idx, val, r, d, moments, scale, tail,
+                              acc_dtype=torch.float64)
+    abs_sum = tk.ell_cols_plain(idx, val.abs(), r.abs(), d, moments, scale,
+                                _abs_tail(tail), acc_dtype=torch.float64)
+    truth, abs_sum = truth.reshape(got.shape), abs_sum.reshape(got.shape)
+    assert np.all(np.abs(got - truth.numpy()) <= 1e-12 * abs_sum.numpy())
+    assert np.abs(truth.numpy()).max() > 0
+
+
+def test_hot_table_holds_each_slots_most_frequent_column():
+    """ell_hot_columns: slot s holds the column c = s mod slots with the
+    most nonzeros (the lowest id among equals), -1 where none; column 0,
+    in every row, takes slot 0; the tail's entries count."""
+    n, k, d, slots = 500, 5, 300, 64
+    idx, val, tail, _ = _ell(n, k, d, seed=11, hot=True, empty=(64, 128),
+                             tail_rows=4)
+    hot = tk.ell_hot_columns(idx, val, d, tail, slots=slots)
+    counts = tk.column_counts(tk.ell_columns(idx, val, d, tail), d).numpy()
+    assert hot.dtype == torch.int32 and hot.shape == (slots,)
+    assert int(hot[0]) == 0
+    for s in range(slots):
+        cand = np.arange(s, d, slots)
+        best = cand[np.argmax(counts[cand])]
+        want = best if counts[best] > 0 else -1
+        assert int(hot[s]) == want
+    share = tk.hot_share(hot, torch.from_numpy(counts))
+    assert share == pytest.approx(counts[hot[hot >= 0].numpy()].sum()
+                                  / counts.sum())
+    with pytest.raises(ValueError, match="power of two"):
+        tk.ell_hot_columns(idx, val, d, slots=48)
 
 
 def test_cuda_launch_without_column_copy_raises_on_cpu_tensors_never():
@@ -195,10 +330,13 @@ def _cuda():
     return torch.device("cuda")
 
 
-# (n, k, d): k = 1; n not a multiple of 32 rows; wide rows past one 32-slot
-# chunk; more columns than rows
-_SHAPES = [(1, 1, 3), (1000, 1, 50), (1037, 39, 300), (4099, 72, 2000),
-           (333, 232, 5000)]
+# (n, k, d): k = 1; n not a multiple of 32 rows; k = 7, 32 and Criteo's 39
+# (one tile, 16-byte reads), 72 and 232 (several 40-slot tiles); more
+# columns than rows. Each runs over one block of the column copy and over
+# blocks of 256 rows (column 0, in every row, crosses blocks and pieces).
+_SHAPES = [(1, 1, 3), (1000, 1, 50), (3001, 7, 100), (2085, 32, 700),
+           (1037, 39, 300), (4099, 72, 2000), (333, 232, 5000)]
+_BLOCKS = [tk.ELL_BLOCK_ROWS, 256]
 
 
 # S1 forms each slot's product v s beta in float32 (the float64 truth forms
@@ -228,7 +366,7 @@ def _assert_columns(got, truth, abs_sum):
     assert torch.all(err <= COL_RTOL * truth.abs() + COL_ATOL * abs_sum)
 
 
-def _run_both(dev, n, k, d, link, hybrid, scaled, seed):
+def _run_both(dev, n, k, d, link, hybrid, scaled, seed, block_rows):
     idx, val, tail, _ = _ell(n, k, d, seed, hot=True, empty=(1, 2),
                              tail_rows=3 if hybrid else 0, device=dev)
     y, w = _labels(n, seed, dev)
@@ -237,15 +375,17 @@ def _run_both(dev, n, k, d, link, hybrid, scaled, seed):
     scale = (torch.rand(d, generator=g, device=dev) + 0.5) if scaled \
         else None
     b0 = torch.tensor(0.25, device=dev)
-    out = tk.ell_rows(idx, val, y, w, beta, b0, link, scale, tail)
-    again = tk.ell_rows(idx, val, y, w, beta, b0, link, scale, tail)
+    hot = tk.ell_hot_columns(idx, val, d, tail, slots=32)
+    out = tk.ell_rows(idx, val, y, w, beta, b0, link, scale, tail, hot=hot)
+    again = tk.ell_rows(idx, val, y, w, beta, b0, link, scale, tail, hot=hot)
+    cold = tk.ell_rows(idx, val, y, w, beta, b0, link, scale, tail)
     truth = tk.ell_rows_plain(idx, val, y, w, beta.double(), b0.double(),
                               link, scale, tail)
     ones = torch.ones_like(w)
     margin = tk.ell_rows_plain(idx, val, y, ones, beta.double(), b0.double(),
                                tk.GRAM, scale, tail)[0]
     m_scale = _row_scale(idx, val, beta, scale, tail)
-    cols = tk.ell_columns(idx, val, d, tail)
+    cols = tk.ell_columns(idx, val, d, tail, block_rows=block_rows)
     grad = tk.ell_cols(idx, val, out[0], d, scale=scale, tail=tail,
                        columns=cols)
     grad2 = tk.ell_cols(idx, val, out[0], d, scale=scale, tail=tail,
@@ -256,27 +396,29 @@ def _run_both(dev, n, k, d, link, hybrid, scaled, seed):
     a_grad = tk.ell_cols_plain(idx, val.abs(), out[0].abs(), d, scale=scale,
                                tail=_abs_tail(tail), acc_dtype=torch.float64)
     torch.cuda.synchronize()
-    return (out, again, truth, grad, grad2, t_grad, a_grad, y, w, margin,
-            m_scale)
+    return (out, again, cold, truth, grad, grad2, t_grad, a_grad, y, w,
+            margin, m_scale)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("link", LINKS)
 @pytest.mark.parametrize("n,k,d", _SHAPES)
 @pytest.mark.parametrize("hybrid,scaled", [(False, False), (True, True)])
-def test_cuda_passes_match_plain(n, k, d, link, hybrid, scaled):
+@pytest.mark.parametrize("block_rows", _BLOCKS)
+def test_cuda_passes_match_plain(n, k, d, link, hybrid, scaled, block_rows):
     """S1 then S2 against float64 on the card, each row and each column
     to its own scale: every row's mult within its slope times 1.2e-7 sum
     |v s beta| plus 1.2e-7 |mult| (a hinge row exact unless its margin
     lies that close to the kink); the loss within the bound those margins
     allow; sum(mult) the double sum of mult; S2 on S1's mult within 1e-7
     of each column plus 1e-9 of its sum |r v s|; sum(w) exact; two
-    launches of each bitwise equal."""
+    launches of each bitwise equal, and S1 with and without its hot table
+    bitwise equal."""
     dev = _cuda()
     before = (tk.ell_rows.launches, tk.ell_cols.launches)
-    ((mult, loss, msum, wsum), again, truth, grad, grad2, t_grad, a_grad,
-     y, w, margin, m_scale) = _run_both(dev, n, k, d, link, hybrid, scaled,
-                                        seed=n + k)
+    ((mult, loss, msum, wsum), again, cold, truth, grad, grad2, t_grad,
+     a_grad, y, w, margin, m_scale) = _run_both(dev, n, k, d, link, hybrid,
+                                                scaled, n + k, block_rows)
     t_mult, t_loss = truth[0], truth[1]
     w64 = w.double()
     dmult = (mult.double() - t_mult).abs()
@@ -301,13 +443,16 @@ def test_cuda_passes_match_plain(n, k, d, link, hybrid, scaled):
     assert torch.equal(mult, again[0]) and torch.equal(grad, grad2)
     assert all(torch.equal(a, b) for a, b in zip((loss, msum, wsum),
                                                  again[1:]))
-    assert tk.ell_rows.launches == before[0] + 2
+    assert all(torch.equal(a, b) for a, b in zip((mult, loss, msum, wsum),
+                                                 cold))
+    assert tk.ell_rows.launches == before[0] + 3
     assert tk.ell_cols.launches == before[1] + 2
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,d", _SHAPES[1:])
-def test_cuda_moments_match_plain(n, k, d):
+@pytest.mark.parametrize("block_rows", _BLOCKS)
+def test_cuda_moments_match_plain(n, k, d, block_rows):
     """S2's moments mode (the sparse summary) against float64 sums, with
     a tail, each column to its own scale (sum |w v| for sum w v; the other
     two have no negative term); two launches bitwise equal."""
@@ -315,7 +460,7 @@ def test_cuda_moments_match_plain(n, k, d):
     idx, val, tail, _ = _ell(n, k, d, n, hot=True, empty=(3,), tail_rows=4,
                              device=dev)
     _, w = _labels(n, n, dev)
-    cols = tk.ell_columns(idx, val, d, tail)
+    cols = tk.ell_columns(idx, val, d, tail, block_rows=block_rows)
     mom = tk.ell_cols(idx, val, w, d, moments=True, tail=tail, columns=cols)
     mom2 = tk.ell_cols(idx, val, w, d, moments=True, tail=tail, columns=cols)
     truth = tk.ell_cols_plain(idx, val, w, d, moments=True, tail=tail,
@@ -330,10 +475,12 @@ def test_cuda_moments_match_plain(n, k, d):
 
 
 @pytest.mark.gpu
-def test_cuda_column_holding_every_row_spans_many_pieces():
-    """One column in all 300,000 rows (293 pieces) and the rest sparse:
-    the pieces' fixed-order combine against float64, each column to its
-    own scale."""
+@pytest.mark.parametrize("block_rows", [tk.ELL_BLOCK_ROWS, 1 << 16])
+def test_cuda_column_holding_every_row_spans_many_pieces(block_rows):
+    """One column in all 300,000 rows (293 pieces in one block, 295 over
+    five blocks of 65,536 rows) and the rest sparse: the pieces'
+    fixed-order combine against float64, each column to its own scale;
+    two launches bitwise equal."""
     dev = _cuda()
     n, d = 300_000, 64
     g = torch.Generator(device=dev).manual_seed(9)
@@ -342,9 +489,12 @@ def test_cuda_column_holding_every_row_spans_many_pieces():
     idx[:, 0] = 0
     val = torch.randn(n, 4, generator=g, device=dev)
     r = torch.randn(n, generator=g, device=dev)
-    cols = tk.ell_columns(idx, val, d)
-    assert int(cols.piece_start[1]) == -(-n // tk.ELL_PIECE)
+    cols = tk.ell_columns(idx, val, d, block_rows=block_rows)
+    per_block = [min(block_rows, n - lo) for lo in range(0, n, block_rows)]
+    assert int(cols.slot_ptr[1]) == sum(-(-m // tk.ELL_PIECE)
+                                        for m in per_block)
     got = tk.ell_cols(idx, val, r, d, columns=cols)
+    assert torch.equal(got, tk.ell_cols(idx, val, r, d, columns=cols))
     truth = tk.ell_cols_plain(idx, val, r, d, acc_dtype=torch.float64)
     abs_sum = tk.ell_cols_plain(idx, val.abs(), r.abs(), d,
                                 acc_dtype=torch.float64)

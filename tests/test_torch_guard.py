@@ -25,7 +25,8 @@ def _port_modules():
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "k1s_phases.py",
-                                        ROOT / "glm_phases.py"]
+                                        ROOT / "glm_phases.py",
+                                        ROOT / "ell_phases.py"]
 
 
 def _run(code: str, **env):
@@ -225,7 +226,9 @@ def test_sparse_wrappers_import_and_run_without_cuda():
              "    g = kernels.ell_cols(idx, val, mult, 6)\n"
              "    assert g.shape == (6,) and float(ws) == 20.0\n"
              "cols = kernels.ell_columns(idx, val, 6)\n"
-             "assert int(cols.col_ptr[-1]) == int((val != 0).sum())\n"
+             "assert int(cols.block_ptr[-1]) == int((val != 0).sum())\n"
+             "hot = kernels.ell_hot_columns(idx, val, 6, slots=32)\n"
+             "assert hot.shape == (32,)\n"
              "assert kernels.ell_rows.launches == 0\n"
              "assert kernels.ell_cols.launches == 0\n",
              CUDA_VISIBLE_DEVICES="")

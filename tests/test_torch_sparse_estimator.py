@@ -163,17 +163,13 @@ def test_kernel_route_on_the_cpu_fits_the_same_model(pctx):
     assert kernels.ell_rows.launches == 0 and kernels.ell_cols.launches == 0
 
 
-def test_float32_sums_do_not_part_a_small_criteo_fit(monkeypatch):
-    """The float32 tier's sparse intercept (ROADMAP Queue 3): a
-    Criteo-class fit (``generate_criteo_like``, 20,000 rows, 2^14 hashed
-    columns, maxIter=25 as chip_smoke.py's) through the plain passes with
-    their sums in float32 (the float32 tier), in float64 (the float64
-    tier), and in the kernels' arithmetic (float32 inputs, S1's sums in
-    double, as ``csrc/ell_sweep.cu`` takes them): the three take the same
-    iterations, their objectives agree to 1e-6 at every iteration and their
-    intercepts to 1e-5. So at this size the sums' precision does not move
-    the fit; what parts the card's full-size fits is where their line
-    searches part (chip_smoke.py phases 25 and 33)."""
+def _criteo_fits_by_tier(monkeypatch, seed):
+    """A Criteo-class fit (``generate_criteo_like``, 20,000 rows, 2^14
+    hashed columns, maxIter=25 as chip_smoke.py's) through the plain
+    passes with their sums in float32 (the float32 tier), in float64 (the
+    float64 tier), and in the kernels' arithmetic (float32 inputs, S1's
+    sums in double, as ``csrc/ell_sweep.cu`` takes them), on the CPU draw
+    of ``seed``."""
     from cycloneml_tpu_torch.dataset.random import generate_criteo_like
     from cycloneml_tpu_torch.ml.optim import sparse_aggregators
 
@@ -190,7 +186,8 @@ def test_float32_sums_do_not_part_a_small_criteo_fit(monkeypatch):
         ctx = CycloneContext(CycloneConf().set("cyclone.master", "cpu")
                              .set("cyclone.compute.dtype", dtype))
         try:
-            ds = generate_criteo_like(ctx, 20_000, seed=0, hash_dim=1 << 14)
+            ds = generate_criteo_like(ctx, 20_000, seed=seed,
+                                      hash_dim=1 << 14)
             with monkeypatch.context() as m:
                 if name == "kernel arithmetic":
                     m.setattr(sparse_aggregators.kernels, "ell_rows_plain",
@@ -199,6 +196,17 @@ def test_float32_sums_do_not_part_a_small_criteo_fit(monkeypatch):
                                                   regParam=0.01).fit(ds)
         finally:
             ctx.stop()
+    return models
+
+
+def test_float32_sums_do_not_part_a_small_criteo_fit(monkeypatch):
+    """The float32 tier's sparse intercept (ROADMAP Queue 3), on seed 0's
+    draw (:func:`_criteo_fits_by_tier`): the three tiers take the same
+    iterations, their objectives agree to 1e-6 at every iteration and
+    their intercepts to 1e-5. On this draw the sums' precision does not
+    move the fit; on others it does (the next test), so this holds for a
+    draw, not for the size."""
+    models = _criteo_fits_by_tier(monkeypatch, 0)
     ref = models["float64"]
     for name in ("float32", "kernel arithmetic"):
         got = models[name]
@@ -206,3 +214,21 @@ def test_float32_sums_do_not_part_a_small_criteo_fit(monkeypatch):
         np.testing.assert_allclose(got.summary.objective_history,
                                    ref.summary.objective_history, rtol=1e-6)
         assert abs(got.intercept - ref.intercept) <= 1e-5
+
+
+def test_float32_sums_part_a_small_criteo_fit_on_seed_3(monkeypatch):
+    """The draw that disproves the claim above at this size (ROADMAP
+    Queue 3, open): on seed 3's draw the float32 tier's objectives part
+    from the float64 tier's by more than 1e-6 (1.6e-6 at the worst
+    iteration on the CPU; the kernels' arithmetic 5.5e-6) and its
+    intercept by 2.8e-4. The narrower claim it does meet: the same
+    iterations, objectives within 1e-5 at every iteration, intercepts
+    within 1e-3."""
+    models = _criteo_fits_by_tier(monkeypatch, 3)
+    ref = models["float64"]
+    for name in ("float32", "kernel arithmetic"):
+        got = models[name]
+        assert got.summary.total_iterations == ref.summary.total_iterations
+        np.testing.assert_allclose(got.summary.objective_history,
+                                   ref.summary.objective_history, rtol=1e-5)
+        assert abs(got.intercept - ref.intercept) <= 1e-3
