@@ -117,7 +117,7 @@ the final result line:
    predictions agreeing on >= 99.9% of rows; then the same rows quantized
    on the card, stacked through K1s's e4m3 instance;
 17. CrossValidator over regParam {0.001, 0.01, 0.1} (3 folds,
-   areaUnderROC) on phase 4's data cut to 500,000 rows at full width,
+   areaUnderROC) on phase 4's data cut to 250,000 rows at full width,
    stacked (K1s, once per evaluation of every fold's fit) and serial: the
    same best regParam, avgMetrics to 1e-4;
 18. K1s's e4m3 instance with phase 15's checks on codes with x_scale;
@@ -195,18 +195,26 @@ the final result line:
    branch, ``multiply`` by a seeded 2,000 x 64 matrix within 1e-5 of
    float64, ``column_similarities`` within 1e-5 of the float64 Gramian's
    cosines (K4 once per Gramian);
-28. the wide instances of K1 and K2 (d > 2,048: two passes over X by
-   column block) against their plain versions in float64 on the card, with
-   phase 3's limits plus sum(mult) to 1e-4 of sum(w), counted as wide: at
-   1,281,167 x 4,096 (ImageNet-1k's training set through VGG-16's 4,096-wide
-   fc7) in bf16 and e4m3 with x_scale, at 500,000 x 4,096 in f32, and at
-   the ragged 100,003 x 2,049, 100,003 x 5,000 and 250,000 x 8,192 in all
-   three; their times beside the plain version (f32), the bound (one read
-   of X), two cuBLAS gemvs and the wide plan;
-29. the wide K1s with phase 15's checks (and sum(mult) to 1e-4 of sum(w))
-   at 50,000 x 3,072 with K = 8 and K = 2 (CIFAR-10's OneVsRest groups) and
-   250,000 x 8,192 with K = 8, in bf16, e4m3 and f32, timed beside the
-   plain version, the bound and the yardstick X B^T plus M^T X;
+28. the wide instances of K1 and K2 (2,048 < d <= 12,288: one read of
+   X, a row's slots over a CTA's 512 threads) against their plain versions
+   in float64 on the card, with phase 3's limits plus sum(mult) to 1e-4 of
+   sum(w), counted as wide: at 1,281,167 x 4,096 (ImageNet-1k's training
+   set through VGG-16's 4,096-wide fc7) in bf16 and e4m3 with x_scale, at
+   500,000 x 4,096 in f32, and at the ragged 100,003 x 2,049, 100,003 x
+   5,000, 250,000 x 8,192 and 100,003 x 12,288 in all three; at 50,003 x
+   12,289 in all three the two-pass instance (two passes over X by column
+   block), with the same checks, counted as two-pass; times at the
+   full-width shapes and at 8,192 and 12,288 columns beside the plain
+   version (f32), the bound (one read of X), two cuBLAS gemvs and the wide
+   plan, and (but at 8,192) beside the two-pass instance;
+29. the wide K1s (a cluster of CTAs over the columns, 16 models a launch;
+   the two-pass instance for f32) with phase 15's checks (and sum(mult) to
+   1e-4 of sum(w)) at 50,000 x 3,072 with K = 8, 2 and 10 (CIFAR-10's
+   OneVsRest) and 250,000 x 8,192 with K = 8 and 16, in bf16, e4m3 and
+   f32, timed beside the plain version, the bound, the yardstick X B^T
+   plus M^T X and, at K = 8, the two-pass instance (groups of 8); at
+   50,000 x 8,193 with K = 10 the two-pass instance in all three dtypes
+   (two groups of 8 and 2 on the tensor cores), checked and not timed;
 30. binomial LogisticRegression (phase 4's settings) on
    ``generate_classification`` at 1,281,167 x 4,096, bf16 (10.5 GB of X),
    through K1's wide instance and through the plain aggregator, warm and
@@ -219,10 +227,9 @@ the final result line:
 32. OneVsRest at CIFAR-10's size (``generate_multiclass`` at 50,000 x
    3,072, 10 classes, bf16, class centers at CIFAR_CENTER_SCALE so that the
    classes overlap as CIFAR-10's do; phase 16's classifier) through the
-   wide K1s (a
-   group of 8 and a group of 2 a stacked evaluation), through the plain
-   stacked aggregator and serially (10 fits through the wide K1), phase
-   16's checks;
+   wide K1s (one launch of the 10 classes a stacked evaluation), through
+   the plain stacked aggregator and serially (10 fits through the wide
+   K1), phase 16's checks;
 33. the float32 tier's sparse intercept: phase 25's fits (float32 kernel,
    float32 plain, float64 plain) on Criteo-class rows drawn at seeds 1 and
    2, cut to an eighth of the rows, their distances and the iteration
@@ -231,8 +238,9 @@ the final result line:
    through the kernels against float64, the intercept's gradient to 1e-6
    of sum(w);
 34. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
-   instances, the wide instances of K1, K2 and K1s, the center sums and
-   S1/S2 (K3, K4 and K1s marked as redesigned for
+   instances, the wide instances of K1, K2 and K1s (marked as redesigned
+   for one read of X, with the two-pass instance's time from the same
+   run), the center sums and S1/S2 (K3, K4 and K1s marked as redesigned for
    the tensor cores, with their instance, f32 FMA bounds and ptxas lines;
    K2 in both instances and K1's e4m3 instance marked as redesigned around
    a per-lane cp.async ring, and every GLM sweep with its instance, ring
@@ -249,6 +257,7 @@ present or when the port's package is not beside it.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -272,7 +281,8 @@ KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian", "glm_stacked",
                   "center_sums", "ell_sweep"]
 K1S_MODELS = (1, 3, 8, 16, 20)   # 20 > K_MAX: two launches of K1s
 OVR_K = 8                        # OneVsRest's classes (bench_ovr_stacked)
-CV_N = 500_000                   # CrossValidator's rows (the cut of FIT_N)
+CV_N = 250_000                   # CrossValidator's rows (the cut of FIT_N;
+                                 # 500,000 rows took 35 s of the run)
 CV_REGS = (0.001, 0.01, 0.1)
 # (iterations, evaluations) of the sweep's fits at these configurations
 # when its lanes summed the gradient with a Kahan step a row (PERF.md §6);
@@ -288,14 +298,20 @@ MULTIPLY_COLS = 64
 # wide) over ImageNet-1k's training set, and CIFAR-10's OneVsRest
 WIDE_N, WIDE_D = 1_281_167, 4096
 WIDE_F32_N = 500_000             # f32 X at the probe's width (8.2 GB)
-WIDE_RAGGED = ((100_003, 2049), (100_003, 5000), (250_000, 8192))
+# ragged shapes, one of each thread shape of the one-read instance (E = 8,
+# 16, 24); 12,289 columns take the two-pass instance
+WIDE_RAGGED = ((100_003, 2049), (100_003, 5000), (250_000, 8192),
+               (100_003, 12_288), (50_003, 12_289))
 CIFAR_N, CIFAR_D, CIFAR_K = 50_000, 3072, 10
 # class centers N(0, 0.02^2 I), about 1.6 sigma apart (0.02 sqrt(2 d)), so
 # that the classes overlap as CIFAR-10's do for a linear model (the fit's
 # training accuracy is printed); the generator's default 3.0 would set
 # them ~235 sigma apart at this width, every class separable
 CIFAR_CENTER_SCALE = 0.02
-K1S_WIDE = ((CIFAR_N, CIFAR_D, (8, 2)), (250_000, 8192, (8,)))
+# past 8,192 columns (checked, not timed) the two-pass instance, in
+# groups of 8 on the tensor cores
+K1S_WIDE = ((CIFAR_N, CIFAR_D, (8, 2, 10)), (250_000, 8192, (8, 16)),
+            (CIFAR_N, 8193, (10,)))
 CRITEO_SEEDS = (1, 2)            # the intercept inquiry's two more draws
 CRITEO_SEED_N = CRITEO_N // 8    # ... cut to an eighth of the rows (the
                                  # phase's time; a quarter took 25 s)
@@ -306,6 +322,27 @@ ROWS64 = 1 << 16             # rows widened to float64 at a time
 
 def _line(tag: str, **fields) -> None:
     print(f"{tag}: " + json.dumps(fields, default=float), flush=True)
+
+
+# seconds of wall time each phase_* function took (a phase that calls
+# another includes it), printed by main as the phase_seconds line
+_PHASE_SECONDS = {}
+
+
+def _time_phases() -> None:
+    """Wrap every phase_* function of this module so that its calls add
+    their wall time to _PHASE_SECONDS."""
+    g = globals()
+    for name, fn in list(g.items()):
+        if name.startswith("phase_") and callable(fn):
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    _PHASE_SECONDS[_name] = (_PHASE_SECONDS.get(_name, 0.0)
+                                             + time.perf_counter() - t0)
+            g[name] = timed
 
 
 def _time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -321,6 +358,26 @@ def _time_ms(fn, reps: int, warm: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _device_ms(fn, reps: int, match: str):
+    """The device time per call of the kernels whose name holds ``match``,
+    by torch.profiler over ``reps`` calls after two: what CUDA events
+    around a call would also count as the host's time where the call's
+    host work outlasts its kernels. None when the profiler saw no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0)
+             for e in prof.key_averages() if match in e.key)
+    return us / reps / 1000.0 if us > 0 else None
 
 
 def phase_card():
@@ -345,7 +402,9 @@ def _kernel_name(mangled: str) -> str:
     per lane and the link, 0 logistic, 1 squared; glm_wide_margin_kernel:
     the link; glm_wide_fma_*: models per launch; glm_stacked_kernel:
     columns per thread and models per launch; glm_stacked_tc_kernel:
-    k-blocks per warp and models per launch; center_piece_kernel: w's
+    k-blocks per warp, models per launch and, for the wide instance, the
+    CTAs of its cluster; glm_sweep_wide_kernel: elements per thread and
+    the link; center_piece_kernel: w's
     dtype; gramian_tc_kernel: the staging; kmeans_assign_tc_kernel:
     whether X is resident)."""
     m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f|d)?"
@@ -378,8 +437,10 @@ def _kernel_name(mangled: str) -> str:
         return f"{m.group(1)}<{', '.join(args)}>"
     if len(ints) == 2 and m.group(1) == "glm_stacked_kernel":
         args += [f"C={ints[0]}", f"KG={ints[1]}"]
-    elif len(ints) == 2 and m.group(1) == "glm_stacked_tc_kernel":
+    elif m.group(1) == "glm_stacked_tc_kernel":  # and the cluster's CTAs
         args += [f"NB={ints[0]}", f"KG={ints[1]}"]
+        if len(ints) == 3 and int(ints[2]) > 1:
+            args.append(f"cluster={ints[2]}")
     elif len(ints) == 2:
         args += [f"E={ints[0]}", ("logistic", "squared")[int(ints[1])]]
     if len(ints) == 1:  # the tensor-core Gramian's staging
@@ -3327,10 +3388,12 @@ def _wide_x_forms(n, d, seed, forms):
 
 
 def _wide_sweep_check(x, y, w, beta, off, link, ys, s32, s64):
-    """One sweep of the wide instance against the plain version in float64:
+    """One sweep of the instance of X's width (one-read wide up to 12,288
+    columns, two-pass past it) against the plain version in float64:
     (errors, ok)."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
+    inst = kernels.glm_sweep_instance(x.dtype, x.shape[1])
     before = dict(kernels.glm_sweep.launches_by_width)
     got = kernels.glm_sweep(x, y, w, beta, off, link=link, ys=ys,
                             x_scale=s32)
@@ -3349,19 +3412,22 @@ def _wide_sweep_check(x, y, w, beta, off, link, ys, s32, s64):
          "msum_err_over_wsum": abs(float(got[2]) - float(tm)) / float(tw),
          "count": float(got[3]),
          "bitwise_equal": all(torch.equal(a, b) for a, b in zip(got, again)),
-         "wide_launches": after[kernels.WIDE] - before[kernels.WIDE],
-         "narrow_launches": after[kernels.NARROW] - before[kernels.NARROW]}
+         "width": inst, "launches": after[inst] - before[inst],
+         "other_launches": sum(after.values()) - sum(before.values())
+         - (after[inst] - before[inst])}
     ok = (e["rel_loss"] <= 1e-5 and e["grad_err_over_max"] <= 1e-4
           and e["msum_err_over_wsum"] <= 1e-4 and e["count"] == n
           and float(tw) == n and e["bitwise_equal"]
-          and e["wide_launches"] == 2 and e["narrow_launches"] == 0)
+          and e["launches"] == 2 and e["other_launches"] == 0)
     return e, ok
 
 
 def phase_wide_kernel():
     """The wide K1 and K2 against their plain versions in float64 at the
     probe's shape (bf16, e4m3), at WIDE_F32_N rows in f32 and at the
-    ragged shapes in all three; times at the full-width shapes. Returns
+    ragged shapes in all three (the two-pass instance past 12,288
+    columns); times at the full-width shapes and at 8,192 and 12,288
+    columns, the two-pass instance's beside them except at 8,192. Returns
     {link: the kernels line's numbers (bf16 at WIDE_N), with every
     dtype's time at the main shapes}."""
     import torch
@@ -3391,9 +3457,11 @@ def phase_wide_kernel():
                     raise AssertionError(f"the wide {link} sweep disagrees "
                                          f"with its plain version at n={n} "
                                          f"d={d} {x.dtype}")
-                if n in (WIDE_N, WIDE_F32_N) or d == 8192:
-                    t = _wide_times(x, y, w, beta, off, link, ys, s32)
-                    if n in (WIDE_N, WIDE_F32_N):
+                main = n in (WIDE_N, WIDE_F32_N)
+                if main or d in (8192, 12_288):
+                    t = _wide_times(x, y, w, beta, off, link, ys, s32,
+                                    two_pass=d != 8192)
+                    if main:
                         out[link]["by_dtype"][_dt(x)] = t
                     if n == WIDE_N and x.dtype == torch.bfloat16:
                         out[link].update(t, max_abs_err=e["max_abs_grad_err"])
@@ -3402,15 +3470,20 @@ def phase_wide_kernel():
     return out
 
 
-def _wide_times(x, y, w, beta, off, link, ys, x_scale):
-    """The wide sweep's time beside its plain version (f32), the bound (one
-    read of X, y and w), two cuBLAS gemvs in X's dtype (none for e4m3) and
-    the wide plan."""
+def _wide_times(x, y, w, beta, off, link, ys, x_scale, two_pass=True):
+    """The wide sweep's time (one read of X) beside the two-pass instance
+    at the same width (where ``two_pass``, else None), its plain version
+    (f32), the bound (one read of X, y and w), two cuBLAS gemvs in X's
+    dtype (none for e4m3) and the wide plan."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     n, d = x.shape
     k_ms = _time_ms(lambda: kernels.glm_sweep(
         x, y, w, beta, off, link=link, ys=ys, x_scale=x_scale), 20, 3)
+    two_ms = None
+    if two_pass:
+        two_ms = _time_ms(lambda: kernels._sweep(
+            x, y, w, beta, off, link, ys, x_scale, kernels.TWO_PASS), 20, 3)
     p_ms = _time_ms(lambda: kernels.glm_sweep_plain(
         x, y, w, beta, off, link=link, ys=ys, x_scale=x_scale), 3, 1)
     if link == kernels.LOGISTIC:
@@ -3422,20 +3495,24 @@ def _wide_times(x, y, w, beta, off, link, ys, x_scale):
     bound, bound_by = _bound(n_bytes, 4.0 * n * d)
     plan = kernels.glm_sweep_plan(x.dtype, link, d)
     _line("wide_time", n=n, d=d, dtype=_dt(x), link=link, kernel_ms=k_ms,
-          plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-          share_of_bound=bound / k_ms, yardstick_two_gemv_ms=yard,
-          achieved_gb_s=n_bytes / k_ms / 1e6, **plan)
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": bound_by, "yardstick_ms": yard, "plan": plan,
-            "n": n, "d": d}
+          two_pass_ms=two_ms, plain_ms=p_ms, bound_ms=bound,
+          bound_by=bound_by, share_of_bound=bound / k_ms,
+          yardstick_two_gemv_ms=yard, achieved_gb_s=n_bytes / k_ms / 1e6,
+          **plan)
+    return {"ms": k_ms, "two_pass_ms": two_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": bound_by, "yardstick_ms": yard,
+            "plan": plan, "n": n, "d": d}
 
 
 def phase_wide_k1s():
     """The wide K1s against its plain version in float64 (phase 15's
     checks and sum(mult) to 1e-4 of sum(w); two launches bitwise equal,
-    one launch per group counted as wide) at K1S_WIDE in bf16, e4m3 and
-    f32, centered; times at every shape. Returns the kernels line's
-    numbers: bf16 at CIFAR-10's shape, K = 8, with the other times."""
+    one launch per group counted under the instance of its width: the
+    one-read cluster instance for bf16 and e4m3 up to 8,192 columns, the
+    two-pass one for f32 and past 8,192) at K1S_WIDE in bf16, e4m3 and
+    f32, centered; times at every shape up to 8,192 columns, the two-pass
+    instance's beside them at K = 8. Returns the kernels line's numbers: bf16 at CIFAR-10's shape, K = 8,
+    with the other times."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     out = {"times": []}
@@ -3462,6 +3539,7 @@ def phase_wide_k1s():
                 yk = ys[:, :k]
                 group = kernels.glm_sweep_stacked_group(x.dtype, d)
                 groups = -(-k // group)
+                inst = kernels.glm_sweep_instance(x.dtype, d, stacked=True)
                 before = dict(kernels.glm_sweep_stacked.launches_by_width)
                 got = kernels.fused_binary_logistic_stacked_scaled(
                     x, yk, w, inv_std, mu, coef[:k], d, x_scale=s32)
@@ -3476,14 +3554,15 @@ def phase_wide_k1s():
                              .abs().max()) / float(t_w)
                 bitwise = all(torch.equal(got[q], again[q])
                               for q in ("loss", "grad", "count"))
-                launched = (after[kernels.WIDE] - before[kernels.WIDE]
-                            == 2 * groups and after[kernels.NARROW]
-                            == before[kernels.NARROW])
+                launched = (after[inst] - before[inst] == 2 * groups
+                            and sum(after.values()) - sum(before.values())
+                            == 2 * groups)
                 ok = (rel_loss <= 1e-5 and rel_grad <= 1e-4
                       and msum <= 1e-4 and bool((got["count"] == n).all())
                       and float(t_w) == n and bitwise and launched)
                 _line("wide_k1s_check", n=n, d=d, k=k, dtype=_dt(x),
-                      instance=kernels.INSTANCE[x.dtype], group=group,
+                      instance=kernels.INSTANCE[x.dtype], width=inst,
+                      group=group,
                       x_scale=s32 is not None, rel_loss=rel_loss,
                       grad_err_over_max=rel_grad, max_abs_grad_err=err,
                       msum_err_over_wsum=msum, launches=2 * groups,
@@ -3492,7 +3571,10 @@ def phase_wide_k1s():
                     raise AssertionError(f"the wide K1s disagrees with its "
                                          f"plain version at n={n} d={d} "
                                          f"k={k} {x.dtype}")
-                t = _wide_k1s_times(x, yk, w, coef[:k], inv_std, s32)
+                if d > kernels.STACKED_WIDE_MAX_D:
+                    continue
+                t = _wide_k1s_times(x, yk, w, coef[:k], inv_std, s32,
+                                    two_pass=k == 8)
                 out["times"].append(t)
                 if n == CIFAR_N and k == 8 and x.dtype == torch.bfloat16:
                     out.update(t, max_abs_err=err)
@@ -3502,10 +3584,14 @@ def phase_wide_k1s():
     return out
 
 
-def _wide_k1s_times(x, y, w, coef, inv_std, x_scale):
-    """The wide K1s's time beside its plain version (f32), the bound (X,
-    the labels and w once; the tensor-core instance's 12 n d K operations
-    at the bf16 rate, the FMA instance's 4 n d K at the f32 rate) and the
+def _wide_k1s_times(x, y, w, coef, inv_std, x_scale, two_pass=True):
+    """The wide K1s's time (by CUDA events around the wrapper, and its
+    kernels' device time by the profiler) beside the two-pass instance at
+    the same width where ``two_pass`` (groups of 8 on the tensor cores;
+    none for f32 X, whose wide instance it still is), its plain version
+    (f32), the bound (X, the
+    labels and w once; the tensor-core instance's 12 n d K operations at
+    the bf16 rate, the FMA instance's 4 n d K at the f32 rate) and the
     yardstick X B^T plus M^T X in X's dtype (none for e4m3 codes)."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
@@ -3515,6 +3601,13 @@ def _wide_k1s_times(x, y, w, coef, inv_std, x_scale):
     off = coef[:, d]
     k_ms = _time_ms(lambda: kernels.glm_sweep_stacked(
         x, y, w, b, off, x_scale=x_scale), 10, 2)
+    dev_ms = _device_ms(lambda: kernels.glm_sweep_stacked(
+        x, y, w, b, off, x_scale=x_scale), 10, "glm_")
+    instance = kernels.INSTANCE[x.dtype]
+    two_ms = None
+    if two_pass and instance == kernels.TENSOR_CORE:
+        two_ms = _time_ms(lambda: kernels._stacked(
+            x, y, w, b, off, x_scale, kernels.TWO_PASS, 8), 10, 2)
     p_ms = _time_ms(lambda: kernels.glm_sweep_stacked_plain(
         x, y, w, b, off, x_scale=x_scale), 2, 1)
     yard = None
@@ -3526,18 +3619,28 @@ def _wide_k1s_times(x, y, w, coef, inv_std, x_scale):
         del mult
     n_bytes = (n * d * x.element_size() + n * k * y.element_size() + n * 4
                + k * (d + 1) * 4 + (k * (d + 2) + 1) * 4)
-    instance = kernels.INSTANCE[x.dtype]
     if instance == kernels.TENSOR_CORE:
         bound, bound_by = _bound(n_bytes, 12.0 * n * d * k, H100_BF16_FLOPS)
     else:
         bound, bound_by = _bound(n_bytes, 4.0 * n * d * k)
+    width = kernels.glm_sweep_instance(x.dtype, d, stacked=True)
+    parts = None
+    if width == kernels.WIDE:  # the clusters resident at once on this card
+        c = ctypes.c_int(0)
+        kernels._library("glm_stacked").glm_stacked_num_parts(
+            kernels._DTYPE_CODE[x.dtype], d,
+            min(k, kernels.glm_sweep_stacked_group(x.dtype, d)), n,
+            ctypes.byref(c))
+        parts = c.value
     _line("wide_k1s_time", n=n, d=d, k=k, dtype=_dt(x), instance=instance,
-          kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-          share_of_bound=bound / k_ms, yardstick_xbt_mtx_ms=yard,
-          achieved_gb_s=n_bytes / k_ms / 1e6)
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": bound_by, "yardstick_ms": yard, "n": n, "d": d,
-            "k": k, "dtype": _dt(x)}
+          width=width, clusters=parts,
+          kernel_ms=k_ms, device_ms=dev_ms, two_pass_ms=two_ms,
+          plain_ms=p_ms, bound_ms=bound,
+          bound_by=bound_by, share_of_bound=bound / k_ms,
+          yardstick_xbt_mtx_ms=yard, achieved_gb_s=n_bytes / k_ms / 1e6)
+    return {"ms": k_ms, "device_ms": dev_ms, "two_pass_ms": two_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+            "yardstick_ms": yard, "n": n, "d": d, "k": k, "dtype": _dt(x)}
 
 
 def _wide_fit_phase(tag, generate, estimator, link):
@@ -3635,9 +3738,10 @@ def phase_wide_linreg():
 
 def phase_cifar_ovr():
     """OneVsRest at CIFAR-10's size (50,000 x 3,072, 10 classes, bf16)
-    through the wide K1s (groups of 8 and 2), through the plain stacked
-    aggregator and serially (10 fits through the wide K1), with phase 16's
-    checks. Returns K1s's launches in the stacked fit."""
+    through the wide K1s (one group of 16 holds the 10 classes: one launch
+    per stacked evaluation), through the plain stacked aggregator and
+    serially (10 fits through the wide K1), with phase 16's checks. Returns
+    K1s's launches in the stacked fit."""
     import numpy as np
     import torch
     from cycloneml_tpu_torch.dataset.random import generate_multiclass
@@ -3699,10 +3803,10 @@ def phase_cifar_ovr():
               prediction_agreement={"plain": agree_p, "serial": agree_s},
               train_accuracy=acc)
         _check("cifar ovr fit", {
-            "the wide K1s launched once per stacked evaluation and group "
-            "(8 + 2), all on the tensor cores":
+            "the wide K1s launched once per stacked evaluation (one group "
+            "of 16 holds the 10 classes), all on the tensor cores":
                 k1s == stacked_evals * groups == k1s_wide == k1s_tc
-                and groups == 2,
+                and groups == 1,
             "K1 launched 0 times in the stacked fit": k1 == 0,
             "no other kernel launched": others == 0,
             "the serial fits launch the wide K1 once per evaluation, K1s "
@@ -3815,6 +3919,7 @@ def main() -> int:
 
     from cycloneml_tpu_torch.ops import kernels
     t_start = time.perf_counter()
+    _time_phases()
     card, kind = phase_card()
     ptxas = phase_build()
     # spill bytes (stores plus loads) of every kernel of ell_sweep
@@ -3848,7 +3953,8 @@ def main() -> int:
         return {"redesigned": how,
                 **{k: numbers[k] for k in keep if k in numbers},
                 "ptxas": {f: ptxas.get(f) for f in ptxas
-                          if f.startswith(kernels_run)}}
+                          if f.startswith(kernels_run)
+                          and "cluster=" not in f}}
 
     def sweep(numbers, dtype, d, link, how=None):
         """The fields of a GLM sweep entry: the main shape's instance, its
@@ -3937,29 +4043,44 @@ def main() -> int:
     wide_lin = phase_wide_linreg()
     cifar = phase_cifar_ovr()
     phase_criteo_seeds()
-    wide_ptxas = {f: ptxas.get(f) for f in ptxas
-                  if f.startswith("glm_wide_")}
-    how = "the wide instance: two passes over X by column block"
+    how = ("one read of X: a CTA of 512 threads an SM, each "
+           "thread's slots of G rows staged once by its own cp.async ring "
+           "slots, margins by xor shuffles then the warps in warp order, "
+           "the link on one lane a row, the gradient from the same slots; "
+           "the two-pass instance past d = 12288")
     for link, line, launches, what in (
             (kernels.LOGISTIC, 270, wide_fit, "K1"),
             (kernels.SQUARED, 226, wide_lin, "K2")):
         nums = wide[link]
+        inst = f"glm_sweep_wide_kernel<bf16, E=8, {link}>"
         entry(f"glm_sweep ({link}, {what}, wide: d > 2048)", "glm_sweep",
               line, nums, launches, shape=[WIDE_N, WIDE_D], dtype="bf16",
               plan=nums["plan"], redesigned=how,
-              by_dtype={dt: {k: t[k] for k in ("n", "d", "ms", "plain_ms",
-                                                "bound_ms", "yardstick_ms")}
+              two_pass_ms=nums["two_pass_ms"],
+              by_dtype={dt: {k: t[k] for k in ("n", "d", "ms", "two_pass_ms",
+                                                "plain_ms", "bound_ms",
+                                                "yardstick_ms")}
                         for dt, t in nums["by_dtype"].items()},
               yardstick="two cuBLAS gemvs in X's dtype",
-              ptxas={f: v for f, v in wide_ptxas.items()
-                     if "glm_wide_margin" in f or "glm_wide_grad" in f})
+              ptxas={f: v for f, v in ptxas.items()
+                     if f.startswith("glm_sweep_wide_kernel")},
+              main_instance=inst)
     entry("glm_sweep_stacked (K1s, wide: d > 2048)", "glm_stacked", 270,
           wide_k1s, cifar, models=8, shape=[CIFAR_N, CIFAR_D],
           dtype="bf16", vmapped_by="cycloneml_tpu/ml/optim/aggregators.py:394",
-          redesigned=how, yardstick="X B^T plus M^T X in X's dtype",
+          redesigned="one read of X: the narrow tensor-core kernel on a "
+                     "cluster of 4 CTAs (8 past d = 4096), each with a "
+                     "column slice of X and of B's three parts, the tile's "
+                     "partial margins summed in rank order through "
+                     "distributed shared memory; 16 models a launch; the "
+                     "two-pass instance for f32 X and past d = 8192",
+          two_pass_ms=wide_k1s["two_pass_ms"],
+          device_ms=wide_k1s["device_ms"],
+          yardstick="X B^T plus M^T X in X's dtype",
           times=wide_k1s["times"],
-          ptxas={f: v for f, v in wide_ptxas.items() if "_tc_" in f
-                 or "_fma_" in f or "wide_reduce" in f})
+          ptxas={f: v for f, v in ptxas.items() if "cluster=" in f
+                 or f.startswith(("glm_wide_tc", "glm_wide_fma",
+                                  "glm_wide_reduce"))})
     sparse = "cycloneml_tpu/ml/optim/sparse_aggregators.py"
     ell_ptxas = {f: ptxas.get(f) for f in ptxas if f.startswith("ell_")}
     keep = ("bound_with_sector_gathers_ms", "turns_ms")
@@ -3994,6 +4115,7 @@ def main() -> int:
                "one_block_ms: the same kernel over the copy in plain "
                "column order (one block), in turns with the blocked copy")
     print(json.dumps({"kernels": entries}), flush=True)
+    _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -132,12 +132,41 @@
 // tensor cores for d > 1280); the wrapper runs groups, each one launch and
 // one more read of X.
 //
-// The wide instances (d > 2048). B's three parts for eight models take 6 *
-// 8 * d bytes, 98 KB at d = 2048 and 393 KB at d = 8192, and a 16-row bf16
-// tile 32 d bytes, so neither stays whole in shared memory past 2048
-// columns. Past it a sweep is two passes over X, each streaming its
-// operands by column block (design (a) of ROADMAP A1; reading X once with
-// the tile kept in L2 is later work), then one reduction:
+// The wide tensor-core instance (bf16 X and e4m3 codes, 2048 < d <= 8192),
+// one read of X. B's three parts for sixteen models take 96 d bytes (295
+// KB at d = 3,072), more than one CTA's shared memory, so the same kernel
+// (glm_stacked_tc_kernel with CL > 1) runs on a cluster of CL CTAs, 4 up
+// to d = 4,096 and 8 past it: CTA q stages columns [q dc, q dc + dc) of
+// each tile and of B's parts (dc = d / CL rounded up to 64: 576 to 1,024
+// columns, three or four k-blocks a warp), so every CTA keeps its slice
+// of B resident and 16 models fit at every width (CIFAR-10's 10 classes
+// in one launch). Per 16-row tile:
+// - each CTA's partial margins of its slice (mma.sync as above; its warps
+//   summed in warp order) go to a two-buffer array in its shared memory,
+//   a cluster barrier (arrive.release, wait.acquire) publishes them, and
+//   every CTA sums the CL CTAs' values in rank order through distributed
+//   shared memory: the same bits in every CTA, so each computes the same
+//   multipliers (the loss and sums are written by rank 0 alone);
+// - each CTA then sums G^T += X^T M_p over its slice from the tile still
+//   in its ring; the accumulators are flushed in double every 4,096 rows
+//   into the cluster's partial row (one a cluster), each CTA its columns;
+// - bf16: the loop is pipelined so that the barrier of a tile is waited
+//   out while the next tile's margins are taken: iteration j arrives at
+//   tile j - 1's barrier, takes tile j's margins, waits, then takes tile
+//   j - 1's epilogue and gradient (tiles j - 1 and j resident, S - 2 in
+//   flight). e4m3 codes keep the narrow loop with the exchange inserted
+//   (each code converted once, as above). Both are the narrow loop's text
+//   under `if constexpr`, so the narrow instance compiles as it did;
+// - a last cluster barrier keeps every CTA until its peers' last reads.
+// Registers: 105-128 a thread, 0 spills. What holds it back
+// (k1s_phases.py --wide; PERF.md section 6): per tile a chain of barriers
+// (two CTA barriers and the cluster's) over small slices (24 to 32 KB of X
+// a CTA), each phase a few hundred cycles; taking the cluster barrier out
+// still saves 18-25% at d = 8,192.
+//
+// The two-pass instances (f32 X past d = 2048, every dtype past 8192). A
+// sweep is two passes over X, each streaming its operands by column
+// block, then one reduction:
 // - The margin pass: a CTA of 8 warps takes tiles of 128 rows (16 a
 //   warp) and walks the columns in chunks of 64, X's chunk and the chunk
 //   of B (three bf16 parts, or f32 on the FMAs) loaded into registers one
@@ -172,7 +201,8 @@
 //   launches are bitwise equal; rows past n are zeros and add nothing.
 // Scratch: n kg floats of multipliers, plus (slabs x kg d) doubles of
 // gradient partials. KG = 8 on the tensor cores, 16 on the FMAs
-// (glm_stacked_group past 2048).
+// (glm_stacked_group past 8192; glm_stacked_two_pass_launch takes it at
+// any d past 2048, for a comparison in one run).
 //
 // Plain C interface (loaded with ctypes): every entry point returns a
 // cudaError_t, 0 on success.
@@ -183,7 +213,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -191,6 +225,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxModels = 16;   // K_MAX: models one launch sweeps at most
 constexpr int kMaxD = 2048;  // the narrow instances' widest d
+constexpr int kWideMaxD = 8192;  // the one-read wide instances' widest d
 constexpr int kFlushRows = 4096; // rows an f32 gradient sum runs over
 constexpr size_t kSmemLimit = 227 * 1024;
 
@@ -590,25 +625,26 @@ __host__ __device__ constexpr int lab_stages(int S) { return S + 2; }
 // f32), the multipliers' three parts (KG x 16 bf16 each) and the label
 // ring. Every section is a multiple of 16 bytes.
 __host__ __device__ constexpr size_t tc_smem(int item, int S, int tiles,
-                                             int KG, int dp) {
+                                             int KG, int dp, int CL = 1) {
   return (item == 2 ? (size_t)S * kTcRows * dp * 2
                     : (size_t)tiles * kTcRows * dp * 2 +
                           (size_t)S * kTcRows * dp) +
          (size_t)kParts * KG * dp * 2 + (size_t)kTcWarps * kTcRows * KG * 4 +
          (size_t)kParts * KG * kTcRows * 2 +
-         (size_t)lab_stages(S) * lab_bytes(KG);
+         (size_t)lab_stages(S) * lab_bytes(KG) +
+         (CL > 1 ? (size_t)2 * kTcRows * KG * 4 : 0);  // the cluster's sums
 }
 
 // The ring of an instance, for its widest d (16 kTcWarps NB): the most
 // stages (up to 4) that fit; for e4m3 two bf16 tiles where they fit with a
 // code stage (each tile's codes are converted while the tile before it
 // computes), else one (converted between tiles).
-template <typename T, int NB, int KG>
+template <typename T, int NB, int KG, int CL = 1>
 struct TcPlan {
   static constexpr int kDMax = 16 * kTcWarps * NB;
   static constexpr bool kCodes = sizeof(T) == 1;
   static constexpr bool fits(int S, int tiles) {
-    return tc_smem(sizeof(T), S, tiles, KG, kDMax) <= kSmemLimit;
+    return tc_smem(sizeof(T), S, tiles, KG, kDMax, CL) <= kSmemLimit;
   }
   static constexpr int kTiles = kCodes ? (fits(1, 2) ? 2 : 1) : 0;
   static constexpr int kStages = fits(4, kTiles)   ? 4
@@ -652,6 +688,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the cluster barrier: every thread of every CTA of the cluster arrives,
+// then waits; the release and acquire order the shared-memory writes
+// before the arrive before the reads after the wait, across the cluster
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
 // byte offset of byte b of row r in a swizzled region of rows `pitch`
 // bytes apart (a multiple of 128): 16-byte chunk c at c ^ (r % 8)
 __device__ __forceinline__ int swz(int r, int b, int pitch) {
@@ -668,21 +718,22 @@ struct RowShare {
       : r(ct / kPerRow), b0((ct % kPerRow) * vec), step(kPerRow * vec) {}
 };
 
-// Copier ct's share of rows [r0, r0 + 16) of X (row_bytes each) into a
-// stage, byte b of row r at swz(r, b, pitch) (kSwizzle) or r * pitch + b:
-// cp.async units of vec bytes (16, 8 or 4), or, for vec < 4, element by
-// element (vec = the element's bytes); rows past n are zeros.
+// Copier ct's share of rows [r0, r0 + 16) of X (the first row_bytes of
+// each, rows `stride` bytes apart) into a stage, byte b of row r at swz(r,
+// b, pitch) (kSwizzle) or r * pitch + b: cp.async units of vec bytes (16, 8
+// or 4), or, for vec < 4, element by element (vec = the element's bytes);
+// rows past n are zeros.
 template <bool kSwizzle, int kCount>
 __device__ __forceinline__ void tc_copy_tile(const unsigned char* __restrict__ x,
                                              long long n, int row_bytes,
-                                             long long r0, int vec,
-                                             unsigned char* dst, int pitch,
-                                             int ct) {
+                                             long long stride, long long r0,
+                                             int vec, unsigned char* dst,
+                                             int pitch, int ct) {
   const RowShare<kCount> sh(vec, ct);
   unsigned char* row = dst + sh.r * pitch;
   const int sw = kSwizzle ? (sh.r & 7) << 4 : 0;
   if (r0 + sh.r < n) {
-    const unsigned char* src = x + (r0 + sh.r) * (long long)row_bytes;
+    const unsigned char* src = x + (r0 + sh.r) * stride;
     for (int b = sh.b0; b < row_bytes; b += sh.step) {
       unsigned char* at = row + (b ^ sw);
       if (vec >= 4)
@@ -774,17 +825,21 @@ __device__ __forceinline__ void tc_convert_own(const unsigned char* codes,
   }
 }
 
-// parts: (3, kg, dp) bf16, B's hi, mid and lo parts, zero past d; vec: the
-// copy unit of X's rows in bytes (16, 8, 4, or the element's bytes).
-template <typename T, int NB, int KG>
+// parts: (3, kg, pad64(d)) bf16, B's hi, mid and lo parts, zero past d;
+// vec: the copy unit of X's rows in bytes (16, 8, 4, or the element's
+// bytes). CL > 1: the wide instance, a cluster of CL CTAs on each tile,
+// CTA q taking columns [q dc, q dc + dc) (dc a multiple of 64; CL = 1
+// ignores it) and one partial row a cluster.
+template <typename T, int NB, int KG, int CL = 1>
 __global__ void __launch_bounds__(kTcThreads, 1)
     glm_stacked_tc_kernel(const T* __restrict__ x, const void* __restrict__ y,
                           int y_bf16, long long ldy,
                           const float* __restrict__ w,
                           const __nv_bfloat16* __restrict__ parts,
                           const float* __restrict__ off, long long n, int d,
-                          int kg, int vec, double* __restrict__ partials) {
-  using P = TcPlan<T, NB, KG>;
+                          int kg, int vec, int dc,
+                          double* __restrict__ partials) {
+  using P = TcPlan<T, NB, KG, CL>;
   constexpr int R = kTcRows;
   constexpr int S = P::kStages;
   constexpr int NT = KG / 8;  // n8 blocks of models
@@ -802,9 +857,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   constexpr int kCopiers = kTcThreads - kCopyFrom;
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int dp = pad64(d);
+  // the cluster's CTA `rank` stages columns [c0, c0 + dl) of X and B at a
+  // pitch of dp columns; the clusters walk the tiles as the CTAs of the
+  // narrow instance do
+  const int rank = CL > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const long long cid = CL > 1 ? blockIdx.x / CL : blockIdx.x;
+  const int c0 = rank * (CL > 1 ? dc : 0);
+  const int dl = CL > 1 ? max(0, min(dc, d - c0)) : d;
+  const int dp = CL > 1 ? dc : pad64(d);
+  const int ldp = pad64(d);               // B's parts' row stride
   const int pitch = dp * 2;               // bytes of a bf16 row
-  const int nkb = (d + kKb - 1) / kKb;    // 16-column blocks
+  const int nkb = (dl + kKb - 1) / kKb;   // 16-column blocks
   const int tile_bytes = R * pitch;       // a bf16 tile
   const int ring_pitch = kCodes ? dp : pitch;
   const int stage_bytes = R * ring_pitch;
@@ -817,13 +880,20 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   unsigned char* s_lab =  // the label ring
       reinterpret_cast<unsigned char*>(s_mp + kParts * KG * R);
   constexpr int kLab = lab_stages(S);
+  float* s_cm =  // CL > 1: [2][R * KG], this CTA's margins of a tile
+      reinterpret_cast<float*>(s_lab + kLab * lab_bytes(KG));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int i8 = lane & 7, q = lane >> 3;
   const long long n_tiles = (n + R - 1) / R;
   const int width = kg * (d + 2) + 1;
-  double* part = partials + (long long)blockIdx.x * width;
-  const int row_bytes = d * (int)sizeof(T);
+  double* part = partials + cid * width;
+  const int row_bytes = dl * (int)sizeof(T);
+  // X's rows are `stride` bytes apart (CL = 1: row_bytes)
+  const long long stride =
+      CL > 1 ? (long long)d * (long long)sizeof(T) : (long long)row_bytes;
+  const unsigned char* xs = reinterpret_cast<const unsigned char*>(x) +
+                            (long long)c0 * (long long)sizeof(T);
   // this lane's ldmatrix offsets at the warp's first k-block (2 warp + h
   // is 16-byte chunk h of it); the warp's block i is 2 kTcWarps chunks
   // (kStep bytes) further, since the swizzle moves only the low 3 bits of
@@ -846,15 +916,15 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int row = u / (dp / 8), c = u - row * (dp / 8);
     const int p = row / KG, k = row - p * KG;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (k < kg)
+    if (k < kg && (CL == 1 || c0 + c * 8 < ldp))
       v = __ldg(reinterpret_cast<const uint4*>(
-          parts + ((long long)p * kg + k) * dp + c * 8));
+          parts + ((long long)p * kg + k) * ldp + c0 + c * 8));
     *reinterpret_cast<uint4*>(s_p + p * KG * pitch + swz(k, c * 16, pitch)) =
         v;
   }
   __syncthreads();  // the zeros are down before the first copies land
 
-  const long long grid = gridDim.x;
+  const long long grid = gridDim.x / CL;  // the clusters (CTAs when CL = 1)
   const bool copier = tid >= kCopyFrom;
   const int ct = tid - kCopyFrom;
   // a copier's share of the j-th tile of this CTA into ring stage
@@ -862,11 +932,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // group (global loads of the labels in the loop would wait behind the
   // ring's cp.async waits)
   auto issue = [&](long long j, int stage) {
-    const long long t = blockIdx.x + j * grid;
+    const long long t = cid + j * grid;
     if (t < n_tiles) {
-      tc_copy_tile<!kCodes, kCopiers>(
-          reinterpret_cast<const unsigned char*>(x), n, row_bytes, t * R,
-          vec, s_ring + stage * stage_bytes, ring_pitch, ct);
+      tc_copy_tile<!kCodes, kCopiers>(xs, n, row_bytes, stride, t * R, vec,
+                                      s_ring + stage * stage_bytes,
+                                      ring_pitch, ct);
       tc_copy_labels<kCopiers, KG>(
           reinterpret_cast<const unsigned char*>(y), y_bf16, ldy, w, n, kg,
           t * R, s_lab + (int)(j % kLab) * lab_bytes(KG), ct);
@@ -877,7 +947,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // tile `dst`, then its share of the (j + S)-th tile into the freed stage
   auto convert = [&](long long j, unsigned char* dst) {
     cp_async_wait<S - 1>();
-    if (blockIdx.x + j * grid < n_tiles)
+    if (cid + j * grid < n_tiles)
       tc_convert_own<kCopiers>(s_ring + (int)(j % S) * stage_bytes, dp,
                                row_bytes, vec, dst, pitch, ct);
     issue(j + S, (int)(j % S));
@@ -907,17 +977,43 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   constexpr int kFlushTiles = kFlushRows / R;
   int since_flush = 0;
 
-  // prologue: bf16 keeps S - 1 tiles in flight (one with a single stage);
-  // e4m3 S code tiles, and with two bf16 tiles the first converted
-  constexpr int kAhead = kCodes ? S : (S >= 2 ? S - 1 : 1);
+  // bf16 on a cluster (kPipe): iteration j takes the margins of tile j,
+  // then the epilogue and gradient of tile j - 1, whose cluster barrier
+  // was arrived at first and is waited out after tile j's margins; so the
+  // loop runs once more, and tiles j - 1 and j are resident
+  constexpr bool kPipe = CL > 1 && !kCodes;
+  static_assert(!kPipe || S >= 3, "two resident tiles and one in flight");
+  // CL > 1: this CTA's margins of the j-th tile (its warps in warp order,
+  // from s_pm) to the cluster's buffer s_cm[j & 1], published by the
+  // cluster barrier; a CTA writes a buffer again only after every CTA has
+  // passed the next tile's barrier, so after its reads of it
+  auto own_margins = [&](long long j) {
+    if (tid < kEntries) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int wi = 0; wi < kTcWarps; ++wi) dot += s_pm[wi * kEntries + tid];
+      s_cm[(int)(j & 1) * kEntries + tid] = dot;
+    }
+  };
+
+  // prologue: bf16 keeps S - 1 tiles in flight (one with a single stage;
+  // S - 2 when pipelined); e4m3 S code tiles, and with two bf16 tiles the
+  // first converted
+  constexpr int kAhead = kCodes ? S : kPipe ? S - 2 : (S >= 2 ? S - 1 : 1);
   if (copier) {
 #pragma unroll
     for (int s = 0; s < kAhead; ++s) issue(s, s);
     if constexpr (kTiles == 2) convert(0, s_x);
   }
 
-  for (long long j = 0; blockIdx.x + j * grid < n_tiles; ++j) {
-    const long long tile = blockIdx.x + j * grid;
+  for (long long j = 0; cid + (kPipe ? j - 1 : j) * grid < n_tiles; ++j) {
+    if constexpr (kPipe) {
+      if (j > 0) {  // tile j - 1's partial margins are in s_pm
+        own_margins(j - 1);
+        cluster_arrive();
+      }
+    }
+    const long long tile = cid + j * grid;
     const unsigned char* xt;
     if constexpr (kTiles == 2) {
       __syncthreads();  // this tile's bf16 tile is in place
@@ -927,6 +1023,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       if (copier) convert(j, s_x);
       __syncthreads();  // the bf16 tile is in place
       xt = s_x;
+    } else if constexpr (kPipe) {
+      cp_async_wait<S - 3>();
+      __syncthreads();  // tile j in place; s_pm read; tile j - 2 done
+      xt = s_ring + (int)(j % S) * stage_bytes;
+      if (copier) issue(j + S - 2, (int)((j + S - 2) % S));
     } else if constexpr (S >= 2) {
       cp_async_wait<S - 2>();
       __syncthreads();  // this tile is in place; the last one's stage free
@@ -942,65 +1043,87 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
     // -- margins: warp w takes k-blocks w, w + kTcWarps, ...; one
     // accumulator per part of B
-    float pm[kParts][NT][4];
+    if (!kPipe || tile < n_tiles) {
+      float pm[kParts][NT][4];
 #pragma unroll
-    for (int p = 0; p < kParts; ++p)
+      for (int p = 0; p < kParts; ++p)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pm[p][nt][e] = 0.0f;
+          for (int e = 0; e < 4; ++e) pm[p][nt][e] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int kb = warp + kTcWarps * i;
-      if (kb < nkb) {
-        uint32_t a[4];
-        ldsm_x4(a, xb + a_off + kStep * i);
+      for (int i = 0; i < NB; ++i) {
+        const int kb = warp + kTcWarps * i;
+        if (kb < nkb) {
+          uint32_t a[4];
+          ldsm_x4(a, xb + a_off + kStep * i);
 #pragma unroll
-        for (int p = 0; p < kParts; ++p) {
-          // B = part p (16 columns x models), model-major
-          const uint32_t at = pb + p * KG * pitch + b_off + kStep * i;
-          if constexpr (NT == 2) {
-            uint32_t b[4];
-            ldsm_x4(b, at);
-            mma_bf16(pm[p][0], a, b[0], b[1]);
-            mma_bf16(pm[p][1], a, b[2], b[3]);
-          } else {
-            uint32_t b[2];
-            ldsm_x2(b, at);
-            mma_bf16(pm[p][0], a, b[0], b[1]);
+          for (int p = 0; p < kParts; ++p) {
+            // B = part p (16 columns x models), model-major
+            const uint32_t at = pb + p * KG * pitch + b_off + kStep * i;
+            if constexpr (NT == 2) {
+              uint32_t b[4];
+              ldsm_x4(b, at);
+              mma_bf16(pm[p][0], a, b[0], b[1]);
+              mma_bf16(pm[p][1], a, b[2], b[3]);
+            } else {
+              uint32_t b[2];
+              ldsm_x2(b, at);
+              mma_bf16(pm[p][0], a, b[0], b[1]);
+            }
           }
         }
       }
-    }
-    // this warp's partial margins, (lo + mid) + hi: c0, c1 at row g,
-    // models 2 (lane % 4) + {0, 1}; c2, c3 at row g + 8
-    {
-      const int g = lane >> 2, m0 = 2 * (lane & 3);
-      float* dst = s_pm + warp * R * KG;
+      // this warp's partial margins, (lo + mid) + hi: c0, c1 at row g,
+      // models 2 (lane % 4) + {0, 1}; c2, c3 at row g + 8
+      {
+        const int g = lane >> 2, m0 = 2 * (lane & 3);
+        float* dst = s_pm + warp * R * KG;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float v[4];
+        for (int nt = 0; nt < NT; ++nt) {
+          float v[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = (pm[2][nt][e] + pm[1][nt][e]) + pm[0][nt][e];
-        *reinterpret_cast<float2*>(dst + g * KG + nt * 8 + m0) =
-            make_float2(v[0], v[1]);
-        *reinterpret_cast<float2*>(dst + (g + 8) * KG + nt * 8 + m0) =
-            make_float2(v[2], v[3]);
+          for (int e = 0; e < 4; ++e)
+            v[e] = (pm[2][nt][e] + pm[1][nt][e]) + pm[0][nt][e];
+          *reinterpret_cast<float2*>(dst + g * KG + nt * 8 + m0) =
+              make_float2(v[0], v[1]);
+          *reinterpret_cast<float2*>(dst + (g + 8) * KG + nt * 8 + m0) =
+              make_float2(v[2], v[3]);
+        }
       }
     }
     // e4m3's next conversion: here by every thread when all of them take
     // part in the epilogue, else by the copiers during it
     if constexpr (kCopyFrom == 0) ahead(j);
-    __syncthreads();  // every warp's partial margins are in place
+    if constexpr (kPipe) {
+      if (j == 0) {
+        __syncthreads();  // tile 0's partial margins are in place
+        continue;
+      }
+      cluster_wait();  // tile j - 1's margins, cluster-wide
+    } else {
+      __syncthreads();  // every warp's partial margins are in place
+      if constexpr (CL > 1) {  // e4m3 codes on a cluster
+        own_margins(j);
+        cluster_sync();
+      }
+    }
 
-    // -- epilogue: the entry's two threads each sum the warps' margins in
-    // warp order (the same bits); sub 0 the multiplier, its sums and its
-    // three bf16 parts (model-major) for the gradient, sub 1 (other warps,
-    // so the two run side by side) the loss; the copiers copy meanwhile
+    // the tile of this iteration's epilogue and gradient: its index among
+    // this CTA's tiles, its tile and its bf16 rows
+    const long long je = kPipe ? j - 1 : j;
+    const long long tg = kPipe ? tile - grid : tile;
+    const uint32_t xg =
+        kPipe ? smem_u32(s_ring + (int)(je % S) * stage_bytes) : xb;
+
+    // -- epilogue: the entry's two threads each sum the margins (the
+    // warps' in warp order; on a cluster its CTAs' in rank order; the same
+    // bits); sub 0 the multiplier, its sums and its three bf16 parts
+    // (model-major) for the gradient, sub 1 (other warps, so the two run
+    // side by side) the loss; the copiers copy meanwhile
     if (tid < kEpi) {
       // this tile's label and weight, from the label ring
-      const unsigned char* lab = s_lab + (int)(j % kLab) * lab_bytes(KG);
+      const unsigned char* lab = s_lab + (int)(je % kLab) * lab_bytes(KG);
       const float wv =
           *reinterpret_cast<const float*>(lab + R * KG * 4 + 4 * er);
       float yv = 0.0f;
@@ -1009,8 +1132,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                           lab + (er * KG + ek) * 2))
                     : *reinterpret_cast<const float*>(lab + (er * KG + ek) * 4);
       float dot = 0.0f;
+      if constexpr (CL > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
 #pragma unroll
-      for (int wi = 0; wi < kTcWarps; ++wi) dot += s_pm[wi * kEntries + entry];
+        for (int c = 0; c < CL; ++c)
+          dot += cluster.map_shared_rank(s_cm, c)[(int)(je & 1) * kEntries +
+                                                  entry];
+      } else {
+#pragma unroll
+        for (int wi = 0; wi < kTcWarps; ++wi)
+          dot += s_pm[wi * kEntries + entry];
+      }
       const float m = dot + off_k;
       if (sub == 0) {
         float mult = 0.0f;
@@ -1054,7 +1186,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       if (cb < nkb) {
         // A = X^T (16 columns x 16 rows) by ldmatrix.trans
         uint32_t a[4];
-        ldsm_x4_trans(a, xb + t_off + kStep * i);
+        ldsm_x4_trans(a, xg + t_off + kStep * i);
 #pragma unroll
         for (int p = kParts - 1; p >= 0; --p)  // lo, mid, hi
 #pragma unroll
@@ -1063,9 +1195,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       }
     }
 
-    if (++since_flush == kFlushTiles || tile + grid >= n_tiles) {
-      // add the f32 sums, in double, into this CTA's partial row (the
-      // first flush writes it): c0, c1 at column g, models 2 (lane % 4) +
+    if (++since_flush == kFlushTiles || tg + grid >= n_tiles) {
+      // add the f32 sums, in double, into the partial row (the first
+      // flush writes it): c0, c1 at column g, models 2 (lane % 4) +
       // {0, 1}; c2, c3 at column g + 8
       const int g = lane >> 2, m0 = 2 * (lane & 3);
 #pragma unroll
@@ -1077,8 +1209,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           for (int e = 0; e < 4; ++e) {
             const int col = cb * kKb + g + 8 * (e >> 1);
             const int k = nt * 8 + m0 + (e & 1);
-            if (cb < nkb && col < d && k < kg) {
-              double* at = part + (long long)k * (d + 2) + col;
+            if (cb < nkb && col < dl && k < kg) {
+              double* at = part + (long long)k * (d + 2) + c0 + col;
               *at = (flushed ? *at : 0.0) + (double)acc[i][nt][e];
             }
             acc[i][nt][e] = 0.0f;
@@ -1104,8 +1236,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           const int cb = warp + kTcWarps * i;
           const int col = cb * kKb + g + 8 * (e >> 1);
           const int k = nt * 8 + m0 + (e & 1);
-          if (cb < nkb && col < d && k < kg)
-            part[(long long)k * (d + 2) + col] = 0.0;
+          if (cb < nkb && col < dl && k < kg)
+            part[(long long)k * (d + 2) + c0 + col] = 0.0;
         }
   }
 
@@ -1114,7 +1246,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   if (tid < kEpi) s_red[2 * entry + 1 - sub] = (double)sum_s - (double)sum_c;
   if (sub == 0 && ek == 0) s_red[2 * R * KG + er] = (double)w_s - (double)w_c;
   __syncthreads();
-  if (tid < kg) {
+  // every CTA of a cluster holds the same sums: rank 0 writes them
+  if (tid < kg && rank == 0) {
     double l = 0.0, ms = 0.0;
     for (int r = 0; r < R; ++r) {
       l += s_red[2 * (r * KG + tid)];
@@ -1123,11 +1256,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     part[(long long)tid * (d + 2) + d] = l;
     part[(long long)tid * (d + 2) + d + 1] = ms;
   }
-  if (tid == 0) {
+  if (tid == 0 && rank == 0) {
     double ws = 0.0;
     for (int r = 0; r < R; ++r) ws += s_red[2 * R * KG + r];
     part[(long long)kg * (d + 2)] = ws;
   }
+  // no CTA leaves while another may still read its margins
+  if constexpr (CL > 1) cluster_sync();
 }
 
 // out[j] = sum over CTAs c, in order, of partials[c][j]; rounded to f32.
@@ -1728,13 +1863,14 @@ struct Instance {
   int tiles;       // e4m3 on the tensor cores: bf16 tiles
   int kg;          // models of the instance (KG)
   bool tc;         // the tensor-core instance
+  int cluster;     // CTAs a cluster (the wide tensor-core instance), else 1
 };
 
 template <int C, int KG>
 Instance make_fma() {
   using P = Plan<C, KG>;
   return {reinterpret_cast<const void*>(&glm_stacked_kernel<C, KG>),
-          kThreads, 4, P::kRows, P::kStages, 0, KG, false};
+          kThreads, 4, P::kRows, P::kStages, 0, KG, false, 1};
 }
 
 template <int C>
@@ -1752,11 +1888,13 @@ Instance fma_instance(int d, int kg) {
   return fma_models<8>(kg);
 }
 
-template <typename T, int NB, int KG>
+template <typename T, int NB, int KG, int CL = 1>
 Instance make_tc() {
-  return {reinterpret_cast<const void*>(&glm_stacked_tc_kernel<T, NB, KG>),
-          kTcThreads, (int)sizeof(T), kTcRows, TcPlan<T, NB, KG>::kStages,
-          TcPlan<T, NB, KG>::kTiles, KG, true};
+  using P = TcPlan<T, NB, KG, CL>;
+  return {reinterpret_cast<const void*>(
+              &glm_stacked_tc_kernel<T, NB, KG, CL>),
+          kTcThreads, (int)sizeof(T), kTcRows, P::kStages, P::kTiles, KG,
+          true, CL};
 }
 
 // k-blocks a warp takes at width d, rounded up to an instance's NB
@@ -1770,7 +1908,7 @@ int nb_of(int d) {
 
 template <typename T>
 Instance tc_instance(int d, int kg) {
-  const Instance none = {nullptr, 0, 0, 0, 0, 0, 0, false};
+  const Instance none = {nullptr, 0, 0, 0, 0, 0, 0, false, 1};
   const int nb = nb_of(d);
   if (kg <= 8) {
     switch (nb) {
@@ -1794,13 +1932,33 @@ Instance tc_instance(int d, int kg) {
   }
 }
 
+// The wide tensor-core instance (2048 < d <= 8192): a cluster of CL = 4
+// CTAs up to d = 4096, 8 past it, each CTA dc = pad64(ceil(d / CL))
+// columns (577 to 1024: three or four k-blocks a warp), KG = 8 or 16.
+int cluster_of(int d) { return d <= 4096 ? 4 : 8; }
+int slice_of(int d) {
+  const int cl = cluster_of(d);
+  return pad64((d + cl - 1) / cl);
+}
+
+template <typename T>
+Instance tc_cluster_instance(int d, int kg) {
+  const int cl = cluster_of(d), nb = nb_of(slice_of(d));
+  if (kg <= 8) {
+    if (cl == 4) return nb == 3 ? make_tc<T, 3, 8, 4>() : make_tc<T, 4, 8, 4>();
+    return nb == 3 ? make_tc<T, 3, 8, 8>() : make_tc<T, 4, 8, 8>();
+  }
+  if (cl == 4) return nb == 3 ? make_tc<T, 3, 16, 4>() : make_tc<T, 4, 16, 4>();
+  return nb == 3 ? make_tc<T, 3, 16, 8>() : make_tc<T, 4, 16, 8>();
+}
+
 // models one launch takes for (dtype, d): 16, or 8 on the tensor cores
-// past d = 1280 (the wide instances past d = 2048 too); 0 for a shape no
-// instance takes
+// past d = 1280 up to 2048 and in the two-pass instance past 8192; 0 for
+// a shape no instance takes
 int group_of(int dtype, int d) {
   if (d < 1 || dtype < 0 || dtype > 2) return 0;
-  if (d > kMaxD) return dtype == 0 ? kMaxModels : kWTcModels;
-  if (dtype == 0) return kMaxModels;
+  if (d > kWideMaxD) return dtype == 0 ? kMaxModels : kWTcModels;
+  if (dtype == 0 || d > kMaxD) return kMaxModels;
   return nb_of(d) <= kTcMaxNb16 ? 16 : 8;
 }
 
@@ -1827,28 +1985,64 @@ WideInstance wide_tc() {
           kWGradCols};
 }
 
-// the wide instance for (dtype, d > 2048, kg); margin == nullptr when none
+// the two-pass instance for (dtype, d > 2048, kg): the route of f32 X past
+// d = 2048 and of every dtype past 8192, and at any wide d for a
+// comparison in one run (8 models a launch on the tensor cores, 16 on the
+// FMAs); margin == nullptr when none
 WideInstance wide_for(int dtype, int d, int kg) {
   const WideInstance none = {nullptr, nullptr, 0, 0};
-  if (d <= kMaxD || kg < 1 || kg > group_of(dtype, d)) return none;
+  if (d <= kMaxD || kg < 1 || dtype < 0 || dtype > 2 ||
+      kg > (dtype == 0 ? kMaxModels : kWTcModels))
+    return none;
   if (dtype == 0) return kg <= 8 ? wide_fma<8>() : wide_fma<16>();
   if (dtype == 1) return wide_tc<__nv_bfloat16>();
   return wide_tc<__nv_fp8_e4m3>();
 }
 
-// the instance for (dtype, d, kg); fn == nullptr when none takes them
+// the instance of one read for (dtype, d, kg): narrow up to d = 2048, the
+// wide tensor-core one (bf16, e4m3) up to 8192; fn == nullptr when none
+// takes them
 Instance instance_for(int dtype, int d, int kg) {
-  if (d > kMaxD || kg < 1 || kg > group_of(dtype, d))
-    return {nullptr, 0, 0, 0, 0, 0, 0, false};
+  const Instance none = {nullptr, 0, 0, 0, 0, 0, 0, false, 1};
+  if (d > kWideMaxD || kg < 1 || kg > group_of(dtype, d)) return none;
+  if (d > kMaxD) {
+    if (dtype == 1) return tc_cluster_instance<__nv_bfloat16>(d, kg);
+    if (dtype == 2) return tc_cluster_instance<__nv_fp8_e4m3>(d, kg);
+    return none;
+  }
   if (dtype == 0) return fma_instance(d, kg);
   if (dtype == 1) return tc_instance<__nv_bfloat16>(d, kg);
   return tc_instance<__nv_fp8_e4m3>(d, kg);
 }
 
+// a CTA's staged width: its slice in a cluster, else d rounded up to 64
+int staged_width(const Instance& inst, int d) {
+  return inst.cluster > 1 ? slice_of(d) : pad64(d);
+}
+
 size_t smem_for(const Instance& inst, int d) {
   return inst.tc ? tc_smem(inst.item, inst.stages, inst.tiles, inst.kg,
-                           pad64(d))
+                           staged_width(inst, d), inst.cluster)
                  : smem_bytes(inst.stages, inst.rows, inst.kg, d);
+}
+
+// the launch of a tensor-core instance: a grid of `parts` CTAs, or of
+// `parts` clusters of inst.cluster CTAs
+cudaLaunchConfig_t launch_config(const Instance& inst, int parts,
+                                 size_t smem, cudaStream_t s,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)parts * inst.cluster);
+  cfg.blockDim = dim3(inst.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = inst.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = inst.cluster > 1 ? 1 : 0;
+  return cfg;
 }
 
 }  // namespace
@@ -1858,13 +2052,18 @@ extern "C" {
 // Largest d the narrow instances take; past it the wide ones run.
 int glm_stacked_max_d() { return kMaxD; }
 
+// Largest d the one-read wide instance (bf16 X, e4m3 codes) takes; past it
+// the two-pass one runs.
+int glm_stacked_wide_max_d() { return kWideMaxD; }
+
 // Models one launch takes for X of (dtype, d): the wrapper's group size
 // (0 when no instance takes d). dtype: 0 = float32 X, 1 = bfloat16 X,
 // 2 = float8_e4m3fn codes.
 int glm_stacked_group(int dtype, int d) { return group_of(dtype, d); }
 
-// CTAs (= partial rows) a sweep of n rows of (dtype, d) for kg models uses
-// on the current device.
+// Partial rows a sweep of n rows of (dtype, d) for kg models uses on the
+// current device: CTAs of a narrow instance, clusters of the wide one (as
+// many as are resident at once, at most one per tile, at least one).
 int glm_stacked_num_parts(int dtype, int d, int kg, long long n,
                           int* n_parts) {
   const Instance inst = instance_for(dtype, d, kg);
@@ -1878,8 +2077,18 @@ int glm_stacked_num_parts(int dtype, int d, int kg, long long n,
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inst.fn,
-                                                      inst.threads, smem);
+  if (inst.cluster > 1) {
+    // clusters resident at once (a cluster's CTAs on SMs of one GPC)
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = launch_config(inst, sms / inst.cluster, smem,
+                                           0, &attr);
+    err = cudaOccupancyMaxActiveClusters(&per_sm, inst.fn, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    sms = 1;  // per_sm is the cluster count
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inst.fn,
+                                                        inst.threads, smem);
+  }
   if (err != cudaSuccess) return (int)err;
   long long parts = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long tiles = (n + inst.rows - 1) / inst.rows;
@@ -1889,12 +2098,12 @@ int glm_stacked_num_parts(int dtype, int d, int kg, long long n,
   return 0;
 }
 
-// The partial rows of a wide sweep (d > 2048) of n rows for kg models on
-// the current device: the margin pass's CTAs (as many as are resident, at
-// most one per 128-row tile) and the gradient pass's row slabs (one per
+// The partial rows of a two-pass sweep (d > 2048) of n rows for kg models
+// on the current device: the margin pass's CTAs (as many as are resident,
+// at most one per 128-row tile) and the gradient pass's row slabs (one per
 // SM, at most one per 16 rows), each at least one.
-int glm_stacked_wide_parts(int dtype, int d, int kg, long long n,
-                           int* n_ctas, int* n_slabs) {
+int glm_stacked_two_pass_parts(int dtype, int d, int kg, long long n,
+                               int* n_ctas, int* n_slabs) {
   const WideInstance inst = wide_for(dtype, d, kg);
   if (inst.margin == nullptr || n < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1919,16 +2128,17 @@ int glm_stacked_wide_parts(int dtype, int d, int kg, long long n,
   return 0;
 }
 
-// One wide sweep (d > 2048) of kg models (kg <= glm_stacked_group(dtype,
-// d)). x, y, y_bf16, ldy, w, B, off, out as for glm_stacked_launch; mult:
-// n kg floats of scratch; mpart: n_ctas (2 kg + 1) and gpart: n_slabs kg d
-// doubles of scratch (glm_stacked_wide_parts).
-int glm_stacked_wide_launch(int dtype, const void* x, const void* y,
-                            int y_bf16, long long ldy, const float* w,
-                            const void* B, const float* off, long long n,
-                            int d, int kg, float* mult, double* mpart,
-                            int n_ctas, double* gpart, int n_slabs,
-                            float* out, void* stream) {
+// One two-pass sweep (d > 2048) of kg models (at most 8 for bf16 X and
+// e4m3 codes, 16 for f32 X). x, y, y_bf16, ldy, w, B, off, out as for
+// glm_stacked_launch; mult: n kg floats of scratch; mpart: n_ctas (2 kg +
+// 1) and gpart: n_slabs kg d doubles of scratch
+// (glm_stacked_two_pass_parts).
+int glm_stacked_two_pass_launch(int dtype, const void* x, const void* y,
+                                int y_bf16, long long ldy, const float* w,
+                                const void* B, const float* off, long long n,
+                                int d, int kg, float* mult, double* mpart,
+                                int n_ctas, double* gpart, int n_slabs,
+                                float* out, void* stream) {
   const WideInstance inst = wide_for(dtype, d, kg);
   if (inst.margin == nullptr || n_ctas < 1 || n_slabs < 1 || n < 0 ||
       ldy < kg)
@@ -2004,11 +2214,22 @@ int glm_stacked_launch(int dtype, const void* x, const void* y, int y_bf16,
     }
   }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  void* args[] = {const_cast<void**>(&x), const_cast<void**>(&y),
-                  &y_bf16, &ldy, &w, const_cast<void**>(&B), &off, &n, &d,
-                  &kg, &vec, &partials};
-  err = cudaLaunchKernel(inst.fn, dim3(n_parts), dim3(inst.threads), args,
-                         smem, s);
+  int dc = staged_width(inst, d);
+  if (inst.tc) {
+    void* args[] = {const_cast<void**>(&x), const_cast<void**>(&y),
+                    &y_bf16, &ldy, &w, const_cast<void**>(&B), &off, &n, &d,
+                    &kg, &vec, &dc, &partials};
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        launch_config(inst, n_parts, smem, s, &attr);
+    err = cudaLaunchKernelExC(&cfg, inst.fn, args);
+  } else {
+    void* args[] = {const_cast<void**>(&x), const_cast<void**>(&y),
+                    &y_bf16, &ldy, &w, const_cast<void**>(&B), &off, &n, &d,
+                    &kg, &vec, &partials};
+    err = cudaLaunchKernel(inst.fn, dim3(n_parts), dim3(inst.threads), args,
+                           smem, s);
+  }
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int width = kg * (d + 2) + 1;

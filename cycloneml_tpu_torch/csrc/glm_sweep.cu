@@ -90,10 +90,49 @@
 // converts every code again, saves a fifth of K1's time each. K2 (400k x
 // 2000, 379 rows a warp) loses its last fifth (bf16) to no single phase.
 //
-// The wide instance (d > 2048). A lane cannot hold a row of E > 64
-// elements with its sums, so past 2048 columns the sweep runs as two
-// passes over X (design (a) of ROADMAP A1; the one-read design that keeps
-// a tile in L2 for its second look is later work):
+// The wide instance (2048 < d <= 12288), one read of X. A lane cannot hold
+// a row of E > 64 elements with its sums, so past 2048 columns a row's
+// slots are spread over a whole CTA: 16 warps, one CTA an SM (persistent,
+// tiles blockIdx.x, + gridDim.x, ...), thread t holding slots t, t + 512,
+// ... of every row (E = 8 elements a row up to d = 4096, 16 up to 8192,
+// 24 up to 12288), with its E Kahan pairs and coefficients in registers.
+// - Staging. A tile is G consecutive rows (4 bf16 and e4m3, 2 or 1 f32;
+//   a multiple of R), a ring of S tiles (6 to 8, about 128 KB in flight an
+//   SM). Each thread copies its own slots of a tile's rows by cp.async
+//   into its own ring slots (16 or 8 bytes, zero-filled past n and d), so
+//   no barrier stands between a copy and its reads; lane 0 of warp i
+//   copies row i's y and w. X is read from device memory once.
+// - Margins. Each thread's partial dot products of the tile's G rows, then
+//   a warp's G sums by xor shuffles that halve the values a lane keeps at
+//   each level (G - 1 + 5 - log2 G shuffles), then the 16 warps' partials
+//   summed in warp order by lane 0 of warp i, which evaluates row i's link
+//   (link_eval, as the narrow instance) and publishes its multiplier,
+//   loss and weight.
+// - Gradient, from the same ring slots: each element's block of R rows in
+//   plain f32 (fmaf over the rows) and one Kahan step, the reference's
+//   tile order as in the narrow instance; thread 0 sums the loss,
+//   sum(mult) and sum(w) in the same blocks, in row order. No block past
+//   the last row.
+// - One barrier a tile: iteration j evaluates tile j's links, takes tile j
+//   + 1's partial margins, syncs, then sums tile j's gradient and refills
+//   its stage with tile j + S (the partial margins and multipliers are
+//   double-buffered by tile parity).
+// - Each column is one thread's, so the CTA writes its partial row of
+//   (d + 3) doubles without a fold; glm_reduce_kernel sums the rows in CTA
+//   order. Two launches are bitwise equal. No multiplier scratch: scratch
+//   does not grow with n. Registers: 78-128 a thread, 0 spills. E = 24
+//   is the widest: a 512-thread CTA leaves a thread 128 registers, and at
+//   E = 32 its coefficients and Kahan pairs alone take 96 of them (ptxas
+//   spills there in every dtype; E = 24 takes 120-128 with none).
+// - What holds it back (glm_phases.py --wide; PERF.md section 6): bf16 and
+//   f32 run at about 90% of the bytes bound, and no single phase taken out
+//   saves time (the copies neither: the tile's chain of barrier, link and
+//   arithmetic is as long as its bytes); e4m3 is bound by converting every
+//   code twice (margins and gradient), as the narrow instance is.
+//
+// The two-pass instance (d > 12288). Past 12288 columns a thread's slots
+// of a row no longer fit its registers, so the sweep runs as two passes
+// over X:
 // - the margin pass (glm_wide_margin_kernel): a warp takes G = 4
 //   consecutive rows at a time, its lanes walking their slots of the four
 //   rows with the four margins' chains interleaved (the narrow instance's
@@ -111,11 +150,11 @@
 // - the reduction sums the partial rows in order in double, as above.
 //   Two launches are bitwise equal; rows past n and columns past d read
 //   nothing; unaligned rows load element by element.
-// It reads X twice (about twice the narrow instance's time at the bytes
-// bound) and keeps n floats of multipliers in scratch, plus partial rows
-// of (d + 3) doubles, up to four per SM. Its registers hold no row, so it
-// takes any d; its work per element is the narrow instance's.
-//
+// It reads X twice and keeps n floats of multipliers in scratch, plus
+// partial rows of (d + 3) doubles, up to four per SM. Its registers hold
+// no row, so it takes any d (glm_sweep_two_pass_launch takes it at any d
+// past 2048, for a comparison in one run).
+
 // Plain C interface (loaded with ctypes): every entry point returns a
 // cudaError_t, 0 on success.
 
@@ -526,9 +565,312 @@ __global__ void glm_reduce_kernel(const double* __restrict__ partials,
   out[j] = (float)s;
 }
 
-// -- the wide instance -------------------------------------------------------
+// -- the wide instance: one read of X (2048 < d <= 12288) --------------------
 
 constexpr int kNarrowMaxD = 32 * kMaxE;  // the narrow instances' widest d
+constexpr int kWideMaxD = 12288;         // the one-read instance's widest d
+constexpr int kOneWarps = 16;            // a CTA of the one-read instance
+constexpr int kOneThreads = 32 * kOneWarps;
+constexpr int kOneRing = 192 * 1024;     // bytes of its ring, at most
+
+// The shape of a one-read instance: thread t holds slots t, t + 512, ... of
+// every row (E elements, kSlots slots); a tile is G consecutive rows (G a
+// multiple of R, at most 4), a ring of S tiles, G the largest that leaves
+// at least four stages.
+template <typename T, int E>
+struct OnePlan {
+  static constexpr int V = Slot<T>::V, W = Slot<T>::W;
+  static constexpr int kSlotBytes = 4 * W;
+  static constexpr int kSlots = E / V;
+  static constexpr int R = Plan<T, 8>::R;
+  static constexpr int kRowBytes = kOneThreads * kSlots * kSlotBytes;
+  static constexpr int stages(int g) { return kOneRing / (g * kRowBytes); }
+  static constexpr int G = (R <= 4 && stages(4) >= 4)   ? 4
+                           : (R <= 2 && stages(2) >= 4) ? 2
+                                                        : R;
+  static constexpr int S = stages(G) > 8 ? 8 : stages(G);
+  static constexpr int kStageBytes = G * kRowBytes;
+  // the ring, each row's y and w, the warps' partial margins (two tiles),
+  // each row's multiplier, loss and weight (two tiles)
+  static constexpr int kSmem = S * kStageBytes + S * G * 8 +
+                               2 * kOneWarps * G * 4 + 2 * 3 * G * 4;
+  static_assert(G % R == 0 && S >= 3, "a tile holds whole blocks");
+  static_assert(E % V == 0, "whole slots");
+};
+
+// Sums over a warp's lanes of G values a lane (rows 0..G-1), G a power of
+// two: each level of xor shuffles halves the values a lane keeps (the
+// lanes with bit o set keep the upper half), then the lanes of a row
+// finish by a butterfly, so row i's sum ends, with the same bits, in lanes
+// [i * 32 / G, (i + 1) * 32 / G). G - 1 + 5 - log2(G) shuffles.
+template <int G>
+__device__ __forceinline__ float warp_rows(const float (&m)[G], int lane) {
+  float v[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) v[i] = m[i];
+#pragma unroll
+  for (int h = G / 2, o = 16; h >= 1; h >>= 1, o >>= 1) {
+    const bool up = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float keep = up ? v[h + i] : v[i];
+      const float send = up ? v[i] : v[h + i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+#pragma unroll
+  for (int o = 16 / G; o > 0; o >>= 1)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  return v[0];
+}
+
+// The one-read wide sweep. Arguments as glm_sweep_kernel's (beta: (d,)
+// f32); partials: gridDim.x rows of (d + 3) doubles. A CTA takes tiles
+// blockIdx.x, + gridDim.x, ... of G rows; every thread copies its own
+// slots of a tile's rows into its own ring slots (cp.async, no barrier
+// between a copy and its reads) and keeps them there from the margins to
+// the gradient. Iteration j: the link of tile j (row i by lane 0 of warp
+// i), the partial margins of tile j + 1, one barrier, the gradient of
+// tile j, then tile j + S into the freed stage.
+template <typename T, int E, int LINK>
+__global__ void __launch_bounds__(kOneThreads, 1)
+    glm_sweep_wide_kernel(const T* __restrict__ x,
+                          const float* __restrict__ y,
+                          const float* __restrict__ w,
+                          const float* __restrict__ beta,
+                          const float* __restrict__ scalars, long long n,
+                          int d, int vec_ok, double* __restrict__ partials) {
+  using P = OnePlan<T, E>;
+  constexpr int V = P::V, W = P::W, SB = P::kSlotBytes, KS = P::kSlots;
+  constexpr int G = P::G, S = P::S, R = P::R;
+  constexpr int kRowBytes = P::kRowBytes, kStageBytes = P::kStageBytes;
+  constexpr int kSlotStep = kOneThreads * SB;  // bytes between a thread's slots
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* s_yw = reinterpret_cast<float*>(smem + S * kStageBytes);
+  float* s_pm = s_yw + S * G * 2;          // [2][warps][G]
+  float* s_lk = s_pm + 2 * kOneWarps * G;  // [2][3][G]: mult, loss, w
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float off = scalars[0];
+  const float ys = scalars[1];
+  const long long grid = gridDim.x;
+  const long long n_tiles = (n + G - 1) / G;
+  const long long n_mine = (blockIdx.x < n_tiles)
+                               ? (n_tiles - 1 - blockIdx.x) / grid + 1
+                               : 0;  // this CTA's tiles
+
+  // this thread's coefficients: slot k holds columns (k * 512 + tid) V + e
+  float bet[E];
+#pragma unroll
+  for (int k = 0; k < KS; ++k)
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int col = (k * kOneThreads + tid) * V + e;
+      bet[k * V + e] = (col < d) ? beta[col] : 0.0f;
+    }
+
+  uint8_t* const my_x = smem + tid * SB;
+  const uint32_t my_x_sh = hopper::smem_u32(my_x);
+  const uint32_t yw_sh = hopper::smem_u32(s_yw);
+  const bool yw_copier = lane == 0 && warp < G;  // row `warp`'s y and w
+
+  // this thread's share of the j-th tile into stage j % S, one group (an
+  // empty group past the end keeps the count). Rows past n and columns
+  // past d are zero-filled copies that read nothing.
+  auto issue = [&](long long j) {
+    if (j < n_mine) {
+      const int s = (int)(j % S);
+      const long long r0 = (blockIdx.x + j * grid) * G;
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const long long r = r0 + i;
+        const bool live = r < n;
+        const long long rr = live ? r : 0LL;
+        const int at = (s * G + i) * kRowBytes;
+        if (vec_ok) {
+          const T* src = x + rr * d + tid * V;
+#pragma unroll
+          for (int k = 0; k < KS; ++k) {
+            const int bytes =
+                (live && (k * kOneThreads + tid) * V < d) ? SB : 0;
+            if constexpr (SB == 16)
+              hopper::cp_async16(my_x_sh + at + k * kSlotStep,
+                                 src + k * kOneThreads * V, bytes);
+            else
+              hopper::cp_async8(my_x_sh + at + k * kSlotStep,
+                                src + k * kOneThreads * V, bytes);
+          }
+        } else {  // element by element, one slot at a time
+          const T* row = x + rr * d;
+#pragma unroll 1
+          for (int k = 0; k < KS; ++k) {
+            uint32_t u[W];
+            load_elems<T, W>(row, (k * kOneThreads + tid) * V,
+                             live ? d : 0, u);
+            uint8_t* const p = my_x + at + k * kSlotStep;
+            if constexpr (W == 4)
+              *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+            else
+              *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+          }
+        }
+      }
+      if (yw_copier) {
+        const long long r = r0 + warp;
+        const bool live = r < n;
+        const uint32_t at = yw_sh + (s * G + warp) * 8;
+        hopper::cp_async4(at, y + (live ? r : 0LL), live ? 4 : 0);
+        hopper::cp_async4(at + 4, w + (live ? r : 0LL), live ? 4 : 0);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+
+  // the warp's partial margins of the j-th tile into s_pm[j & 1]: this
+  // thread's products in slot order, then warp_rows
+  auto margins = [&](long long j) {
+    const uint8_t* const base = my_x + (int)(j % S) * kStageBytes;
+    float m[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) m[i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        uint32_t u[W];
+        ld_slot<W>(base + i * kRowBytes + k * kSlotStep, u);
+#pragma unroll
+        for (int h = 0; h < V / 2; ++h) {
+          const float2 xv = pair<T, W>(u, h);
+          m[i] = fmaf(xv.x, bet[k * V + 2 * h], m[i]);
+          m[i] = fmaf(xv.y, bet[k * V + 2 * h + 1], m[i]);
+        }
+      }
+    }
+    const float ms = warp_rows<G>(m, lane);
+    if ((lane & (32 / G - 1)) == 0)
+      s_pm[((int)(j & 1) * kOneWarps + warp) * G + lane / (32 / G)] = ms;
+  };
+
+  // row `warp` of the j-th tile: its margin (the warps' partials in warp
+  // order), multiplier and loss, by lane 0
+  auto link = [&](long long j) {
+    if (yw_copier) {
+      const float* pm = s_pm + (int)(j & 1) * kOneWarps * G + warp;
+      float m = 0.0f;
+#pragma unroll
+      for (int wi = 0; wi < kOneWarps; ++wi) m += pm[wi * G];
+      const float* yw = s_yw + ((int)(j % S) * G + warp) * 2;
+      float mult, loss;
+      link_eval<LINK>(m + off, yw[0], yw[1], ys, mult, loss);
+      float* lk = s_lk + (int)(j & 1) * 3 * G;
+      lk[warp] = mult;
+      lk[G + warp] = loss;
+      lk[2 * G + warp] = yw[1];
+    }
+  };
+
+  float acc[E], comp[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = comp[e] = 0.0f;
+  float loss_s = 0.0f, loss_c = 0.0f;
+  float mult_s = 0.0f, mult_c = 0.0f;
+  float w_s = 0.0f, w_c = 0.0f;
+
+  // the j-th tile's gradient, from the ring: each element's block of R
+  // rows in plain f32 (fmaf over the rows), one Kahan step; thread 0 the
+  // loss, sum(mult) and sum(w) the same way, in row order. No block past
+  // the last row.
+  auto gradient = [&](long long j) {
+    const uint8_t* const base = my_x + (int)(j % S) * kStageBytes;
+    const float* lk = s_lk + (int)(j & 1) * 3 * G;
+    const long long r0 = (blockIdx.x + j * grid) * G;
+    float mult[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) mult[i] = lk[i];
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+#pragma unroll
+      for (int b0 = 0; b0 < G; b0 += R) {
+        if (r0 + b0 < n) {
+          uint32_t u[R][W];
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            ld_slot<W>(base + (b0 + i) * kRowBytes + k * kSlotStep, u[i]);
+          float b[V];
+#pragma unroll
+          for (int h = 0; h < V / 2; ++h) {
+            b[2 * h] = b[2 * h + 1] = 0.0f;
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              const float2 xv = pair<T, W>(u[i], h);
+              b[2 * h] = fmaf(mult[b0 + i], xv.x, b[2 * h]);
+              b[2 * h + 1] = fmaf(mult[b0 + i], xv.y, b[2 * h + 1]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            kahan_add(acc[k * V + e], comp[k * V + e], b[e]);
+        }
+      }
+    }
+    if (tid == 0) {
+#pragma unroll
+      for (int b0 = 0; b0 < G; b0 += R) {
+        if (r0 + b0 < n) {
+          float loss_b = 0.0f, mult_b = 0.0f, w_b = 0.0f;
+#pragma unroll
+          for (int i = b0; i < b0 + R; ++i) {
+            mult_b += lk[i];
+            loss_b += lk[G + i];
+            w_b += lk[2 * G + i];
+          }
+          kahan_add(loss_s, loss_c, loss_b);
+          kahan_add(mult_s, mult_c, mult_b);
+          kahan_add(w_s, w_c, w_b);
+        }
+      }
+    }
+  };
+
+  // groups committed before iteration j >= 0: S + j (tiles up to S + j - 1);
+  // iteration -1 takes tile 0's margins alone
+#pragma unroll 1
+  for (int s = 0; s < S; ++s) issue(s);
+#pragma unroll 1
+  for (long long j = -1; j < n_mine; ++j) {
+    if (j >= 0) link(j);
+    if (j + 1 < n_mine) {
+      hopper::cp_async_wait<S - 2>();  // tile j + 1
+      margins(j + 1);
+    }
+    __syncthreads();  // tile j's multipliers, tile j + 1's partial margins
+    if (j >= 0) {
+      gradient(j);
+      issue(j + S);  // this thread is done with stage j % S
+    }
+  }
+  hopper::cp_async_wait<0>();  // the empty groups
+
+  // each column is one thread's: no fold across threads
+  double* out = partials + (long long)blockIdx.x * (d + 3);
+#pragma unroll
+  for (int k = 0; k < KS; ++k)
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int col = (k * kOneThreads + tid) * V + e;
+      if (col < d)
+        out[col] = (double)acc[k * V + e] - (double)comp[k * V + e];
+    }
+  if (tid == 0) {
+    out[d] = (double)loss_s - (double)loss_c;
+    out[d + 1] = (double)mult_s - (double)mult_c;
+    out[d + 2] = (double)w_s - (double)w_c;
+  }
+}
+
+// -- the two-pass instance (d > 12288) --------------------------------------
+
 constexpr int kWideGroup = 4;  // rows in flight: a warp's (margins) or a
                                // thread's (gradient)
 constexpr int kWidePartsPerSm = 4;  // partial rows (CTAs, slabs) per SM,
@@ -724,7 +1066,7 @@ __global__ void __launch_bounds__(kThreads)
     if (k * V + i < d) out[k * V + i] = (double)acc[i] - (double)comp[i];
 }
 
-// The wide instance's two kernels for (dtype, link).
+// The two-pass instance's two kernels for (dtype, link).
 struct Wide {
   const void* margin;
   const void* grad;
@@ -743,6 +1085,9 @@ Wide make_wide(int link) {
           Plan<T, 8>::R, kThreads * Slot<T>::V};
 }
 
+// the two-pass instance for (dtype, link) at any d > 2048 (the sweep
+// routes to it past 12288; glm_sweep_two_pass_launch takes it at any wide
+// d, for a comparison in one run)
 Wide wide_for(int dtype, int link, int d) {
   const Wide none = {nullptr, nullptr, 0, 0};
   if (d <= kNarrowMaxD || (link != kLogistic && link != kSquared))
@@ -753,27 +1098,45 @@ Wide wide_for(int dtype, int link, int d) {
   return none;
 }
 
-// One instance and what its launch needs.
+// One instance of one read of X (narrow or wide) and what its launch
+// needs.
 struct Instance {
-  const void* fn;  // a glm_sweep_kernel instance
+  const void* fn;  // a glm_sweep_kernel or glm_sweep_wide_kernel instance
   int smem;        // dynamic shared memory, bytes
   int stages;      // S
   int block;       // R
-  int bit;         // its bit in ready[] below
+  int bit;         // its bit in ready[][] below
+  int threads;     // a CTA's
+  int group;       // rows of a tile (the wide instance's G; 4 kWarps narrow)
 };
 
-// per device, the instances whose shared-memory limit has been raised
-std::atomic<uint64_t> ready[kMaxDevices];
+// per device, the instances whose shared-memory limit has been raised (66
+// bits: 48 narrow, 18 wide)
+std::atomic<uint64_t> ready[kMaxDevices][2];
 
 // E rounded up to a multiple of 8 covers every slot width (4 f32, 8 bf16,
-// 8 e4m3).
+// 8 e4m3): a narrow lane's elements, or a wide thread's.
 int elems_per_lane(int d) { return ((d + 255) / 256) * 8; }
+int elems_per_thread(int d) {
+  return ((d + 8 * kOneThreads - 1) / (8 * kOneThreads)) * 8;
+}
 
 template <typename T, int E, int LINK>
 Instance make_instance(int dtype) {
   using P = Plan<T, E>;
   return {reinterpret_cast<const void*>(&glm_sweep_kernel<T, E, LINK>),
-          P::kSmem, P::S, P::R, dtype * 16 + LINK * 8 + E / 8 - 1};
+          P::kSmem, P::S, P::R, dtype * 16 + LINK * 8 + E / 8 - 1, kThreads,
+          4 * kWarps};
+}
+
+// bits 48.. of ready[][]: dtype * 6 + LINK * 3 + E / 8 - 1
+template <typename T, int E, int LINK>
+Instance make_one(int dtype) {
+  using P = OnePlan<T, E>;
+  return {reinterpret_cast<const void*>(
+              &glm_sweep_wide_kernel<T, E, LINK>),
+          P::kSmem, P::S, P::R, 48 + dtype * 6 + LINK * 3 + E / 8 - 1,
+          kOneThreads, P::G};
 }
 
 template <typename T, int LINK>
@@ -791,26 +1154,41 @@ Instance pick_kernel(int dtype, int e) {
     CYCLONE_GLM_CASE(56)
     CYCLONE_GLM_CASE(64)
     default:
-      return {nullptr, 0, 0, 0, 0};
+      return {nullptr, 0, 0, 0, 0, 0, 0};
   }
 #undef CYCLONE_GLM_CASE
 }
 
-template <typename T>
-Instance pick_link(int dtype, int link, int e) {
-  if (link == kLogistic) return pick_kernel<T, kLogistic>(dtype, e);
-  if (link == kSquared) return pick_kernel<T, kSquared>(dtype, e);
-  return {nullptr, 0, 0, 0, 0};
+template <typename T, int LINK>
+Instance pick_one(int dtype, int e) {
+  if (e == 8) return make_one<T, 8, LINK>(dtype);
+  if (e == 16) return make_one<T, 16, LINK>(dtype);
+  if (e == 24) return make_one<T, 24, LINK>(dtype);
+  return {nullptr, 0, 0, 0, 0, 0, 0};
 }
 
+template <typename T>
+Instance pick_link(int dtype, int link, int d) {
+  if (d > kNarrowMaxD) {
+    const int e = elems_per_thread(d);
+    if (link == kLogistic) return pick_one<T, kLogistic>(dtype, e);
+    if (link == kSquared) return pick_one<T, kSquared>(dtype, e);
+  } else {
+    const int e = elems_per_lane(d);
+    if (link == kLogistic) return pick_kernel<T, kLogistic>(dtype, e);
+    if (link == kSquared) return pick_kernel<T, kSquared>(dtype, e);
+  }
+  return {nullptr, 0, 0, 0, 0, 0, 0};
+}
+
+// the instance of one read for (dtype, link, d <= 12288): narrow up to 2048
+// columns, the wide one past them
 Instance kernel_for(int dtype, int link, int d) {
-  const Instance none = {nullptr, 0, 0, 0, 0};
-  if (d < 1) return none;
-  const int e = elems_per_lane(d);
-  if (e > kMaxE) return none;
-  if (dtype == 0) return pick_link<float>(dtype, link, e);
-  if (dtype == 1) return pick_link<__nv_bfloat16>(dtype, link, e);
-  if (dtype == 2) return pick_link<__nv_fp8_e4m3>(dtype, link, e);
+  const Instance none = {nullptr, 0, 0, 0, 0, 0, 0};
+  if (d < 1 || d > kWideMaxD) return none;
+  if (dtype == 0) return pick_link<float>(dtype, link, d);
+  if (dtype == 1) return pick_link<__nv_bfloat16>(dtype, link, d);
+  if (dtype == 2) return pick_link<__nv_fp8_e4m3>(dtype, link, d);
   return none;
 }
 
@@ -820,11 +1198,13 @@ cudaError_t prepare(const Instance& k) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const uint64_t bit = 1ull << k.bit;
-  if (dev < kMaxDevices && (ready[dev].load() & bit)) return cudaSuccess;
+  const uint64_t bit = 1ull << (k.bit & 63);
+  std::atomic<uint64_t>* word =
+      dev < kMaxDevices ? &ready[dev][k.bit >> 6] : nullptr;
+  if (word != nullptr && (word->load() & bit)) return cudaSuccess;
   err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              k.smem);
-  if (err == cudaSuccess && dev < kMaxDevices) ready[dev].fetch_or(bit);
+  if (err == cudaSuccess && word != nullptr) word->fetch_or(bit);
   return err;
 }
 
@@ -838,47 +1218,58 @@ cudaError_t residency(const Instance& k, int* per_sm, int* sms) {
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k.fn,
-                                                        kThreads, k.smem);
+                                                        k.threads, k.smem);
   return err;
+}
+
+// The two-pass instance's partial rows for n rows: as many margin CTAs as
+// are resident at once, at most four per SM (the gradient's row slabs
+// alike), at most one per 256 rows, at least one.
+int two_pass_parts(const Wide& wide, long long n, int* n_parts) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wide.margin,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  // one wave of the margin pass (its CTAs walk equal shares of the rows):
+  // a fourth CTA an SM that cannot be resident runs as a second, partial
+  // wave (measured: 3 resident of 4 asked)
+  if (per_sm < 1) per_sm = 1;
+  if (per_sm > kWidePartsPerSm) per_sm = kWidePartsPerSm;
+  long long parts = (long long)sms * per_sm;
+  const long long by_rows = (n + 255) / 256;
+  if (by_rows < parts) parts = by_rows;
+  if (parts < 1) parts = 1;
+  *n_parts = (int)parts;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest d the narrow instances take; past it the wide one runs.
+// Largest d the narrow instances take; past it the wide ones run.
 int glm_sweep_max_d() { return kNarrowMaxD; }
 
-// Partial rows a sweep of n rows uses on the current device. Narrow
-// instances: one per CTA, as many as are resident at once, at most one per
-// 32 rows, at least one. The wide instance: as many margin CTAs as are
-// resident at once, at most four per SM (the gradient's row slabs
-// alike), at most one per 256 rows, at least one.
+// Largest d the one-read wide instance takes; past it the two-pass one
+// runs.
+int glm_sweep_wide_max_d() { return kWideMaxD; }
+
+// Partial rows a sweep of n rows uses on the current device. Instances of
+// one read: one per CTA, as many as are resident at once, at most one per
+// tile (the wide instance's G rows; a narrow CTA's 32 rows), at least one.
+// Past d = 12288 the two-pass instance's (glm_sweep_two_pass_parts).
 // dtype: 0 = float32 X, 1 = bfloat16 X, 2 = float8_e4m3fn codes;
 // link: 0 = logistic, 1 = squared.
 int glm_sweep_num_parts(int dtype, int link, int d, long long n,
                         int* n_parts) {
-  const Wide wide = wide_for(dtype, link, d);
-  if (wide.margin != nullptr) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, wide.margin, kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    // one wave of the margin pass (its CTAs walk equal shares of the
-    // rows): a fourth CTA an SM that cannot be resident runs as a second,
-    // partial wave (measured: 3 resident of 4 asked)
-    if (per_sm < 1) per_sm = 1;
-    if (per_sm > kWidePartsPerSm) per_sm = kWidePartsPerSm;
-    long long parts = (long long)sms * per_sm;
-    const long long by_rows = (n + 255) / 256;
-    if (by_rows < parts) parts = by_rows;
-    if (parts < 1) parts = 1;
-    *n_parts = (int)parts;
-    return 0;
+  if (d > kWideMaxD) {
+    const Wide wide = wide_for(dtype, link, d);
+    if (wide.margin == nullptr) return (int)cudaErrorInvalidValue;
+    return two_pass_parts(wide, n, n_parts);
   }
   const Instance k = kernel_for(dtype, link, d);
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
@@ -886,17 +1277,25 @@ int glm_sweep_num_parts(int dtype, int link, int d, long long n,
   const cudaError_t err = residency(k, &per_sm, &sms);
   if (err != cudaSuccess) return (int)err;
   long long parts = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  // at least a few rows per warp, and at least one CTA
-  const long long by_rows = (n + 4 * kWarps - 1) / (4 * kWarps);
+  const long long by_rows = (n + k.group - 1) / k.group;
   if (by_rows < parts) parts = by_rows;
   if (parts < 1) parts = 1;
   *n_parts = (int)parts;
   return 0;
 }
 
-// The instance a sweep of (dtype, link, d) launches, as four ints: its
-// ring stages S, its block rows R, its dynamic shared memory in bytes and
-// its CTAs resident on one SM of the current device.
+// The two-pass instance's partial rows at any d > 2048.
+int glm_sweep_two_pass_parts(int dtype, int link, int d, long long n,
+                             int* n_parts) {
+  const Wide wide = wide_for(dtype, link, d);
+  if (wide.margin == nullptr) return (int)cudaErrorInvalidValue;
+  return two_pass_parts(wide, n, n_parts);
+}
+
+// The instance of one read a sweep of (dtype, link, d <= 12288) launches,
+// as six ints: its ring stages S, its block rows R, its dynamic shared
+// memory in bytes, its CTAs resident on one SM of the current device, the
+// rows of a tile (the wide instance's G) and a CTA's threads.
 int glm_sweep_plan(int dtype, int link, int d, int* plan) {
   const Instance k = kernel_for(dtype, link, d);
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
@@ -907,13 +1306,15 @@ int glm_sweep_plan(int dtype, int link, int d, int* plan) {
   plan[1] = k.block;
   plan[2] = k.smem;
   plan[3] = per_sm;
+  plan[4] = k.group;
+  plan[5] = k.threads;
   return 0;
 }
 
-// The wide instance a sweep of (dtype, link, d > 2048) launches, as five
-// ints: its block rows R, its rows in flight G, a gradient CTA's columns,
-// and the CTAs of its margin and gradient kernels resident on one SM.
-int glm_sweep_wide_plan(int dtype, int link, int d, int* plan) {
+// The two-pass instance of (dtype, link, d > 2048), as five ints: its
+// block rows R, its rows in flight G, a gradient CTA's columns, and the
+// CTAs of its margin and gradient kernels resident on one SM.
+int glm_sweep_two_pass_plan(int dtype, int link, int d, int* plan) {
   const Wide k = wide_for(dtype, link, d);
   if (k.margin == nullptr) return (int)cudaErrorInvalidValue;
   int margin = 0, grad = 0;
@@ -931,14 +1332,16 @@ int glm_sweep_wide_plan(int dtype, int link, int d, int* plan) {
   return 0;
 }
 
-// One sweep of the wide instance (d > 2048). x, y, w, scalars, partials
-// (n_parts * (d + 3) doubles), n_parts and out as for glm_sweep_launch;
-// beta: (d rounded up to 8,) f32, zero past d; mult: n floats of scratch.
-int glm_sweep_wide_launch(int dtype, int link, const void* x, const float* y,
-                          const float* w, const float* beta,
-                          const float* scalars, long long n, int d,
-                          double* partials, int n_parts, float* mult,
-                          float* out, void* stream) {
+// One sweep of the two-pass instance (any d > 2048; the sweep's route past
+// 12288). x, y, w, scalars, partials (n_parts * (d + 3) doubles, n_parts
+// from glm_sweep_two_pass_parts) and out as for glm_sweep_launch; beta:
+// (d rounded up to 8,) f32, zero past d; mult: n floats of scratch.
+int glm_sweep_two_pass_launch(int dtype, int link, const void* x,
+                              const float* y, const float* w,
+                              const float* beta, const float* scalars,
+                              long long n, int d, double* partials,
+                              int n_parts, float* mult, float* out,
+                              void* stream) {
   const Wide k = wide_for(dtype, link, d);
   if (k.margin == nullptr || n_parts < 1 || n < 0)
     return (int)cudaErrorInvalidValue;
@@ -970,9 +1373,10 @@ int glm_sweep_wide_launch(int dtype, int link, const void* x, const float* y,
   return (int)cudaGetLastError();
 }
 
-// One sweep. x: (n, d) row-major at storage width; y, w: (n,) f32;
-// beta: (d,) f32; scalars: [off, ys] f32 on the device (ys is read by the
-// squared link only); partials: n_parts * (d + 3) doubles of scratch;
+// One sweep of one read of X (d <= 12288: the narrow instance, or the wide
+// one past 2048 columns). x: (n, d) row-major at storage width; y, w: (n,)
+// f32; beta: (d,) f32; scalars: [off, ys] f32 on the device (ys is read by
+// the squared link only); partials: n_parts * (d + 3) doubles of scratch;
 // out: d + 3 floats, written as [grad(d), loss, sum(mult), sum(w)].
 int glm_sweep_launch(int dtype, int link, const void* x, const float* y,
                      const float* w, const float* beta, const float* scalars,
@@ -995,7 +1399,7 @@ int glm_sweep_launch(int dtype, int link, const void* x, const float* y,
   // same width is passed through the untyped launch
   void* args[] = {const_cast<void**>(&x), &y,  &w,      &beta,    &scalars,
                   &n,                     &d,  (void*)&vec_ok, &partials};
-  err = cudaLaunchKernel(k.fn, dim3(n_parts), dim3(kThreads), args,
+  err = cudaLaunchKernel(k.fn, dim3(n_parts), dim3(k.threads), args,
                          (size_t)k.smem, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -12,9 +12,9 @@ replaces, what bounds it on the card, what the design does about that):
   for K models over one X, the batched kernel ``jax.vmap`` makes of
   ``_run_glm`` in the reference's stacked fits (OneVsRest, CrossValidator,
   TrainValidationSplit): X is read once for all K models (at most
-  :data:`K_MAX` a launch, 8 on the tensor cores past d = 1280,
-  :func:`glm_sweep_stacked_group`); on the tensor cores bytes-bound at
-  every K <= 16 up to d = 2048.
+  :data:`K_MAX` a launch, 8 on the tensor cores from d = 1281 to 2048 and
+  past 8192, :func:`glm_sweep_stacked_group`); on the tensor cores
+  bytes-bound at every K <= 16 up to d = 2048.
 - K3, ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``fused_kmeans_assign``,
   the nearest center and its squared distance per row (KMeans);
   bound by operations.
@@ -45,10 +45,12 @@ fold it into their (d,) vectors and K1s into its (K, d) coefficients; K3
 into the centers on the tensor cores (and applies it as X is staged on the
 FMAs), K4 in its double reduction pass.
 
-K1, K2 and K1s take any d: up to 2,048 columns their narrow instances
-(one read of X), past it their wide instances (two passes over X, each
-streaming by column block; :func:`glm_sweep_instance` names the instance a
-width takes).
+K1, K2 and K1s take any d: up to 2,048 columns their narrow instances,
+then their wide instances (K1/K2 up to 12,288: a row's slots over a CTA's
+512 threads; K1s up to 8,192: the columns over a cluster of 4 or 8 CTAs),
+each one read of X; past those, and for K1s on float32 X past 2,048,
+their two-pass instances (two passes over X by column block;
+:func:`glm_sweep_instance` names the instance a width takes).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its ``*_plain``
 version only for a tensor that lies on the CPU. There is no fallback from
@@ -103,22 +105,38 @@ def use_fused_kernels(ctx, x: Optional[torch.Tensor] = None) -> bool:
 
 # -- K1: the GLM row sweep ----------------------------------------------------
 
-NARROW, WIDE = "narrow", "wide"
+NARROW, WIDE, TWO_PASS = "narrow", "wide", "two_pass"
 NARROW_MAX_D = 2048  # the narrow instances' widest d (csrc/glm_sweep.cu,
                      # csrc/glm_stacked.cu: glm_*_max_d)
+WIDE_MAX_D = 12288   # the one-read wide K1/K2's widest d
+                     # (glm_sweep_wide_max_d)
+STACKED_WIDE_MAX_D = 8192  # the one-read wide K1s's widest d
+                           # (glm_stacked_wide_max_d)
 
 
-def glm_sweep_instance(dtype: torch.dtype, d: int) -> str:
-    """The instance of K1, K2 and K1s that a CUDA X of ``dtype`` and width
-    ``d`` launches: :data:`NARROW` up to :data:`NARROW_MAX_D` columns (one
-    read of X, a row's slots held by one warp's lanes), :data:`WIDE` past
-    it (two passes over X by column block). The same rule for every dtype
-    the kernels read; the C entry points route by the same bound."""
+def glm_sweep_instance(dtype: torch.dtype, d: int,
+                       stacked: bool = False) -> str:
+    """The instance of K1 and K2 (of K1s with ``stacked=True``) that a
+    CUDA X of ``dtype`` and width ``d`` launches. Each reads X once up to
+    :data:`WIDE_MAX_D` columns (K1s: :data:`STACKED_WIDE_MAX_D`):
+    :data:`NARROW` up to :data:`NARROW_MAX_D` (a row's slots held by one
+    warp's lanes), :data:`WIDE` past it (a row's slots spread over a CTA's
+    threads, or K1s's columns over a cluster of CTAs). Past those bounds,
+    and for K1s on float32 X past :data:`NARROW_MAX_D`, :data:`TWO_PASS`:
+    two passes over X by column block. The C entry points route by the
+    same bounds."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"glm_sweep: no kernel reads X of {dtype}")
     if d < 1:
         raise ValueError(f"glm_sweep: X needs at least one column, got {d}")
-    return NARROW if d <= NARROW_MAX_D else WIDE
+    if d <= NARROW_MAX_D:
+        return NARROW
+    if stacked:
+        if d <= STACKED_WIDE_MAX_D and INSTANCE[dtype] == TENSOR_CORE:
+            return WIDE
+    elif d <= WIDE_MAX_D:
+        return WIDE
+    return TWO_PASS
 
 
 def _softplus(m: torch.Tensor) -> torch.Tensor:
@@ -309,18 +327,20 @@ def _device_scalars(values, dev) -> torch.Tensor:
         for v in values])
 
 
-# the sweep's CTA count by (library, device, dtype, link, d, n): the
-# occupancy query behind it is asked once, not per sweep
+# the sweep's CTA count by (library, device, dtype, link, d, n, two-pass):
+# the occupancy query behind it is asked once, not per sweep
 _GLM_PARTS: Dict[tuple, int] = {}
 
 
-def _glm_parts(lib, dev, code: int, lcode: int, d: int, n: int) -> int:
-    key = (id(lib), dev.index, code, lcode, d, n)
+def _glm_parts(lib, dev, code: int, lcode: int, d: int, n: int,
+               two_pass: bool = False) -> int:
+    key = (id(lib), dev.index, code, lcode, d, n, two_pass)
     parts = _GLM_PARTS.get(key)
     if parts is None:
         out = ctypes.c_int(0)
-        _cuda_check(lib.glm_sweep_num_parts(code, lcode, d, n,
-                                            ctypes.byref(out)),
+        fn = _entry(lib, "glm_sweep_two_pass_parts", [_I, _I, _I, _LL, _PI]) \
+            if two_pass else lib.glm_sweep_num_parts
+        _cuda_check(fn(code, lcode, d, n, ctypes.byref(out)),
                     "glm_sweep_num_parts")
         parts = _GLM_PARTS[key] = out.value
     return parts
@@ -332,25 +352,31 @@ def glm_sweep_plan(dtype: torch.dtype, link: str, d: int,
     launches, on ``device`` (the current CUDA device by default). A narrow
     instance: its ring stages ``S``, its block rows ``R``, its dynamic
     shared memory in bytes and its CTAs resident on one SM. The wide
-    instance (d > 2048): ``instance="wide"``, its block rows, the rows a
-    warp or thread has in flight, a gradient CTA's columns, and the CTAs
-    of its margin and gradient kernels resident on one SM."""
+    instance (one read, d <= :data:`WIDE_MAX_D`): ``instance="wide"`` and
+    the same four, the rows of a tile and a CTA's threads. The two-pass
+    instance: ``instance="two_pass"``, its block rows, the rows a warp or
+    thread has in flight, a gradient CTA's columns, and the CTAs of its
+    margin and gradient kernels resident on one SM."""
     lib = _library("glm_sweep")
-    wide = glm_sweep_instance(dtype, d) == WIDE
-    fn = _entry(lib, "glm_sweep_wide_plan" if wide else "glm_sweep_plan",
-                [_I, _I, _I, _PI])
-    plan = (ctypes.c_int * 5)()
+    inst = glm_sweep_instance(dtype, d)
+    fn = _entry(lib, "glm_sweep_two_pass_plan" if inst == TWO_PASS
+                else "glm_sweep_plan", [_I, _I, _I, _PI])
+    plan = (ctypes.c_int * 6)()
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
         _cuda_check(fn(_DTYPE_CODE[dtype], _LINK_CODE[link], d, plan),
                     "glm_sweep_plan")
-    if wide:
-        return {"instance": WIDE, "block_rows": plan[0],
+    if inst == TWO_PASS:
+        return {"instance": TWO_PASS, "block_rows": plan[0],
                 "group_rows": plan[1], "column_block": plan[2],
                 "margin_ctas_per_sm": plan[3],
                 "gradient_ctas_per_sm": plan[4]}
-    return {"stages": plan[0], "block_rows": plan[1], "smem_bytes": plan[2],
-            "ctas_per_sm": plan[3]}
+    out = {"stages": plan[0], "block_rows": plan[1], "smem_bytes": plan[2],
+           "ctas_per_sm": plan[3]}
+    if inst == WIDE:
+        out = {"instance": WIDE, **out, "group_rows": plan[4],
+               "threads": plan[5]}
+    return out
 
 
 def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -362,8 +388,8 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     ``(n, d)`` at storage width, y, w ``(n,)``, beta ``(d,)`` and the
     margin offset ``off`` (a scalar or 0-d tensor); the value of X is
     ``x * x_scale`` when the scale is given. A CPU tensor runs
-    :func:`glm_sweep_plain`; a CUDA tensor launches the kernel or
-    raises.
+    :func:`glm_sweep_plain`; a CUDA tensor launches the instance
+    :func:`glm_sweep_instance` names or raises.
 
     The scale is folded into the (d,) vectors, as the reference's fits
     fold it into ``inv_std``: the kernel sweeps the raw codes with
@@ -375,9 +401,18 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         return glm_sweep_plain(x, y, w, beta, off, link=link, ys=ys,
                                x_scale=x_scale)
     _check_x(x, "glm_sweep")
+    return _sweep(x, y, w, beta, off, link, ys, x_scale,
+                  glm_sweep_instance(x.dtype, x.shape[1]))
+
+
+def _sweep(x, y, w, beta, off, link: str, ys, x_scale, instance: str):
+    """One launch of ``instance`` on a CUDA X (checked by the caller),
+    counted in :func:`glm_sweep`'s counts under ``instance``;
+    :func:`glm_sweep` routes by width. The two-pass instance takes any d
+    past :data:`NARROW_MAX_D`, so that a script can time it beside the
+    one-read instance at the same width."""
     n, d = x.shape
     lib = _library("glm_sweep")
-    width = glm_sweep_instance(x.dtype, d)
     dev = x.device
     # (n,) vectors and (d,) coefficients in the kernel's f32; a no-op on
     # the f32 accumulator tier the card runs
@@ -395,12 +430,13 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     scalars = _device_scalars((off, ys), dev)
     code, lcode = _DTYPE_CODE[x.dtype], _LINK_CODE[link]
     with torch.cuda.device(dev):
-        parts = _glm_parts(lib, dev, code, lcode, d, n)
+        two_pass = instance == TWO_PASS
+        parts = _glm_parts(lib, dev, code, lcode, d, n, two_pass)
         partials = torch.empty(parts * (d + 3), dtype=torch.float64,
                                device=dev)
         out = torch.empty(d + 3, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if width == NARROW:
+        if not two_pass:
             _cuda_check(lib.glm_sweep_launch(
                 code, lcode, x.data_ptr(), y.data_ptr(), w.data_ptr(),
                 beta.data_ptr(), scalars.data_ptr(), n, d,
@@ -413,18 +449,18 @@ def glm_sweep(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                                 device=dev)
             beta8[:d] = beta
             mult = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
-            launch = _entry(lib, "glm_sweep_wide_launch",
+            launch = _entry(lib, "glm_sweep_two_pass_launch",
                             [_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P, _I, _P,
                              _P, _P])
             _cuda_check(launch(
                 code, lcode, x.data_ptr(), y.data_ptr(), w.data_ptr(),
                 beta8.data_ptr(), scalars.data_ptr(), n, d,
                 partials.data_ptr(), parts, mult.data_ptr(), out.data_ptr(),
-                stream), "glm_sweep wide launch")
+                stream), "glm_sweep two-pass launch")
     glm_sweep.launches += 1
     glm_sweep.launches_by_link[link] += 1
     glm_sweep.launches_by_dtype[x.dtype] += 1
-    glm_sweep.launches_by_width[width] += 1
+    glm_sweep.launches_by_width[instance] += 1
     grad_row = out[:d] if s is None else out[:d] * s
     return out[d], grad_row, out[d + 1], out[d + 2]
 
@@ -434,7 +470,7 @@ def reset_launch_counts() -> None:
     glm_sweep.launches = 0
     glm_sweep.launches_by_link = {LOGISTIC: 0, SQUARED: 0}
     glm_sweep.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
-    glm_sweep.launches_by_width = {NARROW: 0, WIDE: 0}
+    glm_sweep.launches_by_width = {NARROW: 0, WIDE: 0, TWO_PASS: 0}
     kmeans_assign.launches = 0
     kmeans_assign.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
     gramian.launches = 0
@@ -442,7 +478,7 @@ def reset_launch_counts() -> None:
     glm_sweep_stacked.launches = 0
     glm_sweep_stacked.launches_by_dtype = {dt: 0 for dt in _DTYPE_CODE}
     glm_sweep_stacked.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
-    glm_sweep_stacked.launches_by_width = {NARROW: 0, WIDE: 0}
+    glm_sweep_stacked.launches_by_width = {NARROW: 0, WIDE: 0, TWO_PASS: 0}
     center_sums.launches = 0
     ell_rows.launches = 0
     ell_rows.launches_by_link = {link: 0 for link in _ELL_LINK_CODE}
@@ -680,9 +716,12 @@ K1S_PAD = 64  # the tensor-core instance takes B's parts at d rounded up to 64
 def glm_sweep_stacked_group(dtype: torch.dtype, d: int) -> int:
     """Models one K1s launch takes for X of ``dtype`` and width ``d``: the
     group size :func:`glm_sweep_stacked` launches by, :data:`K_MAX`, or 8
-    on the tensor cores past d = 1280 (where sixteen models' parts leave no
-    room for two stages of X) and in the wide tensor-core instance past
-    d = 2048. Asks the built kernel (CUDA only)."""
+    on the tensor cores past d = 1280 up to 2048 (where sixteen models'
+    parts leave no room for two stages of X) and in the two-pass instance
+    past :data:`STACKED_WIDE_MAX_D`. The wide tensor-core instance (a
+    cluster of CTAs, each with a slice of B's parts) takes 16. Asks the
+    built kernel
+    (CUDA only)."""
     lib = _library("glm_stacked")
     group = lib.glm_stacked_group(_DTYPE_CODE[dtype], d)
     if group < 1:
@@ -737,22 +776,34 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     ``(n, K)`` (float32 or bfloat16; other dtypes are taken as float32),
     w ``(n,)``, coefficients ``B`` ``(K, d)`` and offsets ``off`` ``(K,)``;
     the value of X is ``x * x_scale`` when the scale is given. A CPU tensor
-    runs :func:`glm_sweep_stacked_plain`; a CUDA tensor launches the kernel
-    once per group of :func:`glm_sweep_stacked_group` models, each launch
-    reading X once (twice in the wide instance, past d = 2048), or
-    raises. The scale is folded into B and into the
-    gradient rows, as :func:`glm_sweep` folds it. bf16 X and e4m3 codes
-    launch the tensor-core instance, which takes each group's B split by
-    :func:`split_bf16x3` and zero-padded to :data:`K1S_PAD` columns, and
-    bf16 labels in pairs (a group of odd size or odd row stride goes over
-    as float32 labels); float32 X the FMA instance, which takes B as it
-    is."""
+    runs :func:`glm_sweep_stacked_plain`; a CUDA tensor launches the
+    instance ``glm_sweep_instance(dtype, d, stacked=True)`` names once per
+    group of :func:`glm_sweep_stacked_group` models, each launch reading X
+    once (twice in the two-pass instance), or raises. The scale is folded
+    into B and into the gradient rows, as :func:`glm_sweep` folds it. bf16
+    X and e4m3 codes launch the tensor-core instance, which takes each
+    group's B split by :func:`split_bf16x3` and zero-padded to
+    :data:`K1S_PAD` columns, and bf16 labels in pairs (a group of odd size
+    or odd row stride goes over as float32 labels); float32 X the FMA
+    instance, which takes B as it is."""
     if x.device.type == "cpu":
         return glm_sweep_stacked_plain(x, Y, w, B, off, x_scale=x_scale)
     _check_x(x, "glm_sweep_stacked")
+    return _stacked(x, Y, w, B, off, x_scale,
+                    glm_sweep_instance(x.dtype, x.shape[1], stacked=True),
+                    glm_sweep_stacked_group(x.dtype, x.shape[1]))
+
+
+def _stacked(x, Y, w, B, off, x_scale, width: str, group: int):
+    """The launches of ``width`` on a CUDA X (checked by the caller), one
+    per group of ``group`` models, each counted in
+    :func:`glm_sweep_stacked`'s counts under ``width``;
+    :func:`glm_sweep_stacked` routes by width. The two-pass instance takes
+    any d past :data:`NARROW_MAX_D` (with groups of 8 on the tensor
+    cores), so that a script can time it beside the one-read instance at
+    the same width."""
     n, d = x.shape
     lib = _library("glm_stacked")
-    width = glm_sweep_instance(x.dtype, d)
     dev = x.device
     if Y.dim() != 2 or Y.shape[0] != n or Y.device != dev:
         raise ValueError(f"glm_sweep_stacked: labels {tuple(Y.shape)} on "
@@ -775,7 +826,6 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     code = _DTYPE_CODE[x.dtype]
     y_bf16 = int(Y.dtype == torch.bfloat16)
     instance = INSTANCE[x.dtype]
-    group = glm_sweep_stacked_group(x.dtype, d)
     d_pad = -(-d // K1S_PAD) * K1S_PAD
     loss = torch.empty(k, dtype=torch.float32, device=dev)
     grad = torch.empty((k, d), dtype=torch.float32, device=dev)
@@ -804,10 +854,10 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
                 y_ptr, ldy, yb = yg.data_ptr(), kg, 0
             args = (code, x.data_ptr(), y_ptr, yb, ldy, w.data_ptr(),
                     bg.data_ptr(), og.data_ptr(), n, d, kg)
-            if width == NARROW:
-                _stacked_narrow(lib, args, n, d, kg, out, stream)
+            if width == TWO_PASS:
+                _stacked_two_pass(lib, args, n, d, kg, out, stream)
             else:
-                _stacked_wide(lib, args, n, d, kg, out, stream)
+                _stacked_one_read(lib, args, n, d, kg, out, stream)
             glm_sweep_stacked.launches += 1
             glm_sweep_stacked.launches_by_dtype[x.dtype] += 1
             glm_sweep_stacked.launches_by_instance[instance] += 1
@@ -822,44 +872,56 @@ def glm_sweep_stacked(x: torch.Tensor, Y: torch.Tensor, w: torch.Tensor,
     return loss, grad, msum, wsum
 
 
-def _stacked_narrow(lib, args, n: int, d: int, kg: int, out, stream) -> None:
-    """One launch of a narrow K1s instance (``args``: dtype code through
-    kg of ``glm_stacked_launch``)."""
-    code = args[0]
-    parts = ctypes.c_int(0)
-    _cuda_check(lib.glm_stacked_num_parts(code, d, kg, n,
-                                          ctypes.byref(parts)),
-                "glm_stacked_num_parts")
-    # scratch: one double partial row per CTA, (SMs x CTAs per SM) rows
-    # whatever n
-    partials = torch.empty(parts.value * (kg * (d + 2) + 1),
-                           dtype=torch.float64, device=out.device)
-    _cuda_check(lib.glm_stacked_launch(*args, partials.data_ptr(),
-                                       parts.value, out.data_ptr(), stream),
+# K1s's partial rows by (library, device, dtype, d, kg, n): the occupancy
+# query behind them (clusters resident at once, for the wide instance) is
+# asked once, not per launch
+_STACKED_PARTS: Dict[tuple, int] = {}
+
+
+def _stacked_one_read(lib, args, n: int, d: int, kg: int, out,
+                      stream) -> None:
+    """One launch of a K1s instance that reads X once, narrow or wide
+    (``args``: dtype code through kg of ``glm_stacked_launch``)."""
+    code, dev = args[0], out.device
+    key = (id(lib), dev.index, code, d, kg, n)
+    parts = _STACKED_PARTS.get(key)
+    if parts is None:
+        got = ctypes.c_int(0)
+        _cuda_check(lib.glm_stacked_num_parts(code, d, kg, n,
+                                              ctypes.byref(got)),
+                    "glm_stacked_num_parts")
+        parts = _STACKED_PARTS[key] = got.value
+    # scratch: one double partial row per CTA (per cluster of the wide
+    # instance), as many as are resident whatever n
+    partials = torch.empty(parts * (kg * (d + 2) + 1), dtype=torch.float64,
+                           device=dev)
+    _cuda_check(lib.glm_stacked_launch(*args, partials.data_ptr(), parts,
+                                       out.data_ptr(), stream),
                 "glm_stacked launch")
 
 
-def _stacked_wide(lib, args, n: int, d: int, kg: int, out, stream) -> None:
-    """One launch of a wide K1s instance (d > 2048): the (n, kg)
+def _stacked_two_pass(lib, args, n: int, d: int, kg: int, out,
+                      stream) -> None:
+    """One launch of the two-pass K1s instance (d > 2048): the (n, kg)
     multipliers between its two passes, the margin CTAs' scalar rows and
     the row slabs' gradient rows (one slab per SM) as scratch."""
     code, dev = args[0], out.device
     ctas, slabs = ctypes.c_int(0), ctypes.c_int(0)
-    _cuda_check(_entry(lib, "glm_stacked_wide_parts",
+    _cuda_check(_entry(lib, "glm_stacked_two_pass_parts",
                        [_I, _I, _I, _LL, _PI, _PI])(
         code, d, kg, n, ctypes.byref(ctas), ctypes.byref(slabs)),
-        "glm_stacked_wide_parts")
+        "glm_stacked_two_pass_parts")
     mult = torch.empty(max(n, 1) * kg, dtype=torch.float32, device=dev)
     mpart = torch.empty(ctas.value * (2 * kg + 1), dtype=torch.float64,
                         device=dev)
     gpart = torch.empty(slabs.value * kg * d, dtype=torch.float64,
                         device=dev)
-    launch = _entry(lib, "glm_stacked_wide_launch",
+    launch = _entry(lib, "glm_stacked_two_pass_launch",
                     [_I, _P, _P, _I, _LL, _P, _P, _P, _LL, _I, _I, _P, _P,
                      _I, _P, _I, _P, _P])
     _cuda_check(launch(*args, mult.data_ptr(), mpart.data_ptr(), ctas.value,
                        gpart.data_ptr(), slabs.value, out.data_ptr(),
-                       stream), "glm_stacked wide launch")
+                       stream), "glm_stacked two-pass launch")
 
 
 def fused_binary_logistic_stacked_scaled(x, Y, w, inv_std, scaled_mean,

@@ -232,3 +232,69 @@ def test_float32_sums_part_a_small_criteo_fit_on_seed_3(monkeypatch):
         np.testing.assert_allclose(got.summary.objective_history,
                                    ref.summary.objective_history, rtol=1e-5)
         assert abs(got.intercept - ref.intercept) <= 1e-3
+
+
+def _tier_parting(models):
+    """How far a float32-tier fit parts from the float64-tier fit of the
+    same rows: the largest relative objective difference over the
+    iterations both ran, and the intercepts' distance."""
+    a, b = models["float32"], models["float64"]
+    ha = np.asarray(a.summary.objective_history)
+    hb = np.asarray(b.summary.objective_history)
+    m = min(len(ha), len(hb))
+    assert a.summary.total_iterations == b.summary.total_iterations
+    return (float(np.max(np.abs(ha[:m] - hb[:m]) / np.abs(hb[:m]))),
+            abs(a.intercept - b.intercept))
+
+
+def test_reference_float32_fit_parts_as_the_port_does_on_seed_3(ctx):
+    """ROADMAP Queue 3, the item the test above opened: seed 3's draw of
+    ``generate_criteo_like`` (20,000 rows, 2^14 columns), handed as the
+    same numpy ELL rows to both packages' sparse LogisticRegression
+    (maxIter=25, regParam=0.01) at each accumulator tier: the port's
+    ``cyclone.compute.dtype`` float32 and float64, the reference's jax
+    x64 off and on (its ``compute_dtype``). The reference's float32 fit
+    parts from its float64 fit too (objective 3.8e-6 at the worst
+    iteration, intercept 2.8e-4 on the CPU), and the port's parts no
+    further (1.6e-6, 2.8e-4): the parting is the unconverged float32
+    line search's, in both packages, not a port fault."""
+    import jax
+    from cycloneml_tpu_torch.dataset.random import generate_criteo_like
+
+    c = CycloneContext(CycloneConf().set("cyclone.master", "cpu"))
+    try:
+        ds = generate_criteo_like(c, 20_000, seed=3, hash_dim=1 << 14)
+        n, d = ds.n_rows, ds.n_features
+        idx = ds.indices.cpu().numpy()[:n]
+        val = ds.values.cpu().numpy()[:n]
+        y, w = ds.y_host()[:n], ds.w_host()[:n]
+    finally:
+        c.stop()
+    assert ds.tail() is None  # the rows are the ELL arrays alone
+
+    port, ref = {}, {}
+    for tier in ("float32", "float64"):
+        pc = CycloneContext(CycloneConf().set("cyclone.master", "cpu")
+                            .set("cyclone.compute.dtype", tier))
+        try:
+            got = interop.sparse_dataset_from_reference(idx, val, y, w,
+                                                        n_features=d, ctx=pc)
+            port[tier] = LogisticRegression(maxIter=25,
+                                            regParam=0.01).fit(got)
+        finally:
+            pc.stop()
+        with jax.enable_x64(tier == "float64"):
+            rds = jsparse.SparseInstanceDataset.from_ell(ctx, idx, val, y, w,
+                                                         n_features=d)
+            ref[tier] = JaxLR(maxIter=25, regParam=0.01).fit(rds)
+    ref_obj, ref_icpt = _tier_parting(ref)
+    port_obj, port_icpt = _tier_parting(port)
+    # the reference parts by as much as the test above finds the port does
+    assert ref_obj > 1e-6 and ref_icpt > 1e-4
+    # and the port parts no further than the reference
+    assert port_obj <= 1.5 * ref_obj
+    assert port_icpt <= 1.5 * ref_icpt
+    # the two float64 fits agree
+    np.testing.assert_allclose(port["float64"].summary.objective_history,
+                               ref["float64"].summary.objective_history,
+                               rtol=1e-5)

@@ -769,8 +769,8 @@ def test_cuda_k1s_never_takes_the_plain_version():
     """A CUDA X the kernel cannot take raises; it does not fall back."""
     dev = _cuda()
     x, y, w, b, off = _k1s_inputs(10, 2049, 2, 1, dev, torch.float32)
-    with pytest.raises(ValueError, match="limit"):
-        tk.glm_sweep_stacked(x, y, w, b, off)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.glm_sweep_stacked(x[:, ::2], y, w, b[:, ::2], off)
     with pytest.raises(ValueError, match="float64"):
         tk.glm_sweep_stacked(x[:, :8].double(), y, w, b[:, :8], off)
 

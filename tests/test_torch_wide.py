@@ -2,14 +2,15 @@
 reach them, against the JAX package.
 
 The reference's ``_run_glm`` takes any d; the port's narrow instances end
-at 2,048 columns and its wide instances (``csrc/glm_sweep.cu``,
-``csrc/glm_stacked.cu``: two passes over X by column block) take the rest.
-On the CPU each wrapper runs its plain version, held here against the
-reference's Pallas kernel in interpret mode (K1/K2) and its ``jax.vmap``
-(K1s) at d = 2,304 and 3,000, with the tolerances of
-tests/test_torch_kernels.py and tests/test_torch_stacked.py; the wide
-instance's summation order is emulated in float32 and held to float64 and
-to the reference; the fits that reach the wide instances on the card
+at 2,048 columns, its wide instances (``csrc/glm_sweep.cu``: a row's slots
+over a CTA's 512 threads, up to 12,288; ``csrc/glm_stacked.cu``: the
+columns over a cluster of CTAs, up to 8,192) read X once, and the
+two-pass instances take the rest (and K1s's float32 X past 2,048). On the CPU each wrapper
+runs its plain version, held here against the reference's Pallas kernel
+in interpret mode (K1/K2) and its ``jax.vmap`` (K1s) at d = 2,304 and
+3,000, with the tolerances of tests/test_torch_kernels.py and
+tests/test_torch_stacked.py; the wide instance's summation order is
+emulated in float32 and held to float64 and to the reference; the fits that reach the wide instances on the card
 (binomial LogisticRegression, LinearRegression with l-bfgs or with ``auto``
 past 4,096 columns, OneVsRest) match the reference's iteration and
 evaluation counts in float64 at those widths. ``cyclone.oocore.mode=
@@ -21,6 +22,7 @@ the wide instances on the card against their plain versions in float64
 """
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -79,15 +81,33 @@ def _wide_data(d, n=384, seed=0, k=None):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, F8])
 def test_instance_by_width(dtype):
-    """d <= 2,048 takes the narrow instance and d > 2,048 the wide one, in
-    every dtype the kernels read; other dtypes and empty rows raise."""
+    """K1 and K2: d <= 2,048 takes the narrow instance, d <= 12,288 the
+    wide one (one read of X), past it the two-pass one, in every dtype the
+    kernels read; other dtypes and empty rows raise."""
     for d in (1, 37, 1280, 2000, 2048):
         assert tk.glm_sweep_instance(dtype, d) == tk.NARROW
-    for d in (2049, 3072, 4096, 5000, 8192, 100_000):
+    for d in (2049, 3072, 4096, 4097, 5000, 8192, 8193, 10_000, 12_288):
         assert tk.glm_sweep_instance(dtype, d) == tk.WIDE
-    assert tk.NARROW_MAX_D == 2048
+    for d in (12_289, 16_384, 100_000):
+        assert tk.glm_sweep_instance(dtype, d) == tk.TWO_PASS
+    assert (tk.NARROW_MAX_D, tk.WIDE_MAX_D, tk.STACKED_WIDE_MAX_D) == (
+        2048, 12_288, 8192)
     with pytest.raises(ValueError, match="at least one column"):
         tk.glm_sweep_instance(dtype, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, F8])
+def test_stacked_instance_by_width(dtype):
+    """K1s: narrow up to 2,048 columns; past it the wide tensor-core
+    instance (a cluster of CTAs) up to 8,192 for bf16 X and e4m3 codes,
+    the two-pass instance past 8,192 and for float32 X at every wide d."""
+    for d in (1, 1280, 2048):
+        assert tk.glm_sweep_instance(dtype, d, stacked=True) == tk.NARROW
+    wide = tk.WIDE if tk.INSTANCE[dtype] == tk.TENSOR_CORE else tk.TWO_PASS
+    for d in (2049, 3072, 4096, 4097, 8192):
+        assert tk.glm_sweep_instance(dtype, d, stacked=True) == wide
+    for d in (8193, 12_288, 16_384):
+        assert tk.glm_sweep_instance(dtype, d, stacked=True) == tk.TWO_PASS
 
 
 def test_instance_refuses_other_dtypes():
@@ -105,7 +125,8 @@ def test_cpu_tensors_launch_nothing_at_any_width():
     tk.glm_sweep_stacked(xt, torch.zeros(40, 3), _t(w).float(),
                          torch.zeros(3, 2049), torch.zeros(3))
     assert tk.glm_sweep.launches == tk.glm_sweep_stacked.launches == 0
-    assert tk.glm_sweep.launches_by_width == {tk.NARROW: 0, tk.WIDE: 0}
+    assert tk.glm_sweep.launches_by_width == {tk.NARROW: 0, tk.WIDE: 0,
+                                              tk.TWO_PASS: 0}
 
 
 # -- the plain versions against the reference past 2,048 columns ---------------
@@ -196,38 +217,36 @@ def _kahan_blocks(v, block):
     return s.double() - c.double()
 
 
-def _emulated_wide_sweep(x, y, w, beta, off, ys, block, slabs, warps,
-                         group=4, products=None):
-    """K2's wide instance in float32 on the CPU: margins and the link per
-    row in float32; loss, sum(mult) and sum(w) by warps that take ``group``
-    consecutive rows at a time (grid-stride), blocks of ``block`` rows
-    inside each group, the warps folded in double; the gradient by
-    ``slabs`` contiguous row slabs, each slab's rows in order in blocks of
-    ``block`` (:func:`_kahan_blocks`), the slabs summed in double.
-    ``products`` (rows, d), when given, are the float64 terms mult * x the
-    gradient sums. Returns float64 ``(loss, grad, sum(mult), sum(w))``."""
+def _emulated_wide_sweep(x, y, w, beta, off, ys, block, ctas, group,
+                         products=None):
+    """K2's wide instance (one read of X) in float32 on the CPU: margins
+    and the link per row in float32; tiles of ``group`` consecutive rows go
+    to CTA q % ``ctas``, each CTA taking its rows in order; a CTA sums the
+    gradient, the loss, sum(mult) and sum(w) in blocks of ``block`` rows
+    (:func:`_kahan_blocks`; a tile holds whole blocks), and the CTAs' sums
+    add in double in CTA order. ``products`` (rows, d), when given, are the
+    float64 terms mult * x the gradient sums. Returns float64 ``(loss,
+    grad, sum(mult), sum(w))``."""
     n, d = x.shape
     err = (x @ beta + off) - ys * y
     mult = w * err
     loss = 0.5 * w * err * err
-    # rows of the margin pass: group q of `group` rows goes to warp q %
-    # warps; a warp's rows in order
-    n_groups = -(-n // group)
-    pad = -n_groups % warps * group + (n_groups * group - n)
-
-    def by_warp(v):
-        v = torch.cat([v, v.new_zeros(pad)])
-        v = v.reshape(-1, warps, group)          # (rounds, warps, group)
-        return v.permute(0, 2, 1).reshape(-1, warps)  # rows of each warp
-
-    scalars = [float(_kahan_blocks(by_warp(v), block).sum())
-               for v in (loss, mult, w)]
-    slab_rows = -(-n // slabs)
     terms = (mult[:, None] * x if products is None else products).float()
+    owner = (torch.arange(n) // group) % ctas
     grad = torch.zeros(d, dtype=torch.float64)
-    for lo in range(0, n, slab_rows):
-        grad += _kahan_blocks(terms[lo:lo + slab_rows], block)
+    scalars = [0.0, 0.0, 0.0]
+    for c in range(ctas):
+        rows = torch.nonzero(owner == c).flatten()
+        if len(rows):
+            grad += _kahan_blocks(terms[rows], block)
+            for i, v in enumerate((loss, mult, w)):
+                scalars[i] += float(_kahan_blocks(v[rows], block))
     return scalars[0], grad, scalars[1], scalars[2]
+
+
+# the wide instance's tile rows at d = 2,304 (OnePlan in csrc/glm_sweep.cu):
+# 2 for float32 X (block 1), 4 for bf16 (block 2) and e4m3 codes (block 4)
+_GROUP_OF_BLOCK = {1: 2, 2: 4, 4: 4}
 
 
 @pytest.mark.parametrize("block", [1, 2, 4])
@@ -256,9 +275,10 @@ def test_emulated_wide_sweep_holds(ctx, block, capsys):
     assert scale <= 2e-3 * float(products.abs().sum(0).max())
 
     order = {}
+    group = _GROUP_OF_BLOCK[block]
     for name, blk in (("wide", block), ("row", 1)):
         g = _emulated_wide_sweep(x32, y32, w32, beta32, 0.0, 1.0, blk,
-                                 slabs=16, warps=8, products=products)[1]
+                                 ctas=132, group=group, products=products)[1]
         order[name] = float((g - exact).abs().max()) / scale
     assert order["wide"] <= 1e-5
     assert order["wide"] <= 4 * order["row"]
@@ -267,7 +287,7 @@ def test_emulated_wide_sweep_holds(ctx, block, capsys):
         x32, y32, w32, beta32, 0.0, acc_dtype=torch.float64,
         link=tk.SQUARED, ys=1.0)
     loss, grad, msum, wsum = _emulated_wide_sweep(
-        x32, y32, w32, beta32, 0.0, 1.0, block, slabs=16, warps=8)
+        x32, y32, w32, beta32, 0.0, 1.0, block, ctas=132, group=group)
     assert abs(loss - float(t_loss)) <= 1e-5 * abs(float(t_loss))
     assert abs(msum - float(t_m)) <= 1e-4 * float(t_w)
     assert wsum == n
@@ -430,11 +450,14 @@ def _cuda():
     return torch.device("cuda")
 
 
-# rows past a whole round of the margin pass's groups at its most CTAs
-# (132 SMs x 4 CTAs x 8 warps x 4 rows, plus 5), few rows, and a middle
-# count
+# rows past whole rounds of tiles at the most CTAs (the two-pass margin
+# pass's 132 SMs x 4 CTAs x 8 warps x 4 rows, 32 rounds of the wide
+# instance's 132 CTAs x 4 rows, plus 5), few rows, and a middle count; the
+# widths of the wide instance's three thread shapes (E = 8, 16, 24) and of
+# the two-pass instance past 12,288
 _RAGGED_ROWS = 132 * 4 * 8 * 4 + 5
-_WIDE_SHAPES = [(n, d) for d in (2049, 3072, 4096, 5000, 8192)
+_WIDE_SHAPES = [(n, d) for d in (2049, 3072, 4096, 5000, 8192, 8193, 10_000,
+                                  12_288, 12_289)
                 for n in (3, 1003, _RAGGED_ROWS)]
 
 
@@ -442,16 +465,18 @@ def _wide_holds(x, y, w, beta, off, link=tk.LOGISTIC, ys=0.0, x_scale=None):
     """The CUDA sweep against its plain version in float64 on the same
     card (the narrow instance's bounds: loss 1e-5 relative, grad 1e-4 of
     its largest entry, sum(mult) 1e-4 of sum(w), sum(w) exact), two
-    launches bitwise equal, counted under the link, X's dtype and the wide
-    instance."""
-    n = x.shape[0]
+    launches bitwise equal, counted under the link, X's dtype and the
+    instance of its width (wide to 12,288, two-pass past it)."""
+    n, d = x.shape
+    inst = tk.glm_sweep_instance(x.dtype, d)
+    assert inst == (tk.WIDE if d <= 12_288 else tk.TWO_PASS)
     before = dict(tk.glm_sweep.launches_by_width)
     out = tk.glm_sweep(x, y, w, beta, off, link=link, ys=ys, x_scale=x_scale)
     again = tk.glm_sweep(x, y, w, beta, off, link=link, ys=ys,
                          x_scale=x_scale)
     torch.cuda.synchronize()
     assert tk.glm_sweep.launches_by_width == {
-        tk.NARROW: before[tk.NARROW], tk.WIDE: before[tk.WIDE] + 2}
+        **before, inst: before[inst] + 2}
     tl, tg, tm, tw = tk.glm_sweep_plain(x, y, w, beta, off,
                                         acc_dtype=torch.float64, link=link,
                                         ys=ys, x_scale=x_scale)
@@ -505,7 +530,7 @@ def test_cuda_wide_fp8_sweep_matches_plain(n, d, link, scaled):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, F8])
-@pytest.mark.parametrize("d", [2049, 4096, 5000])
+@pytest.mark.parametrize("d", [2049, 4096, 5000, 8192, 8193, 12_288, 12_289])
 def test_cuda_wide_sweep_misaligned_base_and_dead_rows(d, dtype):
     """X a contiguous view one element into a flat buffer (element-wise
     loads) with a third of the rows at w = 0."""
@@ -550,27 +575,33 @@ def _assert_k1s(got, truth, n_w):
     assert float(wsum) == n_w
 
 
+# every branch of the wide tensor-core K1s: clusters of 4 CTAs (d <= 4,096)
+# and 8, slices of three and four k-blocks a warp (2049, 3072, 5000: three;
+# 4096, 8192: four), and the two-pass instance past 8,192
+_K1S_SHAPES = [(5, 2049), (1003, 3072), (2049, 4096), (777, 5000),
+               (517, 8192), (300, 8193)]
+_K1S_MODELS = [1, 2, 3, 8, 10, 16, 17]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 3, 8, 10, 17])
+@pytest.mark.parametrize("k", _K1S_MODELS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(5, 2049), (1003, 3072), (2049, 4096),
-                                 (777, 5000), (517, 8192)])
+@pytest.mark.parametrize("n,d", _K1S_SHAPES)
 def test_cuda_wide_k1s_matches_plain(n, d, dtype, k):
     """The wide K1s against its plain version in float64, one launch per
-    group (8 models on the tensor cores, 16 on the FMAs), counted as wide,
-    two launches bitwise equal."""
+    group (16 models a launch, 8 on the two-pass tensor-core instance past
+    8,192), counted under its instance, two launches bitwise equal."""
     dev = _cuda()
     x, y, w, b, off = _k1s_inputs(n, d, k, n * 3 + d + k, dev, dtype)
     group = tk.glm_sweep_stacked_group(dtype, d)
-    assert group == (16 if dtype == torch.float32 else 8)
+    inst = tk.glm_sweep_instance(dtype, d, stacked=True)
+    assert group == (8 if d > 8192 and dtype != torch.float32 else 16)
     before = dict(tk.glm_sweep_stacked.launches_by_width)
     got = tk.glm_sweep_stacked(x, y, w, b, off)
     again = tk.glm_sweep_stacked(x, y, w, b, off)
     torch.cuda.synchronize()
-    assert tk.glm_sweep_stacked.launches_by_width[tk.WIDE] == \
-        before[tk.WIDE] + 2 * -(-k // group)
-    assert tk.glm_sweep_stacked.launches_by_width[tk.NARROW] == \
-        before[tk.NARROW]
+    assert tk.glm_sweep_stacked.launches_by_width == {
+        **before, inst: before[inst] + 2 * -(-k // group)}
     truth = tk.glm_sweep_stacked_plain(x, y, w, b, off,
                                        acc_dtype=torch.float64)
     _assert_k1s(got, truth, float(w.sum()))
@@ -578,11 +609,13 @@ def test_cuda_wide_k1s_matches_plain(n, d, dtype, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [2, 3, 8, 10])
-@pytest.mark.parametrize("n,d", [(1003, 2049), (2049, 3072), (777, 8192)])
+@pytest.mark.parametrize("k", _K1S_MODELS)
+@pytest.mark.parametrize("n,d", [(1003, 2049), (2049, 3072), (517, 4096),
+                                 (777, 5000), (777, 8192), (300, 8193)])
 def test_cuda_wide_k1s_e4m3_codes_with_scale(n, d, k):
     """e4m3 codes with x_scale and bf16 labels on the wide tensor-core
-    instance, against float64 on the dequantized values."""
+    instance (and the two-pass one past 8,192), against float64 on the
+    dequantized values."""
     from cycloneml_tpu_torch.dataset.instance import quantize_fp8
     dev = _cuda()
     x, y, w, b, off = _k1s_inputs(n, d, k, n + d + k, dev, torch.float32)
@@ -600,10 +633,11 @@ def test_cuda_wide_k1s_e4m3_codes_with_scale(n, d, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [3001, 6001])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_wide_k1s_misaligned_base_and_label_stride(dtype):
+def test_cuda_wide_k1s_misaligned_base_and_label_stride(dtype, d):
     dev = _cuda()
-    n, d, k = 3001, 3001, 5
+    n, k = 3001, 5
     x, y, w, b, off = _k1s_inputs(n, d, 2 * k, 23, dev, dtype)
     flat = torch.empty(n * d + 1, dtype=dtype, device=dev)
     xo = flat[1:].view(n, d)
@@ -617,45 +651,123 @@ def test_cuda_wide_k1s_misaligned_base_and_label_stride(dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_narrow_plans_and_groups_are_unchanged():
-    """Up to d = 2,048 the plans and groups are the narrow instances' (the
-    parent's values); past it the wide instance's plan and groups."""
-    _cuda()
-    # the pure-Python routing's bound is the kernels' own
-    assert tk._library("glm_sweep").glm_sweep_max_d() == tk.NARROW_MAX_D
-    assert tk._library("glm_stacked").glm_stacked_max_d() == \
-        tk.NARROW_MAX_D
-    for dt in (torch.bfloat16, F8):
-        assert tk.glm_sweep_stacked_group(dt, 1280) == 16
-        assert tk.glm_sweep_stacked_group(dt, 2048) == 8
-        assert tk.glm_sweep_stacked_group(dt, 2049) == 8
-    assert tk.glm_sweep_stacked_group(torch.float32, 2048) == 16
-    assert tk.glm_sweep_stacked_group(torch.float32, 8192) == 16
-    narrow = tk.glm_sweep_plan(torch.bfloat16, tk.LOGISTIC, 1280)
-    assert set(narrow) == {"stages", "block_rows", "smem_bytes",
-                           "ctas_per_sm"}
-    wide = tk.glm_sweep_plan(torch.bfloat16, tk.LOGISTIC, 4096)
-    assert wide["instance"] == tk.WIDE and wide["block_rows"] == 2
-    assert wide["margin_ctas_per_sm"] >= 1 and \
-        wide["gradient_ctas_per_sm"] >= 1
+@pytest.mark.parametrize("d", [3072, 8192])
+def test_cuda_two_pass_at_one_read_widths_holds_and_counts(d):
+    """The two-pass instances launched where the one-read ones route
+    (``_sweep``/``_stacked`` with TWO_PASS, as the scripts time them
+    beside each other) agree with the plain versions in float64 and count
+    every launch as two-pass where it is made: one K1 sweep, and K1s's 10
+    models in groups of 8 and 2."""
+    dev = _cuda()
+    n = 1003
+    x, y, w, b, off = _k1s_inputs(n, d, 10, 5 * n + d, dev, torch.bfloat16)
+    before = dict(tk.glm_sweep.launches_by_width)
+    got = tk._sweep(x, y[:, 0].contiguous(), w, b[0], off[0], tk.LOGISTIC,
+                    0.0, None, tk.TWO_PASS)
+    torch.cuda.synchronize()
+    assert tk.glm_sweep.launches_by_width == {
+        **before, tk.TWO_PASS: before[tk.TWO_PASS] + 1}
+    tl, tg, tm, tw = tk.glm_sweep_plain(x, y[:, 0], w, b[0].double(),
+                                        off[0], acc_dtype=torch.float64)
+    assert abs(float(got[0]) - float(tl)) <= 1e-5 * abs(float(tl))
+    assert float((got[1].double() - tg).abs().max()) <= \
+        1e-4 * float(tg.abs().max()) + 1e-6
+    assert abs(float(got[2]) - float(tm)) <= 1e-4 * float(tw)
+    assert float(got[3]) == float(tw)
+    before = dict(tk.glm_sweep_stacked.launches_by_width)
+    got = tk._stacked(x, y, w, b, off, None, tk.TWO_PASS, 8)
+    torch.cuda.synchronize()
+    assert tk.glm_sweep_stacked.launches_by_width == {
+        **before, tk.TWO_PASS: before[tk.TWO_PASS] + 2}
+    truth = tk.glm_sweep_stacked_plain(x, y, w, b, off,
+                                       acc_dtype=torch.float64)
+    _assert_k1s(got, truth, float(w.sum()))
 
 
 @pytest.mark.gpu
-def test_cuda_wide_k1s_kernels_do_not_spill():
-    """The wide K1s kernels (tensor-core margin and gradient passes for
-    bf16 and e4m3, FMA passes at KG = 8 and 16) report 0 spill bytes."""
+def test_cuda_narrow_plans_and_groups_are_unchanged():
+    """Up to d = 2,048 the plans and groups are the narrow instances' (the
+    parent's values); past it the wide instance's plan (one read: a CTA of
+    512 threads, tiles of whole blocks; up to 12,288 columns) and K1s's
+    group of 16 (up to 8,192), and the two-pass instance's plan and groups
+    past them."""
     _cuda()
+    # the pure-Python routing's bounds are the kernels' own
+    sweep, stacked = tk._library("glm_sweep"), tk._library("glm_stacked")
+    assert sweep.glm_sweep_max_d() == tk.NARROW_MAX_D
+    assert stacked.glm_stacked_max_d() == tk.NARROW_MAX_D
+    assert tk._entry(sweep, "glm_sweep_wide_max_d", [])() == tk.WIDE_MAX_D
+    assert tk._entry(stacked, "glm_stacked_wide_max_d", [])() == \
+        tk.STACKED_WIDE_MAX_D
+    for dt in (torch.bfloat16, F8):
+        assert tk.glm_sweep_stacked_group(dt, 1280) == 16
+        assert tk.glm_sweep_stacked_group(dt, 2048) == 8
+        for d in (2049, 3072, 4096, 4097, 8192):
+            assert tk.glm_sweep_stacked_group(dt, d) == 16
+        assert tk.glm_sweep_stacked_group(dt, 8193) == 8
+    for d in (2048, 4096, 8192, 8193):
+        assert tk.glm_sweep_stacked_group(torch.float32, d) == 16
+    narrow = tk.glm_sweep_plan(torch.bfloat16, tk.LOGISTIC, 1280)
+    assert set(narrow) == {"stages", "block_rows", "smem_bytes",
+                           "ctas_per_sm"}
+    for dt, d, block, group in ((torch.float32, 4096, 1, 2),
+                                (torch.float32, 8192, 1, 1),
+                                (torch.bfloat16, 4096, 2, 4),
+                                (torch.float32, 12_288, 1, 1),
+                                (torch.bfloat16, 8192, 2, 2),
+                                (torch.bfloat16, 12_288, 2, 2),
+                                (F8, 4096, 4, 4), (F8, 8192, 4, 4),
+                                (F8, 12_288, 4, 4)):
+        wide = tk.glm_sweep_plan(dt, tk.LOGISTIC, d)
+        assert wide["instance"] == tk.WIDE and wide["threads"] == 512
+        assert (wide["block_rows"], wide["group_rows"]) == (block, group)
+        assert wide["stages"] >= 4 and wide["ctas_per_sm"] == 1
+    two = tk.glm_sweep_plan(torch.bfloat16, tk.SQUARED, 12_289)
+    assert two["instance"] == tk.TWO_PASS and two["block_rows"] == 2
+    assert two["margin_ctas_per_sm"] >= 1 and \
+        two["gradient_ctas_per_sm"] >= 1
+
+
+def _spills(name):
+    """ptxas's spill line of every kernel of the build of ``name``."""
     from cycloneml_tpu_torch.ops import build
-    tk._library("glm_stacked")
+    tk._library(name)
     spills, func = {}, None
-    for ln in build.ptxas_report("glm_stacked").read_text().splitlines():
+    for ln in build.ptxas_report(name).read_text().splitlines():
         if "Compiling entry function" in ln:
             func = ln.split("'")[1]
         elif func and "spill stores" in ln:
             spills[func] = ln.split(":")[-1].strip()
-    wide = {f: s for f, s in spills.items()
+    return spills
+
+
+@pytest.mark.gpu
+def test_cuda_wide_k1s_kernels_do_not_spill():
+    """The two-pass K1s kernels (tensor-core margin and gradient passes for
+    bf16 and e4m3, FMA passes at KG = 8 and 16) report 0 spill bytes."""
+    _cuda()
+    wide = {f: s for f, s in _spills("glm_stacked").items()
             if "glm_wide_" in f and "reduce" not in f}
     assert len(wide) == 8
     bad = {f: s for f, s in wide.items()
+           if "0 bytes spill stores, 0 bytes spill loads" not in s}
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+def test_cuda_one_read_wide_kernels_do_not_spill():
+    """The one-read wide instances report 0 spill bytes: K1/K2's 18
+    (3 dtypes x 2 links x E = 8, 16, 24) and K1s's 16 cluster instances
+    (bf16 and e4m3 x KG = 8, 16 x three or four k-blocks a warp x clusters
+    of 4 and 8)."""
+    _cuda()
+    sweep = {f: s for f, s in _spills("glm_sweep").items()
+             if "glm_sweep_wide_kernel" in f}
+    # a cluster instance's last template argument (its CTAs) is 4 or 8
+    cluster = {f: s for f, s in _spills("glm_stacked").items()
+               if "glm_stacked_tc_kernel" in f
+               and re.search(r"Li[48]EEEv", f)}
+    assert (len(sweep), len(cluster)) == (18, 16)
+    bad = {f: s for f, s in {**sweep, **cluster}.items()
            if "0 bytes spill stores, 0 bytes spill loads" not in s}
     assert not bad, bad
