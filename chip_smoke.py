@@ -60,18 +60,25 @@ the final result line:
    k-means|| passes times, all of them the tensor-core instance, training
    costs to 1e-4 relative; and one Lloyd step from identical initial
    centers, max|dcenter| <= 1e-4 max|center|; a second fit through K3
-   gives bitwise-equal centers and cost; the center sums of one Lloyd step
-   (``center_sums``: stable sort + fixed-order sums, no float atomics)
-   against float64 ``index_add_`` sums (1e-6 of the largest sum, counts
-   exact), two calls bitwise equal, scratch below one copy of X, timed
-   beside the ``index_add_`` update they replaced;
+   gives bitwise-equal centers and cost, and the fit launches only the
+   counting instance of the center sums; the center sums of one Lloyd
+   step (``center_sums``: a stable sort, then fixed-order sums, no float
+   atomics) through the counting instance (a counting sort written for the
+   card) against float64 ``index_add_`` sums (1e-6 of the largest sum,
+   counts exact), two calls bitwise equal, bitwise equal to the sorted
+   instance (``torch.sort`` and the same sums) in the same call, the counting
+   order ``torch.sort``'s stable one, launches counted by instance,
+   scratch below one copy of X; both instances timed in turns, and the
+   counting sort alone, beside the ``index_add_`` update they replaced;
 9. K4 (the Gramian) against its plain version in float64 (row chunks) at
    400,000 x 2,000 (bf16 and f32) and at a ragged shape with a third of the
    rows masked by w = 0: |dG_ij| <= 1e-4 sqrt(G_ii G_jj), G == G^T
    bitwise, two launches bitwise equal, counted under the dtype's
    instance; times beside the plain f32 version, the bound, the library
-   call x^T x (f32, TF32 off) and, as a rate reference that is not the
-   same function (its output is bf16), cuBLAS's bf16 x^T x;
+   call (on bf16 X ``torch.mm(x^T, x, out_dtype=torch.float32)``, bf16
+   products with a float32 output, unmasked; on f32 and e4m3 X the f32
+   x^T x, TF32 off), the f32 x^T x and, as a rate reference that is not
+   the same function (its output is bf16), cuBLAS's bf16 x^T x;
 10. PCA: ``PCA(k=10).fit`` and ``RowMatrix.compute_svd(k=10)`` on data
    with a known spectrum, X = (Z diag(s)) Q^T at 400,000 x 2,000 (bf16 tier,
    s_j = (j+1)^-1/2, Q orthogonal from a float64 QR), through K4 and
@@ -240,7 +247,9 @@ the final result line:
 34. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
-   run), the center sums and S1/S2 (K3, K4 and K1s marked as redesigned for
+   run), the center sums (marked as redesigned: the counting sort and
+   one warp a piece, with the sorted instance's time from the same run)
+   and S1/S2 (K3, K4 and K1s marked as redesigned for
    the tensor cores, with their instance, f32 FMA bounds and ptxas lines;
    K2 in both instances and K1's e4m3 instance marked as redesigned around
    a per-lane cp.async ring, and every GLM sweep with its instance, ring
@@ -404,9 +413,9 @@ def _kernel_name(mangled: str) -> str:
     columns per thread and models per launch; glm_stacked_tc_kernel:
     k-blocks per warp, models per launch and, for the wide instance, the
     CTAs of its cluster; glm_sweep_wide_kernel: elements per thread and
-    the link; center_piece_kernel: w's
-    dtype; gramian_tc_kernel: the staging; kmeans_assign_tc_kernel:
-    whether X is resident)."""
+    the link; center_warp_kernel: w's dtype and X's loads; count_scatter_kernel: the bits of k - 1;
+    gramian_tc_kernel: the staging; kmeans_assign_tc_kernel: whether X is
+    resident)."""
     m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f|d)?"
                   r"(f|d)?((?:L[ib]\d+E)*))?", mangled)
     if m is None:
@@ -422,6 +431,8 @@ def _kernel_name(mangled: str) -> str:
         if len(arg) > 1 and arg[1]:
             text += ", scaled"
         return f"{m.group(1)}<{text}>"
+    if m.group(1) == "count_scatter_kernel":  # the bits of k - 1
+        return f"{m.group(1)}<bits={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
              "13__nv_fp8_e4m3": "e4m3"}
     # the FMA K1s instance takes float32 X only: no type argument
@@ -446,7 +457,9 @@ def _kernel_name(mangled: str) -> str:
     if len(ints) == 1:  # the tensor-core Gramian's staging
         args.append(("cp.async", "cp.async codes", "ld.global")[int(ints[0])])
     bools = re.findall(r"Lb(\d)E", m.group(5))
-    if bools:  # the tensor-core assignment: X resident or staged per block
+    if bools and m.group(1) == "center_warp_kernel":  # X's alignment
+        args.append(("element loads", "8-byte loads")[int(bools[0])])
+    elif bools:  # the tensor-core assignment: X resident or staged per block
         args.append(("X per block", "X resident")[int(bools[0])])
     return f"{m.group(1)}<{', '.join(args)}>"
 
@@ -1229,6 +1242,7 @@ def phase_kmeans():
         launches = kernels.kmeans_assign.launches
         by_instance = dict(kernels.kmeans_assign.launches_by_instance)
         sum_launches = kernels.center_sums.launches
+        sums_by_instance = dict(kernels.center_sums.launches_by_instance)
         others = _other_launches(kernels, "kmeans_assign", "center_sums")
         k_again, k_again_s = fit("auto")
         p_model, p_s = fit("false")
@@ -1252,7 +1266,9 @@ def phase_kmeans():
                       "init_passes": k_model.init_distance_passes,
                       "k3_launches": launches,
                       "k3_launches_by_instance": by_instance,
-                      "center_sums_launches": sum_launches, "fit_s": k_s,
+                      "center_sums_launches": sum_launches,
+                      "center_sums_launches_by_instance": sums_by_instance,
+                      "fit_s": k_s,
                       "repeat_fit_s": k_again_s,
                       "training_cost": k_model.training_cost},
               plain={"iterations": p_model.num_iterations,
@@ -1268,6 +1284,9 @@ def phase_kmeans():
                 + k_model.init_distance_passes,
             "center sums launched once per Lloyd step (no attraction pass "
             "at this size)": sum_launches == k_model.num_iterations,
+            "only the counting instance of the center sums launched at "
+            "k = 1,000": sums_by_instance[kernels.COUNTING] == sum_launches
+            and kernels.center_sums_instance(KM_K) == kernels.COUNTING,
             "no other kernel launched": others == 0,
             "bf16 X launched only the tensor-core instance":
                 by_instance[kernels.TENSOR_CORE] == launches
@@ -1300,19 +1319,35 @@ def _index_add_center_sums(x, w, best, k):
 
 def _center_sums_phase(ds, centers):
     """The center sums of one Lloyd step at configuration 3, on the
-    assignment to the fit's final centers: the kernel against float64
-    index_add_ sums, two calls bitwise equal, and its time per Lloyd step
-    beside the index_add_ update it replaced and the bound."""
+    assignment to the fit's final centers: the counting instance (the
+    main path's) against float64 index_add_ sums, two calls bitwise equal,
+    bitwise equal to the sorted instance (torch.sort, then the same sums)
+    in the same call, its order torch.sort's stable one, each counted under its
+    instance; the time per Lloyd step of both instances and of the
+    counting sort alone, beside the index_add_ update they replaced and
+    the bound."""
     import torch
     from cycloneml_tpu_torch.ops import kernels
     x, w = ds.x, ds.w
     n, d = x.shape
     c = torch.as_tensor(centers, dtype=torch.float32, device=x.device)
     best, _ = kernels.kmeans_assign(x, c)
+    before = dict(kernels.center_sums.launches_by_instance)
     sums, counts = kernels.center_sums(x, w, best, KM_K)
     sums2, counts2 = kernels.center_sums(x, w, best, KM_K)
+    s_sums, s_counts = (t.to(w.dtype) for t in kernels._sorted_launch(
+        x, w, best, KM_K, d))
     torch.cuda.synchronize()
+    by_instance = {i: kernels.center_sums.launches_by_instance[i] - before[i]
+                   for i in before}
     bitwise = torch.equal(sums, sums2) and torch.equal(counts, counts2)
+    sorted_bitwise = torch.equal(sums, s_sums) and torch.equal(counts,
+                                                               s_counts)
+    co = kernels._center_order(best, KM_K)
+    order_equal = torch.equal(co.order.long(),
+                              torch.sort(best.long(), stable=True).indices)
+    pieces = int(co.piece_start[KM_K])
+    del co, s_sums, s_counts
     t_sums, t_counts = kernels.center_sums_plain(x, w, best.long(), KM_K,
                                                  torch.float64)
     err = float((sums.double() - t_sums).abs().max())
@@ -1322,36 +1357,69 @@ def _center_sums_phase(ds, centers):
     old_b, _ = _index_add_center_sums(x, w, best.long(), KM_K)
     old_bitwise = torch.equal(old_a, old_b)
     del t_sums, old_a, old_b
-    k_ms = _time_ms(lambda: kernels.center_sums(x, w, best, KM_K), 5, 1)
+    calls = {kernels.COUNTING: lambda: kernels.center_sums(x, w, best, KM_K),
+             kernels.SORTED: lambda: [t.to(w.dtype) for t in
+                                      kernels._sorted_launch(x, w, best,
+                                                             KM_K, d)]}
+    # in turns: counting, sorted, sorted, counting
+    turns = [_time_ms(calls[inst], 5, 1) for inst in (
+        kernels.COUNTING, kernels.SORTED, kernels.SORTED, kernels.COUNTING)]
+    k_ms = min(turns[0], turns[3])
+    sorted_ms = min(turns[1], turns[2])
+    order_ms = _time_ms(lambda: kernels._center_order(best, KM_K), 5, 1)
+    device_ms = _device_ms(lambda: kernels.center_sums(x, w, best, KM_K), 5,
+                           "")
     lib_ms = _time_ms(lambda: _index_add_center_sums(x, w, best.long(),
                                                      KM_K), 5, 1)
     p_ms = _time_ms(lambda: kernels.center_sums_plain(x, w, best.long(),
                                                       KM_K), 3, 1)
     n_bytes = n * d * x.element_size() + n * 4 + n * 4 + KM_K * (d + 1) * 4
     bound, bound_by = _bound(n_bytes, float(n) * (d + 1))
-    # scratch beyond the inputs: the sort's order and the pieces' partials
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.center_sums(x, w, best, KM_K)
-    torch.cuda.synchronize()
-    work_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
-    _line("center_sums", n=n, d=d, k=KM_K, dtype=_dt(x),
+
+    def scratch(inst):
+        """The memory a call takes beyond what is held before it: the
+        order, the table or the sort's buffers, the pieces' partials."""
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls[inst]()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - held) / 2**20
+
+    work_mib = scratch(kernels.COUNTING)
+    sorted_mib = scratch(kernels.SORTED)
+    _line("center_sums", n=n, d=d, k=KM_K, dtype=_dt(x), pieces=pieces,
+          instance=kernels.center_sums_instance(KM_K),
           max_abs_err=err, max_abs_sum=scale, counts_exact=counts_exact,
-          bitwise_equal=bitwise, index_add_bitwise_equal=old_bitwise,
-          kernel_ms_per_lloyd_step=k_ms,
+          bitwise_equal=bitwise, sorted_bitwise_equal=sorted_bitwise,
+          order_equals_torch_sort=order_equal,
+          launches_by_instance=by_instance,
+          index_add_bitwise_equal=old_bitwise,
+          kernel_ms_per_lloyd_step=k_ms, device_ms=device_ms,
+          sorted_ms_per_lloyd_step=sorted_ms,
+          turns_counting_sorted_sorted_counting_ms=turns,
+          counting_sort_ms=order_ms,
           index_add_ms_per_lloyd_step=lib_ms, plain_ms=p_ms,
           bound_ms=bound, bound_by=bound_by, working_mem_mib=work_mib,
+          sorted_working_mem_mib=sorted_mib,
           x_mib=n * d * x.element_size() / 2**20)
     _check("center sums", {
         "within 1e-6 of max|sum| of the float64 sums": err <= 1e-6 * scale,
         "counts exact": counts_exact,
         "two calls bitwise equal": bitwise,
+        "the counting instance bitwise equal to the sorted instance":
+            sorted_bitwise,
+        "the counting order is torch.sort's stable order": order_equal,
+        "two counting and one sorted launch counted by instance":
+            by_instance == {kernels.COUNTING: 2, kernels.SORTED: 1},
         "scratch below one copy of X": work_mib * 2**20
         < n * d * x.element_size(),
     })
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "sorted_ms": sorted_ms, "counting_sort_ms": order_ms,
+            "device_ms": device_ms, "working_mem_mib": work_mib,
+            "sorted_working_mem_mib": sorted_mib}
 
 
 # -- K4 and PCA ---------------------------------------------------------------
@@ -1451,12 +1519,17 @@ def _k4_times(x, x32, w, n, d, x_scale, main_dt):
         del flat, xo
     p_ms = _time_ms(lambda: kernels.gramian_plain(x, w, x_scale=x_scale),
                     3, 1)
-    # the library call on the same values in f32 (TF32 off), unmasked
-    lib_ms = _time_ms(lambda: x32.T @ x32, 3, 1)
+    # the f32 product on the same values (TF32 off), unmasked: a rate
+    # reference for f32 X
+    f32_ms = _time_ms(lambda: x32.T @ x32, 3, 1)
     # a rate reference, not the same function (its output is bf16):
     # cuBLAS's bf16 x^T x on the same values rounded to bf16
     xb = x if x.dtype == torch.bfloat16 else x32.to(torch.bfloat16)
     rate_ms = _time_ms(lambda: xb.T @ xb, 3, 1)
+    # the library call for K4's function on bf16 X, unmasked: bf16 x^T x
+    # with a float32 output; on f32 X, the f32 product
+    lib_ms = _time_ms(lambda: torch.mm(xb.T, xb, out_dtype=torch.float32),
+                      3, 1) if x.dtype == torch.bfloat16 else f32_ms
     del xb
     n_bytes = n * d * x.element_size() + n * 4 + d * d * 4
     dt = _dt(x)
@@ -1469,13 +1542,15 @@ def _k4_times(x, x32, w, n, d, x_scale, main_dt):
           bound_rate={H100_BF16_FLOPS: "bf16 tensor cores",
                       H100_FP8_FLOPS: "fp8 tensor cores"}.get(peak,
                                                               "f32 FMA"),
-          f32_fma_bound_ms=f32_bound, library_f32_xtx_ms=lib_ms,
-          library_bf16_rate_ms=rate_ms, working_mem_mib=work_mib, **extra,
+          f32_fma_bound_ms=f32_bound, library_ms=lib_ms,
+          library_f32_xtx_ms=f32_ms, library_bf16_rate_ms=rate_ms,
+          working_mem_mib=work_mib, **extra,
           achieved_tflop_s=flops / k_ms / 1e9, share_of_bound=bound / k_ms)
     if n == GRAM_N and x.dtype == main_dt:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": lib_ms,
                 "f32_fma_bound_ms": f32_bound,
+                "library_f32_xtx_ms": f32_ms,
                 "library_bf16_rate_ms": rate_ms}
     return {}
 
@@ -3949,7 +4024,8 @@ def main() -> int:
         """The fields of a kernel redesigned for the tensor cores: the
         redesign, its f32-FMA bound and rate reference, and ptxas's lines
         for the kernels it runs."""
-        keep = ("f32_fma_bound_ms", "library_bf16_rate_ms", "instance")
+        keep = ("f32_fma_bound_ms", "library_bf16_rate_ms",
+                "library_f32_xtx_ms", "instance")
         return {"redesigned": how,
                 **{k: numbers[k] for k in keep if k in numbers},
                 "ptxas": {f: ptxas.get(f) for f in ptxas
@@ -4021,8 +4097,20 @@ def main() -> int:
                        how="tensor cores, mma.sync"))
     entry("center_sums (KMeans center update)", "center_sums",
           "cycloneml_tpu/ml/clustering/kmeans.py:122", sums, sum_launches,
+          instance=kernels.center_sums_instance(KM_K),
+          redesigned="a stable counting sort written for the card in "
+                     "place of torch.sort (int32 order), then one warp a "
+                     "piece reading whole rows, 8-byte loads a lane, the "
+                     "weights column in the same warp",
+          **{f: sums[f] for f in ("sorted_ms", "counting_sort_ms",
+                                  "device_ms", "working_mem_mib",
+                                  "sorted_working_mem_mib")},
+          ptxas={f: v for f, v in ptxas.items()
+                 if f.startswith(("center_", "count_"))},
           note="jax.ops.segment_sum of the Lloyd step, not a Pallas "
-               "kernel; library_ms is the index_add_ update it replaced")
+               "kernel; library_ms is the index_add_ update it replaced; "
+               "sorted_ms: the sorted instance (torch.sort, then the "
+               "same sums) in the same run")
     # the rest of the dense linear family: no new kernel; K1 carries the
     # bounded fit, the other four paths launch none
     phase_wls(k2_objective)

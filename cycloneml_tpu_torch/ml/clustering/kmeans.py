@@ -18,8 +18,9 @@ candidates) distance matrix (160 GB at 10M rows and ~4,000 candidates).
 
 The center sums and counts of each step (and the candidates' attraction)
 run in one fixed order (``ops/kernels.center_sums``: a stable sort of the
-assignment and per-cluster sums, no float atomics), so two fits of the same
-data end with bitwise-equal centers, on the card as on the CPU.
+assignment, by a counting sort of its own up to ``COUNT_MAX_K`` clusters,
+and per-cluster sums, no float atomics), so two fits of the same data end
+with bitwise-equal centers, on the card as on the CPU.
 """
 
 from __future__ import annotations

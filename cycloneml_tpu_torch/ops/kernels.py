@@ -23,7 +23,11 @@ replaces, what bounds it on the card, what the design does about that):
 
 Beside them, ``center_sums`` (``csrc/center_sums.cu``) sums KMeans' centers
 in a fixed order (the reference's ``jax.ops.segment_sum``, not a Pallas
-kernel), so that two fits of the same data end with the same centers; and
+kernel), so that two fits of the same data end with the same centers: a
+stable counting sort of the assignment written for the card, then one warp
+a piece of a cluster's sorted rows (the ``counting`` instance; past
+:data:`COUNT_MAX_K` clusters the ``sorted`` one, ``torch.sort`` and the
+same sums, bitwise equal to it); and
 the sparse (ELL) tier's two passes (``csrc/ell_sweep.cu``, the reference's
 ``jnp.take`` gathers and ``segment_sum`` scatters of its sparse
 aggregators, not Pallas kernels): S1, ``ell_rows``, the margins, the link
@@ -63,6 +67,7 @@ X's dtype in ``glm_sweep_stacked.launches_by_dtype``, by instance in
 ``glm_sweep_stacked.launches_by_instance`` and by width in
 ``glm_sweep_stacked.launches_by_width``; K3 and K4 also by instance, in
 ``kmeans_assign.launches_by_instance`` and ``gramian.launches_by_instance``;
+the center sums by instance in ``center_sums.launches_by_instance``;
 S1 by link in ``ell_rows.launches_by_link`` and S2 by mode in
 ``ell_cols.launches_by_mode``).
 """
@@ -257,9 +262,8 @@ _SIGNATURES = {
                                _P, _I, _P, _P],
     },
     "center_sums": {
-        "center_sums_piece_rows": [],
-        "center_sums_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _LL, _I, _LL,
-                               _P, _P, _P, _P],
+        "center_sums_launch": [_I, _I, _P, _P, _P, _LL, _I, _LL, _I, _LL,
+                               _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "ell_sweep": {
         "ell_row_blocks": [_LL],
@@ -480,6 +484,8 @@ def reset_launch_counts() -> None:
     glm_sweep_stacked.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
     glm_sweep_stacked.launches_by_width = {NARROW: 0, WIDE: 0, TWO_PASS: 0}
     center_sums.launches = 0
+    center_sums.launches_by_instance = {COUNTING: 0, SORTED: 0}
+    _center_order.launches = 0
     ell_rows.launches = 0
     ell_rows.launches_by_link = {link: 0 for link in _ELL_LINK_CODE}
     ell_cols.launches = 0
@@ -960,6 +966,140 @@ def fused_binary_logistic_stacked_scaled(x, Y, w, inv_std, scaled_mean,
 # -- KMeans' center sums in a fixed order -------------------------------------
 
 _SUM_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 3}
+COUNTING, SORTED = "counting", "sorted"
+PIECE_ROWS = 2048        # sorted rows of one piece, at most (kPieceRows)
+SORT_ROWS = 1 << 14      # rows of one block of the counting sort's table
+SORT_WARP_ROWS = SORT_ROWS // 8  # rows of one warp's run (kWarpRows)
+COUNT_MAX_K = 4096       # the counting instance's largest k (kCountMaxK)
+# the stages of a launch (csrc/center_sums.cu's bits): the histogram, the
+# scans, the scatter (the counting sort), the pieces' sums, the reduce
+_HIST, _SCAN, _SCATTER, _PIECES, _REDUCE = 1, 2, 4, 8, 16
+_STAGES_ORDER = _HIST | _SCAN | _SCATTER
+_STAGES_SUMS = _PIECES | _REDUCE
+_STAGES_ALL = _STAGES_ORDER | _STAGES_SUMS
+
+
+class CenterOrder(NamedTuple):
+    """The rows sorted stably by cluster and the clusters' offsets:
+    cluster c's rows are ``order[offsets[c]:offsets[c + 1]]`` in row order,
+    its pieces (of at most :data:`PIECE_ROWS` sorted rows) are
+    ``piece_start[c]`` to ``piece_start[c + 1]``. Rows outside [0, k) are
+    left out: only the first ``offsets[k]`` entries of ``order`` are
+    set."""
+    order: torch.Tensor        # (n,) int32
+    offsets: torch.Tensor      # (k + 1,) int64
+    piece_start: torch.Tensor  # (k + 1,) int64
+
+
+def center_sums_instance(k: int) -> str:
+    """The instance of the center sums that ``k`` clusters launch:
+    :data:`COUNTING` (a stable counting sort written for the card) up to
+    :data:`COUNT_MAX_K`, where its per-warp counters fit a CTA's shared
+    memory; past it :data:`SORTED` (``torch.sort`` of the assignment).
+    Both run the same sums on the same order: their results are bitwise
+    equal."""
+    if k < 1:
+        raise ValueError(f"center_sums: k must be at least 1, got {k}")
+    return COUNTING if k <= COUNT_MAX_K else SORTED
+
+
+def center_order_plain(best: torch.Tensor, k: int,
+                       block_rows: int = SORT_ROWS,
+                       warp_rows: int = SORT_WARP_ROWS) -> CenterOrder:
+    """The counting sort of ``csrc/center_sums.cu`` in plain PyTorch, step
+    for step: each block of ``block_rows`` rows counted per cluster, the
+    (cluster, block) table scanned in that order, and each row ranked in
+    its block after the rows of the earlier warp runs (``warp_rows`` rows
+    each) and, in its run, after the earlier rounds of 32 rows and the
+    lower lanes of its own. Rows outside [0, k) are left out. The result is
+    ``torch.sort(best, stable=True)``'s order of the rows kept."""
+    i64 = torch.int64
+    b = best.to(i64)
+    n = b.shape[0]
+    dev = b.device
+    nb = -(-n // block_rows)
+    per = block_rows // warp_rows
+    valid = (b >= 0) & (b < k)
+    c = torch.where(valid, b, torch.zeros_like(b))
+    row = torch.arange(n, device=dev)
+    run = row // warp_rows  # the warp run of each row (block * per + warp)
+    # the histogram: each warp run's rows per cluster, then the blocks'
+    runs = torch.zeros((nb * per, k), dtype=i64, device=dev)
+    runs.index_put_((run[valid], c[valid]), torch.ones_like(c[valid]),
+                    accumulate=True)
+    by_run = runs.view(nb, per, k)
+    table = by_run.sum(1).T.contiguous()  # (k, nb): the (cluster, block) table
+    # the scan in (cluster, block) order, and the clusters' offsets
+    flat = table.view(-1)
+    start = (torch.cumsum(flat, 0) - flat).view(k, nb)  # of (c, block)
+    rows = table.sum(1)
+    offsets = torch.zeros(k + 1, dtype=i64, device=dev)
+    offsets[1:] = torch.cumsum(rows, 0)
+    pieces = torch.zeros(k + 1, dtype=i64, device=dev)
+    pieces[1:] = torch.cumsum((rows + PIECE_ROWS - 1) // PIECE_ROWS, 0)
+    # each warp run's first position per cluster: its block's, after the
+    # block's earlier runs
+    before = torch.cumsum(by_run, 1) - by_run          # (nb, per, k)
+    cur = (start.T[:, None, :] + before).reshape(nb * per, k)
+    # the rounds: lane l of round j of every run at once
+    order = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    lower = torch.tril(torch.ones(32, 32, dtype=torch.bool, device=dev), -1)
+    n_runs = nb * per
+    run_ids = torch.arange(n_runs, device=dev)
+    for j in range(0, warp_rows, 32):
+        r = run_ids[:, None] * warp_rows + j + torch.arange(32, device=dev)
+        live = r < n
+        rc = r.clamp(max=max(n - 1, 0))
+        ok = live & valid[rc] if n else live
+        cl = torch.where(ok, c[rc], torch.full_like(rc, -1))
+        same = (cl[:, :, None] == cl[:, None, :]) & ok[:, None, :]
+        rank = (same & lower).sum(2)                   # lower lanes alike
+        pos = cur[run_ids[:, None].expand_as(cl), cl.clamp(min=0)] + rank
+        order[pos[ok]] = r[ok].to(torch.int32)
+        cur.index_put_((run_ids[:, None].expand_as(cl)[ok], cl[ok]),
+                       torch.ones_like(cl[ok]), accumulate=True)
+    return CenterOrder(order, offsets, pieces)
+
+
+def center_sums_pieces_plain(x: torch.Tensor, w: torch.Tensor,
+                             co: CenterOrder, k: int, with_sums: bool = True,
+                             out_dtype: Optional[torch.dtype] = None
+                             ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The kernels' summation order in plain PyTorch: the rows of each
+    piece of ``co`` (:func:`center_order_plain`) in their sorted order, the
+    product w x at w's width summed per column into a double, row after
+    row, and the weights likewise; then each cluster's pieces in piece
+    order. Returns ``(sums (k, d) or None, counts (k,))`` at ``out_dtype``
+    (default w's width; float64 gives the double sums themselves)."""
+    f64 = torch.float64
+    dev = x.device
+    n_pieces = int(co.piece_start[k])
+    d = x.shape[1] if with_sums else 0
+    rows = co.offsets[1:] - co.offsets[:-1]
+    # each piece's cluster, first sorted position and length
+    cl = torch.repeat_interleave(torch.arange(k, device=dev),
+                                 co.piece_start[1:] - co.piece_start[:-1])
+    first = co.offsets[cl] + (torch.arange(n_pieces, device=dev)
+                              - co.piece_start[cl]) * PIECE_ROWS
+    length = torch.minimum(rows[cl] + co.offsets[cl] - first,
+                           torch.full_like(first, PIECE_ROWS))
+    acc = torch.zeros((n_pieces, d + 1), dtype=f64, device=dev)
+    order = co.order.to(torch.int64)
+    for i in range(int(length.max()) if n_pieces else 0):
+        live = i < length
+        r = order[(first + i)[live]]
+        wr = w[r]
+        if d:
+            acc[live, :d] += (x[r].to(w.dtype) * wr[:, None]).to(f64)
+        acc[live, d] += wr.to(f64)
+    out = torch.zeros((k, d + 1), dtype=f64, device=dev)
+    for j in range(int((co.piece_start[1:] - co.piece_start[:-1]).max())
+                   if n_pieces else 0):
+        p = co.piece_start[:-1] + j
+        live = p < co.piece_start[1:]
+        out[live] += acc[p[live]]
+    out = out.to(w.dtype if out_dtype is None else out_dtype)
+    return (out[:, :d] if with_sums else None), out[:, d]
 
 
 def center_sums_plain(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor,
@@ -985,17 +1125,105 @@ def center_sums_plain(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor,
     return sums, counts
 
 
+class _Scratch(NamedTuple):
+    """What one launch of ``csrc/center_sums.cu`` writes: the counting
+    sort's (cluster, block) table and clusters' rows (None for the sorted
+    instance), the order and offsets, and (with X) the pieces' partials
+    and the double sums."""
+    table: Optional[torch.Tensor]     # (k * ceil(n / SORT_ROWS),) int32
+    rows: Optional[torch.Tensor]      # (k,) int32
+    order: CenterOrder
+    partials: Optional[torch.Tensor]  # (max_pieces * (n_cols + 1),) double
+    sums: Optional[torch.Tensor]      # (k, n_cols) double
+    counts: Optional[torch.Tensor]    # (k,) double
+
+
+def _scratch(n: int, k: int, dev, n_cols: Optional[int] = None,
+             co: Optional[CenterOrder] = None) -> _Scratch:
+    """The scratch of a launch for n rows and k clusters: the counting
+    sort's, or ``co`` (the sorted instance's order) in its place; the
+    sums' buffers for ``n_cols`` summed columns (None: the order alone)."""
+    table = rows = None
+    if co is None:
+        nb = -(-n // SORT_ROWS)
+        ints = torch.empty(k * nb + k + n, dtype=torch.int32, device=dev)
+        longs = torch.empty(2 * (k + 1), dtype=torch.int64, device=dev)
+        table, rows = ints[:k * nb], ints[k * nb:k * nb + k]
+        co = CenterOrder(ints[k * nb + k:], longs[:k + 1], longs[k + 1:])
+    if n_cols is None:
+        return _Scratch(table, rows, co, None, None, None)
+    max_pieces = -(-n // PIECE_ROWS) + k
+    f64 = torch.float64
+    return _Scratch(
+        table, rows, co,
+        torch.empty(max_pieces * (n_cols + 1), dtype=f64, device=dev),
+        torch.empty((k, n_cols), dtype=f64, device=dev),
+        torch.empty(k, dtype=f64, device=dev))
+
+
+def _launch(sc: _Scratch, k: int, stages: int,
+            best: Optional[torch.Tensor] = None,
+            x: Optional[torch.Tensor] = None,
+            w: Optional[torch.Tensor] = None) -> None:
+    """One call of ``csrc/center_sums.cu``'s entry point on ``sc`` with
+    ``stages``, its bits (a stage reads what the earlier ones left in
+    ``sc``): ``best`` (int32, contiguous) only with the sort's stages, X
+    and w only with the sums'."""
+    n = sc.order.order.shape[0]
+    if stages & _STAGES_ORDER:
+        if k > COUNT_MAX_K:
+            raise ValueError(f"center_sums: k = {k} is past the counting "
+                             f"sort's {COUNT_MAX_K} clusters")
+        if best.dtype != torch.int32 or not best.is_contiguous():
+            raise ValueError("center_sums: the counting sort reads a "
+                             "contiguous int32 assignment")
+    if x is None:
+        head, ld, n_cols = (0, 0, None, None), 0, 0
+    else:
+        head = (_SUM_DTYPE_CODE[x.dtype], _SUM_DTYPE_CODE[w.dtype],
+                x.data_ptr(), w.data_ptr())
+        ld, n_cols = x.stride(0), sc.sums.shape[1]
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        best, sc.table, sc.rows, sc.order.order, sc.order.offsets,
+        sc.order.piece_start, sc.partials, sc.sums, sc.counts)]
+    max_pieces = -(-n // PIECE_ROWS) + k
+    dev = sc.order.order.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _cuda_check(_library("center_sums").center_sums_launch(
+            *head, ptrs[0], n, k, ld, n_cols, max_pieces, *ptrs[1:], stages,
+            stream), "center_sums launch")
+
+
+def _center_order(best: torch.Tensor, k: int) -> CenterOrder:
+    """The rows sorted stably by cluster (``best`` (n,) in [0, k)) with the
+    clusters' row and piece offsets: on a CUDA tensor the counting sort of
+    ``csrc/center_sums.cu`` alone (its histogram, scans and scatter, for k
+    up to :data:`COUNT_MAX_K`; counted in ``_center_order.launches``), on a
+    CPU tensor :func:`center_order_plain`. The order is
+    ``torch.sort(best, stable=True)``'s."""
+    if best.device.type == "cpu":
+        return center_order_plain(best, k)
+    best = best.to(dtype=torch.int32).contiguous()
+    sc = _scratch(best.shape[0], k, best.device)
+    _launch(sc, k, _STAGES_ORDER, best)
+    _center_order.launches += 1
+    return sc.order
+
+
 def center_sums(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor, k: int,
                 with_sums: bool = True
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """KMeans' center sums at w's (accumulator) width: ``(sums (k, d) of
     w x, or None without with_sums; counts (k,) of w)`` over the rows
     assigned to each of the k clusters by ``best`` (n,). A CPU tensor runs
-    :func:`center_sums_plain`; a CUDA tensor sorts ``best`` stably, counts
-    rows per cluster (integer results), and launches ``csrc/center_sums.cu``
+    :func:`center_sums_plain`; a CUDA tensor launches ``csrc/center_sums.cu``
     (X at its storage width, float32, bfloat16 or float64), whose sums run
-    in one fixed order: two calls on the same inputs are bitwise equal. No
-    float atomics."""
+    in one fixed order with no float atomics: two calls on the same inputs
+    are bitwise equal. The instance (:func:`center_sums_instance`) sorts
+    ``best`` stably by a counting sort of its own (:data:`COUNTING`) or by
+    ``torch.sort`` (:data:`SORTED`), counted in
+    ``center_sums.launches_by_instance``."""
     if x.device.type == "cpu":
         return center_sums_plain(x, w, best, k, with_sums=with_sums)
     dev = x.device
@@ -1011,33 +1239,48 @@ def center_sums(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor, k: int,
     if best.shape != (n,) or w.shape != (n,):
         raise ValueError(f"center_sums: best {tuple(best.shape)} and w "
                          f"{tuple(w.shape)} do not match X {(n, d)}")
-    lib = _library("center_sums")
-    piece = lib.center_sums_piece_rows()
-    best = best.to(device=dev, dtype=torch.int64)
-    # the rows of each cluster in row order, and the clusters' row and
-    # piece offsets: integer results, the same on every run
-    order = torch.sort(best, stable=True).indices
+    if n >= 2 ** 31:
+        raise ValueError(f"center_sums: {n} rows exceed the int32 order")
+    n_cols = d if with_sums else 0
+    if center_sums_instance(k) == SORTED:
+        sums, counts = _sorted_launch(x, w, best, k, n_cols)
+    else:
+        best = best.to(device=dev, dtype=torch.int32).contiguous()
+        sc = _scratch(n, k, dev, n_cols)
+        _launch(sc, k, _STAGES_ALL, best, x, w)
+        center_sums.launches += 1
+        center_sums.launches_by_instance[COUNTING] += 1
+        sums, counts = sc.sums, sc.counts
+    return (sums.to(w.dtype) if with_sums else None), counts.to(w.dtype)
+
+
+def center_order_sorted(best: torch.Tensor, k: int) -> CenterOrder:
+    """The sorted instance's bookkeeping (on any device): the assignment
+    sorted stably by ``torch.sort``, its indices cast to int32, the
+    clusters' row and piece offsets by ``bincount`` and ``cumsum``;
+    integer results, the same on every run."""
+    best = best.to(torch.int64)
+    dev = best.device
+    order = torch.sort(best, stable=True).indices.to(torch.int32)
     rows = torch.bincount(best, minlength=k)[:k]
     offsets = torch.zeros(k + 1, dtype=torch.int64, device=dev)
     offsets[1:] = torch.cumsum(rows, 0)
     pieces = torch.zeros(k + 1, dtype=torch.int64, device=dev)
-    pieces[1:] = torch.cumsum((rows + piece - 1) // piece, 0)
-    max_pieces = -(-n // piece) + k
-    n_cols = d if with_sums else 0
-    partials = torch.empty(max_pieces * (n_cols + 1), dtype=torch.float64,
-                           device=dev)
-    sums = torch.empty((k, n_cols), dtype=torch.float64, device=dev)
-    counts = torch.empty(k, dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _cuda_check(lib.center_sums_launch(
-            _SUM_DTYPE_CODE[x.dtype], _SUM_DTYPE_CODE[w.dtype], x.data_ptr(),
-            w.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-            pieces.data_ptr(), k, x.stride(0), n_cols, max_pieces,
-            partials.data_ptr(), sums.data_ptr(), counts.data_ptr(), stream),
-            "center_sums launch")
+    pieces[1:] = torch.cumsum((rows + PIECE_ROWS - 1) // PIECE_ROWS, 0)
+    return CenterOrder(order, offsets, pieces)
+
+
+def _sorted_launch(x, w, best, k, n_cols):
+    """The sorted instance (any k; :func:`center_sums` takes it past
+    :data:`COUNT_MAX_K`): :func:`center_order_sorted`, then the same sums
+    as the counting instance's on its order. Returns the double sums and
+    counts."""
+    co = center_order_sorted(best.to(x.device), k)
+    sc = _scratch(x.shape[0], k, x.device, n_cols, co)
+    _launch(sc, k, _STAGES_SUMS, None, x, w)
     center_sums.launches += 1
-    return (sums.to(w.dtype) if with_sums else None), counts.to(w.dtype)
+    center_sums.launches_by_instance[SORTED] += 1
+    return sc.sums, sc.counts
 
 
 # -- S1 and S2: the sparse (ELL) tier's row and column passes ----------------

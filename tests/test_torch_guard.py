@@ -26,7 +26,8 @@ def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "k1s_phases.py",
                                         ROOT / "glm_phases.py",
-                                        ROOT / "ell_phases.py"]
+                                        ROOT / "ell_phases.py",
+                                        ROOT / "center_phases.py"]
 
 
 def _run(code: str, **env):

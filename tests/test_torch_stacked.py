@@ -16,14 +16,18 @@ and kernel K1s against its plain version.
   path, within the kernel-vs-plain bound (rtol 5e-3, atol 5e-4) of the
   reference's kernel route.
 - The stacked optimizer's convergence masks (tests/test_stacked.py:213-316).
-- KMeans' center sums against float64 segment sums.
+- KMeans' center sums against float64 segment sums (the counting sort's
+  bookkeeping and the kernels' summation order:
+  tests/test_torch_center_sums.py).
 - K1s's tensor-core arithmetic (B and the multipliers split exactly into
   three bf16 parts, exact products summed in float32), emulated on the CPU
   against float64.
 
 The ``gpu`` tests hold K1s (every K, ragged shapes, padding rows, e4m3
 codes with x_scale, K=1 against K1, the instance each dtype launches, the
-groups of 8 past d = 1280) and the center-sum kernel on the card;
+groups of 8 past d = 1280) and the center sums on the card (both
+instances, bitwise equal to each other and to the emulated piece order,
+the counting sort's order against torch.sort's);
 the card's machine has no jax, so the reference is imported inside the
 tests that use it:
 
@@ -776,32 +780,105 @@ def test_cuda_k1s_never_takes_the_plain_version():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_center_sums_match_plain_and_repeat_bitwise(dtype):
-    """The center-sum kernel against float64 index_add_ sums, one very
+@pytest.mark.parametrize("k", [1, 50, tk.COUNT_MAX_K, tk.COUNT_MAX_K + 1])
+@pytest.mark.parametrize("d", [1, 7, 128, 129, 130, 300, 2048])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_cuda_center_sums_match_plain_and_repeat_bitwise(dtype, w_dtype, d,
+                                                         k):
+    """The center-sum kernels against float64 index_add_ sums, one very
     large cluster (several pieces) and empty ones, bitwise equal across
-    calls; counts exact for unit weights."""
+    calls; counts exact for unit weights. Up to COUNT_MAX_K clusters the
+    counting instance (its order torch.sort's stable one, its sums bitwise
+    the sorted instance's and the emulated piece order's), past it the
+    sorted instance, each counted under its name; with_sums=False gives
+    the same counts."""
     dev = _cuda()
-    g = torch.Generator(device=dev).manual_seed(31)
-    n, d, k = 300_007, 130, 50
+    g = torch.Generator(device=dev).manual_seed(31 + d)
+    n = 300_007
     x = torch.randn(n, d, generator=g, device=dev).to(dtype)
-    w = torch.ones(n, device=dev)
+    w = torch.ones(n, device=dev, dtype=w_dtype)
     w[::7] = 0.0
-    best = torch.randint(0, k - 3, (n,), generator=g, device=dev)
+    best = torch.randint(0, max(k - 3, 1), (n,), generator=g, device=dev,
+                         dtype=torch.int32)
     best[: n // 2] = 0  # one cluster of ~150k rows
-    before = tk.center_sums.launches
+    inst = tk.center_sums_instance(k)
+    assert inst == (tk.COUNTING if k <= tk.COUNT_MAX_K else tk.SORTED)
+    before = dict(tk.center_sums.launches_by_instance)
     sums, counts = tk.center_sums(x, w, best, k)
     sums2, counts2 = tk.center_sums(x, w, best, k)
     torch.cuda.synchronize()
-    assert tk.center_sums.launches == before + 2
+    assert tk.center_sums.launches_by_instance[inst] == before[inst] + 2
+    other = tk.SORTED if inst == tk.COUNTING else tk.COUNTING
+    assert tk.center_sums.launches_by_instance[other] == before[other]
     assert torch.equal(sums, sums2) and torch.equal(counts, counts2)
-    t_sums, t_counts = tk.center_sums_plain(x, w, best, k, torch.float64)
+    t_sums, t_counts = tk.center_sums_plain(x, w, best.long(), k,
+                                            torch.float64)
     assert torch.equal(counts.double(), t_counts)
     scale = float(t_sums.abs().max())
     assert float((sums.double() - t_sums).abs().max()) <= 1e-6 * scale
-    assert float(counts[k - 1]) == 0.0 and float(sums[k - 1].abs().max()) == 0
+    if k > 3:
+        assert float(counts[k - 1]) == 0.0
+        assert float(sums[k - 1].abs().max()) == 0
     _, only = tk.center_sums(x, w, best, k, with_sums=False)
     assert torch.equal(only, counts)
+    want = tk.center_order_sorted(best, k)
+    if inst == tk.COUNTING:
+        co = tk._center_order(best, k)
+        assert torch.equal(co.order, want.order)
+        assert torch.equal(co.offsets, want.offsets)
+        assert torch.equal(co.piece_start, want.piece_start)
+        s_sums, s_counts = tk._sorted_launch(x, w, best, k, d)
+        assert torch.equal(sums, s_sums.to(w_dtype))
+        assert torch.equal(counts, s_counts.to(w_dtype))
+    e_sums, e_counts = tk.center_sums_pieces_plain(x, w, want, k)
+    assert torch.equal(sums, e_sums) and torch.equal(counts, e_counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 1000, tk.COUNT_MAX_K])
+def test_cuda_center_order_is_the_stable_sort(k):
+    """The counting sort alone against torch.sort's stable order: one row,
+    one block, a partial last block, one huge cluster, an int64
+    assignment cast; at COUNT_MAX_K the scatter's shared memory is at its
+    largest."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(k)
+    for n in (1, tk.SORT_ROWS, tk.SORT_ROWS + 1, 10 * tk.SORT_ROWS + 77):
+        best = torch.randint(0, k, (n,), generator=g, device=dev)
+        best[: n // 3] = k - 1
+        before = tk._center_order.launches
+        co = tk._center_order(best, k)
+        assert tk._center_order.launches == before + 1
+        assert torch.equal(co.order.long(),
+                           torch.sort(best, stable=True).indices)
+        assert torch.equal(co.offsets,
+                           tk.center_order_sorted(best, k).offsets)
+
+
+@pytest.mark.gpu
+def test_cuda_center_sums_take_neither_sort_nor_plain(monkeypatch):
+    """Within the counting limit a CUDA X never reaches torch.sort or the
+    plain version; a dtype the kernels cannot take raises, and so does the
+    counting sort past its limit."""
+    dev = _cuda()
+    x = torch.randn(5000, 128, device=dev).to(torch.bfloat16)
+    w = torch.ones(5000, device=dev)
+    best = torch.randint(0, 1000, (5000,), device=dev, dtype=torch.int32)
+    want = tk.center_sums(x, w, best, 1000)
+
+    def refuse(*a, **kw):
+        raise AssertionError("reached")
+
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(tk, "center_sums_plain", refuse)
+    got = tk.center_sums(x, w, best, 1000)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="float32, bfloat16 or float64"):
+        tk.center_sums(x.to(F8), w, best, 1000)
+    with pytest.raises(ValueError, match="past the counting sort"):
+        tk._center_order(best, tk.COUNT_MAX_K + 1)
 
 
 @pytest.mark.gpu
