@@ -244,7 +244,33 @@ the final result line:
    (in phase 25) one evaluation at the float64 plain fit's solution
    through the kernels against float64, the intercept's gradient to 1e-6
    of sum(w);
-34. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+34. the ALS normal equations (``csrc/als_normal.cu``, the reference's
+   scatter-add of outer products, not a Pallas kernel) at BASELINE
+   configuration 4's full shape: benchmarks/als_scale.py's ratings (a copy
+   of its ``make_data``: 162,541 users x 62,423 items, 25,000,095 planted
+   rank-64 ratings, numpy ``default_rng(7)``; 1M held out by
+   ``default_rng(3)``), rank 64, both half-steps, explicit and implicit
+   (alpha = 1), on random factors: the float32 kernel against the
+   float64 plain twin (|dA_ij| <= 1e-5 sqrt(A_ii A_jj), |db| <= 1e-5 of
+   the row's sum |bw| |v|), the float64 kernel within 1e-12, counts exact,
+   A == A^T bitwise, two launches bitwise equal; its time by events and
+   torch.profiler's device time by stage beside the bound (bytes and
+   operations printed), the float32 plain twin and a yardstick (torch.bmm
+   of the zero-padded gathered rows, f32, TF32 off); ptxas's registers
+   and 0 spills;
+35. explicit ALS as als_scale.py runs it (``ALS(rank=64, regParam=0.02,
+   seed=2, maxIter=12)``) through the kernel: the fit's time split (host
+   np.unique, the orders, the normal equations, the solves, the rest),
+   2 x maxIter launches and no other kernel, a second fit bitwise equal,
+   the train and held-out RMSE on the two 1M probes (held-out in [0.30,
+   0.36], printed beside the reference's 0.3430), peak memory, and the
+   kernel fit within 1e-4 (norm-relative) of the plain fit at maxIter=2;
+36. implicit ALS (alpha = 1, maxIter=5) on the same ratings: the split and
+   the time per iteration, the launches, a bitwise refit, the kernel fit
+   against the plain fit at maxIter=2; then ``nonnegative=True`` at
+   maxIter=2: every factor >= 0, the time of a half-step's projected
+   Newton solve;
+37. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -254,7 +280,9 @@ the final result line:
    K2 in both instances and K1's e4m3 instance marked as redesigned around
    a per-lane cp.async ring, and every GLM sweep with its instance, ring
    plan and ptxas lines; K1's entry also carries its launches in phase
-   20's bounded fit), the total wall time; the last line is ``{"ok":
+   20's bounded fit) and the ALS normal equations (phase 35's launches,
+   the users' half-step's times, the items' beside them), the phases' and
+   the total wall time; the last line is ``{"ok":
    true, "device": {...}}``.
 
 Phases 19-23 begin by asserting that TF32 is off.
@@ -287,7 +315,7 @@ H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
 H100_FP8_FLOPS = 1979e12     # fp8 tensor cores, dense
 FP8_COEF_NORMREL = 0.20      # the reference's fp8 coefficient envelope
 KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian", "glm_stacked",
-                  "center_sums", "ell_sweep"]
+                  "center_sums", "ell_sweep", "als_normal"]
 K1S_MODELS = (1, 3, 8, 16, 20)   # 20 > K_MAX: two launches of K1s
 OVR_K = 8                        # OneVsRest's classes (bench_ovr_stacked)
 CV_N = 250_000                   # CrossValidator's rows (the cut of FIT_N;
@@ -324,6 +352,18 @@ K1S_WIDE = ((CIFAR_N, CIFAR_D, (8, 2, 10)), (250_000, 8192, (8, 16)),
 CRITEO_SEEDS = (1, 2)            # the intercept inquiry's two more draws
 CRITEO_SEED_N = CRITEO_N // 8    # ... cut to an eighth of the rows (the
                                  # phase's time; a quarter took 25 s)
+# BASELINE configuration 4: ALS at MovieLens-25M's shape, benchmarks/
+# als_scale.py's planted rank-64 ratings and split
+ALS_USERS, ALS_ITEMS, ALS_NNZ = 162_541, 62_423, 25_000_095
+ALS_RANK, ALS_NOISE, ALS_HELD = 64, 0.3, 1_000_000
+ALS_REG, ALS_SEED = 0.02, 2      # als_scale.py's ALS(regParam, seed)
+ALS_ITERS = 12                   # ... and its default iterations
+ALS_IMPLICIT_ITERS = 5
+ALS_CHECK_ITERS = 2              # the kernel fit against the plain fit
+ALS_HELDOUT_RANGE = (0.30, 0.36)  # the noise floor is 0.3
+# the reference's held-out RMSE after 12 iterations (BASELINE.md):
+# accuracy, printed beside the port's
+ALS_REFERENCE_HELDOUT_RMSE = 0.3430
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
 ROWS64 = 1 << 16             # rows widened to float64 at a time
@@ -374,7 +414,7 @@ def _device_ms(fn, reps: int, match: str):
     by torch.profiler over ``reps`` calls after two: what CUDA events
     around a call would also count as the host's time where the call's
     host work outlasts its kernels. None when the profiler saw no device
-    time."""
+    time for them (a ``profiler_no_match`` line then names what it saw)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -384,8 +424,14 @@ def _device_ms(fn, reps: int, match: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    events = prof.key_averages()
     us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages() if match in e.key)
+             for e in events if match in e.key)
+    if us <= 0:
+        seen = sorted(((getattr(e, "device_time_total", 0.0), e.key[:80])
+                       for e in events), reverse=True)[:5]
+        _line("profiler_no_match", match=match, events=len(events),
+              top_device_keys=seen)
     return us / reps / 1000.0 if us > 0 else None
 
 
@@ -765,7 +811,8 @@ def _other_launches(kernels, *own: str) -> int:
               "glm_stacked": kernels.glm_sweep_stacked.launches,
               "center_sums": kernels.center_sums.launches,
               "ell_rows": kernels.ell_rows.launches,
-              "ell_cols": kernels.ell_cols.launches}
+              "ell_cols": kernels.ell_cols.launches,
+              "als_normal": kernels.als_normal.launches}
     return sum(v for k, v in counts.items() if k not in own)
 
 
@@ -3971,6 +4018,429 @@ def phase_criteo_seeds():
             del ds
 
 
+# -- ALS at BASELINE configuration 4 -------------------------------------------
+
+def _als_data():
+    """Configuration 4's ratings as benchmarks/als_scale.py makes them (a
+    copy of its ``make_data``: numpy ``default_rng(7)``, rank-64 users and
+    items, rating = u.v + 0.3 noise, at MovieLens-25M's shape) and its
+    held-out split (``default_rng(3)``: ALS_HELD ratings held out, the
+    first ALS_HELD of the rest the train probe)."""
+    import numpy as np
+    import torch
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    users = rng.integers(0, ALS_USERS, ALS_NNZ).astype(np.int64)
+    items = rng.integers(0, ALS_ITEMS, ALS_NNZ).astype(np.int64)
+    scale = 1.0 / np.sqrt(ALS_RANK)
+    u = rng.normal(0, scale, (ALS_USERS, ALS_RANK)).astype(np.float32)
+    v = rng.normal(0, scale, (ALS_ITEMS, ALS_RANK)).astype(np.float32)
+    ratings = np.empty(ALS_NNZ, dtype=np.float64)
+    chunk = 2_000_000
+    for lo in range(0, ALS_NNZ, chunk):
+        hi = min(lo + chunk, ALS_NNZ)
+        ratings[lo:hi] = (np.einsum("ij,ij->i", u[users[lo:hi]],
+                                    v[items[lo:hi]])
+                          + ALS_NOISE * rng.normal(0, 1, hi - lo))
+    perm = np.random.default_rng(3).permutation(ALS_NNZ)
+    held, train = perm[:ALS_HELD], perm[ALS_HELD:]
+    data = {"users": users, "items": items, "ratings": ratings,
+            "train": train, "held": held, "probe": train[:ALS_HELD]}
+    _line("als_data", users=ALS_USERS, items=ALS_ITEMS, ratings=ALS_NNZ,
+          train=len(train), held_out=len(held), rank=ALS_RANK,
+          seconds=time.perf_counter() - t0)
+    return data
+
+
+def _als_a_err(a, truth, rows=1 << 14):
+    """(max|dA_ij|, max |dA_ij| / sqrt(A_ii A_jj)) of ``a`` against the
+    float64 ``truth``, ``rows`` destinations at a time."""
+    import torch
+    abs_err = rel_err = 0.0
+    for lo in range(0, a.shape[0], rows):
+        t = truth[lo:lo + rows]
+        d = (a[lo:lo + rows].double() - t).abs()
+        diag = torch.diagonal(t, dim1=1, dim2=2).abs()
+        scale = torch.sqrt(diag[:, :, None] * diag[:, None, :])
+        abs_err = max(abs_err, float(d.max()))
+        rel_err = max(rel_err, float((d / scale.clamp(min=1e-300)).max()))
+    return abs_err, rel_err
+
+
+def _als_b_err(b, truth, src64, o64, implicit, rows=1 << 22):
+    """max |db| over the row's sum |bw| |v| (bw the b weight of each
+    rating, alpha = 1), summed ``rows`` ratings at a time."""
+    import torch
+    scale = torch.zeros_like(truth)
+    for lo in range(0, o64.src.shape[0], rows):
+        rc = o64.rating[lo:lo + rows].abs()
+        w = 1.0 + rc if implicit else rc
+        scale.index_add_(0, o64.dst[lo:lo + rows],
+                         w[:, None] * src64[o64.src[lo:lo + rows]].abs())
+    return float(((b.double() - truth).abs()
+                  / scale.clamp(min=1e-300)).max())
+
+
+def _als_bmm_yardstick(src, order):
+    """The ms of torch.bmm over every destination's zero-padded gathered
+    source rows (n_dst, most ratings, r): V^T V, explicit A without the
+    solve's terms, in float32 with TF32 off (the gather not counted), and
+    the padded block's shape."""
+    import torch
+    n_dst, r = order.n_dst, src.shape[1]
+    counts = order.counts
+    width = int(counts.max())
+    pos = torch.arange(order.src.shape[0], device=src.device) \
+        - order.offsets[order.dst.long()]
+    v = torch.zeros((n_dst, width, r), dtype=src.dtype, device=src.device)
+    v[order.dst.long(), pos] = src[order.src.long()]
+    vt = v.transpose(1, 2)
+    ms = _time_ms(lambda: torch.bmm(vt, v), 3, 1)
+    del v, vt, pos
+    torch.cuda.empty_cache()
+    return ms, [n_dst, width, r]
+
+
+def _als_spills(ptxas):
+    """Spill bytes (stores plus loads) and registers of every ALS kernel
+    instance in ptxas's lines."""
+    out = {}
+    for f, lines in ptxas.items():
+        if f.startswith("als_"):
+            out[f] = {"spill_bytes": sum(int(v) for ln in lines for v in
+                                         re.findall(r"(\d+) bytes spill", ln)),
+                      "registers": [int(v) for ln in lines for v in
+                                    re.findall(r"Used (\d+) registers", ln)]}
+    return out
+
+
+def phase_als_normal(data, ptxas):
+    """The ALS normal equations at configuration 4's full shape, rank 64,
+    both half-steps (users <- items, items <- users) on the training
+    ratings' orders, random factors (|normal| / sqrt(64), as the fit's
+    first draws), regParam ALS_REG and, implicit (alpha = 1), Y^T Y:
+    the float32 kernel against the float64 plain twin on the card
+    (|dA_ij| <= 1e-5 sqrt(A_ii A_jj), |db| <= 1e-5 of the row's sum
+    |bw| |v|), the float64 kernel against it at 1e-12, counts equal to the
+    ids' bincount, A == A^T bitwise, two launches bitwise equal; its time
+    (events, and torch.profiler's device time by stage) beside the bound,
+    the float32 plain twin and the yardstick (torch.bmm of the padded
+    gathered rows); ptxas's registers and spills. Returns the users'
+    explicit numbers for the kernels line, with the items' beside them."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ml.recommendation import als
+    from cycloneml_tpu_torch.ops import kernels
+    dev = torch.device(DEVICE)
+    tr = data["train"]
+    uid, users = als.compact_ids(data["users"][tr])
+    iid, items = als.compact_ids(data["items"][tr])
+    n_u, n_i, r = len(uid), len(iid), ALS_RANK
+    (ord_u, ord_i), orders_s = _timed(lambda: als.build_orders(
+        users, items, data["ratings"][tr], n_u, n_i, torch.float32, dev))
+    g = torch.Generator(device=dev).manual_seed(5)
+    fac = {side: torch.randn(n, r, generator=g, device=dev).abs() / r ** 0.5
+           for side, n in (("users", n_u), ("items", n_i))}
+    truth_counts = {"users": np.bincount(users, minlength=n_u),
+                    "items": np.bincount(items, minlength=n_i)}
+    spills = _als_spills(ptxas)
+    out = {}
+    checks = {"0 spill bytes in every als_normal kernel":
+              len(spills) == 4 and not any(v["spill_bytes"]
+                                           for v in spills.values())}
+    for side, src_side, order in (("users", "items", ord_u),
+                                  ("items", "users", ord_i)):
+        src = fac[src_side]
+        src64 = src.double()
+        o64 = order._replace(rating=order.rating.double())
+        nnz = order.src.shape[0]
+        for implicit in (False, True):
+            mode = "implicit" if implicit else "explicit"
+            yty = torch.mm(src.T, src) if implicit else None
+            yty64 = None if yty is None else yty.double()
+
+            def call(s=src, o=order, y=yty):
+                return kernels.als_normal(s, o, implicit, 1.0, ALS_REG, y)
+
+            before = kernels.als_normal.launches
+            a, b, n = call()
+            a2, b2, _ = call()
+            torch.cuda.synchronize()
+            launched = kernels.als_normal.launches - before
+            bitwise = torch.equal(a, a2) and torch.equal(b, b2)
+            symmetric = torch.equal(a, a.transpose(1, 2))
+            del a2, b2
+            t_a, t_b, t_n = kernels.als_normal_plain(src64, o64, implicit,
+                                                     1.0, ALS_REG, yty64)
+            a_abs, a_rel = _als_a_err(a, t_a)
+            b_rel = _als_b_err(b, t_b, src64, o64, implicit)
+            counts_exact = bool(np.array_equal(
+                n.cpu().numpy(), truth_counts[side].astype(np.float32)))
+            del a, b
+            a64, b64, _ = kernels.als_normal(src64, o64, implicit, 1.0,
+                                             ALS_REG, yty64)
+            a64_abs, a64_rel = _als_a_err(a64, t_a)
+            b64_rel = _als_b_err(b64, t_b, src64, o64, implicit)
+            sym64 = torch.equal(a64, a64.transpose(1, 2))
+            del a64, b64, t_a, t_b
+            torch.cuda.empty_cache()
+            k_ms = _time_ms(call, 5, 1)
+            stages = {k: _device_ms(call, 3, k)
+                      for k in ("als_piece_kernel", "als_reduce_kernel")}
+            n_bytes = (order.n_dst * r * (r + 1) * 4 + nnz * 8
+                       + src.shape[0] * r * 4 + (order.n_dst + 1) * 16
+                       + order.piece_dst.shape[0] * 8)
+            ops = float(nnz) * (r * (r + 1) + 2 * r + (r if implicit else 0))
+            bound, bound_by = _bound(n_bytes, ops)
+            nums = {"side": side, "mode": mode, "n_dst": order.n_dst,
+                    "n_src": src.shape[0], "ratings": nnz,
+                    "pieces": order.piece_dst.shape[0],
+                    "multi_piece_destinations": order.multi.shape[0],
+                    "max_ratings": int(order.counts.max()),
+                    "max_abs_err": a_abs, "a_rel_err": a_rel,
+                    "b_rel_err": b_rel, "f64_a_rel_err": a64_rel,
+                    "f64_b_rel_err": b64_rel, "ms": k_ms,
+                    "device_ms": stages, "bound_ms": bound,
+                    "bound_by": bound_by, "bytes": n_bytes,
+                    "operations": ops, "launches_counted": launched}
+            if not implicit:  # the main path's: the plain twin, the bmm
+                nums["plain_ms"] = _time_ms(lambda: kernels.als_normal_plain(
+                    src, order, False, 1.0, ALS_REG), 1, 1)
+                nums["yardstick_ms"], nums["yardstick_shape"] = \
+                    _als_bmm_yardstick(src, order)
+            _line("als_normal", orders_s=orders_s, **nums)
+            tag = f"{side} {mode}"
+            checks.update({
+                f"{tag}: |dA_ij| <= 1e-5 sqrt(A_ii A_jj)": a_rel <= 1e-5,
+                f"{tag}: |db| <= 1e-5 of sum |bw| |v|": b_rel <= 1e-5,
+                f"{tag}: float64 kernel within 1e-12": max(a64_rel, b64_rel)
+                <= 1e-12,
+                f"{tag}: counts exact": counts_exact,
+                f"{tag}: A == A^T bitwise (float32, float64)":
+                    symmetric and sym64,
+                f"{tag}: two launches bitwise equal": bitwise,
+                f"{tag}: one launch a call": launched == 2,
+            })
+            out[(side, mode)] = nums
+    _line("als_ptxas", **spills)
+    _check("als normal", checks)
+    main = dict(out[("users", "explicit")])
+    main["items"] = {k: out[("items", "explicit")][k]
+                     for k in ("ms", "device_ms", "bound_ms", "plain_ms",
+                               "yardstick_ms", "max_abs_err")}
+    main["implicit_ms"] = {s: out[(s, "implicit")]["ms"]
+                           for s in ("users", "items")}
+    main["ptxas"] = spills
+    return main
+
+
+def _als_frames(ctx, data):
+    """The training frame and the two probes (held out, train) of
+    als_scale.py, as the port's frames."""
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    tr, held, probe = data["train"], data["held"], data["probe"]
+    frame = MLFrame(ctx, {"user": data["users"][tr],
+                          "item": data["items"][tr],
+                          "rating": data["ratings"][tr]})
+    probes = {name: (MLFrame(ctx, {"user": data["users"][idx],
+                                   "item": data["items"][idx]}),
+                     data["ratings"][idx])
+              for name, idx in (("train", probe), ("heldout", held))}
+    return frame, probes
+
+
+def _als_rmse(model, probe):
+    """RMSE on a probe; cold rows (none are expected) predict 0, as
+    als_scale.py scores them. Returns (rmse, cold rows)."""
+    import numpy as np
+    frame, y = probe
+    pred = np.asarray(model.transform(frame)["prediction"], dtype=np.float64)
+    cold = int(np.isnan(pred).sum())
+    pred = np.nan_to_num(pred, nan=0.0)
+    return float(np.sqrt(np.mean((pred - y) ** 2))), cold
+
+
+def _split_als_fit(frame, **kw):
+    """One ``ALS(**kw).fit(frame)`` with its time taken apart by wrapping
+    the fit's own calls (each synchronizes the card on both sides):
+    ``compact_s`` (host np.unique of both id columns), ``orders_s`` (the
+    ids and ratings to the card, both orders), ``normal_s`` (every
+    half-step's normal equations), ``gram_s`` (Y^T Y, implicit),
+    ``solve_s`` (the batched solves, or projected Newton), ``rest_s`` (the
+    frame's columns, the initial draws, the readback, the model). Returns
+    ``(model, seconds, split)``."""
+    import torch
+    from cycloneml_tpu_torch.ml.recommendation import ALS, als
+    split = {"compact_s": 0.0, "orders_s": 0.0, "normal_s": 0.0,
+             "gram_s": 0.0, "solve_s": 0.0}
+    saved = {}
+    for name, key in (("compact_ids", "compact_s"),
+                      ("build_orders", "orders_s"),
+                      ("normal_equations", "normal_s"), ("gram", "gram_s"),
+                      ("solve", "solve_s")):
+        fn = saved[name] = getattr(als, name)
+
+        def timed(*args, _fn=fn, _key=key, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[_key] += time.perf_counter() - t
+            return res
+
+        setattr(als, name, timed)
+    try:
+        model, secs = _timed(lambda: ALS(**kw).fit(frame))
+    finally:
+        for name, fn in saved.items():
+            setattr(als, name, fn)
+    split["rest_s"] = secs - sum(split.values())
+    return model, secs, split
+
+
+def _als_same(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(a.user_factors, b.user_factors)
+                and np.array_equal(a.item_factors, b.item_factors))
+
+
+def _als_kernel_vs_plain(ctx, frame, kw):
+    """The kernel fit and the plain fit (usePallasKernels=false) at
+    ALS_CHECK_ITERS: the norm-relative gap of each factor matrix, both
+    fits' seconds, and the plain fit's kernel launches (0 expected)."""
+    import numpy as np
+    from cycloneml_tpu_torch.ml.recommendation import ALS
+    from cycloneml_tpu_torch.ops import kernels
+    short = dict(kw, maxIter=ALS_CHECK_ITERS)
+    k, k_s = _timed(lambda: ALS(**short).fit(frame))
+    ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+    before = kernels.als_normal.launches
+    try:
+        p, p_s = _timed(lambda: ALS(**short).fit(frame))
+    finally:
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+    gap = {side: float(np.linalg.norm(getattr(k, side) - getattr(p, side))
+                       / np.linalg.norm(getattr(p, side)))
+           for side in ("user_factors", "item_factors")}
+    return gap, [k_s, p_s], kernels.als_normal.launches - before
+
+
+def phase_als_fit(data):
+    """Explicit ALS as benchmarks/als_scale.py runs it: ``ALS(rank=64,
+    regParam=0.02, seed=2, maxIter=12).fit`` on the training ratings,
+    through the kernel: the fit's time split (``_split_als_fit``), the
+    normal equations launched 2 x maxIter times and nothing else, a second
+    fit bitwise equal, the train and held-out RMSE on the two 1M probes
+    (held-out within ALS_HELDOUT_RANGE, printed beside the reference's),
+    peak memory, and the kernel fit against the plain fit at
+    ALS_CHECK_ITERS (1e-4, norm-relative, in both factor matrices).
+    Returns the fit's launches."""
+    import torch
+    from cycloneml_tpu_torch.ml.recommendation import ALS
+    from cycloneml_tpu_torch.ops import kernels
+    ctx = _context("chip_smoke_als")
+    try:
+        frame, probes = _als_frames(ctx, data)
+        kw = dict(rank=ALS_RANK, regParam=ALS_REG, seed=ALS_SEED,
+                  maxIter=ALS_ITERS)
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        model, fit_s, split = _split_als_fit(frame, **kw)
+        launches = kernels.als_normal.launches
+        other = _other_launches(kernels, "als_normal")
+        peak = torch.cuda.max_memory_allocated()
+        again, again_s = _timed(lambda: ALS(**kw).fit(frame))
+        rmse = {name: _als_rmse(model, p) for name, p in probes.items()}
+        gap, check_s, plain_launches = _als_kernel_vs_plain(ctx, frame, kw)
+        _line("als_fit", iterations=ALS_ITERS, fit_s=fit_s, again_s=again_s,
+              split=split, per_iteration_device_s=(split["normal_s"]
+                                                   + split["solve_s"])
+              / ALS_ITERS, launches=launches, other_launches=other,
+              peak_mem_gib=peak / 2**30, rmse_train=rmse["train"][0],
+              rmse_heldout=rmse["heldout"][0],
+              cold_rows={k: v[1] for k, v in rmse.items()},
+              reference_rmse_heldout=ALS_REFERENCE_HELDOUT_RMSE,
+              kernel_vs_plain_gap=gap, check_fit_s=check_s,
+              check_iterations=ALS_CHECK_ITERS)
+        lo, hi = ALS_HELDOUT_RANGE
+        _check("als fit", {
+            "the normal equations launched 2 x maxIter times":
+                launches == 2 * ALS_ITERS,
+            "no other kernel launched": other == 0,
+            "a second fit bitwise equal": _als_same(model, again),
+            f"held-out RMSE in [{lo}, {hi}]": lo <= rmse["heldout"][0] <= hi,
+            "the plain fit launches no kernel": plain_launches == 0,
+            "kernel fit within 1e-4 of the plain fit (norm-relative)":
+                max(gap.values()) <= 1e-4,
+        })
+        return launches
+    finally:
+        ctx.stop()
+
+
+def phase_als_implicit(data):
+    """Implicit ALS (alpha = 1) on the same training ratings at
+    ALS_IMPLICIT_ITERS: the time split and per iteration, 2 x maxIter
+    launches, a second fit bitwise equal, the kernel fit against the plain
+    fit at ALS_CHECK_ITERS; then ``nonnegative=True`` at ALS_CHECK_ITERS:
+    every factor >= 0, the time of each half-step's projected Newton solve
+    (one LU factorization, 41 batched solves)."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ml.recommendation import ALS
+    from cycloneml_tpu_torch.ops import kernels
+    ctx = _context("chip_smoke_als_implicit")
+    try:
+        frame, probes = _als_frames(ctx, data)
+        kw = dict(rank=ALS_RANK, regParam=ALS_REG, seed=ALS_SEED,
+                  maxIter=ALS_IMPLICIT_ITERS, implicitPrefs=True, alpha=1.0)
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        model, fit_s, split = _split_als_fit(frame, **kw)
+        launches = kernels.als_normal.launches
+        other = _other_launches(kernels, "als_normal")
+        again, again_s = _timed(lambda: ALS(**kw).fit(frame))
+        gap, check_s, plain_launches = _als_kernel_vs_plain(ctx, frame, kw)
+        nn_kw = dict(kw, nonnegative=True, maxIter=ALS_CHECK_ITERS)
+        kernels.reset_launch_counts()
+        nn, nn_s, nn_split = _split_als_fit(frame, **nn_kw)
+        nn_launches = kernels.als_normal.launches
+        nn_min = min(float(nn.user_factors.min()),
+                     float(nn.item_factors.min()))
+        _line("als_implicit", iterations=ALS_IMPLICIT_ITERS, fit_s=fit_s,
+              again_s=again_s, split=split,
+              per_iteration_s=(split["normal_s"] + split["gram_s"]
+                               + split["solve_s"]) / ALS_IMPLICIT_ITERS,
+              launches=launches, other_launches=other,
+              kernel_vs_plain_gap=gap, check_fit_s=check_s,
+              rmse_heldout=_als_rmse(model, probes["heldout"])[0],
+              nonnegative_fit_s=nn_s, nonnegative_split=nn_split,
+              nonnegative_solve_s_per_half_step=nn_split["solve_s"]
+              / (2 * ALS_CHECK_ITERS),
+              nonnegative_min_factor=nn_min,
+              nonnegative_zero_share=float(np.mean(np.concatenate(
+                  [nn.user_factors.ravel(), nn.item_factors.ravel()]) == 0)))
+        _check("als implicit", {
+            "the normal equations launched 2 x maxIter times":
+                launches == 2 * ALS_IMPLICIT_ITERS,
+            "no other kernel launched": other == 0,
+            "a second fit bitwise equal": _als_same(model, again),
+            "finite factors": bool(np.isfinite(model.user_factors).all()
+                                   and np.isfinite(model.item_factors).all()),
+            "the plain fit launches no kernel": plain_launches == 0,
+            "kernel fit within 1e-4 of the plain fit (norm-relative)":
+                max(gap.values()) <= 1e-4,
+            "nonnegative: every factor >= 0": nn_min >= 0.0,
+            "nonnegative: 2 x maxIter launches":
+                nn_launches == 2 * ALS_CHECK_ITERS,
+        })
+        return launches
+    finally:
+        ctx.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -4131,6 +4601,13 @@ def main() -> int:
     wide_lin = phase_wide_linreg()
     cifar = phase_cifar_ovr()
     phase_criteo_seeds()
+    # ALS at configuration 4: the normal equations' kernel, then the
+    # explicit, implicit and nonnegative fits through it
+    als_data = _als_data()
+    als_nums = phase_als_normal(als_data, ptxas)
+    als_launches = phase_als_fit(als_data)
+    als_implicit_launches = phase_als_implicit(als_data)
+    del als_data
     how = ("one read of X: a CTA of 512 threads an SM, each "
            "thread's slots of G rows staged once by its own cp.async ring "
            "slots, margins by xor shuffles then the warps in warp order, "
@@ -4202,6 +4679,21 @@ def main() -> int:
                "order; turns_ms: kernel, library, library, kernel; "
                "one_block_ms: the same kernel over the copy in plain "
                "column order (one block), in turns with the blocked copy")
+    entry("als_normal (ALS normal equations)", "als_normal",
+          "cycloneml_tpu/ml/recommendation/als.py:490", als_nums,
+          als_launches, implicit_fit_launches=als_implicit_launches,
+          shape={"n_dst": als_nums["n_dst"], "n_src": als_nums["n_src"],
+                 "ratings": als_nums["ratings"], "rank": ALS_RANK},
+          dtype="f32", device_ms=als_nums["device_ms"],
+          operations=als_nums["operations"], bytes=als_nums["bytes"],
+          items=als_nums["items"], implicit_ms=als_nums["implicit_ms"],
+          yardstick="torch.bmm of the zero-padded gathered source rows "
+                    "(n_dst, most ratings, r), f32, TF32 off, the gather "
+                    "not counted", yardstick_shape=als_nums["yardstick_shape"],
+          ptxas=als_nums["ptxas"],
+          note="the reference's chunked scatter-add of outer products "
+               "(jnp, not a Pallas kernel); ms, bound and plain_ms are "
+               "the users' half-step, explicit; launches: 2 a iteration")
     print(json.dumps({"kernels": entries}), flush=True)
     _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)

@@ -4,7 +4,8 @@ The port never imports ``cycloneml_tpu`` (or jax); what crosses between the
 two packages is plain numpy: the same host arrays (or fp8 codes) as a
 dataset, the same ELL (or hybrid) rows as a sparse dataset, a fitted
 model's parameters (binomial and multinomial logistic regression, linear
-regression, LinearSVC, GLM, KMeans, PCA, OneVsRest's binary models), a
+regression, LinearSVC, GLM, KMeans, PCA, OneVsRest's binary models, ALS's
+ids and factors), a
 stack of coefficients of K models, or an optimizer state's
 ``to_pytree()`` dict (L-BFGS and OWL-QN alike).
 """
@@ -26,6 +27,7 @@ from cycloneml_tpu_torch.ml.classification.one_vs_rest import OneVsRestModel
 from cycloneml_tpu_torch.ml.clustering.kmeans import KMeansModel
 from cycloneml_tpu_torch.ml.feature.pca import PCAModel
 from cycloneml_tpu_torch.ml.optim.lbfgs import OptimState
+from cycloneml_tpu_torch.ml.recommendation.als import ALSModel
 from cycloneml_tpu_torch.ml.regression.glm import (
     GeneralizedLinearRegressionModel,
 )
@@ -173,6 +175,19 @@ def pca_model_from_reference(pc, explained_variance, **params) -> PCAModel:
     model = PCAModel(pc, np.asarray(explained_variance, dtype=np.float64))
     model.set("k", pc.shape[1])
     return _with_params(model, params)
+
+
+def als_model_from_reference(user_ids, item_ids, user_factors, item_factors,
+                             **params) -> ALSModel:
+    """An :class:`ALSModel` from a reference model's arrays (those its
+    ``_save_data`` writes): the sorted raw ``user_ids`` and ``item_ids``
+    and the float64 ``user_factors`` (n_users, rank) and ``item_factors``
+    (n_items, rank); ``params`` (e.g. ``coldStartStrategy``) are set on the
+    new model."""
+    return _with_params(ALSModel(
+        np.asarray(user_ids), np.asarray(item_ids),
+        np.asarray(user_factors, dtype=np.float64),
+        np.asarray(item_factors, dtype=np.float64)), params)
 
 
 def optim_state_from_pytree(d: dict) -> OptimState:

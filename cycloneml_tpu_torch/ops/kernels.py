@@ -35,6 +35,10 @@ and the per-row multipliers with the loss, sum(mult) and sum(w); S2,
 ``ell_cols``, the column sums X^T r over a copy of the nonzeros in (row
 block, column) order (:func:`ell_columns`), for the gradient or the
 weighted feature moments. Both sum in one fixed order, with no float atomics.
+So does ``als_normal`` (``csrc/als_normal.cu``), ALS's normal equations of
+every destination entity of a half-step (the reference's chunked
+scatter-add of outer products, not a Pallas kernel), over the ratings
+sorted stably by destination once a fit (:func:`als_order`).
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -69,7 +73,8 @@ X's dtype in ``glm_sweep_stacked.launches_by_dtype``, by instance in
 ``kmeans_assign.launches_by_instance`` and ``gramian.launches_by_instance``;
 the center sums by instance in ``center_sums.launches_by_instance``;
 S1 by link in ``ell_rows.launches_by_link`` and S2 by mode in
-``ell_cols.launches_by_mode``).
+``ell_cols.launches_by_mode``; ALS's normal equations in
+``als_normal.launches``, one a half-step).
 """
 
 from __future__ import annotations
@@ -238,6 +243,7 @@ def glm_sweep_plain(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 # pointers and the stream go as c_void_p: an untyped int would be cut to
 # 32 bits
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_D = ctypes.c_double
 _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "glm_sweep": {
@@ -273,6 +279,10 @@ _SIGNATURES = {
                             _P, _P, _P, _I, _P, _I, _P, _P],
         "ell_cols_launch": [_I, _P, _P, _P, _LL, _P, _I, _P, _P, _P, _P, _P,
                             _P, _P],
+    },
+    "als_normal": {
+        "als_normal_launch": [_I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
+                              _I, _P, _I, _D, _D, _P, _P, _P, _P, _P, _P],
     },
 }
 
@@ -490,6 +500,7 @@ def reset_launch_counts() -> None:
     ell_rows.launches_by_link = {link: 0 for link in _ELL_LINK_CODE}
     ell_cols.launches = 0
     ell_cols.launches_by_mode = {GRADIENT: 0, MOMENTS: 0}
+    als_normal.launches = 0
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -1703,6 +1714,201 @@ def ell_cols(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor,
     ell_cols.launches += 1
     ell_cols.launches_by_mode[MOMENTS if moments else GRADIENT] += 1
     return out if moments else out[0]
+
+
+# -- ALS: every entity's normal equations in a fixed order --------------------
+
+ALS_PIECE = 1024  # ratings of one piece, at most (the kernel takes any)
+ALS_TILE = 32     # side of a tile of A (csrc/als_normal.cu's kTile)
+_ALS_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+
+class AlsOrder(NamedTuple):
+    """The ratings of one half-step (destination <- source) in a stable
+    order by destination: destination e's ratings are positions
+    ``offsets[e]:offsets[e + 1]``, in input order, and ``src``, ``rating``
+    and ``dst`` hold each position's source id, rating and destination.
+    Each destination's positions are cut into pieces of at most ``piece``
+    (a destination with no rating has one empty piece): its pieces are
+    ``piece_start[e]`` to ``piece_start[e + 1]``, ``piece_dst`` names each
+    piece's destination, and ``piece_slot`` the scratch slot of each piece
+    of a destination with more than one piece (-1 for the others; a
+    destination's slots are consecutive). ``multi`` lists the destinations
+    with more than one piece, whose pieces are summed in piece order by the
+    kernel's second stage."""
+    offsets: torch.Tensor      # (n_dst + 1,) int64
+    src: torch.Tensor          # (nnz,) int32
+    rating: torch.Tensor       # (nnz,) the compute dtype
+    dst: torch.Tensor          # (nnz,) int32
+    piece_start: torch.Tensor  # (n_dst + 1,) int64
+    piece_dst: torch.Tensor    # (n_pieces,) int32
+    piece_slot: torch.Tensor   # (n_pieces,) int32
+    multi: torch.Tensor        # (n_multi,) int32
+    n_slots: int
+    piece: int
+
+    @property
+    def n_dst(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @property
+    def counts(self) -> torch.Tensor:
+        """Each destination's number of ratings (int64)."""
+        return self.offsets[1:] - self.offsets[:-1]
+
+
+def als_order(dst: torch.Tensor, src: torch.Tensor, rating: torch.Tensor,
+              n_dst: int, n_src: int, piece: int = ALS_PIECE) -> AlsOrder:
+    """The :class:`AlsOrder` of ratings ``(dst[k], src[k], rating[k])``
+    with destinations in [0, n_dst) and sources in [0, n_src), on their
+    device: a stable ``torch.sort`` of ``dst`` (set-up, once a fit and
+    orientation; integer results, the same on every run), the offsets by
+    ``bincount`` and ``cumsum``, the pieces. Raises for ids out of range
+    (the kernel gathers unchecked) and for 2^31 ratings or more (the
+    positions are int32)."""
+    nnz = dst.shape[0]
+    if src.shape != (nnz,) or rating.shape != (nnz,):
+        raise ValueError(f"als_order: dst {tuple(dst.shape)}, src "
+                         f"{tuple(src.shape)} and rating "
+                         f"{tuple(rating.shape)} must be one (nnz,) each")
+    if nnz >= 2 ** 31:
+        raise ValueError(f"als_order: {nnz} ratings exceed the int32 "
+                         "positions of the order")
+    if piece < 1:
+        raise ValueError(f"als_order: piece must be at least 1, got {piece}")
+    i64 = torch.int64
+    d64, s64 = dst.to(i64), src.to(i64)
+    if nnz and (int(d64.min()) < 0 or int(d64.max()) >= n_dst
+                or int(s64.min()) < 0 or int(s64.max()) >= n_src):
+        raise ValueError(f"als_order: ids out of range (destinations in "
+                         f"[0, {n_dst}), sources in [0, {n_src}))")
+    dev = dst.device
+    perm = torch.sort(d64, stable=True).indices
+    counts = torch.bincount(d64, minlength=n_dst)
+    offsets = torch.zeros(n_dst + 1, dtype=i64, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0)
+    pieces = ((counts + piece - 1) // piece).clamp(min=1)
+    piece_start = torch.zeros(n_dst + 1, dtype=i64, device=dev)
+    piece_start[1:] = torch.cumsum(pieces, 0)
+    n_pieces = int(piece_start[-1])
+    piece_dst = torch.repeat_interleave(
+        torch.arange(n_dst, device=dev), pieces, output_size=n_pieces)
+    multi_piece = (pieces > 1)[piece_dst]
+    slot = torch.cumsum(multi_piece.to(i64), 0) - 1
+    return AlsOrder(
+        offsets=offsets, src=s64[perm].to(torch.int32),
+        rating=rating[perm], dst=d64[perm].to(torch.int32),
+        piece_start=piece_start, piece_dst=piece_dst.to(torch.int32),
+        piece_slot=torch.where(multi_piece, slot, -1).to(torch.int32),
+        multi=torch.nonzero(pieces > 1).flatten().to(torch.int32),
+        n_slots=int(multi_piece.sum()), piece=piece)
+
+
+def als_chunk_rows(rank: int, itemsize: int, budget: int) -> int:
+    """Ratings the plain normal equations take at a time: as many as keep
+    their ``(chunk, rank, rank)`` outer products within ``budget`` bytes
+    (the reference's ``aggregationChunkBytes``), at least one."""
+    return max(1, budget // (rank * rank * itemsize))
+
+
+def als_normal_plain(src_fac: torch.Tensor, order: AlsOrder,
+                     implicit: bool = False, alpha: float = 1.0,
+                     reg: float = 0.0, yty: Optional[torch.Tensor] = None,
+                     chunk_bytes: int = 256 << 20
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every destination's normal equations in plain PyTorch at the source
+    factors' dtype, as the reference builds them (``_normal_eq_local``):
+    explicit, A = sum v v^T and b = sum r v; implicit, A = sum (alpha |r|)
+    v v^T and b = sum (1 + alpha |r|) [r > 0] v, over each destination's
+    ratings (v the source's factor row). The ratings are scanned in the
+    order's positions, ``als_chunk_rows`` at a time, each chunk's outer
+    products added by ``index_add_`` (in order on the CPU; on CUDA its float
+    atomics add in a run-dependent order, so there it serves only as the
+    truth the kernel is held against). Returns ``(A (n_dst, r, r), b
+    (n_dst, r), n (n_dst,))``, n the count of every rating (r <= 0 too);
+    A has ``reg * max(n, 1)`` added to its diagonal and then ``yty`` added
+    when they are given (the solve's terms)."""
+    dt = src_fac.dtype
+    dev = src_fac.device
+    n_dst, r = order.n_dst, src_fac.shape[1]
+    a = torch.zeros((n_dst, r, r), dtype=dt, device=dev)
+    b = torch.zeros((n_dst, r), dtype=dt, device=dev)
+    rows = als_chunk_rows(r, src_fac.element_size(), chunk_bytes)
+    for lo in range(0, order.src.shape[0], rows):
+        d = order.dst[lo:lo + rows]
+        v = src_fac[order.src[lo:lo + rows]]
+        rc = order.rating[lo:lo + rows].to(dt)
+        if implicit:
+            c = alpha * rc.abs()
+            a.index_add_(0, d, (v * c[:, None])[:, :, None] * v[:, None, :])
+            b.index_add_(0, d, v * ((1.0 + c) * (rc > 0).to(dt))[:, None])
+        else:
+            a.index_add_(0, d, v[:, :, None] * v[:, None, :])
+            b.index_add_(0, d, v * rc[:, None])
+    n = order.counts.to(dt)
+    if reg:  # A + reg max(n, 1) I, then + yty: the reference's order
+        a.diagonal(dim1=1, dim2=2).add_((reg * n.clamp(min=1.0))[:, None])
+    if yty is not None:
+        a += yty.to(dt)
+    return a, b, n
+
+
+def als_normal(src_fac: torch.Tensor, order: AlsOrder, implicit: bool = False,
+               alpha: float = 1.0, reg: float = 0.0,
+               yty: Optional[torch.Tensor] = None,
+               chunk_bytes: int = 256 << 20
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every destination's normal equations ``(A, b, n)`` as
+    :func:`als_normal_plain` computes them (with ``reg`` and ``yty`` added
+    to A when given). A CPU tensor runs :func:`als_normal_plain`
+    (``chunk_bytes`` its chunks' budget); a CUDA tensor launches
+    ``csrc/als_normal.cu`` (float32 or float64 factors, the ratings at the
+    same dtype) or raises: each entry summed in rating order per piece,
+    the pieces in piece order, no float atomics, so that two launches are
+    bitwise equal, and A mirrored from its upper triangle, so that A ==
+    A^T bitwise. Counted in ``als_normal.launches``."""
+    if src_fac.device.type == "cpu":
+        return als_normal_plain(src_fac, order, implicit, alpha, reg, yty,
+                                chunk_bytes)
+    dt = src_fac.dtype
+    if src_fac.dim() != 2 or dt not in _ALS_DTYPE_CODE or \
+            not src_fac.is_contiguous():
+        raise ValueError(f"als_normal: the source factors must be a "
+                         f"contiguous 2-D float32 or float64 tensor on CUDA; "
+                         f"got {tuple(src_fac.shape)} {dt}")
+    if order.rating.dtype != dt:
+        raise ValueError(f"als_normal: ratings of {order.rating.dtype} with "
+                         f"factors of {dt}")
+    dev = src_fac.device
+    tensors = [t for t in order if torch.is_tensor(t)]
+    if any(t.device != dev for t in tensors):
+        raise ValueError("als_normal: the order lies on another device than "
+                         "the factors")
+    n_dst, r = order.n_dst, src_fac.shape[1]
+    if yty is not None:
+        yty = yty.to(device=dev, dtype=dt).contiguous()
+        if yty.shape != (r, r):
+            raise ValueError(f"als_normal: yty {tuple(yty.shape)} is not "
+                             f"({r}, {r})")
+    with torch.cuda.device(dev):
+        a = torch.empty((n_dst, r, r), dtype=dt, device=dev)
+        b = torch.empty((n_dst, r), dtype=dt, device=dev)
+        part_a = part_b = None
+        if order.n_slots:
+            part_a = torch.empty((order.n_slots, r, r), dtype=dt, device=dev)
+            part_b = torch.empty((order.n_slots, r), dtype=dt, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _cuda_check(_library("als_normal").als_normal_launch(
+            _ALS_DTYPE_CODE[dt], int(bool(implicit)), src_fac.data_ptr(), r,
+            order.src.data_ptr(), order.rating.data_ptr(),
+            order.offsets.data_ptr(), order.piece_start.data_ptr(),
+            order.piece_dst.data_ptr(), order.piece_slot.data_ptr(),
+            order.piece_dst.shape[0], order.piece, order.multi.data_ptr(),
+            order.multi.shape[0], float(alpha), float(reg), _ptr(yty),
+            _ptr(part_a), _ptr(part_b), a.data_ptr(), b.data_ptr(), stream),
+            "als_normal launch")
+    als_normal.launches += 1
+    return a, b, order.counts.to(dt)
 
 
 reset_launch_counts()  # every count starts at 0

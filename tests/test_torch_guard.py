@@ -93,7 +93,8 @@ def test_kernels_import_without_cuda():
 
 
 @pytest.mark.parametrize("name", ["glm_sweep", "kmeans_assign", "gramian",
-                                  "glm_stacked", "center_sums", "ell_sweep"])
+                                  "glm_stacked", "center_sums", "ell_sweep",
+                                  "als_normal"])
 def test_every_kernel_source_has_a_binding(name):
     """Each CUDA source the wrappers load exists, declares its C entry
     points with ``extern "C"``, and has its argument types declared."""
@@ -232,5 +233,31 @@ def test_sparse_wrappers_import_and_run_without_cuda():
              "assert hot.shape == (32,)\n"
              "assert kernels.ell_rows.launches == 0\n"
              "assert kernels.ell_cols.launches == 0\n",
+             CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+
+
+def test_recommendation_modules_are_guarded():
+    """ALS's modules are among the modules whose imports are checked
+    above."""
+    mods = _port_modules()
+    for name in ("cycloneml_tpu_torch.ml.recommendation",
+                 "cycloneml_tpu_torch.ml.recommendation.als"):
+        assert name in mods
+    assert PKG / "ml" / "recommendation" / "als.py" in _port_sources()
+
+
+def test_als_wrapper_imports_and_runs_without_cuda():
+    """The ALS normal equations run their plain twin on CPU tensors with
+    no card and no nvcc, launching nothing."""
+    r = _run("import torch\n"
+             "assert not torch.cuda.is_available()\n"
+             "from cycloneml_tpu_torch.ops import kernels\n"
+             "dst = torch.tensor([0, 1, 0, 2]); src = torch.tensor([1, 0, 2, 1])\n"
+             "o = kernels.als_order(dst, src, torch.ones(4), 3, 3)\n"
+             "a, b, n = kernels.als_normal(torch.ones(3, 2), o, reg=0.5)\n"
+             "assert kernels.als_normal.launches == 0\n"
+             "assert n.tolist() == [2., 1., 1.] and torch.equal(a, a.transpose(1, 2))\n"
+             "assert a[0].tolist() == [[3., 2.], [2., 3.]]\n",
              CUDA_VISIBLE_DEVICES="")
     assert r.returncode == 0, r.stderr
