@@ -250,14 +250,18 @@ the final result line:
    of its ``make_data``: 162,541 users x 62,423 items, 25,000,095 planted
    rank-64 ratings, numpy ``default_rng(7)``; 1M held out by
    ``default_rng(3)``), rank 64, both half-steps, explicit and implicit
-   (alpha = 1), on random factors: the float32 kernel against the
-   float64 plain twin (|dA_ij| <= 1e-5 sqrt(A_ii A_jj), |db| <= 1e-5 of
-   the row's sum |bw| |v|), the float64 kernel within 1e-12, counts exact,
-   A == A^T bitwise, two launches bitwise equal; its time by events and
-   torch.profiler's device time by stage beside the bound (bytes and
-   operations printed), the float32 plain twin and a yardstick (torch.bmm
-   of the zero-padded gathered rows, f32, TF32 off); ptxas's registers
-   and 0 spills;
+   (alpha = 1), on random factors: the float32 kernel (tensor cores,
+   3xTF32) and the earlier float32 design (FMAs, ``instance="fma"``)
+   against the float64 plain twin (|dA_ij| <= 1e-5 sqrt(A_ii A_jj),
+   |db| <= 1e-5 of the row's sum |bw| |v|), the float64 kernel within
+   1e-12, counts exact, A == A^T bitwise, two launches bitwise equal; the
+   two float32 designs timed in turns, the device time by CUDA events
+   around each launch (torch.profiler's beside it), both bounds (the
+   tensor cores': bytes or the 3xTF32 products at 495 TFLOP/s, with the
+   share against it; the FMA design's: its operations at 67 TFLOP/s), the
+   float32 plain twin and a yardstick (torch.bmm of the zero-padded
+   gathered rows, f32, TF32 off); ptxas's registers and 0 spills in all
+   six ALS kernel instances;
 35. explicit ALS as als_scale.py runs it (``ALS(rank=64, regParam=0.02,
    seed=2, maxIter=12)``) through the kernel: the fit's time split (host
    np.unique, the orders, the normal equations, the solves, the rest),
@@ -312,6 +316,7 @@ GRAM_RAGGED = (300_007, 777)
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense
+H100_TF32_FLOPS = 495e12     # TF32 tensor cores, dense
 H100_FP8_FLOPS = 1979e12     # fp8 tensor cores, dense
 FP8_COEF_NORMREL = 0.20      # the reference's fp8 coefficient envelope
 KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian", "glm_stacked",
@@ -477,6 +482,10 @@ def _kernel_name(mangled: str) -> str:
         if len(arg) > 1 and arg[1]:
             text += ", scaled"
         return f"{m.group(1)}<{text}>"
+    if m.group(1) == "als_tc_kernel":  # up to rank 64, or its tile pairs
+        tiled = re.findall(r"Lb(\d)E", m.group(5))[0] == "1"
+        return ("als_tc_kernel<64 x 64 tile pairs>" if tiled
+                else "als_tc_kernel<rank <= 64>")
     if m.group(1) == "count_scatter_kernel":  # the bits of k - 1
         return f"{m.group(1)}<bits={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
@@ -4115,19 +4124,45 @@ def _als_spills(ptxas):
     return out
 
 
+def _device_ms_by_events(fn, reps: int) -> float:
+    """The device time of one call of ``fn``: CUDA events recorded around
+    each of ``reps`` calls queued back to back after a warm call, so that
+    each call's kernels start as the one before ends (the host queues a
+    call in far less than its kernels take) and no host time falls
+    between an event pair; the least of the reps."""
+    import torch
+    fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    ev[0].record()
+    for i in range(reps):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return min(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
+
+
+ALS_INSTANCES = 6  # als_tc_kernel (two), als_piece_kernel and
+#                    als_reduce_kernel (float32, float64)
+
+
 def phase_als_normal(data, ptxas):
     """The ALS normal equations at configuration 4's full shape, rank 64,
     both half-steps (users <- items, items <- users) on the training
     ratings' orders, random factors (|normal| / sqrt(64), as the fit's
     first draws), regParam ALS_REG and, implicit (alpha = 1), Y^T Y:
-    the float32 kernel against the float64 plain twin on the card
+    the float32 kernel (the tensor cores) and the earlier float32 design
+    (``instance=FMA``) against the float64 plain twin on the card
     (|dA_ij| <= 1e-5 sqrt(A_ii A_jj), |db| <= 1e-5 of the row's sum
     |bw| |v|), the float64 kernel against it at 1e-12, counts equal to the
-    ids' bincount, A == A^T bitwise, two launches bitwise equal; its time
-    (events, and torch.profiler's device time by stage) beside the bound,
-    the float32 plain twin and the yardstick (torch.bmm of the padded
-    gathered rows); ptxas's registers and spills. Returns the users'
-    explicit numbers for the kernels line, with the items' beside them."""
+    ids' bincount, A == A^T bitwise, two launches bitwise equal; the two
+    float32 designs timed in turns (tensor cores, FMA, FMA, tensor cores)
+    and the device time by CUDA events around each launch (and
+    torch.profiler's, as a cross-check), beside both bounds (the tensor
+    cores': bytes, or the 3xTF32 products of the upper entries at the TF32
+    rate; the FMA design's: its float32 operations at the FMA rate), the
+    float32 plain twin and the yardstick (torch.bmm of the padded gathered
+    rows); ptxas's registers and spills. Returns the users' explicit
+    numbers for the kernels line, with the items' beside them."""
     import numpy as np
     import torch
     from cycloneml_tpu_torch.ml.recommendation import als
@@ -4146,9 +4181,9 @@ def phase_als_normal(data, ptxas):
                     "items": np.bincount(items, minlength=n_i)}
     spills = _als_spills(ptxas)
     out = {}
-    checks = {"0 spill bytes in every als_normal kernel":
-              len(spills) == 4 and not any(v["spill_bytes"]
-                                           for v in spills.values())}
+    checks = {f"0 spill bytes in every als_normal kernel ({ALS_INSTANCES})":
+              len(spills) == ALS_INSTANCES
+              and not any(v["spill_bytes"] for v in spills.values())}
     for side, src_side, order in (("users", "items", ord_u),
                                   ("items", "users", ord_i)):
         src = fac[src_side]
@@ -4160,14 +4195,21 @@ def phase_als_normal(data, ptxas):
             yty = torch.mm(src.T, src) if implicit else None
             yty64 = None if yty is None else yty.double()
 
-            def call(s=src, o=order, y=yty):
-                return kernels.als_normal(s, o, implicit, 1.0, ALS_REG, y)
+            def call(s=src, o=order, y=yty, inst=None):
+                return kernels.als_normal(s, o, implicit, 1.0, ALS_REG, y,
+                                          instance=inst)
+
+            def fma(s=src, o=order, y=yty):
+                return call(s, o, y, kernels.FMA)
 
             before = kernels.als_normal.launches
+            by_inst = dict(kernels.als_normal.launches_by_instance)
             a, b, n = call()
             a2, b2, _ = call()
             torch.cuda.synchronize()
             launched = kernels.als_normal.launches - before
+            tc_launched = (kernels.als_normal.launches_by_instance[
+                kernels.TENSOR_CORE] - by_inst[kernels.TENSOR_CORE])
             bitwise = torch.equal(a, a2) and torch.equal(b, b2)
             symmetric = torch.equal(a, a.transpose(1, 2))
             del a2, b2
@@ -4178,6 +4220,10 @@ def phase_als_normal(data, ptxas):
             counts_exact = bool(np.array_equal(
                 n.cpu().numpy(), truth_counts[side].astype(np.float32)))
             del a, b
+            a_f, b_f, _ = fma()
+            fma_a_rel = _als_a_err(a_f, t_a)[1]
+            fma_b_rel = _als_b_err(b_f, t_b, src64, o64, implicit)
+            del a_f, b_f
             a64, b64, _ = kernels.als_normal(src64, o64, implicit, 1.0,
                                              ALS_REG, yty64)
             a64_abs, a64_rel = _als_a_err(a64, t_a)
@@ -4185,25 +4231,46 @@ def phase_als_normal(data, ptxas):
             sym64 = torch.equal(a64, a64.transpose(1, 2))
             del a64, b64, t_a, t_b
             torch.cuda.empty_cache()
-            k_ms = _time_ms(call, 5, 1)
-            stages = {k: _device_ms(call, 3, k)
-                      for k in ("als_piece_kernel", "als_reduce_kernel")}
+            # in turns: tensor cores, FMA, FMA, tensor cores
+            turns = [_time_ms(fn, 5, 1) for fn in (call, fma, fma, call)]
+            k_ms, fma_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
+            # the second stage launches only for destinations of two
+            # pieces: none at this shape
+            dev_ms = {"als_tc_kernel": _device_ms_by_events(call, 5),
+                      "als_reduce_kernel": None if order.n_slots == 0
+                      else "launched (timed with the first stage)"}
+            profiler_ms = _device_ms(call, 3, "als_tc_kernel")
             n_bytes = (order.n_dst * r * (r + 1) * 4 + nnz * 8
                        + src.shape[0] * r * 4 + (order.n_dst + 1) * 16
                        + order.piece_dst.shape[0] * 8)
-            ops = float(nnz) * (r * (r + 1) + 2 * r + (r if implicit else 0))
-            bound, bound_by = _bound(n_bytes, ops)
+            # the tensor cores: the upper entries' products, three each
+            tc_ops = float(nnz) * r * (r + 1) / 2 * 2 * 3
+            bound, bound_by = _bound(n_bytes, tc_ops, H100_TF32_FLOPS)
+            # the FMA design: its float32 operations on the FMA pipes
+            fma_ops = float(nnz) * (r * (r + 1) + 2 * r
+                                    + (r if implicit else 0))
+            fma_bound, fma_bound_by = _bound(n_bytes, fma_ops)
             nums = {"side": side, "mode": mode, "n_dst": order.n_dst,
                     "n_src": src.shape[0], "ratings": nnz,
                     "pieces": order.piece_dst.shape[0],
                     "multi_piece_destinations": order.multi.shape[0],
                     "max_ratings": int(order.counts.max()),
                     "max_abs_err": a_abs, "a_rel_err": a_rel,
-                    "b_rel_err": b_rel, "f64_a_rel_err": a64_rel,
-                    "f64_b_rel_err": b64_rel, "ms": k_ms,
-                    "device_ms": stages, "bound_ms": bound,
-                    "bound_by": bound_by, "bytes": n_bytes,
-                    "operations": ops, "launches_counted": launched}
+                    "b_rel_err": b_rel, "fma_a_rel_err": fma_a_rel,
+                    "fma_b_rel_err": fma_b_rel, "f64_a_rel_err": a64_rel,
+                    "f64_b_rel_err": b64_rel, "ms": k_ms, "fma_ms": fma_ms,
+                    "turns_ms": turns, "device_ms": dev_ms,
+                    "device_ms_by": "CUDA events around each launch",
+                    "profiler_device_ms": profiler_ms,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "share": bound / k_ms, "bytes": n_bytes,
+                    "tc_operations": tc_ops,
+                    "f32_fma_bound_ms": fma_bound,
+                    "f32_fma_bound_by": fma_bound_by,
+                    "fma_operations": fma_ops,
+                    "fma_share_of_its_bound": fma_bound / fma_ms,
+                    "launches_counted": launched,
+                    "tensor_core_launches": tc_launched}
             if not implicit:  # the main path's: the plain twin, the bmm
                 nums["plain_ms"] = _time_ms(lambda: kernels.als_normal_plain(
                     src, order, False, 1.0, ALS_REG), 1, 1)
@@ -4214,22 +4281,27 @@ def phase_als_normal(data, ptxas):
             checks.update({
                 f"{tag}: |dA_ij| <= 1e-5 sqrt(A_ii A_jj)": a_rel <= 1e-5,
                 f"{tag}: |db| <= 1e-5 of sum |bw| |v|": b_rel <= 1e-5,
+                f"{tag}: the FMA design within 1e-5": max(fma_a_rel,
+                                                          fma_b_rel) <= 1e-5,
                 f"{tag}: float64 kernel within 1e-12": max(a64_rel, b64_rel)
                 <= 1e-12,
                 f"{tag}: counts exact": counts_exact,
                 f"{tag}: A == A^T bitwise (float32, float64)":
                     symmetric and sym64,
                 f"{tag}: two launches bitwise equal": bitwise,
-                f"{tag}: one launch a call": launched == 2,
+                f"{tag}: one launch a call, on the tensor cores":
+                    launched == 2 and tc_launched == 2,
             })
             out[(side, mode)] = nums
     _line("als_ptxas", **spills)
     _check("als normal", checks)
     main = dict(out[("users", "explicit")])
     main["items"] = {k: out[("items", "explicit")][k]
-                     for k in ("ms", "device_ms", "bound_ms", "plain_ms",
-                               "yardstick_ms", "max_abs_err")}
-    main["implicit_ms"] = {s: out[(s, "implicit")]["ms"]
+                     for k in ("ms", "fma_ms", "device_ms", "bound_ms",
+                               "bound_by", "share", "f32_fma_bound_ms",
+                               "plain_ms", "yardstick_ms", "max_abs_err")}
+    main["implicit_ms"] = {s: {"ms": out[(s, "implicit")]["ms"],
+                               "fma_ms": out[(s, "implicit")]["fma_ms"]}
                            for s in ("users", "items")}
     main["ptxas"] = spills
     return main
@@ -4685,7 +4757,17 @@ def main() -> int:
           shape={"n_dst": als_nums["n_dst"], "n_src": als_nums["n_src"],
                  "ratings": als_nums["ratings"], "rank": ALS_RANK},
           dtype="f32", device_ms=als_nums["device_ms"],
-          operations=als_nums["operations"], bytes=als_nums["bytes"],
+          device_ms_by=als_nums["device_ms_by"],
+          redesigned="tensor cores, mma.sync m16n8k8 3xTF32: one CTA of "
+                     "3 warps a piece over the whole upper triangle (32 x "
+                     "32 warp tiles), each row gathered once by cp.async "
+                     "into a 2-stage ring, b as an n8 column, the epilogue "
+                     "through shared memory with coalesced 16-byte stores",
+          fma_ms=als_nums["fma_ms"], turns_ms=als_nums["turns_ms"],
+          share=als_nums["share"],
+          f32_fma_bound_ms=als_nums["f32_fma_bound_ms"],
+          tc_operations=als_nums["tc_operations"],
+          fma_operations=als_nums["fma_operations"], bytes=als_nums["bytes"],
           items=als_nums["items"], implicit_ms=als_nums["implicit_ms"],
           yardstick="torch.bmm of the zero-padded gathered source rows "
                     "(n_dst, most ratings, r), f32, TF32 off, the gather "
@@ -4693,7 +4775,11 @@ def main() -> int:
           ptxas=als_nums["ptxas"],
           note="the reference's chunked scatter-add of outer products "
                "(jnp, not a Pallas kernel); ms, bound and plain_ms are "
-               "the users' half-step, explicit; launches: 2 a iteration")
+               "the users' half-step, explicit; bound: the tensor cores' "
+               "(bytes, or the 3xTF32 products at the TF32 rate), share "
+               "against it only; fma_ms: the earlier FMA design (instance="
+               "fma) in turns in the same run, beside f32_fma_bound_ms; "
+               "launches: 2 a iteration")
     print(json.dumps({"kernels": entries}), flush=True)
     _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)

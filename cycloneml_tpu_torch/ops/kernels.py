@@ -38,7 +38,9 @@ weighted feature moments. Both sum in one fixed order, with no float atomics.
 So does ``als_normal`` (``csrc/als_normal.cu``), ALS's normal equations of
 every destination entity of a half-step (the reference's chunked
 scatter-add of outer products, not a Pallas kernel), over the ratings
-sorted stably by destination once a fit (:func:`als_order`).
+sorted stably by destination once a fit (:func:`als_order`): float32 on
+the tensor cores (each operand split in two TF32 parts, three products),
+float64 on float64 FMAs.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -74,7 +76,8 @@ X's dtype in ``glm_sweep_stacked.launches_by_dtype``, by instance in
 the center sums by instance in ``center_sums.launches_by_instance``;
 S1 by link in ``ell_rows.launches_by_link`` and S2 by mode in
 ``ell_cols.launches_by_mode``; ALS's normal equations in
-``als_normal.launches``, one a half-step).
+``als_normal.launches``, one a half-step, and by instance in
+``als_normal.launches_by_instance``).
 """
 
 from __future__ import annotations
@@ -281,8 +284,9 @@ _SIGNATURES = {
                             _P, _P],
     },
     "als_normal": {
-        "als_normal_launch": [_I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _LL,
-                              _I, _P, _I, _D, _D, _P, _P, _P, _P, _P, _P],
+        "als_normal_launch": [_I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                              _LL, _I, _P, _I, _D, _D, _P, _P, _P, _P, _P,
+                              _P],
     },
 }
 
@@ -501,6 +505,7 @@ def reset_launch_counts() -> None:
     ell_cols.launches = 0
     ell_cols.launches_by_mode = {GRADIENT: 0, MOMENTS: 0}
     als_normal.launches = 0
+    als_normal.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -1719,7 +1724,6 @@ def ell_cols(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor,
 # -- ALS: every entity's normal equations in a fixed order --------------------
 
 ALS_PIECE = 1024  # ratings of one piece, at most (the kernel takes any)
-ALS_TILE = 32     # side of a tile of A (csrc/als_normal.cu's kTile)
 _ALS_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
@@ -1856,17 +1860,22 @@ def als_normal_plain(src_fac: torch.Tensor, order: AlsOrder,
 def als_normal(src_fac: torch.Tensor, order: AlsOrder, implicit: bool = False,
                alpha: float = 1.0, reg: float = 0.0,
                yty: Optional[torch.Tensor] = None,
-               chunk_bytes: int = 256 << 20
+               chunk_bytes: int = 256 << 20, instance: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every destination's normal equations ``(A, b, n)`` as
     :func:`als_normal_plain` computes them (with ``reg`` and ``yty`` added
     to A when given). A CPU tensor runs :func:`als_normal_plain`
     (``chunk_bytes`` its chunks' budget); a CUDA tensor launches
-    ``csrc/als_normal.cu`` (float32 or float64 factors, the ratings at the
-    same dtype) or raises: each entry summed in rating order per piece,
-    the pieces in piece order, no float atomics, so that two launches are
-    bitwise equal, and A mirrored from its upper triangle, so that A ==
-    A^T bitwise. Counted in ``als_normal.launches``."""
+    ``csrc/als_normal.cu`` or raises: float32 factors on the tensor cores
+    (3xTF32 products, float32 sums), float64 factors on float64 FMAs; each
+    entry summed in a fixed order per piece, the pieces in piece order, no
+    float atomics, so that two launches are bitwise equal, and A mirrored
+    from its upper triangle, so that A == A^T bitwise. ``instance`` names
+    the instance (:data:`TENSOR_CORE` or :data:`FMA`; None: by dtype):
+    ``FMA`` at float32 is the earlier float32 design, kept to be timed
+    beside the tensor cores; no fit passes it. Counted in
+    ``als_normal.launches`` and by instance in
+    ``als_normal.launches_by_instance``."""
     if src_fac.device.type == "cpu":
         return als_normal_plain(src_fac, order, implicit, alpha, reg, yty,
                                 chunk_bytes)
@@ -1879,6 +1888,11 @@ def als_normal(src_fac: torch.Tensor, order: AlsOrder, implicit: bool = False,
     if order.rating.dtype != dt:
         raise ValueError(f"als_normal: ratings of {order.rating.dtype} with "
                          f"factors of {dt}")
+    if instance is None:
+        instance = TENSOR_CORE if dt == torch.float32 else FMA
+    if instance not in (TENSOR_CORE, FMA) or \
+            (instance == TENSOR_CORE and dt != torch.float32):
+        raise ValueError(f"als_normal: no {instance!r} instance for {dt}")
     dev = src_fac.device
     tensors = [t for t in order if torch.is_tensor(t)]
     if any(t.device != dev for t in tensors):
@@ -1899,15 +1913,17 @@ def als_normal(src_fac: torch.Tensor, order: AlsOrder, implicit: bool = False,
             part_b = torch.empty((order.n_slots, r), dtype=dt, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda_check(_library("als_normal").als_normal_launch(
-            _ALS_DTYPE_CODE[dt], int(bool(implicit)), src_fac.data_ptr(), r,
-            order.src.data_ptr(), order.rating.data_ptr(),
-            order.offsets.data_ptr(), order.piece_start.data_ptr(),
-            order.piece_dst.data_ptr(), order.piece_slot.data_ptr(),
-            order.piece_dst.shape[0], order.piece, order.multi.data_ptr(),
-            order.multi.shape[0], float(alpha), float(reg), _ptr(yty),
-            _ptr(part_a), _ptr(part_b), a.data_ptr(), b.data_ptr(), stream),
+            _ALS_DTYPE_CODE[dt], int(instance == FMA), int(bool(implicit)),
+            src_fac.data_ptr(), r, order.src.data_ptr(),
+            order.rating.data_ptr(), order.offsets.data_ptr(),
+            order.piece_start.data_ptr(), order.piece_dst.data_ptr(),
+            order.piece_slot.data_ptr(), order.piece_dst.shape[0],
+            order.piece, order.multi.data_ptr(), order.multi.shape[0],
+            float(alpha), float(reg), _ptr(yty), _ptr(part_a), _ptr(part_b),
+            a.data_ptr(), b.data_ptr(), stream),
             "als_normal launch")
     als_normal.launches += 1
+    als_normal.launches_by_instance[instance] += 1
     return a, b, order.counts.to(dt)
 
 

@@ -22,8 +22,12 @@ relative after ten iterations.
   the reference's on identical factors (``interop.als_model_from_reference``);
 - ``checkpointDir`` and persistence raise.
 
+The float32 kernel's arithmetic (TF32 parts, three products, float32
+sums by stage) is emulated in numpy and held to the card's tolerance.
+
 The ``gpu`` tests hold ``csrc/als_normal.cu`` against the plain twin on
 the card (ranks 1 to 200, destinations of 0 to 80 P ratings, both modes,
+factor magnitudes 1e-3 to 1e3 at alpha = 40, the FMA instance at float32,
 A == A^T bitwise, bitwise repeats, 0 spills, fits): the card's machine has
 no jax, so the reference is imported inside the tests that use it:
 
@@ -200,6 +204,75 @@ def test_als_normal_on_the_cpu_is_the_plain_twin():
     want = tk.als_normal_plain(fac, order, True, 0.5, 0.1, fac.T @ fac)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert tk.als_normal.launches == before
+
+
+# -- the float32 kernel's arithmetic, emulated --------------------------------
+
+def _tf32(x):
+    """float32 values rounded to TF32's 10-bit mantissa, to nearest with
+    ties away from zero (cvt.rna.tf32.f32), as float32."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)) \
+        .view(np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(np.float32(x) - hi)
+
+
+def _tensor_core_sums(v, c, bw, three=True):
+    """One piece's A (r, r) and b (r,) as csrc/als_normal.cu's float32
+    instance sums them: A = v_i (c v_j) and b = v_i bw, each operand split
+    in TF32 parts, products lo*hi, hi*lo, hi*hi (``three``; else one TF32
+    product, hi*hi) per k-step of 8 ratings, each product of mma.sync
+    (float32 C plus 8 exact products) rounded once to float32, a stage's
+    32 ratings summed from zero and added to the running sums in float32.
+    float64 numpy; the products of two TF32 values are exact in it."""
+    f32, f64 = np.float32, np.float64
+    a_op = v.astype(f32)
+    b_op = np.concatenate([(c.astype(f32)[:, None] * a_op).astype(f32),
+                           bw.astype(f32)[:, None]], axis=1)
+    ah, al = _split(a_op)
+    bh, bl = _split(b_op)
+    terms = ((al, bh), (ah, bl), (ah, bh)) if three else ((ah, bh),)
+    tot = np.zeros((v.shape[1], v.shape[1] + 1), f32)
+    for s0 in range(0, len(v), 32):
+        acc = np.zeros_like(tot)
+        for k0 in range(s0, min(s0 + 32, len(v)), 8):
+            ks = slice(k0, min(k0 + 8, len(v)))
+            for x, y in terms:
+                acc = (acc.astype(f64)
+                       + x[ks].astype(f64).T @ y[ks].astype(f64)).astype(f32)
+        tot = (tot + acc).astype(f32)
+    return tot[:, :-1], tot[:, -1]
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_tf32x3_arithmetic_holds_the_kernels_tolerance(implicit):
+    """The tensor-core instance's arithmetic, emulated at rank 64 on 200
+    seeded rows (a user's ratings at configuration 4's shape): within
+    1e-5 sqrt(A_ii A_jj) of float64 in every entry of A and 1e-5 of
+    sum |bw| |v| in b, the tolerance the card's checks hold the kernel
+    to; one TF32 product a term is not."""
+    rng = np.random.RandomState(16)
+    v = (rng.randn(200, 64) / 8).astype(np.float32).astype(np.float64)
+    r = np.round(rng.randn(200) * 2) / 2 + 3.0
+    c, bw = (40.0 * np.abs(r), np.where(r > 0, 1 + 40.0 * np.abs(r), 0.0)) \
+        if implicit else (np.ones(200), r)
+    c, bw = c.astype(np.float32).astype(np.float64), \
+        bw.astype(np.float32).astype(np.float64)
+    a64 = v.T @ (c[:, None] * v)
+    b64 = v.T @ bw
+    scale = np.sqrt(np.outer(np.diag(a64), np.diag(a64)))
+    bscale = np.abs(v).T @ np.abs(bw)
+    errs = {}
+    for three in (True, False):
+        a, b = _tensor_core_sums(v, c, bw, three)
+        errs[three] = (np.max(np.abs(a - a64) / scale),
+                       np.max(np.abs(b - b64) / bscale))
+    assert max(errs[True]) <= 1e-5, errs
+    assert errs[False][0] > 1e-5, errs
 
 
 # -- the order and its pieces -------------------------------------------------
@@ -435,22 +508,26 @@ def _sym_scale(a):
     return torch.sqrt(diag[:, :, None] * diag[:, None, :])
 
 
-def _assert_kernel(fac, order, implicit, tol, reg=0.0, yty=None):
+def _assert_kernel(fac, order, implicit, tol, reg=0.0, yty=None, alpha=0.8,
+                   instance=None):
     """The kernel against the float64 plain twin: |dA_ij| <= tol
     sqrt(A_ii A_jj), |db| <= tol of the row's sum |bw| |v|, counts exact,
-    A == A^T bitwise, two launches bitwise equal, one launch each."""
+    A == A^T bitwise, two launches bitwise equal, one launch each (of
+    ``instance``; None: the dtype's)."""
     before = tk.als_normal.launches
-    a, b, n = tk.als_normal(fac, order, implicit, 0.8, reg, yty)
-    a2, b2, _ = tk.als_normal(fac, order, implicit, 0.8, reg, yty)
+    a, b, n = tk.als_normal(fac, order, implicit, alpha, reg, yty,
+                            instance=instance)
+    a2, b2, _ = tk.als_normal(fac, order, implicit, alpha, reg, yty,
+                              instance=instance)
     torch.cuda.synchronize()
     assert tk.als_normal.launches == before + 2
     o64 = order._replace(rating=order.rating.double())
     ta, tb, tn = tk.als_normal_plain(
-        fac.double(), o64, implicit, 0.8, reg,
+        fac.double(), o64, implicit, alpha, reg,
         None if yty is None else yty.double())
     scale = _sym_scale(ta) + 1e-300
     assert float(((a.double() - ta).abs() / scale).max()) <= tol
-    w = 1.0 + 0.8 * o64.rating.abs() if implicit else o64.rating.abs()
+    w = 1.0 + alpha * o64.rating.abs() if implicit else o64.rating.abs()
     bscale = torch.zeros_like(tb).index_add_(
         0, o64.dst, w[:, None] * fac.double()[o64.src].abs())
     assert bool(((b.double() - tb).abs() <= tol * bscale + 1e-300).all())
@@ -481,6 +558,44 @@ def test_cuda_kernel_matches_plain_at_every_rank(rank, implicit):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("rank", [3, 64, 65])
+def test_cuda_fma_instance_at_float32(rank, implicit):
+    """The earlier float32 design (``instance="fma"``, timed beside the
+    tensor cores) against the float64 plain twin at 1e-5, counted by
+    instance."""
+    dev = _cuda()
+    counts = np.random.RandomState(rank).randint(0, 300, 20)
+    counts[:2] = (0, P + 3)
+    order = _card_order(counts, 41, rank, dev, torch.float32)
+    fac = torch.from_numpy(np.random.RandomState(rank + 1).randn(41, rank)) \
+        .to(dev, torch.float32)
+    before = dict(tk.als_normal.launches_by_instance)
+    _assert_kernel(fac, order, implicit, 1e-5, 0.3, fac.T @ fac,
+                   instance=tk.FMA)
+    assert tk.als_normal.launches_by_instance[tk.FMA] == before[tk.FMA] + 2
+    assert tk.als_normal.launches_by_instance[tk.TENSOR_CORE] == \
+        before[tk.TENSOR_CORE]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("implicit", [False, True])
+def test_cuda_split_covers_factor_magnitudes(implicit):
+    """Rank 64, factors of magnitude 1e-3 to 1e3 (each entry's power of
+    ten drawn uniformly) and alpha = 40: the float32 kernel within 1e-5 of
+    the float64 plain twin, as at unit magnitudes: the TF32 split keeps
+    its precision over the range."""
+    dev = _cuda()
+    rng = np.random.RandomState(40)
+    counts = rng.randint(1, 600, 30)
+    order = _card_order(counts, 300, 41, dev, torch.float32)
+    fac = rng.randn(300, 64) * 10.0 ** rng.uniform(-3, 3, (300, 64))
+    fac = torch.from_numpy(fac).to(dev, torch.float32)
+    _assert_kernel(fac, order, implicit, 1e-5, alpha=40.0)
+    _assert_kernel(fac, order, implicit, 1e-5, 0.1, fac.T @ fac, alpha=40.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("implicit", [False, True])
 def test_cuda_kernel_at_piece_boundaries(implicit):
     """Destinations of 0, 1, P - 1, P, P + 1 and 80 P ratings (80 pieces
     summed by the second stage in piece order), float32 and float64."""
@@ -506,12 +621,15 @@ def test_cuda_kernel_refuses_what_it_cannot_take():
         tk.als_normal(fac.to(torch.bfloat16), order)
     with pytest.raises(ValueError, match="yty"):
         tk.als_normal(fac, order, yty=torch.eye(3, device=dev))
+    with pytest.raises(ValueError, match="no 'tensor_core' instance"):
+        tk.als_normal(fac, order, instance=tk.TENSOR_CORE)
 
 
 @pytest.mark.gpu
 def test_cuda_als_kernels_do_not_spill():
-    """Both instances (float32, float64) of both stages report 0 spill
-    bytes in ptxas's lines of the build."""
+    """Every kernel of the build reports 0 spill bytes in ptxas's lines:
+    the tensor-core instance up to rank 64 and past it, the FMA instance
+    (float32, float64) and the second stage (float32, float64)."""
     _cuda()
     from cycloneml_tpu_torch.ops import build
     tk._library("als_normal")
@@ -521,7 +639,7 @@ def test_cuda_als_kernels_do_not_spill():
             func = ln.split("'")[1]
         elif func and "spill stores" in ln:
             spills[func] = ln.split(":")[-1].strip()
-    assert len(spills) == 4, spills
+    assert len(spills) == 6, spills
     bad = {f: s for f, s in spills.items()
            if "0 bytes spill stores, 0 bytes spill loads" not in s}
     assert not bad, bad

@@ -27,7 +27,8 @@ def _port_sources():
                                         ROOT / "k1s_phases.py",
                                         ROOT / "glm_phases.py",
                                         ROOT / "ell_phases.py",
-                                        ROOT / "center_phases.py"]
+                                        ROOT / "center_phases.py",
+                                        ROOT / "als_phases.py"]
 
 
 def _run(code: str, **env):
