@@ -274,7 +274,42 @@ the final result line:
    against the plain fit at maxIter=2; then ``nonnegative=True`` at
    maxIter=2: every factor >= 0, the time of a half-step's projected
    Newton solve;
-37. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+37. data in, the sparse reader (files in a temporary directory on local
+   disk, its free space printed first, removed at the end and on
+   failure): ``generate_criteo_like(seed=0)`` cut to INGEST_N rows (2^20
+   columns, 39 slots) written as a libsvm file (every ELL slot, id + 1
+   and the value's shortest float32 text, formatted on the card); the
+   native scanner built first (its g++ seconds printed apart from the
+   reads); the file read back by ``read_libsvm_sparse`` with 1 and 4
+   readers: indices, values,
+   labels and weights bitwise equal to the generated rows, every read
+   served by the native scanner, the seconds, MB/s and rows/s, the split
+   (parse, host work, copies, device assembly, the copies' share hidden
+   behind the parse), peak device memory within twice the dataset plus
+   one chunk, the host's peak RSS; then phase 25's fit on the read rows
+   through S1 and S2 (launches counted), bitwise equal to the fit on the
+   generated rows;
+38. data in, the dense readers: configuration 2's rows
+   (``generate_regression(seed=11, noise=0.1)``) as a float32 .npy file
+   with the label last, read by ``read_npy_chunked``: X bitwise equal to
+   ``from_numpy`` of the same rows and to the generated X; phase 6's
+   LinearRegression on it through K2 (once per evaluation), bitwise equal
+   to the fit on ``from_numpy``'s dataset; EPS_N x EPS_D dense rows at
+   epsilon's layout (0/1 labels) as a libsvm file, read streamed and
+   whole (``read_libsvm``), both bitwise equal to ``from_numpy`` of the
+   parsed rows, and phase 4's LogisticRegression settings on them through
+   K1 (once per evaluation), bitwise equal to the fit on ``from_numpy``'s;
+   a CSV file of CSV_N x CSV_D through ``read_csv_chunked`` and
+   ``read_csv``, equal; each reader's seconds and MB/s, peak memory
+   within twice the dataset plus one chunk;
+39. models out: every model the run fitted (phases 4, 6, 8, 10, 16, 17,
+   22, 23 and 35) and a ``Pipeline([PCA(k=PIPE_K), LogisticRegression])``
+   fitted on phase 4's data cut to CV_N rows (K4 once, K1 once per
+   evaluation) saved and loaded: loaded arrays bitwise equal to the saved
+   ones, transform outputs bitwise equal on each model's first PROBE_ROWS
+   rows (every model transforms on the host), ALS's held-out RMSE the
+   same number; save and load seconds and bytes;
+40. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -285,8 +320,10 @@ the final result line:
    a per-lane cp.async ring, and every GLM sweep with its instance, ring
    plan and ptxas lines; K1's entry also carries its launches in phase
    20's bounded fit) and the ALS normal equations (phase 35's launches,
-   the users' half-step's times, the items' beside them), the phases' and
-   the total wall time; the last line is ``{"ok":
+   the users' half-step's times, the items' beside them), with the
+   launches of phases 37-39's paths beside the entries they ran (K1, K2,
+   K4, S1, S2), the phases' and the total wall time; the last line is
+   ``{"ok":
    true, "device": {...}}``.
 
 Phases 19-23 begin by asserting that TF32 is off.
@@ -302,8 +339,10 @@ import ctypes
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 FIT_N, FIT_D = 2_000_000, 1280
@@ -369,6 +408,19 @@ ALS_HELDOUT_RANGE = (0.30, 0.36)  # the noise floor is 0.3
 # the reference's held-out RMSE after 12 iterations (BASELINE.md):
 # accuracy, printed beside the port's
 ALS_REFERENCE_HELDOUT_RMSE = 0.3430
+# data in and models out: the readers and persistence
+INGEST_N = 4_000_000             # Criteo-class rows written and read back
+INGEST_READERS = (1, 4)          # read_libsvm_sparse's n_readers
+EPS_N, EPS_D = 50_000, 2000      # epsilon's layout, rows cut
+CSV_N, CSV_D = 50_000, 129       # a label and 128 features
+PIPE_K = 32                      # the Pipeline's PCA components
+PROBE_ROWS = 4096                # rows each kept model transforms
+TEXT_BLOCK_BYTES = 1 << 28       # token bytes formatted on the card at once
+# the models the run fits and the persistence phase saves and loads
+PERSISTED = ("LogisticRegression", "LinearRegression", "KMeans", "PCA",
+             "OneVsRest", "CrossValidator", "LinearSVC",
+             "GeneralizedLinearRegression", "ALS", "Pipeline")
+_FITTED = {}                     # name -> (model, probe columns)
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
 ROWS64 = 1 << 16             # rows widened to float64 at a time
@@ -805,6 +857,7 @@ def phase_fit():
             print(f"fit check: {what}: {'ok' if ok else 'FAILED'}")
         if not all(checks.values()):
             raise AssertionError("the fit failed a check")
+        _keep("LogisticRegression", k_model, ds.x)
         return launches
     finally:
         ctx.stop()
@@ -1002,6 +1055,7 @@ def phase_linreg():
             "repeat fit reproduces the model": bool(np.array_equal(
                 k_again.coefficients.values, kc)),
         })
+        _keep("LinearRegression", k_model, ds.x)
         return launches, ks.objective_history[-1]
     finally:
         ctx.stop()
@@ -1353,6 +1407,7 @@ def phase_kmeans():
             "two K3 fits give bitwise-equal centers and costs": repeat_equal,
             "finite centers": bool(np.all(np.isfinite(centers))),
         })
+        _keep("KMeans", k_model, ds.x)
         return launches, sum_launches, _center_sums_phase(ds, centers)
     finally:
         ctx.stop()
@@ -1696,6 +1751,7 @@ def phase_pca():
             "both find the spectrum's top components (|cos| >= 0.99)":
                 min(truth_cos) >= 0.99,
         })
+        _keep("PCA", k_pca, ds.x)
         return launches
     finally:
         ctx.stop()
@@ -2065,6 +2121,7 @@ def phase_ovr():
                 and sum(k1s8.values()) == k1s8[torch.float8_e4m3fn]
                 and k1s8_tc == k1s8[torch.float8_e4m3fn] and others8 == 0,
         })
+        _keep("OneVsRest", k_model, ds.x)
         return k1s[ds.x.dtype], k1s8[torch.float8_e4m3fn], k_model.models
     finally:
         ctx.stop()
@@ -2146,6 +2203,7 @@ def phase_cv():
             "both choose the same regParam": best[0] == best[1],
             "avgMetrics agree to 1e-4": diff <= 1e-4,
         })
+        _keep("CrossValidator", st, frame["features"])
         return st_k1s
     finally:
         ctx.stop()
@@ -2579,6 +2637,7 @@ def phase_svc():
             "the objective fell": hist[-1] < hist[0],
             "finite model": bool(np.all(np.isfinite(coefs))),
         })
+        _keep("LinearSVC", model, ds.x)
     finally:
         ctx.stop()
 
@@ -2710,6 +2769,7 @@ def phase_glm():
                 coefs))) and bool(np.all(np.isfinite(
                     s.coefficient_standard_errors))),
         })
+        _keep("GeneralizedLinearRegression", model, ds.x)
     finally:
         ctx.stop()
 
@@ -4437,6 +4497,9 @@ def phase_als_fit(data):
               kernel_vs_plain_gap=gap, check_fit_s=check_s,
               check_iterations=ALS_CHECK_ITERS)
         lo, hi = ALS_HELDOUT_RANGE
+        held_frame, held_ratings = probes["heldout"]
+        _keep("ALS", model, user=held_frame["user"], item=held_frame["item"],
+              rating=held_ratings)
         _check("als fit", {
             "the normal equations launched 2 x maxIter times":
                 launches == 2 * ALS_ITERS,
@@ -4510,6 +4573,550 @@ def phase_als_implicit(data):
         })
         return launches
     finally:
+        ctx.stop()
+
+
+# -- data in and models out: the readers and persistence ----------------------
+
+def _probe_rows(x):
+    """The first PROBE_ROWS rows of X (a tensor or an array) as host
+    numpy, float32 at least (bf16 values are exact in float32)."""
+    import numpy as np
+    import torch
+    if torch.is_tensor(x):
+        x = x[:PROBE_ROWS]
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+    return np.asarray(x[:PROBE_ROWS])
+
+
+def _keep(name, model, x=None, **cols):
+    """Keep a fitted model for the persistence phase, with host columns
+    of its data to transform (``x``: its features' first rows)."""
+    if x is not None:
+        cols["features"] = _probe_rows(x)
+    _FITTED[name] = (model, cols)
+
+
+class _RssPeak:
+    """The process's peak resident set size while the block runs, sampled
+    every 10 ms from /proc/self/status (read only)."""
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def __enter__(self):
+        import threading
+        self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _token_table(strings):
+    """The byte strings of ``strings`` as a zero-padded (T, width) uint8
+    table and their lengths, on the card."""
+    import numpy as np
+    import torch
+    enc = [s.encode() for s in strings]
+    lens = np.fromiter((len(b) for b in enc), np.int64, len(enc))
+    flat = np.frombuffer(b"".join(enc), np.uint8)
+    table = np.zeros((len(enc), int(lens.max())), np.uint8)
+    starts = np.cumsum(lens) - lens
+    rows = np.repeat(np.arange(len(enc)), lens)
+    table[rows, np.arange(flat.size) - starts[rows]] = flat
+    return (torch.from_numpy(table).to(DEVICE),
+            torch.from_numpy(lens).to(DEVICE))
+
+
+def _float_texts(values, suffix):
+    """The distinct float32 values of a tensor (sorted, on its device) and
+    each one's shortest text that reads back as the same float32, followed
+    by ``suffix``."""
+    import numpy as np
+    import torch
+    uniq = torch.unique(values)
+    return uniq, [np.format_float_positional(v, unique=True, trim="-")
+                  + suffix for v in uniq.cpu().numpy()]
+
+
+def _write_text(fh, codes, table, lens) -> int:
+    """Append rows of tokens to a binary file, formatted on the card: row
+    r is the table's strings at ``codes[r]`` in order, its last byte (a
+    separator) replaced by a newline. Returns the bytes written."""
+    import torch
+    ln = lens[codes]
+    keep = torch.arange(table.shape[1], device=codes.device) < ln[..., None]
+    text = table[codes][keep]
+    text[torch.cumsum(ln.sum(1), 0) - 1] = ord("\n")
+    data = text.cpu().numpy()
+    fh.write(memoryview(data))
+    return data.size
+
+
+def _write_token_file(path, n_rows, n_tokens, width, codes_of) -> int:
+    """Write ``n_rows`` rows of ``n_tokens`` tokens, ``codes_of(lo, hi)``
+    giving a block's codes, in blocks of about TEXT_BLOCK_BYTES of text
+    (before the padding is dropped)."""
+    block = max(1, TEXT_BLOCK_BYTES // (n_tokens * width))
+    written = 0
+    with open(path, "wb") as fh:
+        for lo in range(0, n_rows, block):
+            hi = min(lo + block, n_rows)
+            written += _write_text(fh, *codes_of(lo, hi))
+    return written
+
+
+def _write_libsvm(path, y, ids, values, n_features) -> int:
+    """A libsvm file of rows y[r] ids[r, j] + 1 : values[r, j] (every
+    slot, in slot order; the values' shortest float32 texts), formatted on
+    the card. ``y`` holds 0/1 labels."""
+    import torch
+    uniq, texts = _float_texts(values, " ")
+    table, lens = _token_table(["0 ", "1 "]
+                               + [f"{j + 1}:" for j in range(n_features)]
+                               + texts)
+    k = values.shape[1]
+
+    def codes_of(lo, hi):
+        c = torch.empty((hi - lo, 1 + 2 * k), dtype=torch.long,
+                        device=values.device)
+        c[:, 0] = y[lo:hi].long()
+        c[:, 1::2] = ids[lo:hi].long() + 2
+        c[:, 2::2] = torch.searchsorted(uniq, values[lo:hi]) + 2 + n_features
+        return c, table, lens
+    return _write_token_file(path, values.shape[0], 1 + 2 * k,
+                             table.shape[1], codes_of)
+
+
+def _write_csv(path, y, x) -> int:
+    """A CSV file of rows y[r], x[r, 0], ..., x[r, d - 1] (the values'
+    shortest float32 texts), formatted on the card."""
+    import torch
+    uniq, texts = _float_texts(x, ",")
+    table, lens = _token_table(["0,", "1,"] + texts)
+
+    def codes_of(lo, hi):
+        c = torch.empty((hi - lo, 1 + x.shape[1]), dtype=torch.long,
+                        device=x.device)
+        c[:, 0] = y[lo:hi].long()
+        c[:, 1:] = torch.searchsorted(uniq, x[lo:hi]) + 2
+        return c, table, lens
+    return _write_token_file(path, x.shape[0], 1 + x.shape[1],
+                             table.shape[1], codes_of)
+
+
+def _dense_rows(n, d, seed):
+    """Dense rows on the card: x_ij = round(z 2^16 / sqrt(d)) 2^-16 with z
+    ~ N(0, 1) (float32, exact), labels 1[x beta + N(0, 1/4) > 0] with beta
+    ~ N(0, I) (float32 0/1)."""
+    import math
+    import torch
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    z = torch.randn((n, d), generator=g, device=DEVICE)
+    x = torch.round(z * (2.0 ** 16 / math.sqrt(d))) * 2.0 ** -16
+    beta = torch.randn(d, generator=g, device=DEVICE)
+    noise = torch.randn(n, generator=g, device=DEVICE) * 0.5
+    return x, (x @ beta + noise > 0).float()
+
+
+def _read_numbers(read, ds_of, file_bytes):
+    """Run one read (``read()`` gives the result, ``ds_of`` its dataset),
+    recording its seconds, rates, peak device memory above what was
+    allocated before, the host's peak RSS and the reader's split."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _RssPeak() as rss:
+        out, seconds = _timed(read)
+    ds = ds_of(out)
+    stats = dict(ds.ingest_stats)
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = 2 * stats["dataset_bytes"] + stats["max_copy_bytes"]
+    return out, {"s": seconds, "mb_per_s": file_bytes / seconds / 1e6,
+                 "rows_per_s": ds.n_rows / seconds,
+                 "peak_device_bytes": peak,
+                 "dataset_bytes": stats["dataset_bytes"],
+                 "chunk_bytes": stats["max_copy_bytes"],
+                 "peak_limit_bytes": limit, "peak_within_limit": peak <= limit,
+                 "host_peak_rss_bytes": rss.peak, "split": stats}
+
+
+def phase_ingest_criteo(tmp):
+    """Criteo-class rows written as a libsvm file and read back onto the
+    card (``read_libsvm_sparse`` at each reader count of INGEST_READERS):
+    bitwise equal to the generated rows and to each other, every read
+    served by the native scanner, the reader's split (parse, copies,
+    assembly) and peak memory; then phase 25's fit on the read rows
+    through S1 and S2, bitwise equal to the fit on the generated rows.
+    Returns S1's and S2's launches in that fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_criteo_like
+    from cycloneml_tpu_torch.dataset.sparse import read_libsvm_sparse
+    from cycloneml_tpu_torch.native import host
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_ingest_criteo")
+    try:
+        gen, gen_s = _timed(lambda: generate_criteo_like(
+            ctx, INGEST_N, seed=0, hash_dim=CRITEO_D))
+        n = gen.n_rows
+        path = os.path.join(tmp, "criteo.svm")
+        size, write_s = _timed(lambda: _write_libsvm(
+            path, gen.y[:n], gen.indices[:n], gen.values[:n], CRITEO_D))
+        built, build_s = _timed(host.native_available)  # not in a read
+        host.reset_read_counts()
+        reads, numbers = {}, {}
+        for r in INGEST_READERS:
+            reads[r], numbers[r] = _read_numbers(
+                lambda: read_libsvm_sparse(ctx, path, n_features=CRITEO_D,
+                                           n_readers=r),
+                lambda out: out[0], size)
+        served = dict(host.READS)
+        os.remove(path)
+
+        def same(ds, y):
+            return all(torch.equal(getattr(ds, a), getattr(gen, a))
+                       for a in ("indices", "values", "y", "w")) and \
+                ds.n_rows == n and ds.n_features == CRITEO_D and \
+                bool(np.array_equal(y, gen.y[:n].double().cpu().numpy()))
+
+        equal = {r: same(*reads[r]) for r in INGEST_READERS}
+        ds = reads[INGEST_READERS[0]][0]
+        del reads
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        model, fit_s = _sparse_fit(ctx, ds, "auto")
+        s1, s2 = kernels.ell_rows.launches, kernels.ell_cols.launches
+        others = _other_launches(kernels, "ell_rows", "ell_cols")
+        g_model, g_fit_s = _sparse_fit(ctx, gen, "auto")
+        evals = model.summary.total_evals
+        bitwise = bool(np.array_equal(model.coefficients.values,
+                                      g_model.coefficients.values)) and \
+            model.intercept == g_model.intercept
+        _line("ingest_criteo", n=n, k=gen.k_max, d=CRITEO_D,
+              reduced={"n": f"{CRITEO_N:,} -> {n:,} rows (the text "
+                            "file's write and two reads; 39 slots, 2^20 "
+                            "columns kept)"},
+              generate_s=gen_s, file_bytes=size, write_s=write_s,
+              native_build_s=build_s,
+              reads={str(r): numbers[r] for r in INGEST_READERS},
+              native_reads=served, bitwise_equal_to_generated=equal)
+        _line("ingest_criteo_fit", fit_s=fit_s, generated_fit_s=g_fit_s,
+              iterations=model.summary.total_iterations, evals=evals,
+              s1_launches=s1, s2_launches=s2, other_launches=others,
+              bitwise_equal_to_generated_fit=bitwise,
+              final_objective=model.summary.objective_history[-1])
+        _check("ingest criteo", {
+            "the native scanner built": built,
+            "every read bitwise equal to the generated rows":
+                all(equal.values()),
+            "every read served by the native scanner":
+                served.get("python", 0) == 0
+                and served.get("native", 0) == sum(INGEST_READERS),
+            "peak device memory within 2x the dataset plus one chunk":
+                all(v["peak_within_limit"] for v in numbers.values()),
+            "S1 launched once per evaluation": s1 == evals,
+            "S2 launched once per evaluation and once for the summary":
+                s2 == evals + 1,
+            "no other kernel launched": others == 0,
+            "the fit on the read rows bitwise equal to the fit on the "
+            "generated rows": bitwise,
+        })
+        return {"s1": s1, "s2": s2}
+    finally:
+        ctx.stop()
+
+
+def phase_ingest_dense(tmp):
+    """The dense readers: configuration 2's rows as a float32 .npy file
+    (label last) through ``read_npy_chunked`` and phase 6's
+    LinearRegression on them through K2; rows of epsilon's layout as a
+    dense libsvm file through ``read_libsvm`` streamed and whole and phase
+    4's LogisticRegression settings through K1; a CSV file through
+    ``read_csv_chunked`` and ``read_csv``. Each read bitwise equal to
+    ``from_numpy`` of the same rows (and the two of a kind to each other),
+    each fit bitwise equal to the fit on ``from_numpy``'s dataset, every
+    libsvm and whole-CSV read served by the native scanner. Returns K2's
+    and K1's launches in the fits on read data."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
+    from cycloneml_tpu_torch.dataset.io import (read_csv, read_csv_chunked,
+                                                read_libsvm,
+                                                read_npy_chunked)
+    from cycloneml_tpu_torch.dataset.random import generate_regression
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ml.regression import LinearRegression
+    from cycloneml_tpu_torch.native import host
+    from cycloneml_tpu_torch.ops import kernels
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, t), getattr(b, t))
+                   for t in ("x", "y", "w")) and a.n_rows == b.n_rows
+
+    def same_fit(a, b):
+        return bool(np.array_equal(a.coefficients.values,
+                                   b.coefficients.values)) and \
+            a.intercept == b.intercept
+
+    ctx = _context("chip_smoke_ingest_dense")
+    try:
+        host.reset_read_counts()
+        # configuration 2 as a .npy file
+        gen, gen_s = _timed(lambda: generate_regression(
+            ctx, LIN_N, LIN_D, seed=11, noise=0.1))
+        rows = np.empty((LIN_N, LIN_D + 1), dtype=np.float32)
+        for lo in range(0, LIN_N, ROWS):
+            hi = min(lo + ROWS, LIN_N)
+            rows[lo:hi, :LIN_D] = gen.x[lo:hi].float().cpu().numpy()
+        rows[:, LIN_D] = gen.y[:LIN_N].float().cpu().numpy()
+        npy = os.path.join(tmp, "config2.npy")
+        _, npy_write_s = _timed(lambda: np.save(npy, rows))
+        npy_bytes = os.path.getsize(npy)
+        ds_npy, npy_nums = _read_numbers(
+            lambda: read_npy_chunked(ctx, npy, label_col=LIN_D),
+            lambda out: out, npy_bytes)
+        os.remove(npy)
+        ref = InstanceDataset.from_numpy(ctx, rows[:, :LIN_D],
+                                         rows[:, LIN_D])
+        del rows
+        npy_equal = same(ds_npy, ref) and torch.equal(ds_npy.x, gen.x)
+        del gen
+
+        def linreg(ds):
+            return _timed(lambda: LinearRegression(
+                regParam=0.001, elasticNetParam=0.5, maxIter=100, tol=1e-7,
+                solver="l-bfgs").fit(ds))
+
+        kernels.reset_launch_counts()
+        lin, lin_s = linreg(ds_npy)
+        k2 = kernels.glm_sweep.launches_by_link[kernels.SQUARED]
+        k2_others = _other_launches(kernels, "squared")
+        lin_ref, _ = linreg(ref)
+        del ds_npy, ref
+        torch.cuda.empty_cache()
+
+        # epsilon's layout as a dense libsvm file
+        x, y = _dense_rows(EPS_N, EPS_D, seed=13)
+        svm = os.path.join(tmp, "epsilon.svm")
+        svm_bytes, svm_write_s = _timed(lambda: _write_libsvm(
+            svm, y, torch.arange(EPS_D, device=x.device).expand(EPS_N, -1),
+            x, EPS_D))
+        ds_s, svm_stream_nums = _read_numbers(
+            lambda: read_libsvm(ctx, svm, n_features=EPS_D, streamed=True),
+            lambda out: out, svm_bytes)
+        ds_w, svm_whole_s = _timed(lambda: read_libsvm(
+            ctx, svm, n_features=EPS_D, streamed=False))
+        os.remove(svm)
+        ref = InstanceDataset.from_numpy(ctx, x.cpu().numpy(),
+                                         y.cpu().numpy())
+        svm_equal = same(ds_s, ref) and same(ds_w, ref)
+        del ds_w, x, y
+
+        def logistic(ds):
+            return _timed(lambda: LogisticRegression(
+                maxIter=25, regParam=0.01, tol=0.0).fit(ds))
+
+        kernels.reset_launch_counts()
+        lr, lr_s = logistic(ds_s)
+        k1 = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+        k1_others = _other_launches(kernels, "logistic")
+        lr_ref, _ = logistic(ref)
+        del ds_s, ref
+
+        # CSV
+        cx, cy = _dense_rows(CSV_N, CSV_D - 1, seed=14)
+        csv = os.path.join(tmp, "rows.csv")
+        csv_bytes, csv_write_s = _timed(lambda: _write_csv(csv, cy, cx))
+        ds_cc, csv_chunked_nums = _read_numbers(
+            lambda: read_csv_chunked(ctx, csv), lambda out: out, csv_bytes)
+        ds_cw, csv_whole_s = _timed(lambda: read_csv(ctx, csv))
+        os.remove(csv)
+        csv_equal = same(ds_cc, ds_cw) and ds_cc.n_rows == CSV_N and \
+            ds_cc.n_features == CSV_D - 1
+        served = dict(host.READS)
+        _line("ingest_npy", n=LIN_N, d=LIN_D, file_bytes=npy_bytes,
+              write_s=npy_write_s, read=npy_nums,
+              bitwise_equal_to_from_numpy=npy_equal)
+        _line("ingest_npy_fit", fit_s=lin_s, evals=lin.summary.total_evals,
+              iterations=lin.summary.total_iterations, k2_launches=k2,
+              other_launches=k2_others,
+              bitwise_equal_to_from_numpy_fit=same_fit(lin, lin_ref))
+        _line("ingest_libsvm_dense", n=EPS_N, d=EPS_D, file_bytes=svm_bytes,
+              reduced={"n": f"400,000 -> {EPS_N:,} rows (epsilon's "
+                            "training set; the text file's write and "
+                            "two reads)"},
+              write_s=svm_write_s, streamed=svm_stream_nums,
+              whole_s=svm_whole_s, whole_mb_per_s=svm_bytes / svm_whole_s
+              / 1e6, bitwise_equal_to_from_numpy=svm_equal)
+        _line("ingest_libsvm_fit", fit_s=lr_s, evals=lr.summary.total_evals,
+              iterations=lr.summary.total_iterations, k1_launches=k1,
+              other_launches=k1_others,
+              bitwise_equal_to_from_numpy_fit=same_fit(lr, lr_ref))
+        _line("ingest_csv", n=CSV_N, columns=CSV_D, file_bytes=csv_bytes,
+              write_s=csv_write_s, chunked=csv_chunked_nums,
+              whole_s=csv_whole_s, whole_mb_per_s=csv_bytes / csv_whole_s
+              / 1e6, chunked_equal_to_whole=csv_equal)
+        _line("ingest_native_reads", **served)
+        _check("ingest dense", {
+            ".npy read bitwise equal to from_numpy of the same rows":
+                npy_equal,
+            "libsvm reads (streamed, whole) bitwise equal to from_numpy of "
+            "the parsed rows": svm_equal,
+            "read_csv_chunked equal to read_csv": csv_equal,
+            "peak device memory within 2x the dataset plus one chunk":
+                npy_nums["peak_within_limit"]
+                and svm_stream_nums["peak_within_limit"]
+                and csv_chunked_nums["peak_within_limit"],
+            "K2 launched once per evaluation on the .npy rows":
+                k2 == lin.summary.total_evals and k2_others == 0,
+            "K1 launched once per evaluation on the libsvm rows":
+                k1 == lr.summary.total_evals and k1_others == 0,
+            "fits on read data bitwise equal to fits on from_numpy's":
+                same_fit(lin, lin_ref) and same_fit(lr, lr_ref),
+            "every libsvm and whole-CSV read served by the native scanner":
+                served.get("python", 0) == 0
+                and served.get("native", 0) == 3,
+        })
+        return {"k2": k2, "k1": k1}
+    finally:
+        ctx.stop()
+
+
+_ARRAYS = ("_coef", "_icpt", "_num_classes", "_is_multinomial", "_centers",
+           "training_cost", "pc", "explained_variance", "user_ids",
+           "item_ids", "user_factors", "item_factors")
+
+
+def _model_arrays(model, prefix=""):
+    """Every learned array of a model, nested models included, by name."""
+    import numpy as np
+    out = {}
+    for attr, tag in (("stages", "stage"), ("models", "model")):
+        for i, s in enumerate(getattr(model, attr, None) or []):
+            out.update(_model_arrays(s, f"{prefix}{tag}{i}."))
+    if getattr(model, "best_model", None) is not None:
+        out.update(_model_arrays(model.best_model, prefix + "best."))
+        out[prefix + "avg_metrics"] = np.asarray(model.avg_metrics)
+    for name in _ARRAYS:
+        v = getattr(model, name, None)
+        if v is not None:
+            out[prefix + name] = np.asarray(v)
+    return out
+
+
+def _same_state(a, b) -> bool:
+    sa, sb = _model_arrays(a), _model_arrays(b)
+    return bool(sa) and sorted(sa) == sorted(sb) and all(
+        sa[k].dtype == sb[k].dtype and sa[k].shape == sb[k].shape
+        and sa[k].tobytes() == sb[k].tobytes() for k in sa)
+
+
+def _same_outputs(a, b, frame) -> bool:
+    import numpy as np
+    oa, ob = a.transform(frame), b.transform(frame)
+    new = [c for c in oa.columns if c not in frame.columns]
+    return bool(new) and sorted(new) == sorted(
+        c for c in ob.columns if c not in frame.columns) and all(
+        np.asarray(oa[c]).tobytes() == np.asarray(ob[c]).tobytes()
+        for c in new)
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_persistence(tmp):
+    """Save and load every model the run fitted (kept by the phases), and
+    a Pipeline of PCA(k=PIPE_K) and phase 4's LogisticRegression fitted on
+    phase 4's data cut to CV_N rows (K4 once, then K1 once per
+    evaluation): the loaded arrays bitwise equal to the saved ones, the
+    transforms' outputs bitwise equal (every model transforms on the
+    host), ALS's held-out RMSE the same number; save and load seconds and
+    bytes. Returns K4's and K1's launches in the Pipeline's fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.base import Pipeline
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ml.feature import PCA
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_persistence")
+    try:
+        ds = generate_classification(ctx, FIT_N, FIT_D, seed=0)
+        frame = MLFrame(ctx, {"features": ds.x[:CV_N].float().cpu().numpy(),
+                              "label": ds.y_host()[:CV_N]})
+        del ds
+        torch.cuda.empty_cache()
+        pipe = Pipeline([PCA(k=PIPE_K, inputCol="features", outputCol="pca"),
+                         LogisticRegression(featuresCol="pca", maxIter=25,
+                                            regParam=0.01, tol=0.0)])
+        kernels.reset_launch_counts()
+        pmodel, pipe_s = _timed(lambda: pipe.fit(frame))
+        k4 = kernels.gramian.launches
+        k1 = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+        others = _other_launches(kernels, "gramian", "logistic")
+        evals = pmodel.stages[1].summary.total_evals
+        _keep("Pipeline", pmodel, frame["features"])
+        del frame
+        results, checks = {}, {}
+        for name, (model, cols) in _FITTED.items():
+            path = os.path.join(tmp, name)
+            _, save_s = _timed(lambda: model.save(path))
+            loaded, load_s = _timed(lambda: type(model).load(path))
+            probe = MLFrame(ctx, {k: v for k, v in cols.items()
+                                  if k != "rating"})
+            ok = _same_state(model, loaded) and \
+                _same_outputs(model, loaded, probe)
+            results[name] = {"save_s": save_s, "load_s": load_s,
+                             "bytes": _dir_bytes(path),
+                             "bitwise_equal": ok}
+            if "rating" in cols:
+                got = [_als_rmse(m, (probe, cols["rating"]))[0]
+                       for m in (model, loaded)]
+                results[name]["heldout_rmse"] = got
+                ok = ok and got[0] == got[1]
+            checks[f"{name}: loaded arrays and transform outputs bitwise "
+                   "equal"] = ok
+        _line("persistence", models=results, pipeline_fit_s=pipe_s,
+              pipeline={"pca_k": PIPE_K, "n": CV_N, "d": FIT_D,
+                        "k4_launches": k4, "k1_launches": k1,
+                        "evals": evals, "other_launches": others},
+              transforms="host (numpy) for every model")
+        checks.update({
+            "every model the run fitted saved and loaded":
+                set(_FITTED) >= set(PERSISTED),
+            "the Pipeline's PCA launched K4 once": k4 == 1,
+            "its LogisticRegression launched K1 once per evaluation":
+                k1 == evals,
+            "no other kernel launched": others == 0,
+        })
+        _check("persistence", checks)
+        return {"k4": k4, "k1": k1}
+    finally:
+        _FITTED.clear()
         ctx.stop()
 
 
@@ -4680,6 +5287,18 @@ def main() -> int:
     als_launches = phase_als_fit(als_data)
     als_implicit_launches = phase_als_implicit(als_data)
     del als_data
+    # data in and models out: the readers onto the card, the fits on read
+    # data, persistence; files in a temporary directory, always removed
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        disk = shutil.disk_usage(tmp)
+        _line("ingest_disk", path=tmp, free_bytes=disk.free,
+              total_bytes=disk.total)
+        ingest_sparse = phase_ingest_criteo(tmp)
+        ingest_dense = phase_ingest_dense(tmp)
+        persisted = phase_persistence(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     how = ("one read of X: a CTA of 512 threads an SM, each "
            "thread's slots of G rows staged once by its own cp.async ring "
            "slots, margins by xor shuffles then the warps in warp order, "
@@ -4780,6 +5399,20 @@ def main() -> int:
                "against it only; fma_ms: the earlier FMA design (instance="
                "fma) in turns in the same run, beside f32_fma_bound_ms; "
                "launches: 2 a iteration")
+    # this slice's paths, each with its counts zeroed just before it: the
+    # fits on read data and the Pipeline's
+    slice17 = {"glm_sweep (logistic, K1)": {
+                   "libsvm_fit_launches": ingest_dense["k1"],
+                   "pipeline_fit_launches": persisted["k1"]},
+               "glm_sweep (squared, K2)": {
+                   "npy_fit_launches": ingest_dense["k2"]},
+               "gramian (K4)": {"pipeline_fit_launches": persisted["k4"]},
+               "ell_rows (S1, the sparse row pass)": {
+                   "ingest_fit_launches": ingest_sparse["s1"]},
+               "ell_cols (S2, the sparse column pass)": {
+                   "ingest_fit_launches": ingest_sparse["s2"]}}
+    for e in entries:
+        e.update(slice17.get(e["name"], {}))
     print(json.dumps({"kernels": entries}), flush=True)
     _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)

@@ -1,8 +1,9 @@
 """CycloneContext — the driver entry point of the port.
 
 The counterpart of ``cycloneml_tpu/context.py:CycloneContext``: it owns the
-conf and the mesh runtime, counts the optimizer steps the fits record and
-keeps the fp8 storage fallbacks they took.
+conf and the mesh runtime, reads libsvm files (``read_libsvm``), counts the
+optimizer steps the fits record and keeps the fp8 storage fallbacks they
+took.
 The listener bus, event journal, UI, storage tiers and heartbeats are
 host-side layers (ROADMAP slice 10).
 """
@@ -63,6 +64,12 @@ class CycloneContext:
     @property
     def device(self) -> torch.device:
         return self.mesh_runtime.device
+
+    def read_libsvm(self, path: str, n_features: Optional[int] = None):
+        """A libsvm file as a dense dataset
+        (:func:`~cycloneml_tpu_torch.dataset.io.read_libsvm`)."""
+        from cycloneml_tpu_torch.dataset.io import read_libsvm
+        return read_libsvm(self, path, n_features)
 
     def record_step(self, step_metrics: Dict[str, float]) -> None:
         """Count one optimizer step and keep its metrics."""

@@ -15,7 +15,9 @@ bfloat16 dequantization through :func:`fp8_fallback`, which always logs.
 from __future__ import annotations
 
 import logging
-from typing import Callable, Optional, Tuple
+import time
+import warnings
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +66,25 @@ def resolve_fp8_fit(ds: "InstanceDataset", stats,
     return fp8_fallback(ds, estimator, reason)
 
 
+def _dense_chunk(ci: int, item, n_features: int, yw_dtype):
+    """Chunk ``ci`` of a dense stream as (x, y, w) arrays, y and w in the
+    accumulator tier (zeros and ones when None); a chunk of another width,
+    or whose y or w is not one a row, raises."""
+    cx, cy, cw = item
+    cx = np.asarray(cx)
+    if cx.ndim != 2 or cx.shape[1] != n_features:
+        raise ValueError(f"chunk {ci} has shape {cx.shape}, expected "
+                         f"(rows, {n_features})")
+    m = cx.shape[0]
+    cy = np.zeros(m, yw_dtype) if cy is None else np.asarray(cy, yw_dtype)
+    cw = np.ones(m, yw_dtype) if cw is None else np.asarray(cw, yw_dtype)
+    if len(cy) != m or len(cw) != m:
+        # a silent mismatch would shift every later label
+        raise ValueError(f"chunk {ci}: y/w lengths ({len(cy)}/{len(cw)}) "
+                         f"!= x rows ({m})")
+    return cx, cy, cw
+
+
 class InstanceDataset:
     def __init__(self, ctx, x: torch.Tensor, y: torch.Tensor,
                  w: torch.Tensor, n_rows: int, n_features: int,
@@ -84,8 +105,22 @@ class InstanceDataset:
         self._fp8_probe_ratio: Optional[np.ndarray] = None
         self._yw_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
         self._summary_cache = None  # Summarizer moments (immutable data)
+        # the real rows of the padded arrays (set by the streamed ingest;
+        # None: the first n_rows)
+        self._valid_mask: Optional[np.ndarray] = None
         self.n_rows = n_rows
         self.n_features = n_features
+
+    #: (stats, staging rings) of the ingest that made the dataset
+    _ingest: Optional[tuple] = None
+
+    @property
+    def ingest_stats(self) -> Optional[dict]:
+        """The split of the time of the streamed ingest that made the
+        dataset (None for any other). The copies' device time is read at
+        the first access, which waits on the host for the last copy."""
+        from cycloneml_tpu_torch.dataset.staging import settle
+        return None if self._ingest is None else settle(*self._ingest)
 
     @classmethod
     def from_numpy(cls, ctx, x: np.ndarray, y: Optional[np.ndarray] = None,
@@ -126,6 +161,107 @@ class InstanceDataset:
         ds._fp8_probe_ratio = (None if probe_ratio is None else
                                np.asarray(probe_ratio, dtype=np.float64))
         return ds
+
+    @classmethod
+    def from_dense_chunks(cls, ctx, chunks: Iterable, n_features: int,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> "InstanceDataset":
+        """Streamed dense ingest (the reference's ``from_dense_chunks``,
+        ref HadoopRDD.scala:87 partition streaming): a dataset from an
+        iterator of ``(x_chunk, y_chunk_or_None, w_chunk_or_None)`` host
+        chunks, without the whole matrix ever on the host.
+
+        Each chunk is cast to the data tier (``dtype``, default
+        :func:`data_dtype`; torch's round to nearest even) into a slot of
+        a pinned staging ring and copied onto the device on a side stream
+        while the next chunk is read (:class:`staging.StagingRing`); x is
+        staged before the next chunk is asked for, so a stream may reuse
+        its x buffer (y and w are kept). At the end the chunks are copied
+        into one padded X and released; peak
+        device memory is at most twice X. On the port's one shard the rows
+        keep input order, padded at the end to a multiple of 8 rows with
+        w = 0; y and w (accumulator tier) are assembled on the host and
+        kept as host twins, with the mask of real rows. The host does not
+        wait for the device: the assembly and every later use are ordered
+        after the copies on the caller's stream. ``ingest_stats`` holds
+        the split of the time (reading, staging, copies, assembly).
+        An fp8 ``dtype`` raises: quantize after ingest with
+        :meth:`quantized`, whose scales need every row."""
+        from cycloneml_tpu_torch.dataset.staging import StagingRing
+        conf = getattr(ctx, "conf", None)
+        if dtype is None:
+            dtype = data_dtype(conf)
+        if is_fp8_dtype(dtype):
+            raise ValueError("from_dense_chunks stages X in a wider tier; "
+                             "quantize the dataset with quantized()")
+        yw_dt = compute_dtype(conf)
+        np_yw = np.float64 if yw_dt == torch.float64 else np.float32
+        rt = ctx.mesh_runtime
+        if rt.data_parallelism != 1:
+            raise NotImplementedError(
+                "a dataset over several shards is ROADMAP slice 8")
+        t_all = time.perf_counter()
+        ring = StagingRing(rt.device)
+        parts: List[torch.Tensor] = []
+        ys: List[np.ndarray] = []
+        ws: List[np.ndarray] = []
+        read_s = stage_s = 0.0
+        it = iter(chunks)
+        ci = 0
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, None)
+                read_s += time.perf_counter() - t0
+                if item is None:
+                    break
+                cx, cy, cw = _dense_chunk(ci, item, n_features, np_yw)
+                m = cx.shape[0]
+                ci += 1
+                if m == 0:
+                    continue
+                t0 = time.perf_counter()
+                slot = ring.acquire()
+                buf = ring.buffer(slot, "x", m * n_features, dtype)
+                view = buf[:m * n_features].view(m, n_features)
+                with warnings.catch_warnings():
+                    # a read-only chunk (np.frombuffer) is only read here
+                    warnings.simplefilter("ignore", UserWarning)
+                    view.copy_(torch.from_numpy(np.ascontiguousarray(cx)))
+                stage_s += time.perf_counter() - t0
+                parts.extend(ring.put(slot, [view]))
+                ys.append(cy)
+                ws.append(cw)
+        finally:
+            # memory an error releases is reused only after the copies
+            stats = ring.finish()
+        t0 = time.perf_counter()
+        n = sum(len(c) for c in ys)
+        n_pad = max((n + 7) // 8 * 8, 8)
+        x = torch.empty((n_pad, n_features), dtype=dtype, device=rt.device)
+        lo = 0
+        while parts:
+            part = parts.pop(0)   # each chunk released once copied
+            x[lo:lo + part.shape[0]] = part
+            lo += part.shape[0]
+            del part
+        x[lo:] = 0
+        y_pad = np.zeros(n_pad, dtype=np_yw)
+        w_pad = np.zeros(n_pad, dtype=np_yw)
+        valid = np.zeros(n_pad, dtype=bool)
+        if n:
+            y_pad[:n] = np.concatenate(ys)
+            w_pad[:n] = np.concatenate(ws)
+        valid[:n] = True
+        ds = cls(ctx, x, rt.device_put_sharded_rows(y_pad),
+                 rt.device_put_sharded_rows(w_pad), n, n_features)
+        ds._valid_mask = valid
+        stats.update(read_s=read_s, stage_s=stage_s, chunks=ci, rows=n,
+                     dataset_bytes=ds.padded_bytes(),
+                     assembly_s=time.perf_counter() - t0,
+                     wall_s=time.perf_counter() - t_all)
+        ds._ingest = (stats, [ring])
+        return ds.attach_host_labels(y_pad, w_pad)
 
     @classmethod
     def _place(cls, ctx, x, y, w, dtype, x_scale) -> "InstanceDataset":
@@ -182,11 +318,15 @@ class InstanceDataset:
             ds._fp8_probe_ratio = self._fp8_probe_ratio
         if y is None and w is None:
             ds._yw_host = self._yw_host
+        ds._valid_mask = self._valid_mask
         return ds
 
     def valid_indices(self) -> np.ndarray:
         """Padded-array positions of the real (non-padding) rows: the
-        first ``n_rows`` (the port pads at the end only)."""
+        first ``n_rows`` (the port pads at the end only, so the streamed
+        ingest's mask names the same rows)."""
+        if self._valid_mask is not None:
+            return np.flatnonzero(self._valid_mask)
         return np.arange(self.n_rows)
 
     def gather_rows(self, idx) -> np.ndarray:

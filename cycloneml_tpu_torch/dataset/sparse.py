@@ -21,15 +21,20 @@ without centering, as the reference does, but keeps no scaled copy: the
 view carries the float32 ``scale`` (d,) and every pass reads ``value *
 scale[index]``, the same float32 product the reference stores.
 
-Not ported yet: the streamed libsvm ingest (``from_libsvm_stream``,
-``read_libsvm_sparse``), which needs the reference's native scanner
-(ROADMAP slice 10).
+The streamed libsvm ingest (:meth:`SparseInstanceDataset.from_libsvm_stream`,
+:func:`read_libsvm_sparse`) reads the file with the port's native scanner
+(``native/host.py``) into a pinned staging ring, copies each CSR chunk onto
+the device on a side stream while the next one parses, and builds the ELL
+on the device once its width is known, in file order.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional, Tuple
+import os
+import threading
+import time
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +176,17 @@ class SparseInstanceDataset:
         self._layout: dict = {}
         self._yw_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
+    #: (stats, staging rings) of the ingest that made the dataset
+    _ingest: Optional[tuple] = None
+
+    @property
+    def ingest_stats(self) -> Optional[dict]:
+        """The split of the time of the streamed ingest that made the
+        dataset (None for any other). The copies' device time is read at
+        the first access, which waits on the host for the last copy."""
+        from cycloneml_tpu_torch.dataset.staging import settle
+        return None if self._ingest is None else settle(*self._ingest)
+
     @property
     def is_hybrid(self) -> bool:
         return self.coo_row is not None
@@ -221,6 +237,127 @@ class SparseInstanceDataset:
             indices, values = hash_features(indices, values, hash_dim)
             d = hash_dim
         return cls.from_ell(ctx, indices, values, y, w, n_features=d)
+
+    @classmethod
+    def from_libsvm_stream(cls, ctx, path: str,
+                           n_features: Optional[int] = None,
+                           hash_dim: Optional[int] = None,
+                           k_max: Optional[int] = None,
+                           chunk_rows: int = 65536,
+                           n_threads: int = 0,
+                           n_readers: int = 1,
+                           collect_labels: Optional[list] = None
+                           ) -> "SparseInstanceDataset":
+        """Bounded-memory ingest of a libsvm file onto the device (the
+        reference's ``from_libsvm_stream``; ref HadoopRDD.scala:87
+        partition streaming feeding MLUtils.loadLibSVMFile,
+        MLUtils.scala:77): the host never holds more than the staging
+        ring's chunks.
+
+        The native scanner writes each CSR chunk (labels, row nnz, ids,
+        values) into a slot of a ring of pinned buffers
+        (:class:`~cycloneml_tpu_torch.dataset.staging.StagingRing`), which
+        is copied onto the device on a side stream while the next chunk
+        parses. ``n_readers > 1`` splits the file into byte ranges read by
+        concurrent threads (ctypes releases the GIL), each with its own
+        ring. Once every chunk is on the device the ELL is built there
+        with the widest row's width (or ``k_max``, which rejects a wider
+        row), the chunks released as they are placed: peak device memory
+        is the CSR chunks plus the ELL, at most twice the dataset and a
+        fraction of one chunk.
+
+        Rows keep FILE ORDER whatever ``n_readers`` (reader by reader, each
+        reader's chunks in order), so every reader count gives the same
+        dataset bit for bit; the reference places chunks round-robin over
+        its devices in arrival order. Ids are 1-based on disk: a file with
+        a ``0:`` index raises (the reference stores -1), as does an id at
+        or past ``n_features`` (unless ``hash_dim`` folds the ids into
+        ``hash_dim`` columns with :func:`hash_features`).
+
+        ``collect_labels``: pass an empty list to receive the float64
+        labels as chunks in the dataset's row order (one list: the port's
+        one shard). The host waits for no copy at the end: the assembly
+        and every later use are ordered after the copies on the caller's
+        stream. ``ingest_stats`` holds the split of the time.
+        """
+        from cycloneml_tpu_torch.native.host import native_available
+        rt = ctx.mesh_runtime
+        if rt.data_parallelism != 1:
+            raise NotImplementedError(
+                "a sparse dataset over several shards is ROADMAP slice 8")
+        if n_readers > 1 and not native_available():
+            raise NotImplementedError(
+                "n_readers > 1 needs the native scanner (not built here)")
+        t_all = time.perf_counter()
+        if n_readers <= 1:
+            ranges, threads_each = [None], n_threads
+        else:
+            size = os.path.getsize(path)
+            ranges = [(i * size // n_readers, (i + 1) * size // n_readers)
+                      for i in range(n_readers)]
+            threads_each = max(
+                1, (n_threads or (os.cpu_count() or 1)) // n_readers)
+        bound = None if hash_dim is not None else n_features
+        stop = threading.Event()   # set by a reader that fails
+        readers = [_LibsvmReader(path, rng, chunk_rows, threads_each,
+                                 rt.device, bound, k_max, stop)
+                   for rng in ranges]
+        if len(readers) == 1:
+            readers[0].run()
+        else:
+            workers = [threading.Thread(target=r.run, daemon=True)
+                       for r in readers]
+            for t in workers:
+                t.start()
+            for t in workers:
+                t.join()
+        stats = {"parse_s": 0.0, "host_s": 0.0, "wait_s": 0.0,
+                 "alloc_s": 0.0, "bytes": 0, "chunks": 0,
+                 "max_copy_bytes": 0}
+        chunks: List[_CsrChunk] = []
+        for r in readers:
+            ring = r.ring.finish()   # the caller's stream waits on the copies
+            for key in ("wait_s", "alloc_s", "bytes"):
+                stats[key] += ring[key]
+            stats["max_copy_bytes"] = max(stats["max_copy_bytes"],
+                                          ring["max_copy_bytes"])
+            stats["parse_s"] += r.parse_s
+            stats["host_s"] += r.host_s
+            stats["chunks"] += len(r.chunks)
+            chunks.extend(r.chunks)   # reader by reader: file order
+            r.chunks = []             # placed chunks are released
+        for r in readers:             # raised once the copies are ordered
+            if r.error is not None:
+                raise r.error
+        t0 = time.perf_counter()
+        max_feature = max((c.max_feature for c in chunks), default=0)
+        k = max([k_max or 1] + [c.k for c in chunks])
+        n = sum(c.rows for c in chunks)
+        nonzeros = sum(c.used for c in chunks)
+        if collect_labels is not None:
+            collect_labels.append([c.labels for c in chunks])
+        y_host = np.zeros(_pad_rows(n), dtype=np.float32)
+        if n:
+            y_host[:n] = np.concatenate([c.labels for c in chunks])
+        w_host = np.zeros(len(y_host), dtype=np.float32)
+        w_host[:n] = 1.0
+        indices, values, y, lowest = _assemble_ell(chunks, len(y_host), k,
+                                                   hash_dim, rt.device)
+        if lowest is not None and lowest < 0:
+            raise ValueError(
+                f"{path!r} holds a feature index 0 (found {lowest + 1}): "
+                "libsvm ids are 1-based")
+        w = rt.device_put_sharded_rows(w_host)
+        d = hash_dim or n_features or max(max_feature, 1)
+        ds = cls(ctx, indices, values, y, w, n, d)
+        ds._yw_host = (y_host, w_host)
+        stats.update(rows=n, nonzeros=nonzeros,
+                     dataset_bytes=sum(t.numel() * t.element_size()
+                                       for t in (indices, values, y, w)),
+                     k=k, assembly_s=time.perf_counter() - t0,
+                     wall_s=time.perf_counter() - t_all)
+        ds._ingest = (stats, [r.ring for r in readers])
+        return ds
 
     @classmethod
     def from_rows_hybrid(cls, ctx, rows, y=None, w=None,
@@ -359,6 +496,185 @@ class SparseInstanceDataset:
                 cval = cval * scale[cidx]
             np.add.at(full, (crow, cidx), cval)
         return full[mask]
+
+
+_SUB_ROWS = 1 << 12  # rows of a chunk placed into the ELL at a time
+
+
+class _CsrChunk(NamedTuple):
+    """One chunk of the streamed ingest on the device (float32 labels, row
+    nnz, ids, values), with what the host knows of it: its rows,
+    nonzeros, widest row, the CSR offsets at every ``_SUB_ROWS`` rows, its
+    float64 labels and the running max feature."""
+
+    rows: int
+    used: int
+    k: int
+    offsets: np.ndarray
+    labels: np.ndarray
+    max_feature: int
+    y: torch.Tensor
+    nnz: torch.Tensor
+    idx: torch.Tensor
+    val: torch.Tensor
+
+
+class _LibsvmReader:
+    """Reads one byte range of a libsvm file (None: the whole file) into
+    its own staging ring and onto the device, chunk by chunk, keeping the
+    chunks in order. ``n_features`` (None when hashing) and ``k_max`` are
+    checked on the host as each chunk arrives; a reader that fails sets
+    ``stop``, and every reader stops at its next chunk."""
+
+    def __init__(self, path, byte_range, chunk_rows, n_threads, device,
+                 n_features, k_max, stop):
+        from cycloneml_tpu_torch.dataset.staging import StagingRing
+        self.path, self.byte_range = path, byte_range
+        self.chunk_rows, self.n_threads = chunk_rows, n_threads
+        self.cap_nnz = chunk_rows * 64
+        self.n_features, self.k_max, self.stop = n_features, k_max, stop
+        self.ring = StagingRing(device)
+        self.chunks: List[_CsrChunk] = []
+        self.parse_s = self.host_s = 0.0
+        self.error: Optional[BaseException] = None
+
+    def _slot(self, slot):
+        b = self.ring.buffer
+        return (b(slot, "y", self.chunk_rows, torch.float64),
+                b(slot, "y32", self.chunk_rows, torch.float32),
+                b(slot, "nnz", self.chunk_rows, torch.int32),
+                b(slot, "idx", self.cap_nnz, torch.int32),
+                b(slot, "val", self.cap_nnz, torch.float32))
+
+    def _native_fills(self):
+        """Fill functions over the native stream: each writes the next
+        chunk into a slot's buffers and returns (rows, max_feature)."""
+        from cycloneml_tpu_torch.native.host import LibsvmStream
+        stream = LibsvmStream(self.path, n_threads=self.n_threads,
+                              byte_range=self.byte_range)
+
+        def fill(bufs):
+            y, _, nnz, idx, val = bufs
+            return stream.next_into(y.data_ptr(), nnz.data_ptr(),
+                                    idx.data_ptr(), val.data_ptr(),
+                                    self.chunk_rows, self.cap_nnz)
+        return fill, stream.close
+
+    def _python_fills(self):
+        """The same over the pure-Python twin (no native library)."""
+        from cycloneml_tpu_torch.native.host import stream_libsvm_views
+        gen = stream_libsvm_views(self.path, chunk_rows=self.chunk_rows,
+                                  cap_nnz=self.cap_nnz)
+
+        def fill(bufs):
+            got = next(gen, None)
+            if got is None:
+                return 0, 0
+            cy, cnnz, cfi, cfv, mf = got
+            y, _, nnz, idx, val = bufs
+            for dst, src in ((y, cy), (nnz, cnnz), (idx, cfi), (val, cfv)):
+                dst[:len(src)].copy_(torch.from_numpy(src))
+            return len(cy), mf
+        return fill, gen.close
+
+    def run(self) -> None:
+        from cycloneml_tpu_torch.native.host import native_available
+        try:
+            fill, close = (self._native_fills() if native_available()
+                           else self._python_fills())
+            try:
+                self._read(fill)
+            finally:
+                close()
+        except BaseException as e:  # raised again by the caller's thread
+            self.error = e
+            self.stop.set()
+
+    def _read(self, fill) -> None:
+        n_features, k_max = self.n_features, self.k_max
+        while not self.stop.is_set():
+            slot = self.ring.acquire()
+            bufs = self._slot(slot)
+            t0 = time.perf_counter()
+            m, mf = fill(bufs)
+            t1 = time.perf_counter()
+            self.parse_s += t1 - t0
+            if m == 0:
+                return
+            if n_features is not None and mf > n_features:
+                raise ValueError(
+                    f"observed feature index {mf - 1} >= declared "
+                    f"n_features={n_features}; pass n_features>={mf} or "
+                    "hash_dim to fold indices")
+            y, y32, nnz, idx, val = bufs
+            nnz_host = nnz[:m].numpy()
+            ends = np.cumsum(nnz_host, dtype=np.int64)
+            used, k = int(ends[-1]), max(int(nnz_host.max()), 1)
+            if k_max is not None and k > k_max:
+                raise ValueError(f"row has {k} nonzeros > k_max={k_max}")
+            starts = np.arange(0, m, _SUB_ROWS)
+            offsets = np.append(np.where(starts > 0, ends[starts - 1], 0),
+                                used)
+            labels = y[:m].numpy().copy()
+            y32[:m] = y[:m]                      # round to nearest, as numpy
+            on_device = self.ring.put(slot, [y32[:m], nnz[:m], idx[:used],
+                                             val[:used]])
+            self.chunks.append(_CsrChunk(m, used, k, offsets, labels, mf,
+                                         *on_device))
+            self.host_s += time.perf_counter() - t1
+
+
+def _assemble_ell(chunks: List[_CsrChunk], n_pad: int, k: int,
+                  hash_dim: Optional[int], device):
+    """The ELL (indices, values, y) of the chunks in order, built on the
+    device ``_SUB_ROWS`` rows at a time (each row's CSR entries scattered
+    into its first slots, in order; ids hashed first when ``hash_dim``);
+    each chunk is released once placed. Also returns the smallest raw id
+    (None without nonzeros), read back once."""
+    indices = torch.zeros((n_pad, k), dtype=torch.int32, device=device)
+    values = torch.zeros((n_pad, k), dtype=torch.float32, device=device)
+    y = torch.zeros(n_pad, dtype=torch.float32, device=device)
+    slots = torch.arange(k, device=device, dtype=torch.int32)
+    lowest = None
+    r0 = 0
+    while chunks:
+        c = chunks.pop(0)
+        y[r0:r0 + c.rows] = c.y
+        for b, lo in enumerate(range(0, c.rows, _SUB_ROWS)):
+            hi = min(lo + _SUB_ROWS, c.rows)
+            e0, e1 = int(c.offsets[b]), int(c.offsets[b + 1])
+            if e1 == e0:
+                continue
+            ids = c.idx[e0:e1]
+            low = ids.min()
+            lowest = low if lowest is None else torch.minimum(lowest, low)
+            if hash_dim is not None:
+                ids = hash_features_torch(ids, hash_dim)
+            mask = slots[None, :] < c.nnz[lo:hi, None]
+            indices[r0 + lo:r0 + hi].masked_scatter_(mask, ids)
+            values[r0 + lo:r0 + hi].masked_scatter_(mask, c.val[e0:e1])
+            del ids, mask
+        r0 += c.rows
+        del c
+    return indices, values, y, (None if lowest is None else
+                                int(lowest.item()))
+
+
+def read_libsvm_sparse(ctx, path: str, n_features: Optional[int] = None,
+                       hash_dim: Optional[int] = None,
+                       chunk_rows: int = 65536, n_readers: int = 1
+                       ) -> Tuple[SparseInstanceDataset, np.ndarray]:
+    """libsvm to ELL without densifying (the dense reader is
+    ``dataset.io.read_libsvm``): :meth:`SparseInstanceDataset.
+    from_libsvm_stream` with ``n_readers`` readers, and the float64 labels
+    in the dataset's row order (file order), the one O(n) host array."""
+    labels: list = []
+    ds = SparseInstanceDataset.from_libsvm_stream(
+        ctx, path, n_features=n_features, hash_dim=hash_dim,
+        chunk_rows=chunk_rows, n_readers=n_readers, collect_labels=labels)
+    parts = [c for shard in labels for c in shard]
+    y = np.concatenate(parts) if parts else np.zeros(0)
+    return ds, y
 
 
 def sparse_feature_std(ds: SparseInstanceDataset) -> np.ndarray:

@@ -1,14 +1,15 @@
-"""Estimator / Transformer / Predictor abstractions.
+"""Estimator / Transformer / Pipeline / Predictor abstractions.
 
-The port's counterpart of ``cycloneml_tpu/ml/base.py`` (the part the
-ported estimators use; Pipeline and persistence come with ROADMAP slice 9):
-estimators fit on an ``MLFrame`` (or an ``InstanceDataset``), models
-transform frames by adding prediction columns.
+The port's counterpart of ``cycloneml_tpu/ml/base.py`` (ref: mllib/src/main/
+scala/org/apache/spark/ml/Pipeline.scala:93 Pipeline, :296 PipelineModel;
+Predictor.scala; classification/Classifier.scala): estimators fit on an
+``MLFrame`` (or an ``InstanceDataset``), models transform frames by adding
+columns, and a Pipeline chains stages. Persistence is ``ml/util_io.py``'s.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -16,6 +17,9 @@ from cycloneml_tpu_torch.ml.param import ParamMap, Params
 from cycloneml_tpu_torch.ml.shared import (
     HasFeaturesCol, HasLabelCol, HasPredictionCol, HasProbabilityCol,
     HasRawPredictionCol, HasWeightCol,
+)
+from cycloneml_tpu_torch.ml.util_io import (
+    MLReadable, MLWritable, load_pipeline_stages, save_pipeline_stages,
 )
 
 
@@ -52,8 +56,85 @@ class Model(Transformer):
         self.parent = parent
         return self
 
-    def save(self, path: str) -> None:
-        raise NotImplementedError("model persistence is ROADMAP slice 9")
+
+class Pipeline(Estimator, MLWritable, MLReadable):
+    """Chain of stages (ref Pipeline.scala:93): fit runs the estimators in
+    order, transforming the frame through each fitted model up to the last
+    estimator."""
+
+    def __init__(self, stages: Optional[Sequence[PipelineStage]] = None,
+                 uid=None):
+        super().__init__(uid)
+        self.stagesParam = self._param("stages", "pipeline stages")
+        if stages is not None:
+            self.set_stages(list(stages))
+
+    def set_stages(self, stages: List[PipelineStage]) -> "Pipeline":
+        self._stages = list(stages)
+        return self
+
+    def get_stages(self) -> List[PipelineStage]:
+        return list(getattr(self, "_stages", []))
+
+    def _fit(self, frame) -> "PipelineModel":
+        cur = frame
+        fitted: List[Transformer] = []
+        stages = self.get_stages()
+        # transformers after the last estimator need not see the data
+        last_est = -1
+        for i, s in enumerate(stages):
+            if isinstance(s, Estimator):
+                last_est = i
+        for i, stage in enumerate(stages):
+            if isinstance(stage, Estimator):
+                model = stage.fit(cur)
+                fitted.append(model)
+                if i < last_est:
+                    cur = model.transform(cur)
+            elif isinstance(stage, Transformer):
+                fitted.append(stage)
+                if i < last_est:
+                    cur = stage.transform(cur)
+            else:
+                raise TypeError(f"stage {stage} is neither Estimator nor "
+                                "Transformer")
+        return PipelineModel(fitted, uid=self.uid)._set_parent(self)
+
+    def copy(self, extra: Optional[ParamMap] = None) -> "Pipeline":
+        that = super().copy(extra)
+        that._stages = [s.copy(extra) for s in self.get_stages()]
+        return that
+
+    def _save_data(self, path: str) -> None:
+        save_pipeline_stages(self.get_stages(), path)
+
+    def _load_data(self, path: str, meta) -> None:
+        self._stages = load_pipeline_stages(path)
+
+
+class PipelineModel(Model, MLWritable, MLReadable):
+    """Fitted pipeline (ref Pipeline.scala:296)."""
+
+    def __init__(self, stages: Optional[List[Transformer]] = None, uid=None):
+        super().__init__(uid)
+        self.stages = list(stages or [])
+
+    def _transform(self, frame):
+        cur = frame
+        for stage in self.stages:
+            cur = stage.transform(cur)
+        return cur
+
+    def copy(self, extra: Optional[ParamMap] = None) -> "PipelineModel":
+        that = super().copy(extra)
+        that.stages = [s.copy(extra) for s in self.stages]
+        return that
+
+    def _save_data(self, path: str) -> None:
+        save_pipeline_stages(self.stages, path)
+
+    def _load_data(self, path: str, meta) -> None:
+        self.stages = load_pipeline_stages(path)
 
 
 class Predictor(Estimator, HasFeaturesCol, HasLabelCol, HasPredictionCol,

@@ -18,6 +18,7 @@ import numpy as np
 from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
 from cycloneml_tpu_torch.linalg.vectors import DenseVector, Vectors
 from cycloneml_tpu_torch.ml.base import ClassificationModel, Predictor
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
 from cycloneml_tpu_torch.ml.optim import aggregators
 from cycloneml_tpu_torch.ml.optim.lbfgs import LBFGS
 from cycloneml_tpu_torch.ml.optim.loss import (DistributedLossFunction,
@@ -48,7 +49,7 @@ class _LinearSVCParams(HasMaxIter, HasRegParam, HasTol, HasFitIntercept,
         self._p_aggregation_depth(2)
 
 
-class LinearSVC(Predictor, _LinearSVCParams):
+class LinearSVC(Predictor, _LinearSVCParams, MLWritable, MLReadable):
     def __init__(self, uid=None, **kwargs):
         super().__init__(uid)
         self._declare_svc_params()
@@ -105,7 +106,8 @@ class LinearSVC(Predictor, _LinearSVCParams):
         return model
 
 
-class LinearSVCModel(ClassificationModel, _LinearSVCParams):
+class LinearSVCModel(ClassificationModel, _LinearSVCParams,
+                     MLWritable, MLReadable):
     def __init__(self, coefficients: Optional[np.ndarray] = None,
                  intercept: float = 0.0, uid=None):
         super().__init__(uid)
@@ -139,3 +141,11 @@ class LinearSVCModel(ClassificationModel, _LinearSVCParams):
 
     def _raw_to_prediction(self, raw: np.ndarray) -> np.ndarray:
         return (raw[:, 1] > self.get("threshold")).astype(np.float64)
+
+    def _save_data(self, path: str) -> None:
+        save_arrays(path, coef=self._coef, icpt=np.array(self._icpt))
+
+    def _load_data(self, path: str, meta) -> None:
+        arrs = load_arrays(path)
+        self._coef = arrs["coef"]
+        self._icpt = float(arrs["icpt"])

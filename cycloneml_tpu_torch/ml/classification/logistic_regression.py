@@ -61,6 +61,7 @@ from cycloneml_tpu_torch.ml.optim.loss import (DistributedLossFunction,
                                                inv_std_vector,
                                                l2_regularization)
 from cycloneml_tpu_torch.ml.param import ParamValidators as V
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
 from cycloneml_tpu_torch.ml.shared import (
     HasAggregationDepth, HasElasticNetParam, HasFitIntercept, HasLabelCol,
     HasMaxBlockSizeInMB, HasMaxIter, HasRegParam, HasStandardization,
@@ -120,7 +121,8 @@ class _LogisticRegressionParams(HasMaxIter, HasRegParam, HasElasticNetParam,
             "lowerBoundsOnIntercepts", "upperBoundsOnIntercepts"))
 
 
-class LogisticRegression(Predictor, _LogisticRegressionParams):
+class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
+                         MLReadable):
     def __init__(self, uid=None, **kwargs):
         super().__init__(uid)
         self._declare_lr_params()
@@ -653,7 +655,8 @@ def _row64(y_stack, kk: int) -> np.ndarray:
 
 
 class LogisticRegressionModel(ProbabilisticClassificationModel,
-                              _LogisticRegressionParams, HasLabelCol):
+                              _LogisticRegressionParams, HasLabelCol,
+                              MLWritable, MLReadable):
     """Fitted model: margins, sigmoid (binomial) or softmax (multinomial,
     a ``(k, d)`` coefficient matrix and ``(k,)`` intercepts)
     probabilities, threshold-aware binomial predictions."""
@@ -721,6 +724,18 @@ class LogisticRegressionModel(ProbabilisticClassificationModel,
             return np.argmax(raw, axis=1).astype(np.float64)
         prob1 = 1.0 / (1.0 + np.exp(-raw[:, 1]))
         return (prob1 > self.get("threshold")).astype(np.float64)
+
+    def _save_data(self, path: str) -> None:
+        save_arrays(path, coef=self._coef, icpt=self._icpt,
+                    num_classes=np.array(self._num_classes),
+                    is_multinomial=np.array(self._is_multinomial))
+
+    def _load_data(self, path: str, meta) -> None:
+        arrs = load_arrays(path)
+        self._coef = arrs["coef"]
+        self._icpt = arrs["icpt"]
+        self._num_classes = int(arrs["num_classes"])
+        self._is_multinomial = bool(arrs["is_multinomial"])
 
     def __repr__(self) -> str:
         return (f"LogisticRegressionModel(uid={self.uid}, "

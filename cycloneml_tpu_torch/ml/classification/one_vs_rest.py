@@ -13,8 +13,8 @@ the reference's serial fallback does.
 
 Besides a frame, the fit takes an :class:`InstanceDataset` (data made on the
 card): its labels are read from the dataset's host twin, and the serial
-path relabels it through ``derive``. Persistence (``save``/``load``) is
-ROADMAP slice 9.
+path relabels it through ``derive``. Both persist in the reference's layout
+(``ml/util_io.py``): the classifier, or the binary models, as stages.
 """
 
 from __future__ import annotations
@@ -29,6 +29,9 @@ from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
 from cycloneml_tpu_torch.dataset.instance import compute_dtype, data_dtype
 from cycloneml_tpu_torch.ml.base import ClassificationModel, Estimator, Model
 from cycloneml_tpu_torch.ml.param import ParamValidators as V
+from cycloneml_tpu_torch.ml.util_io import (
+    MLReadable, MLWritable, load_pipeline_stages, save_pipeline_stages,
+)
 from cycloneml_tpu_torch.ml.shared import (
     HasFeaturesCol, HasLabelCol, HasPredictionCol, HasRawPredictionCol,
     HasWeightCol,
@@ -58,7 +61,7 @@ def _labels(frame, label_col: str) -> np.ndarray:
     return np.asarray(frame[label_col])
 
 
-class OneVsRest(Estimator, _OVRParams):
+class OneVsRest(Estimator, _OVRParams, MLWritable, MLReadable):
     def __init__(self, classifier: Optional[Estimator] = None, uid=None,
                  **kwargs):
         super().__init__(uid)
@@ -132,6 +135,12 @@ class OneVsRest(Estimator, _OVRParams):
         that.classifier = self.classifier.copy() if self.classifier else None
         return that
 
+    def _save_data(self, path: str) -> None:
+        save_pipeline_stages([self.classifier], path)
+
+    def _load_data(self, path: str, meta) -> None:
+        self.classifier = load_pipeline_stages(path)[0]
+
 
 def _relabeled(ds: InstanceDataset, binary: np.ndarray) -> InstanceDataset:
     """``ds`` with the real rows' labels replaced by ``binary`` (padding
@@ -142,7 +151,7 @@ def _relabeled(ds: InstanceDataset, binary: np.ndarray) -> InstanceDataset:
     return sub.attach_host_labels(y_pad, ds.w_host())
 
 
-class OneVsRestModel(Model, _OVRParams):
+class OneVsRestModel(Model, _OVRParams, MLWritable, MLReadable):
     def __init__(self, models: Optional[List[ClassificationModel]] = None,
                  uid=None):
         super().__init__(uid)
@@ -170,3 +179,9 @@ class OneVsRestModel(Model, _OVRParams):
         that = super().copy(extra)
         that.models = [m.copy() for m in self.models]
         return that
+
+    def _save_data(self, path: str) -> None:
+        save_pipeline_stages(self.models, path)
+
+    def _load_data(self, path: str, meta) -> None:
+        self.models = load_pipeline_stages(path)

@@ -37,6 +37,7 @@ from cycloneml_tpu_torch.ml.base import Estimator, Model
 from cycloneml_tpu_torch.ml.clustering._util import (normalize_rows,
                                                      pairwise_sq_dists)
 from cycloneml_tpu_torch.ml.param import ParamValidators as V
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
 from cycloneml_tpu_torch.ml.shared import (
     HasFeaturesCol, HasMaxIter, HasPredictionCol, HasSeed, HasTol,
     HasWeightCol,
@@ -87,7 +88,7 @@ def _center_sums(x: torch.Tensor, w: torch.Tensor, best: torch.Tensor,
     return kernels.center_sums(x, w, best, k)
 
 
-class KMeans(Estimator, _KMeansParams):
+class KMeans(Estimator, _KMeansParams, MLWritable, MLReadable):
     def __init__(self, uid=None, **kwargs):
         super().__init__(uid)
         self._declare_kmeans_params()
@@ -250,7 +251,7 @@ def _kmeans_pp(points: np.ndarray, weights: np.ndarray, k: int,
     return points[chosen].astype(np.float64)
 
 
-class KMeansModel(Model, _KMeansParams):
+class KMeansModel(Model, _KMeansParams, MLWritable, MLReadable):
     def __init__(self, centers: Optional[np.ndarray] = None,
                  training_cost: float = 0.0, uid=None):
         super().__init__(uid)
@@ -296,3 +297,12 @@ class KMeansModel(Model, _KMeansParams):
         d2 = pairwise_sq_dists(self._host_rows(frame[self.get("featuresCol")]),
                                self._centers)
         return float(np.maximum(d2.min(1), 0.0).sum())
+
+    def _save_data(self, path: str) -> None:
+        save_arrays(path, centers=self._centers,
+                    training_cost=np.array(self.training_cost))
+
+    def _load_data(self, path: str, meta) -> None:
+        arrs = load_arrays(path)
+        self._centers = arrs["centers"]
+        self.training_cost = float(arrs["training_cost"])

@@ -13,6 +13,7 @@ from cycloneml_tpu_torch.linalg.distributed import RowMatrix
 from cycloneml_tpu_torch.ml.base import Estimator, Model
 from cycloneml_tpu_torch.ml.param import Params
 from cycloneml_tpu_torch.ml.param import ParamValidators as V
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
 
 
 class _InOutCol(Params):
@@ -36,7 +37,7 @@ class _InOutCol(Params):
         return x[:, None] if x.ndim == 1 else x
 
 
-class PCA(Estimator, _InOutCol):
+class PCA(Estimator, _InOutCol, MLWritable, MLReadable):
     def __init__(self, uid=None, **kw):
         super().__init__(uid)
         self._p_in_out(out_default="pca")
@@ -56,7 +57,7 @@ class PCA(Estimator, _InOutCol):
         return m._set_parent(self)
 
 
-class PCAModel(Model, _InOutCol):
+class PCAModel(Model, _InOutCol, MLWritable, MLReadable):
     def __init__(self, pc: Optional[np.ndarray] = None,
                  explained_variance: Optional[np.ndarray] = None, uid=None):
         super().__init__(uid)
@@ -70,3 +71,10 @@ class PCAModel(Model, _InOutCol):
     def _transform(self, frame):
         return frame.with_column(self.get("outputCol"),
                                  self._in(frame) @ self.pc)
+
+    def _save_data(self, path):
+        save_arrays(path, pc=self.pc, ev=self.explained_variance)
+
+    def _load_data(self, path, meta):
+        a = load_arrays(path)
+        self.pc, self.explained_variance = a["pc"], a["ev"]

@@ -1,15 +1,19 @@
-"""ML parameter system — the port's copy of ``cycloneml_tpu/ml/param.py``
-(without persistence, which comes with ROADMAP slice 9).
+"""ML parameter system — the port's copy of ``cycloneml_tpu/ml/param.py``.
 
 Per-instance ``Param``/``ParamMap`` semantics (ref: mllib/src/main/scala/org/
 apache/spark/ml/param/params.scala): typed params with docs and validators,
-per-instance default vs. user-set maps, ``copy``/``extractParamMap``.
+per-instance default vs. user-set maps, ``copy``/``extractParamMap``, and
+JSON persistence of values — the contract ``DefaultParamsWriter`` relies on
+(``ml/util_io.py``).
 """
 
 from __future__ import annotations
 
+import json
 import uuid
 from typing import Any, Callable, Dict, Generic, List, Optional, TypeVar
+
+import numpy as np
 
 T = TypeVar("T")
 
@@ -36,6 +40,15 @@ class Param(Generic[T]):
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Param) and (self.parent, self.name) == (other.parent, other.name)
+
+    # JSON codecs used by model persistence
+    def json_encode(self, value: T) -> str:
+        if isinstance(value, np.ndarray):
+            return json.dumps(value.tolist())
+        return json.dumps(value)
+
+    def json_decode(self, s: str) -> T:
+        return json.loads(s)
 
 
 class ParamValidators:
@@ -211,6 +224,31 @@ class Params:
             if p.name in to._params:
                 to.set(to.get_param(p.name), v)
         return to
+
+    # -- persistence helpers ---------------------------------------------------
+    def _params_to_json(self) -> Dict[str, Any]:
+        out = {}
+        for name, p in self._params.items():
+            if self._param_map.contains(p):
+                v = self._param_map.get(p)
+                out[name] = json.loads(p.json_encode(v))
+        return out
+
+    def _default_params_to_json(self) -> Dict[str, Any]:
+        out = {}
+        for name, p in self._params.items():
+            if self._default_param_map.contains(p):
+                v = self._default_param_map.get(p)
+                out[name] = json.loads(p.json_encode(v))
+        return out
+
+    def _set_params_from_json(self, d: Dict[str, Any], default: bool = False) -> None:
+        for name, v in d.items():
+            if name in self._params:
+                if default:
+                    self._default_param_map.put(self._params[name], v)
+                else:
+                    self._param_map.put(self._params[name], v)
 
     def explain_param(self, param: Param) -> str:
         value = "undefined"

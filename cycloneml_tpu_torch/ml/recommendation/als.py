@@ -28,8 +28,9 @@ sharded trainer (``_train_blocked``) places entity e at row (e % D) n_loc
 order; on the port's one device (D = 1) that layout is the identity and
 its arithmetic is this loop's, so "never", "auto" and "always" all run it
 and give the same bits. The blocked layout across devices is ROADMAP
-Queue 1 item 9; ``checkpointDir`` (item 10) and persistence (item 4)
-raise.
+Queue 1 item 9; ``checkpointDir`` (item 10) raises. ``ALS`` and
+``ALSModel`` persist in the reference's layout (``ml/util_io.py``; the
+model's four arrays under their reference names).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from cycloneml_tpu_torch.dataset.frame import MLFrame
 from cycloneml_tpu_torch.dataset.instance import compute_dtype
 from cycloneml_tpu_torch.ml.base import Estimator, Model
 from cycloneml_tpu_torch.ml.param import ParamValidators as V
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
 from cycloneml_tpu_torch.ml.shared import (HasMaxIter, HasPredictionCol,
                                            HasRegParam, HasSeed)
 from cycloneml_tpu_torch.ops import kernels
@@ -168,7 +170,7 @@ def batched_pnewton(a: torch.Tensor, b: torch.Tensor,
     return x
 
 
-class ALS(Estimator, _ALSParams):
+class ALS(Estimator, _ALSParams, MLWritable, MLReadable):
     def __init__(self, uid=None, **kwargs):
         super().__init__(uid)
         self._declare_als_params()
@@ -186,9 +188,6 @@ class ALS(Estimator, _ALSParams):
 
     def set_implicit_prefs(self, v):
         return self.set("implicitPrefs", v)
-
-    def save(self, path: str) -> None:
-        raise NotImplementedError("ALS persistence is ROADMAP Queue 1 item 4")
 
     def _fit(self, frame: MLFrame) -> "ALSModel":
         if self.get("checkpointDir"):
@@ -250,7 +249,7 @@ class ALS(Estimator, _ALSParams):
                 both[split:].reshape(n_items, rank))
 
 
-class ALSModel(Model, _ALSParams):
+class ALSModel(Model, _ALSParams, MLWritable, MLReadable):
     def __init__(self, user_ids: Optional[np.ndarray] = None,
                  item_ids: Optional[np.ndarray] = None,
                  user_factors: Optional[np.ndarray] = None,
@@ -265,15 +264,6 @@ class ALSModel(Model, _ALSParams):
     @property
     def rank(self) -> int:
         return self.user_factors.shape[1]
-
-    def save(self, path: str) -> None:
-        raise NotImplementedError("ALSModel persistence is ROADMAP Queue 1 "
-                                  "item 4")
-
-    @classmethod
-    def load(cls, path: str) -> "ALSModel":
-        raise NotImplementedError("ALSModel persistence is ROADMAP Queue 1 "
-                                  "item 4")
 
     def _lookup(self, raw_ids: np.ndarray, ids: np.ndarray) -> np.ndarray:
         pos = np.searchsorted(ids, raw_ids)
@@ -314,3 +304,15 @@ class ALSModel(Model, _ALSParams):
             "item": np.repeat(self.item_ids, num_users),
             "user": self.user_ids[top.ravel()],
             "rating": np.take_along_axis(scores, top, axis=1).ravel()})
+
+    def _save_data(self, path: str) -> None:
+        save_arrays(path, user_ids=self.user_ids, item_ids=self.item_ids,
+                    user_factors=self.user_factors,
+                    item_factors=self.item_factors)
+
+    def _load_data(self, path: str, meta) -> None:
+        arrs = load_arrays(path)
+        self.user_ids = arrs["user_ids"]
+        self.item_ids = arrs["item_ids"]
+        self.user_factors = arrs["user_factors"]
+        self.item_factors = arrs["item_factors"]

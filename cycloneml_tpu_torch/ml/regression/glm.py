@@ -39,6 +39,7 @@ from cycloneml_tpu_torch.linalg.vectors import DenseVector, Vectors
 from cycloneml_tpu_torch.ml.base import PredictionModel, Predictor
 from cycloneml_tpu_torch.ml.optim.aggregators import ROW_CHUNK
 from cycloneml_tpu_torch.ml.param import ParamValidators as V
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
 from cycloneml_tpu_torch.ml.shared import (
     HasAggregationDepth, HasFitIntercept, HasLabelCol, HasMaxIter,
     HasRegParam, HasSolver, HasTol,
@@ -515,7 +516,8 @@ class _GLRParams(HasMaxIter, HasRegParam, HasTol, HasFitIntercept,
         self._param("linkPredictionCol", "eta output column", default="")
 
 
-class GeneralizedLinearRegression(Predictor, _GLRParams):
+class GeneralizedLinearRegression(Predictor, _GLRParams, MLWritable,
+                                  MLReadable):
     """IRLS-trained GLM (ref GeneralizedLinearRegression.scala:246)."""
 
     MAX_FEATURES = 4096  # ref: WeightedLeastSquares.MAX_NUM_FEATURES
@@ -706,7 +708,8 @@ class GeneralizedLinearRegression(Predictor, _GLRParams):
         return float(_host(fam.deviance, y, mu, w))
 
 
-class GeneralizedLinearRegressionModel(PredictionModel, _GLRParams):
+class GeneralizedLinearRegressionModel(PredictionModel, _GLRParams,
+                                       MLWritable, MLReadable):
     def __init__(self, coefficients: Optional[np.ndarray] = None,
                  intercept: float = 0.0, uid=None):
         super().__init__(uid)
@@ -751,6 +754,14 @@ class GeneralizedLinearRegressionModel(PredictionModel, _GLRParams):
         if lcol:
             out = out.with_column(lcol, eta)
         return out
+
+    def _save_data(self, path: str) -> None:
+        save_arrays(path, coef=self._coef, icpt=np.array(self._icpt))
+
+    def _load_data(self, path: str, meta) -> None:
+        arrs = load_arrays(path)
+        self._coef = arrs["coef"]
+        self._icpt = float(arrs["icpt"])
 
 
 class GLMTrainingSummary:

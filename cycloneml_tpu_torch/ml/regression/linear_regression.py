@@ -24,8 +24,7 @@ codes it first leaves the fp8 rung through ``fp8_fallback``.
 
 Not ported yet: streamed datasets (under ``cyclone.oocore.mode=force`` a
 fit raises ``NotImplementedError`` where the reference would stream, after
-the reference's own check that refuses ``solver="normal"`` there),
-persistence.
+the reference's own check that refuses ``solver="normal"`` there).
 """
 
 from __future__ import annotations
@@ -42,6 +41,7 @@ from cycloneml_tpu_torch.dataset.dataset import (InstanceDataset,
 from cycloneml_tpu_torch.dataset.instance import compute_dtype
 from cycloneml_tpu_torch.linalg.vectors import DenseVector, Vectors
 from cycloneml_tpu_torch.ml.base import PredictionModel, Predictor
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
 from cycloneml_tpu_torch.ml.optim import aggregators
 from cycloneml_tpu_torch.ml.optim.lbfgs import LBFGS, OWLQN
 from cycloneml_tpu_torch.ml.optim.loss import (DistributedLossFunction,
@@ -81,7 +81,8 @@ def _label_moments(x, y, w):
             "w2": torch.sum(w * w)}
 
 
-class LinearRegression(Predictor, _LinearRegressionParams):
+class LinearRegression(Predictor, _LinearRegressionParams, MLWritable,
+                       MLReadable):
     def __init__(self, uid=None, **kwargs):
         super().__init__(uid)
         self._declare_linreg_params()
@@ -258,7 +259,8 @@ class LinearRegression(Predictor, _LinearRegressionParams):
                            loss_fn)
 
 
-class LinearRegressionModel(PredictionModel, _LinearRegressionParams):
+class LinearRegressionModel(PredictionModel, _LinearRegressionParams,
+                            MLWritable, MLReadable):
     def __init__(self, coefficients: Optional[np.ndarray] = None,
                  intercept: float = 0.0, uid=None):
         super().__init__(uid)
@@ -295,6 +297,14 @@ class LinearRegressionModel(PredictionModel, _LinearRegressionParams):
         return {"rmse": float(np.sqrt(sse / n)), "mse": sse / n,
                 "mae": float(np.abs(resid).mean()),
                 "r2": 1.0 - sse / sst if sst > 0 else float("nan")}
+
+    def _save_data(self, path: str) -> None:
+        save_arrays(path, coef=self._coef, icpt=np.array(self._icpt))
+
+    def _load_data(self, path: str, meta) -> None:
+        arrs = load_arrays(path)
+        self._coef = arrs["coef"]
+        self._icpt = float(arrs["icpt"])
 
 
 class LinearRegressionTrainingSummary:

@@ -11,12 +11,16 @@ one after another.
 The reference runs each grid point's work as a straggler lane
 (``elastic.speculation``, ``observe.skew``); those lanes are ROADMAP slices
 8 and 10, and the port calls the work directly, which is what the
-reference does when speculation is not armed. Persistence is ROADMAP
-slice 9.
+reference does when speculation is not armed. The models persist in the
+reference's layout (``ml/util_io.py``): the best model under
+``bestModel/`` and the metrics in ``metrics.json``; the estimators persist
+their params only, as the reference's do.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from itertools import product
 from typing import List, Optional
 
@@ -27,6 +31,7 @@ from cycloneml_tpu_torch.ml.base import Estimator, Model
 from cycloneml_tpu_torch.ml.param import Param, ParamMap, \
     ParamValidators as V
 from cycloneml_tpu_torch.ml.shared import HasSeed
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_instance
 
 
 class ParamGridBuilder:
@@ -135,7 +140,7 @@ class _ValidatorParams(HasSeed):
                          for m in models])
 
 
-class CrossValidator(Estimator, _ValidatorParams):
+class CrossValidator(Estimator, _ValidatorParams, MLWritable, MLReadable):
     """(ref CrossValidator.scala:80)."""
 
     def __init__(self, uid=None, estimator=None, estimator_param_maps=None,
@@ -188,7 +193,7 @@ class CrossValidator(Estimator, _ValidatorParams):
         return model._set_parent(self)
 
 
-class CrossValidatorModel(Model, _ValidatorParams):
+class CrossValidatorModel(Model, _ValidatorParams, MLWritable, MLReadable):
     def __init__(self, best_model: Optional[Model] = None,
                  avg_metrics: Optional[List[float]] = None, uid=None):
         super().__init__(uid)
@@ -201,8 +206,19 @@ class CrossValidatorModel(Model, _ValidatorParams):
     def _transform(self, frame):
         return self.best_model.transform(frame)
 
+    def _save_data(self, path):
+        self.best_model.save(os.path.join(path, "bestModel"), overwrite=True)
+        with open(os.path.join(path, "metrics.json"), "w") as fh:
+            json.dump(self.avg_metrics, fh)
 
-class TrainValidationSplit(Estimator, _ValidatorParams):
+    def _load_data(self, path, meta):
+        self.best_model = load_instance(os.path.join(path, "bestModel"))
+        with open(os.path.join(path, "metrics.json")) as fh:
+            self.avg_metrics = json.load(fh)
+
+
+class TrainValidationSplit(Estimator, _ValidatorParams, MLWritable,
+                           MLReadable):
     """(ref TrainValidationSplit.scala)."""
 
     def __init__(self, uid=None, estimator=None, estimator_param_maps=None,

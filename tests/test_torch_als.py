@@ -20,7 +20,9 @@ relative after ten iterations.
   bitwise-equal factors;
 - the model (cold start, ``recommend_for_all_users``/``_items``) against
   the reference's on identical factors (``interop.als_model_from_reference``);
-- ``checkpointDir`` and persistence raise.
+- ``checkpointDir`` raises; persistence raises only where the reference's
+  does (a path that exists, a directory of another class), and a round
+  trip keeps the factors bit for bit.
 
 The float32 kernel's arithmetic (TF32 parts, three products, float32
 sums by stage) is emulated in numpy and held to the card's tolerance.
@@ -457,14 +459,23 @@ def test_checkpoint_dir_raises(pctx, tmp_path):
 
 
 def test_persistence_raises(pctx, tmp_path):
+    """Since Queue 1 item 4, ALS and ALSModel persist: saving onto a path
+    that exists raises, as loading an ALS estimator's directory as a model
+    does; the round trip keeps ids and factors bitwise."""
     users, items, r, _, _ = _ratings(seed=57)
     model = ALS(rank=3, maxIter=2).fit(
         MLFrame(pctx, {"user": users, "item": items, "rating": r}))
-    for call in (lambda: model.save(str(tmp_path / "m")),
-                 lambda: ALSModel.load(str(tmp_path / "m")),
-                 lambda: ALS().save(str(tmp_path / "e"))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            call()
+    model.save(str(tmp_path / "m"))
+    ALS(rank=3).save(str(tmp_path / "e"))
+    with pytest.raises(IOError, match="Path exists"):
+        model.save(str(tmp_path / "m"))
+    with pytest.raises(TypeError, match="expected ALSModel"):
+        ALSModel.load(str(tmp_path / "e"))
+    back = ALSModel.load(str(tmp_path / "m"))
+    for name in ("user_ids", "item_ids", "user_factors", "item_factors"):
+        a, b = getattr(model, name), getattr(back, name)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert ALS.load(str(tmp_path / "e")).get("rank") == 3
 
 
 def test_params_keep_the_reference_defaults():

@@ -262,3 +262,73 @@ def test_als_wrapper_imports_and_runs_without_cuda():
              "assert a[0].tolist() == [[3., 2.], [2., 3.]]\n",
              CUDA_VISIBLE_DEVICES="")
     assert r.returncode == 0, r.stderr
+
+
+def _code_strings(tree):
+    """The string constants of a module that are not docstrings (f-string
+    parts included)."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    getattr(first, "value", None), ast.Constant):
+                docs.add(id(first.value))
+    return [n for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+_REF_PATH = re.compile(r"(?<![\w])cycloneml_tpu/([\w./:\-]*)")
+_CITATION = re.compile(r"[\w/]+\.py(:[\d\-]*)?")
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_load_nothing_from_the_jax_package_by_path(path):
+    """A ctypes load or a build by path would escape the import guard: no
+    string in the port's code names a file under ``cycloneml_tpu/`` other
+    than a citation of a Python source (``kernels.py:270``), nor the
+    package directory as a path component, nor the reference's native
+    library (``_lib/libcyclone_host.so``)."""
+    text = path.read_text()
+    assert "libcyclone_host.so" not in text and "/_lib" not in text, \
+        f"{path} names the reference's native library"
+    for node in _code_strings(ast.parse(text)):
+        s = node.value
+        assert s.strip("/") != "cycloneml_tpu", \
+            f"{path}:{node.lineno} joins the JAX package's directory"
+        for m in _REF_PATH.finditer(s):
+            assert _CITATION.fullmatch(m.group(1)), \
+                f"{path}:{node.lineno} names {m.group(0)!r}"
+
+
+def test_native_sources_include_nothing_of_the_jax_package():
+    srcs = sorted((PKG / "native" / "src").glob("*")) + \
+        sorted((PKG / "csrc").glob("*"))
+    assert PKG / "native" / "src" / "cyclone_host.cpp" in srcs
+    for src in srcs:
+        for line in src.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert "cycloneml_tpu/" not in line, f"{src}: {line}"
+
+
+def test_the_native_library_is_the_ports_own():
+    """Reading a libsvm file maps the port's library, built from its own
+    source into its own build directory, and nothing under the JAX
+    package."""
+    r = _run("import os, tempfile\n"
+             "from cycloneml_tpu_torch import native\n"
+             "from cycloneml_tpu_torch.native import host\n"
+             "p = os.path.join(tempfile.mkdtemp(), 'a.svm')\n"
+             "open(p, 'w').write('1 1:2\\n0 2:3\\n')\n"
+             "assert len(list(host.stream_libsvm_chunks(p))) == 1\n"
+             "maps = open('/proc/self/maps').read()\n"
+             "assert 'cycloneml_tpu/' not in maps, 'the JAX package mapped'\n"
+             "lib = str(native.build())\n"
+             "assert lib in maps and '/cycloneml_tpu_torch/_build/' in lib\n"
+             "assert native.SRC.parent.parent.name == 'native'\n"
+             "assert native.SRC.parent.parent.parent.name == "
+             "'cycloneml_tpu_torch'\n")
+    assert r.returncode == 0, r.stderr
