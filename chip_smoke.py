@@ -309,7 +309,35 @@ the final result line:
    ones, transform outputs bitwise equal on each model's first PROBE_ROWS
    rows (every model transforms on the host), ALS's held-out RMSE the
    same number; save and load seconds and bytes;
-40. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+40. out of core, LogisticRegression streamed under ``cyclone.oocore.
+   mode=force`` at bench.py's shape (phase 4's data, seed 0, 31 shards of
+   65,536 rows on disk, staged through pinned buffers; tol OOC_TOL for
+   this and the next four phases): K1 once a shard an evaluation, the
+   model at the kernel tolerance of the in-core K1 fit (objective to
+   1e-4), a second streamed fit (attached to the cached spill) bitwise
+   equal, its peak device memory within (prefetchDepth + 1) shards plus
+   the fit's vectors, the epochs' split (host reads, copies, the copies'
+   hidden share, the shards' device time);
+41. configuration 2's .npy (phase 38's) straight to shards through
+   ``iter_npy_chunks`` and ``StreamingDataset.from_chunks`` (no in-core
+   dataset), phase 6's OWL-QN LinearRegression streamed through K2: K2
+   once a shard an evaluation, the same peak bound, the model at the
+   kernel tolerance of phase 38's in-core fit on the read rows;
+42. the memory budget guard: ``budgetFraction`` set, ``deviceBytes``
+   below the in-core fit's predicted peak, ``cacheBytes`` above the
+   spill: phase 40's fit degrades to streaming and is phase 40's model
+   bit for bit, a second fit attaches with 0 spill-write bytes, and under
+   ``mode=off`` with ``budgetAction=raise`` the fit raises
+   MemoryBudgetError;
+43. the e4m3 stream (``streamDtype=float8``): phase 40's fit through K1's
+   e4m3 instance once a shard, within the fp8 envelope of the in-core
+   fp8 fit and of phase 40's streamed bf16 fit, printing which it is
+   closer to;
+44. streamed stacked OneVsRest: OVR_K classes at d = 1280, rows cut to
+   OOC_OVR_N, through K1s once a shard a lockstep evaluation, the first
+   OOC_SERIAL models each at the kernel tolerance of its serial streamed
+   fit;
+45. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -322,7 +350,8 @@ the final result line:
    20's bounded fit) and the ALS normal equations (phase 35's launches,
    the users' half-step's times, the items' beside them), with the
    launches of phases 37-39's paths beside the entries they ran (K1, K2,
-   K4, S1, S2), the phases' and the total wall time; the last line is
+   K4, S1, S2) and of phases 40-44's (K1, K2, K1 e4m3, K1s), the phases'
+   and the total wall time; the last line is
    ``{"ok":
    true, "device": {...}}``.
 
@@ -414,6 +443,9 @@ INGEST_READERS = (1, 4)          # read_libsvm_sparse's n_readers
 EPS_N, EPS_D = 50_000, 2000      # epsilon's layout, rows cut
 CSV_N, CSV_D = 50_000, 129       # a label and 128 features
 PIPE_K = 32                      # the Pipeline's PCA components
+OOC_TOL = 1e-6                   # the streamed phases' LR/OvR tol
+OOC_OVR_N = 500_000              # the streamed OneVsRest's rows (cut)
+OOC_SERIAL = 3                   # its models held to serial streamed fits
 PROBE_ROWS = 4096                # rows each kept model transforms
 TEXT_BLOCK_BYTES = 1 << 28       # token bytes formatted on the card at once
 # the models the run fits and the persistence phase saves and loads
@@ -4895,7 +4927,6 @@ def phase_ingest_dense(tmp):
         ds_npy, npy_nums = _read_numbers(
             lambda: read_npy_chunked(ctx, npy, label_col=LIN_D),
             lambda out: out, npy_bytes)
-        os.remove(npy)
         ref = InstanceDataset.from_numpy(ctx, rows[:, :LIN_D],
                                          rows[:, LIN_D])
         del rows
@@ -4997,7 +5028,8 @@ def phase_ingest_dense(tmp):
                 served.get("python", 0) == 0
                 and served.get("native", 0) == 3,
         })
-        return {"k2": k2, "k1": k1}
+        # the .npy stays for phase 41's streamed fit, which removes it
+        return {"k2": k2, "k1": k1, "npy": npy, "linreg": lin}
     finally:
         ctx.stop()
 
@@ -5118,6 +5150,443 @@ def phase_persistence(tmp):
     finally:
         _FITTED.clear()
         ctx.stop()
+
+
+
+# -- out-of-core streamed fits ------------------------------------------------
+
+def _ooc_context(name, tmp, **conf):
+    """A context whose spills go to a directory of their own under
+    ``tmp`` (removed by :func:`_ooc_done`)."""
+    ctx = _context(name)
+    spill = tempfile.mkdtemp(prefix="spill_", dir=tmp)
+    ctx.conf.set("cyclone.oocore.dir", spill)
+    for k, v in conf.items():
+        ctx.conf.set(k, v)
+    return ctx, spill
+
+
+def _ooc_done(ctx, spill):
+    """The end of a streamed phase: the shard-set cache emptied, the
+    spill directory removed, the context stopped."""
+    from cycloneml_tpu_torch.oocore import shard_set_cache
+    try:
+        shard_set_cache().clear()
+        shutil.rmtree(spill, ignore_errors=True)
+    finally:
+        ctx.stop()
+
+
+def _shard_rows(ctx) -> int:
+    from cycloneml_tpu_torch.conf import OOCORE_SHARD_ROWS
+    return int(ctx.conf.get(OOCORE_SHARD_ROWS))
+
+
+def _lr_stream(tol=OOC_TOL):
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    return LogisticRegression(maxIter=25, regParam=0.01, tol=tol)
+
+
+def _ooc_split(summary):
+    """A streamed fit's epochs split: host reads, the copies' device time,
+    the device's waits on copies, host waits, the shards' device time.
+    ``copy_hidden_share``: 1 - the epochs' wall time past the host's reads
+    (an upper bound on the copies' exposed time) over the copies' time;
+    ``copy_device_stall_share``: the share of the copies' time the
+    caller's stream sat waiting for them (exposed on the device, not
+    necessarily on the wall)."""
+    st = dict(summary.stream_stats)
+    copy_s = st["copy_s"]
+    exposed = min(copy_s, max(0.0, st["wall_s"] - st["read_s"]))
+    st["copy_hidden_share"] = 1.0 - exposed / copy_s if copy_s > 0 \
+        else None
+    st["copy_device_stall_share"] = st["copy_stall_s"] / copy_s \
+        if copy_s > 0 else None
+    st["read_gb_per_s"] = st["bytes"] / st["read_s"] / 1e9 \
+        if st["read_s"] > 0 else None
+    return st
+
+
+def _ooc_peak_limit(sds, n_coef, extras_bytes, depth=2):
+    """(depth + 1) staged shards (X, y, w at the slot geometry) plus the
+    fit's vectors (``costs.predict_fit_peak`` of no dataset array: the
+    sweep's partials, the L-BFGS vectors) and its replicated extras."""
+    from cycloneml_tpu_torch.observe import costs
+    slot = sds.pad_rows * (sds.n_features * sds.x_dtype.itemsize
+                           + 2 * sds.y_dtype.itemsize)
+    return (depth + 1) * slot + extras_bytes + costs.predict_fit_peak(
+        [], n_coef, sds.n_features, device=DEVICE)
+
+
+def _measured_fit(fit):
+    """(model, seconds, peak device bytes above the memory in use before)
+    of one fit."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, seconds = _timed(fit)
+    return model, seconds, torch.cuda.max_memory_allocated() - base
+
+
+def phase_stream_lr(tmp):
+    """Streamed LogisticRegression under ``cyclone.oocore.mode=force`` at
+    bench.py's shape (phase 4's data, 2M x 1280 bf16, 31 shards of 65,536
+    rows): the in-core K1 fit, then two streamed fits (the first spills
+    the dataset, the second attaches to the cached spill). K1 once a shard
+    an evaluation, the models at the kernel tolerance of the in-core fit,
+    the two streamed fits bitwise equal, the peak device memory of a
+    streamed fit within its slots and vectors, the epochs' split. Returns
+    K1's launches in the first streamed fit and its model."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.oocore import shard_set_cache
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx, spill = _ooc_context("chip_smoke_stream_lr", tmp)
+    try:
+        ds, gen_s = _timed(lambda: generate_classification(
+            ctx, FIT_N, FIT_D, seed=0))
+        incore, incore_s = _timed(lambda: _lr_stream().fit(ds))
+        ctx.conf.set("cyclone.oocore.mode", "force")
+        cache = shard_set_cache()
+        st0 = cache.stats()
+        # the main path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        m1, s1 = _timed(lambda: _lr_stream().fit(ds))
+        k1 = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+        k1_bf16 = kernels.glm_sweep.launches_by_dtype[torch.bfloat16]
+        others = _other_launches(kernels, "logistic")
+        st1 = cache.stats()
+        m2, s2, peak = _measured_fit(lambda: _lr_stream().fit(ds))
+        st2 = cache.stats()
+        sds = next(iter(cache._entries.values())).sds
+        n_shards = sds.n_shards
+        limit = _ooc_peak_limit(sds, FIT_D + 1, 2 * FIT_D * 4)
+        a, b = m1.summary, incore.summary
+        coef_ok = _close(m1.coefficients.values, incore.coefficients.values,
+                         m1.intercept, incore.intercept)
+        obj_rel = abs(a.objective_history[-1] - b.objective_history[-1]) \
+            / abs(b.objective_history[-1])
+        split = _ooc_split(m2.summary)
+        _line("stream_lr", n=FIT_N, d=FIT_D, shards=n_shards,
+              pad_rows=sds.pad_rows, stream_dtype=_dt(
+                  torch.empty(0, dtype=sds.x_dtype)),
+              spill_bytes=st1["spillWriteBytes"] - st0["spillWriteBytes"],
+              generate_s=gen_s,
+              incore={"iterations": b.total_iterations,
+                      "evals": b.total_evals, "s": incore_s,
+                      "final_objective": b.objective_history[-1]},
+              streamed={"iterations": a.total_iterations,
+                        "evals": a.total_evals,
+                        "dispatches": a.total_dispatches,
+                        "k1_launches": k1, "first_s": s1, "second_s": s2,
+                        "final_objective": a.objective_history[-1]},
+              objective_rel_diff=obj_rel,
+              max_abs_coef_diff=float(np.max(np.abs(
+                  m1.coefficients.values - incore.coefficients.values))),
+              second_fit_cache_hit=st2["hits"] - st1["hits"],
+              peak_device_bytes=peak, peak_limit_bytes=limit,
+              split=split)
+        _check("stream_lr", {
+            "the fit streamed": a.streamed and m2.summary.streamed,
+            "shards of cyclone.oocore.shardRows rows (31 at 2M rows)":
+                n_shards == -(-FIT_N // _shard_rows(ctx)),
+            "K1 launched once a shard an evaluation":
+                k1 == a.total_evals * n_shards == a.total_dispatches
+                and k1_bf16 == k1,
+            "no other kernel launched": others == 0,
+            "coefficients at the kernel tolerance of the in-core K1 fit "
+            "(rtol 5e-3, atol 5e-4)": coef_ok,
+            "final objectives agree to 1e-4": obj_rel <= 1e-4,
+            "a second streamed fit is bitwise equal": bool(np.array_equal(
+                m2.coefficients.values, m1.coefficients.values))
+                and m2.intercept == m1.intercept,
+            "the second fit attached to the spill (0 bytes written)":
+                st2["hits"] == st1["hits"] + 1
+                and st2["spillWriteBytes"] == st1["spillWriteBytes"],
+            "peak device memory within (prefetchDepth + 1) shards plus "
+            "the fit's vectors": peak <= limit,
+            "the copies' hidden share is measured":
+                split["copy_hidden_share"] is not None
+                and 0.0 <= split["copy_hidden_share"] <= 1.0,
+            "finite model": bool(np.all(np.isfinite(
+                m1.coefficients.values))),
+        })
+        return k1, m1
+    finally:
+        _ooc_done(ctx, spill)
+
+
+def phase_stream_file(npy, linreg_model, tmp):
+    """A file straight to a streamed fit: configuration 2's .npy (phase
+    38's, label last) through ``iter_npy_chunks`` into
+    ``StreamingDataset.from_chunks`` (no in-core dataset), then phase 6's
+    LinearRegression (OWL-QN) streamed through K2: launches = evaluations
+    x shards, the peak bound, and the model at the kernel tolerance of
+    phase 38's in-core fit on the read rows. Removes the file. Returns
+    K2's launches."""
+    import numpy as np
+    from cycloneml_tpu_torch.dataset.io import iter_npy_chunks
+    from cycloneml_tpu_torch.ml.regression import LinearRegression
+    from cycloneml_tpu_torch.oocore import StreamingDataset
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx, spill = _ooc_context("chip_smoke_stream_file", tmp)
+    try:
+        sds, shard_s = _timed(lambda: StreamingDataset.from_chunks(
+            ctx, iter_npy_chunks(npy, label_col=LIN_D), LIN_D))
+        os.remove(npy)
+
+        def fit():
+            return LinearRegression(
+                regParam=0.001, elasticNetParam=0.5, maxIter=100, tol=1e-7,
+                solver="l-bfgs").fit(sds)
+
+        kernels.reset_launch_counts()
+        m, fit_s, peak = _measured_fit(fit)
+        k2 = kernels.glm_sweep.launches_by_link[kernels.SQUARED]
+        others = _other_launches(kernels, "squared")
+        s, r = m.summary, linreg_model.summary
+        limit = _ooc_peak_limit(sds, LIN_D, 3 * LIN_D * 4)
+        coef_ok = _close(m.coefficients.values,
+                         linreg_model.coefficients.values, m.intercept,
+                         linreg_model.intercept)
+        obj_rel = abs(s.objective_history[-1] - r.objective_history[-1]) \
+            / abs(r.objective_history[-1])
+        _line("stream_file", n=sds.n_rows, d=LIN_D, shards=sds.n_shards,
+              shard_s=shard_s, fit_s=fit_s, iterations=s.total_iterations,
+              evals=s.total_evals, k2_launches=k2,
+              incore={"iterations": r.total_iterations,
+                      "evals": r.total_evals,
+                      "final_objective": r.objective_history[-1]},
+              final_objective=s.objective_history[-1],
+              objective_rel_diff=obj_rel, peak_device_bytes=peak,
+              peak_limit_bytes=limit, split=_ooc_split(s))
+        _check("stream_file", {
+            "the fit streamed from the file's shards": s.streamed
+                and sds.n_rows == LIN_N,
+            "K2 launched once a shard an evaluation":
+                k2 == s.total_evals * sds.n_shards == s.total_dispatches,
+            "no other kernel launched": others == 0,
+            "coefficients at the kernel tolerance of the in-core fit on "
+            "the read rows (rtol 5e-3, atol 5e-4)": coef_ok,
+            "final objectives agree to 1e-4": obj_rel <= 1e-4,
+            "peak device memory within (prefetchDepth + 1) shards plus "
+            "the fit's vectors": peak <= limit,
+        })
+        sds.close()
+        return k2
+    finally:
+        _ooc_done(ctx, spill)
+
+
+def phase_stream_degrade(tmp, streamed_model):
+    """The budget guard's degradation: ``cyclone.memory.budgetFraction``
+    set, ``deviceBytes`` below the in-core fit's predicted peak,
+    ``cacheBytes`` above the spill. Phase 40's fit degrades to streaming
+    and is bitwise its streamed model (the same shards, the same order);
+    a second fit attaches with 0 spill-write bytes; under ``mode=off``
+    with ``budgetAction=raise`` the fit raises MemoryBudgetError. Returns
+    K1's launches in the degraded fit."""
+    import numpy as np
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.observe import costs
+    from cycloneml_tpu_torch.oocore import shard_set_cache
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx, spill = _ooc_context("chip_smoke_stream_degrade", tmp)
+    try:
+        ds = generate_classification(ctx, FIT_N, FIT_D, seed=0)
+        predicted = costs.predict_fit_peak(
+            [ds.x, ds.y, ds.w], FIT_D + 1, FIT_D, device=DEVICE)
+        # the card's memory as the guard sees it: below the in-core
+        # fit's predicted peak; the cache holds the whole spill
+        device_bytes = predicted * 3 // 4
+        ctx.conf.set("cyclone.memory.budgetFraction", "0.9")
+        ctx.conf.set("cyclone.memory.deviceBytes", str(device_bytes))
+        ctx.conf.set("cyclone.oocore.cacheBytes",
+                     str(2 * ds.x.numel() * ds.x.element_size()))
+        cache = shard_set_cache()
+        st0 = cache.stats()
+        kernels.reset_launch_counts()
+        m1, s1 = _timed(lambda: _lr_stream().fit(ds))
+        k1 = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+        others = _other_launches(kernels, "logistic")
+        st1 = cache.stats()
+        m2, s2 = _timed(lambda: _lr_stream().fit(ds))
+        st2 = cache.stats()
+        ctx.conf.set("cyclone.oocore.mode", "off")
+        ctx.conf.set("cyclone.memory.budgetAction", "raise")
+        try:
+            _lr_stream().fit(ds)
+            raised = False
+        except costs.MemoryBudgetError:
+            raised = True
+        _line("stream_degrade", predicted_incore_bytes=predicted,
+              device_bytes=device_bytes,
+              budget_bytes=int(0.9 * device_bytes),
+              warnings=len(ctx.memory_warnings),
+              first={"s": s1, "evals": m1.summary.total_evals,
+                     "k1_launches": k1,
+                     "spill_bytes": st1["spillWriteBytes"]
+                     - st0["spillWriteBytes"]},
+              second={"s": s2, "spill_bytes": st2["spillWriteBytes"]
+                      - st1["spillWriteBytes"],
+                      "cache_hits": st2["hits"] - st1["hits"]},
+              raised_under_off=raised)
+        _check("stream_degrade", {
+            "the in-core prediction is over the budget":
+                predicted > 0.9 * device_bytes,
+            "the over-budget fit degraded to streaming":
+                m1.summary.streamed and len(ctx.memory_warnings) >= 1,
+            "K1 launched once a shard an evaluation":
+                k1 == m1.summary.total_dispatches and others == 0,
+            "the degraded fit is phase 40's streamed model, bitwise":
+                bool(np.array_equal(m1.coefficients.values,
+                                    streamed_model.coefficients.values)),
+            "the first fit spilled": st1["spillWriteBytes"]
+                > st0["spillWriteBytes"],
+            "a second fit attached with 0 spill-write bytes":
+                m2.summary.streamed and st2["hits"] == st1["hits"] + 1
+                and st2["spillWriteBytes"] == st1["spillWriteBytes"],
+            "mode=off with budgetAction=raise raises MemoryBudgetError":
+                raised,
+        })
+        return k1
+    finally:
+        _ooc_done(ctx, spill)
+
+
+def phase_stream_fp8(tmp, streamed_bf16):
+    """The e4m3 stream: phase 40's fit with ``streamDtype=float8`` (the
+    spill requantized with one set-level scale), through K1's e4m3
+    instance once a shard, held against the in-core fp8 fit on the same
+    rows (``InstanceDataset.quantized``) and against phase 40's streamed
+    bf16 fit at the fp8 envelope (20%); prints which it agrees with.
+    Returns K1's e4m3 launches."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ops import kernels
+
+    f8 = torch.float8_e4m3fn
+    ctx, spill = _ooc_context("chip_smoke_stream_fp8", tmp)
+    try:
+        ds = generate_classification(ctx, FIT_N, FIT_D, seed=0)
+        ds8 = ds.quantized()
+        incore8, incore_s = _timed(lambda: _lr_stream().fit(ds8))
+        del ds8
+        ctx.conf.set("cyclone.oocore.mode", "force")
+        ctx.conf.set("cyclone.oocore.streamDtype", "float8")
+        kernels.reset_launch_counts()
+        m, fit_s, peak = _measured_fit(lambda: _lr_stream().fit(ds))
+        e4m3 = kernels.glm_sweep.launches_by_dtype[f8]
+        k1 = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+        others = _other_launches(kernels, "logistic")
+        c = m.coefficients.values
+        to_incore = _norm_rel(c, incore8.coefficients.values)
+        to_bf16 = _norm_rel(c, streamed_bf16.coefficients.values)
+        agrees = "in-core fp8" if to_incore <= to_bf16 else "streamed bf16"
+        _line("stream_fp8", fit_s=fit_s, evals=m.summary.total_evals,
+              e4m3_launches=e4m3, incore_fp8_s=incore_s,
+              coef_norm_rel_to_incore_fp8=to_incore,
+              coef_norm_rel_to_streamed_bf16=to_bf16,
+              agrees_with=agrees, peak_device_bytes=peak,
+              fallbacks=ctx.precision_fallbacks,
+              split=_ooc_split(m.summary))
+        _check("stream_fp8", {
+            "the fit streamed e4m3 codes": m.summary.streamed
+                and e4m3 == k1 > 0,
+            "K1 e4m3 launched once a shard an evaluation":
+                e4m3 == m.summary.total_dispatches and others == 0,
+            "no fp8 fallback fired": not ctx.precision_fallbacks,
+            "within the fp8 envelope (20%) of the in-core fp8 fit":
+                to_incore < FP8_COEF_NORMREL,
+            "within the fp8 envelope (20%) of the streamed bf16 fit":
+                to_bf16 < FP8_COEF_NORMREL,
+            "finite model": bool(np.all(np.isfinite(c))),
+        })
+        return e4m3
+    finally:
+        _ooc_done(ctx, spill)
+
+
+def phase_stream_ovr(tmp):
+    """Streamed stacked OneVsRest: OVR_K classes at d = 1280, rows cut to
+    OOC_OVR_N, under force through K1s once a shard a lockstep evaluation
+    (every model in one launch), the first OOC_SERIAL models held against
+    their serial streamed fits (``fit_stacked`` of one model's labels) at
+    the kernel tolerance, as the reference's
+    test_streamed_stacked_fit_matches_serial_streamed. Returns K1s's
+    launches."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_multiclass
+    from cycloneml_tpu_torch.ml.classification import (LogisticRegression,
+                                                       OneVsRest)
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx, spill = _ooc_context("chip_smoke_stream_ovr", tmp,
+                              **{"cyclone.oocore.mode": "force"})
+    try:
+        ds = generate_multiclass(ctx, OOC_OVR_N, FIT_D, OVR_K, seed=7)
+        y = np.asarray(ds.y_host()[:ds.n_rows])
+
+        def clf():
+            return LogisticRegression(maxIter=25, regParam=0.01,
+                                      tol=OOC_TOL)
+
+        kernels.reset_launch_counts()
+        model, ovr_s = _timed(lambda: OneVsRest(
+            classifier=clf(), parallelism=OVR_K).fit(ds))
+        k1s = kernels.glm_sweep_stacked.launches
+        others = _other_launches(kernels, "glm_stacked")
+        s = model.models[0].summary
+        n_shards = -(-OOC_OVR_N // _shard_rows(ctx))
+        groups = -(-OVR_K // kernels.glm_sweep_stacked_group(ds.x.dtype,
+                                                             FIT_D))
+        serial, serial_s = [], 0.0
+        for c in range(OOC_SERIAL):
+            yc = torch.from_numpy((y == c).astype(np.float64))[None, :]
+            (one,), t = _timed(lambda: clf().fit_stacked(ds, y_stack=yc))
+            serial.append(one)
+            serial_s += t
+        ok = [_close(model.models[c].coefficients.values,
+                     serial[c].coefficients.values,
+                     model.models[c].intercept, serial[c].intercept)
+              for c in range(OOC_SERIAL)]
+        _line("stream_ovr", n=OOC_OVR_N, d=FIT_D, classes=OVR_K,
+              shards=n_shards, reduced={
+                  "n": f"2,000,000 -> {OOC_OVR_N:,} rows, and the serial "
+                       f"streamed fits: {OOC_SERIAL} of {OVR_K} models "
+                       "(their epochs)"},
+              ovr_s=ovr_s, stacked_evals=s.stacked_evals,
+              k1s_launches=k1s, groups=groups,
+              evals=[m.summary.total_evals for m in model.models],
+              serial_evals=[m.summary.total_evals for m in serial],
+              serial_s=serial_s, serial_models=OOC_SERIAL,
+              max_abs_coef_diff=[float(np.max(np.abs(
+                  model.models[c].coefficients.values
+                  - serial[c].coefficients.values)))
+                  for c in range(OOC_SERIAL)],
+              split=_ooc_split(s))
+        _check("stream_ovr", {
+            "the stacked fit streamed": s.streamed and s.n_models == OVR_K,
+            "K1s launched once a shard a lockstep evaluation":
+                k1s == s.stacked_evals * n_shards * groups
+                and s.total_dispatches == s.stacked_evals * n_shards,
+            "no other kernel launched": others == 0,
+            "each model at the kernel tolerance of its serial streamed "
+            "fit (rtol 5e-3, atol 5e-4)": all(ok),
+            "the epochs are the most any model needs, not their sum":
+                s.stacked_evals == max(m.summary.total_evals
+                                       for m in model.models),
+        })
+        return k1s
+    finally:
+        _ooc_done(ctx, spill)
 
 
 def main() -> int:
@@ -5297,6 +5766,14 @@ def main() -> int:
         ingest_sparse = phase_ingest_criteo(tmp)
         ingest_dense = phase_ingest_dense(tmp)
         persisted = phase_persistence(tmp)
+        # out-of-core streamed fits: shards on disk, K1/K2/K1s once a
+        # shard; each phase's spill directory removed at its end
+        stream_k1, stream_model = phase_stream_lr(tmp)
+        stream_k2 = phase_stream_file(ingest_dense.pop("npy"),
+                                      ingest_dense.pop("linreg"), tmp)
+        degrade_k1 = phase_stream_degrade(tmp, stream_model)
+        stream_e4m3 = phase_stream_fp8(tmp, stream_model)
+        stream_k1s = phase_stream_ovr(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     how = ("one read of X: a CTA of 512 threads an SM, each "
@@ -5411,8 +5888,20 @@ def main() -> int:
                    "ingest_fit_launches": ingest_sparse["s1"]},
                "ell_cols (S2, the sparse column pass)": {
                    "ingest_fit_launches": ingest_sparse["s2"]}}
+    # the streamed paths (phases 40-44), each with its counts zeroed just
+    # before it: K1, K2, K1 e4m3 and K1s once a shard
+    slice18 = {"glm_sweep (logistic, K1)": {
+                   "streamed_fit_launches": stream_k1,
+                   "degraded_fit_launches": degrade_k1},
+               "glm_sweep (squared, K2)": {
+                   "streamed_file_fit_launches": stream_k2},
+               "glm_sweep (logistic, K1, e4m3)": {
+                   "streamed_fit_launches": stream_e4m3},
+               "glm_sweep_stacked (logistic, K models, K1s)": {
+                   "streamed_ovr_launches": stream_k1s}}
     for e in entries:
         e.update(slice17.get(e["name"], {}))
+        e.update(slice18.get(e["name"], {}))
     print(json.dumps({"kernels": entries}), flush=True)
     _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)

@@ -49,6 +49,8 @@ class ConfigEntry(Generic[T]):
             raise ValueError(f"{self.key}: cannot parse boolean from {raw!r}")
         if t is int:
             return int(s)  # type: ignore[return-value]
+        if t is float:
+            return float(s)  # type: ignore[return-value]
         if t is str:
             return s  # type: ignore[return-value]
         raise TypeError(f"{self.key}: unsupported config type {t}")
@@ -92,6 +94,13 @@ class ConfigBuilder:
 
     def str_conf(self, default: Optional[str] = None) -> ConfigEntry[str]:
         return self._make(default, str)
+
+    def float_conf(self, default: Optional[float] = None
+                   ) -> ConfigEntry[float]:
+        return self._make(default, float)
+
+    def bool_conf(self, default: Optional[bool] = None) -> ConfigEntry[bool]:
+        return self._make(default, bool)
 
 
 class CycloneConf:
@@ -235,12 +244,112 @@ USE_PALLAS_KERNELS = (
 
 OOCORE_MODE = (
     ConfigBuilder("cyclone.oocore.mode")
-    .doc("Out-of-core streaming fit mode, the reference's key: 'auto' "
-         "(default) and 'off' fit in core; 'force' asks for the streaming "
-         "epoch engine, which is ROADMAP slice 6 (the dense "
-         "LogisticRegression and LinearRegression fits, stacked fits "
-         "included, raise NotImplementedError under it).")
+    .doc("Out-of-core streaming fit mode (oocore/): 'auto' (default) fits "
+         "in core, but an eligible fit whose predicted peak device memory "
+         "exceeds the budget guard's budget (cyclone.memory.*) DEGRADES "
+         "to the streaming epoch engine instead of warning or raising; "
+         "'force' routes every eligible dense fit (LogisticRegression, "
+         "its stacked fits, LinearRegression l-bfgs) through the "
+         "streaming path, each loss/gradient evaluation one epoch over "
+         "shards on disk staged onto the device through pinned buffers; "
+         "'off' never streams, and the guard warns or raises.")
     .check_value(lambda v: v in ("auto", "force", "off"),
                  "must be auto, force or off")
     .str_conf("auto")
+)
+
+OOCORE_SHARD_ROWS = (
+    ConfigBuilder("cyclone.oocore.shardRows")
+    .doc("Rows per out-of-core shard. Every shard is staged in one fixed "
+         "(padRows, d) block (zero-weight padding rows), so the device "
+         "slots are allocated once and host staging peaks at O(shardRows "
+         "d), never O(n d).")
+    .check_value(lambda v: v >= 1, "must be >= 1")
+    .int_conf(65536)
+)
+
+OOCORE_PREFETCH_DEPTH = (
+    ConfigBuilder("cyclone.oocore.prefetchDepth")
+    .doc("Staged shards in flight ahead of compute: 2 is double "
+         "buffering, shard i+1's disk read and copy overlapping shard i's "
+         "kernel. Device-resident shard slots are bounded by depth + 1.")
+    .check_value(lambda v: v >= 1, "must be >= 1")
+    .int_conf(2)
+)
+
+OOCORE_SHUFFLE = (
+    ConfigBuilder("cyclone.oocore.shuffle")
+    .doc("Shuffle the shard ORDER of every streamed-SGD epoch (a seeded "
+         "permutation keyed on the optimizer seed x step, so a fixed seed "
+         "replays exactly). The epoch's gradient is order-invariant up to "
+         "float summation order. Off keeps the sequential order.")
+    .bool_conf(False)
+)
+
+OOCORE_DIR = (
+    ConfigBuilder("cyclone.oocore.dir")
+    .doc("Directory for out-of-core shard files (one .npy per array). "
+         "Empty = the system temp dir. Shard sets built by the engine own "
+         "their files and remove them on close/GC.")
+    .str_conf("")
+)
+
+OOCORE_STREAM_DTYPE = (
+    ConfigBuilder("cyclone.oocore.streamDtype")
+    .doc("Storage dtype of out-of-core shards, the precision rung of the "
+         "host-to-device stream. 'auto' (default) follows "
+         "cyclone.data.dtype, fp8 tiers included: under auto8/float8 the "
+         "spill-time envelope probe (instance.fp8_probe_ok over the write "
+         "pass's moments) decides fp8 or bf16 for the shard SET, a "
+         "refusal recorded in ctx.precision_fallbacks; 'bfloat16' pins "
+         "the bf16 rung; 'float8' asks for e4m3 codes with per-column "
+         "scales whenever the probe allows.")
+    .check_value(lambda v: v in ("auto", "bfloat16", "float8"),
+                 "must be auto, bfloat16 or float8")
+    .str_conf("auto")
+)
+
+OOCORE_CACHE_BYTES = (
+    ConfigBuilder("cyclone.oocore.cacheBytes")
+    .doc("Byte bound of the shard-set reuse cache (oocore/cache.py): "
+         "spilled shard sets are keyed by content hash (the source "
+         "dataset, the stream tier, the geometry), so a re-fit over the "
+         "same dataset ATTACHES to the existing spill and writes 0 bytes. "
+         "LRU-evicted past the bound; live handles pin their entries; "
+         "every attach re-checks each shard's sha256. 0 disables reuse.")
+    .check_value(lambda v: v >= 0, "must be >= 0")
+    .int_conf(1 << 30)
+)
+
+MEMORY_BUDGET_FRACTION = (
+    ConfigBuilder("cyclone.memory.budgetFraction")
+    .doc("The memory budget guard (observe/costs.py): when a fit's "
+         "predicted peak device memory (the bytes of its device arrays "
+         "plus its working set, computed from shapes) exceeds this "
+         "fraction of the device's memory, a MemoryBudgetExceeded record "
+         "goes to ctx.memory_warnings and the fit degrades: to the "
+         "streaming engine where it has one and cyclone.oocore.mode "
+         "allows, else it warns or raises (cyclone.memory.budgetAction). "
+         "The guard is armed only when this key is set explicitly.")
+    .check_value(lambda v: 0 < v <= 1.0, "must be in (0, 1]")
+    .float_conf(0.9)
+)
+
+MEMORY_BUDGET_ACTION = (
+    ConfigBuilder("cyclone.memory.budgetAction")
+    .doc("What an exceeded memory budget does once nothing is left to "
+         "degrade to: 'warn' (default) logs and proceeds; 'raise' throws "
+         "MemoryBudgetError.")
+    .check_value(lambda v: v in ("warn", "raise"),
+                 "must be 'warn' or 'raise'")
+    .str_conf("warn")
+)
+
+MEMORY_DEVICE_BYTES = (
+    ConfigBuilder("cyclone.memory.deviceBytes")
+    .doc("Device memory bytes the budget guard divides into. 0 (default) "
+         "detects it: torch.cuda.mem_get_info's total on the card, total "
+         "host RAM on the CPU.")
+    .check_value(lambda v: v >= 0, "must be >= 0")
+    .int_conf(0)
 )

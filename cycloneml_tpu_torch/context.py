@@ -52,6 +52,9 @@ class CycloneContext:
             # (dataset.fp8_fallback): the reference posts them on its
             # listener bus, which is ROADMAP slice 10
             self.precision_fallbacks: List[Dict[str, str]] = []
+            # every MemoryBudgetExceeded record of the budget guard
+            # (observe/costs.check_budget), likewise off the bus
+            self.memory_warnings: List[Dict] = []
             self._stopped = False
             _active_context = self
 

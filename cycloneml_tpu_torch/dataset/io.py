@@ -3,10 +3,13 @@
 The port's counterpart of ``cycloneml_tpu/dataset/io.py``: whole-file
 readers that parse on the host and place the result with
 ``InstanceDataset.from_numpy``, and streamed readers that yield ``(x, y,
-w)`` host chunks (the chunk contract shared with the out-of-core tier,
-ROADMAP Queue 1 item 5) into ``InstanceDataset.from_dense_chunks``, which
-stages them through pinned buffers onto the card. LibSVM ids are 1-based
-on disk (``MLUtils.loadLibSVMFile``).
+w)`` host chunks into ``InstanceDataset.from_dense_chunks``, which stages
+them through pinned buffers onto the card. The chunk iterators
+(:func:`iter_libsvm_chunks`, :func:`iter_npy_chunks`,
+:func:`iter_csv_chunks`) are also the sources of the out-of-core tier:
+``oocore.StreamingDataset.from_chunks(ctx, iter_npy_chunks(path, ...),
+d)`` writes a file's rows to shards without an in-core dataset ever
+existing. LibSVM ids are 1-based on disk (``MLUtils.loadLibSVMFile``).
 
 The libsvm and CSV parses run on the port's native scanner
 (``native/host.py``) when it is built; the pure-Python parsers here are its
@@ -100,9 +103,9 @@ def read_libsvm(ctx, path: str, n_features: Optional[int] = None,
 
 def iter_libsvm_chunks(path: str, n_features: int, chunk_rows: int = 65536):
     """The dense libsvm chunk stream, each block arrays of its own: the
-    ``(x, y, w)`` chunk contract shared by
-    ``InstanceDataset.from_dense_chunks`` and the out-of-core tier's shards
-    (ROADMAP Queue 1 item 5)."""
+    ``(x, y, w)`` chunk contract of ``InstanceDataset.from_dense_chunks``
+    and of ``oocore.StreamingDataset.from_chunks`` (a streamed fit's
+    shards)."""
     for x, y, w in _libsvm_dense_chunks(path, n_features, chunk_rows):
         yield x.copy(), y, w
 
@@ -158,7 +161,9 @@ def iter_npy_chunks(path: str, label_col: Optional[int] = None,
     """Yield ``(x, y_or_None, None)`` blocks of a 2-D .npy file with plain
     ``file.read`` (no mmap: mapped pages would count toward the host's
     memory and defeat the bounded-memory contract); ``label_col`` splits
-    one column off as a float64 label."""
+    one column off as a float64 label. A source of
+    ``InstanceDataset.from_dense_chunks`` and of
+    ``oocore.StreamingDataset.from_chunks``."""
     n, d_file, dt = npy_header(path)
     row_bytes = d_file * dt.itemsize
     with open(path, "rb") as fh:
@@ -200,7 +205,9 @@ def _first_data_line(fh, skip_header: bool):
 def iter_csv_chunks(path: str, label_col: int = 0, delimiter: str = ",",
                     skip_header: bool = False, chunk_rows: int = 65536):
     """Yield ``(x, y, None)`` blocks of a CSV file, one batch of lines at
-    a time (``np.loadtxt`` per batch)."""
+    a time (``np.loadtxt`` per batch): a source of
+    ``InstanceDataset.from_dense_chunks`` and of
+    ``oocore.StreamingDataset.from_chunks``."""
     with open(path) as fh:
         first = _first_data_line(fh, skip_header)
         if first is None:

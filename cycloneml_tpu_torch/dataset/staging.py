@@ -14,6 +14,17 @@ after the copies.
 
 On the CPU (``cyclone.master=cpu``) the same ring holds plain buffers and
 a copy is a clone, so that every reader runs one code path.
+
+The out-of-core stream (``oocore/stream.py``) uses the ring with a DEVICE
+TWIN per slot: device buffers allocated once (:meth:`StagingRing.twin`)
+that every shard staged through the slot is copied into
+(:meth:`StagingRing.put_into`), so that the stream's device memory is the
+slots' and not the dataset's. A slot is then rewritten only after two
+things: its earlier copy finished, waited for on the host
+(:meth:`StagingRing.wait_copied`) before the host buffer is written; and
+the kernel that read its device twin finished, which the copy stream
+waits for on the device, on an event the caller records on its own stream
+after the shard's launch (:meth:`StagingRing.consumed`).
 """
 
 from __future__ import annotations
@@ -34,13 +45,17 @@ class StagingRing:
     chunk) and the copies' time (``copy_s``; on the card read from CUDA
     events by :meth:`copy_seconds`)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, slots: int = _SLOTS):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.n_slots = int(slots)
         self._slots: List[Dict[str, torch.Tensor]] = [
-            {} for _ in range(_SLOTS)]
-        self._done: List = [None] * _SLOTS
+            {} for _ in range(self.n_slots)]
+        self._twins: List[Dict[str, torch.Tensor]] = [
+            {} for _ in range(self.n_slots)]
+        self._done: List = [None] * self.n_slots
+        self._consumed: List = [None] * self.n_slots
         self._timing: List = []   # (start, end) events of every copy
         self._next = 0
         self.stats = {"wait_s": 0.0, "alloc_s": 0.0, "copy_s": 0.0,
@@ -49,14 +64,85 @@ class StagingRing:
     def acquire(self) -> int:
         """The next slot, once the copies out of it have completed."""
         slot = self._next
-        self._next = (slot + 1) % _SLOTS
+        self._next = (slot + 1) % self.n_slots
+        self.wait_copied(slot)
+        return slot
+
+    def wait_copied(self, slot: int) -> None:
+        """Wait on the host until the last copy out of slot ``slot``'s
+        host buffers has completed (time counted in ``wait_s``)."""
         done = self._done[slot]
         if done is not None:
             t0 = time.perf_counter()
             done.synchronize()
             self.stats["wait_s"] += time.perf_counter() - t0
             self._done[slot] = None
-        return slot
+
+    def twin(self, slot: int, name: str, shape, dtype: torch.dtype
+             ) -> torch.Tensor:
+        """Slot ``slot``'s device buffer ``name``, allocated at the first
+        call on the caller's stream (the copy stream then waits on the
+        caller's stream once: memory the allocator hands back may still
+        be read there) and reused by every later call."""
+        buf = self._twins[slot].get(name)
+        if buf is None or tuple(buf.shape) != tuple(shape) \
+                or buf.dtype != dtype:
+            t0 = time.perf_counter()
+            buf = torch.empty(shape, dtype=dtype, device=self.device)
+            self.stats["alloc_s"] += time.perf_counter() - t0
+            if self.cuda:
+                self.stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+            self._twins[slot][name] = buf
+        return buf
+
+    def put_into(self, slot: int, views: List[torch.Tensor],
+                 twins: List[torch.Tensor]):
+        """Copy host views into slot ``slot``'s device twins on the copy
+        stream, after the kernel that last read them (:meth:`consumed`).
+        Returns the event that ends the copies (None on the CPU, where the
+        copies are done on return): the caller's stream waits on it
+        before reading the twins (:meth:`ready`)."""
+        size = sum(v.numel() * v.element_size() for v in views)
+        self.stats["bytes"] += size
+        self.stats["copies"] += 1
+        self.stats["max_copy_bytes"] = max(self.stats["max_copy_bytes"],
+                                           size)
+        if not self.cuda:
+            t0 = time.perf_counter()
+            for dst, src in zip(twins, views):
+                dst.copy_(src)
+            self.stats["copy_s"] += time.perf_counter() - t0
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            if self._consumed[slot] is not None:
+                self.stream.wait_event(self._consumed[slot])
+            start.record()
+            for dst, src in zip(twins, views):
+                dst.copy_(src, non_blocking=True)
+            end.record()
+        self._timing.append((start, end))
+        self._done[slot] = end
+        return end
+
+    def ready(self, event) -> None:
+        """Make the caller's stream wait on a copy's end event."""
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+
+    def consumed(self, slot: int):
+        """Record, on the caller's stream, that everything reading slot
+        ``slot``'s twins has been launched: the next copy into them waits
+        for this point on the device. Returns the (timing) event, None on
+        the CPU."""
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        self._consumed[slot] = ev
+        return ev
 
     def buffer(self, slot: int, name: str, numel: int,
                dtype: torch.dtype) -> torch.Tensor:
@@ -107,7 +193,6 @@ class StagingRing:
         wait); returns ``stats``."""
         if self.cuda:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
-            self._done = [None] * _SLOTS
         return self.stats
 
     def copy_seconds(self) -> float:
@@ -117,8 +202,8 @@ class StagingRing:
         CPU the clones' host time."""
         if self._timing:
             self._timing[-1][1].synchronize()
-            self.stats["copy_s"] = sum(s.elapsed_time(e)
-                                       for s, e in self._timing) / 1000.0
+            self.stats["copy_s"] += sum(s.elapsed_time(e)
+                                        for s, e in self._timing) / 1000.0
             self._timing = []
         return self.stats["copy_s"]
 

@@ -32,10 +32,20 @@ _fit_sparse`, the reference's :563-650), through the sparse aggregators:
 on the card, kernels S1 and S2 (``csrc/ell_sweep.cu``) once per
 evaluation of the host optimizer.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-slice: checkpointed training, and the streamed (out-of-core) fits that the
-reference runs under ``cyclone.oocore.mode=force`` (dense ``fit`` and
-``fit_stacked`` both raise there, where the reference would stream).
+Streamed (out-of-core) fits (the reference's :264-274, :412-560,
+:667-679, :876-895): a :class:`~cycloneml_tpu_torch.oocore.shards.
+StreamingDataset` handed to ``fit`` or ``fit_stacked`` trains over epochs
+of shards staged from disk, every evaluation the same aggregator once a
+shard (K1, or K1s for the stacked fit, on the card); under
+``cyclone.oocore.mode=force`` an in-core dataset is spilled to shards
+first (``oocore.shard_dataset``); and when the memory budget guard finds
+the in-core fit over budget (``observe/costs``), the fit degrades to the
+streamed one. The statistics come from the shards' write pass; the
+optimizer is the host L-BFGS (``StackedHostLBFGS`` for stacked fits). The
+summary says ``streamed``.
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP item:
+checkpointed training.
 """
 
 from __future__ import annotations
@@ -70,17 +80,6 @@ from cycloneml_tpu_torch.ml.shared import (
 from cycloneml_tpu_torch.ml.stat import Summarizer
 
 logger = logging.getLogger(__name__)
-
-
-def _refuse_forced_streaming(conf, what: str) -> None:
-    """Under ``cyclone.oocore.mode=force`` the reference spills an in-core
-    dataset to shards and streams the fit; the port has no streaming
-    engine yet, so it raises where the reference would spill."""
-    from cycloneml_tpu_torch.conf import OOCORE_MODE
-    if conf is not None and conf.get(OOCORE_MODE) == "force":
-        raise NotImplementedError(
-            f"streamed (out-of-core) {what} fits under "
-            "cyclone.oocore.mode=force are ROADMAP slice 6")
 
 
 class _LogisticRegressionParams(HasMaxIter, HasRegParam, HasElasticNetParam,
@@ -239,11 +238,22 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
             raise ValueError(
                 "fit_stacked requires a binomial, pure-L2, unbounded, "
                 "non-checkpointed configuration (can_fit_stacked)")
+        from cycloneml_tpu_torch.oocore import (StreamingDataset,
+                                                shard_dataset,
+                                                streaming_mode)
         ds = frame.to_instance_dataset(
             self.get("featuresCol"), self.get("labelCol"),
             self.get("weightCol") or None, fp8_capable=True)
         conf = getattr(ds.ctx, "conf", None)
-        _refuse_forced_streaming(conf, "stacked LogisticRegression")
+        # streamed stacked fits: ONE epoch serves all K models
+        if isinstance(ds, StreamingDataset):
+            return self._fit_stacked_streamed(ds, y_stack, reg_params)
+        if streaming_mode(conf) == "force":
+            sds = shard_dataset(ds)
+            try:
+                return self._fit_stacked_streamed(sds, y_stack, reg_params)
+            finally:
+                sds.close()
         if y_stack is None and reg_params is None:
             raise ValueError("fit_stacked needs y_stack or reg_params")
         if y_stack is None:
@@ -361,26 +371,173 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
             models.append(model)
         return models
 
+    def _fit_stacked_streamed(self, sds, y_stack=None, reg_params=None):
+        """The out-of-core leg of :meth:`fit_stacked` (the reference's
+        :412-560): K binomial models over ONE shard set, each optimizer
+        round ONE streamed epoch whose per-shard aggregator is the
+        model-axis one (``StackedStreamingLossFunction``; K1s on the
+        card), so the spill is read once a round, not once a model. The
+        optimizer is ``StackedHostLBFGS``: every model makes the decisions
+        its serial streamed fit would."""
+        from cycloneml_tpu_torch.ml.optim.device_lbfgs import \
+            StackedHostLBFGS
+        from cycloneml_tpu_torch.ml.optim.loss import (
+            stacked_l2_scale, validate_binary_labels)
+        from cycloneml_tpu_torch.oocore import StackedStreamingLossFunction
+        from cycloneml_tpu_torch.oocore.engine import stream_uses_kernels
+
+        if y_stack is None and reg_params is None:
+            raise ValueError("fit_stacked needs y_stack or reg_params")
+        d = sds.n_features
+        stats = sds.summary()   # the write pass's moments: no stats epoch
+        weight_sum = stats.weight_sum
+        # the fp8 decision ran at spill time (shards._finalize_fp8)
+        fp8_scale = sds.x_scale
+        if y_stack is None:
+            # a grid over the set's own labels: binary-ness from the write
+            # pass's histogram, the positives from its label moments
+            hist = sds.label_histogram()
+            if len(hist) > 2:
+                raise ValueError(
+                    f"fit_stacked requires binary {{0, 1}} labels; the "
+                    f"shard set carries {len(hist)} classes")
+            n_models = len(reg_params)
+            pos = np.full(n_models, sds.y_moments()[0])
+        else:
+            if not torch.is_tensor(y_stack):
+                y_stack = np.asarray(y_stack)
+            n_models = y_stack.shape[0]
+            if y_stack.shape[1] != sds.n_rows:
+                raise ValueError(
+                    f"y_stack has {y_stack.shape[1]} rows per model; the "
+                    f"shard set has {sds.n_rows}")
+            for kk in range(n_models):
+                validate_binary_labels(_row64(y_stack, kk), "fit_stacked")
+            # per-model weighted positives over the shards' w, one (n,)
+            # host vector beside the caller's (K, n) stack
+            w_all = np.concatenate([sds.shard_weights(i)
+                                    for i in range(sds.n_shards)])
+            pos = np.array([_row64(y_stack, kk) @ w_all
+                            for kk in range(n_models)])
+        if reg_params is None:
+            reg_params = np.full(n_models, float(self.get("regParam")))
+        reg_params = np.asarray(reg_params, dtype=np.float64)
+        if len(reg_params) != n_models:
+            raise ValueError("reg_params length != number of stacked models")
+
+        features_std = stats.std
+        fit_intercept = self.get("fitIntercept")
+        standardize = self.get("standardization")
+        fit_with_mean = fit_intercept  # bounds are excluded by eligibility
+        inv_std = inv_std_vector(features_std)
+        scaled_mean = stats.mean * inv_std if fit_with_mean else np.zeros(d)
+        inv_std_agg = inv_std * fp8_scale if fp8_scale is not None \
+            else inv_std
+        n_coef = d + (1 if fit_intercept else 0)
+        x0 = np.zeros((n_models, n_coef))
+        if fit_intercept:
+            ok = (pos > 0) & (pos < weight_sum)
+            p1 = np.where(ok, pos / weight_sum, 0.5)
+            x0[:, d] = np.where(ok, np.log(p1 / (1.0 - p1)), 0.0)
+
+        base_agg = (aggregators.binary_logistic_pallas_scaled(d,
+                                                              fit_intercept)
+                    if stream_uses_kernels(sds)
+                    else aggregators.binary_logistic_scaled(d, fit_intercept))
+        agg = aggregators.stack_scaled_aggregator(base_agg)
+        l2s = stacked_l2_scale(d, n_coef, features_std, standardize)
+        adt = compute_dtype(getattr(sds.ctx, "conf", None))
+        dev = sds.ctx.mesh_runtime.device
+        # the staged (rows, K) label stack: {0, 1} is exact in bf16;
+        # float64 on the parity tier keeps the sums those of the serial
+        # streamed fits; never fp8 (labels mix with float32 margins)
+        ydt = torch.float64 if adt == torch.float64 else torch.bfloat16
+        loss_fn = StackedStreamingLossFunction(
+            sds, agg, n_models, reg=reg_params, l2_scale=l2s,
+            weight_sum=weight_sum,
+            extra_args=(torch.as_tensor(inv_std_agg, device=dev).to(adt),
+                        torch.as_tensor(scaled_mean, device=dev).to(adt)),
+            y_stack=y_stack, stack_dtype=ydt)
+        opt = StackedHostLBFGS(max_iter=self.get("maxIter"),
+                               tol=self.get("tol"))
+        res = opt.minimize(loss_fn, x0)
+        if fp8_scale is not None and not np.all(np.isfinite(res.x)):
+            # e4m3 has no inf: an overflow shows as NaN; re-spill at the
+            # bf16 rung (recorded) and refit
+            bf16 = sds.to_instance_dataset(fp8_capable=False)
+            try:
+                return self._fit_stacked_streamed(
+                    bf16, y_stack=y_stack, reg_params=reg_params)
+            finally:
+                bf16.close()
+        n_unconverged = sum(
+            1 for r in res.converged_reasons if r == "max iterations reached")
+        if n_unconverged:
+            logger.warning(
+                "stacked LogisticRegression (streamed): %d of %d models did "
+                "not converge in %d iterations", n_unconverged, n_models,
+                self.get("maxIter"))
+        models = []
+        for kk in range(n_models):
+            sol = res.x[kk]
+            beta = sol[:d] * inv_std
+            icpt = float(sol[d]) if fit_intercept else 0.0
+            if fit_with_mean:
+                icpt -= float(sol[:d] @ scaled_mean)
+            model = LogisticRegressionModel(
+                coefficient_matrix=beta[None, :],
+                intercept_vector=np.array([icpt]),
+                num_classes=2, is_multinomial=False)
+            self._copy_values(model)
+            model._set_parent(self)
+            model.summary = LogisticRegressionTrainingSummary(
+                objective_history=list(res.loss_histories[kk]),
+                total_iterations=int(res.iterations[kk]),
+                total_evals=int(res.evals[kk]),
+                total_dispatches=loss_fn.n_dispatches,
+                n_models=n_models, stacked_evals=loss_fn.n_evals,
+                streamed=True, stream_stats=dict(loss_fn.stats))
+            models.append(model)
+        return models
+
     def _check_ported(self) -> None:
         if self.get("checkpointDir"):
             raise NotImplementedError(
                 "checkpointed training is ROADMAP slice 8")
 
-    def _fit_dataset(self, ds: InstanceDataset) -> "LogisticRegressionModel":
+    def _fit_dataset(self, ds) -> "LogisticRegressionModel":
+        from cycloneml_tpu_torch.oocore import (StreamingDataset,
+                                                shard_dataset,
+                                                streaming_mode)
         conf = getattr(ds.ctx, "conf", None)
-        _refuse_forced_streaming(conf, "LogisticRegression")
+        streamed = isinstance(ds, StreamingDataset)
+        if not streamed and streaming_mode(conf) == "force":
+            # spill the in-core dataset and fit over streamed epochs; the
+            # spill is this fit's, released once the model is built
+            sds = shard_dataset(ds)
+            try:
+                return self._fit_dataset(sds)
+            finally:
+                sds.close()
         d = ds.n_features
-        stats = Summarizer.summarize(ds)
-        # the fp8 safety rail: the envelope probe may swap the quantized
-        # dataset for its bfloat16 dequantization (logged and recorded)
-        ds = resolve_fp8_fit(ds, stats, "LogisticRegression")
+        # a shard set carries its moments and label histogram from the
+        # write pass: no statistics epoch
+        stats = ds.summary() if streamed else Summarizer.summarize(ds)
+        if not streamed:
+            # the fp8 safety rail: the envelope probe may swap the
+            # quantized dataset for its bfloat16 dequantization (recorded)
+            ds = resolve_fp8_fit(ds, stats, "LogisticRegression")
         fp8_scale = ds.x_scale
         features_std = stats.std
         weight_sum = stats.weight_sum
 
-        y_host = ds.y_host()
-        w_host = ds.w_host()
-        num_classes = int(y_host.max()) + 1 if ds.n_rows else 2
+        if streamed:
+            hist = ds.label_histogram()
+            num_classes = max(len(hist), 2) if ds.n_rows else 2
+        else:
+            y_host = ds.y_host()
+            w_host = ds.w_host()
+            num_classes = int(y_host.max()) + 1 if ds.n_rows else 2
         family = self.get("family")
         if family == "auto":
             is_multinomial = num_classes > 2
@@ -391,8 +548,13 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
                     f"Binomial family requires <= 2 label classes, found "
                     f"{num_classes} (the reference rejects this too)")
             num_classes = max(num_classes, 2)
-        histogram = np.bincount(y_host.astype(np.int64), weights=w_host,
-                                minlength=num_classes)[:num_classes]
+        if streamed:
+            histogram = np.zeros(num_classes)
+            histogram[:len(hist)] = hist[:num_classes]
+        else:
+            histogram = np.bincount(y_host.astype(np.int64),
+                                    weights=w_host,
+                                    minlength=num_classes)[:num_classes]
 
         fit_intercept = self.get("fitIntercept")
         standardize = self.get("standardization")
@@ -410,6 +572,7 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
             self._opt(p) is None for p in ("lowerBoundsOnIntercepts",
                                            "upperBoundsOnIntercepts"))
 
+        from cycloneml_tpu_torch.oocore.engine import stream_uses_kernels
         from cycloneml_tpu_torch.ops.kernels import use_fused_kernels
         # standardization folds INTO the aggregator read on every path:
         # no standardized copy of X exists
@@ -435,7 +598,8 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
                 features_std=np.tile(features_std, k),
                 standardize=standardize) if l2 > 0 else None
         else:
-            if use_fused_kernels(ds.ctx, ds.x):
+            if (stream_uses_kernels(ds) if streamed
+                    else use_fused_kernels(ds.ctx, ds.x)):
                 agg = aggregators.binary_logistic_pallas_scaled(
                     d, fit_intercept)
             else:
@@ -453,11 +617,18 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
         # the standardization vectors ride in the ACCUMULATOR tier: the
         # fold's corrections must not round through a bf16 data tier
         adt = compute_dtype(conf)
-        dev = ds.x.device
+        dev = ds.ctx.mesh_runtime.device if streamed else ds.x.device
         extras = (torch.as_tensor(inv_std_agg, device=dev).to(adt),
                   torch.as_tensor(mu_or_zero, device=dev).to(adt))
-        loss_fn = DistributedLossFunction(ds, agg, l2_fn, weight_sum,
-                                          extra_args=extras)
+        if streamed:
+            # the streamed twin: the same aggregator, extras and
+            # normalization, one evaluation one epoch over the shards
+            from cycloneml_tpu_torch.oocore import StreamingLossFunction
+            loss_fn = StreamingLossFunction(ds, agg, l2_fn, weight_sum,
+                                            extra_args=extras)
+        else:
+            loss_fn = DistributedLossFunction(ds, agg, l2_fn, weight_sum,
+                                              extra_args=extras)
 
         if self._has_bounds():
             # ref createOptimizer: L-BFGS-B whenever bounds are set, and
@@ -488,12 +659,27 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
             from cycloneml_tpu_torch.conf import LBFGS_DEVICE_CHUNK
             chunk = int(conf.get(LBFGS_DEVICE_CHUNK)) \
                 if conf is not None else 0
-            if chunk > 0 and (l2_fn is None or hasattr(l2_fn, "traceable")):
+            if chunk > 0 and not streamed and (
+                    l2_fn is None or hasattr(l2_fn, "traceable")):
                 from cycloneml_tpu_torch.ml.optim.device_lbfgs import \
                     DeviceLBFGS
                 opt = DeviceLBFGS(max_iter=self.get("maxIter"),
                                   tol=self.get("tol"), chunk=chunk)
-        state = opt.minimize(loss_fn, x0)
+                # this fit has a streaming twin: over budget, the guard
+                # degrades to it instead of warning or raising
+                opt.oocore_fallback = True
+        from cycloneml_tpu_torch.observe.costs import OutOfCoreRequired
+        try:
+            state = opt.minimize(loss_fn, x0)
+        except OutOfCoreRequired as e:
+            # the guard's terminal degradation: the whole fit again over
+            # streamed epochs, O(shard) device memory
+            logger.warning("LogisticRegression: %s", e)
+            sds = shard_dataset(ds)
+            try:
+                return self._fit_dataset(sds)
+            finally:
+                sds.close()
         if state.converged_reason == "max iterations reached":
             logger.warning(
                 "LogisticRegression did not converge in %d iterations",
@@ -502,7 +688,14 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
         sol = np.asarray(state.x, dtype=np.float64)
         if fp8_scale is not None and not np.all(np.isfinite(sol)):
             # e4m3 has no inf: an overflowing fp8 fit surfaces as NaN in
-            # the solution; refit on the bfloat16 rung
+            # the solution; refit on the bfloat16 rung (a shard set
+            # re-spills there)
+            if streamed:
+                bf16 = ds.to_instance_dataset(fp8_capable=False)
+                try:
+                    return self._fit_dataset(bf16)
+                finally:
+                    bf16.close()
             return self._fit_dataset(fp8_fallback(
                 ds, "LogisticRegression", "non-finite fp8 solution"))
         if is_multinomial:
@@ -541,7 +734,8 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
             objective_history=list(state.loss_history),
             total_iterations=state.iteration,
             total_evals=loss_fn.n_evals,
-            total_dispatches=loss_fn.n_dispatches)
+            total_dispatches=loss_fn.n_dispatches, streamed=streamed,
+            stream_stats=dict(loss_fn.stats) if streamed else None)
         return model
 
 
@@ -749,14 +943,18 @@ class LogisticRegressionTrainingSummary:
     device chunk); ``n_models`` > 1 when the model trained in a stacked fit
     of that many models, whose dispatches and ``stacked_evals`` (the
     lockstep evaluations of all of them, each one aggregation) it
-    shared."""
+    shared. ``streamed``: the fit ran over epochs of shards, and then
+    ``total_dispatches`` counts shard launches (evaluations x shards) and
+    ``stream_stats`` holds its epochs' split (``oocore/objective``)."""
 
     def __init__(self, objective_history, total_iterations,
                  total_evals=None, total_dispatches=None, n_models=1,
-                 stacked_evals=None):
+                 stacked_evals=None, streamed=False, stream_stats=None):
         self.objective_history = objective_history
         self.total_iterations = total_iterations
         self.total_evals = total_evals
         self.total_dispatches = total_dispatches
         self.n_models = n_models
         self.stacked_evals = stacked_evals
+        self.streamed = bool(streamed)
+        self.stream_stats = stream_stats

@@ -17,18 +17,37 @@ precedence are the reference's, so a fit takes the same path.
 ``StackedDeviceLBFGS``): K models over one X advance together, each with
 its own curvature history, line search and convergence code, and a model
 that converged stays frozen while the others go on.
+
+:class:`StackedHostLBFGS` (the reference's, :918-981) drives the streamed
+stacked fit: K serial host L-BFGS coroutines whose trial points batch into
+one evaluation (one streamed epoch) per round.
+
+The memory budget guard (the reference's ``_budget_guarded_chunk``,
+:42-115): when ``cyclone.memory.budgetFraction`` is set, a fit's predicted
+peak device memory (``observe/costs.predict_fit_peak``) is checked before
+its first evaluation. Over budget, the chunk drops to 1 (the reference's
+halving bottoms out there; the port's chunk does not change its memory),
+then the fit degrades to its streaming twin (:class:`costs.
+OutOfCoreRequired`, raised only when the estimator set
+``DeviceLBFGS.oocore_fallback`` and ``cyclone.oocore.mode`` allows), or
+raises under ``budgetAction=raise``, or warns and proceeds.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from cycloneml_tpu_torch.ml.optim.lbfgs import LBFGS, OptimState, _reopen
+from cycloneml_tpu_torch.ml.optim.lbfgs import (LBFGS, OptimState, _History,
+                                                _reopen)
 from cycloneml_tpu_torch.ml.optim.loss import wolfe_search
+from cycloneml_tpu_torch.observe import costs
+
+logger = logging.getLogger(__name__)
 
 
 def _read(*scalars: torch.Tensor, t=np.float64):
@@ -75,6 +94,45 @@ class DeviceLBFGS(LBFGS):
         super().__init__(max_iter, m, tol, grad_tol)
         self.chunk = max(int(chunk), 1)
         self.c1, self.c2, self.max_ls = c1, c2, max_ls
+        # the chunk the guard left (``chunk``, or 1 over budget)
+        self.effective_chunk = self.chunk
+        # set by an estimator whose fit has a streaming twin
+        self.oocore_fallback = False
+
+    def _guard(self, f, n_coef: int) -> None:
+        """The memory budget guard before the first evaluation (module
+        docstring); sets ``effective_chunk``."""
+        self.effective_chunk = self.chunk
+        ctx = getattr(f, "_ctx", None)
+        conf = getattr(ctx, "conf", None)
+        if not costs.guard_armed(conf):
+            return
+        arrays = f._agg_call.arrays()
+        d = arrays[0].shape[1] if arrays and arrays[0].dim() == 2 else 0
+        peak = costs.predict_fit_peak(
+            arrays, n_coef, d, m=self.m,
+            acc_bytes=torch.empty((), dtype=f.cdt).element_size(),
+            device=f.device)
+        verdict = costs.check_budget("DeviceLBFGS", peak, conf=conf,
+                                     ctx=ctx, device=f.device,
+                                     allow_raise=False)
+        if verdict is None or not verdict.exceeded:
+            return
+        self.effective_chunk = 1
+        if self.oocore_fallback:
+            from cycloneml_tpu_torch.oocore.engine import degrade_allowed
+            if degrade_allowed(ctx):
+                raise costs.OutOfCoreRequired("DeviceLBFGS", verdict)
+        if verdict.action == "raise":
+            raise costs.MemoryBudgetError(
+                f"DeviceLBFGS: {verdict.predicted_bytes} bytes predicted, "
+                f"over the {verdict.budget_bytes}-byte budget at deviceChunk "
+                f"1, with nothing smaller to degrade to "
+                f"(cyclone.memory.budgetAction=raise)")
+        logger.warning(
+            "DeviceLBFGS: still %d bytes over the %d-byte budget at "
+            "deviceChunk 1 — proceeding (warn-only)",
+            verdict.predicted_bytes, verdict.budget_bytes)
 
     def iterations(self, f, x0: np.ndarray,
                    resume: Optional[OptimState] = None):
@@ -91,6 +149,7 @@ class DeviceLBFGS(LBFGS):
                                    else a, device=dev).to(cdt).clone()
 
         n = len(np.asarray(x0)) if resume is None else len(resume.x)
+        self._guard(f, n)
         S = torch.zeros((m, n), dtype=cdt, device=dev)
         Y = torch.zeros((m, n), dtype=cdt, device=dev)
         if resume is not None:
@@ -119,7 +178,8 @@ class DeviceLBFGS(LBFGS):
 
         while True:
             base_iter = state.iteration if state is not None else 0
-            it_limit = min(self.chunk, max(self.max_iter - base_iter, 0))
+            it_limit = min(self.effective_chunk,
+                           max(self.max_iter - base_iter, 0))
             evals = 0
             if need_init:
                 # a fresh fit evaluates f(x0) as part of its first chunk
@@ -400,3 +460,175 @@ class StackedDeviceLBFGS:
             values=np.asarray(f_val, dtype=np.float64),
             iterations=iters, converged_reasons=reasons,
             loss_histories=histories, evals=evals)
+
+
+# -- the streamed stacked optimizer -------------------------------------------
+
+def _phi_eval(x, direction, alpha):
+    """One phi(alpha) evaluation as a sub-generator: yields the trial
+    point, receives ``(value, grad)`` from the driver's batched
+    evaluation."""
+    v, g = yield x + alpha * direction
+    g = np.asarray(g, dtype=np.float64)
+    return float(v), g, float(np.dot(direction, g))
+
+
+def _zoom_gen(x, direction, value, d_dot_g0, lo, hi, v_lo, d_lo, v_hi,
+              c1, c2, max_evals):
+    # lbfgs._strong_wolfe's zoom, with phi as a yield point
+    best = None
+    for _ in range(max_evals):
+        alpha = 0.5 * (lo + hi)
+        v, g, dg = yield from _phi_eval(x, direction, alpha)
+        if v > value + c1 * alpha * d_dot_g0 or v >= v_lo:
+            hi, v_hi = alpha, v
+        else:
+            if abs(dg) <= -c2 * d_dot_g0:
+                return alpha, v, g
+            if dg * (hi - lo) >= 0:
+                hi, v_hi = lo, v_lo
+            lo, v_lo, d_lo = alpha, v, dg
+        best = (alpha, v, g)
+        if abs(hi - lo) < 1e-12:
+            break
+    return best
+
+
+def _strong_wolfe_gen(x, value, grad, direction, init_alpha,
+                      c1=1e-4, c2=0.9, max_evals=30):
+    """The generator twin of ``lbfgs._strong_wolfe`` (the same bracket and
+    bisection zoom, branches and constants), every phi(alpha) a
+    ``yield``, so K searches are served by one batched evaluation a
+    round."""
+    d_dot_g0 = float(np.dot(direction, grad))
+    if d_dot_g0 >= 0:
+        raise ValueError("direction is not a descent direction")
+    alpha_prev, v_prev, d_prev = 0.0, value, d_dot_g0
+    alpha = init_alpha
+    for i in range(max_evals):
+        v, g, dg = yield from _phi_eval(x, direction, alpha)
+        if v > value + c1 * alpha * d_dot_g0 or (i > 0 and v >= v_prev):
+            out = yield from _zoom_gen(x, direction, value, d_dot_g0,
+                                       alpha_prev, alpha, v_prev, d_prev, v,
+                                       c1, c2, max_evals)
+            if out is None:
+                break
+            return out
+        if abs(dg) <= -c2 * d_dot_g0:
+            return alpha, v, g
+        if dg >= 0:
+            out = yield from _zoom_gen(x, direction, value, d_dot_g0,
+                                       alpha, alpha_prev, v, dg, v_prev,
+                                       c1, c2, max_evals)
+            if out is None:
+                break
+            return out
+        alpha_prev, v_prev, d_prev = alpha, v, dg
+        alpha *= 2.0
+    v, g, _ = yield from _phi_eval(x, direction, alpha)
+    return alpha, v, g
+
+
+def _lbfgs_gen(x0, max_iter, m, tol, grad_tol, c1, c2, max_ls):
+    """One model's host L-BFGS as a coroutine, decision for decision
+    ``lbfgs.LBFGS`` (curvature condition, two-loop, first-step rule,
+    non-descent reset, convergence tests in the same precedence), every
+    evaluation a ``yield x`` answered by ``send((value, grad))``; equal
+    replies reproduce the serial trajectory bit for bit. Returns ``(x,
+    value, iterations, reason, loss_history)``."""
+    x = np.asarray(x0, dtype=np.float64).copy()
+    v, g = yield x
+    value = float(v)
+    grad = np.asarray(g, dtype=np.float64)
+    loss_history = [value]
+    hist = _History(m)
+    iteration = 0
+    while True:
+        d = hist.direction(grad)
+        init_alpha = 1.0 if iteration > 0 else \
+            min(1.0, 1.0 / max(float(np.linalg.norm(grad)), 1e-12))
+        try:
+            alpha, v_new, g_new = yield from _strong_wolfe_gen(
+                x, value, grad, d, init_alpha, c1, c2, max_ls)
+        except ValueError:
+            hist = _History(m)  # reset on non-descent
+            d = -grad
+            alpha, v_new, g_new = yield from _strong_wolfe_gen(
+                x, value, grad, d,
+                min(1.0, 1.0 / max(float(np.linalg.norm(grad)), 1e-12)),
+                c1, c2, max_ls)
+        x_new = x + alpha * d
+        g_new = np.asarray(g_new, dtype=np.float64)
+        hist.update(x_new - x, g_new - grad)
+        f_old = value
+        x, value, grad = x_new, float(v_new), g_new
+        iteration += 1
+        loss_history.append(value)
+        # LBFGS._converged, same precedence: budget, then value, then grad
+        if iteration >= max_iter:
+            return x, value, iteration, "max iterations reached", \
+                loss_history
+        denom = max(abs(value), abs(f_old), 1e-6)
+        if abs(f_old - value) <= tol * denom:
+            return x, value, iteration, "function value converged", \
+                loss_history
+        gnorm = float(np.linalg.norm(grad))
+        if gnorm <= grad_tol * max(float(np.linalg.norm(x)), 1.0):
+            return x, value, iteration, "gradient converged", loss_history
+
+
+class StackedHostLBFGS:
+    """Host L-BFGS over a stack of K models whose objective is expensive
+    per evaluation and cheap per model: the streamed regime, where one
+    evaluation is a whole epoch over the shards (the reference's
+    ``StackedHostLBFGS``).
+
+    K serial optimizers run as coroutines (:func:`_lbfgs_gen`); each round
+    stacks their pending trial points into one ``(K, n)`` matrix for ONE
+    call of the stacked objective (``oocore.StackedStreamingLossFunction``,
+    one epoch for every model), then hands each model its row. A converged
+    model's slot repeats its terminal point (its replies ignored), so the
+    epochs of a fit are the most any one model needs, not the sum. Pure
+    host float64, like the objective's fold."""
+
+    def __init__(self, max_iter: int = 100, m: int = 10, tol: float = 1e-6,
+                 grad_tol: Optional[float] = None, c1: float = 1e-4,
+                 c2: float = 0.9, max_ls: int = 30):
+        self.max_iter = max_iter
+        self.m = m
+        self.tol = tol
+        self.grad_tol = grad_tol if grad_tol is not None else tol
+        self.c1, self.c2, self.max_ls = c1, c2, max_ls
+
+    def minimize(self, f, x0: np.ndarray) -> StackedOptimResult:
+        """``f`` maps a ``(K, n)`` stack to ``((K,), (K, n))`` host float64
+        losses and gradients."""
+        x0 = np.asarray(x0, dtype=np.float64)
+        K, n = x0.shape
+        gens = [_lbfgs_gen(x0[kk], self.max_iter, self.m, self.tol,
+                           self.grad_tol, self.c1, self.c2, self.max_ls)
+                for kk in range(K)]
+        pending = np.zeros((K, n))
+        done: List[Optional[tuple]] = [None] * K
+        evals = np.zeros(K, dtype=np.int64)
+        for kk, gen in enumerate(gens):
+            pending[kk] = next(gen)  # prime: the first yield is x0
+        while any(dn is None for dn in done):
+            L, G = f(pending)
+            for kk, gen in enumerate(gens):
+                if done[kk] is not None:
+                    continue  # a frozen slot: its reply is ignored
+                evals[kk] += 1
+                try:
+                    pending[kk] = gen.send(
+                        (float(L[kk]), np.asarray(G[kk], dtype=np.float64)))
+                except StopIteration as fin:
+                    done[kk] = fin.value
+                    pending[kk] = fin.value[0]  # the terminal point rides
+        return StackedOptimResult(
+            x=np.stack([dn[0] for dn in done]),
+            values=np.asarray([dn[1] for dn in done], dtype=np.float64),
+            iterations=np.asarray([dn[2] for dn in done], dtype=np.int64),
+            converged_reasons=[dn[3] for dn in done],
+            loss_histories=[list(dn[4]) for dn in done],
+            evals=evals)

@@ -22,9 +22,13 @@ and d <= 4096 (so a default ``LinearRegression()``), delegate to
 pass, then the float64 host solve. That solver is not fp8-capable: on e4m3
 codes it first leaves the fp8 rung through ``fp8_fallback``.
 
-Not ported yet: streamed datasets (under ``cyclone.oocore.mode=force`` a
-fit raises ``NotImplementedError`` where the reference would stream, after
-the reference's own check that refuses ``solver="normal"`` there).
+Streamed fits (the reference's :96-123): a ``StreamingDataset`` handed
+to ``fit``, or an in-core dataset under ``cyclone.oocore.mode=force``
+(spilled first), trains by the quasi-Newton path over epochs of shards,
+K2 once a shard on the card, with the moments and label moments of the
+shards' write pass. ``solver="auto"`` resolves to ``l-bfgs`` there; an
+explicit ``solver="normal"`` raises before any spill (its moments want the
+in-core matrix).
 """
 
 from __future__ import annotations
@@ -110,19 +114,25 @@ class LinearRegression(Predictor, _LinearRegressionParams, MLWritable,
         return self._fit_dataset(ds)
 
     def _model(self, coef, icpt, history, total_iterations,
-               loss_fn=None) -> "LinearRegressionModel":
+               loss_fn=None, streamed=False) -> "LinearRegressionModel":
         model = LinearRegressionModel(coef, icpt, uid=self.uid)
         self._copy_values(model)
         model._set_parent(self)
         model.summary = LinearRegressionTrainingSummary(
             history, total_iterations,
-            loss_fn.n_evals if loss_fn is not None else 0)
+            loss_fn.n_evals if loss_fn is not None else 0,
+            loss_fn.n_dispatches if loss_fn is not None else 0, streamed,
+            dict(loss_fn.stats) if streamed and loss_fn is not None
+            else None)
         return model
 
-    def _fit_dataset(self, ds: InstanceDataset) -> "LinearRegressionModel":
-        from cycloneml_tpu_torch.conf import OOCORE_MODE
+    def _fit_dataset(self, ds) -> "LinearRegressionModel":
+        from cycloneml_tpu_torch.oocore import (StreamingDataset,
+                                                shard_dataset,
+                                                streaming_mode)
         conf = getattr(ds.ctx, "conf", None)
-        force = conf is not None and conf.get(OOCORE_MODE) == "force"
+        streamed = isinstance(ds, StreamingDataset)
+        force = not streamed and streaming_mode(conf) == "force"
         d = ds.n_features
         reg = self.get("regParam")
         alpha = self.get("elasticNetParam")
@@ -132,25 +142,33 @@ class LinearRegression(Predictor, _LinearRegressionParams, MLWritable,
             # normal solver's moments want the in-core design matrix
             solver = "normal" if (alpha * reg == 0.0
                                   and d <= MAX_FEATURES_FOR_NORMAL
-                                  and not force) else "l-bfgs"
+                                  and not (streamed or force)) else "l-bfgs"
+        if (streamed or force) and solver == "normal":
+            # checked before any spill: an explicit normal request must
+            # not pay an O(n d) shard write only to raise
+            raise ValueError(
+                "solver='normal' requires an in-core dataset; streamed "
+                "fits use solver='l-bfgs' (or 'auto')")
         if force:
-            # the reference's order (its _fit_dataset, :107-117): an
-            # explicit normal request raises first, then the spill
-            if solver == "normal":
-                raise ValueError(
-                    "solver='normal' requires an in-core dataset; streamed "
-                    "fits use solver='l-bfgs' (or 'auto')")
-            raise NotImplementedError(
-                "streamed (out-of-core) LinearRegression fits under "
-                "cyclone.oocore.mode=force are ROADMAP slice 6")
+            sds = shard_dataset(ds)
+            try:
+                return self._fit_dataset(sds)
+            finally:
+                sds.close()
         if solver == "normal":
             return self._solve_normal(ds)
 
-        stats = Summarizer.summarize(ds)
-        # the fp8 safety rail: envelope probe, bfloat16 fallback on failure
-        ds = resolve_fp8_fit(ds, stats, "LinearRegression")
+        stats = ds.summary() if streamed else Summarizer.summarize(ds)
+        if not streamed:
+            # the fp8 safety rail: envelope probe, bfloat16 fallback
+            ds = resolve_fp8_fit(ds, stats, "LinearRegression")
         w_sum = stats.weight_sum
-        ymom = ds.tree_aggregate_fn(_label_moments)()
+        # the label moments: one pass in core, the write pass's streamed
+        if streamed:
+            s1y, s2y, w2y = ds.y_moments()
+            ymom = {"s1": s1y, "s2": s2y, "w2": w2y}
+        else:
+            ymom = ds.tree_aggregate_fn(_label_moments)()
         y_mean = float(ymom["s1"]) / w_sum
         denom = w_sum - float(ymom["w2"]) / w_sum
         y_var = max((float(ymom["s2"]) - w_sum * y_mean ** 2) / denom, 0.0) \
@@ -165,7 +183,7 @@ class LinearRegression(Predictor, _LinearRegressionParams, MLWritable,
             if self.get("fitIntercept") or y_mean == 0.0:
                 return self._model(
                     np.zeros(d), y_mean if self.get("fitIntercept") else 0.0,
-                    [0.0], 0)
+                    [0.0], 0, streamed=streamed)
             if reg > 0.0:
                 raise ValueError(
                     "The standard deviation of the label is zero. Model "
@@ -217,9 +235,14 @@ class LinearRegression(Predictor, _LinearRegressionParams, MLWritable,
         inv_std_agg = inv_std * fp8_scale if fp8_scale is not None \
             else inv_std
 
+        from cycloneml_tpu_torch.oocore import (StreamingDataset,
+                                                StreamingLossFunction)
+        from cycloneml_tpu_torch.oocore.engine import stream_uses_kernels
         from cycloneml_tpu_torch.ops.kernels import use_fused_kernels
+        streamed = isinstance(ds, StreamingDataset)
         agg = (aggregators.least_squares_pallas_scaled(d)
-               if use_fused_kernels(ds.ctx, ds.x)
+               if (stream_uses_kernels(ds) if streamed
+                   else use_fused_kernels(ds.ctx, ds.x))
                else aggregators.least_squares_scaled(d))
         l2 = (1.0 - alpha) * reg
         l1 = alpha * reg
@@ -228,11 +251,13 @@ class LinearRegression(Predictor, _LinearRegressionParams, MLWritable,
         # the folded vectors ride in the accumulator tier: their
         # corrections must not round through a bf16 data tier
         adt = compute_dtype(getattr(ds.ctx, "conf", None))
-        dev = ds.x.device
+        dev = ds.ctx.mesh_runtime.device if streamed else ds.x.device
         extras = tuple(torch.as_tensor(a, device=dev).to(adt)
                        for a in (inv_std_agg, scaled_mean, y_pars))
-        loss_fn = DistributedLossFunction(ds, agg, l2_fn, stats.weight_sum,
-                                          extra_args=extras)
+        loss_cls = StreamingLossFunction if streamed \
+            else DistributedLossFunction
+        loss_fn = loss_cls(ds, agg, l2_fn, stats.weight_sum,
+                           extra_args=extras)
         if l1 > 0:
             l1_vec = np.full(d, l1) if standardize else np.where(
                 x_std > 0, l1 / np.where(x_std > 0, x_std, 1.0), 0.0)
@@ -245,7 +270,15 @@ class LinearRegression(Predictor, _LinearRegressionParams, MLWritable,
             logger.warning("LinearRegression did not converge in %d "
                            "iterations", self.get("maxIter"))
         if fp8_scale is not None and not np.all(np.isfinite(state.x)):
-            # an overflowing fp8 fit surfaces as NaN: refit on bfloat16
+            # an overflowing fp8 fit surfaces as NaN: refit on bfloat16 (a
+            # shard set re-spills there)
+            if streamed:
+                bf16 = ds.to_instance_dataset(fp8_capable=False)
+                try:
+                    return self._solve_quasi_newton(bf16, stats, y_mean,
+                                                    y_std, reg, alpha)
+                finally:
+                    bf16.close()
             return self._solve_quasi_newton(
                 fp8_fallback(ds, "LinearRegression",
                              "non-finite fp8 solution"),
@@ -256,7 +289,7 @@ class LinearRegression(Predictor, _LinearRegressionParams, MLWritable,
         icpt = y_mean - float(coef @ x_mean) if fit_intercept else 0.0
         history = list(state.loss_history)
         return self._model(coef, icpt, history, max(len(history) - 1, 0),
-                           loss_fn)
+                           loss_fn, streamed)
 
 
 class LinearRegressionModel(PredictionModel, _LinearRegressionParams,
@@ -308,10 +341,15 @@ class LinearRegressionModel(PredictionModel, _LinearRegressionParams,
 
 
 class LinearRegressionTrainingSummary:
-    """Objective history and counts of a fit: iterations and loss/gradient
-    evaluations."""
+    """Objective history and counts of a fit: iterations, loss/gradient
+    evaluations and dispatches (shard launches when ``streamed``, with
+    the epochs' split in ``stream_stats``)."""
 
-    def __init__(self, objective_history, total_iterations, total_evals=0):
+    def __init__(self, objective_history, total_iterations, total_evals=0,
+                 total_dispatches=0, streamed=False, stream_stats=None):
         self.objective_history = objective_history
         self.total_iterations = total_iterations
         self.total_evals = total_evals
+        self.total_dispatches = total_dispatches
+        self.streamed = bool(streamed)
+        self.stream_stats = stream_stats

@@ -324,9 +324,6 @@ def test_fit_stacked_rejects_what_it_cannot_fit(pctx):
     with pytest.raises(ValueError, match="can_fit_stacked"):
         LogisticRegression(elasticNetParam=0.5).fit_stacked(
             frame, reg_params=[0.1, 0.2])
-    pctx.conf.set("cyclone.oocore.mode", "force")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        LogisticRegression().fit_stacked(frame, reg_params=[0.1, 0.2])
 
 
 # -- convergence masks (tests/test_stacked.py:213-316) ------------------------

@@ -13,8 +13,10 @@ tests/test_torch_stacked.py; the wide instance's summation order is
 emulated in float32 and held to float64 and to the reference; the fits that reach the wide instances on the card
 (binomial LogisticRegression, LinearRegression with l-bfgs or with ``auto``
 past 4,096 columns, OneVsRest) match the reference's iteration and
-evaluation counts in float64 at those widths. ``cyclone.oocore.mode=
-force`` raises where the reference would stream. The ``gpu`` tests hold
+evaluation counts in float64 at those widths. Under ``cyclone.oocore.
+mode=force`` an explicit normal solver raises before any spill, as the
+reference's does (the streamed fits themselves are held in
+tests/test_torch_oocore.py). The ``gpu`` tests hold
 the wide instances on the card against their plain versions in float64
 (the machine with the card has no jax):
 
@@ -396,31 +398,7 @@ def test_f64_wide_ovr_matches_reference(ctx, pctx):
         ref.transform(jf)["prediction"]))
 
 
-# -- cyclone.oocore.mode=force -------------------------------------------------
-
-@pytest.mark.parametrize("family", ["binomial", "multinomial"])
-def test_force_mode_lr_raises_where_the_reference_streams(pctx, family):
-    x, y = _lr_data(60, 5, 33, k=3 if family == "multinomial" else None)
-    pctx.conf.set("cyclone.oocore.mode", "force")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        LogisticRegression(family=family, maxIter=3).fit(
-            interop.dataset_from_numpy(x, y))
-    pctx.conf.set("cyclone.oocore.mode", "off")  # in core again
-    model = LogisticRegression(family=family, maxIter=3).fit(
-        interop.dataset_from_numpy(x, y))
-    assert np.all(np.isfinite(model.coefficient_matrix.to_array()))
-
-
-@pytest.mark.parametrize("kw", [dict(), dict(solver="l-bfgs"),
-                                dict(regParam=0.1, elasticNetParam=0.5)])
-def test_force_mode_linreg_raises_where_the_reference_streams(pctx, kw):
-    """auto (which resolves to l-bfgs under force, as the reference's does)
-    and l-bfgs raise NotImplementedError where the reference spills."""
-    x, y = _lr_data(60, 5, 34)
-    pctx.conf.set("cyclone.oocore.mode", "force")
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        LinearRegression(**kw).fit(interop.dataset_from_numpy(x, y))
-
+# -- cyclone.oocore.mode=force (the streamed fits are test_torch_oocore.py's) --
 
 def test_force_mode_refuses_the_normal_solver_first(ctx, pctx):
     """An explicit solver='normal' under force raises the reference's
