@@ -337,7 +337,48 @@ the final result line:
    OOC_OVR_N, through K1s once a shard a lockstep evaluation, the first
    OOC_SERIAL models each at the kernel tolerance of its serial streamed
    fit;
-45. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+45. the BLAS dispatch boundary (``linalg/blas.py``): ``BLAS.gemm`` and
+   ``BLAS.gemv`` on ``DenseMatrix`` at the reference's GEMM sizes (1,024,
+   2,048 and 4,096 square) against numpy float64 to 1e-5 of |A||B|
+   (|A||x|), the routing counts (the card above ``DEVICE_FLOPS_THRESHOLD``,
+   the host below: a 1,024 gemv and a 64 x 64 gemm), each call's time with
+   the host<->device copies the boundary makes beside ``torch.matmul`` on
+   resident float32 tensors; a 4,096 x 4,096 ``BlockMatrix.multiply``
+   (one padded tensor on the card) against float64;
+46. BisectingKMeans at configuration 3's shape (10,000,000 x 128 bf16, 64
+   planted centers placed as a binary tree plus N(0, 1) noise, drawn on
+   the card; ``k=64, maxIter=20, seed=3``): the sums of every pass and the
+   children's counts and costs of every level through the center sums
+   (passes + 2 a level launches, nothing else), two fits bitwise equal, a
+   float64 fit on the same rows through the plain ``index_add_`` sums
+   giving the same tree with leaf centers within rtol 5e-3, atol 5e-4,
+   every planted center within 0.5 of a leaf of its own, and a cosine fit
+   on the first 1,000,000 rows;
+47. GaussianMixture: 16 planted components (means ~ N(0, 1) a column,
+   noise scales in [0.5, 1.5]) at 2,000,000 x 128 bf16, ``k=16,
+   maxIter=20, tol=0.01``: the E-step in row chunks on torch products (no
+   kernel), the mean log-likelihood within 1e-4 (relative) of a float64
+   fit on the same rows, weights and means within rtol 5e-3, atol 5e-4 of
+   it, two fits bitwise equal, peak device memory against X plus two
+   chunks' intermediates; the planted means within 0.1 of a fitted mean
+   are counted and printed (EM from the reference's sampled start does
+   not part 16 components in 20 iterations);
+48. LDA at the Enron shape of UCI's "Bag of Words" (39,861 documents x
+   28,102 terms, ~6.4M tokens) drawn from LDA's generative process with 20
+   planted topics (``k=20, maxIter=20``): the default online fit
+   (``subsamplingRate=0.05``) twice, bitwise equal; a fit at rate 1.0
+   against a float64 fit, ``log_perplexity`` on the first 4,096 documents
+   within 1e-4; the largest count (bf16 holds integers exactly up to
+   256); the overlap of each planted topic's top 10 terms with the fitted
+   topics' printed;
+49. PowerIterationClustering at SNAP com-Youtube's shape (1,134,890
+   vertices, 2,987,624 edges, two planted communities; ``k=2,
+   maxIter=20``): S2 once per power-iteration step over the one-slot ELL
+   of the 5,975,248 directed edges, two runs bitwise equal, the embedding
+   within 1e-5 (relative to its largest entry) of a float64 ``index_add_``
+   power iteration on the card with as many steps, the purity of the
+   planted communities printed;
+50. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -350,8 +391,9 @@ the final result line:
    20's bounded fit) and the ALS normal equations (phase 35's launches,
    the users' half-step's times, the items' beside them), with the
    launches of phases 37-39's paths beside the entries they ran (K1, K2,
-   K4, S1, S2) and of phases 40-44's (K1, K2, K1 e4m3, K1s), the phases'
-   and the total wall time; the last line is
+   K4, S1, S2), of phases 40-44's (K1, K2, K1 e4m3, K1s) and of phases
+   46 and 49's (the center sums, S2), the phases' and the total wall
+   time; the last line is
    ``{"ok":
    true, "device": {...}}``.
 
@@ -446,6 +488,15 @@ PIPE_K = 32                      # the Pipeline's PCA components
 OOC_TOL = 1e-6                   # the streamed phases' LR/OvR tol
 OOC_OVR_N = 500_000              # the streamed OneVsRest's rows (cut)
 OOC_SERIAL = 3                   # its models held to serial streamed fits
+BLAS_SIZES = (1024, 2048, 4096)  # the reference's GEMM sizes (benchmarks/
+                                 # run_benchmarks.py:134)
+BKM_N, BKM_D, BKM_K = KM_N, KM_D, 64  # BisectingKMeans: configuration 3's
+BKM_COSINE_N = 1_000_000              # shape; the cosine fit's rows (cut)
+GMM_N, GMM_D, GMM_K = 2_000_000, 128, 16  # GaussianMixture (rows cut)
+LDA_DOCS, LDA_VOCAB = 39_861, 28_102  # UCI Bag of Words, Enron
+LDA_TOKENS, LDA_TOPICS = 6_400_000, 20
+LDA_PROBE = 4096                 # documents log_perplexity is taken on
+PIC_VERTICES, PIC_EDGES = 1_134_890, 2_987_624  # SNAP com-Youtube
 PROBE_ROWS = 4096                # rows each kept model transforms
 TEXT_BLOCK_BYTES = 1 << 28       # token bytes formatted on the card at once
 # the models the run fits and the persistence phase saves and loads
@@ -5589,6 +5640,620 @@ def phase_stream_ovr(tmp):
         _ooc_done(ctx, spill)
 
 
+# -- the BLAS boundary, the distributed matrices and the clustering family ------
+
+def _rel_err(got, truth) -> float:
+    import numpy as np
+    return float(np.max(np.abs(got - truth)) / max(np.max(np.abs(truth)),
+                                                   1e-300))
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Wall milliseconds per call of ``fn`` (host work and copies
+    included), the card synchronized around the calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / reps
+
+
+def phase_blas():
+    """The BLAS dispatch boundary at the reference's GEMM sizes and a
+    4,096 x 4,096 BlockMatrix product, against numpy float64."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.linalg import (BLAS, DenseMatrix, DenseVector,
+                                            Matrices, blas)
+    from cycloneml_tpu_torch.linalg.block import BlockMatrix
+
+    ctx = _context("chip_smoke_blas")
+    try:
+        rng = np.random.RandomState(45)
+        sizes, checks = {}, {}
+        largest = None
+        for n in BLAS_SIZES:
+            a, b, x = rng.randn(n, n), rng.randn(n, n), rng.randn(n)
+            am, bm = DenseMatrix.from_array(a), DenseMatrix.from_array(b)
+            t0 = time.perf_counter()
+            truth = a @ b
+            numpy_ms = (time.perf_counter() - t0) * 1000.0
+            blas.reset_route_counts()
+            c = Matrices.zeros(n, n)
+            BLAS.gemm(1.0, am, bm, 0.0, c)
+            y = DenseVector(np.zeros(n))
+            BLAS.gemv(1.0, am, DenseVector(x), 0.0, y)
+            routes = {"gemm": dict(BLAS.device_gemm.routes),
+                      "gemv": dict(BLAS.device_gemv.routes)}
+            # the largest entry error over the largest entry: a product
+            # that drops part of its inner dimension fails this
+            gemm_err = _rel_err(c.to_array(), truth)
+            gemv_err = _rel_err(y.to_array(), a @ x)
+            ta = torch.as_tensor(a, device=ctx.device).float()
+            tb = torch.as_tensor(b, device=ctx.device).float()
+            tx = torch.as_tensor(x, device=ctx.device).float()
+            reps = max(2, 2 ** 31 // n ** 3)
+            sizes[n] = {
+                "routes": routes, "gemm_err": gemm_err, "gemv_err": gemv_err,
+                "flops": 2 * n ** 3,
+                "blas_gemm_ms": _wall_ms(
+                    lambda: BLAS.gemm(1.0, am, bm, 0.0, c), 3),
+                "device_gemm_ms": _wall_ms(
+                    lambda: BLAS.device_gemm(a, b), 3),
+                "resident_matmul_ms": _time_ms(lambda: ta @ tb, reps),
+                "blas_gemv_ms": _wall_ms(
+                    lambda: BLAS.gemv(1.0, am, DenseVector(x), 0.0, y), 3),
+                "resident_matvec_ms": _time_ms(lambda: ta @ tx, 20),
+                "numpy_f64_gemm_ms": numpy_ms}
+            gemv_device = n * n >= blas.DEVICE_FLOPS_THRESHOLD
+            checks.update({
+                f"{n}: BLAS.gemm within 1e-5 of max|AB|": gemm_err <= 1e-5,
+                f"{n}: BLAS.gemv within 1e-5 of max|Ax|": gemv_err <= 1e-5,
+                f"{n}: gemm routed to the card": routes["gemm"] ==
+                    {"device": 1, "host": 0},
+                f"{n}: gemv routed by the threshold": routes["gemv"] ==
+                    ({"device": 1, "host": 0} if gemv_device
+                     else {"device": 0, "host": 1})})
+            if n == BLAS_SIZES[-1]:
+                largest = (a, b, truth)
+            del ta, tb, tx
+        # a product below the threshold stays on the host
+        blas.reset_route_counts()
+        small = rng.randn(64, 64)
+        BLAS.device_gemm(small, small)
+        checks["64 x 64 stays on the host"] = \
+            BLAS.device_gemm.routes == {"device": 0, "host": 1}
+        a, b, truth = largest
+        (ba, bb), place_s = _timed(lambda: (BlockMatrix.from_numpy(ctx, a),
+                                            BlockMatrix.from_numpy(ctx, b)))
+        prod = ba.multiply(bb)
+        block_err = _rel_err(prod.to_numpy(), truth)
+        block_ms = _time_ms(lambda: ba.multiply(bb), 10)
+        _line("blas", threshold=blas.DEVICE_FLOPS_THRESHOLD,
+              compute_dtype="float32", tf32=torch.backends.cuda.matmul
+              .allow_tf32, sizes=sizes,
+              block_matrix={"n": a.shape[0], "storage": list(ba._arr.shape),
+                            "err": block_err, "multiply_ms": block_ms,
+                            "place_s": place_s,
+                            "bound_ms": 2 * a.shape[0] ** 3
+                            / H100_F32_FLOPS * 1e3})
+        checks["BlockMatrix multiply within 1e-5 of max|AB|"] = \
+            block_err <= 1e-5
+        checks["BlockMatrix on the card"] = ba._arr.device.type == "cuda"
+        checks["TF32 off"] = not torch.backends.cuda.matmul.allow_tf32
+        _check("blas", checks)
+    finally:
+        ctx.stop()
+
+
+def _planted_rows(n, centers, g, scales=None, dtype=None):
+    """n rows drawn on the card: a uniform planted center each plus
+    N(0, 1) noise (times the center's per-column ``scales`` when given),
+    stored in ``dtype`` (bf16 by default); returns (X, labels)."""
+    import torch
+    dtype = dtype or torch.bfloat16
+    dev = centers.device
+    k, d = centers.shape
+    labels = torch.randint(0, k, (n,), generator=g, device=dev)
+    x = torch.empty((n, d), dtype=dtype, device=dev)
+    for lo in range(0, n, ROWS):
+        lab = labels[lo:lo + ROWS]
+        noise = torch.randn((lab.shape[0], d), generator=g, device=dev)
+        if scales is not None:
+            noise *= scales[lab]
+        x[lo:lo + ROWS] = (centers[lab] + noise).to(dtype)
+    return x, labels
+
+
+def _dataset_of(ctx, x, w_dtype=None):
+    """An InstanceDataset over the device rows ``x`` (n a multiple of 8:
+    no padding), y = 0, w = 1 at ``w_dtype`` (float32 by default)."""
+    import torch
+    from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
+    n = x.shape[0]
+    dt = w_dtype or torch.float32
+    return InstanceDataset(ctx, x, torch.zeros(n, dtype=dt, device=x.device),
+                           torch.ones(n, dtype=dt, device=x.device), n,
+                           x.shape[1])
+
+
+def _bkm_centers(dev):
+    """BKM_K planted centers, binary-tree placed: center c is
+    sum_b (+-1 by bit b of c) * 6 * 2^(5 - b) on column b, so every level
+    of the bisection has one split that keeps whole clusters apart (the
+    nearest two centers 12 apart, against N(0, 1) noise)."""
+    import torch
+    levels = BKM_K.bit_length() - 1
+    bits = (torch.arange(BKM_K)[:, None]
+            >> torch.arange(levels - 1, -1, -1)[None, :]) & 1
+    scale = 6.0 * 2.0 ** torch.arange(levels - 1, -1, -1).float()
+    c = torch.zeros((BKM_K, BKM_D))
+    c[:, :levels] = (bits.float() * 2 - 1) * scale
+    return c.to(dev)
+
+
+def _same_tree(a, b) -> bool:
+    import numpy as np
+    return (np.array_equal(a._node_index, b._node_index)
+            and a._centers.tobytes() == b._centers.tobytes()
+            and sorted(a._tree) == sorted(b._tree)
+            and all(a._tree[i].tobytes() == b._tree[i].tobytes()
+                    for i in a._tree))
+
+
+def phase_bisecting():
+    """BisectingKMeans at configuration 3's shape through the center sums,
+    twice, against a float64 fit through the plain sums, and a cosine fit
+    on a cut of the rows; returns the center sums' launches of the first
+    fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ml.clustering import BisectingKMeans
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_bisecting")
+    try:
+        g = torch.Generator(device=ctx.device).manual_seed(46)
+        centers = _bkm_centers(ctx.device)
+        (x, _), gen_s = _timed(lambda: _planted_rows(BKM_N, centers, g))
+        ds = _dataset_of(ctx, x)
+
+        def fit(data, **kw):
+            return _timed(lambda: BisectingKMeans(
+                k=BKM_K, maxIter=20, seed=3, **kw).fit(data))
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        a, a_s = fit(ds)
+        launches = kernels.center_sums.launches
+        by_instance = dict(kernels.center_sums.launches_by_instance)
+        others = _other_launches(kernels, "center_sums")
+        peak = torch.cuda.max_memory_allocated()
+        b, b_s = fit(ds)
+        # the float64 fit on the same rows through the plain sums
+        ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+        x64 = x.double()
+        kernels.reset_launch_counts()
+        p, p_s = fit(_dataset_of(ctx, x64, torch.float64))
+        plain_launches = kernels.center_sums.launches
+        del x64
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+        # the cosine mode on the first BKM_COSINE_N rows
+        kernels.reset_launch_counts()
+        cos, cos_s = fit(_dataset_of(ctx, x[:BKM_COSINE_N]),
+                         distanceMeasure="cosine")
+        cos_launches = kernels.center_sums.launches
+        # float64 X on the default route, on the same cut: the center sums
+        # read it, two fits bitwise equal, the tree of the plain route
+        ds64 = _dataset_of(ctx, x[:BKM_COSINE_N].double(), torch.float64)
+        kernels.reset_launch_counts()
+        f64a, f64_s = fit(ds64)
+        f64_launches = kernels.center_sums.launches
+        f64_others = _other_launches(kernels, "center_sums")
+        f64b, _ = fit(ds64)
+        ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+        f64p, f64p_s = fit(ds64)
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+        del ds64
+        f64_vs_plain = (float(np.max(np.abs(f64a._centers - f64p._centers)))
+                        if np.array_equal(f64a._node_index, f64p._node_index)
+                        else None)
+        # one pass's child sums at this shape (2m = 64), timed alone
+        cidx = torch.randint(0, BKM_K, (BKM_N,), generator=g,
+                             device=ctx.device)
+        sums_ms = _time_ms(lambda: kernels.center_sums(x, ds.w, cidx, BKM_K),
+                           10)
+        sums_plain_ms = _time_ms(lambda: kernels.center_sums_plain(
+            x, ds.w, cidx, BKM_K), 3)
+        sums_numbers = {"ms": sums_ms, "plain_ms": sums_plain_ms,
+                        "bound_ms": (x.numel() * 2 + BKM_N * 8
+                                     + BKM_K * (BKM_D + 1) * 4)
+                        / H100_BYTES_PER_S * 1e3}
+        del cidx
+        planted = centers.double().cpu().numpy()
+        dist = np.sqrt(((planted[:, None, :] - a._centers[None]) ** 2)
+                       .sum(-1))
+        near = dist.min(1)
+        passes = sum(a.level_passes)
+        levels = len(a.level_passes)
+        _line("bisecting_fit", n=BKM_N, d=BKM_D, k=BKM_K,
+              data_dtype="bfloat16", generate_s=gen_s,
+              kernel={"fit_s": a_s, "repeat_fit_s": b_s,
+                      "level_passes": a.level_passes,
+                      "center_sums_launches": launches,
+                      "center_sums_launches_by_instance": by_instance,
+                      "ms_per_pass": a_s * 1000.0 / max(passes, 1)},
+              plain_f64={"fit_s": p_s, "level_passes": p.level_passes,
+                         "center_sums_launches": plain_launches},
+              cosine={"n": BKM_COSINE_N, "fit_s": cos_s,
+                      "level_passes": cos.level_passes,
+                      "center_sums_launches": cos_launches},
+              f64_center_sums={"n": BKM_COSINE_N, "fit_s": f64_s,
+                               "plain_fit_s": f64p_s,
+                               "level_passes": f64a.level_passes,
+                               "center_sums_launches": f64_launches,
+                               "centers_max_abs_diff_to_plain":
+                                   f64_vs_plain},
+              center_sums_at_k64=sums_numbers,
+              leaves=len(a._node_index),
+              planted_to_nearest_leaf_max=float(near.max()),
+              planted_leaves_distinct=int(len(set(dist.argmin(1)))),
+              max_memory_allocated=peak, x_bytes=x.numel() * 2)
+        same_as_plain = (np.array_equal(a._node_index, p._node_index)
+                         and sorted(a._tree) == sorted(p._tree))
+        _check("bisecting fit", {
+            "center sums launched once a pass and twice a level "
+            "(counts, costs)": launches == passes + 2 * levels,
+            "only the counting instance at 2m <= 64":
+                by_instance[kernels.COUNTING] == launches,
+            "no other kernel launched": others == 0,
+            "k leaves": len(a._node_index) == BKM_K,
+            "two fits bitwise equal": _same_tree(a, b),
+            "the float64 plain fit launched no center sums":
+                plain_launches == 0,
+            "the float64 plain fit builds the same tree": same_as_plain,
+            "leaf centers within rtol 5e-3, atol 5e-4 of the float64 fit":
+                same_as_plain and bool(np.allclose(
+                    a._centers, p._centers, rtol=5e-3, atol=5e-4)),
+            "every planted center within 0.5 of a leaf of its own":
+                float(near.max()) < 0.5
+                and len(set(dist.argmin(1))) == BKM_K,
+            "float64 X on the default route through the center sums":
+                f64_launches == sum(f64a.level_passes)
+                + 2 * len(f64a.level_passes) and f64_others == 0,
+            "two float64 fits bitwise equal": _same_tree(f64a, f64b),
+            "the float64 center-sums fit builds the plain float64 tree, "
+            "centers within 1e-9": f64_vs_plain is not None
+                and f64_vs_plain <= 1e-9,
+            "cosine fit through the center sums": cos_launches ==
+                sum(cos.level_passes) + 2 * len(cos.level_passes)
+                and len(cos._node_index) == BKM_K
+                and bool(np.all(np.isfinite(cos._centers))),
+        })
+        return launches, sums_numbers
+    finally:
+        ctx.stop()
+
+
+def phase_gmm():
+    """GaussianMixture on GMM_K planted components at GMM_N x GMM_D: two
+    float32 fits (bf16 X) and a float64 fit on the same rows."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ml.clustering import GaussianMixture
+    from cycloneml_tpu_torch.ml.clustering import gaussian_mixture as gm
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_gmm")
+    try:
+        g = torch.Generator(device=ctx.device).manual_seed(47)
+        means = torch.randn((GMM_K, GMM_D), generator=g, device=ctx.device)
+        scales = torch.rand((GMM_K, GMM_D), generator=g,
+                            device=ctx.device) + 0.5
+        (x, _), gen_s = _timed(lambda: _planted_rows(GMM_N, means, g,
+                                                     scales))
+        ds = _dataset_of(ctx, x)
+
+        def fit(data):
+            return _timed(lambda: GaussianMixture(
+                k=GMM_K, maxIter=20, tol=0.01).fit(data))
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        a, a_s = fit(ds)
+        launches = _other_launches(kernels)
+        peak = torch.cuda.max_memory_allocated() - base
+        b, b_s = fit(ds)
+        x64 = x.double()
+        p, p_s = fit(_dataset_of(ctx, x64, torch.float64))
+        del x64
+        chunk_bytes = 4 * GMM_K * gm.ROW_CHUNK * GMM_D * 4
+        planted = means.double().cpu().numpy()
+        dist = np.sqrt(((planted[:, None, :] - a._means[None]) ** 2).sum(-1))
+        recovered = int(np.sum(dist.min(1) < 0.1))
+        ll, ll64 = a.log_likelihood / GMM_N, p.log_likelihood / GMM_N
+        _line("gmm_fit", n=GMM_N, d=GMM_D, k=GMM_K, data_dtype="bfloat16",
+              generate_s=gen_s, row_chunk=gm.ROW_CHUNK,
+              kernel_free_launches=launches,
+              f32={"fit_s": a_s, "repeat_fit_s": b_s,
+                   "iterations": a.num_iterations,
+                   "ms_per_iteration": a_s * 1000.0 / a.num_iterations,
+                   "mean_loglik": ll},
+              f64={"fit_s": p_s, "iterations": p.num_iterations,
+                   "mean_loglik": ll64},
+              mean_loglik_abs_diff=abs(ll - ll64),
+              mean_loglik_rel_diff=abs(ll - ll64) / abs(ll64),
+              weights_max_diff=float(np.max(np.abs(a.weights - p.weights))),
+              means_max_diff=float(np.max(np.abs(a._means - p._means))),
+              planted_means_recovered=recovered,
+              planted_to_nearest_mean=np.sort(dist.min(1)).tolist(),
+              weights=np.sort(a.weights).tolist(),
+              peak_bytes_over_data=peak, x_bytes=x.numel() * 2,
+              one_chunk_intermediates_bytes=chunk_bytes)
+        _check("gmm fit", {
+            "no kernel launched (the reference's E-step is jnp)":
+                launches == 0,
+            "all iterations run (tol never met)":
+                a.num_iterations == p.num_iterations == 20,
+            "mean log-likelihood within 1e-4 (relative) of the float64 fit":
+                abs(ll - ll64) <= 1e-4 * abs(ll64),
+            "weights and means within rtol 5e-3, atol 5e-4 of the float64 "
+            "fit": bool(np.allclose(a.weights, p.weights, rtol=5e-3,
+                                    atol=5e-4))
+                and bool(np.allclose(a._means, p._means, rtol=5e-3,
+                                     atol=5e-4)),
+            "two fits bitwise equal": a.weights.tobytes() == b.weights
+                .tobytes() and a._means.tobytes() == b._means.tobytes()
+                and a._covs.tobytes() == b._covs.tobytes()
+                and a.log_likelihood == b.log_likelihood,
+            "finite parameters, weights summing to 1":
+                bool(np.all(np.isfinite(a._covs)))
+                and abs(float(a.weights.sum()) - 1.0) < 1e-9,
+            "peak device memory above the data within two chunks' "
+            "intermediates": peak <= 2 * chunk_bytes,
+        })
+    finally:
+        ctx.stop()
+
+
+def _lda_corpus(ctx, g):
+    """LDA_DOCS documents over LDA_VOCAB terms drawn on the card from
+    LDA's generative process: LDA_TOPICS planted topics ~ Dirichlet(0.05)
+    over the terms and each document's mixture ~ Dirichlet(0.1), from
+    numpy RandomState(48); lengths ~ Poisson(LDA_TOKENS / LDA_DOCS) and
+    each token's term ~ theta_d beta by ``torch.multinomial`` on the
+    card's generator. Returns (bf16 counts, planted topics (k, V))."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(48)
+    beta = rng.dirichlet(np.full(LDA_VOCAB, 0.05), size=LDA_TOPICS)
+    theta = rng.dirichlet(np.full(LDA_TOPICS, 0.1), size=LDA_DOCS)
+    lens = rng.poisson(LDA_TOKENS / LDA_DOCS, size=LDA_DOCS)
+    dev = ctx.device
+    bt = torch.as_tensor(beta, device=dev).float()
+    th = torch.as_tensor(theta, device=dev).float()
+    ln = torch.as_tensor(lens, device=dev)
+    x = torch.zeros((LDA_DOCS, LDA_VOCAB), dtype=torch.float32, device=dev)
+    for lo in range(0, LDA_DOCS, 2048):
+        p = th[lo:lo + 2048] @ bt
+        most = int(ln[lo:lo + 2048].max())
+        idx = torch.multinomial(p, most, replacement=True, generator=g)
+        live = torch.arange(most, device=dev)[None, :] < \
+            ln[lo:lo + 2048, None]
+        x[lo:lo + 2048].scatter_add_(1, idx, live.float())
+    return x.to(torch.bfloat16), beta, int(lens.sum())
+
+
+def phase_lda():
+    """LDA at the Enron shape: the default online fit twice, a fit at
+    subsamplingRate 1.0 and a float64 fit on the same counts."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    from cycloneml_tpu_torch.ml.clustering import LDA
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_lda")
+    try:
+        g = torch.Generator(device=ctx.device).manual_seed(48)
+        (x, beta, tokens), gen_s = _timed(lambda: _lda_corpus(ctx, g))
+        largest = float(x.float().max())
+        ds = _dataset_of(ctx, x)
+
+        def fit(data, **kw):
+            return _timed(lambda: LDA(k=LDA_TOPICS, maxIter=20, seed=1,
+                                      **kw).fit(data))
+
+        kernels.reset_launch_counts()
+        a, a_s = fit(ds)
+        launches = _other_launches(kernels)
+        b, b_s = fit(ds)
+        full, full_s = fit(ds, subsamplingRate=1.0)
+        x64 = x.double()
+        p, p_s = fit(_dataset_of(ctx, x64, torch.float64),
+                     subsamplingRate=1.0)
+        del x64
+        probe = MLFrame(ctx, {"features": x[:LDA_PROBE].double().cpu()
+                              .numpy()})
+        (lp, lp64), lp_s = _timed(lambda: (full.log_perplexity(probe),
+                                           p.log_perplexity(probe)))
+        top = np.argsort(-beta, axis=1)[:, :10]
+
+        def overlaps(model):
+            fitted = [set(i.tolist()) for i, _ in model.describe_topics(10)]
+            return [max(len(set(t.tolist()) & f) for f in fitted)
+                    for t in top]
+
+        ov_online, ov_full = overlaps(a), overlaps(full)
+        lam_rel = float(np.max(np.abs(full._lam - p._lam))
+                        / np.max(np.abs(p._lam)))
+        _line("lda_fit", docs=LDA_DOCS, vocab=LDA_VOCAB, k=LDA_TOPICS,
+              tokens=tokens, largest_count=largest,
+              bf16_exact_counts=largest <= 256, data_dtype="bfloat16",
+              generate_s=gen_s, kernel_free_launches=launches,
+              online={"subsampling_rate": 0.05, "fit_s": a_s,
+                      "repeat_fit_s": b_s,
+                      "planted_top10_overlap": ov_online},
+              full={"fit_s": full_s, "planted_top10_overlap": ov_full,
+                    "log_perplexity": lp},
+              f64={"fit_s": p_s, "log_perplexity": lp64},
+              probe_docs=LDA_PROBE, log_perplexity_s=lp_s,
+              log_perplexity_rel_diff=abs(lp - lp64) / abs(lp64),
+              lambda_max_rel_diff=lam_rel)
+        _check("lda fit", {
+            "no kernel launched (the reference's E-step is jnp)":
+                launches == 0,
+            "bf16 holds every count exactly (largest <= 256)":
+                largest <= 256,
+            "two online fits with one seed bitwise equal":
+                a._lam.tobytes() == b._lam.tobytes(),
+            "log_perplexity at rate 1.0 within 1e-4 of the float64 fit":
+                abs(lp - lp64) <= 1e-4 * abs(lp64),
+            "finite topics": bool(np.all(np.isfinite(full._lam)))
+                and bool(np.all(np.isfinite(a._lam))),
+        })
+    finally:
+        ctx.stop()
+
+
+def _pic_graph():
+    """PIC_VERTICES vertices and PIC_EDGES undirected edges with two
+    planted communities (a third and two thirds of the vertices, 95% of
+    each vertex's edges inside its own), numpy RandomState(49): every
+    vertex in at least one edge, ids shuffled over a wider range.
+    Returns (src ids, dst ids, community of each sorted id)."""
+    import numpy as np
+    rng = np.random.RandomState(49)
+    n, e = PIC_VERTICES, PIC_EDGES
+    comm = (np.arange(n) >= n // 3).astype(np.int64)
+    members = [np.flatnonzero(comm == c) for c in (0, 1)]
+    src = np.concatenate([np.arange(n), rng.randint(0, n, e - n)])
+    inside = rng.rand(e) < 0.95
+    side = np.where(inside, comm[src], 1 - comm[src])
+    dst = np.empty(e, np.int64)
+    for c in (0, 1):
+        sel = side == c
+        dst[sel] = members[c][rng.randint(0, len(members[c]), sel.sum())]
+    ids = rng.permutation(4 * n)[:n] + 1000
+    return ids[src], ids[dst], comm[np.argsort(ids)]
+
+
+def phase_pic():
+    """PowerIterationClustering at SNAP com-Youtube's shape through S2,
+    twice, against a float64 ``index_add_`` power iteration on the card
+    with as many steps; returns S2's launches of the first run."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    from cycloneml_tpu_torch.ml.clustering import PowerIterationClustering
+    from cycloneml_tpu_torch.ops import kernels
+
+    ctx = _context("chip_smoke_pic")
+    try:
+        (src, dst, comm), gen_s = _timed(_pic_graph)
+        frame = MLFrame(ctx, {"src": src.astype(np.float64),
+                              "dst": dst.astype(np.float64)})
+        pic = PowerIterationClustering(k=2, maxIter=20, seed=5)
+        kernels.reset_launch_counts()
+        emb, emb_s = _timed(lambda: pic._embedding(
+            frame, np.random.RandomState(5)))
+        launches = kernels.ell_cols.launches
+        others = _other_launches(kernels, "ell_cols")
+        again = pic._embedding(frame, np.random.RandomState(5))
+        out, assign_s = _timed(lambda: pic.assign_clusters(frame))
+        # the float64 truth: the same graph, index_add_ on the card
+        dev = ctx.device
+        ids = np.unique(np.concatenate([src, dst]))
+        s2 = np.searchsorted(ids, np.concatenate([src, dst]))
+        d2 = np.searchsorted(ids, np.concatenate([dst, src]))
+        n = len(ids)
+        deg = np.bincount(s2, minlength=n).astype(np.float64)
+        st = torch.as_tensor(s2, device=dev)
+        dt = torch.as_tensor(d2, device=dev)
+        wt = torch.as_tensor(1.0 / deg[s2], device=dev)
+
+        def truth_after(steps):
+            v = np.random.RandomState(5).rand(n) / n
+            v = torch.as_tensor(v / np.abs(v).sum(), device=dev)
+            for _ in range(steps):
+                nv = torch.zeros(n, dtype=torch.float64,
+                                 device=dev).index_add_(0, st, wt * v[dt])
+                v = nv / torch.sum(torch.abs(nv))
+            return v
+
+        v = truth_after(emb.iterations)
+        truth = v.cpu().numpy()
+        # cyclone.compute.dtype=float64: every step through the center
+        # sums (S2's values are float32), twice
+        ctx.conf.set("cyclone.compute.dtype", "float64")
+        kernels.reset_launch_counts()
+        emb64, emb64_s = _timed(lambda: pic._embedding(
+            frame, np.random.RandomState(5)))
+        f64_sums = kernels.center_sums.launches
+        f64_others = _other_launches(kernels, "center_sums")
+        again64 = pic._embedding(frame, np.random.RandomState(5))
+        ctx.conf.set("cyclone.compute.dtype", "float32")
+        rel64 = _rel_err(emb64.values,
+                         truth_after(emb64.iterations).cpu().numpy())
+        rel = _rel_err(emb.values, truth)
+        # S2 at this shape alone: the one-slot ELL, its column copy, a step
+        idx = torch.as_tensor(s2.astype(np.int32), device=dev)[:, None] \
+            .contiguous()
+        val = wt.float()[:, None].contiguous()
+        r = v.float()[dt].contiguous()
+        columns, columns_s = _timed(lambda: kernels.ell_columns(idx, val, n))
+        s2_ms = _time_ms(lambda: kernels.ell_cols(idx, val, r, n,
+                                                  columns=columns), 20)
+        s2_plain_ms = _time_ms(lambda: kernels.ell_cols_plain(idx, val, r, n),
+                               5)
+        s2_library_ms = _time_ms(lambda: torch.zeros(
+            n, dtype=torch.float32, device=dev).index_add_(
+                0, st, val[:, 0] * r), 20)
+        s2_numbers = {"ms": s2_ms, "plain_ms": s2_plain_ms,
+                      "library_index_add_ms": s2_library_ms,
+                      "bound_ms": (idx.shape[0] * 12 + n * 4)
+                      / H100_BYTES_PER_S * 1e3,
+                      "column_copy_s": columns_s,
+                      "pieces": int(columns.piece_col.shape[0])}
+        labels = out["cluster"].astype(np.int64)
+        agree = float(np.mean(labels == comm))
+        purity = max(agree, 1.0 - agree)
+        _line("pic", vertices=n, edges=PIC_EDGES, directed_edges=2 * PIC_EDGES,
+              generate_s=gen_s, iterations=emb.iterations,
+              s2_launches=launches, embedding_s=emb_s,
+              ms_per_iteration=emb_s * 1000.0 / max(emb.iterations, 1),
+              assign_clusters_s=assign_s, embedding_rel_err=rel,
+              f64_center_sums={"iterations": emb64.iterations,
+                               "center_sums_launches": f64_sums,
+                               "embedding_s": emb64_s,
+                               "embedding_rel_err": rel64},
+              s2=s2_numbers,
+              purity=purity, init="random")
+        _check("pic", {
+            "S2 launched once per iteration": launches == emb.iterations
+                and emb.iterations >= 1,
+            "no other kernel launched": others == 0,
+            "two runs bitwise equal":
+                emb.values.tobytes() == again.values.tobytes(),
+            "embedding within 1e-5 (relative) of the float64 index_add_ "
+            "power iteration": rel <= 1e-5,
+            "every vertex labelled": len(labels) == n == PIC_VERTICES,
+            "float64: every step through the center sums, none through S2":
+                f64_sums == emb64.iterations >= 1 and f64_others == 0,
+            "float64: two runs bitwise equal":
+                emb64.values.tobytes() == again64.values.tobytes(),
+            "float64: embedding within 1e-12 (relative) of the float64 "
+            "index_add_ power iteration after as many steps": rel64 <= 1e-12,
+        })
+        return launches, s2_numbers
+    finally:
+        ctx.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -5776,6 +6441,14 @@ def main() -> int:
         stream_k1s = phase_stream_ovr(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # the BLAS boundary and the distributed matrices, then the rest of the
+    # clustering family: BisectingKMeans through the center sums, PIC
+    # through S2, GaussianMixture and LDA on torch products
+    phase_blas()
+    bkm_launches, bkm_sums = phase_bisecting()
+    phase_gmm()
+    phase_lda()
+    pic_launches, pic_s2 = phase_pic()
     how = ("one read of X: a CTA of 512 threads an SM, each "
            "thread's slots of G rows staged once by its own cp.async ring "
            "slots, margins by xor shuffles then the warps in warp order, "
@@ -5899,9 +6572,22 @@ def main() -> int:
                    "streamed_fit_launches": stream_e4m3},
                "glm_sweep_stacked (logistic, K models, K1s)": {
                    "streamed_ovr_launches": stream_k1s}}
+    # this slice's paths (phases 46 and 49), each with its counts zeroed
+    # just before it
+    slice19 = {"center_sums (KMeans center update)": {
+                   "bisecting_fit_launches": bkm_launches,
+                   "bisecting_replaces": "cycloneml_tpu/ml/clustering/"
+                                         "bisecting_kmeans.py:125-149",
+                   "bisecting_k64": bkm_sums},
+               "ell_cols (S2, the sparse column pass)": {
+                   "pic_launches": pic_launches,
+                   "pic_replaces": "cycloneml_tpu/ml/clustering/"
+                                   "power_iteration.py:107",
+                   "pic_step": pic_s2}}
     for e in entries:
         e.update(slice17.get(e["name"], {}))
         e.update(slice18.get(e["name"], {}))
+        e.update(slice19.get(e["name"], {}))
     print(json.dumps({"kernels": entries}), flush=True)
     _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)

@@ -1,7 +1,8 @@
 """Shared distance helpers for the clustering family — the port's copy of
 ``cycloneml_tpu/ml/clustering/_util.py``: the ``|x|^2 + |c|^2 - 2 x.c``
-expansion on the host, and unit-row normalization (cosine mode) on the
-host or the device, with one epsilon for both."""
+expansion on the host (:func:`pairwise_sq_dists`) or on the device
+(:func:`sq_dists`), and unit-row normalization (cosine mode) on the host or
+the device, with one epsilon for both."""
 
 from __future__ import annotations
 
@@ -21,6 +22,16 @@ def pairwise_sq_dists(x: np.ndarray, c: np.ndarray) -> np.ndarray:
     dot = x @ c.T
     return (np.sum(x * x, axis=1)[:, None]
             + np.sum(c * c, axis=1)[None, :] - 2.0 * dot)
+
+
+def sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(rows, k) squared euclidean distances of device rows ``x`` to the
+    centers ``c`` through one product at the centers' (accumulator) width:
+    narrow (bf16) rows are upcast first, as the reference's mixed-precision
+    dot accumulates them in float32."""
+    xw = x.to(c.dtype)
+    return ((xw * xw).sum(1)[:, None] + (c * c).sum(1)[None, :]
+            - 2.0 * (xw @ c.T))
 
 
 def normalize_rows(x):

@@ -98,16 +98,22 @@ INSTANCE = {torch.float32: FMA, torch.bfloat16: TENSOR_CORE,
             torch.float8_e4m3fn: TENSOR_CORE}
 
 
+def kernel_mode(ctx) -> str:
+    """``cyclone.ml.usePallasKernels`` of ``ctx``, lower case: 'true',
+    'false' or 'auto' (also when ``ctx`` carries no configuration)."""
+    from cycloneml_tpu_torch.conf import USE_PALLAS_KERNELS
+    conf = getattr(ctx, "conf", None)
+    return str(conf.get(USE_PALLAS_KERNELS)).lower() if conf is not None \
+        else "auto"
+
+
 def use_fused_kernels(ctx, x: Optional[torch.Tensor] = None) -> bool:
     """Whether the eligible dense sweeps go through the hand-written
     kernels: ``cyclone.ml.usePallasKernels`` 'true'/'false' force one path
     (the key keeps the reference's name, so configurations carry over);
     'auto' (default) says yes when the data ``x`` lives on CUDA in a dtype
     the kernels read (float32, bfloat16 or float8_e4m3fn codes)."""
-    from cycloneml_tpu_torch.conf import USE_PALLAS_KERNELS
-    conf = getattr(ctx, "conf", None)
-    mode = str(conf.get(USE_PALLAS_KERNELS)).lower() if conf is not None \
-        else "auto"
+    mode = kernel_mode(ctx)
     if mode == "true":
         return True
     if mode == "false":

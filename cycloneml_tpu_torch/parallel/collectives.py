@@ -59,3 +59,34 @@ def tree_aggregate(fn: Callable, runtime: MeshRuntime, *arrays: torch.Tensor,
         return _sum_trees(parts)
 
     return call
+
+
+def tree_aggregate_with_state(fn: Callable, runtime: MeshRuntime,
+                              *arrays: torch.Tensor):
+    """:func:`tree_aggregate` for an ``fn`` that returns ``(stats, rows)``:
+    the stats pytree is summed over the shards in shard order, the
+    per-row state stays row-sharded (the shards' rows concatenated in
+    shard order, the shard itself on this one-shard mesh). The reference's
+    ``tree_aggregate(..., with_state=True)`` (its ``:375``); BisectingKMeans'
+    level program carries each row's new tree node this way."""
+    n_sharded = len(arrays)
+
+    def call(*args):
+        sharded, extras = args[:n_sharded], args[n_sharded:]
+        blocks = [runtime.row_shards(a) for a in sharded]
+        parts = [fn(*[b[i] for b in blocks], *extras)
+                 for i in range(runtime.data_parallelism)]
+        return (_sum_trees([p[0] for p in parts]),
+                _cat_trees([p[1] for p in parts]))
+
+    return call
+
+
+def _cat_trees(parts: List):
+    """Concatenate the shards' row-state pytrees (tuples of tensors, or
+    tensors) along the rows, in list order."""
+    first = parts[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_cat_trees([p[i] for p in parts])
+                           for i in range(len(first)))
+    return first if len(parts) == 1 else torch.cat(parts)

@@ -46,6 +46,8 @@ def _pkg(base, cls, clu, ev, feat, rec, reg, tun, frame):
         Pipeline=base.Pipeline, LogisticRegression=cls.LogisticRegression,
         LinearSVC=cls.LinearSVC, OneVsRest=cls.OneVsRest, KMeans=clu.KMeans,
         BinaryClassificationEvaluator=ev.BinaryClassificationEvaluator,
+        BisectingKMeans=clu.BisectingKMeans,
+        GaussianMixture=clu.GaussianMixture, LDA=clu.LDA,
         PCA=feat.PCA, ALS=rec.ALS, LinearRegression=reg.LinearRegression,
         GeneralizedLinearRegression=reg.GeneralizedLinearRegression,
         CrossValidator=tun.CrossValidator,
@@ -73,6 +75,8 @@ def _columns(kind, seed=0, n=240, d=5):
         items = rng.randint(0, 20, 600)
         return {"user": users, "item": items,
                 "rating": rng.rand(600) * 4 + 1}
+    if kind == "docs":
+        return {"features": rng.poisson(2.0, (n // 4, 12)).astype(np.float64)}
     x = rng.randn(n, d)
     beta = rng.randn(d)
     m = x @ beta
@@ -117,6 +121,11 @@ CASES = {
     "glm": (lambda p: p.GeneralizedLinearRegression(
         family="poisson", link="log", maxIter=10), "counts"),
     "kmeans": (lambda p: p.KMeans(k=3, seed=1, maxIter=5), "binary"),
+    "bisecting_kmeans": (lambda p: p.BisectingKMeans(k=4, seed=1,
+                                                     maxIter=5), "binary"),
+    "gaussian_mixture": (lambda p: p.GaussianMixture(k=3, seed=2,
+                                                     maxIter=8), "binary"),
+    "lda": (lambda p: p.LDA(k=3, seed=3, maxIter=4), "docs"),
     "pca": (lambda p: p.PCA(k=2, inputCol="features", outputCol="pca"),
             "binary"),
     "one_vs_rest": (lambda p: p.OneVsRest(classifier=_lr(p)), "multiclass"),
@@ -131,7 +140,8 @@ CASES = {
 
 _ARRAYS = ("_coef", "_icpt", "_num_classes", "_is_multinomial", "_centers",
            "training_cost", "pc", "explained_variance", "user_ids",
-           "item_ids", "user_factors", "item_factors")
+           "item_ids", "user_factors", "item_factors", "_node_index",
+           "weights", "_means", "_covs", "_lam")
 
 
 def _state(model, prefix=""):
@@ -294,12 +304,11 @@ def test_load_checks_the_class(pctx, tmp_path):
 
 def test_unported_class_raises_with_its_roadmap_item(tmp_path):
     for cls, item in (
-            ("cycloneml_tpu.ml.clustering.gaussian_mixture."
-             "GaussianMixtureModel", 7),
+            ("cycloneml_tpu.ml.feature.scalers.MinMaxScalerModel", 11),
             ("cycloneml_tpu.ml.tree.random_forest.RandomForestModel", 11),
             ("cycloneml_tpu.ml.feature.scalers.StandardScalerModel", 11),
             ("cycloneml_tpu.serving.servable.Servable", 8),
-            ("cycloneml_tpu.ml.clustering.kmeans.NoSuchModel", 7)):
+            ("cycloneml_tpu.serving.batcher.NoSuchBatcher", 8)):
         os.makedirs(tmp_path / "metadata", exist_ok=True)
         with open(tmp_path / "metadata" / "part-00000", "w") as fh:
             json.dump({"class": cls, "uid": "u"}, fh)
