@@ -378,7 +378,36 @@ the final result line:
    within 1e-5 (relative to its largest entry) of a float64 ``index_add_``
    power iteration on the card with as many steps, the purity of the
    planted communities printed;
-50. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+50. model serving (``ModelServer``, maxBatch 64, windowMs 5; each bucket
+   one CUDA graph: the copy of the pinned request rows in, the
+   ``serving_margins`` kernel of ``csrc/serving_margins.cu``, the copy of
+   the margins out): serial lanes for phase 16's class-0 model (d =
+   1,280), phase 21's multinomial model (8 x 1,280) and phase 6's
+   LinearRegression (2,000); gangs of phase 16's 8 models, f32 and e4m3,
+   and of phase 32's 10 CIFAR-10 models (3,072); a float64 lane. 8
+   clients send 250 requests each of 1-64 rows (lanes, sizes and rows
+   from ``np.random.default_rng(50)``), and one request of 300 rows
+   splits into 64-row sub-requests: 7 graphs captured a lane at
+   registration and none by the traffic, ``torch.cuda.memory_allocated``
+   equal before and after it, one launch (graph replay) a dispatch,
+   every served label the model's own predict's but on rows within 1e-6
+   (of the margin scale) of a decision boundary, counted apart, the
+   regression within 1e-6 of float64; a row's margins equal bits in
+   buckets 1, 64 and 3-of-64, the gangs' margins the bits of serial lanes
+   of their members, the kernel its plain twin's bits on every lane's
+   shape at every bucket, f32 and f64, plain and e4m3, the e4m3 margins
+   within 0.06 of the margin scale; a transient fault retried to the right
+   answer, a permanent one a 5xx while the lane serves on, a tiny budget
+   queueing then shedding with 503. By bucket: a dispatch through the
+   graph and through the same three steps launched eagerly (CUDA events,
+   host wall time), the kernel alone against its bound, the plain twin,
+   ``torch.addmm`` (the library call) and ``torch.matmul`` (the
+   yardstick), and the rows whose addmm bits differ between buckets 1 and
+   64; request latency p50/p95/p99, rows a second, batches and coalesced
+   requests; the span tracer on over the traffic, and the slowest
+   requests split by their spans (queue, dispatch, the lane's dispatches
+   while queued) beside the garbage collector's pauses;
+51. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -392,8 +421,9 @@ the final result line:
    the users' half-step's times, the items' beside them), with the
    launches of phases 37-39's paths beside the entries they ran (K1, K2,
    K4, S1, S2), of phases 40-44's (K1, K2, K1 e4m3, K1s) and of phases
-   46 and 49's (the center sums, S2), the phases' and the total wall
-   time; the last line is
+   46 and 49's (the center sums, S2), and the serving margins of phase
+   50 (graph replays in the traffic, the instance each lane ran), the
+   phases' and the total wall time; the last line is
    ``{"ok":
    true, "device": {...}}``.
 
@@ -430,7 +460,7 @@ H100_TF32_FLOPS = 495e12     # TF32 tensor cores, dense
 H100_FP8_FLOPS = 1979e12     # fp8 tensor cores, dense
 FP8_COEF_NORMREL = 0.20      # the reference's fp8 coefficient envelope
 KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian", "glm_stacked",
-                  "center_sums", "ell_sweep", "als_normal"]
+                  "center_sums", "ell_sweep", "als_normal", "serving_margins"]
 K1S_MODELS = (1, 3, 8, 16, 20)   # 20 > K_MAX: two launches of K1s
 OVR_K = 8                        # OneVsRest's classes (bench_ovr_stacked)
 CV_N = 250_000                   # CrossValidator's rows (the cut of FIT_N;
@@ -497,6 +527,16 @@ LDA_DOCS, LDA_VOCAB = 39_861, 28_102  # UCI Bag of Words, Enron
 LDA_TOKENS, LDA_TOPICS = 6_400_000, 20
 LDA_PROBE = 4096                 # documents log_perplexity is taken on
 PIC_VERTICES, PIC_EDGES = 1_134_890, 2_987_624  # SNAP com-Youtube
+# model serving (phase 50): the reference's maxBatch and windowMs, 8
+# clients of 250 requests of 1-64 rows each, one request of 300 rows
+SERVE_BATCH, SERVE_WINDOW_MS = 64, 5.0
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BIG = 8, 250, 300
+SERVE_SEED = 50
+SERVE_POOL = 4096                # seeded request rows drawn a width
+SERVE_GRAPH_LAUNCHES = 50        # kernel launches a timing graph holds
+SERVE_SLOWEST = 3                # slowest requests split by their spans
+SERVE_QUANT_ENVELOPE = 0.06      # the reference's e4m3 margin envelope
+H100_F64_FLOPS = 34e12           # f64 outside the tensor cores (data sheet)
 PROBE_ROWS = 4096                # rows each kept model transforms
 TEXT_BLOCK_BYTES = 1 << 28       # token bytes formatted on the card at once
 # the models the run fits and the persistence phase saves and loads
@@ -621,6 +661,11 @@ def _kernel_name(mangled: str) -> str:
         tiled = re.findall(r"Lb(\d)E", m.group(5))[0] == "1"
         return ("als_tc_kernel<64 x 64 tile pairs>" if tiled
                 else "als_tc_kernel<rank <= 64>")
+    if m.group(1) == "serving_margins_kernel":  # its dtype, e4m3 or not
+        dtype = {"f": "f32", "d": "f64"}.get(m.group(3), "?")
+        q = re.findall(r"Lb(\d)E", m.group(5) or "")
+        return (f"serving_margins_kernel<{dtype}"
+                f"{', e4m3' if q and q[0] == '1' else ''}>")
     if m.group(1) == "count_scatter_kernel":  # the bits of k - 1
         return f"{m.group(1)}<bits={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
@@ -957,7 +1002,8 @@ def _other_launches(kernels, *own: str) -> int:
               "center_sums": kernels.center_sums.launches,
               "ell_rows": kernels.ell_rows.launches,
               "ell_cols": kernels.ell_cols.launches,
-              "als_normal": kernels.als_normal.launches}
+              "als_normal": kernels.als_normal.launches,
+              "serving_margins": kernels.serving_margins.launches}
     return sum(v for k, v in counts.items() if k not in own)
 
 
@@ -1073,8 +1119,8 @@ def _k2_times(x, y, w, coef, inv_std, n, d, x_scale, main_dt):
 
 def phase_linreg():
     """LinearRegression at configuration 2 through K2 and through the
-    plain aggregator; returns K2's launches in the K2 fit and that fit's
-    final objective."""
+    plain aggregator; returns K2's launches in the K2 fit, that fit's
+    final objective and its model."""
     import numpy as np
     import torch
     from cycloneml_tpu_torch.dataset.random import generate_regression
@@ -1139,7 +1185,7 @@ def phase_linreg():
                 k_again.coefficients.values, kc)),
         })
         _keep("LinearRegression", k_model, ds.x)
-        return launches, ks.objective_history[-1]
+        return launches, ks.objective_history[-1], k_model
     finally:
         ctx.stop()
 
@@ -2535,7 +2581,7 @@ def phase_multinomial(ovr_models):
     evaluation against float64 on the same rows, the fit (warm, steady),
     its predictions beside those of phase 16's OneVsRest ``ovr_models``,
     and the same rows quantized on the card within the fp8 envelope of
-    the bf16 fit."""
+    the bf16 fit. Returns the bf16 fit's model."""
     import numpy as np
     import torch
     from cycloneml_tpu_torch.dataset.random import generate_multiclass
@@ -2627,6 +2673,7 @@ def phase_multinomial(ovr_models):
             "fp8: within the fp8 envelope (20%) of the bf16 fit":
                 envelope < FP8_COEF_NORMREL,
         })
+        return model
     finally:
         ctx.stop()
 
@@ -4015,7 +4062,7 @@ def phase_cifar_ovr():
     through the wide K1s (one group of 16 holds the 10 classes: one launch
     per stacked evaluation), through the plain stacked aggregator and
     serially (10 fits through the wide K1), with phase 16's checks. Returns
-    K1s's launches in the stacked fit."""
+    K1s's launches in the stacked fit and the stacked fit's models."""
     import numpy as np
     import torch
     from cycloneml_tpu_torch.dataset.random import generate_multiclass
@@ -4098,7 +4145,7 @@ def phase_cifar_ovr():
             "finite models": all(np.all(np.isfinite(m.coefficients.values))
                                  for m in k_model.models),
         })
-        return k1s
+        return k1s, k_model.models
     finally:
         ctx.stop()
 
@@ -6254,6 +6301,531 @@ def phase_pic():
         ctx.stop()
 
 
+# -- model serving ------------------------------------------------------------
+
+def _serve_host(servable, x):
+    """float64 host margins of a servable or gang: (n, Km) or (K, n, Km)."""
+    import numpy as np
+    if hasattr(servable, "members"):
+        return np.stack([m.host_margins(x) for m in servable.members])
+    return servable.host_margins(x)
+
+
+def _serve_sure(margins, raw_format):
+    """Rows whose label float32 rounding cannot move: a binomial margin
+    farther than 1e-6 of the margin scale from 0, or a multinomial top-two
+    gap wider than that (the scale: max(1, max|margin|))."""
+    import numpy as np
+    tol = 1e-6 * max(1.0, float(np.abs(margins).max()))
+    if raw_format == "pair":
+        return np.abs(margins[:, 0]) > tol
+    top = np.sort(margins, axis=1)
+    return top[:, -1] - top[:, -2] > tol
+
+
+def _serve_bound(k, km, d, b, itemsize, quantized):
+    """(bound ms, bound_by) of one margins call: the parameters, the
+    bucket's rows and the margins once at 3.35 TB/s, against 2 K Km B d
+    operations at the dtype's peak outside the tensor cores."""
+    coef = k * km * d * (1 if quantized else itemsize)
+    vecs = k * km * itemsize * (2 if quantized else 1)
+    n_bytes = coef + vecs + b * d * itemsize + k * b * km * itemsize
+    peak = H100_F32_FLOPS if itemsize == 4 else H100_F64_FLOPS
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, 2.0 * k * km * b * d / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _serve_slowest(spans, t_start, pauses, n=SERVE_SLOWEST):
+    """The ``n`` slowest requests of a traced traffic run, each split by
+    its spans: the wait in the queue (the window, and the lane's worker
+    busy or not running) and the dispatch; when it arrived; its lane's
+    dispatches that ran while it waited (their count and summed time) and
+    the longest gap between them in that wait, in which the worker ran no
+    dispatch; its own dispatch's place in its lane; and the time the
+    interpreter's garbage collector held the process in its lifetime
+    (``pauses``: (generation, t0, t1) of each collection)."""
+    reqs = [s for s in spans if s.kind == "serving" and s.name == "request"]
+    by_id = {s.span_id: s for s in spans}
+    runs = {}
+    for s in spans:
+        if s.kind == "serving" and s.name != "request":
+            runs.setdefault(s.name, []).append(s)
+    for lane_runs in runs.values():
+        lane_runs.sort(key=lambda s: s.t0)
+    out = []
+    for r in sorted(reqs, key=lambda s: s.duration_s, reverse=True)[:n]:
+        lane_runs = runs.get(r.attrs["model"], [])
+        t_batch = r.t0 + r.attrs["queue_s"]
+        during = [s for s in lane_runs if s.t1 > r.t0 and s.t0 < t_batch]
+        edges = [r.t0] + [t for s in during for t in (s.t0, s.t1)] + [t_batch]
+        gaps = [max(edges[i + 1] - edges[i], 0.0)
+                for i in range(0, len(edges) - 1, 2)]
+        parent = by_id.get(r.parent_id)
+        out.append({
+            "lane": r.attrs["model"], "rows": r.attrs["rows"],
+            "bucket": r.attrs["bucket"], "latency_ms": r.duration_s * 1e3,
+            "queue_ms": r.attrs["queue_s"] * 1e3,
+            "dispatch_ms": r.attrs["dispatch_s"] * 1e3,
+            "arrived_s": r.t0 - t_start,
+            "lane_dispatches_while_queued": len(during),
+            "their_ms": sum(s.duration_s for s in during) * 1e3,
+            "longest_idle_gap_ms": max(gaps) * 1e3,
+            "dispatch_index": (lane_runs.index(parent)
+                               if parent in lane_runs else None),
+            "dispatch_requests": (parent.attrs.get("n_requests")
+                                  if parent else None),
+            "gc_ms": sum(max(min(t1, r.t1) - max(t0, r.t0), 0.0)
+                         for _, t0, t1 in pauses) * 1e3,
+            "gc_generations": sorted({g for g, t0, t1 in pauses
+                                      if t1 > r.t0 and t0 < r.t1})})
+    return out
+
+
+def _serve_times(lane, b, rows, reps=200):
+    """Per-call times at bucket ``b`` (rows: (b, d) host rows in the
+    serving dtype) of the lane's graph replay and of the same three steps
+    launched eagerly (CUDA events on the lane's stream, and the host wall
+    time of a whole dispatch: write, launch, wait, read), of the kernel
+    alone, its plain twin, the library call (torch.addmm of the
+    intercepts, the rows and the coefficients, dequantized beforehand for
+    e4m3) and the yardstick torch.matmul; at buckets 1 and 64 the kernel's
+    device time (a graph of back-to-back launches, by events), and at 64
+    the rows whose addmm bits differ between buckets 1 and 64."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    bg = lane._table[b]
+    s = bg.stream
+    coef, icpt, scale = lane._params
+    dt = bg.x_dev.dtype
+    flat = coef.to(dt) if scale is None else coef.to(dt) * scale[..., None]
+    flat = flat.reshape(-1, coef.shape[-1])
+    icpt_flat = icpt.reshape(-1)
+    bg([rows])   # the bucket's device rows are these rows from here on
+
+    def events(fn, n=reps):
+        with torch.cuda.stream(s):
+            for _ in range(3):
+                fn()
+            s.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record(s)
+            for _ in range(n):
+                fn()
+            e1.record(s)
+        s.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    def wall(fn, n=reps):
+        for _ in range(3):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def eager():
+        bg.x_dev.copy_(bg.x_pin, non_blocking=True)
+        lane.launch(bg.x_dev, bg.out_dev)
+        bg.out_pin.copy_(bg.out_dev, non_blocking=True)
+
+    def eager_dispatch():
+        bg.x[:] = rows
+        with torch.cuda.stream(s):
+            eager()
+        s.synchronize()
+        return bg.out.copy()
+
+    out = {"graph_ms": events(bg.graph.replay),
+           "eager_ms": events(eager),
+           "graph_wall_ms": wall(lambda: bg([rows])),
+           "eager_wall_ms": wall(eager_dispatch),
+           "kernel_ms": events(lambda: lane.launch(bg.x_dev, bg.out_dev)),
+           "plain_ms": events(lambda: kernels.serving_margins_plain(
+               bg.x_dev, coef, icpt, scale), n=20),
+           "library_ms": events(lambda: torch.addmm(icpt_flat, bg.x_dev,
+                                                    flat.T)),
+           "matmul_ms": events(lambda: torch.matmul(bg.x_dev, flat.T))}
+    if b in (1, SERVE_BATCH):
+        # the kernel's device time: the events above time back-to-back
+        # calls, which the host's launch path paces, so here a graph of
+        # SERVE_GRAPH_LAUNCHES launches replays (torch.profiler records no
+        # kernel this late in the run, PERF.md section 7)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(s):
+            g.capture_begin(capture_error_mode="thread_local")
+            for _ in range(SERVE_GRAPH_LAUNCHES):
+                lane.launch(bg.x_dev, bg.out_dev)
+            g.capture_end()
+        out["kernel_device_ms"] = events(g.replay, n=20) \
+            / SERVE_GRAPH_LAUNCHES
+    if b == SERVE_BATCH:
+        with torch.cuda.stream(s):
+            full = torch.addmm(icpt_flat, bg.x_dev, flat.T)
+            singles = torch.cat([torch.addmm(icpt_flat, bg.x_dev[r:r + 1],
+                                             flat.T) for r in range(b)])
+        s.synchronize()
+        out["addmm_rows_differing_1_vs_64"] = int(
+            (full != singles).any(dim=1).sum())
+    k, km, d = lane.shape
+    out["bound_ms"], out["bound_by"] = _serve_bound(
+        k, km, d, b, bg.x_dev.element_size(), scale is not None)
+    return out
+
+
+def phase_serving(ovr_models, mn_model, lin_model, cifar_models):
+    """Model serving on the card (``ModelServer``, maxBatch 64, windowMs 5):
+    serial lanes for phase 16's class-0 model, phase 21's multinomial
+    model and phase 6's LinearRegression; gangs of phase 16's 8 models,
+    plain and e4m3, and of phase 32's 10 CIFAR-10 models; one float64
+    lane. 8 clients send 250 requests each of 1-64 seeded rows, and one
+    request of 300 rows splits into 64-row sub-requests. Checks: 7 graphs
+    captured a lane at registration and none after the traffic, device
+    memory flat over it, labels against each model's own predict (rows
+    within 1e-6 of a decision boundary counted apart), regression within
+    1e-6, bucket and gang bits, the kernel against its plain twin bit for
+    bit, the e4m3 envelope, a retried transient fault, a permanent 5xx,
+    and shedding under a tiny budget. Returns the kernels line's numbers
+    for ``serving_margins``."""
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch import CycloneConf
+    from cycloneml_tpu_torch.ops import kernels
+    from cycloneml_tpu_torch.parallel.faults import (
+        FaultInjector, FaultSchedule, TransientCollectiveError)
+    from cycloneml_tpu_torch.observe import tracing
+    from cycloneml_tpu_torch.serving import (
+        ModelServer, ServingError, ServingOverloaded, bucket_sizes)
+    from cycloneml_tpu_torch.serving.batcher import serving_params
+    from cycloneml_tpu_torch.util.metrics import MetricsRegistry
+
+    conf = CycloneConf().set("cyclone.master", DEVICE)
+    registry = MetricsRegistry()
+
+    def server(**kw):
+        return ModelServer(ctx=None, conf=kw.pop("conf", conf),
+                           max_batch=SERVE_BATCH, window_ms=SERVE_WINDOW_MS,
+                           registry=registry, **kw)
+
+    f32, q8, f64 = server(), server(quantize=True), server(dtype="float64")
+    probe, probe_q = server(), server(quantize=True)
+    servers = [f32, q8, f64, probe, probe_q]
+    try:
+        t0 = time.perf_counter()
+        f32.register("ovr0", ovr_models[0])
+        f32.register("multinomial", mn_model)
+        f32.register("linreg", lin_model)
+        f32.register_gang("ovr8", ovr_models)
+        q8.register_gang("ovr8_e4m3", ovr_models)
+        f32.register_gang("cifar10", cifar_models)
+        f64.register("ovr0_f64", ovr_models[0])
+        register_s = time.perf_counter() - t0
+        lanes = {n: srv._lane(n) for srv in (f32, q8, f64)
+                 for n in srv.models}
+        server_of = {n: srv for srv in (f32, q8, f64) for n in srv.models}
+        # the serial twins of every gang member, for the gang = serial bits
+        t0 = time.perf_counter()
+        for i, m in enumerate(ovr_models):
+            probe.register(f"ovr{i}", m)
+            probe_q.register(f"ovr{i}_e4m3", m)
+        for i, m in enumerate(cifar_models):
+            probe.register(f"cifar{i}", m)
+        probe_s = time.perf_counter() - t0
+        n_buckets = len(bucket_sizes(SERVE_BATCH))
+        counts = {(id(srv), n): c for srv in servers
+                  for n, c in srv.compile_counts().items()}
+
+        # traffic: lane choices, sizes and row offsets drawn up front from
+        # one seed, rows from a seeded pool a width
+        g = np.random.default_rng(SERVE_SEED)
+        names = sorted(lanes)
+        pools = {d: g.standard_normal((SERVE_POOL, d), dtype=np.float32)
+                 for d in sorted({lane.shape[2] for lane in lanes.values()})}
+        plan = []
+        for _ in range(SERVE_CLIENTS):
+            picks = g.integers(0, len(names), SERVE_REQUESTS)
+            sizes = g.integers(1, SERVE_BATCH + 1, SERVE_REQUESTS)
+            offs = g.integers(0, SERVE_POOL - SERVE_BATCH, SERVE_REQUESTS)
+            plan.append([(names[p], int(o), int(n))
+                         for p, o, n in zip(picks, offs, sizes)])
+        results = [[] for _ in range(SERVE_CLIENTS)]
+        errors = []
+
+        def client(i):
+            for name, off, n in plan[i]:
+                x = pools[lanes[name].shape[2]][off:off + n]
+                try:
+                    results[i].append((name, off, n,
+                                       server_of[name].predict(name, x)))
+                except Exception as e:   # surfaced by the checks
+                    errors.append(repr(e))
+
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        # the span tracer over the traffic (a serving span a dispatch and
+        # a request span a request) and the garbage collector's pauses,
+        # for the slowest requests' split
+        pauses, gc_start = [], {}
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_start[info["generation"]] = time.perf_counter()
+            else:
+                pauses.append((info["generation"],
+                               gc_start.pop(info["generation"], 0.0),
+                               time.perf_counter()))
+
+        tracer = tracing.enable()
+        gc.callbacks.append(on_gc)
+        t0 = time.perf_counter()
+        try:
+            for t in threads:
+                t.start()
+            big = f32.predict("ovr8", pools[FIT_D][:SERVE_BIG])
+            for t in threads:
+                t.join(timeout=600)
+        finally:
+            gc.callbacks.remove(on_gc)
+            tracing.disable()
+        traffic_s = time.perf_counter() - t0
+        spans = tracer.snapshot()
+        slowest = _serve_slowest(spans, t0, pauses)
+        # request latency over every request of the traffic, from its
+        # spans (the registry's timer keeps only its last 1,024 samples)
+        lat_s = np.array([sp.duration_s for sp in spans
+                          if sp.kind == "serving" and sp.name == "request"])
+        gc_pauses = {g: [sum(1 for p in pauses if p[0] == g),
+                         sum(p[2] - p[1] for p in pauses if p[0] == g) * 1e3]
+                     for g in (0, 1, 2)}
+        launches = kernels.serving_margins.launches
+        by_instance = dict(kernels.serving_margins.launches_by_instance)
+        others = _other_launches(kernels, "serving_margins")
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        counts_after = {(id(srv), n): c for srv in servers
+                        for n, c in srv.compile_counts().items()}
+        stats = {n: server_of[n].stats()["models"][n] for n in names}
+        batches = sum(st["batches"] for st in stats.values())
+
+        # every served answer against the model's own predict
+        done = [r for rs in results for r in rs]
+        wrong = {n: 0 for n in names}
+        near = {n: 0 for n in names}
+        lin_err = 0.0
+        for name, off, n, got in done + [("ovr8", 0, SERVE_BIG, big)]:
+            lane = lanes[name]
+            x = pools[lane.shape[2]][off:off + n].astype(np.float64)
+            sv = lane.servable
+            if name == "linreg":
+                host = sv.host_margins(x)[:, 0]
+                lin_err = max(lin_err, float(np.abs(got - host).max())
+                              / max(1.0, float(np.abs(host).max())))
+                continue
+            members = sv.members if hasattr(sv, "members") else [sv]
+            outs = got if isinstance(got, list) else [got]
+            for k, (m, out) in enumerate(zip(members, outs)):
+                if name == "ovr8_e4m3":   # the dequantized model's margins
+                    codes, icpt, scale = (t[k].double().cpu().numpy()
+                                          for t in lanes[name]._params)
+                    host = x @ (codes * scale[:, None]).T + icpt
+                    want = m.model._raw_to_prediction(m.margins_to_raw(host))
+                else:
+                    host = m.host_margins(x)
+                    want = m.model._predict_batch(x)
+                sure = _serve_sure(host, m.raw_format)
+                near[name] += int((~sure).sum())
+                wrong[name] += int((out[sure] != want[sure]).sum())
+
+        # bits: buckets 1, 64 and 3-of-64; gangs against serial lanes
+        x64 = {d: p[:SERVE_BATCH] for d, p in pools.items()}
+        bucket_bits = {}
+        for name, lane in lanes.items():
+            x = x64[lane.shape[2]]
+            m1 = lane.bucket_margins(x[:1], 1)
+            mb = lane.bucket_margins(x, SERVE_BATCH)
+            mp = lane.bucket_margins(x[:3], SERVE_BATCH)
+            if not lane.is_gang:
+                m1, mb, mp = m1[None], mb[None], mp[None]
+            bucket_bits[name] = bool(np.array_equal(m1[:, 0], mb[:, 0])
+                                     and np.array_equal(mp[:, :3], mb[:, :3]))
+        gang_bits = {}
+        for gang, twin, srv, k in (("ovr8", "ovr{}", probe, len(ovr_models)),
+                                   ("ovr8_e4m3", "ovr{}_e4m3", probe_q,
+                                    len(ovr_models)),
+                                   ("cifar10", "cifar{}", probe,
+                                    len(cifar_models))):
+            lane = lanes[gang]
+            xg = x64[lane.shape[2]]
+            gm = lane.bucket_margins(xg, SERVE_BATCH)
+            gang_bits[gang] = all(
+                np.array_equal(gm[i], srv._lane(twin.format(i))
+                               .bucket_margins(xg, SERVE_BATCH))
+                for i in range(k))
+        qm = lanes["ovr8_e4m3"].bucket_margins(x64[FIT_D], SERVE_BATCH)
+        qh = _serve_host(lanes["ovr8_e4m3"].servable,
+                         x64[FIT_D].astype(np.float64))
+        quant_env = max(float(np.abs(qm[i] - qh[i]).max())
+                        / float(np.abs(qh[i]).max()) for i in range(len(qh)))
+
+        # the kernel against its plain twin on every lane's shape at every
+        # bucket, f32 and f64, plain and e4m3: the lane's own parameters
+        # in its own form, the others built from its servable
+        dev = torch.device(DEVICE)
+        n_twin, twin_checks, twin_err = 0, 0, 0.0
+        for name, lane in lanes.items():
+            own = (server_of[name].torch_dtype, server_of[name].quantize)
+            d = lane.shape[2]
+            for dt in (torch.float32, torch.float64):
+                for quant in (False, True):
+                    c, ic, sc = (lane._params if (dt, quant) == own else
+                                 serving_params(lane.servable, lane.shape,
+                                                dt, quant, dev))
+                    for b in bucket_sizes(SERVE_BATCH):
+                        x = torch.from_numpy(pools[d][:b]).to(dev, dt)
+                        got = kernels.serving_margins(x, c, ic, sc)
+                        want = kernels.serving_margins_plain(x, c, ic, sc)
+                        n_twin += 1
+                        twin_checks += int(torch.equal(got, want))
+                        twin_err = max(twin_err, float(
+                            (got - want).abs().max()))
+
+        # chaos: a transient fault retried, a permanent one a 5xx
+        xf = pools[FIT_D][:5]
+        want0 = ovr_models[0]._predict_batch(xf.astype(np.float64))
+        sched = FaultSchedule(seed=0)
+        sched.at("serving.dispatch", 1, TransientCollectiveError("injected"))
+        with FaultInjector(sched) as inj:
+            retried = f32.predict("ovr0", xf, timeout=30)
+        transient_ok = (np.array_equal(retried, want0) and inj.log == [
+            ("serving.dispatch", 1, "TransientCollectiveError")])
+        sched = FaultSchedule(seed=0)
+        sched.at("serving.dispatch", 1, TypeError("injected permanent"))
+        status = None
+        with FaultInjector(sched):
+            try:
+                f32.predict("ovr0", xf, timeout=30)
+            except ServingError as e:
+                status = e.status
+            served_on = f32.predict("ovr0", xf, timeout=30)
+        permanent_ok = (status is not None and 500 <= status < 600
+                        and np.array_equal(served_on, want0))
+        # admission: a budget of nothing queues, then sheds with a 503
+        tiny = server(conf=CycloneConf().set("cyclone.master", DEVICE)
+                      .set("cyclone.memory.budgetFraction", 0.5)
+                      .set("cyclone.memory.deviceBytes", 1),
+                      shed_after_ms=80)
+        servers.append(tiny)
+        tiny.register("ovr0", ovr_models[0])
+        shed_status = None
+        try:
+            tiny.predict("ovr0", xf, timeout=30)
+        except ServingOverloaded as e:
+            shed_status = e.status
+        tiny_st = tiny.stats()["models"]["ovr0"]
+
+        # numbers by bucket
+        timed = ("ovr0", "ovr8", "ovr8_e4m3", "cifar10", "ovr0_f64")
+        times = {}
+        for name in timed:
+            lane = lanes[name]
+            pool = pools[lane.shape[2]]
+            times[name] = {b: _serve_times(lane, b, pool[:b].astype(
+                server_of[name].dtype)) for b in bucket_sizes(SERVE_BATCH)}
+        total_rows = sum(st["rows"] for st in stats.values())
+        _line("serving", lanes={n: {"instance": lanes[n].instance,
+                                    "shape": list(lanes[n].shape),
+                                    **{k: stats[n][k] for k in (
+                                        "compiles", "requests", "rows",
+                                        "batches", "coalesced")}}
+                                for n in names},
+              register_s=register_s, probe_register_s=probe_s,
+              traffic_s=traffic_s, requests=len(done) + 1,
+              rows=total_rows, rows_per_s=total_rows / traffic_s,
+              batches=batches,
+              coalesced=sum(st["coalesced"] for st in stats.values()),
+              latency_ms={"mean": float(lat_s.mean()) * 1e3,
+                          **{f"p{q}": float(np.percentile(lat_s, q)) * 1e3
+                             for q in (50, 95, 99)},
+                          "max": float(lat_s.max()) * 1e3},
+              latency_count=len(lat_s), launches=launches,
+              launches_by_instance=by_instance,
+              memory_allocated=[mem_before, mem_after],
+              wrong_labels=wrong, near_boundary_rows=near,
+              linreg_max_err_rel=lin_err, quantized_envelope=quant_env,
+              kernel_vs_twin={"checks": n_twin, "equal": twin_checks,
+                              "max_abs_err": twin_err},
+              bucket_bits=bucket_bits, gang_bits=gang_bits,
+              errors=errors[:5], shed=tiny_st,
+              gc_count_ms_by_generation=gc_pauses)
+        for row in slowest:
+            _line("serving_slowest", **row)
+        for name in timed:
+            for b, t in times[name].items():
+                _line("serving_time", lane=name,
+                      instance=lanes[name].instance, bucket=b, **t)
+        _check("serving", {
+            "every request answered": not errors
+                and len(done) == SERVE_CLIENTS * SERVE_REQUESTS,
+            f"{n_buckets} graphs captured a lane at registration":
+                set(counts.values()) == {n_buckets},
+            "no graph captured by the traffic": counts_after == counts,
+            "device memory allocated equal before and after the traffic":
+                mem_after == mem_before,
+            "one launch a dispatch (graph replays), one instance a lane, no "
+            "other kernel": launches == batches and others == 0
+                and by_instance["f32"] == sum(
+                    stats[n]["batches"] for n in names
+                    if lanes[n].instance == "f32")
+                and by_instance["f32_e4m3"] == stats["ovr8_e4m3"]["batches"]
+                and by_instance["f64"] == stats["ovr0_f64"]["batches"],
+            "a request span for every request served":
+                len(lat_s) == sum(st["requests"] for st in stats.values()),
+            "the 300-row request split into 64-row sub-requests":
+                stats["ovr8"]["requests"] >= 5 and len(big) == OVR_K
+                and all(len(p) == SERVE_BIG for p in big),
+            "served labels are the models' own away from the boundary":
+                not any(wrong.values()),
+            "regression within 1e-6 of the float64 host margins":
+                lin_err <= 1e-6,
+            "a row's margins have equal bits in buckets 1, 64 and 3-of-64":
+                all(bucket_bits.values()),
+            "gang margins equal each serial lane's bits":
+                all(gang_bits.values()),
+            "the kernel equals its plain twin bit for bit on every lane's "
+            "shape at every bucket, f32 and f64, plain and e4m3":
+                n_twin == len(lanes) * 4 * n_buckets
+                and twin_checks == n_twin,
+            "e4m3 margins within 0.06 of the margin scale":
+                quant_env < SERVE_QUANT_ENVELOPE,
+            "a transient fault is retried to the right answer": transient_ok,
+            "a permanent fault gives a 5xx and the lane serves on":
+                permanent_ok,
+            "a tiny budget queues, then sheds with 503":
+                shed_status == 503 and tiny_st["requeues"] >= 1
+                and tiny_st["batches"] == 0,
+        })
+        head = times["ovr8"][SERVE_BATCH]
+        return {"launches": launches, "launches_by_instance": by_instance,
+                "max_abs_err": twin_err, "ms": head["kernel_ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"],
+                "yardstick_ms": head["matmul_ms"],
+                "graph_ms": head["graph_ms"], "eager_ms": head["eager_ms"],
+                "device_ms": head["kernel_device_ms"],
+                "instances": {n: lanes[n].instance for n in names},
+                "times": times}
+    finally:
+        for srv in servers:
+            srv.stop()
+
+
 def main() -> int:
     try:
         import torch
@@ -6328,7 +6900,7 @@ def main() -> int:
     entry("glm_sweep (logistic, K1)", "glm_sweep", 270, k1, phase_fit(),
           **sweep(k1, "bf16", FIT_D, "logistic"))
     k2 = phase_k2()
-    k2_launches, k2_objective = phase_linreg()
+    k2_launches, k2_objective, lin_model = phase_linreg()
     entry("glm_sweep (squared, K2)", "glm_sweep", 226, k2, k2_launches,
           **sweep(k2, "bf16", LIN_D, "squared", ring))
     k3 = phase_k3()
@@ -6398,7 +6970,7 @@ def main() -> int:
     # bounded fit, the other four paths launch none
     phase_wls(k2_objective)
     entries[0]["bounded_fit_launches"] = phase_bounded()   # K1's entry
-    phase_multinomial(ovr_models)
+    mn_model = phase_multinomial(ovr_models)
     phase_svc()
     phase_glm()
     # the sparse tier: S1 and S2 carry the Criteo-class fit (the main
@@ -6412,7 +6984,7 @@ def main() -> int:
     wide_k1s = phase_wide_k1s()
     wide_fit = phase_wide_fit()
     wide_lin = phase_wide_linreg()
-    cifar = phase_cifar_ovr()
+    cifar, cifar_models = phase_cifar_ovr()
     phase_criteo_seeds()
     # ALS at configuration 4: the normal equations' kernel, then the
     # explicit, implicit and nonnegative fits through it
@@ -6449,6 +7021,10 @@ def main() -> int:
     phase_gmm()
     phase_lda()
     pic_launches, pic_s2 = phase_pic()
+    # model serving: the fitted models behind ModelServer, each bucket one
+    # CUDA graph over the serving-margins kernel; counts zeroed just
+    # before the traffic and read just after
+    serve = phase_serving(ovr_models, mn_model, lin_model, cifar_models)
     how = ("one read of X: a CTA of 512 threads an SM, each "
            "thread's slots of G rows staged once by its own cp.async ring "
            "slots, margins by xor shuffles then the warps in warp order, "
@@ -6584,6 +7160,30 @@ def main() -> int:
                    "pic_replaces": "cycloneml_tpu/ml/clustering/"
                                    "power_iteration.py:107",
                    "pic_step": pic_s2}}
+    entry("serving_margins (model serving, linear margins)",
+          "serving_margins", "cycloneml_tpu/serving/servable.py:67", serve,
+          serve["launches"], launches_by_instance=serve[
+              "launches_by_instance"],
+          instances=serve["instances"], shape={
+              "models": OVR_K, "margins": 1, "d": FIT_D,
+              "bucket": SERVE_BATCH, "dtype": "f32"},
+          graph_ms=serve["graph_ms"], eager_ms=serve["eager_ms"],
+          device_ms=serve["device_ms"], times=serve["times"],
+          yardstick="torch.matmul(x, coef.T), f32, TF32 off",
+          ptxas={f: v for f, v in ptxas.items()
+                 if f.startswith("serving_margins_kernel")},
+          note="the reference's jnp linear_margins family (servable.py:67, "
+               ":80, :88, :104), not a Pallas kernel; launches: graph "
+               "replays in the traffic, one a dispatch; ms, plain_ms and "
+               "library_ms (torch.addmm of the intercepts, the rows and "
+               "the coefficients) at the OneVsRest gang's bucket 64, by "
+               "CUDA events over back-to-back calls (the host's launch "
+               "path paces them); device_ms: the kernel's device time a "
+               "launch in a CUDA graph of 50 launches, by events; bound: "
+               "launch-bound, the bytes well under a microsecond; "
+               "graph_ms and eager_ms: the three steps of a dispatch (copy "
+               "in, kernel, copy out) as the captured graph and as eager "
+               "launches")
     for e in entries:
         e.update(slice17.get(e["name"], {}))
         e.update(slice18.get(e["name"], {}))

@@ -353,3 +353,86 @@ MEMORY_DEVICE_BYTES = (
     .check_value(lambda v: v >= 0, "must be >= 0")
     .int_conf(0)
 )
+
+SERVING_MAX_BATCH = (
+    ConfigBuilder("cyclone.serving.maxBatch")
+    .doc("Upper bound on coalesced rows per serving dispatch. The model "
+         "server prepares one predict program per power-of-two row bucket "
+         "up to (the next power of two >=) this value at registration (on "
+         "the card one CUDA graph a bucket), so no request ever pays a "
+         "build or a capture.")
+    .check_value(lambda v: v >= 1, "must be >= 1")
+    .int_conf(64)
+)
+
+SERVING_WINDOW_MS = (
+    ConfigBuilder("cyclone.serving.windowMs")
+    .doc("Latency-bounded batching window in milliseconds (Clipper-style "
+         "adaptive micro-batching): once a request is queued, the "
+         "batcher waits at most this long for more requests to the same "
+         "model before dispatching the coalesced batch. 0 dispatches "
+         "immediately (no coalescing beyond what is already queued).")
+    .check_value(lambda v: v >= 0, "must be >= 0")
+    .float_conf(5.0)
+)
+
+SERVING_DTYPE = (
+    ConfigBuilder("cyclone.serving.dtype")
+    .doc("Float dtype serving predict programs compute in. 'auto' (the "
+         "default) resolves to the accumulator tier, cyclone.compute.dtype "
+         "(float32 by default, float64 under the parity configuration). "
+         "Request payloads and model parameters are cast to this width at "
+         "the serving boundary; the bf16 data tier never applies to "
+         "request batches (they are latency-, not bandwidth-bound, and "
+         "scoring accuracy is part of the contract). 'float64' is honoured "
+         "on the card and on the CPU.")
+    .check_value(lambda v: v in ("auto", "float32", "float64"),
+                 "must be 'auto', 'float32' or 'float64'")
+    .str_conf("auto")
+)
+
+SERVING_MAX_QUEUE = (
+    ConfigBuilder("cyclone.serving.maxQueue")
+    .doc("Backpressure bound: maximum requests queued per registered "
+         "model. Submissions past it fail fast with ServingOverloaded "
+         "(503) instead of growing the queue without limit.")
+    .check_value(lambda v: v >= 1, "must be >= 1")
+    .int_conf(1024)
+)
+
+SERVING_SHED_AFTER_MS = (
+    ConfigBuilder("cyclone.serving.shedAfterMs")
+    .doc("Admission-control patience: when the memory budget guard "
+         "predicts a dispatch would not fit (cyclone.memory.budgetFraction "
+         "x device memory), the batch is re-queued and re-checked each "
+         "batching window until its oldest request has waited this long, "
+         "then every request in it is shed with ServingOverloaded (503). "
+         "Serving never raises MemoryBudgetError and never dispatches a "
+         "program the guard predicts will run out of memory.")
+    .check_value(lambda v: v >= 0, "must be >= 0")
+    .float_conf(1000.0)
+)
+
+SERVING_MAX_RETRIES = (
+    ConfigBuilder("cyclone.serving.maxRetries")
+    .doc("Dispatch retries for TRANSIENT failures (resilience "
+         "classification) before the batch is shed with a 5xx "
+         "ServingError. Permanent failures shed immediately.")
+    .check_value(lambda v: v >= 0, "must be >= 0")
+    .int_conf(3)
+)
+
+SERVING_QUANTIZE = (
+    ConfigBuilder("cyclone.serving.quantize")
+    .doc("Serve QUANTIZED predict programs: coefficient tensors stored "
+         "fp8 (e4m3) with per-margin-row scales at serving dtype, "
+         "dequantized inside the kernel (one rounded multiply a "
+         "coefficient; the per-row reduction stays independent of the "
+         "batch dim, so bucket padding remains bitwise-neutral). Cuts "
+         "each bucket program's parameter bytes 4-8x, so the admission "
+         "path fits strictly more gang models under the same "
+         "cyclone.memory.budgetFraction. Margins round to e4m3's 3-bit "
+         "mantissa (~6 percent relative per coefficient): predictions at "
+         "the decision boundary can flip. Off by default.")
+    .bool_conf(False)
+)

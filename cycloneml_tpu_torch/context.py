@@ -2,10 +2,11 @@
 
 The counterpart of ``cycloneml_tpu/context.py:CycloneContext``: it owns the
 conf and the mesh runtime, reads libsvm files (``read_libsvm``), counts the
-optimizer steps the fits record and keeps the fp8 storage fallbacks they
-took.
-The listener bus, event journal, UI, storage tiers and heartbeats are
-host-side layers (ROADMAP slice 10).
+optimizer steps the fits record, keeps the fp8 storage fallbacks they
+took, and holds the metrics registry that model servers share
+(``metrics_registry``, the reference's ``ctx.metrics.registry``).
+The listener bus, event journal, UI, metrics sinks, storage tiers and
+heartbeats are host-side layers (ROADMAP slice 10).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from cycloneml_tpu_torch import mesh as mesh_mod
 from cycloneml_tpu_torch.conf import APP_NAME, MASTER, CycloneConf
+from cycloneml_tpu_torch.util.metrics import MetricsRegistry
 
 _active_lock = threading.Lock()
 _active_context: Optional["CycloneContext"] = None
@@ -55,6 +57,9 @@ class CycloneContext:
             # every MemoryBudgetExceeded record of the budget guard
             # (observe/costs.check_budget), likewise off the bus
             self.memory_warnings: List[Dict] = []
+            # the registry a ModelServer on this context feeds (the
+            # reference's MetricsSystem and its sinks are ROADMAP slice 10)
+            self.metrics_registry = MetricsRegistry()
             self._stopped = False
             _active_context = self
 

@@ -34,7 +34,7 @@ _REFERENCE_PREFIX = _PORT_PACKAGE[:-len("_torch")] + "."
 
 #: where a class without a port stands in the ROADMAP (Queue 1 items), by
 #: module prefix under the port's package; the first match wins
-_ROADMAP_ITEMS = (("ml.", 11), ("graph.", 11), ("serving.", 8), ("", 12))
+_ROADMAP_ITEMS = (("ml.", 11), ("graph.", 11), ("", 12))
 
 
 def _metadata_path(path: str) -> str:

@@ -40,7 +40,13 @@ every destination entity of a half-step (the reference's chunked
 scatter-add of outer products, not a Pallas kernel), over the ratings
 sorted stably by destination once a fit (:func:`als_order`): float32 on
 the tensor cores (each operand split in two TF32 parts, three products),
-float64 on float64 FMAs.
+float64 on float64 FMAs. And so does ``serving_margins``
+(``csrc/serving_margins.cu``), the model server's linear margins of K
+models over a bucket of request rows (the reference's jnp predict kernels
+``serving/servable.py:67-117``, not Pallas kernels): one warp a margin,
+an order that depends on neither the bucket nor K, so that padding a
+batch and serving models as a gang leave a row's bits unchanged; its
+plain twin gives the same bits.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -77,12 +83,16 @@ the center sums by instance in ``center_sums.launches_by_instance``;
 S1 by link in ``ell_rows.launches_by_link`` and S2 by mode in
 ``ell_cols.launches_by_mode``; ALS's normal equations in
 ``als_normal.launches``, one a half-step, and by instance in
-``als_normal.launches_by_instance``).
+``als_normal.launches_by_instance``; the serving margins, counted under a
+lock since lanes launch from their own threads, in
+``serving_margins.launches`` and ``serving_margins.launches_by_instance``,
+each replay of a bucket's CUDA graph one launch).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -294,6 +304,10 @@ _SIGNATURES = {
                               _LL, _I, _P, _I, _D, _D, _P, _P, _P, _P, _P,
                               _P],
     },
+    "serving_margins": {
+        "serving_margins_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _P, _P],
+    },
 }
 
 
@@ -318,9 +332,19 @@ def _library(name: str = "glm_sweep") -> ctypes.CDLL:
     return lib
 
 
+class CudaError(RuntimeError):
+    """A kernel entry point returned a CUDA error; ``code`` is its
+    cudaError_t (``parallel.resilience`` classifies the codes that poison
+    the context as permanent)."""
+
+    def __init__(self, what: str, code: int):
+        super().__init__(f"{what} failed with CUDA error {code}")
+        self.code = int(code)
+
+
 def _cuda_check(rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {rc}")
+        raise CudaError(what, rc)
 
 
 def _check_x(x: torch.Tensor, what: str) -> None:
@@ -512,6 +536,11 @@ def reset_launch_counts() -> None:
     ell_cols.launches_by_mode = {GRADIENT: 0, MOMENTS: 0}
     als_normal.launches = 0
     als_normal.launches_by_instance = {TENSOR_CORE: 0, FMA: 0}
+    with _SERVING_LOCK:
+        serving_margins.launches = 0
+        serving_margins.launches_by_instance = {
+            serving_instance(dt, q): 0
+            for dt in _SERVING_DTYPE_CODE for q in (False, True)}
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -1931,6 +1960,127 @@ def als_normal(src_fac: torch.Tensor, order: AlsOrder, implicit: bool = False,
     als_normal.launches += 1
     als_normal.launches_by_instance[instance] += 1
     return a, b, order.counts.to(dt)
+
+
+# -- serving margins -----------------------------------------------------------
+
+_SERVING_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_SERVING_LOCK = threading.Lock()  # lanes count from their own threads
+SERVING_LANES = 32  # a warp's lanes: the partial sums of one margin
+
+
+def serving_instance(dtype: torch.dtype, quantized: bool) -> str:
+    """The name of the serving-margins instance for the serving ``dtype``
+    and coefficient form: ``f32``, ``f64``, ``f32_e4m3`` or ``f64_e4m3``."""
+    if dtype not in _SERVING_DTYPE_CODE:
+        raise ValueError(f"serving_margins: no instance for {dtype}")
+    return ("f32" if dtype == torch.float32 else "f64") + \
+        ("_e4m3" if quantized else "")
+
+
+def serving_margins_plain(x: torch.Tensor, coef: torch.Tensor,
+                          icpt: torch.Tensor,
+                          scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Margins ``(K, B, Km)`` of ``K`` linear models for the rows ``x``
+    ``(B, d)``: ``coef`` ``(K, Km, d)`` in x's dtype, or e4m3 codes with
+    ``scale`` ``(K, Km)`` (a coefficient is ``code * scale``, rounded
+    once), and ``icpt`` ``(K, Km)``.
+
+    The kernel's order with elementwise ops only, so that the bits are
+    the kernel's and do not depend on B or K: a ``(..., 32)`` partial
+    takes the product of column ``32 i + l`` in lane ``l`` for each block
+    ``i`` in turn (the last block zero-padded), each product and sum
+    rounded on its own; then the xor tree over offsets 16, 8, 4, 2, 1 as
+    five adds of the partial and its lane-permuted self; then the
+    intercept."""
+    dt = x.dtype
+    k, km, d = coef.shape
+    b = x.shape[0]
+    blocks = -(-d // SERVING_LANES)
+    pad = blocks * SERVING_LANES - d
+    c = coef.to(dt)
+    if scale is not None:
+        c = c * scale.to(dt)[..., None]
+    xb = torch.nn.functional.pad(x, (0, pad)).reshape(b, blocks,
+                                                      SERVING_LANES)
+    cb = torch.nn.functional.pad(c, (0, pad)).reshape(k, km, blocks,
+                                                      SERVING_LANES)
+    part = torch.zeros((k, b, km, SERVING_LANES), dtype=dt, device=x.device)
+    for i in range(blocks):
+        part = part + xb[None, :, None, i, :] * cb[:, None, :, i, :]
+    lanes = torch.arange(SERVING_LANES, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[..., lanes ^ off]
+    return part[..., 0] + icpt.to(dt)[:, None, :]
+
+
+def _serving_operands(x, coef, icpt, scale):
+    """Check a CUDA call's operands; returns (dtype code, quantized)."""
+    dt = x.dtype
+    quantized = coef.dtype == torch.float8_e4m3fn
+    if dt not in _SERVING_DTYPE_CODE or x.dim() != 2:
+        raise ValueError(f"serving_margins: x must be 2-D float32 or float64, "
+                         f"got {tuple(x.shape)} {dt}")
+    if coef.dim() != 3 or coef.shape[2] != x.shape[1] or \
+            (coef.dtype != dt and not quantized):
+        raise ValueError(f"serving_margins: coef {tuple(coef.shape)} "
+                         f"{coef.dtype} does not match x {tuple(x.shape)} {dt}")
+    k, km = coef.shape[:2]
+    vecs = [icpt] + ([scale] if quantized else [])
+    if quantized and scale is None:
+        raise ValueError("serving_margins: e4m3 codes need their scale")
+    for t in [x, coef] + vecs:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("serving_margins: operands must be contiguous "
+                             "on one device")
+    if any(v.dtype != dt or v.shape != (k, km) for v in vecs):
+        raise ValueError(f"serving_margins: icpt and scale must be ({k}, "
+                         f"{km}) {dt}")
+    return _SERVING_DTYPE_CODE[dt], quantized
+
+
+def serving_margins(x: torch.Tensor, coef: torch.Tensor, icpt: torch.Tensor,
+                    scale: Optional[torch.Tensor] = None, *,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The margins :func:`serving_margins_plain` computes, ``(K, B, Km)``.
+    A CPU tensor runs the plain twin; a CUDA tensor launches
+    ``csrc/serving_margins.cu`` on the current stream, into ``out`` (or a
+    new tensor), or raises. The launch synchronizes nothing, so a bucket's
+    CUDA graph captures it between its two copies
+    (``serving/batcher.py``). Counted in ``serving_margins.launches`` and
+    by :func:`serving_instance` in ``serving_margins.launches_by_instance``,
+    except while the stream is being captured (a capture launches nothing;
+    the lane counts each replay, :func:`count_serving_launch`)."""
+    if x.device.type == "cpu":
+        return serving_margins_plain(x, coef, icpt, scale)
+    code, quantized = _serving_operands(x, coef, icpt, scale)
+    k, km, d = coef.shape
+    b = x.shape[0]
+    if out is None:
+        out = torch.empty((k, b, km), dtype=x.dtype, device=x.device)
+    elif out.shape != (k, b, km) or out.dtype != x.dtype or \
+            out.device != x.device or not out.is_contiguous():
+        raise ValueError(f"serving_margins: out must be a contiguous ({k}, "
+                         f"{b}, {km}) {x.dtype} tensor on {x.device}")
+    with torch.cuda.device(x.device):
+        capturing = torch.cuda.is_current_stream_capturing()
+        stream = torch.cuda.current_stream(x.device)
+        _cuda_check(_library("serving_margins").serving_margins_launch(
+            code, int(quantized), x.data_ptr(), coef.data_ptr(),
+            _ptr(scale if quantized else None), icpt.data_ptr(), k, b, km, d,
+            out.data_ptr(), stream.cuda_stream), "serving_margins launch")
+    if not capturing:
+        count_serving_launch(serving_instance(x.dtype, quantized))
+    return out
+
+
+def count_serving_launch(instance: str) -> None:
+    """Count one launch of the serving-margins ``instance``: an eager
+    launch, or one replay of a bucket's CUDA graph."""
+    with _SERVING_LOCK:
+        serving_margins.launches += 1
+        serving_margins.launches_by_instance[instance] += 1
 
 
 reset_launch_counts()  # every count starts at 0

@@ -307,8 +307,8 @@ def test_unported_class_raises_with_its_roadmap_item(tmp_path):
             ("cycloneml_tpu.ml.feature.scalers.MinMaxScalerModel", 11),
             ("cycloneml_tpu.ml.tree.random_forest.RandomForestModel", 11),
             ("cycloneml_tpu.ml.feature.scalers.StandardScalerModel", 11),
-            ("cycloneml_tpu.serving.servable.Servable", 8),
-            ("cycloneml_tpu.serving.batcher.NoSuchBatcher", 8)):
+            ("cycloneml_tpu.streaming.query.StreamingQuery", 12),
+            ("cycloneml_tpu.util.status.StatusStore", 12)):
         os.makedirs(tmp_path / "metadata", exist_ok=True)
         with open(tmp_path / "metadata" / "part-00000", "w") as fh:
             json.dump({"class": cls, "uid": "u"}, fh)
