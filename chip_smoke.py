@@ -406,8 +406,24 @@ the final result line:
    64; request latency p50/p95/p99, rows a second, batches and coalesced
    requests; the span tracer on over the traffic, and the slowest
    requests split by their spans (queue, dispatch, the lane's dispatches
-   while queued) beside the garbage collector's pauses;
-51. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+   while queued) beside the garbage collector's pauses; then the kernel
+   (the tiled design) against its twin bit for bit at buckets 128-1,024
+   on the CIFAR-10 gang, each bucket's tile plan printed;
+51. the names the port had lacked in files counted as ported (ROADMAP
+   Queue 1 item 14), on the card: phase 4's model ``evaluate``s a seeded
+   held-out frame of 100,000 x 1,280 drawn from its training
+   distribution, its area under ROC equal to a float64 numpy trapezoid
+   over the same probabilities within 1e-12 and above 0.8;
+   ``InstanceDataset.persist_host``/``release_device`` then ``persist()``
+   bring X, y and w back bitwise and ``torch.cuda.memory_allocated`` back
+   to its level, having freed the padded bytes; ``ctx.broadcast(...)
+   .device_value`` lives on the card; ``parallelize(...).tree_aggregate``
+   and an accumulator inside ``run_job`` (its counters and its ``job``
+   span); ``cyclone.compute.matmulPrecision`` 'highest' leaves
+   ``torch.backends.cuda.matmul.allow_tf32`` False after a fit, and a
+   loss function's aggregations run with it off under 'highest' and on
+   under 'default', the caller's value back after each;
+52. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -544,6 +560,9 @@ PERSISTED = ("LogisticRegression", "LinearRegression", "KMeans", "PCA",
              "OneVsRest", "CrossValidator", "LinearSVC",
              "GeneralizedLinearRegression", "ALS", "Pipeline")
 _FITTED = {}                     # name -> (model, probe columns)
+_MAIN_MODEL = {}                 # phase 4's LogisticRegression model
+HOLD_N, HOLD_STREAM = 100_000, 1 << 20  # phase 51's held-out rows
+SERVE_TWIN_BUCKETS = (128, 256, 512, 1024)  # phase 50's large buckets
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
 ROWS64 = 1 << 16             # rows widened to float64 at a time
@@ -661,11 +680,14 @@ def _kernel_name(mangled: str) -> str:
         tiled = re.findall(r"Lb(\d)E", m.group(5))[0] == "1"
         return ("als_tc_kernel<64 x 64 tile pairs>" if tiled
                 else "als_tc_kernel<rank <= 64>")
-    if m.group(1) == "serving_margins_kernel":  # its dtype, e4m3 or not
+    if m.group(1) in ("serving_margins_kernel", "serving_direct_kernel"):
+        # its dtype, e4m3 or not, and a staged tile's rows x margins a warp
         dtype = {"f": "f32", "d": "f64"}.get(m.group(3), "?")
         q = re.findall(r"Lb(\d)E", m.group(5) or "")
-        return (f"serving_margins_kernel<{dtype}"
-                f"{', e4m3' if q and q[0] == '1' else ''}>")
+        tile = re.findall(r"Li(\d+)E", m.group(5) or "")
+        return (f"{m.group(1)}<{dtype}"
+                f"{', e4m3' if q and q[0] == '1' else ''}"
+                f"{', ' + 'x'.join(tile) if tile else ''}>")
     if m.group(1) == "count_scatter_kernel":  # the bits of k - 1
         return f"{m.group(1)}<bits={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
@@ -986,6 +1008,7 @@ def phase_fit():
         if not all(checks.values()):
             raise AssertionError("the fit failed a check")
         _keep("LogisticRegression", k_model, ds.x)
+        _MAIN_MODEL["lr"] = k_model
         return launches
     finally:
         ctx.stop()
@@ -6695,6 +6718,23 @@ def phase_serving(ovr_models, mn_model, lin_model, cifar_models):
                         twin_err = max(twin_err, float(
                             (got - want).abs().max()))
 
+        # the tiled design's large buckets: the CIFAR-10 gang against its
+        # twin bit for bit, with the tile each bucket takes
+        cif = lanes["cifar10"]
+        large = {}
+        for b in SERVE_TWIN_BUCKETS:
+            x = torch.from_numpy(pools[CIFAR_D][:b]).to(dev)
+            c, ic, sc = cif._params
+            got = kernels.serving_margins(x, c, ic, sc)
+            want = kernels.serving_margins_plain(x, c, ic, sc)
+            large[b] = {"equal": bool(torch.equal(got, want)),
+                        "max_abs_err": float((got - want).abs().max()),
+                        "plan": kernels.serving_margins_plan(
+                            x.dtype, sc is not None, b, len(cifar_models),
+                            CIFAR_D)}
+            twin_err = max(twin_err, large[b]["max_abs_err"])
+        _line("serving_large_buckets", lane="cifar10", buckets=large)
+
         # chaos: a transient fault retried, a permanent one a 5xx
         xf = pools[FIT_D][:5]
         want0 = ovr_models[0]._predict_batch(xf.astype(np.float64))
@@ -6801,6 +6841,8 @@ def phase_serving(ovr_models, mn_model, lin_model, cifar_models):
             "shape at every bucket, f32 and f64, plain and e4m3":
                 n_twin == len(lanes) * 4 * n_buckets
                 and twin_checks == n_twin,
+            "the kernel equals its twin bit for bit on the CIFAR-10 gang "
+            "at buckets 128-1,024": all(v["equal"] for v in large.values()),
             "e4m3 margins within 0.06 of the margin scale":
                 quant_env < SERVE_QUANT_ENVELOPE,
             "a transient fault is retried to the right answer": transient_ok,
@@ -6820,10 +6862,164 @@ def phase_serving(ovr_models, mn_model, lin_model, cifar_models):
                 "graph_ms": head["graph_ms"], "eager_ms": head["eager_ms"],
                 "device_ms": head["kernel_device_ms"],
                 "instances": {n: lanes[n].instance for n in names},
-                "times": times}
+                "times": times,
+                "plans": {n: {b: kernels.serving_margins_plan(
+                    server_of[n].torch_dtype, server_of[n].quantize, b,
+                    lanes[n].shape[0] * lanes[n].shape[1], lanes[n].shape[2])
+                    for b in bucket_sizes(SERVE_BATCH)} for n in timed},
+                "large_buckets": large}
     finally:
         for srv in servers:
             srv.stop()
+
+
+def phase_holes():
+    """Phase 51: the names the port had lacked in files counted as ported,
+    on the card (see the module docstring); returns its numbers."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset import random as drandom
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ml.optim import aggregators
+    from cycloneml_tpu_torch.ml.optim.aggregators import matmul_precision
+    from cycloneml_tpu_torch.ml.optim.loss import DistributedLossFunction
+    from cycloneml_tpu_torch.observe import tracing
+
+    ctx = _context("chip_smoke_holes")
+    try:
+        dev = ctx.device
+        f32 = torch.float32
+        # a held-out frame from phase 4's training distribution: its beta
+        # (the seed's beta stream), rows from a stream no fit drew
+        model = _MAIN_MODEL["lr"]
+        beta = torch.randn(FIT_D, generator=drandom._generator(
+            dev, 0, drandom._BETA_STREAM), device=dev, dtype=f32)
+        g = drandom._generator(dev, 0, HOLD_STREAM)
+        xh = torch.randn((HOLD_N, FIT_D), generator=g, device=dev, dtype=f32)
+        eps = torch.randn(HOLD_N, generator=g, device=dev, dtype=f32)
+        yh = ((xh @ beta + eps) > 0).double()
+        x_np, y_np = xh.cpu().numpy(), yh.cpu().numpy()
+        frame = MLFrame(ctx, {"features": x_np, "label": y_np})
+        summary, eval_s = _timed(lambda: model.evaluate(frame))
+        # the same area by a float64 trapezoid of its own
+        score = 1.0 / (1.0 + np.exp(-(x_np.astype(np.float64)
+                                       @ model.coefficients.values
+                                       + model.intercept)))
+        order = np.argsort(-score, kind="stable")
+        last = np.append(score[order][1:] != score[order][:-1], True)
+        tps = np.cumsum(y_np[order])[last]
+        fps = np.cumsum(1.0 - y_np[order])[last]
+        tpr = np.concatenate([[0.0], tps / tps[-1], [1.0]])
+        fpr = np.concatenate([[0.0], fps / fps[-1], [1.0]])
+        auc = float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0))
+        auc_err = abs(summary.area_under_roc - auc)
+        del xh, x_np, frame
+
+        # placement: host copies, release, back on the card bitwise
+        ds = drandom.generate_classification(ctx, HOLD_N, FIT_D, seed=21)
+        keep = [t.clone() for t in (ds.x, ds.y, ds.w)]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        ds.persist_host()
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated()
+        ds.persist()
+        back = all(torch.equal(t, k) for t, k in zip((ds.x, ds.y, ds.w),
+                                                     keep))
+        after = torch.cuda.memory_allocated()
+        ds.release_device()
+        released = torch.cuda.memory_allocated()
+        ds.cache()
+        back_again = all(torch.equal(t, k) for t, k in zip(
+            (ds.x, ds.y, ds.w), keep)) and ds.x.device.type == "cuda"
+        again = torch.cuda.memory_allocated()
+
+        # broadcast, parallelize, tree_aggregate and an accumulator in a job
+        bc = ctx.broadcast({"coef": model.coefficients.values})
+        on_card = bc.device_value["coef"]
+        bc_ok = (on_card.device.type == "cuda" and bc.device_value is not None
+                 and np.array_equal(on_card.cpu().numpy(),
+                                    model.coefficients.values))
+        bc.unpersist()
+        acc = ctx.accumulator(0.0, "rows")
+        tracer = tracing.enable()
+        try:
+            def job():
+                rows = ctx.parallelize(range(1, 100_001), 8)
+                rows.foreach(lambda v: acc.add(1))
+                return rows.tree_aggregate(0, lambda a, v: a + v,
+                                           lambda a, b: a + b, depth=3)
+            total, job_s = _timed(lambda: ctx.run_job("tree_aggregate", job))
+        finally:
+            tracing.disable()
+        reg = ctx.metrics_registry
+        job_spans = [sp.name for sp in tracer.snapshot() if sp.kind == "job"]
+
+        # matmulPrecision: a 'highest' fit leaves TF32 off; a loss
+        # function's own aggregations see the flag its precision sets
+        # (off for 'highest' over a caller's leftover True, on for
+        # 'default'), and the caller's value is back after each
+        small = drandom.generate_classification(ctx, 20_000, 64, seed=5)
+        LogisticRegression(maxIter=5).fit(small)
+        tf32_highest = torch.backends.cuda.matmul.allow_tf32
+        binary = aggregators.binary_logistic(64, True)
+        tf32_scoped = {}
+        for name, leftover in (("highest", True), ("default", False)):
+            ctx.conf.set("cyclone.compute.matmulPrecision", name)
+            seen = []
+
+            def spy(x, y, w, coef, seen=seen):
+                seen.append(torch.backends.cuda.matmul.allow_tf32)
+                return binary(x, y, w, coef)
+
+            torch.backends.cuda.matmul.allow_tf32 = leftover
+            loss = DistributedLossFunction(small, spy)
+            loss.f_and_g(torch.zeros(65, device=dev, dtype=loss.cdt))
+            tf32_scoped[name] = (matmul_precision(), sorted(set(seen)),
+                                 torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        ctx.conf.set("cyclone.compute.matmulPrecision", "highest")
+        out = {"held_out_rows": HOLD_N, "evaluate_s": eval_s,
+               "area_under_roc": summary.area_under_roc,
+               "numpy_area": auc, "area_abs_err": auc_err,
+               "accuracy": summary.accuracy,
+               "padded_bytes": ds.padded_bytes(), "freed_bytes": freed,
+               "memory_allocated": [before, after, released, again],
+               "job_total": total, "job_s": job_s,
+               "accumulator": acc.value, "job_spans": job_spans,
+               "tf32_after_highest_fit": tf32_highest,
+               "tf32_scoped": tf32_scoped}
+        _line("holes", **out)
+        _check("holes", {
+            "evaluate's area under ROC equals the float64 trapezoid within "
+            "1e-12": auc_err <= 1e-12,
+            "the held-out area is above 0.8": summary.area_under_roc > 0.8,
+            "persist_host frees the padded bytes (each of X, y and w "
+            "rounded up to the allocator's 512-byte blocks)":
+                0 <= freed - ds.padded_bytes() < 3 * 512,
+            "persist brings X, y and w back bitwise": back,
+            "memory_allocated returns to its level": after == before
+                and again == before,
+            "release_device frees them again": released == before - freed,
+            "cache brings them back bitwise on the card": back_again,
+            "the broadcast's device value lives on the card": bc_ok,
+            "tree_aggregate and the accumulator inside run_job":
+                total == 5_000_050_000 and acc.value == 100_000,
+            "run_job counted and traced": reg.counter(
+                "jobs.succeeded").count == 1 and job_spans == [
+                    "tree_aggregate"],
+            "matmulPrecision 'highest' leaves TF32 off after a fit":
+                tf32_highest is False,
+            "a loss function's aggregations run with TF32 off under "
+            "'highest' and on under 'default', the caller's flag back "
+            "after": tf32_scoped == {"highest": ("highest", [False], True),
+                                     "default": ("default", [True], False)},
+        })
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ctx.stop()
 
 
 def main() -> int:
@@ -7025,6 +7221,9 @@ def main() -> int:
     # CUDA graph over the serving-margins kernel; counts zeroed just
     # before the traffic and read just after
     serve = phase_serving(ovr_models, mn_model, lin_model, cifar_models)
+    # the holes in files counted as ported: evaluate, placement, the
+    # runtime core, the precision key
+    holes = phase_holes()
     how = ("one read of X: a CTA of 512 threads an SM, each "
            "thread's slots of G rows staged once by its own cp.async ring "
            "slots, margins by xor shuffles then the warps in warp order, "
@@ -7170,8 +7369,18 @@ def main() -> int:
           graph_ms=serve["graph_ms"], eager_ms=serve["eager_ms"],
           device_ms=serve["device_ms"], times=serve["times"],
           yardstick="torch.matmul(x, coef.T), f32, TF32 off",
+          redesigned="tiles of request rows by margin rows staged through "
+                     "shared memory by cp.async.bulk onto mbarriers (X "
+                     "read once a margin tile, the coefficients once a "
+                     "row tile), or one warp an output streaming its rows "
+                     "where that measured faster (e4m3 codes always); the "
+                     "layout and tile picked a launch by a rule "
+                     "(kernels.serving_margins_plan)",
+          plans=serve["plans"], large_buckets=serve["large_buckets"],
+          holes=holes,
           ptxas={f: v for f, v in ptxas.items()
-                 if f.startswith("serving_margins_kernel")},
+                 if f.startswith(("serving_margins_kernel",
+                                  "serving_direct_kernel"))},
           note="the reference's jnp linear_margins family (servable.py:67, "
                ":80, :88, :104), not a Pallas kernel; launches: graph "
                "replays in the traffic, one a dispatch; ms, plain_ms and "

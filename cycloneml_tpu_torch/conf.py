@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Callable, Dict, Generic, Optional, TypeVar
+from typing import (Any, Callable, Dict, Generic, Iterator, List, Optional,
+                    TypeVar)
 
 T = TypeVar("T")
 
@@ -20,17 +21,26 @@ _REGISTRY_LOCK = threading.Lock()
 
 
 class ConfigEntry(Generic[T]):
-    """A typed configuration entry with a default and a validator."""
+    """A typed configuration entry with a default and a validator; it may
+    also read alternative (older) key names and fall back to another
+    entry when none is set (ref ConfigEntry.scala:74)."""
 
     def __init__(self, key: str, default: Optional[T], value_type: type,
                  doc: str = "", validator: Optional[Callable[[T], bool]] = None,
-                 validator_msg: str = ""):
+                 validator_msg: str = "", version: str = "0.1.0",
+                 alternatives: Optional[List[str]] = None,
+                 fallback: Optional["ConfigEntry[T]"] = None,
+                 mutable: bool = False):
         self.key = key
         self.default = default
         self.value_type = value_type
         self.doc = doc
         self.validator = validator
         self.validator_msg = validator_msg
+        self.version = version
+        self.alternatives = alternatives or []
+        self.fallback = fallback
+        self.mutable = mutable
         with _REGISTRY_LOCK:
             if key in _REGISTRY:
                 raise ValueError(f"Config entry already registered: {key}")
@@ -56,28 +66,42 @@ class ConfigEntry(Generic[T]):
         raise TypeError(f"{self.key}: unsupported config type {t}")
 
     def read_from(self, conf: "CycloneConf") -> T:
-        if conf.contains_raw(self.key):
-            v = self._convert(conf.get_raw(self.key))
-            if self.validator is not None and not self.validator(v):
-                raise ValueError(
-                    f"Invalid value {v!r} for {self.key}: {self.validator_msg}")
-            return v
+        for k in [self.key] + self.alternatives:
+            if conf.contains_raw(k):
+                v = self._convert(conf.get_raw(k))
+                if self.validator is not None and not self.validator(v):
+                    raise ValueError(f"Invalid value {v!r} for {self.key}: "
+                                     f"{self.validator_msg}")
+                return v
+        if self.fallback is not None:
+            return self.fallback.read_from(conf)
         if self.default is None:
             raise KeyError(f"Config {self.key} is not set and has no default")
         return self.default
 
 
 class ConfigBuilder:
-    """Fluent builder of :class:`ConfigEntry`."""
+    """Fluent builder of :class:`ConfigEntry` (ref ConfigBuilder.scala:183)."""
 
     def __init__(self, key: str):
         self._key = key
         self._doc = ""
+        self._version = "0.1.0"
         self._validator: Optional[Callable] = None
         self._validator_msg = ""
+        self._alternatives: List[str] = []
+        self._mutable = False
 
     def doc(self, d: str) -> "ConfigBuilder":
         self._doc = d
+        return self
+
+    def version(self, v: str) -> "ConfigBuilder":
+        self._version = v
+        return self
+
+    def with_alternative(self, key: str) -> "ConfigBuilder":
+        self._alternatives.append(key)
         return self
 
     def check_value(self, fn: Callable, msg: str) -> "ConfigBuilder":
@@ -85,9 +109,15 @@ class ConfigBuilder:
         self._validator_msg = msg
         return self
 
-    def _make(self, default, value_type) -> ConfigEntry:
+    def mutable(self) -> "ConfigBuilder":
+        self._mutable = True
+        return self
+
+    def _make(self, default, value_type, fallback=None) -> ConfigEntry:
         return ConfigEntry(self._key, default, value_type, self._doc,
-                           self._validator, self._validator_msg)
+                           self._validator, self._validator_msg,
+                           self._version, self._alternatives, fallback,
+                           self._mutable)
 
     def int_conf(self, default: Optional[int] = None) -> ConfigEntry[int]:
         return self._make(default, int)
@@ -101,6 +131,10 @@ class ConfigBuilder:
 
     def bool_conf(self, default: Optional[bool] = None) -> ConfigEntry[bool]:
         return self._make(default, bool)
+
+    def fallback_conf(self, parent: ConfigEntry) -> ConfigEntry:
+        """An entry that reads ``parent`` until it is set itself."""
+        return self._make(None, parent.value_type, fallback=parent)
 
 
 class CycloneConf:
@@ -124,6 +158,12 @@ class CycloneConf:
         k = key.key if isinstance(key, ConfigEntry) else key
         with self._lock:
             self._settings[k] = str(value)
+        return self
+
+    def set_if_missing(self, key, value) -> "CycloneConf":
+        k = key.key if isinstance(key, ConfigEntry) else key
+        with self._lock:
+            self._settings.setdefault(k, str(value))
         return self
 
     def remove(self, key) -> "CycloneConf":
@@ -159,6 +199,15 @@ class CycloneConf:
         c._settings = dict(self._settings)
         return c
 
+    def __iter__(self) -> Iterator:
+        return iter(self.get_all().items())
+
+
+def registered_entries() -> Dict[str, ConfigEntry]:
+    """Every registered entry by key."""
+    with _REGISTRY_LOCK:
+        return dict(_REGISTRY)
+
 
 # ---------------------------------------------------------------------------
 # The keys on the ported path
@@ -173,6 +222,38 @@ MASTER = (
          "for one card, 'cpu' for the CPU. 'cuda' with no card raises; the "
          "port never drops to the CPU by itself.")
     .str_conf("cuda")
+)
+
+DEFAULT_PARALLELISM = (
+    ConfigBuilder("cyclone.default.parallelism")
+    .doc("Default number of partitions of a host-tier dataset "
+         "(CycloneContext.parallelize); 0 = the mesh's device count.")
+    .check_value(lambda v: v >= 0, "must be >= 0")
+    .int_conf(0)
+)
+
+BLOCK_SIZE_MAX_MEM = (
+    ConfigBuilder("cyclone.dataset.blockSizeInMB")
+    .doc("Max memory per instance block in MB (ref: ml/feature/"
+         "Instance.scala:146 blokifyWithMaxMemUsage). Registered so "
+         "configurations carry over; the port places a dataset as one "
+         "padded block and reads it nowhere.")
+    .float_conf(0.0)
+)
+
+MATMUL_PRECISION = (
+    ConfigBuilder("cyclone.compute.matmulPrecision")
+    .doc("Precision of the loss functions' plain torch float32 products "
+         "on the card: 'highest' (default) keeps TF32 off (full float32, "
+         "the mesh's setting); 'default' lets cuBLAS use TF32 in them "
+         "(torch.backends.cuda.matmul.allow_tf32, set around each "
+         "aggregation and restored after: "
+         "ml/optim/aggregators.precision_scope). The hand-written kernels "
+         "read neither. Resolved when a loss function is built, so a "
+         "change applies to the next fit.")
+    .check_value(lambda v: v in ("highest", "default"),
+                 "must be 'highest' or 'default'")
+    .str_conf("highest")
 )
 
 AGGREGATION_DEPTH = (

@@ -1,23 +1,30 @@
 """CycloneContext — the driver entry point of the port.
 
 The counterpart of ``cycloneml_tpu/context.py:CycloneContext``: it owns the
-conf and the mesh runtime, reads libsvm files (``read_libsvm``), counts the
+conf and the mesh runtime, makes host-tier datasets (``parallelize``),
+broadcasts and accumulators, brackets jobs (``run_job``: a ``job`` span on
+the active tracer and the ``jobs.*`` counters and ``job.duration`` timer of
+``metrics_registry``), reads libsvm files (``read_libsvm``), counts the
 optimizer steps the fits record, keeps the fp8 storage fallbacks they
 took, and holds the metrics registry that model servers share
 (``metrics_registry``, the reference's ``ctx.metrics.registry``).
 The listener bus, event journal, UI, metrics sinks, storage tiers and
-heartbeats are host-side layers (ROADMAP slice 10).
+heartbeats are host-side layers (ROADMAP slice 10, Queue 1 item 12); the
+mesh rebuild that ``run_job`` waits out in the reference needs several
+devices (Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from cycloneml_tpu_torch import mesh as mesh_mod
-from cycloneml_tpu_torch.conf import APP_NAME, MASTER, CycloneConf
+from cycloneml_tpu_torch.conf import (APP_NAME, DEFAULT_PARALLELISM, MASTER,
+                                      CycloneConf)
+from cycloneml_tpu_torch.observe import tracing
 from cycloneml_tpu_torch.util.metrics import MetricsRegistry
 
 _active_lock = threading.Lock()
@@ -30,6 +37,74 @@ def active_context() -> Optional["CycloneContext"]:
         if _active_context is not None and not _active_context._stopped:
             return _active_context
     return None
+
+
+class Broadcast:
+    """A value shared read-only by every task (the reference's Broadcast,
+    ref TorrentBroadcast.scala:58). ``device_value`` is its copy on the
+    context's device, made once at first use (tensors and numpy arrays
+    are copied, dicts, lists and tuples of them element by element, other
+    leaves kept as they are); ``unpersist`` drops that copy and
+    ``destroy`` the value too."""
+
+    def __init__(self, ctx: "CycloneContext", value: Any, bid: int):
+        self.id = bid
+        self._value = value
+        self._device_value = None
+        self._ctx = ctx
+
+    @property
+    def value(self) -> Any:
+        return self._value
+
+    @property
+    def device_value(self) -> Any:
+        if self._device_value is None:
+            self._device_value = _to_device(self._value, self._ctx.device)
+        return self._device_value
+
+    def unpersist(self) -> None:
+        self._device_value = None
+
+    def destroy(self) -> None:
+        self._device_value = None
+        self._value = None
+
+
+def _to_device(value: Any, device: torch.device) -> Any:
+    import numpy as np
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(value)).to(device)
+    if isinstance(value, dict):
+        return {k: _to_device(v, device) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_device(v, device) for v in value)
+    return value
+
+
+class Accumulator:
+    """A float counter on the context's side that tasks add to (ref
+    util/AccumulatorV2.scala:44), safe across the task threads."""
+
+    def __init__(self, initial: float = 0.0, name: str = ""):
+        self.name = name
+        self._value = initial
+        self._lock = threading.Lock()
+
+    def add(self, v) -> None:
+        with self._lock:
+            self._value += float(v)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0.0
 
 
 class CycloneContext:
@@ -60,6 +135,7 @@ class CycloneContext:
             # the registry a ModelServer on this context feeds (the
             # reference's MetricsSystem and its sinks are ROADMAP slice 10)
             self.metrics_registry = MetricsRegistry()
+            self._next_broadcast = 0
             self._stopped = False
             _active_context = self
 
@@ -72,6 +148,47 @@ class CycloneContext:
     @property
     def device(self) -> torch.device:
         return self.mesh_runtime.device
+
+    @property
+    def default_parallelism(self) -> int:
+        """``cyclone.default.parallelism``, or the mesh's device count when
+        it is 0."""
+        n = self.conf.get(DEFAULT_PARALLELISM)
+        return n if n > 0 else self.mesh_runtime.n_devices
+
+    def broadcast(self, value: Any) -> Broadcast:
+        self._next_broadcast += 1
+        return Broadcast(self, value, self._next_broadcast)
+
+    def accumulator(self, initial: float = 0.0, name: str = "") -> Accumulator:
+        return Accumulator(initial, name)
+
+    def parallelize(self, data, num_partitions: Optional[int] = None):
+        """A host-tier dataset of ``data`` in ``num_partitions`` partitions
+        (default :attr:`default_parallelism`)."""
+        from cycloneml_tpu_torch.dataset.dataset import PartitionedDataset
+        return PartitionedDataset.from_sequence(
+            self, list(data), num_partitions or self.default_parallelism)
+
+    def run_job(self, description: str, fn: Callable[[], Any]) -> Any:
+        """Run ``fn()`` as one job: a ``job`` span on the active tracer
+        (the spans ``fn`` opens in this thread nest under it), the
+        ``jobs.started`` and ``jobs.succeeded`` or ``jobs.failed``
+        counters and the ``job.duration`` timer of
+        :attr:`metrics_registry`. Its result is returned; its exception
+        raised. The reference's JobStart/JobEnd events and FitProfile
+        rollup are the listener bus's (Queue 1 item 12)."""
+        reg = self.metrics_registry
+        reg.counter("jobs.started").inc()
+        with tracing.span("job", description):
+            try:
+                with reg.timer("job.duration"):
+                    out = fn()
+            except Exception:
+                reg.counter("jobs.failed").inc()
+                raise
+        reg.counter("jobs.succeeded").inc()
+        return out
 
     def read_libsvm(self, path: str, n_features: Optional[int] = None):
         """A libsvm file as a dense dataset

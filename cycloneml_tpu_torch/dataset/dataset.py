@@ -1,7 +1,15 @@
-"""InstanceDataset — the numeric tier every estimator trains on.
+"""The two dataset tiers.
 
-The port's counterpart of ``cycloneml_tpu/dataset/dataset.py:
-InstanceDataset``: ``x`` is ``(n_pad, d)`` in the data tier, ``y``/``w`` are
+``PartitionedDataset`` — the host tier with the RDD's functional surface
+(map/filter/mapPartitions/reduce/treeAggregate/collect, lazy lineage,
+caching) over Python objects in host threads: the port's counterpart of
+``cycloneml_tpu/dataset/dataset.py:PartitionedDataset``. Its checkpoint
+and its shuffle spill belong to the storage layer (ROADMAP Queue 1 item
+10); its cross-process exchange to several devices (item 9).
+
+``InstanceDataset`` — the numeric tier every estimator trains on, the
+port's counterpart of the reference's ``InstanceDataset``: ``x`` is
+``(n_pad, d)`` in the data tier, ``y``/``w`` are
 ``(n_pad,)`` in the accumulator tier, all on the mesh's device; padding
 rows carry w=0. Host twins of the padded (y, w) are kept when they are
 known, so estimators read label histograms without a device readback.
@@ -14,10 +22,15 @@ bfloat16 dequantization through :func:`fp8_fallback`, which always logs.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
+import copy
+import functools
 import logging
+import os
 import time
 import warnings
-from typing import Callable, Iterable, List, Optional, Tuple
+import zlib
+from typing import Any, Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,12 +38,243 @@ import torch
 from cycloneml_tpu_torch.dataset.instance import (blockify_arrays,
                                                   compute_dtype, data_dtype,
                                                   fp8_probe_ok, is_fp8_dtype,
-                                                  quantize_fp8)
+                                                  quantize_fp8, rows_to_dense)
 from cycloneml_tpu_torch.parallel import collectives
 
 logger = logging.getLogger(__name__)
 
 _DEQUANT_ROWS = 1 << 16  # rows of fp8 codes widened at a time
+
+
+_POOL: Optional[cf.ThreadPoolExecutor] = None
+
+
+def _pool() -> cf.ThreadPoolExecutor:
+    global _POOL
+    if _POOL is None:
+        _POOL = cf.ThreadPoolExecutor(max_workers=os.cpu_count() or 8,
+                                      thread_name_prefix="cyclone-task")
+    return _POOL
+
+
+def stable_hash(key: Any) -> int:
+    """The partitioner's hash, the same in every process and run (the
+    reference's ``dataset/spill.stable_hash``): numbers by Python's own
+    salt-free numeric hash (so 1 == 1.0 == True co-partition), str and
+    bytes by a crc32 digest of the bytes and of the bytes reversed, tuples
+    and frozensets from their elements, other types by ``__hash__``."""
+    if isinstance(key, str):
+        b = key.encode("utf-8")
+    elif isinstance(key, (bytes, bytearray)):
+        b = bytes(key)
+    elif isinstance(key, tuple):
+        h = 1099511628211
+        for k in key:
+            h = (h * 31 + stable_hash(k)) & 0x7FFFFFFFFFFFFFFF
+        return h
+    elif isinstance(key, frozenset):
+        return (sum(stable_hash(k) for k in key) + len(key)) \
+            & 0x7FFFFFFFFFFFFFFF
+    else:
+        return hash(key) & 0x7FFFFFFFFFFFFFFF
+    return (zlib.crc32(b) | (zlib.crc32(b[::-1]) << 32)) & 0x7FFFFFFFFFFFFFFF
+
+
+class PartitionedDataset:
+    """Host-tier RDD analog: lazy, lineage-based, partitioned lists of
+    Python objects; actions run a task a partition on a thread pool."""
+
+    def __init__(self, ctx, partitions_fn: Callable[[], List[List[Any]]],
+                 num_partitions: int, name: str = ""):
+        self.ctx = ctx
+        self._compute = partitions_fn
+        self.num_partitions = num_partitions
+        self.name = name or "dataset"
+        self._cached: Optional[List[List[Any]]] = None
+
+    @classmethod
+    def from_sequence(cls, ctx, data: List[Any],
+                      num_partitions: int) -> "PartitionedDataset":
+        """``data`` cut into ``num_partitions`` runs of ceil(n / parts)."""
+        data = list(data)
+        n = max(1, num_partitions)
+
+        def compute():
+            size = (len(data) + n - 1) // n if data else 0
+            return [data[i * size:(i + 1) * size] for i in range(n)]
+
+        return cls(ctx, compute, n, "parallelize")
+
+    # -- materialization ------------------------------------------------------
+    def _partitions(self) -> List[List[Any]]:
+        if self._cached is not None:
+            return self._cached
+        return self._compute()
+
+    def cache(self) -> "PartitionedDataset":
+        return self.persist()
+
+    def persist(self) -> "PartitionedDataset":
+        """Keep the partitions in host memory from the next action on."""
+        if self._cached is None:
+            self._cached = self._partitions()
+        return self
+
+    def unpersist(self) -> "PartitionedDataset":
+        self._cached = None
+        return self
+
+    def checkpoint(self) -> "PartitionedDataset":
+        raise NotImplementedError(
+            "PartitionedDataset.checkpoint is the storage layer's: ROADMAP "
+            "Queue 1 item 10")
+
+    # -- transformations (lazy) -----------------------------------------------
+    def _derive(self, fn: Callable[[List[List[Any]]], List[List[Any]]],
+                name: str, num_partitions: Optional[int] = None
+                ) -> "PartitionedDataset":
+        parent = self
+        return PartitionedDataset(
+            self.ctx, lambda: fn(parent._partitions()),
+            self.num_partitions if num_partitions is None else num_partitions,
+            name)
+
+    def map(self, f: Callable) -> "PartitionedDataset":
+        return self._derive(lambda ps: [[f(x) for x in p] for p in ps], "map")
+
+    def filter(self, f: Callable) -> "PartitionedDataset":
+        return self._derive(lambda ps: [[x for x in p if f(x)] for p in ps],
+                            "filter")
+
+    def flat_map(self, f: Callable) -> "PartitionedDataset":
+        return self._derive(
+            lambda ps: [[y for x in p for y in f(x)] for p in ps], "flatMap")
+
+    def map_partitions(self, f: Callable[[Iterable], Iterable]
+                       ) -> "PartitionedDataset":
+        return self._derive(lambda ps: [list(f(iter(p))) for p in ps],
+                            "mapPartitions")
+
+    def map_partitions_with_index(self, f: Callable[[int, Iterable], Iterable]
+                                  ) -> "PartitionedDataset":
+        return self._derive(
+            lambda ps: [list(f(i, iter(p))) for i, p in enumerate(ps)],
+            "mapPartitionsWithIndex")
+
+    def zip_with_index(self) -> "PartitionedDataset":
+        def fn(ps):
+            out, i = [], 0
+            for p in ps:
+                out.append([(x, i + j) for j, x in enumerate(p)])
+                i += len(p)
+            return out
+        return self._derive(fn, "zipWithIndex")
+
+    def repartition(self, n: int) -> "PartitionedDataset":
+        def fn(ps):
+            flat = [x for p in ps for x in p]
+            size = (len(flat) + n - 1) // n if flat else 0
+            return [flat[i * size:(i + 1) * size] for i in range(n)]
+        return self._derive(fn, "repartition", n)
+
+    coalesce = repartition
+
+    def group_by_key(self) -> "PartitionedDataset":
+        """Key/value pairs grouped into ``(key, [values])``, each key in
+        partition ``stable_hash(key) % num_partitions``, keys in the order
+        they first occur and values in row order (the reference's path
+        within its spill budget; the spill past it is ROADMAP Queue 1 item
+        10)."""
+        n = self.num_partitions
+
+        def fn(ps):
+            buckets = [{} for _ in range(n)]
+            for p in ps:
+                for k, v in p:
+                    buckets[stable_hash(k) % n].setdefault(k, []).append(v)
+            return [list(b.items()) for b in buckets]
+        return self._derive(fn, "groupByKey", n)
+
+    def reduce_by_key(self, f: Callable) -> "PartitionedDataset":
+        return self.group_by_key().map(
+            lambda kv: (kv[0], functools.reduce(f, kv[1])))
+
+    def union(self, other: "PartitionedDataset") -> "PartitionedDataset":
+        parent = self
+        return PartitionedDataset(
+            self.ctx, lambda: parent._partitions() + other._partitions(),
+            self.num_partitions + other.num_partitions, "union")
+
+    # -- actions (eager, a task a partition) ----------------------------------
+    def _run_per_partition(self, f: Callable[[List[Any]], Any]) -> List[Any]:
+        return list(_pool().map(f, self._partitions()))
+
+    def collect(self) -> List[Any]:
+        return [x for p in self._partitions() for x in p]
+
+    def count(self) -> int:
+        return sum(self._run_per_partition(len))
+
+    def take(self, n: int) -> List[Any]:
+        out: List[Any] = []
+        for p in self._partitions():
+            out.extend(p[: n - len(out)])
+            if len(out) >= n:
+                break
+        return out
+
+    def first(self) -> Any:
+        got = self.take(1)
+        if not got:
+            raise ValueError("empty dataset")
+        return got[0]
+
+    def reduce(self, f: Callable) -> Any:
+        partials = [functools.reduce(f, p)
+                    for p in self._run_per_partition(list) if p]
+        if not partials:
+            raise ValueError("empty dataset")
+        return functools.reduce(f, partials)
+
+    def aggregate(self, zero: Any, seq_op: Callable, comb_op: Callable) -> Any:
+        partials = self._run_per_partition(
+            lambda p: functools.reduce(seq_op, p, copy.deepcopy(zero)))
+        return functools.reduce(comb_op, partials, copy.deepcopy(zero))
+
+    def tree_aggregate(self, zero: Any, seq_op: Callable, comb_op: Callable,
+                       depth: int = 2) -> Any:
+        """A partial a partition, then combined in ``depth`` rounds of
+        groups (ref RDD.scala:1223): the host tier's reduction; the
+        numeric tier sums on the device."""
+        partials = self._run_per_partition(
+            lambda p: functools.reduce(seq_op, p, copy.deepcopy(zero)))
+        while len(partials) > 2 and depth > 1:
+            scale = max(2, int(np.ceil(len(partials) ** (1.0 / depth))))
+            groups = [partials[i::scale] for i in range(scale)]
+            partials = [functools.reduce(comb_op, g) for g in groups if g]
+            depth -= 1
+        return functools.reduce(comb_op, partials, copy.deepcopy(zero))
+
+    def foreach(self, f: Callable) -> None:
+        self._run_per_partition(lambda p: [f(x) for x in p])
+
+    def is_empty(self) -> bool:
+        return not self.take(1)
+
+    # -- bridge to the numeric tier -------------------------------------------
+    def to_instance_dataset(self, n_features: Optional[int] = None,
+                            label_fn=None, weight_fn=None,
+                            features_fn=None) -> "InstanceDataset":
+        """The rows (``Instance``-like: ``features``, ``label``,
+        ``weight``, or the given accessors) as a device dataset."""
+        rows = self.collect()
+        features_fn = features_fn or (lambda r: r.features)
+        label_fn = label_fn or (lambda r: getattr(r, "label", 0.0))
+        weight_fn = weight_fn or (lambda r: getattr(r, "weight", 1.0))
+        x = rows_to_dense([features_fn(r) for r in rows], n_features)
+        y = np.array([label_fn(r) for r in rows], dtype=np.float64)
+        w = np.array([weight_fn(r) for r in rows], dtype=np.float64)
+        return InstanceDataset.from_numpy(self.ctx, x, y, w)
 
 
 def fp8_fallback(ds: "InstanceDataset", estimator: str,
@@ -104,6 +348,8 @@ class InstanceDataset:
         # envelope probe's input (the codes cannot show a collapsed column)
         self._fp8_probe_ratio: Optional[np.ndarray] = None
         self._yw_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        # host copies of (x, y, w) after persist_host; None on the device
+        self._host: Optional[Tuple[torch.Tensor, ...]] = None
         self._summary_cache = None  # Summarizer moments (immutable data)
         # the real rows of the padded arrays (set by the streamed ingest;
         # None: the first n_rows)
@@ -284,10 +530,10 @@ class InstanceDataset:
         the host twins are shared. ``self`` when already quantized."""
         if self._x_scale is not None:
             return self
-        x8 = torch.zeros(self._x.shape, dtype=torch.uint8,
-                         device=self._x.device).view(torch.float8_e4m3fn)
-        _, scale, ratio = quantize_fp8(self._x[:self.n_rows], out=x8)
-        ds = InstanceDataset(self.ctx, x8, self._y, self._w, self.n_rows,
+        x8 = torch.zeros(self.x.shape, dtype=torch.uint8,
+                         device=self.x.device).view(torch.float8_e4m3fn)
+        _, scale, ratio = quantize_fp8(self.x[:self.n_rows], out=x8)
+        ds = InstanceDataset(self.ctx, x8, self.y, self.w, self.n_rows,
                              self.n_features, x_scale=scale)
         ds._fp8_probe_ratio = ratio
         ds._yw_host = self._yw_host
@@ -306,9 +552,9 @@ class InstanceDataset:
         metadata kept: the row count, and the host twins of (y, w) when
         neither changes. Row-aligned transformations (normalization, X.B
         products) build their result through this."""
-        ds = InstanceDataset(self.ctx, self._x if x is None else x,
-                             self._y if y is None else y,
-                             self._w if w is None else w, self.n_rows,
+        ds = InstanceDataset(self.ctx, self.x if x is None else x,
+                             self.y if y is None else y,
+                             self.w if w is None else w, self.n_rows,
                              self.n_features if n_features is None
                              else n_features,
                              # the scales describe X: they follow an
@@ -336,8 +582,8 @@ class InstanceDataset:
         idx = np.asarray(idx, dtype=np.int64).ravel()
         if len(idx) == 0:
             return np.zeros((0, self.n_features))
-        rows = self._x[torch.as_tensor(idx, device=self._x.device)]
-        out = rows.to(self._w.dtype).cpu().numpy()
+        rows = self.x[torch.as_tensor(idx, device=self.x.device)]
+        out = rows.to(self.w.dtype).cpu().numpy()
         if self._x_scale is not None:
             # codes -> values at the host boundary
             out = out.astype(np.float64) * self._x_scale[None, :]
@@ -369,24 +615,81 @@ class InstanceDataset:
         if self._x_scale is None:
             return self
         s = torch.as_tensor(self._x_scale, dtype=torch.float32,
-                            device=self._x.device)
-        x = torch.empty(self._x.shape, dtype=dtype, device=self._x.device)
+                            device=self.x.device)
+        x = torch.empty(self.x.shape, dtype=dtype, device=self.x.device)
         for lo in range(0, x.shape[0], _DEQUANT_ROWS):
             hi = lo + _DEQUANT_ROWS
-            x[lo:hi] = (self._x[lo:hi].to(torch.float32) * s).to(dtype)
+            x[lo:hi] = (self.x[lo:hi].to(torch.float32) * s).to(dtype)
         return self.derive(x=x)
 
     @property
     def x(self) -> torch.Tensor:
+        self._restore_device()
         return self._x
 
     @property
     def y(self) -> torch.Tensor:
+        self._restore_device()
         return self._y
 
     @property
     def w(self) -> torch.Tensor:
+        self._restore_device()
         return self._w
+
+    # -- placement ------------------------------------------------------------
+    def _restore_device(self) -> None:
+        """Put a released dataset's host copies back on its device."""
+        if self._x is None and self._host is not None:
+            rt = self.ctx.mesh_runtime
+            self._x, self._y, self._w = (rt.device_put_sharded_rows(t)
+                                         for t in self._host)
+
+    def persist(self, level: str = "DEVICE") -> "InstanceDataset":
+        """Keep the dataset on its device (``"DEVICE"``): a dataset whose
+        device arrays were released is placed back now. The levels that
+        demote cold datasets to host memory or disk under budgets are the
+        storage layer's (ROADMAP Queue 1 item 10) and raise."""
+        if level != "DEVICE":
+            raise NotImplementedError(
+                f"persist({level!r}) needs the storage tiers: ROADMAP Queue "
+                "1 item 10")
+        self._restore_device()
+        return self
+
+    def cache(self) -> "InstanceDataset":
+        return self.persist()
+
+    def unpersist(self) -> "InstanceDataset":
+        """Nothing to release from a storage manager (the port has none
+        yet, ROADMAP Queue 1 item 10): the dataset stays as it is."""
+        return self
+
+    def persist_host(self) -> "InstanceDataset":
+        """Copy the padded arrays to host memory and release the device's;
+        the next access places them back (``x``/``y``/``w``, ``persist``)."""
+        self._host = tuple(t.cpu() for t in (self.x, self.y, self.w))
+        self._x = self._y = self._w = None
+        return self
+
+    def release_device(self) -> None:
+        """Free the device arrays; the host copy of :meth:`persist_host`
+        must exist (it is the only copy then). The memory returns to the
+        caching allocator once no other dataset shares the arrays."""
+        if self._host is None:
+            raise RuntimeError("release_device would drop the only copy")
+        self._x = self._y = self._w = None
+
+    def map_batches(self, fn: Callable):
+        """``fn(x, y, w)`` over the padded device arrays (the reference
+        jits it; here it runs eagerly on the device)."""
+        return fn(self.x, self.y, self.w)
+
+    def unpad(self, arr: np.ndarray) -> np.ndarray:
+        """The real rows of a host array aligned with the padded rows."""
+        if self._valid_mask is not None:
+            return arr[self._valid_mask]
+        return arr[:self.n_rows]
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -396,32 +699,32 @@ class InstanceDataset:
         """Padded label vector as numpy."""
         if self._yw_host is not None:
             return self._yw_host[0]
-        return self._y.cpu().numpy()
+        return self.y.cpu().numpy()
 
     def w_host(self) -> np.ndarray:
         """Padded weight vector as numpy."""
         if self._yw_host is not None:
             return self._yw_host[1]
-        return self._w.cpu().numpy()
+        return self.w.cpu().numpy()
 
     def padded_bytes(self) -> int:
         """Storage footprint of the padded block."""
-        return (self._x.numel() * self._x.element_size()
-                + self._y.numel() * self._y.element_size()
-                + self._w.numel() * self._w.element_size())
+        return (self.x.numel() * self.x.element_size()
+                + self.y.numel() * self.y.element_size()
+                + self.w.numel() * self.w.element_size())
 
     def to_numpy(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Unpadded host copies; a bf16 X comes back as float32, fp8 codes
         dequantized to float64 values (host readbacks always see values)."""
         n = self.n_rows
-        x = self._x[:n]
+        x = self.x[:n]
         if x.dtype == torch.bfloat16:
             x = x.float()
         if self._x_scale is not None:
             x = x.double().cpu().numpy() * self._x_scale[None, :]
         else:
             x = x.cpu().numpy()
-        return (x, self._y[:n].cpu().numpy(), self._w[:n].cpu().numpy())
+        return (x, self.y[:n].cpu().numpy(), self.w[:n].cpu().numpy())
 
     def tree_aggregate_fn(self, fn: Callable, auto_psum: bool = True):
         """``fn(x_shard, y_shard, w_shard, *extras) -> pytree`` summed over

@@ -16,10 +16,13 @@ accumulator tier off jax's x64 flag; the port reads it explicitly from
 from __future__ import annotations
 
 import warnings
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from cycloneml_tpu_torch.linalg.vectors import SparseVector, Vector
 
 
 def _active_conf(conf):
@@ -197,6 +200,30 @@ def fp8_probe_ok(stats, w_max: Optional[float] = None,
         return (f"max instance weight {w_max:.1f} > {FP8_MAX:g}: the "
                 f"backward multiplier would overflow e4m3's finite range")
     return None
+
+
+@dataclass
+class Instance:
+    """One labeled weighted row (ref Instance.scala case class Instance)."""
+
+    label: float
+    weight: float
+    features: Vector
+
+
+def rows_to_dense(features: Sequence[Vector],
+                  n_features: Optional[int] = None) -> np.ndarray:
+    """A sequence of (possibly sparse) vectors stacked into a float64
+    ``(len, n_features)`` matrix, ``n_features`` the widest by default."""
+    if n_features is None:
+        n_features = max(f.size for f in features)
+    out = np.zeros((len(features), n_features), dtype=np.float64)
+    for i, f in enumerate(features):
+        if isinstance(f, SparseVector):
+            out[i, f.indices] = f.values
+        else:
+            out[i, : f.size] = f.to_array()
+    return out
 
 
 def _round_up(n: int, m: int) -> int:

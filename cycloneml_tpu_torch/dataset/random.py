@@ -29,6 +29,7 @@ from cycloneml_tpu_torch.dataset.sparse import (SparseInstanceDataset,
 
 _GEN_ROWS = 1 << 16  # rows drawn at a time (bounds the f32 temporary)
 _BETA_STREAM = 2 ** 31 - 1
+_F32 = torch.float32
 
 
 _MASK64 = (1 << 64) - 1
@@ -238,9 +239,65 @@ def nytimes_like(n_docs: int, vocab: int, nnz_per_doc: int, seed: int = 5):
     return idx.astype(np.int32), val
 
 
+def _generate(ctx, n_rows: int, n_cols: int, seed: int,
+              draw) -> InstanceDataset:
+    """Unlabeled rows ``draw(generator, (rows, n_cols), device)`` (float32)
+    on the device, a generator a shard (:func:`seed_value`) drawn in blocks
+    of ``_GEN_ROWS`` rows, X narrowed to the data tier on the device; y = 0,
+    padding rows carry w=0. The bits are the port's own: the reference's
+    are ``jax.random``'s, which no torch generator reproduces."""
+    conf = getattr(ctx, "conf", None)
+    rt = ctx.mesh_runtime
+    dev = rt.device
+    nd = rt.data_parallelism
+    per = max(((n_rows + nd - 1) // nd + 7) // 8 * 8, 8)
+    total = per * nd
+    cdt, xdt = compute_dtype(conf), data_dtype(conf)
+    x = torch.empty((total, n_cols), dtype=xdt, device=dev)
+    for shard in range(nd):
+        g = _generator(dev, seed, shard)
+        for lo in range(0, per, _GEN_ROWS):
+            rows = min(_GEN_ROWS, per - lo)
+            at = shard * per + lo
+            x[at:at + rows] = draw(g, (rows, n_cols), dev).to(xdt)
+    w_host = np.zeros(total, dtype=np.float64)
+    w_host[:n_rows] = 1.0
+    w = rt.device_put_sharded_rows(w_host).to(cdt)
+    ds = InstanceDataset(ctx, x, torch.zeros(total, dtype=cdt, device=dev),
+                         w, n_rows, n_cols)
+    return ds.attach_host_labels(np.zeros(total), w_host)
+
+
+def _gamma(g: torch.Generator, shape: float, size, dev) -> torch.Tensor:
+    """Gamma(shape, 1) draws by Marsaglia and Tsang's squeeze (shape >= 1;
+    below 1 a Gamma(shape + 1) draw times U^(1/shape)), rejected draws
+    drawn again from the same generator."""
+    if shape <= 0:
+        raise ValueError(f"gamma shape must be > 0, got {shape}")
+    boost = shape < 1.0
+    a = shape + 1.0 if boost else shape
+    dd = a - 1.0 / 3.0
+    c = 1.0 / (9.0 * dd) ** 0.5
+    out = torch.empty(size, device=dev, dtype=_F32)
+    todo = torch.ones(size, dtype=torch.bool, device=dev)
+    while bool(todo.any()):
+        z = torch.randn(size, generator=g, device=dev, dtype=_F32)
+        u = torch.rand(size, generator=g, device=dev, dtype=_F32)
+        v = (1.0 + c * z) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * z * z + dd - dd * v
+                        + dd * torch.log(v.clamp_min(1e-30)))
+        take = todo & ok
+        out[take] = (dd * v)[take]
+        todo &= ~ok
+    if boost:
+        u = torch.rand(size, generator=g, device=dev, dtype=_F32)
+        out = out * u ** (1.0 / shape)
+    return out
+
+
 class RandomDatasets:
-    """Static factory surface mirroring RandomRDDs (the vector variants
-    this slice uses)."""
+    """Static factory surface mirroring RandomRDDs (the vector variants;
+    the scalar ones are n_cols=1)."""
 
     classification = staticmethod(generate_classification)
     regression = staticmethod(generate_regression)
@@ -249,29 +306,44 @@ class RandomDatasets:
     @staticmethod
     def normal(ctx, n_rows: int, n_cols: int = 1, seed: int = 0,
                mean: float = 0.0, std: float = 1.0) -> InstanceDataset:
-        """Unlabeled rows x ~ N(mean, std^2 I) on the device, in the data
-        tier (drawn in float32, narrowed on the device); y = 0, padding
-        rows carry w=0."""
-        conf = getattr(ctx, "conf", None)
-        rt = ctx.mesh_runtime
-        dev = rt.device
-        nd = rt.data_parallelism
-        per = max(((n_rows + nd - 1) // nd + 7) // 8 * 8, 8)
-        total = per * nd
-        cdt, xdt = compute_dtype(conf), data_dtype(conf)
-        x = torch.empty((total, n_cols), dtype=xdt, device=dev)
-        for shard in range(nd):
-            g = _generator(dev, seed, shard)
-            for lo in range(0, per, _GEN_ROWS):
-                rows = min(_GEN_ROWS, per - lo)
-                at = shard * per + lo
-                x[at:at + rows] = (torch.randn(
-                    (rows, n_cols), generator=g, device=dev,
-                    dtype=torch.float32) * std + mean).to(xdt)
-        w_host = np.zeros(total, dtype=np.float64)
-        w_host[:n_rows] = 1.0
-        w = rt.device_put_sharded_rows(w_host).to(cdt)
-        ds = InstanceDataset(ctx, x, torch.zeros(total, dtype=cdt,
-                                                 device=dev), w, n_rows,
-                             n_cols)
-        return ds.attach_host_labels(np.zeros(total), w_host)
+        """Unlabeled rows x ~ N(mean, std^2 I) on the device."""
+        return _generate(ctx, n_rows, n_cols, seed, lambda g, shape, dev: (
+            torch.randn(shape, generator=g, device=dev, dtype=_F32) * std + mean))
+
+    @staticmethod
+    def uniform(ctx, n_rows: int, n_cols: int = 1, seed: int = 0,
+                low: float = 0.0, high: float = 1.0) -> InstanceDataset:
+        """Unlabeled rows x ~ U[low, high)."""
+        return _generate(ctx, n_rows, n_cols, seed, lambda g, shape, dev: (
+            torch.rand(shape, generator=g, device=dev, dtype=_F32) * (high - low) + low))
+
+    @staticmethod
+    def log_normal(ctx, n_rows: int, n_cols: int = 1, seed: int = 0,
+                   mean: float = 0.0, std: float = 1.0) -> InstanceDataset:
+        """Unlabeled rows x = exp(N(mean, std^2))."""
+        return _generate(ctx, n_rows, n_cols, seed, lambda g, shape, dev: (
+            torch.exp(torch.randn(shape, generator=g, device=dev, dtype=_F32) * std
+                      + mean)))
+
+    @staticmethod
+    def poisson(ctx, n_rows: int, n_cols: int = 1, seed: int = 0,
+                lam: float = 1.0) -> InstanceDataset:
+        """Unlabeled rows of Poisson(lam) counts (as floats)."""
+        return _generate(ctx, n_rows, n_cols, seed, lambda g, shape, dev: (
+            torch.poisson(torch.full(shape, float(lam), device=dev, dtype=_F32),
+                          generator=g)))
+
+    @staticmethod
+    def exponential(ctx, n_rows: int, n_cols: int = 1, seed: int = 0,
+                    mean: float = 1.0) -> InstanceDataset:
+        """Unlabeled rows of Exponential draws with mean ``mean``."""
+        return _generate(ctx, n_rows, n_cols, seed, lambda g, shape, dev: (
+            torch.empty(shape, device=dev, dtype=_F32).exponential_(generator=g) * mean))
+
+    @staticmethod
+    def gamma(ctx, n_rows: int, n_cols: int = 1, seed: int = 0,
+              shape: float = 1.0, scale: float = 1.0) -> InstanceDataset:
+        """Unlabeled rows of Gamma(shape, scale) draws (Marsaglia-Tsang on
+        the stream's normals and uniforms)."""
+        return _generate(ctx, n_rows, n_cols, seed, lambda g, sh, dev: (
+            _gamma(g, float(shape), sh, dev) * scale))

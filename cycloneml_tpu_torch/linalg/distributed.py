@@ -324,6 +324,16 @@ class RowMatrix:
         sim = g / norms[:, None] / norms[None, :]
         return DenseMatrix.from_array(np.triu(sim, 1))
 
+    def compute_column_summary_statistics(self):
+        """The columns' moments (:class:`~cycloneml_tpu_torch.ml.stat.
+        summarizer.SummaryStats`: count, mean, variance, min, max, norms,
+        nonzeros) from one pass over the rows on their device."""
+        if self._sparse:
+            raise NotImplementedError(
+                "column summary statistics of a sparse RowMatrix: the "
+                "Summarizer takes dense rows only, as the reference's does")
+        return Summarizer.summarize(self.dataset)
+
     def to_numpy(self) -> np.ndarray:
         return self.dataset.to_numpy()[0]
 

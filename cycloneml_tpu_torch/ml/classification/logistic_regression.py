@@ -70,6 +70,8 @@ from cycloneml_tpu_torch.ml.optim.lbfgs import LBFGS, LBFGSB, OWLQN
 from cycloneml_tpu_torch.ml.optim.loss import (DistributedLossFunction,
                                                inv_std_vector,
                                                l2_regularization)
+from cycloneml_tpu_torch.ml.evaluation.evaluators import (
+    _trapezoid, binary_curve_points)
 from cycloneml_tpu_torch.ml.param import ParamValidators as V
 from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
 from cycloneml_tpu_torch.ml.shared import (
@@ -503,7 +505,7 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
     def _check_ported(self) -> None:
         if self.get("checkpointDir"):
             raise NotImplementedError(
-                "checkpointed training is ROADMAP slice 8")
+                "checkpointed training is ROADMAP Queue 1 item 10")
 
     def _fit_dataset(self, ds) -> "LogisticRegressionModel":
         from cycloneml_tpu_torch.oocore import (StreamingDataset,
@@ -898,6 +900,11 @@ class LogisticRegressionModel(ProbabilisticClassificationModel,
     def num_features(self) -> int:
         return self._coef.shape[1]
 
+    def evaluate(self, frame) -> "BinaryLogisticRegressionSummary":
+        """The binary metrics of this model over ``frame``
+        (:class:`BinaryLogisticRegressionSummary`); binomial models only."""
+        return _lr_evaluate(self, frame)
+
     def _raw_prediction(self, x: np.ndarray) -> np.ndarray:
         if self._is_multinomial:
             return x @ self._coef.T + self._icpt[None, :]
@@ -937,6 +944,21 @@ class LogisticRegressionModel(ProbabilisticClassificationModel,
                 f"numFeatures={self.num_features})")
 
 
+def _lr_evaluate(model, frame) -> "BinaryLogisticRegressionSummary":
+    """Score ``frame`` with ``model`` and summarize it against the model's
+    label column: the probability of class 1 as the score, the model's
+    threshold-aware predictions for the accuracy."""
+    if model._is_multinomial:
+        raise ValueError("evaluate() summary is binary-only "
+                         "(ref BinaryLogisticRegressionSummary)")
+    out = model.transform(frame)
+    probs = np.asarray(out[model.get("probabilityCol")])
+    scores = probs[:, 1] if probs.ndim == 2 else probs
+    labels = np.asarray(frame[model.get("labelCol")], dtype=np.float64)
+    preds = np.asarray(out[model.get("predictionCol")], dtype=np.float64)
+    return BinaryLogisticRegressionSummary(scores, labels, predictions=preds)
+
+
 class LogisticRegressionTrainingSummary:
     """Objective history and optimizer counts of a fit: iterations, loss/
     gradient evaluations and host round trips (one per line search or
@@ -958,3 +980,68 @@ class LogisticRegressionTrainingSummary:
         self.stacked_evals = stacked_evals
         self.streamed = bool(streamed)
         self.stream_stats = stream_stats
+
+
+class BinaryLogisticRegressionSummary:
+    """Binary metrics over a scored frame (the reference's
+    BinaryLogisticRegressionSummary): the ROC and precision-recall curves,
+    the area under ROC and the by-threshold curves, from one sorted pass
+    (:func:`~cycloneml_tpu_torch.ml.evaluation.evaluators.
+    binary_curve_points`, tied scores collapsed), all float64 on the
+    host."""
+
+    def __init__(self, scores: np.ndarray, labels: np.ndarray,
+                 predictions: Optional[np.ndarray] = None):
+        if len(scores) == 0:
+            raise ValueError("cannot summarize an empty frame")
+        self._predictions = predictions
+        (self._thresholds, self._tps, self._fps,
+         self._p, self._n) = binary_curve_points(scores, labels)
+        self._labels = labels
+        self._scores = scores
+
+    @property
+    def roc(self) -> np.ndarray:
+        """(FPR, TPR) points with the (0, 0) and (1, 1) ends."""
+        fpr = np.concatenate([[0.0], self._fps / self._n, [1.0]])
+        tpr = np.concatenate([[0.0], self._tps / self._p, [1.0]])
+        return np.column_stack([fpr, tpr])
+
+    @property
+    def area_under_roc(self) -> float:
+        r = self.roc
+        return float(_trapezoid(r[:, 1], r[:, 0]))
+
+    areaUnderROC = area_under_roc
+
+    def _precision(self) -> np.ndarray:
+        return self._tps / np.maximum(self._tps + self._fps, 1e-300)
+
+    @property
+    def pr(self) -> np.ndarray:
+        """(recall, precision) points from recall 0, which takes the first
+        point's precision."""
+        precision = self._precision()
+        return np.column_stack([
+            np.concatenate([[0.0], self._tps / self._p]),
+            np.concatenate([[precision[0]], precision])])
+
+    def precision_by_threshold(self) -> np.ndarray:
+        return np.column_stack([self._thresholds, self._precision()])
+
+    def recall_by_threshold(self) -> np.ndarray:
+        return np.column_stack([self._thresholds, self._tps / self._p])
+
+    def f_measure_by_threshold(self, beta: float = 1.0) -> np.ndarray:
+        p, r = self._precision(), self._tps / self._p
+        b2 = beta * beta
+        f = (1 + b2) * p * r / np.maximum(b2 * p + r, 1e-300)
+        return np.column_stack([self._thresholds, f])
+
+    @property
+    def accuracy(self) -> float:
+        """Against the model's own (threshold-aware) predictions when the
+        summary has them, else scores above 0.5."""
+        pred = (self._predictions if self._predictions is not None
+                else (self._scores > 0.5).astype(np.float64))
+        return float((pred == self._labels).mean())

@@ -14,13 +14,16 @@ from typing import Optional
 import numpy as np
 
 from cycloneml_tpu_torch.ml.param import Params, ParamValidators as V
+from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable
 
 # numpy 2 names it trapezoid; numpy 1 only trapz
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
 
 
-class Evaluator(Params):
-    """Base (ref Evaluator.scala): evaluate + isLargerBetter."""
+class Evaluator(Params, MLWritable, MLReadable):
+    """Base (ref Evaluator.scala): evaluate + isLargerBetter; ``save`` and
+    ``load`` round-trip its params through the model metadata layout
+    (``ml/util_io``)."""
 
     def evaluate(self, frame) -> float:
         raise NotImplementedError

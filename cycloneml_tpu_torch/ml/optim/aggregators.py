@@ -27,6 +27,7 @@ each plain binomial aggregator, and for the kernel twin one launch of K1s
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict
 
 import torch
@@ -34,6 +35,40 @@ import torch
 from cycloneml_tpu_torch.dataset.instance import is_narrow_dtype
 
 Agg = Callable[..., Dict[str, torch.Tensor]]
+
+
+def matmul_precision() -> str:
+    """``cyclone.compute.matmulPrecision`` of the active context (or the
+    default). Every loss function resolves it when it is built, so a
+    change applies to the next fit (the reference resolves its
+    ``jax.lax.Precision`` when an aggregator is built). An invalid value
+    raises."""
+    from cycloneml_tpu_torch import context as _c
+    from cycloneml_tpu_torch.conf import MATMUL_PRECISION, CycloneConf
+    ctx = _c.active_context()
+    return (ctx.conf if ctx is not None else CycloneConf()).get(
+        MATMUL_PRECISION)
+
+
+@contextlib.contextmanager
+def precision_scope(name: str, device: torch.device):
+    """The precision ``name`` (:func:`matmul_precision`) for torch's
+    float32 products on ``device`` inside: on a CUDA device ``'highest'``
+    keeps TF32 off and ``'default'`` lets cuBLAS use it
+    (``torch.backends.cuda.matmul.allow_tf32``), and the flag is restored
+    on exit, so nothing outside the loss function's own products sees it
+    (the reference sets the precision on each aggregator's dot products).
+    The hand-written kernels do not read the flag. Nothing on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = name == "default"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
 
 ROW_CHUNK = 1 << 16  # rows of a narrow X upcast at a time
 

@@ -24,6 +24,7 @@ import torch
 
 from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
 from cycloneml_tpu_torch.dataset.instance import compute_dtype
+from cycloneml_tpu_torch.ml.optim import aggregators
 
 
 def _weight_sum_agg(x, y, w):
@@ -49,18 +50,20 @@ class DistributedLossFunction:
                  l2_reg_fn: Optional[Callable] = None,
                  weight_sum: Optional[float] = None,
                  extra_args: tuple = ()):
+        precision = aggregators.matmul_precision()
         base = dataset.tree_aggregate_fn(agg)
         extra = tuple(extra_args)
+        # w lies beside the rows on both tiers (a sparse dataset has no x)
+        self.device = dataset.w.device
 
         def call(*coef):
-            return base(*extra, *coef)
+            with aggregators.precision_scope(precision, self.device):
+                return base(*extra, *coef)
 
         call.compiled = base.compiled
         call.arrays = lambda: base.arrays() + extra
         self._agg_call = call
         self._ctx = dataset.ctx
-        # w lies beside the rows on both tiers (a sparse dataset has no x)
-        self.device = dataset.w.device
         self.cdt = compute_dtype(getattr(dataset.ctx, "conf", None))
         self.l2_reg_fn = l2_reg_fn
         if weight_sum is None and not isinstance(dataset, InstanceDataset):
@@ -345,15 +348,17 @@ class StackedDistributedLossFunction:
                  l2_scale: Optional[np.ndarray] = None,
                  weight_sum: Optional[float] = None,
                  extra_args: tuple = ()):
+        precision = aggregators.matmul_precision()
         base = dataset.tree_aggregate_fn(agg)
         extra = tuple(extra_args)
+        self.device = dataset.x.device
 
         def call(*coef):
-            return base(*extra, *coef)
+            with aggregators.precision_scope(precision, self.device):
+                return base(*extra, *coef)
 
         self._agg_call = call
         self._ctx = dataset.ctx
-        self.device = dataset.x.device
         self.cdt = compute_dtype(getattr(dataset.ctx, "conf", None))
         self.n_models = int(n_models)
         self.reg = (np.zeros(self.n_models) if reg is None

@@ -43,10 +43,12 @@ the tensor cores (each operand split in two TF32 parts, three products),
 float64 on float64 FMAs. And so does ``serving_margins``
 (``csrc/serving_margins.cu``), the model server's linear margins of K
 models over a bucket of request rows (the reference's jnp predict kernels
-``serving/servable.py:67-117``, not Pallas kernels): one warp a margin,
-an order that depends on neither the bucket nor K, so that padding a
-batch and serving models as a gang leave a row's bits unchanged; its
-plain twin gives the same bits.
+``serving/servable.py:67-117``, not Pallas kernels): tiles of request rows
+by margin rows staged through shared memory, or one warp an output where
+that measured faster (:func:`serving_margins_plan`), every output summed
+in an order that depends on neither the bucket, K nor the tile, so that
+padding a batch and serving models as a gang leave a row's bits
+unchanged; its plain twin gives the same bits.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -307,6 +309,7 @@ _SIGNATURES = {
     "serving_margins": {
         "serving_margins_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _P, _P],
+        "serving_margins_plan": [_I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -2073,6 +2076,22 @@ def serving_margins(x: torch.Tensor, coef: torch.Tensor, icpt: torch.Tensor,
     if not capturing:
         count_serving_launch(serving_instance(x.dtype, quantized))
     return out
+
+
+def serving_margins_plan(dtype: torch.dtype, quantized: bool, b: int,
+                         margins: int, d: int) -> dict:
+    """The tile the kernel takes for ``b`` rows, ``margins`` (K * Km)
+    margin rows and ``d`` columns (asks the built library): warps of a CTA
+    along rows and margins, rows and margins a warp, stages in flight and
+    the CTAs of the launch, the columns of a chunk, and ``direct`` (1: the
+    one-warp-an-output layout, whose tile fields are 0)."""
+    plan = (ctypes.c_int * 8)()
+    _cuda_check(_library("serving_margins").serving_margins_plan(
+        _SERVING_DTYPE_CODE[dtype], int(quantized), b, margins, d, plan),
+        "serving_margins plan")
+    return dict(zip(("warp_rows", "warp_margins", "rows_a_warp",
+                     "margins_a_warp", "stages", "ctas", "chunk_cols",
+                     "direct"), plan))
 
 
 def count_serving_launch(instance: str) -> None:

@@ -8,9 +8,9 @@ link/threshold code (``_raw_to_prediction``), keeping serving semantics
 those of ``model.predict``.
 
 The margins are computed by ``ops/kernels.serving_margins``
-(``csrc/serving_margins.cu`` on the card, its plain twin on the CPU): one
-warp a margin, in an order that depends on neither the bucket nor the
-number of models, so that zero-padding is numerically invisible and a
+(``csrc/serving_margins.cu`` on the card, its plain twin on the CPU): each
+margin summed in an order that depends on neither the bucket, the
+number of models nor the kernel's tile, so that zero-padding is numerically invisible and a
 gang of K homogeneous servables, stacked on a leading model axis, gives
 per-row results bitwise equal to K serial lanes.
 """

@@ -143,7 +143,7 @@ def test_checkpointing_raises_with_its_slice(pctx):
     rows, _, y, w = _random_sparse(n=40, d=8, k=3, seed=2)
     ds = psparse.SparseInstanceDataset.from_rows(pctx, rows, y=y, w=w,
                                                  n_features=8)
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         LogisticRegression(maxIter=5, checkpointDir="/nonexistent").fit(ds)
 
 
