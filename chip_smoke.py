@@ -423,7 +423,34 @@ the final result line:
    ``torch.backends.cuda.matmul.allow_tf32`` False after a fit, and a
    loss function's aggregations run with it off under 'highest' and on
    under 'default', the caller's value back after each;
-52. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+52. checkpointed LogisticRegression at the main path's shape (phase 4's
+   data and fit, ``checkpointDir`` with ``checkpointInterval=2``: the
+   host L-BFGS, K1 once per evaluation): an uninterrupted checkpointed
+   fit; a fit that a ``FaultSchedule`` crashes with ``MidSaveCrash`` at
+   the second ``checkpoint.commit`` (step 2 committed, no partial step
+   visible); its resume from step 2, whose coefficients, iterations and
+   objective history are bitwise the uninterrupted fit's; the newest
+   ``state.pkl`` truncated, a resume from the step before (bitwise
+   again); every step damaged, ``CheckpointCorrupt``; a directory of
+   another dataset (250,000 rows, seed 7) refused on its fingerprint; the
+   K1 launches of each fit, the seconds in ``checkpoint`` spans against
+   the fit's wall-clock, the bytes a save writes;
+53. checkpointed ALS at configuration 4 (phase 35's fit, the same
+   training ratings, ``checkpointInterval=4``): a crash at the second
+   commit (iteration 8), the resume from iteration 4, its factor matrices
+   bitwise phase 35's model's, ``als_normal`` launched 2 x (12 - 4) =
+   16 times; each save's and commit's seconds and bytes;
+54. the storage tiers: two seeded 2M x 1280 bf16 datasets under
+   ``cyclone.storage.deviceBudget`` = 1.5 x one's ``padded_bytes()``; the
+   hot one cached for phase 4's fit demotes the cold one to HOST
+   (``torch.cuda.memory_allocated`` falls by its padded bytes), the fit
+   bitwise the same fit with no budget, K1 once per evaluation; touching
+   the cold dataset brings it back bitwise at DEVICE (the hot one demoted
+   in turn); then the DISK tier's round trip (``persist_disk``, then the
+   first access) at 250,000 x 1280 in bf16 and in e4m3 codes with
+   ``x_scale``: X, y and w back bitwise, the seconds and bytes (files in
+   a temporary directory, removed at the end);
+55. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -437,8 +464,10 @@ the final result line:
    the users' half-step's times, the items' beside them), with the
    launches of phases 37-39's paths beside the entries they ran (K1, K2,
    K4, S1, S2), of phases 40-44's (K1, K2, K1 e4m3, K1s) and of phases
-   46 and 49's (the center sums, S2), and the serving margins of phase
-   50 (graph replays in the traffic, the instance each lane ran), the
+   46 and 49's (the center sums, S2), the serving margins of phase
+   50 (graph replays in the traffic, the instance each lane ran), and
+   phases 52-54's K1 launches (the checkpointed, resumed, fallback and
+   budgeted fits) and ``als_normal``'s (the resumed ALS fit), the
    phases' and the total wall time; the last line is
    ``{"ok":
    true, "device": {...}}``.
@@ -560,8 +589,14 @@ PERSISTED = ("LogisticRegression", "LinearRegression", "KMeans", "PCA",
              "OneVsRest", "CrossValidator", "LinearSVC",
              "GeneralizedLinearRegression", "ALS", "Pipeline")
 _FITTED = {}                     # name -> (model, probe columns)
-_MAIN_MODEL = {}                 # phase 4's LogisticRegression model
+_MAIN_MODEL = {}                 # phase 4's LR ("lr") and 35's ALS ("als")
 HOLD_N, HOLD_STREAM = 100_000, 1 << 20  # phase 51's held-out rows
+# checkpointed training and the storage tiers (phases 52-54)
+CK_LR_INTERVAL = 2               # phase 52's checkpointInterval
+CK_ALS_INTERVAL = 4              # phase 53's: saves at 4 and 8 of 12
+CK_FOREIGN_N = 250_000           # phase 52's other dataset's rows
+TIER_BUDGET = 1.5                # phase 54's device budget, in datasets
+DISK_N = 250_000                 # phase 54's DISK round trip's rows
 SERVE_TWIN_BUCKETS = (128, 256, 512, 1024)  # phase 50's large buckets
 DEVICE = "cuda"
 ROWS = 1 << 18               # rows generated or checked at a time
@@ -4653,6 +4688,7 @@ def phase_als_fit(data):
         held_frame, held_ratings = probes["heldout"]
         _keep("ALS", model, user=held_frame["user"], item=held_frame["item"],
               rating=held_ratings)
+        _MAIN_MODEL["als"] = model
         _check("als fit", {
             "the normal equations launched 2 x maxIter times":
                 launches == 2 * ALS_ITERS,
@@ -6928,6 +6964,9 @@ def phase_holes():
         back = all(torch.equal(t, k) for t, k in zip((ds.x, ds.y, ds.w),
                                                      keep))
         after = torch.cuda.memory_allocated()
+        # persist() registered it with the storage tiers, whose restore
+        # dropped the host copy: release_device needs one again
+        ds.persist_host()
         ds.release_device()
         released = torch.cuda.memory_allocated()
         ds.cache()
@@ -7019,6 +7058,379 @@ def phase_holes():
         return out
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+        ctx.stop()
+
+
+def _checkpoint_seconds(spans):
+    """Seconds in the ``checkpoint`` spans of a run, by name (``commit``
+    is inside ``save``)."""
+    out = {"save": 0.0, "commit": 0.0, "restore": 0.0}
+    for sp in spans:
+        if sp.kind == "checkpoint":
+            out[sp.name] += sp.duration_s
+    return out
+
+
+def _step_bytes(directory, step) -> dict:
+    """The bytes of a committed step's two files."""
+    sdir = os.path.join(directory, f"step_{step:012d}")
+    return {f: os.path.getsize(os.path.join(sdir, f))
+            for f in ("state.pkl", "METADATA.json")}
+
+
+def _no_leftovers(directory) -> bool:
+    return not [n for n in os.listdir(directory) if ".tmp" in n]
+
+
+def phase_checkpoint_lr(tmp):
+    """Phase 52: checkpointed LogisticRegression at the main path's shape
+    (phase 4's data, ``maxIter=25, regParam=0.01, tol=0``,
+    ``checkpointInterval=2``; host L-BFGS, K1 once per evaluation): an
+    uninterrupted checkpointed fit; a fit crashed by ``MidSaveCrash`` at
+    the second ``checkpoint.commit`` (step 2 committed, no partial step
+    visible); its resume from step 2, bitwise equal to the uninterrupted
+    fit; the newest ``state.pkl`` truncated, a resume from the step before
+    (bitwise again), every step damaged raising ``CheckpointCorrupt``; a
+    directory of another dataset raising on its fingerprint. Returns the
+    K1 launches of the three fits."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.observe import tracing
+    from cycloneml_tpu_torch.ops import kernels
+    from cycloneml_tpu_torch.parallel.faults import (FaultInjector,
+                                                     FaultSchedule,
+                                                     MidSaveCrash)
+    from cycloneml_tpu_torch.util.checkpoint import (CheckpointCorrupt,
+                                                     TrainingCheckpointer)
+
+    ctx = _context("chip_smoke_checkpoint_lr")
+    tracer = tracing.enable()
+    try:
+        ds = generate_classification(ctx, FIT_N, FIT_D, seed=0)
+
+        def fit(directory, data=ds):
+            return LogisticRegression(
+                maxIter=25, regParam=0.01, tol=0.0, checkpointDir=directory,
+                checkpointInterval=CK_LR_INTERVAL).fit(data)
+
+        def run(tag, directory, **kw):
+            """One fit with its counts zeroed just before and read just
+            after: (model or the exception, seconds, K1 launches, other
+            launches, checkpoint seconds)."""
+            n0 = len(tracer.snapshot())
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fit(directory, **kw)
+            except Exception as e:   # the crash, or the refusals below
+                out = e
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            k1 = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+            return (out, secs, k1, _other_launches(kernels, "logistic"),
+                    _checkpoint_seconds(tracer.snapshot()[n0:]))
+
+        full_dir = os.path.join(tmp, "lr_full")
+        crash_dir = os.path.join(tmp, "lr_crash")
+        full, full_s, full_k1, full_other, full_ck = run("full", full_dir)
+        sched = FaultSchedule().at("checkpoint.commit", 2,
+                                   MidSaveCrash("power cut mid-save"))
+        with FaultInjector(sched) as inj:
+            crashed, crash_s, crash_k1, _, crash_ck = run("crash", crash_dir)
+        crash_steps = TrainingCheckpointer(crash_dir).steps()
+        crash_clean = _no_leftovers(crash_dir)
+        save_bytes = _step_bytes(crash_dir, crash_steps[0])
+        resumed, resume_s, resume_k1, resume_other, resume_ck = run(
+            "resume", crash_dir)
+
+        def same(a, b):
+            return (np.array_equal(a.coefficients.values,
+                                   b.coefficients.values)
+                    and a.intercept == b.intercept
+                    and a.summary.total_iterations ==
+                    b.summary.total_iterations
+                    and a.summary.objective_history ==
+                    b.summary.objective_history)
+
+        # the newest step damaged after its commit: a resume falls back
+        ck = TrainingCheckpointer(full_dir)
+        steps = ck.steps()
+        newest = steps[-1]
+        pkl = os.path.join(full_dir, f"step_{newest:012d}", "state.pkl")
+        with open(pkl, "r+b") as fh:
+            fh.truncate(os.path.getsize(pkl) // 2)
+        fallback = ck.latest_verifiable_step()
+        back, back_s, back_k1, _, back_ck = run("fallback", full_dir)
+        for s_ in ck.steps():
+            with open(os.path.join(full_dir, f"step_{s_:012d}",
+                                   "state.pkl"), "wb") as fh:
+                fh.write(b"damaged")
+        corrupt, _, corrupt_k1, _, _ = run("corrupt", full_dir)
+        # a directory of another dataset: refused on its fingerprint
+        other = generate_classification(ctx, CK_FOREIGN_N, FIT_D, seed=7)
+        foreign, _, foreign_k1, _, _ = run("foreign", crash_dir, data=other)
+        del other
+        _line("checkpoint_lr", n=FIT_N, d=FIT_D,
+              data_dtype=str(ds.x.dtype)[6:], interval=CK_LR_INTERVAL,
+              full={"iterations": full.summary.total_iterations,
+                    "evals": full.summary.total_evals, "k1_launches":
+                    full_k1, "fit_s": full_s, "checkpoint_s": full_ck,
+                    "steps_kept": steps},
+              crashed={"error": type(crashed).__name__,
+                       "faults": inj.log, "k1_launches": crash_k1,
+                       "fit_s": crash_s, "checkpoint_s": crash_ck,
+                       "steps": crash_steps},
+              resumed={"iterations": resumed.summary.total_iterations,
+                       "evals": resumed.summary.total_evals,
+                       "k1_launches": resume_k1, "fit_s": resume_s,
+                       "checkpoint_s": resume_ck},
+              fallback={"damaged": newest, "from": fallback,
+                        "k1_launches": back_k1, "fit_s": back_s,
+                        "checkpoint_s": back_ck},
+              save_bytes=save_bytes,
+              saves_in_full_fit=full.summary.total_iterations
+              // CK_LR_INTERVAL + 1,
+              all_damaged=type(corrupt).__name__,
+              foreign=str(foreign)[:120])
+        _check("checkpoint lr", {
+            "K1 launched once per evaluation in the uninterrupted fit":
+                full_k1 == full.summary.total_evals and full_other == 0,
+            "the crash at the second commit raised MidSaveCrash":
+                isinstance(crashed, MidSaveCrash)
+                and inj.log == [("checkpoint.commit", 2, "MidSaveCrash")],
+            "the crashed directory holds step 2 and no partial step":
+                crash_steps == [CK_LR_INTERVAL] and crash_clean,
+            "the resumed fit launched K1 once per evaluation":
+                resume_k1 == resumed.summary.total_evals
+                and resume_other == 0,
+            "the resumed fit is bitwise the uninterrupted checkpointed fit "
+            "(coefficients, intercept, iterations, objective history)":
+                same(resumed, full),
+            "a damaged newest step: the resume falls back to the one "
+            "before": fallback == steps[-2],
+            "... and lands bitwise on the uninterrupted fit":
+                not isinstance(back, Exception) and same(back, full),
+            "every step damaged raises CheckpointCorrupt":
+                isinstance(corrupt, CheckpointCorrupt) and corrupt_k1 == 0,
+            "a directory of another dataset raises on its fingerprint":
+                isinstance(foreign, ValueError)
+                and "DIFFERENT training run" in str(foreign)
+                and foreign_k1 == 0,
+            "finite model": bool(np.all(np.isfinite(
+                full.coefficients.values))),
+        })
+        return {"full": full_k1, "resumed": resume_k1,
+                "fallback": back_k1}
+    finally:
+        tracing.disable()
+        ctx.stop()
+
+
+def phase_checkpoint_als(data, tmp):
+    """Phase 53: checkpointed ALS at configuration 4 (phase 35's
+    ``ALS(rank=64, regParam=0.02, seed=2, maxIter=12)`` on the same
+    training ratings, ``checkpointInterval=4``): a crash at the second
+    commit (iteration 8; step 4 committed), then the resume from iteration
+    4, whose factor matrices are bitwise phase 35's model's, with
+    ``als_normal`` launched 2 x (12 - 4) times; each save's seconds and
+    bytes. Returns the resumed fit's launches."""
+    import numpy as np
+    from cycloneml_tpu_torch.ml.recommendation import ALS
+    from cycloneml_tpu_torch.observe import tracing
+    from cycloneml_tpu_torch.ops import kernels
+    from cycloneml_tpu_torch.parallel.faults import (FaultInjector,
+                                                     FaultSchedule,
+                                                     MidSaveCrash)
+    from cycloneml_tpu_torch.util.checkpoint import TrainingCheckpointer
+
+    ctx = _context("chip_smoke_checkpoint_als")
+    tracer = tracing.enable()
+    try:
+        frame, _ = _als_frames(ctx, data)
+        directory = os.path.join(tmp, "als")
+        kw = dict(rank=ALS_RANK, regParam=ALS_REG, seed=ALS_SEED,
+                  maxIter=ALS_ITERS, checkpointDir=directory,
+                  checkpointInterval=CK_ALS_INTERVAL)
+        sched = FaultSchedule().at("checkpoint.commit", 2,
+                                   MidSaveCrash("power cut mid-save"))
+        crashed = None
+        with FaultInjector(sched) as inj:
+            try:
+                _timed(lambda: ALS(**kw).fit(frame))
+            except MidSaveCrash as e:
+                crashed = e
+        crash_spans = [sp for sp in tracer.snapshot()
+                       if sp.kind == "checkpoint"]
+        steps = TrainingCheckpointer(directory).steps()
+        clean = _no_leftovers(directory)
+        n0 = len(tracer.snapshot())
+        kernels.reset_launch_counts()
+        model, resume_s = _timed(lambda: ALS(**kw).fit(frame))
+        launches = kernels.als_normal.launches
+        other = _other_launches(kernels, "als_normal")
+        resume_spans = [sp for sp in tracer.snapshot()[n0:]
+                        if sp.kind == "checkpoint"]
+        saves = [{"step": sp.attrs["step"], "seconds": sp.duration_s}
+                 for sp in crash_spans + resume_spans if sp.name == "save"]
+        commits = [sp.duration_s for sp in crash_spans + resume_spans
+                   if sp.name == "commit"]
+        restore_s = sum(sp.duration_s for sp in resume_spans
+                        if sp.name == "restore")
+        size = _step_bytes(directory, steps[0])
+        reference = _MAIN_MODEL["als"]
+        factor_bytes = (reference.user_factors.size
+                        + reference.item_factors.size) * 4
+        _line("checkpoint_als", iterations=ALS_ITERS,
+              interval=CK_ALS_INTERVAL, faults=inj.log, steps=steps,
+              resume_s=resume_s, launches=launches, saves=saves,
+              commit_s=commits, restore_s=restore_s, save_bytes=size,
+              factor_bytes=factor_bytes)
+        _check("checkpoint als", {
+            "the crash at the second commit (iteration 8) raised":
+                crashed is not None
+                and inj.log == [("checkpoint.commit", 2, "MidSaveCrash")],
+            "the directory holds iteration 4 and no partial step":
+                steps == [CK_ALS_INTERVAL] and clean,
+            "the resume launched als_normal 2 x (12 - 4) times":
+                launches == 2 * (ALS_ITERS - CK_ALS_INTERVAL)
+                and other == 0,
+            "the resumed factors are bitwise phase 35's model's":
+                bool(np.array_equal(model.user_factors,
+                                    reference.user_factors)
+                     and np.array_equal(model.item_factors,
+                                        reference.item_factors)),
+            "a save holds both factor matrices in float32":
+                size["state.pkl"] >= factor_bytes,
+        })
+        return launches
+    finally:
+        tracing.disable()
+        ctx.stop()
+
+
+def phase_storage_tiers(tmp):
+    """Phase 54: the storage tiers on the card. Two seeded 2M x 1280 bf16
+    datasets under ``cyclone.storage.deviceBudget`` = 1.5 x one's
+    ``padded_bytes()``: the cold one cached, the hot one cached for its
+    LogisticRegression fit (phase 4's), which demotes the cold one to
+    HOST (``torch.cuda.memory_allocated`` falls by its padded bytes); the
+    fit bitwise equal to the same fit with no budget; touching the cold
+    dataset brings it back bitwise and re-registers it at DEVICE. Then the
+    DISK tier's round trip (``persist_disk``, then the first access) at
+    250,000 x 1280 in bf16 and in e4m3 codes with ``x_scale``: X, y and w
+    back bitwise. Returns the budgeted fit's K1 launches."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch import CycloneConf, CycloneContext
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ops import kernels
+
+    # the padded bytes of one dataset: bf16 X, float32 y and w
+    n_pad = (FIT_N + 7) // 8 * 8
+    one = n_pad * (FIT_D * 2 + 2 * 4)
+    budget = int(TIER_BUDGET * one)
+    ctx = CycloneContext(CycloneConf()
+                         .set("cyclone.app.name", "chip_smoke_tiers")
+                         .set("cyclone.master", DEVICE)
+                         .set("cyclone.storage.deviceBudget", str(budget)))
+    mgr = ctx.storage
+
+    def fit(ds):
+        return LogisticRegression(maxIter=25, regParam=0.01,
+                                  tol=0.0).fit(ds)
+
+    def bits(t):
+        return t.view(torch.uint8) if t.element_size() == 1 else t
+
+    def same(ts, keep):
+        return all(torch.equal(bits(t), bits(k)) for t, k in zip(ts, keep))
+
+    try:
+        cold = generate_classification(ctx, FIT_N, FIT_D, seed=0)
+        hot = generate_classification(ctx, FIT_N, FIT_D, seed=1)
+        cold_bytes = cold.padded_bytes()
+        # the same fit with no budget, on the same hot rows
+        mgr.device_budget = None
+        free = fit(hot)
+        mgr.device_budget = budget
+        keep = [t.clone() for t in (cold.x, cold.y, cold.w)]
+        cold.cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        _, demote_s = _timed(hot.cache)   # over budget: cold goes to HOST
+        after = torch.cuda.memory_allocated()
+        levels_demoted = (mgr.level_of(cold), mgr.level_of(hot))
+        usage_demoted = mgr.usage()
+        kernels.reset_launch_counts()
+        model, fit_s = _timed(lambda: fit(hot))
+        k1 = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+        other = _other_launches(kernels, "logistic")
+        _, restore_s = _timed(lambda: cold.x)   # touch: back to DEVICE
+        back = same((cold.x, cold.y, cold.w), keep)
+        levels_touched = (mgr.level_of(cold), mgr.level_of(hot))
+        del keep
+        mgr.unpersist(cold)
+        mgr.unpersist(hot)
+        del cold, hot
+        torch.cuda.empty_cache()
+
+        # the DISK tier, bf16 X and e4m3 codes with their scales
+        disk = {}
+        base = generate_classification(ctx, DISK_N, FIT_D, seed=5)
+        for name, ds in (("bf16", base), ("e4m3", base.quantized())):
+            keep = [t.clone() for t in (ds.x, ds.y, ds.w)]
+            scale = None if ds.x_scale is None else ds.x_scale.copy()
+            path = os.path.join(tmp, f"disk_{name}.npz")
+            _, write_s = _timed(lambda: ds.persist_disk(path))
+            released = ds._x is None and ds._host is None
+            _, read_s = _timed(lambda: ds.x)
+            disk[name] = {
+                "write_s": write_s, "read_s": read_s,
+                "file_bytes": os.path.getsize(path),
+                "x_bytes": keep[0].numel() * keep[0].element_size(),
+                "released": released,
+                "bitwise": same((ds.x, ds.y, ds.w), keep)
+                and (scale is None or np.array_equal(ds.x_scale, scale))}
+            del keep
+        del base, ds
+        _line("storage_tiers", n=FIT_N, d=FIT_D, padded_bytes=one,
+              device_budget=budget, memory_drop=before - after,
+              levels_after_demotion=levels_demoted,
+              usage_after_demotion=usage_demoted,
+              demote_s=demote_s, restore_s=restore_s, fit_s=fit_s,
+              k1_launches=k1, evals=model.summary.total_evals,
+              levels_after_touch=levels_touched, disk_rows=DISK_N,
+              disk=disk)
+        _check("storage tiers", {
+            "the budget is 1.5 x one dataset's padded_bytes()":
+                cold_bytes == one and budget == int(TIER_BUDGET * cold_bytes),
+            "caching the hot dataset demoted the cold one to HOST":
+                levels_demoted == ("HOST", "DEVICE"),
+            # a block stays whole when less than 1 MiB of its segment
+            # would remain: X, y and w free at most that much more each
+            "memory_allocated fell by the demoted padded bytes (each of "
+            "X, y and w with at most 1 MiB of the allocator's slack)":
+                0 <= (before - after) - one < 3 * (1 << 20),
+            "K1 launched once per evaluation of the budgeted fit":
+                k1 == model.summary.total_evals and other == 0,
+            "the budgeted fit is bitwise the fit with no budget":
+                bool(np.array_equal(model.coefficients.values,
+                                    free.coefficients.values))
+                and model.intercept == free.intercept,
+            "touching the cold dataset brings it back bitwise":
+                back,
+            "... re-registered at DEVICE (the hot one demoted in turn)":
+                levels_touched == ("DEVICE", "HOST"),
+            "the DISK round trip released X, y and w and brought them "
+            "back bitwise (bf16, e4m3 with x_scale)":
+                all(v["released"] and v["bitwise"] for v in disk.values()),
+        })
+        return k1
+    finally:
         ctx.stop()
 
 
@@ -7188,7 +7600,6 @@ def main() -> int:
     als_nums = phase_als_normal(als_data, ptxas)
     als_launches = phase_als_fit(als_data)
     als_implicit_launches = phase_als_implicit(als_data)
-    del als_data
     # data in and models out: the readers onto the card, the fits on read
     # data, persistence; files in a temporary directory, always removed
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
@@ -7224,6 +7635,17 @@ def main() -> int:
     # the holes in files counted as ported: evaluate, placement, the
     # runtime core, the precision key
     holes = phase_holes()
+    # checkpointed training and the storage tiers: K1 in a checkpointed,
+    # crashed and resumed LR fit, als_normal in a resumed ALS fit, K1 in a
+    # fit under a device budget; files in a temporary directory, removed
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+    try:
+        ck_lr = phase_checkpoint_lr(tmp)
+        ck_als = phase_checkpoint_als(als_data, tmp)
+        del als_data
+        tier_k1 = phase_storage_tiers(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     how = ("one read of X: a CTA of 512 threads an SM, each "
            "thread's slots of G rows staged once by its own cp.async ring "
            "slots, margins by xor shuffles then the warps in warp order, "
@@ -7393,10 +7815,20 @@ def main() -> int:
                "graph_ms and eager_ms: the three steps of a dispatch (copy "
                "in, kernel, copy out) as the captured graph and as eager "
                "launches")
+    # this slice's paths (phases 52-54), each with its counts zeroed just
+    # before it
+    slice22 = {"glm_sweep (logistic, K1)": {
+                   "checkpointed_fit_launches": ck_lr["full"],
+                   "resumed_fit_launches": ck_lr["resumed"],
+                   "fallback_fit_launches": ck_lr["fallback"],
+                   "budgeted_fit_launches": tier_k1},
+               "als_normal (ALS normal equations)": {
+                   "resumed_fit_launches": ck_als}}
     for e in entries:
         e.update(slice17.get(e["name"], {}))
         e.update(slice18.get(e["name"], {}))
         e.update(slice19.get(e["name"], {}))
+        e.update(slice22.get(e["name"], {}))
     print(json.dumps({"kernels": entries}), flush=True)
     _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)

@@ -375,6 +375,33 @@ OOCORE_DIR = (
     .str_conf("")
 )
 
+CHECKPOINT_DIR = (
+    ConfigBuilder("cyclone.checkpoint.dir")
+    .doc("Directory for dataset checkpoints (ref: RDD.scala:1631 "
+         "checkpoint): PartitionedDataset.checkpoint writes its "
+         "partitions there; CycloneContext.set_checkpoint_dir sets it.")
+    .str_conf("")
+)
+
+STORAGE_DEVICE_BUDGET = (
+    ConfigBuilder("cyclone.storage.deviceBudget")
+    .doc("Byte budget for DEVICE-tier managed datasets (the context's "
+         "StorageManager, the BlockManager memory store's analog). "
+         "Exceeding it demotes the least-recently-used managed dataset to "
+         "the host tier. Read when the context is made. 0 = unbounded.")
+    .check_value(lambda v: v >= 0, "must be >= 0")
+    .int_conf(0)
+)
+
+STORAGE_HOST_BUDGET = (
+    ConfigBuilder("cyclone.storage.hostBudget")
+    .doc("Byte budget for HOST-tier managed datasets; past it, the "
+         "least-recently-used datasets demote to disk spill files. Read "
+         "when the context is made. 0 = unbounded.")
+    .check_value(lambda v: v >= 0, "must be >= 0")
+    .int_conf(0)
+)
+
 OOCORE_STREAM_DTYPE = (
     ConfigBuilder("cyclone.oocore.streamDtype")
     .doc("Storage dtype of out-of-core shards, the precision rung of the "

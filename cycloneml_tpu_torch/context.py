@@ -6,24 +6,31 @@ broadcasts and accumulators, brackets jobs (``run_job``: a ``job`` span on
 the active tracer and the ``jobs.*`` counters and ``job.duration`` timer of
 ``metrics_registry``), reads libsvm files (``read_libsvm``), counts the
 optimizer steps the fits record, keeps the fp8 storage fallbacks they
-took, and holds the metrics registry that model servers share
-(``metrics_registry``, the reference's ``ctx.metrics.registry``).
-The listener bus, event journal, UI, metrics sinks, storage tiers and
-heartbeats are host-side layers (ROADMAP slice 10, Queue 1 item 12); the
-mesh rebuild that ``run_job`` waits out in the reference needs several
-devices (Queue 1 item 9).
+took, holds the metrics registry that model servers share
+(``metrics_registry``, the reference's ``ctx.metrics.registry``), owns the
+storage tiers every persisted dataset registers with (``storage``, a
+``dataset/storage.StorageManager`` under ``cyclone.storage.deviceBudget``
+and ``hostBudget``, closed by ``stop``) and names the checkpoint
+directory (``checkpoint_dir``, ``cyclone.checkpoint.dir``).
+The listener bus, event journal, UI, metrics sinks and heartbeats are
+host-side layers (ROADMAP slice 10, Queue 1 item 12); the mesh rebuild
+that ``run_job`` waits out in the reference needs several devices (Queue
+1 item 9).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from cycloneml_tpu_torch import mesh as mesh_mod
-from cycloneml_tpu_torch.conf import (APP_NAME, DEFAULT_PARALLELISM, MASTER,
-                                      CycloneConf)
+from cycloneml_tpu_torch.conf import (APP_NAME, CHECKPOINT_DIR,
+                                      DEFAULT_PARALLELISM, MASTER,
+                                      STORAGE_DEVICE_BUDGET,
+                                      STORAGE_HOST_BUDGET, CycloneConf)
 from cycloneml_tpu_torch.observe import tracing
 from cycloneml_tpu_torch.util.metrics import MetricsRegistry
 
@@ -135,6 +142,13 @@ class CycloneContext:
             # the registry a ModelServer on this context feeds (the
             # reference's MetricsSystem and its sinks are ROADMAP slice 10)
             self.metrics_registry = MetricsRegistry()
+            # the storage tiers (the BlockManager's analog): every persisted
+            # or cached dataset registers here, so the budgets bound what
+            # cold cached datasets hold
+            from cycloneml_tpu_torch.dataset.storage import StorageManager
+            self.storage = StorageManager(
+                device_budget=self.conf.get(STORAGE_DEVICE_BUDGET) or None,
+                host_budget=self.conf.get(STORAGE_HOST_BUDGET) or None)
             self._next_broadcast = 0
             self._stopped = False
             _active_context = self
@@ -196,6 +210,14 @@ class CycloneContext:
         from cycloneml_tpu_torch.dataset.io import read_libsvm
         return read_libsvm(self, path, n_features)
 
+    @property
+    def checkpoint_dir(self) -> str:
+        return self.conf.get(CHECKPOINT_DIR)
+
+    def set_checkpoint_dir(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        self.conf.set(CHECKPOINT_DIR, path)
+
     def record_step(self, step_metrics: Dict[str, float]) -> None:
         """Count one optimizer step and keep its metrics."""
         self.steps += 1
@@ -209,6 +231,7 @@ class CycloneContext:
             self._stopped = True
             if _active_context is self:
                 _active_context = None
+        self.storage.close()  # spill files and their directory
         mesh_mod.reset()
 
     def __enter__(self) -> "CycloneContext":

@@ -2,10 +2,11 @@
 
 ``PartitionedDataset`` — the host tier with the RDD's functional surface
 (map/filter/mapPartitions/reduce/treeAggregate/collect, lazy lineage,
-caching) over Python objects in host threads: the port's counterpart of
-``cycloneml_tpu/dataset/dataset.py:PartitionedDataset``. Its checkpoint
-and its shuffle spill belong to the storage layer (ROADMAP Queue 1 item
-10); its cross-process exchange to several devices (item 9).
+caching, ``checkpoint`` to ``ctx.checkpoint_dir``) over Python objects in
+host threads: the port's counterpart of ``cycloneml_tpu/dataset/
+dataset.py:PartitionedDataset``. Its shuffle's spill comes with the native
+codecs it writes through (ROADMAP Queue 1 item 12); its cross-process
+exchange needs several devices (item 9).
 
 ``InstanceDataset`` — the numeric tier every estimator trains on, the
 port's counterpart of the reference's ``InstanceDataset``: ``x`` is
@@ -13,6 +14,11 @@ port's counterpart of the reference's ``InstanceDataset``: ``x`` is
 ``(n_pad,)`` in the accumulator tier, all on the mesh's device; padding
 rows carry w=0. Host twins of the padded (y, w) are kept when they are
 known, so estimators read label histograms without a device readback.
+``persist``/``cache``/``unpersist`` register it with the context's
+storage tiers (``dataset/storage.StorageManager``: DEVICE, HOST, DISK
+under the ``cyclone.storage.*`` budgets); ``persist_disk``, ``checkpoint``
+and ``restore`` write and read the reference's npz layout, so that either
+package reads the other's files bit for bit.
 
 On the fp8 rung ``x`` holds e4m3 CODES and ``x_scale`` the per-column
 float64 scales: the value is ``x * x_scale``. Only fp8-capable fits read the
@@ -27,8 +33,10 @@ import copy
 import functools
 import logging
 import os
+import pickle
 import time
 import warnings
+import weakref
 import zlib
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
@@ -91,6 +99,7 @@ class PartitionedDataset:
         self.num_partitions = num_partitions
         self.name = name or "dataset"
         self._cached: Optional[List[List[Any]]] = None
+        self._checkpoint_path: Optional[str] = None
 
     @classmethod
     def from_sequence(cls, ctx, data: List[Any],
@@ -109,6 +118,9 @@ class PartitionedDataset:
     def _partitions(self) -> List[List[Any]]:
         if self._cached is not None:
             return self._cached
+        if self._checkpoint_path is not None:
+            with open(self._checkpoint_path, "rb") as fh:
+                return pickle.load(fh)
         return self._compute()
 
     def cache(self) -> "PartitionedDataset":
@@ -125,9 +137,22 @@ class PartitionedDataset:
         return self
 
     def checkpoint(self) -> "PartitionedDataset":
-        raise NotImplementedError(
-            "PartitionedDataset.checkpoint is the storage layer's: ROADMAP "
-            "Queue 1 item 10")
+        """Truncate the lineage: the partitions are written to
+        ``<ctx.checkpoint_dir>/<name>-<id>.pkl`` and read from there from
+        now on (ref RDD.scala:1631, ReliableCheckpointRDD.scala:147).
+        Raises when no checkpoint directory is set."""
+        d = self.ctx.checkpoint_dir
+        if not d:
+            raise RuntimeError(
+                "checkpoint dir not set; call set_checkpoint_dir")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{self.name}-{id(self)}.pkl")
+        parts = self._partitions()
+        with open(path, "wb") as fh:
+            pickle.dump(parts, fh)
+        self._checkpoint_path = path
+        self._compute = lambda: None  # the lineage is gone
+        return self
 
     # -- transformations (lazy) -----------------------------------------------
     def _derive(self, fn: Callable[[List[List[Any]]], List[List[Any]]],
@@ -183,8 +208,8 @@ class PartitionedDataset:
         """Key/value pairs grouped into ``(key, [values])``, each key in
         partition ``stable_hash(key) % num_partitions``, keys in the order
         they first occur and values in row order (the reference's path
-        within its spill budget; the spill past it is ROADMAP Queue 1 item
-        10)."""
+        within its spill budget; the spill past it writes through the
+        native codecs, ROADMAP Queue 1 item 12)."""
         n = self.num_partitions
 
         def fn(ps):
@@ -277,6 +302,46 @@ class PartitionedDataset:
         return InstanceDataset.from_numpy(self.ctx, x, y, w)
 
 
+#: torch dtypes npz cannot hold, by the reference's tag (the numpy name of
+#: its ml_dtypes type); they travel as an unsigned bit view
+_NPZ_TAGS = {torch.bfloat16: "bfloat16",
+             torch.float8_e4m3fn: "float8_e4m3fn"}
+_NPZ_DTYPES = {tag: dt for dt, tag in _NPZ_TAGS.items()}
+
+
+def _npz_pack(t: torch.Tensor):
+    """``(array, tag)`` of a CPU tensor for an npz file: the reference's
+    ``_npz_pack`` layout, an unsigned bit view (uint16 for bfloat16, uint8
+    for float8) and the dtype's name for the narrow floats, the array
+    itself and ``""`` for every other dtype."""
+    tag = _NPZ_TAGS.get(t.dtype)
+    if tag is None:
+        return t.numpy(), ""
+    if t.element_size() == 1:
+        return t.view(torch.uint8).numpy(), tag
+    return t.view(torch.int16).numpy().view(np.uint16), tag
+
+
+def _npz_unpack(arr: np.ndarray, tag) -> torch.Tensor:
+    """The CPU tensor of a packed npz array and its tag. A tag that names
+    no narrow float, or whose width is not the payload's, raises: torn
+    bytes are never read as values."""
+    tag = str(tag)
+    if not tag:
+        return torch.from_numpy(np.ascontiguousarray(arr))
+    dt = _NPZ_DTYPES.get(tag)
+    if dt is None:
+        raise ValueError(f"corrupt npz dtype tag {tag!r}: not a known dtype")
+    width = torch.empty((), dtype=dt).element_size()
+    if width != arr.dtype.itemsize:
+        raise ValueError(
+            f"corrupt npz dtype tag {tag!r}: itemsize {width} does not "
+            f"match the packed {arr.dtype} payload")
+    bits = np.ascontiguousarray(arr).view(np.uint8 if width == 1
+                                          else np.int16)
+    return torch.from_numpy(bits).view(dt)
+
+
 def fp8_fallback(ds: "InstanceDataset", estimator: str,
                  reason: str) -> "InstanceDataset":
     """Leave the fp8 storage rung for this fit: log the reference's
@@ -354,6 +419,15 @@ class InstanceDataset:
         # the real rows of the padded arrays (set by the streamed ingest;
         # None: the first n_rows)
         self._valid_mask: Optional[np.ndarray] = None
+        self._disk_path: Optional[str] = None  # the DISK tier's npz file
+        self._storage_cb = None  # the StorageManager's restore hook
+        # derive() lineage: the dataset whose tensors this one shares and
+        # those that share its own; the StorageManager demotes neither
+        self._array_parent = None
+        self._derived_children = None
+        # the padded tensors' bytes, taken now so that storage accounting
+        # never touches (and so never restores) them
+        self._nbytes = sum(t.numel() * t.element_size() for t in (x, y, w))
         self.n_rows = n_rows
         self.n_features = n_features
 
@@ -537,6 +611,7 @@ class InstanceDataset:
                              self.n_features, x_scale=scale)
         ds._fp8_probe_ratio = ratio
         ds._yw_host = self._yw_host
+        self._link_child(ds)   # y and w are shared
         return ds
 
     def attach_host_labels(self, y: np.ndarray,
@@ -565,7 +640,25 @@ class InstanceDataset:
         if y is None and w is None:
             ds._yw_host = self._yw_host
         ds._valid_mask = self._valid_mask
+        self._link_child(ds)
         return ds
+
+    def _link_child(self, ds: "InstanceDataset") -> None:
+        """Record that ``ds`` shares tensors with this dataset: both, and
+        the root of this dataset's derive chain (tensors pass down it, and
+        a dead middle link must not end the protection), count as sharing
+        for the StorageManager while the other lives."""
+        root = self
+        while root._array_parent is not None:
+            p = root._array_parent()
+            if p is None:
+                break
+            root = p
+        ds._array_parent = weakref.ref(root)
+        for owner in {id(root): root, id(self): self}.values():
+            if owner._derived_children is None:
+                owner._derived_children = weakref.WeakSet()
+            owner._derived_children.add(ds)
 
     def valid_indices(self) -> np.ndarray:
         """Padded-array positions of the real (non-padding) rows: the
@@ -639,30 +732,51 @@ class InstanceDataset:
 
     # -- placement ------------------------------------------------------------
     def _restore_device(self) -> None:
-        """Put a released dataset's host copies back on its device."""
-        if self._x is None and self._host is not None:
-            rt = self.ctx.mesh_runtime
-            self._x, self._y, self._w = (rt.device_put_sharded_rows(t)
-                                         for t in self._host)
+        """Put a released dataset back on its device: from its host copy,
+        else from its DISK-tier file. A restore tells the storage manager,
+        so its accounting follows the normal read path."""
+        if self._x is not None:
+            return
+        if self._host is not None:
+            tensors = self._host
+        elif self._disk_path:
+            tensors = self._read_disk(self._disk_path)
+        else:
+            return
+        rt = self.ctx.mesh_runtime
+        self._x, self._y, self._w = (rt.device_put_sharded_rows(t)
+                                     for t in tensors)
+        if self._storage_cb is not None:
+            self._storage_cb(self)
+
+    @staticmethod
+    def _read_disk(path: str) -> Tuple[torch.Tensor, ...]:
+        """(x, y, w) as CPU tensors from an npz file of :meth:`persist_disk`
+        or :meth:`checkpoint` (either package's)."""
+        with np.load(path) as z:
+            return tuple(_npz_unpack(z[k], z.get(f"{k}_dtype", ""))
+                         for k in ("x", "y", "w"))
 
     def persist(self, level: str = "DEVICE") -> "InstanceDataset":
-        """Keep the dataset on its device (``"DEVICE"``): a dataset whose
-        device arrays were released is placed back now. The levels that
-        demote cold datasets to host memory or disk under budgets are the
-        storage layer's (ROADMAP Queue 1 item 10) and raise."""
-        if level != "DEVICE":
-            raise NotImplementedError(
-                f"persist({level!r}) needs the storage tiers: ROADMAP Queue "
-                "1 item 10")
-        self._restore_device()
+        """Register with the context's storage manager at ``level``
+        (``"DEVICE"``, ``"HOST"`` or ``"DISK"``; the reference's default
+        storage path, ``rdd.persist()`` into the BlockManager): the
+        ``cyclone.storage.*`` budgets then bound what cold datasets hold,
+        demoting the least recently used ones down the tiers."""
+        mgr = getattr(self.ctx, "storage", None)
+        if mgr is not None:
+            mgr.persist(self, level)
         return self
 
     def cache(self) -> "InstanceDataset":
         return self.persist()
 
     def unpersist(self) -> "InstanceDataset":
-        """Nothing to release from a storage manager (the port has none
-        yet, ROADMAP Queue 1 item 10): the dataset stays as it is."""
+        """Leave the storage manager; a DISK-tier dataset is read back to
+        host memory first (data is never dropped)."""
+        mgr = getattr(self.ctx, "storage", None)
+        if mgr is not None:
+            mgr.unpersist(self)
         return self
 
     def persist_host(self) -> "InstanceDataset":
@@ -673,12 +787,78 @@ class InstanceDataset:
         return self
 
     def release_device(self) -> None:
-        """Free the device arrays; the host copy of :meth:`persist_host`
-        must exist (it is the only copy then). The memory returns to the
-        caching allocator once no other dataset shares the arrays."""
-        if self._host is None:
+        """Free the device arrays; a durable copy must exist (the host
+        copy of :meth:`persist_host` or the file of :meth:`persist_disk`),
+        since it is the only one then. The memory returns to the caching
+        allocator once no other dataset shares the arrays."""
+        if self._host is None and not self._disk_path:
             raise RuntimeError("release_device would drop the only copy")
         self._x = self._y = self._w = None
+
+    def _npz_fields(self, x, y, w) -> dict:
+        """The reference's npz fields of (x, y, w): packed arrays, their
+        tags, the row and column counts, the real-row mask and the fp8
+        scales when present."""
+        out = {}
+        for k, t in (("x", x), ("y", y), ("w", w)):
+            out[k], out[f"{k}_dtype"] = _npz_pack(t.cpu())
+        out.update(n_rows=self.n_rows, n_features=self.n_features)
+        if self._valid_mask is not None:
+            out["valid_mask"] = self._valid_mask
+        if self._x_scale is not None:
+            # the codes are meaningless without their scales
+            out["x_scale"] = self._x_scale
+            if self._fp8_probe_ratio is not None:
+                out["x_probe_ratio"] = self._fp8_probe_ratio
+        return out
+
+    def persist_disk(self, path: str) -> "InstanceDataset":
+        """Spill to an npz file (``path``, ``.npz`` added when missing) and
+        release both the device and the host copy: the DISK tier. Written
+        from the host copy when there is one, never through the device.
+        The next access reads the file back onto the device."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        x, y, w = self._host if self._host is not None else \
+            (self.x, self.y, self.w)
+        np.savez(path, **self._npz_fields(x, y, w))
+        self._disk_path = path if path.endswith(".npz") else path + ".npz"
+        self._host = None
+        if self._x is not None:
+            self.release_device()
+        return self
+
+    def checkpoint(self, path: str) -> str:
+        """Write the padded arrays to the npz file ``path`` (the
+        reference's layout: bfloat16 and float8 as bit views with their
+        tags, the fp8 scales beside the codes) and return it; the dataset
+        stays as it is."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **self._npz_fields(self.x, self.y, self.w))
+        return path
+
+    @classmethod
+    def restore(cls, ctx, path: str) -> "InstanceDataset":
+        """A dataset on ``ctx``'s device from an npz file of
+        :meth:`checkpoint` or :meth:`persist_disk` (either package's): X,
+        y and w bit for bit, with the real-row mask and the fp8 scales."""
+        path = path if path.endswith(".npz") else path + ".npz"
+        rt = ctx.mesh_runtime
+        with np.load(path) as z:
+            x, y, w = (_npz_unpack(z[k], z.get(f"{k}_dtype", ""))
+                       for k in ("x", "y", "w"))
+            n_rows, n_features = int(z["n_rows"]), int(z["n_features"])
+            scale = (np.asarray(z["x_scale"], dtype=np.float64)
+                     if "x_scale" in z else None)
+            ratio = (np.asarray(z["x_probe_ratio"], dtype=np.float64)
+                     if "x_probe_ratio" in z else None)
+            mask = z["valid_mask"] if "valid_mask" in z else None
+        ds = cls(ctx, rt.device_put_sharded_rows(x),
+                 rt.device_put_sharded_rows(y),
+                 rt.device_put_sharded_rows(w), n_rows, n_features,
+                 x_scale=scale)
+        ds._fp8_probe_ratio = ratio
+        ds._valid_mask = mask
+        return ds
 
     def map_batches(self, fn: Callable):
         """``fn(x, y, w)`` over the padded device arrays (the reference
@@ -708,10 +888,9 @@ class InstanceDataset:
         return self.w.cpu().numpy()
 
     def padded_bytes(self) -> int:
-        """Storage footprint of the padded block."""
-        return (self.x.numel() * self.x.element_size()
-                + self.y.numel() * self.y.element_size()
-                + self.w.numel() * self.w.element_size())
+        """Storage footprint of the padded block: its tensors' bytes when
+        it was made (never touches, so never restores, them)."""
+        return self._nbytes
 
     def to_numpy(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Unpadded host copies; a bf16 X comes back as float32, fp8 codes

@@ -167,6 +167,10 @@ class MLFrame:
             y = self[label_col] if label_col else None
             w = self[weight_col] if weight_col else None
             ds = InstanceDataset.from_numpy(self.ctx, x, y, w, dtype=dtype)
+            # a frame's cached datasets are the long-lived training blocks
+            # the reference persists (MEMORY_AND_DISK): registered with the
+            # context's storage tiers, the budgets bound cold frames
+            ds.persist()
             self._ds_cache[key] = ds
         return ds
 

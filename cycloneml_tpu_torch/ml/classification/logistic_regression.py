@@ -44,8 +44,14 @@ streamed one. The statistics come from the shards' write pass; the
 optimizer is the host L-BFGS (``StackedHostLBFGS`` for stacked fits). The
 summary says ``streamed``.
 
-Not ported yet, and raising ``NotImplementedError`` with its ROADMAP item:
-checkpointed training.
+Checkpointed training (the reference's ``_optimize``, :174-196): with
+``checkpointDir`` set, the dense, sparse and streamed fits run the host
+optimizer under ``parallel/resilience.train_with_checkpoints``, a
+checkpoint every ``checkpointInterval`` iterations, bound to the dataset
+and the parameters by a fingerprint, so that a killed fit resumes where it
+stopped and a directory of another fit raises. The chunked
+``DeviceLBFGS`` is chosen only without ``checkpointDir``, as the
+reference chooses it.
 """
 
 from __future__ import annotations
@@ -502,10 +508,31 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
             models.append(model)
         return models
 
-    def _check_ported(self) -> None:
+    def _optimize(self, opt, loss_fn, x0, fp_parts):
+        """The optimize tail of the dense, sparse and streamed fits:
+        checkpointed training bound to ``fp_parts`` (the dataset and the
+        parameters) when ``checkpointDir`` is set, else ``minimize``; then
+        the non-convergence warning."""
         if self.get("checkpointDir"):
-            raise NotImplementedError(
-                "checkpointed training is ROADMAP Queue 1 item 10")
+            import hashlib
+            from cycloneml_tpu_torch.parallel.resilience import \
+                train_with_checkpoints
+            from cycloneml_tpu_torch.util.checkpoint import \
+                TrainingCheckpointer
+            # the reference's fingerprint: resuming another fit's
+            # checkpoint would silently return the wrong model
+            fp = hashlib.sha1(repr(fp_parts).encode()).hexdigest()[:16]
+            state = train_with_checkpoints(
+                opt, loss_fn, x0,
+                TrainingCheckpointer(self.get("checkpointDir")),
+                interval=self.get("checkpointInterval"), fingerprint=fp)
+        else:
+            state = opt.minimize(loss_fn, x0)
+        if state.converged_reason == "max iterations reached":
+            logger.warning(
+                "LogisticRegression did not converge in %d iterations",
+                self.get("maxIter"))
+        return state
 
     def _fit_dataset(self, ds) -> "LogisticRegressionModel":
         from cycloneml_tpu_torch.oocore import (StreamingDataset,
@@ -564,7 +591,6 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
         alpha = self.get("elasticNetParam")
         l2 = (1.0 - alpha) * reg
         l1 = alpha * reg
-        self._check_ported()
 
         # fitWithMean (ref LogisticRegression.scala:946-955, SPARK-34448):
         # with a free intercept, train on CENTERED standardized features;
@@ -661,8 +687,13 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
             from cycloneml_tpu_torch.conf import LBFGS_DEVICE_CHUNK
             chunk = int(conf.get(LBFGS_DEVICE_CHUNK)) \
                 if conf is not None else 0
-            if chunk > 0 and not streamed and (
-                    l2_fn is None or hasattr(l2_fn, "traceable")):
+            # the chunked device optimizer runs whole iterations a
+            # dispatch: checkpoints want every iteration's state, so a
+            # checkpointed fit keeps the host optimizer (the reference's
+            # rule)
+            if chunk > 0 and not streamed and \
+                    not self.get("checkpointDir") and (
+                        l2_fn is None or hasattr(l2_fn, "traceable")):
                 from cycloneml_tpu_torch.ml.optim.device_lbfgs import \
                     DeviceLBFGS
                 opt = DeviceLBFGS(max_iter=self.get("maxIter"),
@@ -672,7 +703,13 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
                 opt.oocore_fallback = True
         from cycloneml_tpu_torch.observe.costs import OutOfCoreRequired
         try:
-            state = opt.minimize(loss_fn, x0)
+            state = self._optimize(opt, loss_fn, x0, (
+                ds.n_rows, d, num_classes, float(weight_sum),
+                np.asarray(histogram).round(6).tolist(),
+                np.asarray(features_std).round(6).tolist(),
+                reg, alpha, self.get("tol"), fit_intercept, standardize,
+                fit_with_mean,
+            ))
         except OutOfCoreRequired as e:
             # the guard's terminal degradation: the whole fit again over
             # streamed epochs, O(shard) device memory
@@ -682,10 +719,6 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
                 return self._fit_dataset(sds)
             finally:
                 sds.close()
-        if state.converged_reason == "max iterations reached":
-            logger.warning(
-                "LogisticRegression did not converge in %d iterations",
-                self.get("maxIter"))
 
         sol = np.asarray(state.x, dtype=np.float64)
         if fp8_scale is not None and not np.all(np.isfinite(sol)):
@@ -770,7 +803,6 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
             raise ValueError(
                 f"Binomial family requires <= 2 label classes, found "
                 f"{num_classes} (the reference rejects this too)")
-        self._check_ported()
         histogram = np.bincount(y_host[mask].astype(np.int64),
                                 weights=w_host[mask], minlength=2)[:2]
         weight_sum = float(w_host[mask].sum())
@@ -818,11 +850,13 @@ class LogisticRegression(Predictor, _LogisticRegressionParams, MLWritable,
                         l1_reg=l1_vec)
         else:
             opt = LBFGS(max_iter=self.get("maxIter"), tol=self.get("tol"))
-        state = opt.minimize(loss_fn, x0)
-        if state.converged_reason == "max iterations reached":
-            logger.warning(
-                "LogisticRegression did not converge in %d iterations",
-                self.get("maxIter"))
+        state = self._optimize(opt, loss_fn, x0, (
+            ds.n_rows, d, 2, float(weight_sum),
+            np.asarray(histogram).round(6).tolist(),
+            np.asarray(features_std).round(6).tolist(),
+            reg, alpha, self.get("tol"), fit_intercept, standardize,
+            "sparse",
+        ))
 
         sol = np.asarray(state.x, dtype=np.float64)
         beta = sol[:d] * inv_std

@@ -20,7 +20,8 @@ chunked ``index_add_`` under ``aggregationChunkBytes``). Y^T Y is
 ``torch.mm`` at the compute dtype with TF32 off (the reference's
 ``Precision.HIGHEST``), and the solves are ``torch.linalg.solve_ex`` on
 the card (the reference's ``jnp.linalg.solve``; no error check, so the
-loop never reads the card back: the factors come back once, at the end).
+loop never reads the card back: the factors come back once, at the end,
+and at each checkpoint).
 
 ``shardFactors`` keeps the reference's values. The reference's factor-
 sharded trainer (``_train_blocked``) places entity e at row (e % D) n_loc
@@ -28,7 +29,15 @@ sharded trainer (``_train_blocked``) places entity e at row (e % D) n_loc
 order; on the port's one device (D = 1) that layout is the identity and
 its arithmetic is this loop's, so "never", "auto" and "always" all run it
 and give the same bits. The blocked layout across devices is ROADMAP
-Queue 1 item 9; ``checkpointDir`` (item 10) raises. ``ALS`` and
+Queue 1 item 9.
+
+With ``checkpointDir`` set, both factor matrices are saved (in entity
+order, at the compute dtype, ``util/checkpoint.TrainingCheckpointer``)
+every ``checkpointInterval`` iterations but after the last, bound to the
+ratings and the parameters by the reference's fingerprint; a fit over a
+directory that holds a checkpoint resumes from its newest step (the
+reference's ``_checkpoint_setup``, :129-165), so that either package
+resumes the other's directory. ``ALS`` and
 ``ALSModel`` persist in the reference's layout (``ml/util_io.py``; the
 model's four arrays under their reference names).
 """
@@ -49,6 +58,9 @@ from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, 
 from cycloneml_tpu_torch.ml.shared import (HasMaxIter, HasPredictionCol,
                                            HasRegParam, HasSeed)
 from cycloneml_tpu_torch.ops import kernels
+from cycloneml_tpu_torch.util.logging import get_logger
+
+logger = get_logger(__name__)
 
 PNEWTON_STEPS = 40    # projected Newton steps of the nonnegative solve
 PNEWTON_DAMPING = 0.7
@@ -190,10 +202,6 @@ class ALS(Estimator, _ALSParams, MLWritable, MLReadable):
         return self.set("implicitPrefs", v)
 
     def _fit(self, frame: MLFrame) -> "ALSModel":
-        if self.get("checkpointDir"):
-            raise NotImplementedError(
-                "ALS checkpointDir: checkpointed training is ROADMAP Queue 1 "
-                "item 10")
         users_raw = np.asarray(frame[self.get("userCol")]).astype(np.int64)
         items_raw = np.asarray(frame[self.get("itemCol")]).astype(np.int64)
         ratings = np.asarray(frame[self.get("ratingCol")]).astype(np.float64)
@@ -207,6 +215,45 @@ class ALS(Estimator, _ALSParams, MLWritable, MLReadable):
         self._copy_values(model)
         model._set_parent(self)
         return model
+
+    def _checkpoint_setup(self, rank, n_users, n_items, ratings):
+        """``(checkpointer, fingerprint, start_iteration, u, i)``: the
+        factors of the newest checkpoint in entity order, or None for both
+        when the fit starts afresh at iteration 0 (without
+        ``checkpointDir`` the checkpointer and fingerprint are None too).
+        A directory of another fit (its fingerprint differs) or one past
+        ``maxIter`` raises ``ValueError``."""
+        if not self.get("checkpointDir"):
+            return None, None, 0, None, None
+        import hashlib
+        from cycloneml_tpu_torch.util.checkpoint import TrainingCheckpointer
+        ck = TrainingCheckpointer(self.get("checkpointDir"))
+        ck_fp = hashlib.sha1(repr((
+            rank, n_users, n_items, len(ratings),
+            float(np.sum(ratings)), self.get("implicitPrefs"),
+            self.get("regParam"), self.get("alpha"),
+            self.get("nonnegative"), self.get("seed"),
+        )).encode()).hexdigest()[:16]
+        latest = ck.latest_step()
+        if latest is None:
+            return ck, ck_fp, 0, None, None
+        saved_fp = ck.metadata(latest).get("fingerprint")
+        if saved_fp != ck_fp:
+            raise ValueError(
+                f"checkpoint dir {ck.directory!r} holds factors for "
+                f"a DIFFERENT ALS run (fingerprint {saved_fp} != "
+                f"{ck_fp}); clear the directory or use a new one")
+        saved = ck.restore(latest)
+        start = int(saved["iteration"])
+        if start > self.get("maxIter"):
+            # equal is fine: the checkpoint is the requested model
+            raise ValueError(
+                f"checkpoint is at iteration {start} but "
+                f"maxIter={self.get('maxIter')}; returning it as-is "
+                "would be an over-trained model — raise maxIter or "
+                "clear the checkpoint directory")
+        logger.info("ALS resuming from checkpoint iteration %d", start)
+        return ck, ck_fp, start, saved["u_fac"], saved["i_fac"]
 
     def _train(self, users, items, ratings, n_users: int, n_items: int,
                rank: int, ctx) -> Tuple[np.ndarray, np.ndarray]:
@@ -229,8 +276,14 @@ class ALS(Estimator, _ALSParams, MLWritable, MLReadable):
         rng = np.random.RandomState(self.get("seed"))
         u0 = np.abs(rng.normal(size=(n_users, rank))) / np.sqrt(rank)
         i0 = np.abs(rng.normal(size=(n_items, rank))) / np.sqrt(rank)
-        u_fac = torch.from_numpy(u0).to(dtype).to(dev)
-        i_fac = torch.from_numpy(i0).to(dtype).to(dev)
+        ck, ck_fp, start, saved_u, saved_i = self._checkpoint_setup(
+            rank, n_users, n_items, ratings)
+        if saved_u is not None:
+            u0, i0 = saved_u, saved_i
+        u_fac = torch.from_numpy(np.asarray(u0)).to(dtype).to(dev)
+        i_fac = torch.from_numpy(np.asarray(i0)).to(dtype).to(dev)
+        interval = self.get("checkpointInterval")
+        max_iter = self.get("maxIter")
 
         def half_step(src, order):
             yty = gram(src) if implicit else None
@@ -239,9 +292,14 @@ class ALS(Estimator, _ALSParams, MLWritable, MLReadable):
             return solve(a, b, nonneg)
 
         with _tf32_off():
-            for _ in range(self.get("maxIter")):
+            for it in range(start, max_iter):
                 u_fac = half_step(i_fac, ord_u)
                 i_fac = half_step(u_fac, ord_i)
+                if ck is not None and (it + 1) % interval == 0 \
+                        and it + 1 < max_iter:
+                    ck.save(it + 1, {"u_fac": u_fac, "i_fac": i_fac,
+                                     "iteration": it + 1},
+                            metadata={"fingerprint": ck_fp})
         both = torch.cat([u_fac.reshape(-1), i_fac.reshape(-1)]) \
             .to("cpu", torch.float64).numpy()
         split = n_users * rank

@@ -14,16 +14,24 @@ Injection points of the port:
 ======================== =================================================
 point                    fired from
 ======================== =================================================
+``checkpoint.save``      ``TrainingCheckpointer.save`` entry
+                         (``util/checkpoint.py``), before any file
+``checkpoint.commit``    after the checkpoint's files are written and
+                         fsync'd, before the atomic rename (a crash here
+                         leaves an invisible tmp directory)
+``checkpoint.restore``   ``TrainingCheckpointer.restore`` entry, and
+                         ``restore_newest_verifiable`` once a load
+                         begins (never on an empty directory)
 ``serving.dispatch``     every model-server batch dispatch
                          (``serving/batcher.py``): transient faults
                          retry with backoff, permanent faults shed the
                          batch with a 5xx ServingError, never a hang
 ======================== =================================================
 
-The reference's other points (collectives, checkpoints, heartbeats,
-out-of-core staging, multihost and elastic) come with the modules that
-fire them (ROADMAP Queue 1 items 9 and 10); its flight-recorder trigger on
-each fired fault is item 12. Each fired fault is a ``fault`` instant in
+The reference's other points (collectives, heartbeats, out-of-core
+staging, multihost, elastic capacity and the autoscaler) need several
+devices and come with ROADMAP Queue 1 item 9; its flight-recorder trigger
+on each fired fault is item 12. Each fired fault is a ``fault`` instant in
 the active trace.
 
 Usage::

@@ -20,8 +20,9 @@ relative after ten iterations.
   bitwise-equal factors;
 - the model (cold start, ``recommend_for_all_users``/``_items``) against
   the reference's on identical factors (``interop.als_model_from_reference``);
-- ``checkpointDir`` raises; persistence raises only where the reference's
-  does (a path that exists, a directory of another class), and a round
+- a ``checkpointDir`` of another fit raises (the resume itself is held
+  in tests/test_torch_checkpoint.py); persistence raises only where the
+  reference's does (a path that exists, a directory of another class), and a round
   trip keeps the factors bit for bit.
 
 The float32 kernel's arithmetic (TF32 parts, three products, float32
@@ -452,10 +453,14 @@ def test_recommendations_match_reference(ctx, pctx, side):
 
 
 def test_checkpoint_dir_raises(pctx, tmp_path):
+    """A checkpoint directory written by another fit (here another rank)
+    raises on its fingerprint instead of resuming foreign factors."""
     users, items, r, _, _ = _ratings(seed=3)
     frame = MLFrame(pctx, {"user": users, "item": items, "rating": r})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ALS(rank=3, maxIter=2, checkpointDir=str(tmp_path)).fit(frame)
+    ALS(rank=3, maxIter=2, checkpointDir=str(tmp_path),
+        checkpointInterval=1).fit(frame)
+    with pytest.raises(ValueError, match="DIFFERENT ALS run"):
+        ALS(rank=4, maxIter=2, checkpointDir=str(tmp_path)).fit(frame)
 
 
 def test_persistence_raises(pctx, tmp_path):

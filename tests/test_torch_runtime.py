@@ -3,8 +3,8 @@ host-tier ``PartitionedDataset`` behind ``CycloneContext.parallelize``,
 broadcasts, accumulators, ``run_job``, the ``InstanceDataset`` placement
 methods, ``Instance`` and ``rows_to_dense``, and the rest of ``MLFrame``.
 
-The reference's own cases of tests/test_dataset.py (:11-98 but the
-checkpoint case, which is the storage layer's, ROADMAP Queue 1 item 10)
+The reference's own cases of tests/test_dataset.py (:11-98; its
+checkpoint case and the storage tiers are in tests/test_torch_storage.py)
 run through both packages on the same inputs: the port's context is
 ``cyclone.master=cpu`` at float64, the reference's the suite's
 local-mesh[8] fixture. Results are equal.
@@ -147,7 +147,8 @@ def test_persist_keeps_results_and_checkpoint_cites_its_item(pctx):
     assert len(calls) == n1
     ds.unpersist().collect()
     assert len(calls) == 2 * n1
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a checkpoint needs the context's directory (the reference's message)
+    with pytest.raises(RuntimeError, match="set_checkpoint_dir"):
         pctx.parallelize(range(5), 2).checkpoint()
 
 
@@ -228,15 +229,22 @@ def test_persist_host_release_and_persist_bring_rows_back(pctx):
     ds.persist_host()
     assert ds._x is None
     assert ds.persist() is ds and torch.equal(ds.x, before[0])
+    # back on the device, the managed dataset dropped its host copy (the
+    # reference's storage rule): a release needs a host copy again
+    assert ds._host is None
+    ds.persist_host()
     ds.release_device()
     assert ds._x is None and ds.cache() is ds
     for t, b in zip((ds.x, ds.y, ds.w), before):
         assert torch.equal(t, b)
     with pytest.raises(RuntimeError, match="only copy"):
         InstanceDataset.from_numpy(pctx, x).release_device()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ds.persist("HOST")
-    assert ds.unpersist() is ds
+    # the other levels go through the context's storage tiers
+    assert ds.persist("HOST") is ds and ds._x is None
+    assert pctx.storage.level_of(ds) == "HOST"
+    assert ds.unpersist() is ds and pctx.storage.level_of(ds) is None
+    for t, b in zip((ds.x, ds.y, ds.w), before):
+        assert torch.equal(t, b)
 
 
 def test_map_batches_and_unpad_equal_the_references(pctx, ctx):

@@ -139,12 +139,18 @@ def test_multinomial_and_multiclass_are_rejected_as_the_reference(ctx,
         LogisticRegression(maxIter=5, family="multinomial").fit(two)
 
 
-def test_checkpointing_raises_with_its_slice(pctx):
+def test_checkpointing_raises_with_its_slice(pctx, tmp_path):
+    """The sparse fit checkpoints under its own fingerprint: a directory
+    written by a fit of other rows raises instead of resuming."""
     rows, _, y, w = _random_sparse(n=40, d=8, k=3, seed=2)
     ds = psparse.SparseInstanceDataset.from_rows(pctx, rows, y=y, w=w,
                                                  n_features=8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        LogisticRegression(maxIter=5, checkpointDir="/nonexistent").fit(ds)
+    ck = str(tmp_path / "ck")
+    LogisticRegression(maxIter=5, checkpointDir=ck).fit(ds)
+    other = psparse.SparseInstanceDataset.from_rows(pctx, rows, y=1.0 - y,
+                                                    w=w, n_features=8)
+    with pytest.raises(ValueError, match="DIFFERENT training run"):
+        LogisticRegression(maxIter=5, checkpointDir=ck).fit(other)
 
 
 def test_kernel_route_on_the_cpu_fits_the_same_model(pctx):
