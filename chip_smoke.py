@@ -238,8 +238,8 @@ the final result line:
    the plain stacked aggregator and serially (10 fits through the wide
    K1), phase 16's checks;
 33. the float32 tier's sparse intercept: phase 25's fits (float32 kernel,
-   float32 plain, float64 plain) on Criteo-class rows drawn at seeds 1 and
-   2, cut to an eighth of the rows, their distances and the iteration
+   float32 plain, float64 plain) on Criteo-class rows drawn at seed 1 (seed
+   2 dropped to make room for phases 55-62), cut to an eighth of the rows, their distances and the iteration
    where their objectives part printed, the objectives held to 1e-4; and
    (in phase 25) one evaluation at the float64 plain fit's solution
    through the kernels against float64, the intercept's gradient to 1e-6
@@ -450,7 +450,40 @@ the final result line:
    first access) at 250,000 x 1280 in bf16 and in e4m3 codes with
    ``x_scale``: X, y and w back bitwise, the seconds and bytes (files in
    a temporary directory, removed at the end);
-55. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+55. trees at HIGGS's shape (UCI HIGGS: 11,000,000 x 28, drawn on the card
+   from seed 23, a nonlinear label; bf16 X) through ``tree_hist``
+   (``csrc/tree_hist.cu``): the DecisionTreeClassifier at Spark's defaults
+   (maxDepth 5, maxBins 32), each fit's seconds split into binning, the
+   host counts, the channels, the histogram's device time (CUDA events),
+   the host split search, reassign and the rest, ``tree_hist`` launches
+   and ms by level; a second fit with every level's table held against
+   the plain twin in float64 (counts exactly, sums to rtol 1e-5 of the
+   sums of absolute values), bitwise equal to
+   the first; the plain route's fit (``usePallasKernels=false``) with the
+   same trees; then tree_hist at level 0 timed beside its twin, the
+   counting sort alone, ``index_add_`` over the same flat keys and the
+   bytes bound at 3.35 TB/s;
+56. the RandomForestClassifier (20 trees, bootstrap, "auto" subsets) with
+   phase 55's checks, its level 0 timed (20 trees a launch);
+57. the GBTClassifier (maxIter 20, stepSize 0.1) on the first 2,750,000
+   rows (a quarter: its host residual loop took 82.6 s at 11M) with phase
+   55's checks but the plain route (its regression trees' float32 sums
+   follow the summation order), and its host residual loop's seconds;
+58. the DecisionTreeRegressor on the label's continuous function, with
+   phase 57's checks;
+59. the MultilayerPerceptronClassifier at MNIST's shape (60,000 x 784,
+   784-300-10, L-BFGS maxIter 100) on the default tiers and the float64
+   tier over the same values: the first five objectives within 1e-3, the
+   train accuracies within 0.02;
+60. multinomial NaiveBayes at 2,000,000 x 1,280 (counts 0-3, 10 classes):
+   theta and pi within 1e-9 of the float64 fit's;
+61. the FMClassifier (factorSize 8, adamW, stepSize 0.01) at 2,000,000 x
+   1,280 (phase 4's generator): the first ten objectives within 1e-4 and
+   the last within 1e-2 of the float64 fit's;
+62. AFTSurvivalRegression at 1,000,000 x 10 against its float64 fit
+   (coefficients within 1e-2, bf16 X) and IsotonicRegression at
+   1,000,000 rows held to the isotonic fit's characterization;
+63. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -467,8 +500,9 @@ the final result line:
    46 and 49's (the center sums, S2), the serving margins of phase
    50 (graph replays in the traffic, the instance each lane ran), and
    phases 52-54's K1 launches (the checkpointed, resumed, fallback and
-   budgeted fits) and ``als_normal``'s (the resumed ALS fit), the
-   phases' and the total wall time; the last line is
+   budgeted fits) and ``als_normal``'s (the resumed ALS fit), and
+   ``tree_hist`` with its launches in phases 55-58, the phases' and the
+   total wall time; the last line is
    ``{"ok":
    true, "device": {...}}``.
 
@@ -505,7 +539,8 @@ H100_TF32_FLOPS = 495e12     # TF32 tensor cores, dense
 H100_FP8_FLOPS = 1979e12     # fp8 tensor cores, dense
 FP8_COEF_NORMREL = 0.20      # the reference's fp8 coefficient envelope
 KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian", "glm_stacked",
-                  "center_sums", "ell_sweep", "als_normal", "serving_margins"]
+                  "center_sums", "ell_sweep", "als_normal", "serving_margins",
+                  "tree_hist"]
 K1S_MODELS = (1, 3, 8, 16, 20)   # 20 > K_MAX: two launches of K1s
 OVR_K = 8                        # OneVsRest's classes (bench_ovr_stacked)
 CV_N = 250_000                   # CrossValidator's rows (the cut of FIT_N;
@@ -539,7 +574,8 @@ CIFAR_CENTER_SCALE = 0.02
 # groups of 8 on the tensor cores
 K1S_WIDE = ((CIFAR_N, CIFAR_D, (8, 2, 10)), (250_000, 8192, (8, 16)),
             (CIFAR_N, 8193, (10,)))
-CRITEO_SEEDS = (1, 2)            # the intercept inquiry's two more draws
+CRITEO_SEEDS = (1,)              # the intercept inquiry's one more draw
+#                                  (seed 2 dropped for the tree phases' time)
 CRITEO_SEED_N = CRITEO_N // 8    # ... cut to an eighth of the rows (the
                                  # phase's time; a quarter took 25 s)
 # BASELINE configuration 4: ALS at MovieLens-25M's shape, benchmarks/
@@ -723,6 +759,8 @@ def _kernel_name(mangled: str) -> str:
         return (f"{m.group(1)}<{dtype}"
                 f"{', e4m3' if q and q[0] == '1' else ''}"
                 f"{', ' + 'x'.join(tile) if tile else ''}>")
+    if m.group(1) == "tree_hist_piece_kernel":  # bins a lane a pass
+        return f"{m.group(1)}<NS={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
     if m.group(1) == "count_scatter_kernel":  # the bits of k - 1
         return f"{m.group(1)}<bits={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
@@ -1829,6 +1867,37 @@ def _k4_times(x, x32, w, n, d, x_scale, main_dt):
     lib_ms = _time_ms(lambda: torch.mm(xb.T, xb, out_dtype=torch.float32),
                       3, 1) if x.dtype == torch.bfloat16 else f32_ms
     del xb
+    if x.dtype == torch.float8_e4m3fn and x_scale is not None:
+        # on e4m3 codes: torch._scaled_mm of the codes' transposed copy
+        # (made outside the timing) by itself, the per-column scales as
+        # rowwise scales of both sides, unmasked; its output type is the
+        # first of float32 and bfloat16 the build takes (None when it
+        # takes neither)
+        ct = x.T.contiguous()
+        s = torch.as_tensor(x_scale).to(device=x.device,
+                                        dtype=torch.float32)
+
+        def smm(out_dtype):
+            return torch._scaled_mm(ct, ct.t(), scale_a=s.view(-1, 1),
+                                    scale_b=s.view(1, -1),
+                                    out_dtype=out_dtype)
+        refused = {}
+        for od in (torch.float32, torch.bfloat16):
+            try:
+                g_lib = smm(od).float()
+            except (RuntimeError, ValueError) as e:  # refused by the build
+                refused[str(od)] = str(e).splitlines()[0][:200]
+                continue
+            extra["library_scaled_mm_out"] = str(od)
+            extra["library_scaled_mm_ms"] = _time_ms(lambda: smm(od), 3, 1)
+            g_k = kernels.gramian(x, torch.ones_like(w), x_scale=x_scale)
+            extra["library_scaled_mm_max_rel"] = float(
+                (g_lib - g_k).abs().max() / g_k.abs().max())
+            lib_ms = extra["library_scaled_mm_ms"]
+            del g_lib, g_k
+            break
+        extra["library_scaled_mm_refused"] = refused
+        del ct
     n_bytes = n * d * x.element_size() + n * 4 + d * d * 4
     dt = _dt(x)
     flops = float(n) * d * (d + 1)
@@ -4219,7 +4288,7 @@ def _history_parts(a, b, rtol=1e-6) -> int:
 
 
 def phase_criteo_seeds():
-    """The float32 tier's sparse intercept at two more draws: phase 25's
+    """The float32 tier's sparse intercept at one more draw: phase 25's
     float32 kernel fit, float32 plain fit and float64 plain fit on
     Criteo-class rows at seeds CRITEO_SEEDS, cut to CRITEO_SEED_N rows;
     the intercept's and coefficients' distances to the float64 plain fit,
@@ -7434,6 +7503,657 @@ def phase_storage_tiers(tmp):
         ctx.stop()
 
 
+# -- trees at HIGGS's shape, then the rest of MLlib's models ------------------
+
+HIGGS_N, HIGGS_D = 11_000_000, 28   # UCI HIGGS: 11,000,000 rows x 28 features
+GBT_N = HIGGS_N // 4                # the GBT phase's rows: its host
+#                                     residual loop took 82.6 s at 11M
+TREE_SEED = 23
+RF_TREES = 20                       # Spark's numTrees default
+MNIST_N, MNIST_D = 60_000, 784      # MNIST's training set
+MNIST_LAYERS = [784, 300, 10]       # LeCun's "2-layer NN, 300 hidden units"
+AFT_N, AFT_D = 1_000_000, 10
+ISO_N = 1_000_000
+TREE_HIST_RTOL = 1e-5
+
+
+def _higgs(ctx, n, regression=False, seed=TREE_SEED):
+    """A dataset of HIGGS's shape drawn on the card from ``seed``: 21
+    "low-level" features (every third a positive, heavy-tailed magnitude
+    exp(z / 2), the rest N(0, 1)) and 7 "high-level" ones built from them
+    by products, sums and squares; the label a nonlinear function of
+    several of them with noise, thresholded at 0 (or, with
+    ``regression``, the function itself). X in the context's data tier,
+    y and w float32."""
+    import torch
+    from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
+    from cycloneml_tpu_torch.dataset.instance import data_dtype
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = data_dtype(ctx.conf)
+    x = torch.empty((n, HIGGS_D), dtype=dt, device=dev)
+    y = torch.empty(n, dtype=torch.float32, device=dev)
+    for lo in range(0, n, ROWS):
+        m = min(ROWS, n - lo)
+        z = torch.randn((m, 21), generator=g, device=dev)
+        z[:, ::3] = torch.exp(0.5 * z[:, ::3])
+        hi = torch.stack([z[:, 0] * z[:, 3], z[:, 1] + z[:, 4],
+                          (z[:, 2] - z[:, 5]).abs(), z[:, 6] ** 2,
+                          torch.sin(z[:, 7]) * z[:, 9], z[:, 10] * z[:, 12],
+                          (z[:, 13] + z[:, 15]) ** 2], 1)
+        xc = torch.cat([z, hi], 1).to(dt)
+        xf = xc.float()
+        f = (xf[:, 21] - 1.0 + 0.8 * torch.sin(2.0 * xf[:, 1])
+             + 0.5 * xf[:, 2] * xf[:, 8] - 0.3 * xf[:, 24]
+             + 0.5 * torch.randn(m, generator=g, device=dev))
+        x[lo:lo + m] = xc
+        y[lo:lo + m] = f if regression else (f > 0).float()
+    w = torch.ones(n, dtype=torch.float32, device=dev)
+    ds = InstanceDataset(ctx, x, y, w, n, HIGGS_D)
+    return ds.attach_host_labels(y.cpu().numpy(), w.cpu().numpy())
+
+
+class _TreeProbe:
+    """Wraps the tree engine's steps for the fits inside it: the seconds
+    of binning, the host counts, the channels, the host split search, the
+    reassign gathers and GBT's host residual loop (``predict_raw`` and
+    ``_unbin``), each with the card synchronized; ``tree_hist``'s time a
+    call by CUDA events around it (its sort, its host piece table, its
+    launch), by level (a_pad); with ``check``, every level's table held
+    against the plain twin on the same inputs in float64 (counts exactly,
+    sums to rtol 1e-5 of the sums of absolute values); with ``record``,
+    every level's table of ``tree_hist`` or of the plain twin kept on the
+    host."""
+
+    def __init__(self, check=False, record=False):
+        self.check = check
+        self.record = record
+        self.tables = []          # every level's table, with ``record``
+        self.secs = {}
+        self.levels = []          # (a_pad, trees, Event, Event)
+        self.twin = {"levels": 0, "counts_exact": True, "max_rel": 0.0}
+
+    def _timed(self, name, fn):
+        import torch
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.secs[name] = (self.secs.get(name, 0.0)
+                               + time.perf_counter() - t0)
+            return out
+        return run
+
+    def _hist(self, fn):
+        import torch
+        from cycloneml_tpu_torch.ops import kernels
+
+        def run(bins, chans, pos, a_pad, n_bins):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(bins, chans, pos, a_pad, n_bins)
+            e1.record()
+            self.levels.append((a_pad, chans.shape[1], e0, e1))
+            if self.record:
+                self.tables.append(out.cpu())
+            if self.check:
+                # the twin in float64 (the channels upcast exactly): the
+                # table's truth; index_add_'s float32 atomics add in run
+                # order and drift past 1e-5 on GBT's residual channels
+                c64 = chans.to(torch.float64)
+                twin = kernels.tree_hist_plain(bins, c64, pos, a_pad,
+                                               n_bins)
+                scale = (kernels.tree_hist_plain(bins, c64.abs(), pos,
+                                                 a_pad, n_bins)
+                         if bool((chans < 0).any()) else twin)
+                del c64
+                self.twin["levels"] += 1
+                self.twin["counts_exact"] &= bool(torch.equal(
+                    out[..., 0].to(torch.float64), twin[..., 0]))
+                rel = float(((out.to(torch.float64) - twin).abs()
+                             / scale.clamp(min=1e-30)).max())
+                self.twin["max_rel"] = max(self.twin["max_rel"], rel)
+                del twin, scale
+            return out
+        # the wrapper's count stands in for the wrapped function's while it
+        # is patched in (the function counts through its module's name)
+        run.launches = fn.launches
+        return run
+
+    def __enter__(self):
+        from cycloneml_tpu_torch.ml.classification import trees as ct
+        from cycloneml_tpu_torch.ml.tree import impl
+        from cycloneml_tpu_torch.ops import kernels
+        self._saved = [
+            (impl.BinnedDataset, "from_instance_dataset",
+             impl.BinnedDataset.__dict__["from_instance_dataset"]),
+            (impl, "_bootstrap_counts", impl._bootstrap_counts),
+            (impl, "_channels", impl._channels),
+            (impl, "_split_level", impl._split_level),
+            (impl, "_reassign", impl._reassign),
+            (kernels, "tree_hist", kernels.tree_hist),
+            (kernels, "tree_hist_plain", kernels.tree_hist_plain),
+            (impl.ForestData, "predict_raw", impl.ForestData.predict_raw),
+            (ct, "_unbin", ct._unbin)]
+        binning = self._timed("binning", impl.BinnedDataset
+                              .from_instance_dataset)
+        impl.BinnedDataset.from_instance_dataset = classmethod(
+            lambda cls, *a, **k: binning(*a, **k))
+        impl._bootstrap_counts = self._timed("host_counts",
+                                             impl._bootstrap_counts)
+        impl._channels = self._timed("channels", impl._channels)
+        impl._split_level = self._timed("split_search", impl._split_level)
+        impl._reassign = self._timed("reassign", impl._reassign)
+        kernels.tree_hist = self._hist(kernels.tree_hist)
+        if self.record:  # the plain route's tables too
+            plain = kernels.tree_hist_plain
+            kernels.tree_hist_plain = lambda *a: self._keep(plain(*a))
+        impl.ForestData.predict_raw = self._timed(
+            "residual_loop", impl.ForestData.predict_raw)
+        ct._unbin = self._timed("residual_loop", ct._unbin)
+        return self
+
+    def _keep(self, out):
+        self.tables.append(out.cpu())
+        return out
+
+    def __exit__(self, *exc):
+        from cycloneml_tpu_torch.ops import kernels
+        launches = kernels.tree_hist.launches
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+        kernels.tree_hist.launches = launches
+
+    def by_level(self):
+        """{a_pad: [launches, ms]} over the fits, and the total ms."""
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for a_pad, _, e0, e1 in self.levels:
+            rec = out.setdefault(str(a_pad), [0, 0.0])
+            rec[0] += 1
+            rec[1] += e0.elapsed_time(e1)
+        total = sum(v[1] for v in out.values())
+        return ({k: [v[0], v[1] / v[0]] for k, v in out.items()}, total)
+
+
+def _forest_bits(model):
+    """Every array of a tree model's forests, for bitwise comparisons."""
+    forests = getattr(model, "_forests", None) or [model._forest]
+    return [a.tobytes() for f in forests for a in f.to_arrays().values()]
+
+
+def _tree_hist_bytes(n, d, trees, c, a_pad, b, active):
+    """(the bytes the function must move: bins, positions and channels
+    read once, the table written once; the bytes this design moves:
+    ``active`` row-tree pairs each gathering its d bins, its channels and
+    its order entry, the keys written and read, the table)."""
+    table = trees * a_pad * d * b * c * 4
+    least = n * d * 4 + n * trees * 4 + n * trees * c * 4 + table
+    design = active * (d * 4 + c * 4 + 4) + n * trees * 4 * 3 + table
+    return least, design
+
+
+def _tree_level0_numbers(ds, binned, trees, classification):
+    """tree_hist at the fit's level 0 (every drawn row at node 0): its time
+    by CUDA events over back-to-back calls, the plain twin's, the counting
+    sort's alone, ``index_add_``'s over the same flat keys (one tree: the
+    library yardstick), the bound at 3.35 TB/s, and the kernel's largest
+    difference from the twin."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ml.tree import impl
+    from cycloneml_tpu_torch.ops import kernels
+    n, d = binned.bins.shape
+    K = 2 if classification else 0
+    dev = binned.bins.device
+    # the forest's bootstrap counts drawn on the card (Poisson(1) a row and
+    # tree): the timing needs their shape, not the reference's host draws
+    g = torch.Generator(device=dev).manual_seed(TREE_SEED)
+    cnt = (torch.poisson(torch.ones((n, trees), device=dev), generator=g)
+           if trees > 1 else torch.ones((n, 1), device=dev))
+    y = torch.from_numpy(ds.y_host().astype(np.float64)).to(cnt.device)
+    w = torch.from_numpy(ds.w_host().astype(np.float64)).to(cnt.device)
+    label = y.to(torch.int64) if classification else None
+    chans = impl._channels(cnt, y, w, label, K)
+    pos = torch.where(cnt > 0, 0, -1).to(torch.int32)
+    active = int((cnt > 0).sum())
+    del cnt, y, w, label
+    B, C = binned.max_bins, chans.shape[2]
+    bins = binned.bins
+    reps = 3 if trees > 1 else 5
+    ms = _time_ms(lambda: kernels.tree_hist(bins, chans, pos, 1, B), reps)
+    keys = torch.where(pos >= 0, pos + torch.arange(
+        trees, device=pos.device, dtype=torch.int32), -1).T.contiguous()
+    sort_ms = _time_ms(lambda: kernels.tree_order(keys.view(-1), trees),
+                       reps)
+    del keys
+    got = kernels.tree_hist(bins, chans, pos, 1, B)
+    twin = kernels.tree_hist_plain(bins, chans, pos, 1, B)
+    err = float((got - twin).abs().max())
+    plain_ms = _time_ms(lambda: kernels.tree_hist_plain(bins, chans, pos,
+                                                        1, B), 1,
+                        warm=1 if trees == 1 else 0)
+    library_ms = None
+    if trees == 1:
+        idx = (torch.arange(d, device=bins.device) * B
+               + bins.to(torch.int64)).view(-1)
+        vals = chans[:, 0, None, :].expand(n, d, C).reshape(-1, C)
+        tbl = torch.zeros((d * B, C), dtype=torch.float32,
+                          device=bins.device)
+        library_ms = _time_ms(lambda: tbl.zero_().index_add_(0, idx, vals),
+                              reps)
+        del idx, vals, tbl
+    least, design = _tree_hist_bytes(n, d, trees, C, 1, B, active)
+    del got, twin, chans, pos
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "sort_ms": sort_ms, "max_abs_err": err,
+            "bound_ms": least / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_bytes": least, "design_bytes": design,
+            "design_bound_ms": design / H100_BYTES_PER_S * 1e3,
+            "shape": {"n": n, "d": d, "trees": trees, "C": C, "B": B,
+                      "active_row_trees": active}}
+
+
+def _same_tables(kernel_tables, twin_tables):
+    """(every level's kernel table's counts equal to the twin's, the
+    largest difference of the sums relative to the twin's magnitudes):
+    the twin's channels are nonnegative here (classification)."""
+    if len(kernel_tables) != len(twin_tables) or not kernel_tables:
+        return False, float("inf")
+    counts = all(bool((a[..., 0] == b[..., 0]).all())
+                 for a, b in zip(kernel_tables, twin_tables))
+    rel = max(float(((a.double() - b.double()).abs()
+                     / b.double().abs().clamp(min=1e-30)).max())
+              for a, b in zip(kernel_tables, twin_tables))
+    return counts, rel
+
+
+def _tree_phase(tag, est_of, ds, classification, plain_route=True):
+    """One tree fit path at full width: a fit whose steps are timed, and a
+    second through ``tree_hist``, bitwise equal to it. With
+    ``plain_route`` (classification) the plain route's fit
+    (``usePallasKernels=false``) follows: its trees must be the kernel
+    fit's, so each level's inputs are the same and each level's table of
+    the second fit is held against the twin's table of the same level;
+    without it every level's table is held against the twin in float64
+    inside the second fit. Returns the numbers and the timed fit's
+    launches."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    ctx = ds.ctx
+    base = kernels.tree_hist
+    kernels.reset_launch_counts()
+    with _TreeProbe() as probe:
+        model, fit_s = _timed(lambda: est_of().fit(ds))
+    launches = base.launches
+    other = _other_launches(kernels)
+    levels, hist_ms = probe.by_level()
+    with _TreeProbe(check=not plain_route, record=plain_route) as checked:
+        again = est_of().fit(ds)
+    bitwise = _forest_bits(model) == _forest_bits(again)
+    del again
+    plain_same = None
+    twin = checked.twin
+    if plain_route:
+        ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+        try:
+            kernels.reset_launch_counts()
+            with _TreeProbe(record=True) as plain_probe:
+                plain = est_of().fit(ds)
+            plain_same = (_forest_bits(model) == _forest_bits(plain)
+                          and base.launches == 0)
+        finally:
+            ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+        exact, rel = _same_tables(checked.tables, plain_probe.tables)
+        twin = {"levels": len(checked.tables), "counts_exact": exact,
+                "max_rel": rel}
+        del plain, plain_probe
+    probe_rows = slice(0, 200_000)
+    xh = ds.x[probe_rows].float().cpu().numpy().astype(np.float64)
+    yh = ds.y_host()[probe_rows]
+    pred = model.transform(_probe_frame(xh))["prediction"]
+    quality = (float((pred == yh).mean()) if classification else
+               float(1 - ((pred - yh) ** 2).sum()
+                     / ((yh - yh.mean()) ** 2).sum()))
+    forests = getattr(model, "_forests", None) or [model._forest]
+    nodes = int(sum(int(f.n_nodes.sum()) for f in forests))
+    secs = dict(probe.secs)
+    other_s = fit_s - sum(secs.values()) - hist_ms / 1e3
+    _line(tag, n=ds.n_rows, d=ds.n_features, fit_s=fit_s,
+          hist_device_s=hist_ms / 1e3, other_s=other_s, **secs,
+          tree_hist_launches=launches, by_level_launches_ms=levels,
+          nodes=nodes, quality_on_200k=quality,
+          twin="the plain route's tables, level by level" if plain_route
+          else "float64 twin inside the fit",
+          twin_levels=twin["levels"], twin_counts_exact=twin["counts_exact"],
+          twin_max_rel=twin["max_rel"], refit_bitwise=bitwise,
+          plain_route_same=plain_same)
+    _check(tag, {
+        "tree_hist launched, once a level of the fit":
+            launches == len(probe.levels) and launches > 0,
+        "no other kernel launched": other == 0,
+        "every level's table equal to the twin's: counts exactly":
+            twin["counts_exact"] and twin["levels"] == launches,
+        "... sums to rtol 1e-5": twin["max_rel"] <= TREE_HIST_RTOL,
+        "two kernel fits give bitwise-equal forests": bitwise,
+        "the plain route grows the same trees (classification)":
+            plain_same is None or plain_same,
+        "finite predictions of the expected shape": pred.shape == yh.shape
+            and bool(np.isfinite(pred).all()),
+    })
+    torch.cuda.empty_cache()
+    return {"fit_s": fit_s, "launches": launches, "levels": levels,
+            "model": model}
+
+
+def _probe_frame(x):
+    from cycloneml_tpu_torch import CycloneContext
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    return MLFrame(CycloneContext.get_or_create(), {"features": x})
+
+
+def phase_trees_dt(ctx, ds):
+    """Phase 55: DecisionTreeClassifier at Spark's defaults (maxDepth 5,
+    maxBins 32, gini) on HIGGS's shape; tree_hist at its level 0 against
+    the twin and index_add_."""
+    from cycloneml_tpu_torch.ml.classification import DecisionTreeClassifier
+    out = _tree_phase("trees_dt", lambda: DecisionTreeClassifier(), ds,
+                      True)
+    binned = _binned_of(ds)
+    out["level0"] = _tree_level0_numbers(ds, binned, 1, True)
+    _line("tree_hist_time", fit="dt", **out["level0"])
+    return out
+
+
+def _binned_of(ds):
+    from cycloneml_tpu_torch.ml.tree import BinnedDataset
+    return BinnedDataset.from_instance_dataset(ds, 32, 17)
+
+
+def phase_trees_rf(ctx, ds):
+    """Phase 56: RandomForestClassifier (20 trees, bootstrap, "auto"
+    subsets: ceil(sqrt(28)) = 6 features a node) on HIGGS's shape;
+    tree_hist at its level 0 (all 20 trees in one launch)."""
+    from cycloneml_tpu_torch.ml.classification import RandomForestClassifier
+    out = _tree_phase("trees_rf", lambda: RandomForestClassifier(
+        numTrees=RF_TREES, seed=TREE_SEED), ds, True)
+    out["level0"] = _tree_level0_numbers(ds, _binned_of(ds), RF_TREES, True)
+    _line("tree_hist_time", fit="rf", **out["level0"])
+    return out
+
+
+def phase_trees_gbt(ctx, ds):
+    """Phase 57: GBTClassifier (maxIter 20, stepSize 0.1, maxDepth 5) on
+    HIGGS's shape (rows cut to GBT_N); the residual loop on the host."""
+    from cycloneml_tpu_torch.ml.classification import GBTClassifier
+    if ds.n_rows > GBT_N:
+        ds = ds.derive(x=ds.x[:GBT_N], y=ds.y[:GBT_N], w=ds.w[:GBT_N])
+        ds.n_rows = GBT_N
+        ds.attach_host_labels(ds.y.cpu().numpy(), ds.w.cpu().numpy())
+    return _tree_phase("trees_gbt", lambda: GBTClassifier(seed=TREE_SEED),
+                       ds, True, plain_route=False)
+
+
+def phase_trees_dtr(ctx, ds):
+    """Phase 58: DecisionTreeRegressor at the defaults (variance) on
+    HIGGS's features with the label's continuous function as target."""
+    from cycloneml_tpu_torch.ml.regression import DecisionTreeRegressor
+    return _tree_phase("trees_dtr", lambda: DecisionTreeRegressor(), ds,
+                       False, plain_route=False)
+
+
+def _two_tier_fit(name, make_ds, fit, **conf):
+    """``fit(ds)`` on the card's default tiers (float32 accumulators) and
+    on the float64 tier, on the same values of X: (model32, s, model64,
+    s)."""
+    import torch
+    from cycloneml_tpu_torch import CycloneConf, CycloneContext
+    out = []
+    for dtype in ("float32", "float64"):
+        c = (CycloneConf().set("cyclone.app.name", f"chip_smoke_{name}")
+             .set("cyclone.master", DEVICE)
+             .set("cyclone.compute.dtype", dtype))
+        for k, v in conf.items():
+            c.set(k, v)
+        ctx = CycloneContext(c)
+        try:
+            ds = make_ds(ctx, dtype)
+            model, secs = _timed(lambda: fit(ds))
+            out += [model, secs]
+            del ds
+        finally:
+            ctx.stop()
+        torch.cuda.empty_cache()
+    return tuple(out)
+
+
+def _dataset(ctx, x, y, dtype):
+    """An InstanceDataset over device tensors: X at the float64 tier's
+    width, or as it is; y and w at the accumulator width."""
+    import torch
+    from cycloneml_tpu_torch.dataset.dataset import InstanceDataset
+    acc = torch.float64 if dtype == "float64" else torch.float32
+    xd = x.to(torch.float64) if dtype == "float64" else x
+    yd = y.to(acc)
+    w = torch.ones_like(yd)
+    ds = InstanceDataset(ctx, xd, yd, w, x.shape[0], x.shape[1])
+    return ds.attach_host_labels(yd.cpu().numpy(), w.cpu().numpy())
+
+
+def phase_mlp():
+    """Phase 59: MultilayerPerceptronClassifier at MNIST's shape (60,000 x
+    784 pixels in [0, 1], drawn on the card from 10 class prototypes),
+    784-300-10, L-BFGS maxIter 100, on the default tiers (bf16 X, float32)
+    and on the float64 tier over the same values."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ml.classification import (
+        MultilayerPerceptronClassifier)
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(59)
+    proto = torch.rand((10, MNIST_D), generator=g, device=dev)
+    y = torch.randint(0, 10, (MNIST_N,), generator=g, device=dev)
+    x = (proto[y] * 0.6 + 0.4 * torch.rand((MNIST_N, MNIST_D), generator=g,
+                                           device=dev)
+         ).clamp(0, 1).to(torch.bfloat16)
+    fit = lambda ds: MultilayerPerceptronClassifier(  # noqa: E731
+        layers=MNIST_LAYERS, maxIter=100, seed=1).fit(ds)
+    m32, s32, m64, s64 = _two_tier_fit(
+        "mlp", lambda ctx, dt: _dataset(ctx, x, y.float(), dt), fit)
+    xh = x.float().cpu().numpy().astype(np.float64)
+    yh = y.cpu().numpy()
+    acc32 = float((m32._raw_prediction(xh).argmax(1) == yh).mean())
+    acc64 = float((m64._raw_prediction(xh).argmax(1) == yh).mean())
+    h32, h64 = m32.objective_history, m64.objective_history
+    first = min(5, len(h32), len(h64))
+    rel5 = max(abs(a - b) / abs(b) for a, b in zip(h32[:first], h64[:first]))
+    _line("mlp_fit", n=MNIST_N, layers=MNIST_LAYERS, fit_s=s32,
+          fit64_s=s64, iterations=m32.total_iterations,
+          iterations64=m64.total_iterations, loss=h32[-1], loss64=h64[-1],
+          first_losses_max_rel=rel5, train_accuracy=acc32,
+          train_accuracy64=acc64)
+    _check("mlp", {
+        "finite weights": bool(np.isfinite(m32.weights.to_array()).all()),
+        "the first five objectives within 1e-3 of the float64 fit's":
+            rel5 <= 1e-3,
+        "both fits learned (last objective below half the first)":
+            h32[-1] < 0.5 * h32[0] and h64[-1] < 0.5 * h64[0],
+        "train accuracy within 0.02 of the float64 fit's":
+            abs(acc32 - acc64) <= 0.02,
+    })
+    return s32
+
+
+def phase_naive_bayes():
+    """Phase 60: multinomial NaiveBayes at the main path's 2,000,000 x
+    1,280: counts 0-3 drawn on the card at class-dependent rates (10
+    classes), bf16 X; the float32 fit against the float64 fit on the same
+    counts (every sum an integer below 2^24: equal to 1e-9)."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.ml.classification import NaiveBayes
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(60)
+    rates = torch.rand((10, FIT_D), generator=g, device=dev) * 0.1
+    y = torch.randint(0, 10, (FIT_N,), generator=g, device=dev)
+    x = torch.empty((FIT_N, FIT_D), dtype=torch.bfloat16, device=dev)
+    for lo in range(0, FIT_N, ROWS):
+        r = rates[y[lo:lo + ROWS]]
+        u = torch.rand(r.shape, generator=g, device=dev)
+        x[lo:lo + ROWS] = ((u < r) * (1 + torch.floor(
+            3 * u / r.clamp(min=1e-9)).clamp(max=2))).to(torch.bfloat16)
+    m32, s32, m64, s64 = _two_tier_fit(
+        "nb", lambda ctx, dt: _dataset(ctx, x, y.float(), dt),
+        lambda ds: NaiveBayes().fit(ds))
+    th32, th64 = m32.theta.to_array(), m64.theta.to_array()
+    rel = float(np.max(np.abs(th32 - th64) / np.abs(th64)))
+    pi_rel = float(np.max(np.abs(m32.pi - m64.pi) / np.abs(m64.pi)))
+    _line("naive_bayes_fit", n=FIT_N, d=FIT_D, classes=10, fit_s=s32,
+          fit64_s=s64, theta_max_rel=rel, pi_max_rel=pi_rel)
+    _check("naive bayes", {
+        "theta and pi within 1e-9 of the float64 fit's":
+            rel <= 1e-9 and pi_rel <= 1e-9,
+        "finite": bool(np.isfinite(th32).all()),
+    })
+    return s32
+
+
+def phase_fm():
+    """Phase 61: FMClassifier (factorSize 8, adamW, stepSize 0.01, maxIter
+    100) at the main path's 2,000,000 x 1,280 (phase 4's generator, bf16
+    X), against the float64 tier on the same values."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.random import generate_classification
+    from cycloneml_tpu_torch.ml.classification import FMClassifier
+    holder = {}
+
+    def make(ctx, dt):
+        if "x" not in holder:
+            base = generate_classification(ctx, FIT_N, FIT_D, seed=0)
+            holder["x"], holder["y"] = base.x[:FIT_N], base.y[:FIT_N]
+        return _dataset(ctx, holder["x"], holder["y"], dt)
+
+    m32, s32, m64, s64 = _two_tier_fit(
+        "fm", make, lambda ds: FMClassifier(factorSize=8, stepSize=0.01,
+                                            seed=1).fit(ds))
+    h32, h64 = m32.objective_history, m64.objective_history
+    first = min(10, len(h32), len(h64))
+    rel10 = max(abs(a - b) / abs(b) for a, b in zip(h32[:first], h64[:first]))
+    last_rel = abs(h32[-1] - h64[-1]) / abs(h64[-1])
+    _line("fm_fit", n=FIT_N, d=FIT_D, factor_size=8, fit_s=s32,
+          fit64_s=s64, iterations=len(h32), iterations64=len(h64),
+          loss=h32[-1], loss64=h64[-1], first_losses_max_rel=rel10,
+          last_loss_rel=last_rel)
+    _check("fm", {
+        "finite factors": bool(np.isfinite(m32.factors.to_array()).all()),
+        "the first ten objectives within 1e-4 of the float64 fit's":
+            rel10 <= 1e-4,
+        "the last objective within 1e-2 of the float64 fit's":
+            last_rel <= 1e-2,
+    })
+    return s32
+
+
+def phase_aft_isotonic():
+    """Phase 62: AFTSurvivalRegression at 1,000,000 x 10 (the reference
+    test's Weibull recipe, drawn on the host from seed 62) on the default
+    tiers and the float64 tier; IsotonicRegression at 1,000,000 rows (host
+    numpy, as the reference's), its result held to the isotonic fit's
+    characterization: each pool's value the weighted mean of its members,
+    the pools strictly increasing."""
+    import numpy as np
+    from cycloneml_tpu_torch import CycloneConf, CycloneContext
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    from cycloneml_tpu_torch.ml.regression import (
+        AFTSurvivalRegression, IsotonicRegression)
+    rng = np.random.RandomState(62)
+    x = rng.randn(AFT_N, AFT_D)
+    beta = rng.randn(AFT_D) * 0.3
+    t = np.exp(x @ beta + 1.0 + 0.7 * np.log(-np.log(1.0 - rng.rand(AFT_N))))
+    c = np.exp(1.5 + rng.randn(AFT_N))
+    cols = {"features": x, "label": np.minimum(t, c),
+            "censor": (t <= c).astype(float)}
+    fits = {}
+    for dtype in ("float32", "float64"):
+        ctx = CycloneContext(CycloneConf().set("cyclone.master", DEVICE)
+                             .set("cyclone.compute.dtype", dtype))
+        try:
+            fits[dtype] = _timed(lambda: AFTSurvivalRegression().fit(
+                MLFrame(ctx, cols)))
+        finally:
+            ctx.stop()
+    (a32, s32), (a64, s64) = fits["float32"], fits["float64"]
+    c32, c64 = a32.coefficients.to_array(), a64.coefficients.to_array()
+    coef_err = float(np.max(np.abs(c32 - c64)))
+    ctx = _context("chip_smoke_isotonic")
+    try:
+        f = rng.uniform(0, 10, ISO_N)
+        yv = 0.5 * f + np.sin(f) + rng.randn(ISO_N)
+        wv = rng.uniform(0.5, 2.0, ISO_N)
+        iso, iso_s = _timed(lambda: IsotonicRegression(weightCol="w").fit(
+            MLFrame(ctx, {"features": f, "label": yv, "w": wv})))
+    finally:
+        ctx.stop()
+    uniq, inv = np.unique(f, return_inverse=True)
+    wsum = np.bincount(inv, wv)
+    yagg = np.bincount(inv, wv * yv) / wsum
+    fitted = np.interp(uniq, iso.boundaries, iso.predictions)
+    starts = np.flatnonzero(np.r_[True, fitted[1:] != fitted[:-1]])
+    ends = np.r_[starts[1:], len(fitted)]
+    pool_mean = np.add.reduceat(wsum * yagg, starts) / np.add.reduceat(
+        wsum, starts)
+    pool_err = float(np.max(np.abs(pool_mean - fitted[starts])))
+    _line("aft_fit", n=AFT_N, d=AFT_D, fit_s=s32, fit64_s=s64,
+          iterations=len(a32.loss_history),
+          iterations64=len(a64.loss_history), coef_max_abs_diff=coef_err,
+          scale=a32.scale, scale64=a64.scale)
+    _line("isotonic_fit", n=ISO_N, fit_s=iso_s, pools=len(starts),
+          boundaries=len(iso.boundaries), pool_mean_max_err=pool_err)
+    _check("aft and isotonic", {
+        "AFT coefficients within 1e-2 of the float64 fit's (bf16 X)":
+            coef_err <= 1e-2 * max(float(np.max(np.abs(c64))), 1.0),
+        "AFT scale within 1e-2": abs(a32.scale - a64.scale)
+            <= 1e-2 * a64.scale,
+        "isotonic pools strictly increasing":
+            bool(np.all(np.diff(fitted[starts]) > 0)),
+        "each pool's value the weighted mean of its members":
+            pool_err <= 1e-9 * max(1.0, float(np.abs(yagg).max())),
+    })
+    return s32, iso_s
+
+
+def phase_trees():
+    """Phases 55-58 on one context and one HIGGS-shaped dataset (the
+    regressor's a second label on the same features); returns what the
+    kernels line needs."""
+    import torch
+    ctx = _context("chip_smoke_trees")
+    try:
+        (ds, data_s) = _timed(lambda: _higgs(ctx, HIGGS_N))
+        _line("higgs_data", n=HIGGS_N, d=HIGGS_D, seconds=data_s,
+              dtype=str(ds.x.dtype), positives=float(ds.y_host().mean()))
+        dt = phase_trees_dt(ctx, ds)
+        rf = phase_trees_rf(ctx, ds)
+        gbt = phase_trees_gbt(ctx, ds)
+        del ds
+        torch.cuda.empty_cache()
+        dsr = _higgs(ctx, HIGGS_N, regression=True)
+        dtr = phase_trees_dtr(ctx, dsr)
+        del dsr
+    finally:
+        ctx.stop()
+    torch.cuda.empty_cache()
+    return dt, rf, gbt, dtr
+
+
+
 def main() -> int:
     try:
         import torch
@@ -7646,6 +8366,13 @@ def main() -> int:
         tier_k1 = phase_storage_tiers(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # trees at HIGGS's shape through tree_hist, then the rest of MLlib's
+    # models (no kernel of their own), each against its float64 fit
+    dt, rf, gbt, dtr = phase_trees()
+    phase_mlp()
+    phase_naive_bayes()
+    phase_fm()
+    phase_aft_isotonic()
     how = ("one read of X: a CTA of 512 threads an SM, each "
            "thread's slots of G rows staged once by its own cp.async ring "
            "slots, margins by xor shuffles then the warps in warp order, "
@@ -7829,6 +8556,29 @@ def main() -> int:
         e.update(slice18.get(e["name"], {}))
         e.update(slice19.get(e["name"], {}))
         e.update(slice22.get(e["name"], {}))
+    lv = dt["level0"]
+    entry("tree_hist (decision-tree level histogram)", "tree_hist",
+          "cycloneml_tpu/ml/tree/impl.py:451", lv, dt["launches"],
+          launches_by_phase={"dt": dt["launches"], "rf": rf["launches"],
+                             "gbt": gbt["launches"],
+                             "dt_regressor": dtr["launches"]},
+          shape=lv["shape"], sort_ms=lv["sort_ms"],
+          bound_bytes=lv["bound_bytes"], design_bytes=lv["design_bytes"],
+          design_bound_ms=lv["design_bound_ms"], rf_level0={
+              k: rf["level0"][k] for k in (
+                  "ms", "plain_ms", "sort_ms", "bound_ms", "design_bound_ms",
+                  "max_abs_err", "shape")},
+          by_level={"dt": dt["levels"], "rf": rf["levels"],
+                    "gbt": gbt["levels"], "dt_regressor": dtr["levels"]},
+          ptxas={f: v for f, v in ptxas.items()
+                 if f.startswith("tree_hist")},
+          note="the reference's scatter-add of the level histogram "
+               "(jnp, not a Pallas kernel); ms, plain_ms, library_ms and "
+               "bound at the DecisionTree's level 0 (one tree, every row at "
+               "node 0): the function's time (the counting sort, the host "
+               "piece table, the pieces and the reduce) by CUDA events; "
+               "library_ms index_add_ over the same flat keys; by_level: "
+               "[launches, ms a call] by a_pad in the timed fit")
     print(json.dumps({"kernels": entries}), flush=True)
     _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)

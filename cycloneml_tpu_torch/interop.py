@@ -5,7 +5,9 @@ two packages is plain numpy: the same host arrays (or fp8 codes) as a
 dataset, the same ELL (or hybrid) rows as a sparse dataset, a fitted
 model's parameters (binomial and multinomial logistic regression, linear
 regression, LinearSVC, GLM, KMeans, PCA, OneVsRest's binary models, ALS's
-ids and factors), a
+ids and factors; the trees' node tables, the MLP's layers and weights,
+FM's factors, NaiveBayes' pi, theta and sigma, AFT's coefficients and
+isotonic regression's boundaries), a
 stack of coefficients of K models, or an optimizer state's
 ``to_pytree()`` dict (L-BFGS and OWL-QN alike).
 """
@@ -208,3 +210,100 @@ def optim_state_from_pytree(d: dict) -> OptimState:
         hist_y=[f64(y) for y in d["hist_y"]],
         raw_grad=(f64(d["raw_grad"]) if d.get("raw_grad") is not None
                   else None))
+
+
+def _tree_model_class(name: str):
+    import cycloneml_tpu_torch.ml.classification.trees as ct
+    import cycloneml_tpu_torch.ml.regression.trees as rt
+    cls = getattr(ct, name, None) or getattr(rt, name, None)
+    if cls is None or not name.endswith("Model"):
+        raise ValueError(f"{name!r} is not a tree model of the port")
+    return cls
+
+
+def forest_model_from_reference(model_class: str, arrays: dict,
+                                num_classes: int = 2, **params):
+    """A DecisionTree or RandomForest model of the port (``model_class``,
+    e.g. ``"RandomForestClassificationModel"``) from a reference forest's
+    ``ForestData.to_arrays()`` (the arrays its model saves), with
+    ``num_classes`` for a classifier."""
+    from cycloneml_tpu_torch.ml.tree import ForestData
+    cls = _tree_model_class(model_class)
+    forest = ForestData.from_arrays({k: np.asarray(v)
+                                     for k, v in arrays.items()})
+    model = (cls(forest, int(num_classes)) if forest.is_classification
+             else cls(forest))
+    return _with_params(model, params)
+
+
+def gbt_model_from_reference(model_class: str, forests, tree_weights,
+                             **params):
+    """A GBT model of the port (``"GBTClassificationModel"`` or
+    ``"GBTRegressionModel"``) from a reference model's trees, each as its
+    ``ForestData.to_arrays()``, and its ``tree_weights``."""
+    from cycloneml_tpu_torch.ml.tree import ForestData
+    cls = _tree_model_class(model_class)
+    fs = [ForestData.from_arrays({k: np.asarray(v) for k, v in a.items()})
+          for a in forests]
+    return _with_params(cls(fs, np.asarray(tree_weights, dtype=np.float64)),
+                        params)
+
+
+def mlp_model_from_reference(layers, weights, **params):
+    """A :class:`MultilayerPerceptronClassificationModel` from a reference
+    model's layer sizes and flat weight vector."""
+    from cycloneml_tpu_torch.ml.classification.mlp import (
+        MultilayerPerceptronClassificationModel)
+    return _with_params(MultilayerPerceptronClassificationModel(
+        [int(v) for v in layers], np.asarray(weights, dtype=np.float64)),
+        params)
+
+
+def fm_model_from_reference(factors, linear, intercept,
+                            classification: bool = True, **params):
+    """An FM classification (or regression) model from a reference
+    model's factors (d, k), linear part (d,) and intercept."""
+    from cycloneml_tpu_torch.ml.classification.fm import FMClassificationModel
+    from cycloneml_tpu_torch.ml.regression.fm import FMRegressionModel
+    cls = FMClassificationModel if classification else FMRegressionModel
+    factors = np.asarray(factors, dtype=np.float64)
+    model = cls(factors, np.asarray(linear, dtype=np.float64),
+                float(intercept))
+    model.set("factorSize", factors.shape[1])
+    return _with_params(model, params)
+
+
+def naive_bayes_model_from_reference(pi, theta, sigma=None,
+                                     model_type: str = "multinomial",
+                                     **params):
+    """A :class:`NaiveBayesModel` from a reference model's pi (k,), theta
+    (k, d) and sigma (gaussian's variances, else empty), of
+    ``model_type``."""
+    from cycloneml_tpu_torch.ml.classification.naive_bayes import (
+        NaiveBayesModel)
+    model = NaiveBayesModel(
+        np.asarray(pi, dtype=np.float64), np.asarray(theta, dtype=np.float64),
+        np.zeros((0, 0)) if sigma is None
+        else np.asarray(sigma, dtype=np.float64))
+    model.set("modelType", model_type)
+    return _with_params(model, params)
+
+
+def aft_model_from_reference(coefficients, intercept, scale, **params):
+    """An :class:`AFTSurvivalRegressionModel` from a reference model's
+    coefficients, intercept and scale."""
+    from cycloneml_tpu_torch.ml.regression.aft import (
+        AFTSurvivalRegressionModel)
+    return _with_params(AFTSurvivalRegressionModel(
+        np.asarray(coefficients, dtype=np.float64), float(intercept),
+        float(scale)), params)
+
+
+def isotonic_model_from_reference(boundaries, predictions, **params):
+    """An :class:`IsotonicRegressionModel` from a reference model's
+    boundaries and predictions."""
+    from cycloneml_tpu_torch.ml.regression.isotonic import (
+        IsotonicRegressionModel)
+    return _with_params(IsotonicRegressionModel(
+        np.asarray(boundaries, dtype=np.float64),
+        np.asarray(predictions, dtype=np.float64)), params)

@@ -48,7 +48,12 @@ by margin rows staged through shared memory, or one warp an output where
 that measured faster (:func:`serving_margins_plan`), every output summed
 in an order that depends on neither the bucket, K nor the tile, so that
 padding a batch and serving models as a gang leave a row's bits
-unchanged; its plain twin gives the same bits.
+unchanged; its plain twin gives the same bits. And so does ``tree_hist``
+(``csrc/tree_hist.cu``), the decision-tree engine's level histogram (the
+reference's scatter-add ``ml/tree/impl.py:451``, not a Pallas kernel):
+each tree's rows sorted stably by node, then one CTA a piece of a node's
+sorted rows, each lane adding its bins' rows in sorted order, and the
+pieces added in piece order.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -88,7 +93,9 @@ S1 by link in ``ell_rows.launches_by_link`` and S2 by mode in
 ``als_normal.launches_by_instance``; the serving margins, counted under a
 lock since lanes launch from their own threads, in
 ``serving_margins.launches`` and ``serving_margins.launches_by_instance``,
-each replay of a bucket's CUDA graph one launch).
+each replay of a bucket's CUDA graph one launch); the tree histogram in
+``tree_hist.launches``, one a launch of a group of trees (every tree of a
+forest level while rows x trees stay below 2^31).
 """
 
 from __future__ import annotations
@@ -97,6 +104,7 @@ import ctypes
 import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 ROW_CHUNK = 1 << 16  # rows upcast at a time by the plain versions
@@ -310,6 +318,10 @@ _SIGNATURES = {
         "serving_margins_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _P, _P],
         "serving_margins_plan": [_I, _I, _I, _I, _I, _P],
+    },
+    "tree_hist": {
+        "tree_hist_launch": [_P, _P, _P, _P, _P, _P, _LL, _P, _LL, _LL, _I,
+                             _I, _I, _I, _I, _I, _P, _P, _P],
     },
 }
 
@@ -544,6 +556,7 @@ def reset_launch_counts() -> None:
         serving_margins.launches_by_instance = {
             serving_instance(dt, q): 0
             for dt in _SERVING_DTYPE_CODE for q in (False, True)}
+    tree_hist.launches = 0
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -2100,6 +2113,156 @@ def count_serving_launch(instance: str) -> None:
     with _SERVING_LOCK:
         serving_margins.launches += 1
         serving_margins.launches_by_instance[instance] += 1
+
+
+# -- the decision-tree engine's level histogram in a fixed order --------------
+
+TREE_PIECE_ROWS = 8192         # sorted rows of one piece, at least
+TREE_SCRATCH_BYTES = 1 << 30   # the pieces' partial tables, at most (or
+#                                twice the output, where that is more)
+TREE_PLAIN_ELEMS = 1 << 22     # (row, feature, channel) values the plain
+#                                twin adds at a time
+
+
+def tree_hist_plain(bins: torch.Tensor, chans: torch.Tensor,
+                    pos: torch.Tensor, a_pad: int, n_bins: int
+                    ) -> torch.Tensor:
+    """The level histogram [T, a_pad, d, n_bins, C] in plain PyTorch, at
+    chans' dtype (float32 on the engine's path): for each tree t, each row
+    i with ``pos[i, t] >= 0`` and each feature f, ``chans[i, t]`` added
+    into ``[t, pos[i, t], f, bins[i, f]]``, by ``index_add_`` on the flat
+    keys pos·d·B + f·B + bin (the reference's ``hist_fn``,
+    ``ml/tree/impl.py:437-455``). ``bins`` [n, d] int32, ``chans`` [n, T,
+    C], ``pos`` [n, T] int32. On the CPU ``index_add_`` adds in row order;
+    on CUDA in a run-dependent order, so there it is only the twin
+    :func:`tree_hist` is held against (in float64, the table's truth)."""
+    n, d = bins.shape
+    T, C = chans.shape[1], chans.shape[2]
+    dev = bins.device
+    out = torch.zeros((T, a_pad * d * n_bins, C), dtype=chans.dtype,
+                      device=dev)
+    feat = torch.arange(d, device=dev, dtype=torch.int64) * n_bins
+    step = max(1, TREE_PLAIN_ELEMS // max(d * C, 1))
+    for t in range(T):
+        for lo in range(0, n, step):
+            p = pos[lo:lo + step, t]
+            act = p >= 0
+            idx = (p[act].to(torch.int64)[:, None] * (d * n_bins) + feat
+                   + bins[lo:lo + step][act].to(torch.int64))     # [m, d]
+            vals = chans[lo:lo + step, t][act]                     # [m, C]
+            out[t].index_add_(0, idx.reshape(-1), vals[:, None, :].expand(
+                vals.shape[0], d, C).reshape(-1, C))
+    return out.view(T, a_pad, d, n_bins, C)
+
+
+def tree_order(keys: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """``(order (m,) int32, offsets (k + 1,) int64)``: the positions of
+    ``keys`` (m,) int32 sorted stably by key, key j's at
+    ``order[offsets[j]:offsets[j + 1]]``; keys outside [0, k) left out.
+    Up to :data:`COUNT_MAX_K` keys the center sums' counting sort
+    (:func:`_center_order`), past it ``torch.sort``: the same order, which
+    depends on the keys alone."""
+    if k <= COUNT_MAX_K:
+        co = _center_order(keys, k)
+        return co.order, co.offsets
+    k64 = torch.where((keys >= 0) & (keys < k), keys.to(torch.int64),
+                      torch.full_like(keys, k, dtype=torch.int64))
+    order = torch.sort(k64, stable=True).indices.to(torch.int32)
+    offsets = torch.zeros(k + 1, dtype=torch.int64, device=keys.device)
+    offsets[1:] = torch.cumsum(torch.bincount(k64, minlength=k + 1)[:k], 0)
+    return order, offsets
+
+
+def tree_pieces(offsets: np.ndarray, dbc: int, out_elems: int):
+    """The pieces of one launch from the keys' sorted offsets (host int64,
+    k + 1): each key's rows cut into pieces of ``piece_rows`` (the least
+    :data:`TREE_PIECE_ROWS` x 2^j whose partial tables of ``dbc`` floats
+    fit :data:`TREE_SCRATCH_BYTES`, or twice the ``out_elems`` output).
+    Returns ``(piece_key int32, piece_first int64, piece_len int32,
+    key_piece (k + 1,) int64, piece_rows)`` as host arrays."""
+    rows = np.diff(offsets)
+    budget = max(TREE_SCRATCH_BYTES, 8 * out_elems)
+    piece_rows = TREE_PIECE_ROWS
+    while True:
+        per_key = -(-rows // piece_rows)
+        if int(per_key.sum()) * dbc * 4 <= budget or \
+                piece_rows >= max(int(rows.max(initial=0)), 1):
+            break
+        piece_rows *= 2
+    key_piece = np.zeros(len(rows) + 1, dtype=np.int64)
+    np.cumsum(per_key, out=key_piece[1:])
+    n_pieces = int(key_piece[-1])
+    piece_key = np.repeat(np.arange(len(rows), dtype=np.int32), per_key)
+    piece_first = (offsets[:-1][piece_key]
+                   + (np.arange(n_pieces) - key_piece[piece_key]) * piece_rows)
+    piece_len = np.minimum(offsets[1:][piece_key] - piece_first,
+                           piece_rows).astype(np.int32)
+    return piece_key, piece_first, piece_len, key_piece, piece_rows
+
+
+def tree_hist(bins: torch.Tensor, chans: torch.Tensor, pos: torch.Tensor,
+              a_pad: int, n_bins: int) -> torch.Tensor:
+    """The level histogram of :func:`tree_hist_plain`. A CPU tensor runs
+    the plain twin; a CUDA tensor launches ``csrc/tree_hist.cu`` or raises:
+    each tree's rows sorted stably by node (:func:`tree_order`), one CTA a
+    piece of a node's sorted rows adding them in sorted order (in float
+    over blocks of 128 rows, the blocks in double), the pieces in piece
+    order in double, each rounded once to float32, no float atomics, so
+    two calls on the same inputs are bitwise equal. Trees go to a launch while rows x trees stay below
+    2^31 (the order's int32), each launch counted in
+    ``tree_hist.launches``."""
+    if bins.device.type == "cpu":
+        return tree_hist_plain(bins, chans, pos, a_pad, n_bins)
+    if bins.device.type != "cuda":
+        raise ValueError(f"tree_hist: no kernel for device {bins.device}")
+    n, d = bins.shape
+    if chans.dim() != 3 or chans.shape[0] != n or pos.shape != (
+            n, chans.shape[1]):
+        raise ValueError(f"tree_hist: bins {tuple(bins.shape)}, chans "
+                         f"{tuple(chans.shape)} and pos {tuple(pos.shape)} "
+                         "do not match")
+    if bins.dtype != torch.int32 or chans.dtype != torch.float32 or \
+            pos.dtype != torch.int32:
+        raise ValueError("tree_hist: bins and pos must be int32 and chans "
+                         f"float32; got {bins.dtype}, {chans.dtype}, "
+                         f"{pos.dtype}")
+    if not (bins.is_contiguous() and chans.is_contiguous()):
+        raise ValueError("tree_hist: bins and chans must be contiguous")
+    if a_pad < 1 or n_bins < 1:
+        raise ValueError(f"tree_hist: a_pad {a_pad} and n_bins {n_bins} "
+                         "must be positive")
+    T, C = chans.shape[1], chans.shape[2]
+    dev = bins.device
+    dbc = d * n_bins * C
+    out = torch.empty((T, a_pad, d, n_bins, C), dtype=torch.float32,
+                      device=dev)
+    group = max(1, (2 ** 31 - 1) // max(n, 1))
+    lib = _library("tree_hist")
+    for t0 in range(0, T, group):
+        tg = min(group, T - t0)
+        p = pos[:, t0:t0 + tg]
+        keys = torch.where(p >= 0, p + torch.arange(
+            tg, device=dev, dtype=torch.int32) * a_pad,
+            torch.full_like(p, -1)).T.contiguous().view(-1)
+        order, offsets = tree_order(keys, tg * a_pad)
+        del keys
+        pk, pf, pl, kp, _ = tree_pieces(offsets.cpu().numpy(), dbc,
+                                        tg * a_pad * dbc)
+        if len(pk) >= 2 ** 31:
+            raise ValueError(f"tree_hist: {len(pk)} pieces exceed a grid")
+        tabs = [torch.from_numpy(a).to(dev) for a in (pk, pf, pl, kp)]
+        partial = torch.empty(len(pk) * dbc, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _cuda_check(lib.tree_hist_launch(
+                bins.data_ptr(), chans.data_ptr(), order.data_ptr(),
+                tabs[0].data_ptr(), tabs[1].data_ptr(), tabs[2].data_ptr(),
+                len(pk), tabs[3].data_ptr(), tg * a_pad, n, d, n_bins, C, T,
+                t0, a_pad, partial.data_ptr(), out[t0:t0 + tg].data_ptr(),
+                stream), "tree_hist launch")
+        tree_hist.launches += 1
+    return out
 
 
 reset_launch_counts()  # every count starts at 0

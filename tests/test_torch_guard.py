@@ -95,7 +95,8 @@ def test_kernels_import_without_cuda():
 
 @pytest.mark.parametrize("name", ["glm_sweep", "kmeans_assign", "gramian",
                                   "glm_stacked", "center_sums", "ell_sweep",
-                                  "als_normal", "serving_margins"])
+                                  "als_normal", "serving_margins",
+                                  "tree_hist"])
 def test_every_kernel_source_has_a_binding(name):
     """Each CUDA source the wrappers load exists, declares its C entry
     points with ``extern "C"``, and has its argument types declared."""
