@@ -461,8 +461,14 @@ the final result line:
    sums of absolute values), bitwise equal to
    the first; the plain route's fit (``usePallasKernels=false``) with the
    same trees; then tree_hist at level 0 timed beside its twin, the
-   counting sort alone, ``index_add_`` over the same flat keys and the
-   bytes bound at 3.35 TB/s;
+   counting sort alone, ``index_add_`` over the same flat keys, its
+   instance (``kernels.tree_hist_plan``) and the bytes bound at 3.35
+   TB/s with the bins at their stored width (one byte) and at int32;
+   then tree_hist at HIGGS's rows past the fits' widths, at level 0 and
+   at a_pad 32: maxBins 256 with 11 channels (the lane-a-bin instance)
+   and maxBins 257 on int32 bins (lane a row), each table against the
+   twin in float64, each launch counted by its instance, its ms beside
+   its bound;
 56. the RandomForestClassifier (20 trees, bootstrap, "auto" subsets) with
    phase 55's checks, its level 0 timed (20 trees a launch);
 57. the GBTClassifier (maxIter 20, stepSize 0.1) on the first 2,750,000
@@ -501,7 +507,9 @@ the final result line:
    50 (graph replays in the traffic, the instance each lane ran), and
    phases 52-54's K1 launches (the checkpointed, resumed, fallback and
    budgeted fits) and ``als_normal``'s (the resumed ALS fit), and
-   ``tree_hist`` with its launches in phases 55-58, the phases' and the
+   ``tree_hist`` with its launches (and by instance) in phases 55-58,
+   both bounds and its share, phase 55's wide cases' ms beside their
+   bounds, the phases' and the
    total wall time; the last line is
    ``{"ok":
    true, "device": {...}}``.
@@ -759,8 +767,14 @@ def _kernel_name(mangled: str) -> str:
         return (f"{m.group(1)}<{dtype}"
                 f"{', e4m3' if q and q[0] == '1' else ''}"
                 f"{', ' + 'x'.join(tile) if tile else ''}>")
-    if m.group(1) == "tree_hist_piece_kernel":  # bins a lane a pass
-        return f"{m.group(1)}<NS={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
+    if m.group(1) in ("tree_rows_kernel", "tree_bins_kernel"):
+        # the bins' width; channels (lane a row: exactly, or at most) or
+        # bins a lane a pass (lane a bin)
+        t = re.search(m.group(1) + r"I([hi])Li(\d+)E(?:Lb(\d)E)?", mangled)
+        arg = ("NS=" if m.group(1) == "tree_bins_kernel" else
+               "C=" if t.group(3) == "1" else "C<=")
+        return (f"{m.group(1)}<{dict(h='uint8', i='int32')[t.group(1)]}, "
+                f"{arg}{t.group(2)}>")
     if m.group(1) == "count_scatter_kernel":  # the bits of k - 1
         return f"{m.group(1)}<bits={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
@@ -7558,7 +7572,7 @@ class _TreeProbe:
     of binning, the host counts, the channels, the host split search, the
     reassign gathers and GBT's host residual loop (``predict_raw`` and
     ``_unbin``), each with the card synchronized; ``tree_hist``'s time a
-    call by CUDA events around it (its sort, its host piece table, its
+    call by CUDA events around it (its sort, its piece table, its
     launch), by level (a_pad); with ``check``, every level's table held
     against the plain twin on the same inputs in float64 (counts exactly,
     sums to rtol 1e-5 of the sums of absolute values); with ``record``,
@@ -7618,9 +7632,10 @@ class _TreeProbe:
                 self.twin["max_rel"] = max(self.twin["max_rel"], rel)
                 del twin, scale
             return out
-        # the wrapper's count stands in for the wrapped function's while it
+        # the wrapper's counts stand in for the wrapped function's while it
         # is patched in (the function counts through its module's name)
         run.launches = fn.launches
+        run.launches_by_instance = fn.launches_by_instance
         return run
 
     def __enter__(self):
@@ -7662,10 +7677,12 @@ class _TreeProbe:
 
     def __exit__(self, *exc):
         from cycloneml_tpu_torch.ops import kernels
-        launches = kernels.tree_hist.launches
+        counts = (kernels.tree_hist.launches,
+                  kernels.tree_hist.launches_by_instance)
         for owner, name, value in self._saved:
             setattr(owner, name, value)
-        kernels.tree_hist.launches = launches
+        (kernels.tree_hist.launches,
+         kernels.tree_hist.launches_by_instance) = counts
 
     def by_level(self):
         """{a_pad: [launches, ms]} over the fits, and the total ms."""
@@ -7686,14 +7703,18 @@ def _forest_bits(model):
     return [a.tobytes() for f in forests for a in f.to_arrays().values()]
 
 
-def _tree_hist_bytes(n, d, trees, c, a_pad, b, active):
-    """(the bytes the function must move: bins, positions and channels
-    read once, the table written once; the bytes this design moves:
-    ``active`` row-tree pairs each gathering its d bins, its channels and
-    its order entry, the keys written and read, the table)."""
+def _tree_hist_bytes(n, d, trees, c, a_pad, b, active, esize=4,
+                     blocks=1):
+    """(the bytes the function must move: bins of ``esize`` bytes and
+    positions read once, the channels of the ``active`` row-tree pairs
+    (pos >= 0; the others are never read) once, the table written once;
+    the bytes this design moves: ``active`` row-tree pairs each gathering
+    its d bins once and its channels and order entry once a feature block
+    of ``blocks``, the keys written and read, the table)."""
     table = trees * a_pad * d * b * c * 4
-    least = n * d * 4 + n * trees * 4 + n * trees * c * 4 + table
-    design = active * (d * 4 + c * 4 + 4) + n * trees * 4 * 3 + table
+    least = n * d * esize + n * trees * 4 + active * c * 4 + table
+    design = (active * (d * esize + blocks * (c * 4 + 4))
+              + n * trees * 4 * 3 + table)
     return least, design
 
 
@@ -7724,12 +7745,11 @@ def _tree_level0_numbers(ds, binned, trees, classification):
     del cnt, y, w, label
     B, C = binned.max_bins, chans.shape[2]
     bins = binned.bins
+    plan = kernels.tree_hist_plan(B, C, d, bins.dtype)
     reps = 3 if trees > 1 else 5
     ms = _time_ms(lambda: kernels.tree_hist(bins, chans, pos, 1, B), reps)
-    keys = torch.where(pos >= 0, pos + torch.arange(
-        trees, device=pos.device, dtype=torch.int32), -1).T.contiguous()
-    sort_ms = _time_ms(lambda: kernels.tree_order(keys.view(-1), trees),
-                       reps)
+    keys = kernels.tree_keys(pos, 0, trees, 1)
+    sort_ms = _time_ms(lambda: kernels.tree_order(keys, trees), reps)
     del keys
     got = kernels.tree_hist(bins, chans, pos, 1, B)
     twin = kernels.tree_hist_plain(bins, chans, pos, 1, B)
@@ -7747,16 +7767,86 @@ def _tree_level0_numbers(ds, binned, trees, classification):
         library_ms = _time_ms(lambda: tbl.zero_().index_add_(0, idx, vals),
                               reps)
         del idx, vals, tbl
-    least, design = _tree_hist_bytes(n, d, trees, C, 1, B, active)
+    esize = bins.element_size()
+    least, design = _tree_hist_bytes(n, d, trees, C, 1, B, active, esize,
+                                     plan["feature_blocks"])
+    least32, _ = _tree_hist_bytes(n, d, trees, C, 1, B, active)
     del got, twin, chans, pos
     torch.cuda.empty_cache()
+    bound_ms = least / H100_BYTES_PER_S * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "sort_ms": sort_ms, "max_abs_err": err,
-            "bound_ms": least / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bound_bytes": least, "design_bytes": design,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_bytes": least, "share": bound_ms / ms,
+            "bound_int32_bins_ms": least32 / H100_BYTES_PER_S * 1e3,
+            "bound_int32_bins_bytes": least32, "design_bytes": design,
             "design_bound_ms": design / H100_BYTES_PER_S * 1e3,
+            "plan": plan, "bins_dtype": str(bins.dtype),
             "shape": {"n": n, "d": d, "trees": trees, "C": C, "B": B,
                       "active_row_trees": active}}
+
+
+def _tree_hist_wide(ds):
+    """tree_hist at HIGGS's rows past the fits' widths, each case at level
+    0 and at a deep level (a_pad 32, each row in a node drawn at random
+    or out of the tree): maxBins 256 on one-byte bins with a 10-class
+    fit's 11 channels (the lane-a-bin instance) and maxBins 257 on int32
+    bins with 3 channels (lane a row). Each table against the twin in
+    float64 (counts exactly, sums to 1e-5 of the twin's nonnegative
+    cells), the launch counted with the counts zeroed just before it and
+    read just after, then its time by CUDA events beside its bytes
+    bound."""
+    import torch
+    from cycloneml_tpu_torch.ml.tree import BinnedDataset, impl
+    from cycloneml_tpu_torch.ops import kernels
+    dev = ds.x.device
+    g = torch.Generator(device=dev).manual_seed(TREE_SEED + 1)
+    cases = []
+    for max_bins, K in ((256, 10), (257, 2)):
+        binned = BinnedDataset.from_instance_dataset(ds, max_bins, 17)
+        bins, B = binned.bins, binned.max_bins
+        n, d = bins.shape
+        label = torch.randint(0, K, (n,), generator=g, device=dev)
+        one = torch.ones((n, 1), dtype=torch.float64, device=dev)
+        chans = impl._channels(one, label.double(), one[:, 0], label, K)
+        del one
+        C = chans.shape[2]
+        plan = kernels.tree_hist_plan(B, C, d, bins.dtype)
+        for a_pad in (1, 32):
+            pos = (torch.zeros((n, 1), dtype=torch.int32, device=dev)
+                   if a_pad == 1 else torch.randint(
+                       -1, a_pad, (n, 1), generator=g, device=dev,
+                       dtype=torch.int32))
+            active = int((pos >= 0).sum())
+            kernels.reset_launch_counts()
+            got = kernels.tree_hist(bins, chans, pos, a_pad, B)
+            launches = kernels.tree_hist.launches
+            by_instance = dict(kernels.tree_hist.launches_by_instance)
+            twin = kernels.tree_hist_plain(bins, chans.to(torch.float64),
+                                           pos, a_pad, B)
+            counts_exact = bool(torch.equal(got[..., 0].to(torch.float64),
+                                            twin[..., 0]))
+            max_rel = float(((got.to(torch.float64) - twin).abs()
+                             / twin.clamp(min=1e-30)).max())
+            del got, twin
+            ms = _time_ms(lambda: kernels.tree_hist(bins, chans, pos, a_pad,
+                                                    B), 3)
+            least, _ = _tree_hist_bytes(n, d, 1, C, a_pad, B, active,
+                                        bins.element_size())
+            bound_ms = least / H100_BYTES_PER_S * 1e3
+            cases.append({
+                "max_bins": max_bins, "B": B, "C": C, "a_pad": a_pad,
+                "bins_dtype": str(bins.dtype), "n": n, "d": d,
+                "active_rows": active, "instance": plan["instance"],
+                "plan": plan, "launches": launches,
+                "launches_by_instance": by_instance, "ms": ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "bound_bytes": least, "share": bound_ms / ms,
+                "counts_exact": counts_exact, "max_rel": max_rel})
+            del pos
+        del binned, bins, chans, label
+        torch.cuda.empty_cache()
+    return cases
 
 
 def _same_tables(kernel_tables, twin_tables):
@@ -7792,6 +7882,7 @@ def _tree_phase(tag, est_of, ds, classification, plain_route=True):
     with _TreeProbe() as probe:
         model, fit_s = _timed(lambda: est_of().fit(ds))
     launches = base.launches
+    by_instance = dict(base.launches_by_instance)
     other = _other_launches(kernels)
     levels, hist_ms = probe.by_level()
     with _TreeProbe(check=not plain_route, record=plain_route) as checked:
@@ -7827,7 +7918,8 @@ def _tree_phase(tag, est_of, ds, classification, plain_route=True):
     other_s = fit_s - sum(secs.values()) - hist_ms / 1e3
     _line(tag, n=ds.n_rows, d=ds.n_features, fit_s=fit_s,
           hist_device_s=hist_ms / 1e3, other_s=other_s, **secs,
-          tree_hist_launches=launches, by_level_launches_ms=levels,
+          tree_hist_launches=launches, by_instance=by_instance,
+          by_level_launches_ms=levels,
           nodes=nodes, quality_on_200k=quality,
           twin="the plain route's tables, level by level" if plain_route
           else "float64 twin inside the fit",
@@ -7849,7 +7941,7 @@ def _tree_phase(tag, est_of, ds, classification, plain_route=True):
     })
     torch.cuda.empty_cache()
     return {"fit_s": fit_s, "launches": launches, "levels": levels,
-            "model": model}
+            "by_instance": by_instance, "model": model}
 
 
 def _probe_frame(x):
@@ -7868,6 +7960,26 @@ def phase_trees_dt(ctx, ds):
     binned = _binned_of(ds)
     out["level0"] = _tree_level0_numbers(ds, binned, 1, True)
     _line("tree_hist_time", fit="dt", **out["level0"])
+    del binned
+    out["wide"] = wide = _tree_hist_wide(ds)
+    for case in wide:
+        _line("tree_hist_wide", **case)
+    checks = {}
+    for case in wide:
+        at = (f"maxBins {case['max_bins']}, C {case['C']}, "
+              f"{case['bins_dtype']}, a_pad {case['a_pad']}")
+        checks[f"{at}: one launch, counted by its instance"] = (
+            case["launches"] == 1
+            and case["launches_by_instance"][case["instance"]] == 1)
+        checks[f"{at}: counts equal to the twin's exactly"] = (
+            case["counts_exact"])
+        checks[f"{at}: sums to rtol 1e-5"] = case["max_rel"] <= TREE_HIST_RTOL
+    checks["maxBins 256 with 11 channels takes the lane-a-bin instance"] = (
+        wide[0]["instance"] == "lane_a_bin")
+    checks["int32 bins (maxBins 257) take the lane-a-row instance"] = (
+        wide[2]["instance"] == "lane_a_row"
+        and wide[2]["bins_dtype"] == "torch.int32")
+    _check("tree_hist_wide", checks)
     return out
 
 
@@ -8562,21 +8674,43 @@ def main() -> int:
           launches_by_phase={"dt": dt["launches"], "rf": rf["launches"],
                              "gbt": gbt["launches"],
                              "dt_regressor": dtr["launches"]},
-          shape=lv["shape"], sort_ms=lv["sort_ms"],
-          bound_bytes=lv["bound_bytes"], design_bytes=lv["design_bytes"],
+          launches_by_instance={"dt": dt["by_instance"],
+                                "rf": rf["by_instance"],
+                                "gbt": gbt["by_instance"],
+                                "dt_regressor": dtr["by_instance"]},
+          shape=lv["shape"], sort_ms=lv["sort_ms"], share=lv["share"],
+          bound_bytes=lv["bound_bytes"],
+          bound_int32_bins_ms=lv["bound_int32_bins_ms"],
+          bins_dtype=lv["bins_dtype"], plan=lv["plan"],
+          design_bytes=lv["design_bytes"],
           design_bound_ms=lv["design_bound_ms"], rf_level0={
               k: rf["level0"][k] for k in (
-                  "ms", "plain_ms", "sort_ms", "bound_ms", "design_bound_ms",
-                  "max_abs_err", "shape")},
+                  "ms", "plain_ms", "sort_ms", "bound_ms",
+                  "bound_int32_bins_ms", "share", "design_bound_ms",
+                  "max_abs_err", "plan", "shape")},
           by_level={"dt": dt["levels"], "rf": rf["levels"],
                     "gbt": gbt["levels"], "dt_regressor": dtr["levels"]},
+          wide_checks=[{k: c[k] for k in (
+              "max_bins", "B", "C", "bins_dtype", "a_pad", "instance",
+              "launches_by_instance", "ms", "bound_ms", "share",
+              "counts_exact", "max_rel")} for c in dt["wide"]],
           ptxas={f: v for f, v in ptxas.items()
-                 if f.startswith("tree_hist")},
+                 if f.startswith("tree_")},
+          redesigned="a lane a row: one CTA a (piece, feature block), lane "
+                     "l of a half warp adding rows l, l + 16, ... into its "
+                     "own shared-memory copy of its feature's table "
+                     "([bin][channel][32 slots], no bank conflicts, no "
+                     "atomics), 16 lane copies summed in a fixed slot order "
+                     "into doubles every 2,048 rows; one-byte bins; the "
+                     "keys and the piece table built on the card; the "
+                     "lane-a-bin design for widths whose copies do not fit",
           note="the reference's scatter-add of the level histogram "
                "(jnp, not a Pallas kernel); ms, plain_ms, library_ms and "
                "bound at the DecisionTree's level 0 (one tree, every row at "
-               "node 0): the function's time (the counting sort, the host "
-               "piece table, the pieces and the reduce) by CUDA events; "
+               "node 0): the function's time (the keys, the counting "
+               "sort, the piece table, the pieces and the reduce) by CUDA "
+               "events; bound_ms with the bins at their stored width, "
+               "bound_int32_bins_ms at int32 (the first design's); "
                "library_ms index_add_ over the same flat keys; by_level: "
                "[launches, ms a call] by a_pad in the timed fit")
     print(json.dumps({"kernels": entries}), flush=True)

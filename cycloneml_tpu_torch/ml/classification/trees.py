@@ -246,7 +246,8 @@ def _unbin(binned: BinnedDataset) -> np.ndarray:
     evaluate identically to bin comparisons: use threshold midpoint proxies.
     Simpler and exact: reconstruct from bins via thresholds — value in bin b
     of feature f satisfies th[b-1] < v <= th[b]; any v in that interval gives
-    the same path, so use th[b] (and th[last]+1 for the top bin)."""
+    the same path, so use th[b] (and th[last]+1 for the top bin). The bins
+    may be uint8 or int32."""
     bins = binned.bins[torch.as_tensor(
         binned.valid_idx, device=binned.bins.device)].cpu().numpy()
     d = binned.n_features

@@ -5,9 +5,10 @@
 The same three steps a tree level as the reference, all trees of a forest
 at once:
 
-1. **binize**, once a dataset: each feature bucketized into int32 bin ids
-   against quantile thresholds drawn from the reference's host sample
-   (``torch.searchsorted`` per feature on the context's device);
+1. **binize**, once a dataset: each feature bucketized into bin ids (one
+   byte each up to maxBins 256, int32 past it; the reference's int32
+   values) against quantile thresholds drawn from the reference's host
+   sample (``torch.searchsorted`` per feature on the context's device);
 2. **histogram**: every (tree, node, feature, bin) cell sums the stat
    channels of the rows that reach it. On the card this is
    ``kernels.tree_hist`` (``csrc/tree_hist.cu``), which adds each cell's
@@ -301,6 +302,17 @@ def _impurity_and_pred(stats: np.ndarray, kind: str):
 # Binned dataset (device side)
 # ---------------------------------------------------------------------------
 
+def bin_storage(n: int, d: int, max_bins: int, dev) -> torch.Tensor:
+    """An [n, d] tensor for bin ids below ``max_bins``: uint8 up to 256
+    bins (a view of rows padded to a multiple of 4 bytes, so that the
+    histogram kernel copies whole 4-byte words of a row), int32 past
+    it."""
+    if max_bins > 256:
+        return torch.empty((n, d), dtype=torch.int32, device=dev)
+    return torch.empty((n, -(-d // 4) * 4), dtype=torch.uint8,
+                       device=dev)[:, :d]
+
+
 class BinnedDataset:
     """Bucketized features on the context's device, reusable across trees
     and boosting rounds."""
@@ -309,7 +321,7 @@ class BinnedDataset:
                  n_bins: np.ndarray, n_rows: int, n_features: int,
                  valid_idx: Optional[np.ndarray] = None):
         self.ctx = ctx
-        self.bins = bins                    # [n_pad, d] int32
+        self.bins = bins                    # [n_pad, d] uint8 or int32
         self.thresholds = thresholds        # [d, B-1] float64 host
         self.n_bins = n_bins                # [d] host
         self.max_bins = int(n_bins.max())
@@ -343,13 +355,13 @@ class BinnedDataset:
         thresholds, n_bins = find_splits(sample, max_bins)
         tdt = compute_dtype(getattr(ds.ctx, "conf", None))
         th = torch.as_tensor(thresholds, device=dev).to(tdt)
-        bins = torch.empty(x.shape, dtype=torch.int32, device=dev)
+        bins = bin_storage(x.shape[0], x.shape[1], max_bins, dev)
         for f in range(x.shape[1]):
             # side left: v <= th[b] <=> bin <= b, the raw rule "value <=
             # threshold goes left"
             bins[:, f] = torch.searchsorted(
                 th[f].contiguous(), x[:, f].to(tdt).contiguous(),
-                right=False).to(torch.int32)
+                right=False).to(bins.dtype)
         return cls(ds.ctx, bins, thresholds, n_bins, ds.n_rows,
                    ds.n_features, valid_idx=vi)
 
@@ -398,7 +410,8 @@ def _bootstrap_counts(n_pad: int, valid_idx: np.ndarray,
 
 def _channels(cnt: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
               label: Optional[torch.Tensor], n_classes: int) -> torch.Tensor:
-    """The stat channels [n_pad, T, C] float32 on the device, built from
+    """The stat channels [n_pad, T, C] float32 on the device (stored
+    tree-major: strides (C, n_pad x C, 1)), built from
     the host counts, y and w in float64 with the reference's products and
     rounded once to float32 (its ``chans.astype(np.float32)``): the same
     values. Classification C = 1 + K: the count, then the one-hot label
@@ -406,7 +419,10 @@ def _channels(cnt: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     padding); regression C = 4: the count, w x count, times y, times y²."""
     n_pad, T = cnt.shape
     C = 1 + n_classes if label is not None else 4
-    out = torch.empty((n_pad, T, C), dtype=torch.float32, device=cnt.device)
+    # tree-major in memory: a tree's rows' channels lie together, so the
+    # histogram kernel's gathers of one tree's sorted rows share sectors
+    out = torch.empty((T, n_pad, C), dtype=torch.float32,
+                      device=cnt.device).permute(1, 0, 2)
     for lo in range(0, n_pad, CHANNEL_ROWS):
         c64 = cnt[lo:lo + CHANNEL_ROWS].to(torch.float64)
         ww = w[lo:lo + CHANNEL_ROWS, None] * c64
@@ -582,8 +598,8 @@ def _reassign(bins: torch.Tensor, pos: torch.Tensor, featA: np.ndarray,
     """Every active row's position at the next level (the reference's
     ``reassign_fn``): its node's split feature, bin and child positions
     gathered from the [T, A_pad] tables, its bin of that feature gathered
-    from ``bins``; a row whose node settled becomes -1. A gather, ``chunk_rows``
-    rows at a time; no scatter."""
+    from ``bins`` (uint8 or int32); a row whose node settled becomes -1. A
+    gather, ``chunk_rows`` rows at a time; no scatter."""
     dev = pos.device
     T, A_pad = featA.shape
     d = bins.shape[1]

@@ -51,9 +51,11 @@ padding a batch and serving models as a gang leave a row's bits
 unchanged; its plain twin gives the same bits. And so does ``tree_hist``
 (``csrc/tree_hist.cu``), the decision-tree engine's level histogram (the
 reference's scatter-add ``ml/tree/impl.py:451``, not a Pallas kernel):
-each tree's rows sorted stably by node, then one CTA a piece of a node's
-sorted rows, each lane adding its bins' rows in sorted order, and the
-pieces added in piece order.
+each tree's rows sorted stably by node and cut into pieces on the card,
+then one CTA a (piece, feature block), each lane adding its own rows into
+its own shared-memory copy of the table (or, for the widths whose copies
+do not fit, each lane its bins' rows), and the pieces added in piece
+order.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -95,7 +97,8 @@ lock since lanes launch from their own threads, in
 ``serving_margins.launches`` and ``serving_margins.launches_by_instance``,
 each replay of a bucket's CUDA graph one launch); the tree histogram in
 ``tree_hist.launches``, one a launch of a group of trees (every tree of a
-forest level while rows x trees stay below 2^31).
+forest level while rows x trees stay below 2^31), and by instance in
+``tree_hist.launches_by_instance``.
 """
 
 from __future__ import annotations
@@ -320,8 +323,11 @@ _SIGNATURES = {
         "serving_margins_plan": [_I, _I, _I, _I, _I, _P],
     },
     "tree_hist": {
-        "tree_hist_launch": [_P, _P, _P, _P, _P, _P, _LL, _P, _LL, _LL, _I,
-                             _I, _I, _I, _I, _I, _P, _P, _P],
+        "tree_hist_plan": [_I, _I, _I, _I, _P],
+        "tree_keys_launch": [_P, _I, _I, _LL, _I, _I, _P, _P],
+        "tree_hist_launch": [_P, _I, _LL, _P, _LL, _LL, _P, _P, _LL, _LL, _LL,
+                             _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                             _P],
     },
 }
 
@@ -557,6 +563,7 @@ def reset_launch_counts() -> None:
             serving_instance(dt, q): 0
             for dt in _SERVING_DTYPE_CODE for q in (False, True)}
     tree_hist.launches = 0
+    tree_hist.launches_by_instance = {LANE_A_ROW: 0, LANE_A_BIN: 0}
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -2122,6 +2129,10 @@ TREE_SCRATCH_BYTES = 1 << 30   # the pieces' partial tables, at most (or
 #                                twice the output, where that is more)
 TREE_PLAIN_ELEMS = 1 << 22     # (row, feature, channel) values the plain
 #                                twin adds at a time
+TREE_BIN_DTYPES = (torch.uint8, torch.int32)  # the bins' widths it takes
+# the instances (``tree_hist_plan``): a lane a row into lane-private
+# shared-memory tables, or the first design's lane a bin
+LANE_A_ROW, LANE_A_BIN = "lane_a_row", "lane_a_bin"
 
 
 def tree_hist_plain(bins: torch.Tensor, chans: torch.Tensor,
@@ -2132,9 +2143,9 @@ def tree_hist_plain(bins: torch.Tensor, chans: torch.Tensor,
     i with ``pos[i, t] >= 0`` and each feature f, ``chans[i, t]`` added
     into ``[t, pos[i, t], f, bins[i, f]]``, by ``index_add_`` on the flat
     keys pos·d·B + f·B + bin (the reference's ``hist_fn``,
-    ``ml/tree/impl.py:437-455``). ``bins`` [n, d] int32, ``chans`` [n, T,
-    C], ``pos`` [n, T] int32. On the CPU ``index_add_`` adds in row order;
-    on CUDA in a run-dependent order, so there it is only the twin
+    ``ml/tree/impl.py:437-455``). ``bins`` [n, d] uint8 or int32, ``chans``
+    [n, T, C], ``pos`` [n, T] int32. On the CPU ``index_add_`` adds in row
+    order; on CUDA in a run-dependent order, so there it is only the twin
     :func:`tree_hist` is held against (in float64, the table's truth)."""
     n, d = bins.shape
     T, C = chans.shape[1], chans.shape[2]
@@ -2161,57 +2172,234 @@ def tree_order(keys: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     ``keys`` (m,) int32 sorted stably by key, key j's at
     ``order[offsets[j]:offsets[j + 1]]``; keys outside [0, k) left out.
     Up to :data:`COUNT_MAX_K` keys the center sums' counting sort
-    (:func:`_center_order`), past it ``torch.sort``: the same order, which
-    depends on the keys alone."""
+    (:func:`_center_order`), past it ``torch.sort`` and the offsets by
+    ``searchsorted`` on its sorted keys: the same order, which depends on
+    the keys alone. Neither reads anything back to the host."""
     if k <= COUNT_MAX_K:
         co = _center_order(keys, k)
         return co.order, co.offsets
     k64 = torch.where((keys >= 0) & (keys < k), keys.to(torch.int64),
                       torch.full_like(keys, k, dtype=torch.int64))
-    order = torch.sort(k64, stable=True).indices.to(torch.int32)
-    offsets = torch.zeros(k + 1, dtype=torch.int64, device=keys.device)
-    offsets[1:] = torch.cumsum(torch.bincount(k64, minlength=k + 1)[:k], 0)
-    return order, offsets
+    srt = torch.sort(k64, stable=True)
+    offsets = torch.searchsorted(srt.values, torch.arange(
+        k + 1, device=keys.device, dtype=torch.int64))
+    return srt.indices.to(torch.int32), offsets
 
 
-def tree_pieces(offsets: np.ndarray, dbc: int, out_elems: int):
-    """The pieces of one launch from the keys' sorted offsets (host int64,
-    k + 1): each key's rows cut into pieces of ``piece_rows`` (the least
-    :data:`TREE_PIECE_ROWS` x 2^j whose partial tables of ``dbc`` floats
-    fit :data:`TREE_SCRATCH_BYTES`, or twice the ``out_elems`` output).
-    Returns ``(piece_key int32, piece_first int64, piece_len int32,
-    key_piece (k + 1,) int64, piece_rows)`` as host arrays."""
-    rows = np.diff(offsets)
+def tree_piece_rows(rows: int, n: int, n_keys: int, a_pad: int, dbc: int,
+                    out_elems: int) -> Tuple[int, int, int]:
+    """``(piece_rows, n_windows, max_pieces)`` of a launch over at most
+    ``rows`` sorted rows of ``n_keys`` keys (``n`` rows, ``a_pad`` nodes a
+    tree), from shapes alone: the least :data:`TREE_PIECE_ROWS` x 2^j
+    whose bound on the pieces, ceil(rows / piece_rows) + n_keys x
+    n_windows, times the partial table of ``dbc`` floats fits
+    :data:`TREE_SCRATCH_BYTES` (or twice the ``out_elems`` output), the
+    windows and that bound. A level of one node a tree has one window
+    (each tree's rows are in row order already); past it the rows are cut
+    into windows of piece_rows x a_pad rows, so that the CTAs in flight
+    read the rows of a few windows (``tree_phases.py`` times a deep level
+    with and without them; at level 0 they only make more, smaller
+    pieces)."""
     budget = max(TREE_SCRATCH_BYTES, 8 * out_elems)
     piece_rows = TREE_PIECE_ROWS
     while True:
-        per_key = -(-rows // piece_rows)
-        if int(per_key.sum()) * dbc * 4 <= budget or \
-                piece_rows >= max(int(rows.max(initial=0)), 1):
-            break
+        n_windows = 1 if a_pad == 1 else -(-n // (piece_rows * a_pad))
+        n_windows = max(1, n_windows)
+        bound = -(-rows // piece_rows) + n_keys * n_windows
+        if bound * dbc * 4 <= budget or piece_rows >= rows:
+            return piece_rows, n_windows, bound
         piece_rows *= 2
-    key_piece = np.zeros(len(rows) + 1, dtype=np.int64)
-    np.cumsum(per_key, out=key_piece[1:])
-    n_pieces = int(key_piece[-1])
-    piece_key = np.repeat(np.arange(len(rows), dtype=np.int32), per_key)
-    piece_first = (offsets[:-1][piece_key]
-                   + (np.arange(n_pieces) - key_piece[piece_key]) * piece_rows)
-    piece_len = np.minimum(offsets[1:][piece_key] - piece_first,
-                           piece_rows).astype(np.int32)
-    return piece_key, piece_first, piece_len, key_piece, piece_rows
+
+
+def tree_pieces(order: torch.Tensor, offsets: torch.Tensor, tg: int,
+                a_pad: int, piece_rows: int, n_windows: int,
+                max_pieces: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The piece table of one launch in plain PyTorch, the twin of
+    ``csrc/tree_hist.cu``'s segments, scan and table kernels: the rows cut
+    into ``n_windows`` windows of piece_rows x a_pad rows (one window:
+    every row), each key's
+    sorted rows (``order`` values row x tg + tree, key k's at
+    ``offsets[k]`` ..) in each window into pieces of ``piece_rows``,
+    numbered window by window. Returns ``(seg, table)``: seg (4 S + 1,)
+    int64 (S = n_windows x k segments, i = window x k + key): the
+    segments' first and end sorted positions, their pieces, then their
+    first piece (S + 1); table (3, max_pieces) int64: each piece's key,
+    first sorted position and length (past the real count key k,
+    position 0 and length 0)."""
+    k = offsets.shape[0] - 1
+    S = n_windows * k
+    dev = offsets.device
+    i64 = torch.int64
+    m = order.shape[0] + 1                   # above every order value
+    # each key's values lifted past the earlier keys': one sorted sequence
+    kept = order[:int(offsets[k])].to(i64)
+    lifted = torch.repeat_interleave(torch.arange(k, device=dev),
+                                     torch.diff(offsets)) * m + kept
+    w = torch.arange(n_windows + 1, device=dev, dtype=i64)
+    lim = (w * piece_rows * a_pad * tg).clamp(max=m)
+    if n_windows == 1:                       # one window: every row
+        lim[1] = m
+    bounds = torch.searchsorted(lifted, torch.arange(
+        k, device=dev, dtype=i64)[None, :] * m + lim[:, None])
+    first, end = bounds[:-1].reshape(-1), bounds[1:].reshape(-1)
+    count = (end - first + piece_rows - 1) // piece_rows
+    start = torch.zeros(S + 1, dtype=i64, device=dev)
+    start[1:] = torch.cumsum(count, 0)
+    p = torch.arange(max_pieces, dtype=i64, device=dev)
+    live = p < start[S]
+    i = (torch.searchsorted(start[:S], p, right=True) - 1).clamp(min=0)
+    pf = first[i] + (p - start[i]) * piece_rows
+    zero = torch.zeros_like(p)
+    table = torch.stack([torch.where(live, i % k, torch.full_like(p, k)),
+                         torch.where(live, pf, zero),
+                         torch.where(live, (end[i] - pf).clamp(
+                             max=piece_rows), zero)])
+    return torch.cat([first, end, count, start]), table
+
+
+class TreeLaunch(NamedTuple):
+    """What a launch of ``csrc/tree_hist.cu`` for one group of trees reads
+    beside the data: the (row, tree) pairs sorted stably by key (``order``
+    holds row x trees + tree), the keys' offsets, and from
+    :func:`tree_piece_rows` the piece size, the windows and the bound on
+    the pieces the grid and scratch are sized by."""
+    order: torch.Tensor        # (n x trees,) int32
+    offsets: torch.Tensor      # (n_keys + 1,) int64
+    n_keys: int
+    piece_rows: int
+    n_windows: int
+    max_pieces: int
+
+
+def tree_keys_plain(pos: torch.Tensor, a_pad: int) -> torch.Tensor:
+    """The keys :func:`tree_order` sorts for a launch over ``pos`` [n, tg]
+    int32 in plain PyTorch: tree x a_pad + node in row-major order
+    (row x tg + tree), -1 where a row is out of a tree (pos < 0)."""
+    tg = pos.shape[1]
+    return torch.where(pos >= 0, pos + torch.arange(
+        tg, device=pos.device, dtype=torch.int32) * a_pad, -1).reshape(-1)
+
+
+def tree_keys(pos: torch.Tensor, t0: int, tg: int, a_pad: int
+              ) -> torch.Tensor:
+    """:func:`tree_keys_plain` of ``pos[:, t0:t0 + tg]`` by one launch of
+    ``csrc/tree_hist.cu``'s ``tree_keys_kernel`` (a CUDA ``pos`` [n, T]
+    int32, contiguous); on a CPU tensor the plain version."""
+    if pos.device.type == "cpu":
+        return tree_keys_plain(pos[:, t0:t0 + tg], a_pad)
+    n, T = pos.shape
+    keys = torch.empty(n * tg, dtype=torch.int32, device=pos.device)
+    with torch.cuda.device(pos.device):
+        _cuda_check(_library("tree_hist").tree_keys_launch(
+            pos.data_ptr(), T, t0, n, tg, a_pad, keys.data_ptr(),
+            torch.cuda.current_stream(pos.device).cuda_stream),
+            "tree_keys launch")
+    return keys
+
+
+def tree_launch_inputs(pos: torch.Tensor, t0: int, tg: int, a_pad: int,
+                       dbc: int) -> TreeLaunch:
+    """The sort and the piece sizes of one launch over trees t0 .. t0 +
+    tg - 1 of ``pos`` [n, T] (-1 for a row out of a tree), keys tree x
+    a_pad + node in row-major order (:func:`tree_keys`), for partial
+    tables of ``dbc`` floats; nothing read back to the host."""
+    n = pos.shape[0]
+    k = tg * a_pad
+    order, offsets = tree_order(tree_keys(pos, t0, tg, a_pad), k)
+    return TreeLaunch(order, offsets, k, *tree_piece_rows(
+        n * tg, n, k, a_pad, dbc, k * dbc))
+
+
+def tree_launch_scratch(lp: TreeLaunch, dbc: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(seg, table, partial)``, the scratch of a launch: the segments
+    (4 x n_windows x n_keys + 1 int64), the piece table (3 x max_pieces
+    int64) and the pieces' partial tables (max_pieces x ``dbc`` floats)."""
+    dev = lp.order.device
+    return (torch.empty(4 * lp.n_windows * lp.n_keys + 1, dtype=torch.int64,
+                        device=dev),
+            torch.empty(3 * lp.max_pieces, dtype=torch.int64, device=dev),
+            torch.empty(lp.max_pieces * dbc, dtype=torch.float32,
+                        device=dev))
+
+
+def _tree_launch(bins: torch.Tensor, chans: torch.Tensor, lp: TreeLaunch,
+                 t0: int, a_pad: int, n_bins: int, scratch, out: torch.Tensor,
+                 stages: int = 7) -> None:
+    """One call of ``tree_hist_launch`` for trees t0 .. of ``lp`` with
+    ``scratch`` (:func:`tree_launch_scratch`): ``stages`` bit 1 the
+    segments and the piece table, bit 2 the pieces, bit 4 the reduce into
+    ``out`` (a stage reads what the earlier ones left)."""
+    d = bins.shape[1]
+    dev = bins.device
+    seg, table, partial = scratch
+    with torch.cuda.device(dev):
+        _cuda_check(_library("tree_hist").tree_hist_launch(
+            bins.data_ptr(), bins.element_size(), bins.stride(0),
+            chans.data_ptr(), chans.stride(0), chans.stride(1),
+            lp.order.data_ptr(), lp.offsets.data_ptr(), lp.n_keys,
+            lp.piece_rows, lp.n_windows, lp.max_pieces, d, n_bins,
+            chans.shape[2], t0, a_pad, seg.data_ptr(), table.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), stages,
+            torch.cuda.current_stream(dev).cuda_stream), "tree_hist launch")
+
+
+# the instance by (device, n_bins, C, d, bin bytes): the plan is asked of
+# the built library once
+_TREE_PLANS: Dict[tuple, Dict[str, int]] = {}
+
+
+def tree_hist_plan(n_bins: int, C: int, d: int,
+                   bin_dtype: torch.dtype = torch.uint8,
+                   device=None) -> Dict[str, int]:
+    """The instance a CUDA launch takes for ``n_bins`` bins, ``C``
+    channels, ``d`` features and bins of ``bin_dtype`` (asks the built
+    library; on ``device``, the current CUDA device by default):
+    ``instance`` :data:`LANE_A_ROW` where C <= 16 and one feature's lane
+    copies (a feature pair's 32 slots a cell) and doubles (n_bins x C x
+    136 bytes) fit a CTA's shared memory with its staging, else
+    :data:`LANE_A_BIN`; its features a CTA and
+    feature blocks, threads, dynamic shared memory, CTAs resident on one
+    SM and ``variant`` (channels of the lane-a-row instance: 3 or 4
+    exactly, else up to 16; bins a lane a pass of the lane-a-bin one)."""
+    if bin_dtype not in TREE_BIN_DTYPES:
+        raise ValueError(f"tree_hist: bins must be uint8 or int32, got "
+                         f"{bin_dtype}")
+    with torch.cuda.device(device if device is not None
+                           else torch.cuda.current_device()):
+        key = (torch.cuda.current_device(), n_bins, C, d, bin_dtype)
+        plan = _TREE_PLANS.get(key)
+        if plan is None:
+            raw = (ctypes.c_int * 7)()
+            _cuda_check(_library("tree_hist").tree_hist_plan(
+                n_bins, C, d, 1 if bin_dtype == torch.uint8 else 4, raw),
+                "tree_hist plan")
+            plan = _TREE_PLANS[key] = dict(zip(
+                ("instance", "features", "feature_blocks", "threads",
+                 "smem_bytes", "ctas_per_sm", "variant"), raw))
+            plan["instance"] = LANE_A_ROW if plan["instance"] else LANE_A_BIN
+    return plan
 
 
 def tree_hist(bins: torch.Tensor, chans: torch.Tensor, pos: torch.Tensor,
               a_pad: int, n_bins: int) -> torch.Tensor:
     """The level histogram of :func:`tree_hist_plain`. A CPU tensor runs
     the plain twin; a CUDA tensor launches ``csrc/tree_hist.cu`` or raises:
-    each tree's rows sorted stably by node (:func:`tree_order`), one CTA a
-    piece of a node's sorted rows adding them in sorted order (in float
-    over blocks of 128 rows, the blocks in double), the pieces in piece
-    order in double, each rounded once to float32, no float atomics, so
-    two calls on the same inputs are bitwise equal. Trees go to a launch while rows x trees stay below
-    2^31 (the order's int32), each launch counted in
-    ``tree_hist.launches``."""
+    each tree's rows sorted stably by node (:func:`tree_order`), cut into
+    pieces on the card (:func:`tree_piece_rows`; the twin of its table:
+    :func:`tree_pieces`), one CTA a (piece, feature block) adding them in
+    sorted order (lane l of a half warp rows l, l + 16, ... into its own
+    shared-memory copy of its feature's table, in float over blocks of
+    2,048 rows, the 16 lane copies added into a double), each key's pieces
+    in window and piece order in double, each cell rounded once to
+    float32, no float atomics, so two calls on the same inputs are bitwise
+    equal. Reads nothing back to the host. ``bins`` uint8 or int32 with
+    contiguous rows; uint8 rows must start on 4-byte boundaries
+    (``impl.bin_storage`` pads them), else it raises. Trees go to a
+    launch while rows x trees stay below 2^31 (the order's int32), each
+    launch counted in
+    ``tree_hist.launches`` and by instance (:func:`tree_hist_plan`) in
+    ``tree_hist.launches_by_instance``."""
     if bins.device.type == "cpu":
         return tree_hist_plain(bins, chans, pos, a_pad, n_bins)
     if bins.device.type != "cuda":
@@ -2222,46 +2410,37 @@ def tree_hist(bins: torch.Tensor, chans: torch.Tensor, pos: torch.Tensor,
         raise ValueError(f"tree_hist: bins {tuple(bins.shape)}, chans "
                          f"{tuple(chans.shape)} and pos {tuple(pos.shape)} "
                          "do not match")
-    if bins.dtype != torch.int32 or chans.dtype != torch.float32 or \
-            pos.dtype != torch.int32:
-        raise ValueError("tree_hist: bins and pos must be int32 and chans "
-                         f"float32; got {bins.dtype}, {chans.dtype}, "
-                         f"{pos.dtype}")
-    if not (bins.is_contiguous() and chans.is_contiguous()):
-        raise ValueError("tree_hist: bins and chans must be contiguous")
+    if bins.dtype not in TREE_BIN_DTYPES or chans.dtype != torch.float32 \
+            or pos.dtype != torch.int32:
+        raise ValueError("tree_hist: bins must be uint8 or int32, pos int32 "
+                         f"and chans float32; got {bins.dtype}, "
+                         f"{chans.dtype}, {pos.dtype}")
+    if bins.stride(1) != 1 or chans.stride(2) != 1:
+        raise ValueError("tree_hist: bins' rows and each (row, tree)'s "
+                         "channels must be contiguous")
     if a_pad < 1 or n_bins < 1:
         raise ValueError(f"tree_hist: a_pad {a_pad} and n_bins {n_bins} "
                          "must be positive")
+    if (bins.stride(0) * bins.element_size()) % 4 or bins.data_ptr() % 4:
+        raise ValueError("tree_hist: the kernel copies bins in 4-byte "
+                         "words, so each row must start on a 4-byte "
+                         "boundary; store uint8 bins through "
+                         "ml.tree.impl.bin_storage, which pads the rows")
     T, C = chans.shape[1], chans.shape[2]
     dev = bins.device
     dbc = d * n_bins * C
     out = torch.empty((T, a_pad, d, n_bins, C), dtype=torch.float32,
                       device=dev)
     group = max(1, (2 ** 31 - 1) // max(n, 1))
-    lib = _library("tree_hist")
+    instance = tree_hist_plan(n_bins, C, d, bins.dtype, dev)["instance"]
+    pos = pos.contiguous()
     for t0 in range(0, T, group):
         tg = min(group, T - t0)
-        p = pos[:, t0:t0 + tg]
-        keys = torch.where(p >= 0, p + torch.arange(
-            tg, device=dev, dtype=torch.int32) * a_pad,
-            torch.full_like(p, -1)).T.contiguous().view(-1)
-        order, offsets = tree_order(keys, tg * a_pad)
-        del keys
-        pk, pf, pl, kp, _ = tree_pieces(offsets.cpu().numpy(), dbc,
-                                        tg * a_pad * dbc)
-        if len(pk) >= 2 ** 31:
-            raise ValueError(f"tree_hist: {len(pk)} pieces exceed a grid")
-        tabs = [torch.from_numpy(a).to(dev) for a in (pk, pf, pl, kp)]
-        partial = torch.empty(len(pk) * dbc, dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            _cuda_check(lib.tree_hist_launch(
-                bins.data_ptr(), chans.data_ptr(), order.data_ptr(),
-                tabs[0].data_ptr(), tabs[1].data_ptr(), tabs[2].data_ptr(),
-                len(pk), tabs[3].data_ptr(), tg * a_pad, n, d, n_bins, C, T,
-                t0, a_pad, partial.data_ptr(), out[t0:t0 + tg].data_ptr(),
-                stream), "tree_hist launch")
+        lp = tree_launch_inputs(pos, t0, tg, a_pad, dbc)
+        _tree_launch(bins, chans, lp, t0, a_pad, n_bins,
+                     tree_launch_scratch(lp, dbc), out[t0:t0 + tg])
         tree_hist.launches += 1
+        tree_hist.launches_by_instance[instance] += 1
     return out
 
 

@@ -17,18 +17,25 @@ package's, on the same seeded numpy inputs.
   (``tests/test_oocore.py::test_chunked_dataset_trains_tree_mlp_svc``)
   for the DecisionTree.
 - ``kernels.tree_hist_plain`` against a float64 numpy sum of the same
-  table; the reference's ``hist_fn`` is a closure inside ``grow_forest``,
-  so it is held through the tree parity above.
+  table, on int32 and one-byte bins; the reference's ``hist_fn`` is a
+  closure inside ``grow_forest``, so it is held through the tree parity
+  above. One-byte bins against int32 bins and the reference's binning;
+  the piece table built by torch ops against a numpy build; a numpy model
+  of the kernel's summation order against its error bound.
 - A forest of the reference carried across by ``interop`` and a model the
   reference saved both predict as the reference does.
 
 The ``gpu`` tests hold ``kernels.tree_hist`` (``csrc/tree_hist.cu``)
-against its plain twin on the card over maxBins 2, 32, 33 and 256, 1 and
-20 trees, 2 and 10 classes, regression channels, an odd d and rows at
-position -1 (against the twin in float64: counts exactly, sums within 129
-float roundings; two launches bitwise equal), and fits through it (launches counted, refits bitwise equal, the
-plain route's classification trees equal). The card's machine has no jax,
-so the reference is imported inside the tests that use it:
+against its plain twin on the card over maxBins 2 to 257 on one-byte and
+int32 bins, 1 and 20 trees, 2 and 10 classes, regression channels, an odd
+d and rows at position -1, both instances (against the twin in float64:
+counts exactly, sums within 129 float roundings; two launches bitwise
+equal); one-byte bins against int32 bins bitwise; a cell against the numpy
+model of the summation order bitwise; a call under
+``torch.cuda.set_sync_debug_mode("error")``; and fits through it (launches
+counted, refits bitwise equal, the plain route's classification trees
+equal). The card's machine has no jax, so the reference is imported
+inside the tests that use it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_trees.py
 """
@@ -459,6 +466,98 @@ def test_binning_matches_reference(ctx, pctx):
         got.bins[:3000].numpy(), np.asarray(ref.bins)[ref.valid_idx])
 
 
+@pytest.mark.parametrize("max_bins", [32, 256])
+def test_one_byte_bins_equal_the_int32_bins(ctx, pctx, monkeypatch,
+                                           max_bins):
+    """Bins are stored as uint8 up to maxBins 256 (rows padded to 4
+    bytes): value for value the int32 bins of the same binning, and the
+    reference's."""
+    from cycloneml_tpu.dataset.dataset import InstanceDataset as RDataset
+    from cycloneml_tpu.ml.tree import BinnedDataset as RBinned
+    rng = np.random.RandomState(22)
+    x = np.round(rng.randn(2000, 7) * 3, 2)
+    ds = InstanceDataset.from_numpy(pctx, x)
+    got = impl.BinnedDataset.from_instance_dataset(ds, max_bins, 5,
+                                                   sample_cap=1500)
+    assert got.bins.dtype == torch.uint8 and got.bins.shape == (2000, 7)
+    assert got.bins.stride() == (8, 1)
+    monkeypatch.setattr(impl, "bin_storage", lambda n, d, mb, dev: torch.empty(
+        (n, d), dtype=torch.int32, device=dev))
+    wide = impl.BinnedDataset.from_instance_dataset(ds, max_bins, 5,
+                                                    sample_cap=1500)
+    assert wide.bins.dtype == torch.int32
+    np.testing.assert_array_equal(got.bins.numpy(), wide.bins.numpy())
+    ref = RBinned.from_instance_dataset(RDataset.from_numpy(ctx, x),
+                                        max_bins, 5, sample_cap=1500)
+    np.testing.assert_array_equal(got.bins.numpy(),
+                                  np.asarray(ref.bins)[ref.valid_idx])
+    # either width through the engine's other readers
+    pos = torch.from_numpy(rng.randint(-1, 4, (2000, 3)).astype(np.int32))
+    tabs = [rng.randint(-1, 7, (3, 4)).astype(np.int32),
+            rng.randint(0, max_bins, (3, 4)).astype(np.int32),
+            rng.randint(0, 8, (3, 4)).astype(np.int32),
+            rng.randint(0, 8, (3, 4)).astype(np.int32)]
+    assert torch.equal(impl._reassign(got.bins, pos, *tabs),
+                       impl._reassign(wide.bins, pos, *tabs))
+    from cycloneml_tpu_torch.ml.classification.trees import _unbin
+    np.testing.assert_array_equal(_unbin(got), _unbin(wide))
+
+
+def test_past_256_bins_are_int32(pctx):
+    rng = np.random.RandomState(23)
+    ds = InstanceDataset.from_numpy(pctx, rng.randn(3000, 3))
+    binned = impl.BinnedDataset.from_instance_dataset(ds, 300, 5)
+    assert binned.bins.dtype == torch.int32 and binned.max_bins > 256
+
+
+def _lane_row_sum(vals, cell=0, half=0, piece_rows=kernels.TREE_PIECE_ROWS,
+                  flush_rows=128):
+    """The lane-a-row instance's order for one cell whose rows are all
+    ``vals`` (float32, sorted order), in numpy: the feature's 16 lane
+    copies (slots 16 half .. 16 half + 15 of the cell's 32) and each
+    piece's blocks of 16 x flush_rows rows, lane l summing rows l, l + 16,
+    ... in float32; at a block's end the lane partials added into the
+    piece's double four slots at a time, groups q = (cell + g) mod 8 for
+    g = 0 .. 7 (slots 4q .. 4q + 3) that are the feature's; the piece
+    rounded to float32; the pieces added in double, rounded once to
+    float32."""
+    total = 0.0
+    block = 16 * flush_rows
+    slots = [4 * q + r - 16 * half for q in ((cell + g) % 8 for g in range(8))
+             if q // 4 == half for r in range(4)]
+    for p0 in range(0, len(vals), piece_rows):
+        piece = vals[p0:p0 + piece_rows]
+        acc = 0.0
+        for b0 in range(0, len(piece), block):
+            blk = piece[b0:b0 + block]
+            rows = np.zeros(block, dtype=np.float32)
+            rows[:len(blk)] = blk
+            lanes = np.zeros(16, dtype=np.float32)
+            for r in rows.reshape(flush_rows, 16):  # float32, row by row
+                lanes = lanes + r
+            for s in slots:
+                acc += float(lanes[s])
+        total += float(np.float32(acc))
+    return np.float32(total)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lane_row_order_stays_within_its_bound(seed):
+    """Thousands of GBT-like residuals in one bin (a node of bf16-valued
+    features puts them there): the kernel's order stays within
+    (kFlushRows + 1) float roundings of the float64 sum, relative to the
+    magnitudes, where a float32 running sum need not."""
+    rng = np.random.RandomState(seed)
+    n = 30_011
+    p = 1.0 / (1.0 + np.exp(-rng.randn(n)))
+    vals = ((rng.rand(n) < 0.5) - p).astype(np.float32)
+    exact = vals.astype(np.float64).sum()
+    mag = np.abs(vals.astype(np.float64)).sum()
+    for cell, half in ((0, 0), (17, 0), (5, 1), (40, 1)):
+        got = _lane_row_sum(vals, cell=cell, half=half)
+        assert abs(float(got) - exact) <= 129 * 2.0 ** -24 * mag
+
+
 # -- the histogram's plain twin -------------------------------------------------
 
 def _hist_inputs(n, d, T, C, B, a_pad, seed, dead=0.2):
@@ -493,6 +592,11 @@ def test_tree_hist_plain_matches_float64(n, d, T, C, B, a_pad):
     truth = _hist_numpy(bins, chans, pos, a_pad, B)
     np.testing.assert_array_equal(got.numpy()[..., 0], truth[..., 0])
     np.testing.assert_allclose(got.numpy(), truth, rtol=1e-5, atol=1e-5)
+    # one-byte bins: the same table, bit for bit
+    narrow = kernels.tree_hist_plain(torch.from_numpy(bins.astype(np.uint8)),
+                                     torch.from_numpy(chans),
+                                     torch.from_numpy(pos), a_pad, B)
+    assert torch.equal(narrow, got)
     # the wrapper on CPU tensors is the twin, and launches nothing
     kernels.reset_launch_counts()
     again = kernels.tree_hist(torch.from_numpy(bins), torch.from_numpy(chans),
@@ -500,24 +604,119 @@ def test_tree_hist_plain_matches_float64(n, d, T, C, B, a_pad):
     assert torch.equal(again, got) and kernels.tree_hist.launches == 0
 
 
+def _pieces_numpy(order, offsets, tg, a_pad, piece_rows, n_windows):
+    """The yardstick of the piece table, in numpy loops: window by window
+    (piece_rows x a_pad rows each; one window: every row), key by key,
+    the key's sorted rows
+    whose row (``order`` value // tg) falls in the window, cut in order
+    into pieces of ``piece_rows``; each piece's (key, first, length)."""
+    window = piece_rows * a_pad if n_windows > 1 else 2 ** 62
+    out = []
+    for w in range(n_windows):
+        for k in range(len(offsets) - 1):
+            pos = [i for i in range(offsets[k], offsets[k + 1])
+                   if w * window <= order[i] // tg < (w + 1) * window]
+            for j in range(0, len(pos), piece_rows):
+                out.append((k, pos[j], len(pos[j:j + piece_rows])))
+    return out
+
+
+def _piece_inputs(case, n=5000, tg=3, a_pad=4, seed=4):
+    """The sort of random positions (some rows out of a tree), every row
+    at one node, or no rows at all."""
+    rng = np.random.RandomState(seed)
+    pos = rng.randint(-1, a_pad, size=(n, tg)).astype(np.int32)
+    if case == "one_key":
+        pos[:] = -1
+        pos[:, 1] = 2
+    elif case == "no_rows":
+        pos[:] = -1
+    elif case == "empty_keys":
+        pos[pos == 1] = -1
+    p = torch.from_numpy(pos)
+    order, offsets = kernels.tree_order(kernels.tree_keys(p, 0, tg, a_pad),
+                                        tg * a_pad)
+    return order, offsets
+
+
+PIECE_CASES = ["random", "empty_keys", "one_key", "no_rows"]
+
+
+@pytest.mark.parametrize("windows", ["many", "one"])
+@pytest.mark.parametrize("case", PIECE_CASES)
+def test_tree_pieces_on_the_card_equal_the_numpy_table(case, windows):
+    """The piece table the card builds (its torch twin here) equals the
+    numpy loops: windows of piece_rows x a_pad rows in order (or one of
+    every row), in each the keys' sorted rows cut into pieces; past the
+    real count every piece is empty; each key's pieces cover its rows in
+    order."""
+    tg, a_pad, piece_rows = 3, 4, 64
+    order, offsets = _piece_inputs(case, tg=tg, a_pad=a_pad)
+    k = tg * a_pad
+    n_windows = -(-5000 // (piece_rows * a_pad)) if windows == "many" else 1
+    bound = -(-5000 * tg // piece_rows) + k * n_windows
+    seg, table = kernels.tree_pieces(order, offsets, tg, a_pad, piece_rows,
+                                     n_windows, bound)
+    want = _pieces_numpy(order.numpy(), offsets.numpy(), tg, a_pad,
+                         piece_rows, n_windows)
+    n = len(want)
+    assert int(seg[-1]) == n <= bound
+    np.testing.assert_array_equal(table[:, :n].T.numpy(),
+                                  np.array(want, dtype=np.int64).reshape(n, 3))
+    assert (table[0, n:] == k).all() and (table[1:, n:] == 0).all()
+    for key in range(k):
+        mine = [(int(f), int(m)) for kk, f, m in table[:, :n].T.tolist()
+                if kk == key for _ in [0]]
+        covered = sorted(i for f, m in mine for i in range(f, f + m))
+        assert covered == list(range(int(offsets[key]),
+                                     int(offsets[key + 1])))
+
+
 def test_tree_pieces_cover_every_key_in_order():
     """The pieces of a launch: each key's sorted rows cut in order into
-    pieces of at most piece_rows, a key with no rows has none, and the
-    piece size grows until the partial tables fit the budget."""
-    offsets = np.array([0, 0, 5, 20_000, 20_001], dtype=np.int64)
-    pk, pf, pl, kp, rows = kernels.tree_pieces(offsets, dbc=10,
-                                               out_elems=40)
-    assert rows == kernels.TREE_PIECE_ROWS
-    assert list(kp) == [0, 0, 1, 1 + -(-19_995 // rows), len(pk)]
+    pieces of at most piece_rows (a key with no rows has none), the
+    entries past the real count empty; the piece size and windows from
+    shapes alone, the size doubled until the bound on the pieces fits the
+    budget."""
+    pos = np.full((20_001, 1), 2, dtype=np.int32)
+    pos[[3, 700, 9000, 15_000, 20_000], 0] = 1
+    pos[12_345, 0] = 3
+    p = torch.from_numpy(pos)
+    order, offsets = kernels.tree_order(kernels.tree_keys(p, 0, 1, 4), 4)
+    assert offsets.tolist() == [0, 0, 5, 20_000, 20_001]
+    rows, windows, bound = kernels.tree_piece_rows(20_001, 20_001, 4, 4,
+                                                   dbc=10, out_elems=40)
+    assert rows == kernels.TREE_PIECE_ROWS and windows == 1
+    assert bound == -(-20_001 // rows) + 4
+    seg, table = kernels.tree_pieces(order, offsets, 1, 4, rows, windows,
+                                     bound)
+    n = int(seg[-1])
+    assert n == 1 + -(-19_995 // rows) + 1
     for key in range(4):
-        got = [(int(pf[p]), int(pl[p])) for p in range(kp[key], kp[key + 1])]
+        got = [(f, m) for k, f, m in table[:, :n].T.tolist() if k == key]
+        assert all(m <= rows for _, m in got)
         covered = [i for f, m in got for i in range(f, f + m)]
         assert covered == list(range(offsets[key], offsets[key + 1]))
-        assert all(int(pk[p]) == key for p in range(kp[key], kp[key + 1]))
-    # a budget of one table a key forces whole keys
-    big = kernels.tree_pieces(offsets, dbc=kernels.TREE_SCRATCH_BYTES // 12,
-                              out_elems=1)
-    assert big[4] >= 19_995 and len(big[0]) == 3
+    assert table[2, n:].tolist() == [0] * (bound - n)
+    # a budget of about one table a key forces pieces of whole keys
+    big, windows, n_big = kernels.tree_piece_rows(
+        20_001, 20_001, 4, 1, dbc=kernels.TREE_SCRATCH_BYTES // 20,
+        out_elems=1)
+    assert big >= 20_001 and windows == 1 and n_big == 5
+
+
+def test_tree_keys_are_row_major_and_sort_each_node_in_row_order():
+    """The sort's keys: tree x a_pad + node at row x trees + tree, -1 out
+    of a tree; sorted stably, each (tree, node)'s rows come in row order."""
+    pos = np.array([[0, -1, 1], [1, 0, -1], [0, 0, 1]], dtype=np.int32)
+    keys = kernels.tree_keys(torch.from_numpy(pos), 0, 3, 2)
+    assert keys.tolist() == [0, -1, 5, 1, 2, -1, 0, 2, 5]
+    assert torch.equal(kernels.tree_keys(torch.from_numpy(pos), 1, 2, 2),
+                       kernels.tree_keys_plain(torch.from_numpy(pos[:, 1:]),
+                                               2))
+    order, offsets = kernels.tree_order(keys, 6)
+    assert offsets.tolist() == [0, 2, 3, 5, 5, 5, 7]
+    assert order[:7].tolist() == [0, 6, 3, 4, 7, 2, 8]
 
 
 def test_tree_order_is_the_stable_sort_past_the_counting_keys():
@@ -617,35 +816,159 @@ def _cuda_context(**conf):
     return CycloneContext(c)
 
 
-def _cuda_hist_check(n, d, T, C, B, a_pad, seed, dead=0.2):
+def _cuda_hist_check(n, d, T, C, B, a_pad, seed, dead=0.2,
+                     dtype=torch.int32):
+    """The kernel against its twin in float64 (counts exactly, sums within
+    129 float roundings), twice bitwise; returns the table and the
+    instance it took."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     bins, chans, pos = _hist_inputs(n, d, T, C, B, a_pad, seed, dead)
     dev = torch.device("cuda")
-    b, c, p = (torch.from_numpy(a).to(dev) for a in (bins, chans, pos))
+    b = torch.from_numpy(bins).to(dev).to(dtype)
+    c, p = (torch.from_numpy(a).to(dev) for a in (chans, pos))
     kernels.reset_launch_counts()
     got = kernels.tree_hist(b, c, p, a_pad, B)
     again = kernels.tree_hist(b, c, p, a_pad, B)
     torch.cuda.synchronize()
     assert kernels.tree_hist.launches == 2
+    instance = kernels.tree_hist_plan(B, C, d, dtype)["instance"]
+    assert kernels.tree_hist.launches_by_instance[instance] == 2
     # the twin in float64 (the channels upcast exactly) is the table's
-    # truth; the kernel sums blocks of 128 rows in float and the rest in
-    # double, so it stays within 129 float roundings of it (the channels
-    # here are nonnegative: relative to the cell itself)
+    # truth; the kernel sums blocks of 128 rows a lane in float and the
+    # rest in double, so it stays within 129 float roundings of it (the
+    # channels here are nonnegative: relative to the cell itself)
     twin = kernels.tree_hist_plain(b, c.double(), p, a_pad, B)
     g, tw = got.double().cpu().numpy(), twin.cpu().numpy()
     np.testing.assert_array_equal(g[..., 0], tw[..., 0])
     np.testing.assert_allclose(g, tw, rtol=129 * 2.0 ** -24, atol=1e-30)
     assert torch.equal(got, again)
+    return got, instance
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [2, 32, 33, 256])
-@pytest.mark.parametrize("T,C", [(1, 3), (20, 3), (4, 11), (3, 4)])
-def test_cuda_tree_hist_matches_its_twin(B, T, C):
-    """maxBins 2, 32, 33 and 256; 1 and 20 trees; 2 and 10 classes (C = 3,
-    11); regression channels (C = 4); d = 7 (a ragged feature block)."""
-    _cuda_hist_check(50_021, 7, T, C, B, 8, seed=B + T)
+@pytest.mark.parametrize("B", [2, 32, 33, 64, 255, 256, 257])
+@pytest.mark.parametrize("T", [1, 20])
+@pytest.mark.parametrize("C", [3, 4, 11])
+@pytest.mark.parametrize("width", ["uint8", "int32"])
+def test_cuda_tree_hist_matches_its_twin(B, T, C, width):
+    """maxBins 2 to 257 on one-byte and int32 bins (one byte up to 256);
+    1 and 20 trees; 2 and 10 classes (C = 3, 11); regression channels (C =
+    4); d = 7 (a ragged feature block). B = 255-257 at C = 11 take the
+    lane-a-bin instance (one feature's lane copies past an H100's 227 KB
+    of shared memory a CTA), the rest the lane-a-row one."""
+    if width == "uint8" and B > 256:
+        pytest.skip("one-byte bins hold at most 256 bins")
+    dtype = torch.uint8 if width == "uint8" else torch.int32
+    _, instance = _cuda_hist_check(20_011 if T > 1 else 50_021, 7, T, C, B,
+                                   8, seed=B + T, dtype=dtype)
+    wide = B * C * 136 + 2 * 256 * (1 + (C | 1)) * 4 > 232_448
+    assert instance == (kernels.LANE_A_BIN if wide else kernels.LANE_A_ROW)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C", [(32, 3), (256, 4), (256, 11), (64, 11)])
+def test_cuda_one_byte_bins_give_the_int32_bits(B, C):
+    """The kernel on uint8 bins (rows padded to 4 bytes) equals the kernel
+    on int32 bins bitwise, in either instance; a contiguous 7-wide uint8
+    tensor, whose rows its 4-byte copies cannot start on, raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bins, chans, pos = _hist_inputs(60_013, 7, 3, C, B, 16, seed=C)
+    dev = torch.device("cuda")
+    c, p = (torch.from_numpy(a).to(dev) for a in (chans, pos))
+    wide = kernels.tree_hist(torch.from_numpy(bins).to(dev), c, p, 16, B)
+    padded = torch.zeros((60_013, 8), dtype=torch.uint8, device=dev)
+    padded[:, :7] = torch.from_numpy(bins.astype(np.uint8)).to(dev)
+    assert torch.equal(kernels.tree_hist(padded[:, :7], c, p, 16, B), wide)
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        kernels.tree_hist(padded[:, :7].contiguous(), c, p, 16, B)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windows", [-(-50_000 // 512), 1])
+@pytest.mark.parametrize("case", PIECE_CASES)
+def test_cuda_piece_table_is_its_twins(case, windows):
+    """The segments and the piece table the kernels build on the card
+    equal their torch twin, past the real count too, in windows of 512
+    rows and in one window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    order, offsets = (t.to(dev) for t in _piece_inputs(case, n=50_000,
+                                                        a_pad=8))
+    lp = kernels.TreeLaunch(order, offsets, 24, 64, windows,
+                            -(-150_000 // 64) + 24 * windows)
+    scratch = kernels.tree_launch_scratch(lp, 3)
+    empty = torch.empty(1, device=dev)
+    kernels._tree_launch(torch.zeros((1, 4), dtype=torch.uint8, device=dev),
+                         torch.zeros((1, 1, 3), device=dev), lp, 0, 8, 32,
+                         scratch, empty, stages=1)
+    seg, table = kernels.tree_pieces(order, offsets, 3, 8, 64, lp.n_windows,
+                                     lp.max_pieces)
+    assert torch.equal(scratch[0], seg)
+    assert torch.equal(scratch[1].view(3, -1), table)
+
+
+@pytest.mark.gpu
+def test_cuda_tree_keys_are_the_plain_keys():
+    """``tree_keys_kernel`` gives the plain keys, row-major, for a group of
+    trees inside a forest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, _, pos = _hist_inputs(30_011, 3, 20, 3, 8, 64, seed=5)
+    p = torch.from_numpy(pos).to("cuda")
+    got = kernels.tree_keys(p, 3, 11, 64)
+    assert torch.equal(got, kernels.tree_keys_plain(p[:, 3:14], 64))
+
+
+@pytest.mark.gpu
+def test_cuda_tree_hist_reads_nothing_back():
+    """No host synchronisation inside tree_hist: the piece table is built
+    on the card, at a DecisionTree's and a deep forest level, and past the
+    counting sort's keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    for T, a_pad in ((1, 1), (20, 32), (2, 4096)):
+        bins, chans, pos = _hist_inputs(100_003, 28, T, 3, 32, a_pad, seed=T)
+        b = torch.from_numpy(bins.astype(np.uint8)).to(dev)
+        c, p = (torch.from_numpy(a).to(dev) for a in (chans, pos))
+        kernels.tree_hist(b, c, p, a_pad, 32)  # built and planned first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = kernels.tree_hist(b, c, p, a_pad, 32)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_cuda_tree_hist_sums_in_the_modelled_order():
+    """One key's 50,021 rows in one bin: each cell is, bit for bit, the
+    numpy model of the lane-a-row order (pieces of 8,192 rows, blocks of
+    2,048, 16 lanes a feature in float32, the lane partials in the order
+    of groups of four slots (cell + g) mod 8 in double), for both features
+    of a pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(9)
+    n, C = 50_021, 4
+    p = 1.0 / (1.0 + np.exp(-rng.randn(n)))
+    chans = ((rng.rand(n, 1, C) < 0.5) - p[:, None, None]).astype(np.float32)
+    dev = torch.device("cuda")
+    b = torch.zeros((n, 4), dtype=torch.uint8, device=dev)[:, :2]
+    b[:, 1] = 1
+    got = kernels.tree_hist(b, torch.from_numpy(chans).to(dev),
+                            torch.zeros((n, 1), dtype=torch.int32,
+                                        device=dev), 1, 2).cpu().numpy()
+    assert kernels.tree_hist_plan(2, C, 2)["instance"] == kernels.LANE_A_ROW
+    for f in range(2):  # feature f's rows all in bin f: cell f x C + c
+        for c in range(C):
+            assert got[0, 0, f, f, c] == _lane_row_sum(
+                chans[:, 0, c], cell=f * C + c, half=f)
+            assert got[0, 0, f, 1 - f, c] == 0.0
 
 
 @pytest.mark.gpu
@@ -656,7 +979,8 @@ def test_cuda_tree_hist_shapes(n, d, a_pad, dead):
     """One node holding every row (many pieces of one key), deep levels
     past the counting sort's keys, d past one feature block, every row at
     -1."""
-    _cuda_hist_check(n, d, 2, 3, 32, a_pad, seed=d, dead=dead)
+    _cuda_hist_check(n, d, 2, 3, 32, a_pad, seed=d, dead=dead,
+                     dtype=torch.uint8)
 
 
 @pytest.mark.gpu
