@@ -489,7 +489,47 @@ the final result line:
 62. AFTSurvivalRegression at 1,000,000 x 10 against its float64 fit
    (coefficients within 1e-2, bf16 X) and IsotonicRegression at
    1,000,000 rows held to the isotonic fit's characterization;
-63. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
+63. GraphX's PageRank through ``segment_reduce`` (``csrc/
+   segment_reduce.cu``) on an R-MAT graph drawn on the card with Spark's
+   rmatGraph quadrant probabilities (0.45, 0.15, 0.15, 0.25): 2^22
+   vertices and 68,993,773 distinct edges (SNAP soc-LiveJournal1's edge
+   count); the graph's build (both orders and their piece tables), 20
+   supersteps with segment_reduce launched once each and once for the
+   degrees (counts zeroed just before, read just after), their kernel
+   device time by CUDA events beside the messages' gather; the ranks
+   within rtol 1e-5 of the float64 plain route's, two runs bitwise equal,
+   the personalized form likewise; the kernel at PageRank's messages
+   against its float64 plain version (one float rounding), its ms, the
+   piece table's, the bytes bound, ``index_add_`` and
+   ``torch.segment_reduce`` on the same inputs, and the longest segment
+   alone;
+64. connected components and shortest paths (4 landmarks) on phase 63's
+   graph: labels and distances exactly the plain route's, the supersteps
+   and launches (two a CC superstep, one a shortest-paths one);
+65. SVD++ at rank 10, 10 iterations, on configuration 4's training
+   ratings (users then items as vertices; minVal and maxVal the ratings'
+   range): factors and RMSE within 1e-4 of the float64 plain route's, two
+   runs bitwise equal, 63 launches, seconds an iteration;
+66. triangle counts and SCC at 16,384 vertices on an R-MAT graph of 16
+   edges a vertex (triangles against a float64 product, SCC against
+   scipy's Tarjan, exactly), label propagation at 4,096 vertices
+   (n-wide one-hot rows) exactly the plain route's;
+67. Word2Vec at text8's width (vectorSize 100, windowSize 5, negative 5,
+   batches of 8,192, minCount 5) on 2,000,000 tokens drawn from a
+   Zipf(1) law over 71,290 word types, stepSize 0.0025 (the reference's
+   0.025 diverges on such a corpus in both packages): one epoch of
+   negative sampling (twice, bitwise) and of hierarchical softmax, three
+   and two accumulate launches a step, the host vocabulary and pairs, the
+   steps and the kernel's device time; one step against the float64
+   plain step (within 1e-6 of the update), the HS loss within 1e-3 of the
+   float64 plain fit's; the accumulate form at the negatives' shape
+   beside ``index_add_``;
+68. a pipeline on 1,000,000 rows of UCI Adult's schema (6 numeric
+   columns, 8 categorical with Adult's cardinalities): StringIndexer,
+   OneHotEncoder, VectorAssembler, StandardScaler, UnivariateFeatureSelector
+   and LogisticRegression on K1 (once an evaluation), each stage's
+   seconds, the model within the main path's limits of the plain route's;
+69. a ``{"kernels": [...]}`` JSON line with K1-K4, K1s, their e4m3
    instances, the wide instances of K1, K2 and K1s (marked as redesigned
    for one read of X, with the two-pass instance's time from the same
    run), the center sums (marked as redesigned: the counting sort and
@@ -509,7 +549,8 @@ the final result line:
    budgeted fits) and ``als_normal``'s (the resumed ALS fit), and
    ``tree_hist`` with its launches (and by instance) in phases 55-58,
    both bounds and its share, phase 55's wide cases' ms beside their
-   bounds, the phases' and the
+   bounds, ``segment_reduce`` with its launches in phases 63-67 and by
+   instance, the phases' and the
    total wall time; the last line is
    ``{"ok":
    true, "device": {...}}``.
@@ -524,6 +565,7 @@ present or when the port's package is not beside it.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -548,7 +590,7 @@ H100_FP8_FLOPS = 1979e12     # fp8 tensor cores, dense
 FP8_COEF_NORMREL = 0.20      # the reference's fp8 coefficient envelope
 KERNEL_SOURCES = ["glm_sweep", "kmeans_assign", "gramian", "glm_stacked",
                   "center_sums", "ell_sweep", "als_normal", "serving_margins",
-                  "tree_hist"]
+                  "tree_hist", "segment_reduce"]
 K1S_MODELS = (1, 3, 8, 16, 20)   # 20 > K_MAX: two launches of K1s
 OVR_K = 8                        # OneVsRest's classes (bench_ovr_stacked)
 CV_N = 250_000                   # CrossValidator's rows (the cut of FIT_N;
@@ -739,7 +781,8 @@ def _kernel_name(mangled: str) -> str:
     CTAs of its cluster; glm_sweep_wide_kernel: elements per thread and
     the link; center_warp_kernel: w's dtype and X's loads; count_scatter_kernel: the bits of k - 1;
     gramian_tc_kernel: the staging; kmeans_assign_tc_kernel: whether X is
-    resident)."""
+    resident; segment_pieces_kernel and segment_merge_kernel: the rows'
+    dtype and the merge)."""
     m = re.search(r"([a-z_]+_kernel)(I(13__nv_bfloat16|13__nv_fp8_e4m3|f|d)?"
                   r"(f|d)?((?:L[ib]\d+E)*))?", mangled)
     if m is None:
@@ -775,6 +818,12 @@ def _kernel_name(mangled: str) -> str:
                "C=" if t.group(3) == "1" else "C<=")
         return (f"{m.group(1)}<{dict(h='uint8', i='int32')[t.group(1)]}, "
                 f"{arg}{t.group(2)}>")
+    if m.group(1) in ("segment_pieces_kernel", "segment_merge_kernel"):
+        # the rows' dtype and the merge
+        t = re.search(m.group(1) + r"I([ifd])Li(\d)E", mangled)
+        dtype = dict(i="i32", f="f32", d="f64")[t.group(1)]
+        merge = ("sum", "min", "max")[int(t.group(2))]
+        return f"{m.group(1)}<{dtype}, {merge}>"
     if m.group(1) == "count_scatter_kernel":  # the bits of k - 1
         return f"{m.group(1)}<bits={re.findall(r'Li(\d+)E', m.group(5))[0]}>"
     names = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16",
@@ -7035,9 +7084,12 @@ def phase_holes():
         auc_err = abs(summary.area_under_roc - auc)
         del xh, x_np, frame
 
-        # placement: host copies, release, back on the card bitwise
+        # placement: host copies, release, back on the card bitwise (the
+        # earlier phases' garbage collected first, so that no collection
+        # inside the window frees their tensors and moves the levels)
         ds = drandom.generate_classification(ctx, HOLD_N, FIT_D, seed=21)
         keep = [t.clone() for t in (ds.x, ds.y, ds.w)]
+        gc.collect()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         ds.persist_host()
@@ -8266,6 +8318,664 @@ def phase_trees():
 
 
 
+# -- GraphX and the feature transformers (phases 63-68) ----------------------
+
+RMAT_ABCD = (0.45, 0.15, 0.15, 0.25)  # Spark's GraphGenerators.rmatGraph
+GRAPH_LOG2 = 22                       # 2^22 vertices
+GRAPH_EDGES = 68_993_773              # SNAP soc-LiveJournal1's edge count
+GRAPH_SEED = 25
+GRAPH_ITERS = 20                      # PageRank's iterations (Spark's run)
+GRAPH_LANDMARKS = 4
+SVDPP_RANK, SVDPP_ITERS = 10, 10
+DENSE_LOG2, DENSE_LP_LOG2, DENSE_DEGREE = 14, 12, 16
+W2V_TOKENS, W2V_TYPES = 2_000_000, 71_290   # text8's word types
+W2V_DIM, W2V_WINDOW, W2V_NEG, W2V_SENTENCE = 100, 5, 5, 1000
+W2V_STEP = 0.0025                     # stepSize (see phase_word2vec)
+ADULT_N = 1_000_000                   # UCI Adult's schema at 1M rows
+ADULT_CARD = (9, 16, 7, 15, 6, 5, 2, 42)  # its categorical columns' values
+ADULT_NUMERIC = 6
+
+
+class _KernelEvents:
+    """CUDA events around every call of ``kernels.segment_reduce`` inside
+    the block (the wrapped function keeps counting its launches): the
+    calls' device time without a profiler."""
+
+    def __enter__(self):
+        import torch
+        from cycloneml_tpu_torch.ops import kernels
+        self.kernels, self.orig, self.pairs = kernels, \
+            kernels.segment_reduce, []
+        orig, pairs = self.orig, self.pairs
+
+        def timed(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig(*args, **kw)
+            e1.record()
+            pairs.append((e0, e1))
+            return out
+        # the kernel's wrapper counts through its module name
+        timed.launches = orig.launches
+        timed.launches_by_instance = orig.launches_by_instance
+        kernels.segment_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = self.kernels.segment_reduce.launches
+        self.kernels.segment_reduce = self.orig
+
+    def seconds(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / 1e3
+
+
+def _rmat_edges(log2_n, m, seed, dev):
+    """``m`` distinct directed edges of an R-MAT graph on 2^log2_n vertices
+    with Spark's rmatGraph quadrant probabilities (a, b, c, d), drawn on
+    the card: each level picks a quadrant from one uniform (b sets the
+    source's bit, c the destination's, d both); duplicates drop, the first
+    draw of each edge kept in draw order, and more are drawn until m are
+    distinct (Spark's rmatGraph fills a set of edges). Returns (src, dst)
+    int32."""
+    import torch
+    a, b, c, _ = RMAT_ABCD
+    n = 1 << log2_n
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    keys = torch.empty(0, dtype=torch.int64, device=dev)
+    while True:
+        draw = max(m - keys.shape[0], m // 8) + m // 8
+        src = torch.zeros(draw, dtype=torch.int64, device=dev)
+        dst = torch.zeros(draw, dtype=torch.int64, device=dev)
+        for _ in range(log2_n):
+            u = torch.rand(draw, generator=g, device=dev)
+            src = src * 2 + ((u >= a) & (u < a + b) | (u >= a + b + c))
+            dst = dst * 2 + (u >= a + b)
+        keys = torch.cat([keys, src * n + dst])
+        srt = torch.sort(keys, stable=True)
+        first = torch.ones_like(srt.values, dtype=torch.bool)
+        first[1:] = srt.values[1:] != srt.values[:-1]
+        keep = torch.zeros_like(first)
+        keep[srt.indices[first]] = True
+        kept = keys[keep]
+        if kept.shape[0] >= m:
+            kept = kept[:m]
+            return (kept // n).to(torch.int32), (kept % n).to(torch.int32)
+        keys = kept
+
+
+def _segment_numbers(msgs, offsets, tag):
+    """segment_reduce at a path's shape, on the offsets' pieces built
+    once (as a graph builds them an order; their build timed apart): its
+    ms (CUDA events), the plain
+    version's (index_add_ in float64) and its largest |difference|, the
+    bytes bound (the rows read once, the offsets, the output written
+    once), and the yardsticks torch.segment_reduce and index_add_ (float32
+    atomics) on the same inputs; then the longest segment alone."""
+    import torch
+    from cycloneml_tpu_torch.ops import kernels
+    n = offsets.shape[0] - 1
+    m = msgs.shape[0]
+    k = msgs[0].numel() if m else 1
+    counts = torch.diff(offsets)
+    seg = torch.repeat_interleave(torch.arange(n, device=msgs.device),
+                                  counts, output_size=m)
+    plan_ms = _time_ms(lambda: kernels.segment_pieces(offsets), 5)
+    plan = kernels.segment_pieces(offsets)
+    got = kernels.segment_reduce(msgs, plan)
+    plain = kernels.segment_reduce_plain(msgs, offsets)
+    again = kernels.segment_reduce(msgs, plan)
+    ms = _time_ms(lambda: kernels.segment_reduce(msgs, plan), 10)
+    plain_ms = _time_ms(lambda: kernels.segment_reduce_plain(msgs, offsets),
+                        2, warm=1)
+    flat = msgs.reshape(m, -1)
+    index_add_ms = _time_ms(lambda: torch.zeros(
+        (n, k), dtype=msgs.dtype, device=msgs.device).index_add_(0, seg,
+                                                                 flat), 5)
+    try:
+        seg_ms = _time_ms(lambda: torch.segment_reduce(
+            flat, "sum", lengths=counts, axis=0), 5)
+        seg_note = None
+    except (RuntimeError, NotImplementedError) as e:
+        seg_ms, seg_note = None, str(e)[:120]
+    n_bytes = m * k * msgs.element_size() + (n + 1) * 8 + \
+        n * k * msgs.element_size()
+    bound_ms, bound_by = _bound(n_bytes, m * k, H100_F64_FLOPS)
+    longest = int(counts.max())
+    v = int(torch.argmax(counts))
+    lo = int(offsets[v])
+    hub = msgs[lo:lo + longest].contiguous()
+    hub_off = kernels.segment_pieces(torch.tensor(
+        [0, longest], dtype=torch.int64, device=msgs.device))
+    hub_ms = _time_ms(lambda: kernels.segment_reduce(hub, hub_off), 20)
+    hub_bound, _ = _bound(longest * k * msgs.element_size() + 16, 0)
+    out = {"shape": {"rows": m, "k": k, "segments": n},
+           "max_abs_err": float((got.double() - plain.double()).abs().max()),
+           "bitwise_repeat": bool(torch.equal(got, again)),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": index_add_ms,
+           "torch_segment_reduce_ms": seg_ms, "bytes": n_bytes,
+           "share": bound_ms / ms, "pieces": plan.n_pieces,
+           "pieces_ms": plan_ms, "longest_segment": longest, "longest_segment_ms": hub_ms,
+           "longest_segment_bound_ms": hub_bound}
+    if seg_note:
+        out["torch_segment_reduce_note"] = seg_note
+    _line(f"{tag}_segment_reduce", **out)
+    return out
+
+
+def phase_graph_pagerank(ctx):
+    """Phase 63: the R-MAT graph's build, 20 PageRank iterations through
+    segment_reduce (counts zeroed just before, read just after), split
+    into the messages and the kernel by CUDA events, against the float64
+    plain route; the personalized form; the kernel at PageRank's shape."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.graph import Graph
+    from cycloneml_tpu_torch.graph import lib as glib
+    from cycloneml_tpu_torch.ops import kernels
+    dev = ctx.device
+    (edges, draw_s) = _timed(lambda: _rmat_edges(GRAPH_LOG2, GRAPH_EDGES,
+                                                 GRAPH_SEED, dev))
+    n = 1 << GRAPH_LOG2
+    (g, build_s) = _timed(lambda: Graph(ctx, edges[0], edges[1],
+                                        n_vertices=n))
+    del edges
+    in_deg = torch.diff(g.by_dst.offsets)
+    out_deg = torch.diff(g.by_src.offsets)
+    kernels.reset_launch_counts()
+    with _KernelEvents() as ev:
+        (ranks, pr_s) = _timed(lambda: glib.pagerank(g, GRAPH_ITERS))
+        kernel_s = ev.seconds()
+    launches = kernels.segment_reduce.launches
+    by_inst = {k: v for k, v in
+               kernels.segment_reduce.launches_by_instance.items() if v}
+    again = glib.pagerank(g, GRAPH_ITERS)
+    src_v = int(torch.argmax(out_deg))
+    kernels.reset_launch_counts()
+    (pers, pers_s) = _timed(lambda: glib.pagerank(
+        g, GRAPH_ITERS, personalized_src=src_v))
+    pers_launches = kernels.segment_reduce.launches
+    ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+    try:
+        (plain64, plain_s) = _timed(lambda: glib.pagerank(
+            g, GRAPH_ITERS, dtype=torch.float64))
+        pers64 = glib.pagerank(g, GRAPH_ITERS, personalized_src=src_v,
+                               dtype=torch.float64)
+    finally:
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+    # one iteration's parts: the messages (a gather of the scaled ranks
+    # over the destination-sorted edges) and the kernel
+    inv = torch.as_tensor(1.0 / np.maximum(out_deg.cpu().numpy(), 1),
+                          dtype=torch.float32, device=dev)
+    scaled = torch.ones(n, device=dev) * inv
+    msg_ms = _time_ms(lambda: scaled[g.by_dst.src], 10)
+    msgs = scaled[g.by_dst.src]
+    nums = _segment_numbers(msgs, g.by_dst.offsets, "pagerank")
+    rel = np.abs(ranks - plain64) / np.abs(plain64)
+    pers_err = np.abs(pers - pers64)
+    pers_ok = bool(np.all(pers_err <= 1e-5 * np.abs(pers64)
+                          + 1e-6 * np.abs(pers64).max()))
+    _line("graph_pagerank", vertices=n, edges=g.n_edges,
+          rmat=list(RMAT_ABCD), draw_s=draw_s, build_s=build_s,
+          max_in_degree=int(in_deg.max()), max_out_degree=int(out_deg.max()),
+          isolated=int(((in_deg == 0) & (out_deg == 0)).sum()),
+          iterations=GRAPH_ITERS, seconds=pr_s,
+          iteration_ms=pr_s * 1e3 / GRAPH_ITERS,
+          segment_reduce_device_s=kernel_s, message_ms=msg_ms,
+          launches=launches, launches_by_instance=by_inst,
+          personalized_src=src_v, personalized_s=pers_s,
+          personalized_launches=pers_launches, plain64_s=plain_s,
+          max_rel_vs_float64=float(rel.max()), rank_sum=float(ranks.sum()),
+          personalized_max_abs_vs_float64=float(pers_err.max()))
+    _check("graph_pagerank", {
+        f"segment_reduce launched once a superstep and once for the "
+        f"degrees ({GRAPH_ITERS + 1})": launches == GRAPH_ITERS + 1,
+        "ranks within rtol 1e-5 of the float64 plain route":
+            bool(rel.max() <= 1e-5),
+        "two runs bitwise equal": bool(np.array_equal(ranks, again)),
+        "personalized ranks within 1e-5 of the float64 plain route":
+            pers_ok,
+        "personalized launches": pers_launches == GRAPH_ITERS + 1,
+        "kernel within one float rounding of the float64 plain sums":
+            nums["max_abs_err"] <= 2.0 ** -23 * float(
+                kernels.segment_reduce_plain(msgs, g.by_dst.offsets)
+                .abs().max()),
+        "kernel bitwise on a repeat": nums["bitwise_repeat"],
+        "finite ranks": bool(np.all(np.isfinite(ranks)))})
+    return g, {**nums, "launches": launches, "by_instance": by_inst,
+               "personalized_launches": pers_launches,
+               "segment_reduce_device_s": kernel_s, "message_ms": msg_ms}
+
+
+def phase_graph_cc(ctx, g):
+    """Phase 64: connected components and shortest paths (4 landmarks)
+    on phase 63's graph through segment_reduce, against the plain route
+    exactly."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.graph import lib as glib
+    from cycloneml_tpu_torch.ops import kernels
+    rng = np.random.RandomState(GRAPH_SEED)
+    landmarks = rng.choice(g.n_vertices, GRAPH_LANDMARKS, replace=False)
+    kernels.reset_launch_counts()
+    ((labels, cc_it), cc_s) = _timed(
+        lambda: glib.connected_components_iters(g))
+    cc_launches = kernels.segment_reduce.launches
+    kernels.reset_launch_counts()
+    ((dist, sp_it), sp_s) = _timed(
+        lambda: glib.shortest_paths_iters(g, landmarks))
+    sp_launches = kernels.segment_reduce.launches
+    sp_inst = {k: v for k, v in
+               kernels.segment_reduce.launches_by_instance.items() if v}
+    ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+    try:
+        ((p_labels, p_cc_it), p_cc_s) = _timed(
+            lambda: glib.connected_components_iters(g))
+        ((p_dist, p_sp_it), p_sp_s) = _timed(
+            lambda: glib.shortest_paths_iters(g, landmarks))
+    finally:
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+    comps, sizes = np.unique(labels, return_counts=True)
+    reach = np.isfinite(dist)
+    _line("graph_cc", cc_iterations=cc_it, cc_s=cc_s,
+          cc_launches=cc_launches, components=int(len(comps)),
+          largest_component=int(sizes.max()), plain_cc_s=p_cc_s,
+          sp_landmarks=[int(v) for v in landmarks], sp_iterations=sp_it,
+          sp_s=sp_s, sp_launches=sp_launches, sp_instances=sp_inst,
+          plain_sp_s=p_sp_s, reached=[int(v) for v in reach.sum(0)],
+          max_distance=float(dist[reach].max()) if reach.any() else None)
+    _check("graph_cc", {
+        "labels equal the plain route's": bool(np.array_equal(labels,
+                                                              p_labels)),
+        "distances equal the plain route's": bool(np.array_equal(dist,
+                                                                 p_dist)),
+        "the same iterations": cc_it == p_cc_it and sp_it == p_sp_it,
+        "two launches a CC superstep": cc_launches == 2 * cc_it,
+        "one launch a shortest-paths superstep": sp_launches == sp_it,
+        "every label the least id of its component": bool(
+            np.all(labels <= np.arange(g.n_vertices)))})
+    return {"cc": cc_launches, "sp": sp_launches}
+
+
+def phase_graph_svdpp(ctx, data):
+    """Phase 65: SVD++ at rank 10, 10 iterations, on configuration 4's
+    training ratings (users, then items, as vertices) through
+    segment_reduce, twice (bitwise), against the float64 plain route."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.graph import Graph
+    from cycloneml_tpu_torch.graph import lib as glib
+    from cycloneml_tpu_torch.ops import kernels
+    tr = data["train"]
+    dev = ctx.device
+    src = torch.as_tensor(data["users"][tr], device=dev)
+    dst = torch.as_tensor(data["items"][tr] + ALS_USERS, device=dev)
+    r = data["ratings"][tr].astype(np.float32)
+    (g, build_s) = _timed(lambda: Graph(ctx, src, dst, edge_attr=r,
+                                        n_vertices=ALS_USERS + ALS_ITEMS))
+    del src, dst
+    kw = dict(rank=SVDPP_RANK, max_iter=SVDPP_ITERS, min_val=float(r.min()),
+              max_val=float(r.max()), seed=GRAPH_SEED)
+    kernels.reset_launch_counts()
+    with _KernelEvents() as ev:
+        (m, s) = _timed(lambda: glib.svd_plus_plus(g, **kw))
+        kernel_s = ev.seconds()
+    launches = kernels.segment_reduce.launches
+    by_inst = {k: v for k, v in
+               kernels.segment_reduce.launches_by_instance.items() if v}
+    again = glib.svd_plus_plus(g, **kw)
+    ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+    try:
+        (m64, s64) = _timed(lambda: glib.svd_plus_plus(
+            g, dtype=torch.float64, **kw))
+    finally:
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+    rel = {k: _norm_rel(m[k], m64[k]) for k in ("p", "q", "y", "bias")}
+    rmse_rel = abs(m["rmse"] - m64["rmse"]) / m64["rmse"]
+    _line("graph_svdpp", users=ALS_USERS, items=ALS_ITEMS,
+          ratings=g.n_edges, rank=SVDPP_RANK, iterations=SVDPP_ITERS,
+          build_s=build_s, seconds=s, seconds_per_iteration=s / SVDPP_ITERS,
+          segment_reduce_device_s=kernel_s, launches=launches,
+          launches_by_instance=by_inst, rmse=m["rmse"],
+          rmse_float64=m64["rmse"], plain64_s=s64, norm_rel=rel,
+          rmse_rel=rmse_rel)
+    same = all(np.array_equal(m[k], again[k]) for k in ("p", "q", "y",
+                                                         "bias"))
+    _check("graph_svdpp", {
+        "factors within 1e-4 (norm-relative) of the float64 plain route":
+            max(rel.values()) <= 1e-4,
+        "RMSE within rtol 1e-4 of the float64 plain route": rmse_rel <= 1e-4,
+        "two runs bitwise equal": same and m["rmse"] == again["rmse"],
+        "launches: 6 a iteration, the degrees, the last sums and errors":
+            launches == 6 * SVDPP_ITERS + 3,
+        "finite": bool(np.isfinite(m["rmse"]))})
+    return launches
+
+
+def _scipy_scc_min_labels(src, dst, n):
+    """Each vertex's strongly connected component labelled by its least
+    vertex id, by scipy's Tarjan on the host (an independent oracle)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    a = csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    _, lab = connected_components(a, directed=True, connection="strong")
+    least = np.full(lab.max() + 1, n, dtype=np.int64)
+    np.minimum.at(least, lab, np.arange(n))
+    return least[lab]
+
+
+def phase_graph_dense(ctx):
+    """Phase 66: triangle counts and SCC at n = 16,384 on an R-MAT graph of
+    16 edges a vertex (the reach the reference's adjacency() names), and
+    label propagation at n = 4,096 through segment_reduce (n-wide one-hot
+    rows): triangles against a float64 product, SCC against scipy, label
+    propagation against the plain route, all exactly."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.graph import Graph
+    from cycloneml_tpu_torch.graph import lib as glib
+    from cycloneml_tpu_torch.ops import kernels
+    dev = ctx.device
+    n = 1 << DENSE_LOG2
+    s, d = _rmat_edges(DENSE_LOG2, n * DENSE_DEGREE, GRAPH_SEED + 1, dev)
+    g = Graph(ctx, s, d, n_vertices=n)
+    (tri, tri_s) = _timed(lambda: glib.triangle_count(g))
+    a = g.adjacency(symmetric=True).double()
+    tri64 = (torch.sum((a @ a) * a, dim=1) / 2.0).cpu().numpy()
+    del a
+    torch.cuda.empty_cache()
+    (scc, scc_s) = _timed(lambda: glib.strongly_connected_components(g))
+    scc_ref = _scipy_scc_min_labels(g._h_src, g._h_dst, n)
+    nl = 1 << DENSE_LP_LOG2
+    s2, d2 = _rmat_edges(DENSE_LP_LOG2, nl * DENSE_DEGREE, GRAPH_SEED + 2,
+                         dev)
+    gl = Graph(ctx, s2, d2, n_vertices=nl)
+    kernels.reset_launch_counts()
+    (lp, lp_s) = _timed(lambda: glib.label_propagation(gl))
+    lp_launches = kernels.segment_reduce.launches
+    ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+    try:
+        (lp_plain, lp_plain_s) = _timed(lambda: glib.label_propagation(gl))
+    finally:
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+    torch.cuda.empty_cache()
+    _line("graph_dense", n=n, edges=g.n_edges, triangles=int(tri.sum() // 3),
+          max_vertex_triangles=int(tri.max()), triangle_s=tri_s,
+          scc_components=int(len(np.unique(scc))), scc_s=scc_s, lp_n=nl,
+          lp_edges=gl.n_edges, lp_s=lp_s, lp_plain_s=lp_plain_s,
+          lp_launches=lp_launches, lp_labels=int(len(np.unique(lp))))
+    _check("graph_dense", {
+        "triangles equal the float64 product's": bool(np.array_equal(
+            tri, tri64.astype(np.int64))) and bool(np.all(tri64 % 1 == 0)),
+        "SCC labels equal scipy's": bool(np.array_equal(scc, scc_ref)),
+        "label propagation equals the plain route's": bool(np.array_equal(
+            lp, lp_plain)),
+        "two launches a label-propagation superstep": lp_launches == 10})
+    return lp_launches
+
+
+def _w2v_corpus():
+    """W2V_TOKENS tokens drawn from a Zipf(1) law over text8's 71,290 word
+    types (numpy RandomState(25)), cut into sentences of 1,000 (Spark's
+    maxSentenceLength), as an object column of token lists."""
+    import numpy as np
+    rng = np.random.RandomState(GRAPH_SEED)
+    p = 1.0 / np.arange(1, W2V_TYPES + 1)
+    ranks = rng.choice(W2V_TYPES, W2V_TOKENS, p=p / p.sum())
+    words = np.array([f"w{i}" for i in range(W2V_TYPES)], dtype=object)
+    toks = words[ranks]
+    col = np.empty(W2V_TOKENS // W2V_SENTENCE, dtype=object)
+    for i in range(len(col)):
+        col[i] = toks[i * W2V_SENTENCE:(i + 1) * W2V_SENTENCE].tolist()
+    return col
+
+
+def phase_word2vec(ctx):
+    """Phase 67: Word2Vec at text8's width (vectorSize 100, windowSize 5,
+    negative 5, batches of 8,192) on 2,000,000 Zipf tokens, one epoch of
+    negative sampling (twice: bitwise) and of hierarchical softmax through
+    segment_reduce's accumulate form; one step against the float64 plain
+    step; the HS loss against the float64 plain fit."""
+    import numpy as np
+    import torch
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    from cycloneml_tpu_torch.ml.feature import Word2Vec
+    from cycloneml_tpu_torch.ml.feature import word2vec as w2v
+    from cycloneml_tpu_torch.ops import kernels
+    (col, corpus_s) = _timed(_w2v_corpus)
+    frame = MLFrame(ctx, {"text": col})
+    kw = dict(vectorSize=W2V_DIM, windowSize=W2V_WINDOW, negative=W2V_NEG,
+              minCount=5, maxIter=1, seed=GRAPH_SEED, stepSize=W2V_STEP,
+              inputCol="text")
+    t0 = time.perf_counter()
+    vocab, counts, centers, contexts = Word2Vec(**kw)._prepare(frame)
+    prep_s = time.perf_counter() - t0
+    steps = -(-len(centers) // w2v.BATCH)
+    out = {}
+    for solver in ("ns", "hs"):
+        kernels.reset_launch_counts()
+        with _KernelEvents() as ev:
+            (m, s) = _timed(lambda: Word2Vec(solver=solver, **kw).fit(frame))
+            dev_s = ev.seconds()
+        out[solver] = {"model": m, "seconds": s, "device_s": dev_s,
+                       "launches": kernels.segment_reduce.launches}
+    again = Word2Vec(solver="ns", **kw).fit(frame)
+    ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+    try:
+        est = Word2Vec(solver="hs", **kw)
+        est._dtype = torch.float64
+        (hs64, hs64_s) = _timed(lambda: est.fit(frame))
+    finally:
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+    # one negative-sampling step from a seeded state: the kernel's float32
+    # step against the float64 plain step from the same values
+    dev = ctx.device
+    rng = np.random.RandomState(GRAPH_SEED)
+    v = len(vocab)
+    w_in = torch.as_tensor(((rng.rand(v, W2V_DIM) - 0.5) / W2V_DIM)
+                           .astype(np.float32), device=dev)
+    w_out = torch.as_tensor((rng.randn(v, W2V_DIM) * 0.01)
+                            .astype(np.float32), device=dev)
+    sel = torch.as_tensor(rng.permutation(len(centers))[:w2v.BATCH],
+                          device=dev)
+    c_idx = torch.as_tensor(centers, device=dev).long()[sel]
+    o_idx = torch.as_tensor(contexts, device=dev).long()[sel]
+    neg = torch.as_tensor(rng.randint(0, v, (w2v.BATCH, W2V_NEG)),
+                          device=dev)
+    a_in, a_out = w_in.clone(), w_out.clone()
+    b_in, b_out = w_in.double(), w_out.double()
+    w2v.ns_step(a_in, a_out, c_idx, o_idx, neg, W2V_STEP)
+    w2v.ns_step(b_in, b_out, c_idx, o_idx, neg, W2V_STEP,
+                reduce=kernels.segment_reduce_plain)
+    upd = max(float((b_in - w_in.double()).abs().max()),
+              float((b_out - w_out.double()).abs().max()))
+    step_err = max(float((a_in.double() - b_in).abs().max()),
+                   float((a_out.double() - b_out).abs().max())) / upd
+    # the accumulate form at the negatives' shape: ms, bound, yardsticks
+    perm, offsets = kernels.segment_order(neg.reshape(-1), v)
+    upd_rows = torch.randn(neg.numel(), W2V_DIM, device=dev)
+    w_t = w_out.clone()
+    acc_ms = _time_ms(lambda: kernels.segment_reduce(
+        upd_rows, offsets, rows=perm, out=w_t), 20)
+    idx_ms = _time_ms(lambda: w_t.index_add_(0, neg.reshape(-1), upd_rows),
+                      20)
+    rows_touched = int((torch.diff(offsets) > 0).sum())
+    acc_bound, _ = _bound(upd_rows.numel() * 4 + neg.numel() * 8
+                          + (v + 1) * 8 + 2 * rows_touched * W2V_DIM * 4, 0)
+    ns, hs = out["ns"], out["hs"]
+    loss_rel = abs(hs["model"].training_loss_[0]
+                   - hs64.training_loss_[0]) / abs(hs64.training_loss_[0])
+    _line("word2vec", tokens=W2V_TOKENS, word_types=W2V_TYPES,
+          vocabulary=len(vocab), min_count=5, pairs=len(centers),
+          steps=steps, corpus_s=corpus_s, vocab_and_pairs_s=prep_s,
+          ns={"seconds": ns["seconds"], "steps_s": ns["seconds"] - prep_s,
+              "segment_reduce_device_s": ns["device_s"],
+              "launches": ns["launches"]},
+          hs={"seconds": hs["seconds"], "steps_s": hs["seconds"] - prep_s,
+              "segment_reduce_device_s": hs["device_s"],
+              "launches": hs["launches"],
+              "loss": hs["model"].training_loss_[0],
+              "loss_float64_plain": hs64.training_loss_[0],
+              "plain64_s": hs64_s},
+          one_step_err_over_update=step_err, step_update_max=upd,
+          accumulate={"rows": neg.numel(), "dim": W2V_DIM,
+                      "rows_touched": rows_touched, "ms": acc_ms,
+                      "bound_ms": acc_bound, "index_add_ms": idx_ms})
+    _check("word2vec", {
+        "three accumulate launches a negative-sampling step":
+            ns["launches"] == 3 * steps,
+        "two accumulate launches a hierarchical-softmax step":
+            hs["launches"] == 2 * steps,
+        "two fits bitwise equal": bool(np.array_equal(
+            ns["model"].vectors, again.vectors)),
+        "one step within 1e-6 of the float64 plain step (of the update)":
+            step_err <= 1e-6,
+        "HS loss within 1e-3 of the float64 plain fit": loss_rel <= 1e-3,
+        "finite vectors": bool(np.all(np.isfinite(ns["model"].vectors)))})
+    return {"ns": ns["launches"], "hs": hs["launches"], "accumulate_ms":
+            acc_ms, "accumulate_bound_ms": acc_bound,
+            "accumulate_index_add_ms": idx_ms}
+
+
+def _adult_frame(ctx):
+    """ADULT_N rows with UCI Adult's schema: 6 numeric columns (age,
+    fnlwgt, education-num, capital-gain, capital-loss, hours-per-week,
+    drawn near Adult's ranges) and 8 categorical string columns with
+    Adult's cardinalities (workclass 9, education 16, marital-status 7,
+    occupation 15, relationship 6, race 5, sex 2, native-country 42),
+    values drawn with Zipf-like frequencies; the label from a seeded
+    logistic model of both (numpy RandomState(26))."""
+    import numpy as np
+    from cycloneml_tpu_torch.dataset.frame import MLFrame
+    rng = np.random.RandomState(26)
+    n = ADULT_N
+    num = {"age": rng.randint(17, 91, n).astype(np.float64),
+           "fnlwgt": np.exp(rng.normal(12.0, 0.6, n)),
+           "education_num": rng.randint(1, 17, n).astype(np.float64),
+           "capital_gain": np.where(rng.rand(n) < 0.08,
+                                    np.exp(rng.normal(8.0, 1.0, n)), 0.0),
+           "capital_loss": np.where(rng.rand(n) < 0.05,
+                                    np.exp(rng.normal(7.4, 0.3, n)), 0.0),
+           "hours_per_week": np.clip(rng.normal(40, 12, n), 1, 99)}
+    margin = (0.04 * (num["age"] - 38) + 0.3 * (num["education_num"] - 10)
+              + 0.0003 * num["capital_gain"] + 0.03
+              * (num["hours_per_week"] - 40) - 1.2)
+    cols = dict(num)
+    for j, card in enumerate(ADULT_CARD):
+        p = 1.0 / np.arange(1, card + 1)
+        codes = rng.choice(card, n, p=p / p.sum())
+        effect = rng.normal(0, 0.5, card)
+        margin = margin + effect[codes]
+        names = np.array([f"c{j}_{v}" for v in range(card)], dtype=object)
+        cols[f"cat{j}"] = names[codes]
+    cols["label"] = (rng.rand(n) < 1.0 / (1.0 + np.exp(-margin))).astype(
+        np.float64)
+    return MLFrame(ctx, cols)
+
+
+def phase_features(ctx):
+    """Phase 68: StringIndexer -> OneHotEncoder -> VectorAssembler ->
+    StandardScaler -> UnivariateFeatureSelector -> LogisticRegression (on
+    K1) on 1,000,000 rows of Adult's schema, each stage's seconds; the
+    model against the plain route's within the main path's limits."""
+    import numpy as np
+    from cycloneml_tpu_torch.ml.classification import LogisticRegression
+    from cycloneml_tpu_torch.ml.feature import (
+        OneHotEncoder, StandardScaler, StringIndexer,
+        UnivariateFeatureSelector, VectorAssembler)
+    from cycloneml_tpu_torch.ops import kernels
+    (frame, data_s) = _timed(lambda: _adult_frame(ctx))
+    secs = {}
+    t0 = time.perf_counter()
+    for j in range(len(ADULT_CARD)):
+        frame = StringIndexer(inputCol=f"cat{j}", outputCol=f"idx{j}") \
+            .fit(frame).transform(frame)
+    secs["string_indexer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frame = OneHotEncoder(
+        input_cols=[f"idx{j}" for j in range(len(ADULT_CARD))],
+        output_cols=[f"oh{j}" for j in range(len(ADULT_CARD))]) \
+        .fit(frame).transform(frame)
+    secs["one_hot_encoder"] = time.perf_counter() - t0
+    numeric = ["age", "fnlwgt", "education_num", "capital_gain",
+               "capital_loss", "hours_per_week"]
+    t0 = time.perf_counter()
+    frame = VectorAssembler(
+        input_cols=numeric + [f"oh{j}" for j in range(len(ADULT_CARD))],
+        output_col="raw").transform(frame)
+    secs["vector_assembler"] = time.perf_counter() - t0
+    (frame, secs["standard_scaler"]) = _timed(lambda: StandardScaler(
+        withMean=True, inputCol="raw", outputCol="scaled").fit(frame)
+        .transform(frame))
+    (sel, secs["univariate_selector_fit"]) = _timed(
+        lambda: UnivariateFeatureSelector(
+            featureType="continuous", labelType="categorical",
+            numTopFeatures=50, inputCol="scaled", outputCol="features")
+        .fit(frame))
+    (frame, secs["univariate_selector_transform"]) = _timed(
+        lambda: sel.transform(frame))
+    kernels.reset_launch_counts()
+    lr = dict(maxIter=25, regParam=0.01, tol=0.0)
+    (model, secs["logistic_regression"]) = _timed(
+        lambda: LogisticRegression(**lr).fit(frame))
+    k1 = kernels.glm_sweep.launches_by_link[kernels.LOGISTIC]
+    ctx.conf.set("cyclone.ml.usePallasKernels", "false")
+    try:
+        (plain, plain_s) = _timed(lambda: LogisticRegression(**lr)
+                                  .fit(frame))
+    finally:
+        ctx.conf.set("cyclone.ml.usePallasKernels", "auto")
+    ks, ps = model.summary, plain.summary
+    kc, pc = model.coefficients.values, plain.coefficients.values
+    obj_rel = abs(ks.objective_history[-1] - ps.objective_history[-1]) \
+        / abs(ps.objective_history[-1])
+    d_raw = frame["raw"].shape[1]
+    _line("features", rows=ADULT_N, numeric=ADULT_NUMERIC,
+          categorical=list(ADULT_CARD), raw_width=d_raw,
+          selected=len(sel.selected_features), data_s=data_s,
+          stage_seconds=secs, plain_lr_s=plain_s, k1_launches=k1,
+          evals=ks.total_evals, iterations=ks.total_iterations,
+          objective_rel_diff=obj_rel,
+          max_abs_coef_diff=float(np.max(np.abs(kc - pc))),
+          positives=float(frame["label"].mean()))
+    _check("features", {
+        "one-hot width: 6 numeric + sum(cardinality - 1)":
+            d_raw == ADULT_NUMERIC + sum(c - 1 for c in ADULT_CARD),
+        "K1 launched once per evaluation": k1 == ks.total_evals,
+        "coefficients within rtol 5e-3, atol 5e-4 of the plain route's":
+            _close(kc, pc, model.intercept, plain.intercept),
+        "final objectives agree to 1e-4": obj_rel <= 1e-4,
+        "finite model": bool(np.all(np.isfinite(kc)))})
+    return k1
+
+
+def phase_graphx_and_features(als_data):
+    """Phases 63-68 on one context: returns what the kernels line needs."""
+    import torch
+    ctx = _context("chip_smoke_graphx")
+    try:
+        g, pr = phase_graph_pagerank(ctx)
+        cc = phase_graph_cc(ctx, g)
+        del g
+        torch.cuda.empty_cache()
+        svdpp = phase_graph_svdpp(ctx, als_data)
+        torch.cuda.empty_cache()
+        lp = phase_graph_dense(ctx)
+        w2v = phase_word2vec(ctx)
+        torch.cuda.empty_cache()
+        k1 = phase_features(ctx)
+    finally:
+        ctx.stop()
+    torch.cuda.empty_cache()
+    return {"pagerank": pr, "cc": cc, "svdpp": svdpp, "lp": lp,
+            "w2v": w2v, "features_k1": k1}
+
+
 def main() -> int:
     try:
         import torch
@@ -8474,7 +9184,6 @@ def main() -> int:
     try:
         ck_lr = phase_checkpoint_lr(tmp)
         ck_als = phase_checkpoint_als(als_data, tmp)
-        del als_data
         tier_k1 = phase_storage_tiers(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -8485,6 +9194,11 @@ def main() -> int:
     phase_naive_bayes()
     phase_fm()
     phase_aft_isotonic()
+    # GraphX and the feature transformers: segment_reduce carries the graph
+    # library's merges and Word2Vec's updates; SVD++ on configuration 4's
+    # ratings, then the features' pipeline into K1
+    gx = phase_graphx_and_features(als_data)
+    del als_data
     how = ("one read of X: a CTA of 512 threads an SM, each "
            "thread's slots of G rows staged once by its own cp.async ring "
            "slots, margins by xor shuffles then the warps in warp order, "
@@ -8713,6 +9427,38 @@ def main() -> int:
                "bound_int32_bins_ms at int32 (the first design's); "
                "library_ms index_add_ over the same flat keys; by_level: "
                "[launches, ms a call] by a_pad in the timed fit")
+    pr = gx["pagerank"]
+    entry("segment_reduce (graph messages, Word2Vec updates)",
+          "segment_reduce", "cycloneml_tpu/graph/graph.py:143", pr,
+          pr["launches"], launches_by_phase={
+              "pagerank": pr["launches"],
+              "pagerank_personalized": pr["personalized_launches"],
+              "connected_components": gx["cc"]["cc"],
+              "shortest_paths": gx["cc"]["sp"],
+              "svd_plus_plus": gx["svdpp"], "label_propagation": gx["lp"],
+              "word2vec_ns": gx["w2v"]["ns"], "word2vec_hs": gx["w2v"]["hs"]},
+          launches_by_instance=pr["by_instance"],
+          also_replaces=["cycloneml_tpu/ml/feature/word2vec.py:125-127",
+                         "cycloneml_tpu/ml/feature/word2vec.py:190-191"],
+          shape=pr["shape"], share=pr["share"], bytes=pr["bytes"],
+          torch_segment_reduce_ms=pr["torch_segment_reduce_ms"],
+          longest_segment=pr["longest_segment"],
+          longest_segment_ms=pr["longest_segment_ms"],
+          longest_segment_bound_ms=pr["longest_segment_bound_ms"],
+          pagerank_device_s=pr["segment_reduce_device_s"],
+          pagerank_message_ms=pr["message_ms"],
+          word2vec_accumulate={k: gx["w2v"][k] for k in (
+              "accumulate_ms", "accumulate_bound_ms",
+              "accumulate_index_add_ms")},
+          features_k1_launches=gx["features_k1"],
+          ptxas={f: v for f, v in ptxas.items()
+                 if f.startswith("segment_")},
+          note="jax.ops.segment_sum/min/max of the graph's message merge "
+               "and Word2Vec's .at[].add scatters, not Pallas kernels; ms, "
+               "plain_ms, library_ms (index_add_ in float32, run-dependent "
+               "order) and bound at PageRank's messages (one float a "
+               "destination-sorted edge); launches: the main path's 20 "
+               "supersteps and the degrees")
     print(json.dumps({"kernels": entries}), flush=True)
     _line("phase_seconds", **_PHASE_SECONDS)
     _line("wall", seconds=time.perf_counter() - t_start)
@@ -8723,4 +9469,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        # the phases that ran, for a run that stopped at a failed check
+        _line("phase_seconds", **_PHASE_SECONDS)
+        raise
+    sys.exit(rc)

@@ -7,7 +7,8 @@ model's parameters (binomial and multinomial logistic regression, linear
 regression, LinearSVC, GLM, KMeans, PCA, OneVsRest's binary models, ALS's
 ids and factors; the trees' node tables, the MLP's layers and weights,
 FM's factors, NaiveBayes' pi, theta and sigma, AFT's coefficients and
-isotonic regression's boundaries), a
+isotonic regression's boundaries; every fitted feature model's
+state), a
 stack of coefficients of K models, or an optimizer state's
 ``to_pytree()`` dict (L-BFGS and OWL-QN alike).
 """
@@ -307,3 +308,54 @@ def isotonic_model_from_reference(boundaries, predictions, **params):
     return _with_params(IsotonicRegressionModel(
         np.asarray(boundaries, dtype=np.float64),
         np.asarray(predictions, dtype=np.float64)), params)
+
+
+#: the state a fitted feature model carries, by class: the reference
+#: model's attribute names, which the port's model keeps
+_FEATURE_STATE = {
+    "StandardScalerModel": ("mean", "std"),
+    "MinMaxScalerModel": ("data_min", "data_max"),
+    "MaxAbsScalerModel": ("max_abs",),
+    "RobustScalerModel": ("median", "iqr"),
+    "ImputerModel": ("fill_values",),
+    "IDFModel": ("idf", "doc_freq", "num_docs"),
+    "CountVectorizerModel": ("vocabulary",),
+    "StringIndexerModel": ("labels",),
+    "OneHotEncoderModel": ("category_sizes",),
+    "VectorIndexerModel": ("num_features", "category_maps"),
+    "ChiSqSelectorModel": ("selected",),
+    "VarianceThresholdSelectorModel": ("selected",),
+    "UnivariateFeatureSelectorModel": ("selected",),
+    "BucketedRandomProjectionLSHModel": ("directions",),
+    "MinHashLSHModel": ("coeff_a", "coeff_b"),
+    "RFormulaModel": ("terms", "label", "categories", "label_categories"),
+    "Word2VecModel": ("vocabulary", "vectors"),
+}
+
+
+def feature_model_from_reference(model_class: str, arrays: dict, **params):
+    """A fitted feature model of the port (``model_class``, e.g.
+    ``"StandardScalerModel"``) from a reference model's state: ``arrays``
+    maps each of the reference model's state attributes (``mean`` and
+    ``std`` of a StandardScalerModel, ``vocabulary`` and ``vectors`` of a
+    Word2VecModel, ...; numpy arrays, lists, dicts or numbers) to its
+    value, and ``params`` sets the model's params (its columns)."""
+    import cycloneml_tpu_torch.ml.feature as feat
+    state = _FEATURE_STATE.get(model_class)
+    if state is None:
+        raise ValueError(f"{model_class!r} is not a fitted feature model of "
+                         f"the port; one of {sorted(_FEATURE_STATE)}")
+    missing = [k for k in state if k not in arrays]
+    if missing:
+        raise ValueError(f"{model_class} needs {missing}")
+    model = getattr(feat, model_class)()
+    for k in state:
+        v = arrays[k]
+        setattr(model, k, np.array(v) if isinstance(v, np.ndarray) else v)
+    if model_class == "StringIndexerModel":
+        model.labels = [str(v) for v in model.labels]
+        model._index = {t: i for i, t in enumerate(model.labels)}
+    elif "vocabulary" in state:
+        model.vocabulary = [str(v) for v in model.vocabulary]
+        model._index = {t: i for i, t in enumerate(model.vocabulary)}
+    return _with_params(model, params)

@@ -11,30 +11,9 @@ import numpy as np
 
 from cycloneml_tpu_torch.linalg.distributed import RowMatrix
 from cycloneml_tpu_torch.ml.base import Estimator, Model
-from cycloneml_tpu_torch.ml.param import Params
+from cycloneml_tpu_torch.ml.feature.scalers import _InOutCol
 from cycloneml_tpu_torch.ml.param import ParamValidators as V
 from cycloneml_tpu_torch.ml.util_io import MLReadable, MLWritable, load_arrays, save_arrays
-
-
-class _InOutCol(Params):
-    """Input and output column params (the port's copy of the mixin in
-    ``cycloneml_tpu/ml/feature/scalers.py``)."""
-
-    def _p_in_out(self, in_default="features", out_default="scaled"):
-        self.inputCol = self._param("inputCol", "input column",
-                                    default=in_default)
-        self.outputCol = self._param("outputCol", "output column",
-                                     default=out_default)
-
-    def set_input_col(self, v):
-        return self.set("inputCol", v)
-
-    def set_output_col(self, v):
-        return self.set("outputCol", v)
-
-    def _in(self, frame) -> np.ndarray:
-        x = frame[self.get("inputCol")]
-        return x[:, None] if x.ndim == 1 else x
 
 
 class PCA(Estimator, _InOutCol, MLWritable, MLReadable):

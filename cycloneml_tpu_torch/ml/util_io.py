@@ -33,8 +33,10 @@ _PORT_PREFIX = _PORT_PACKAGE + "."
 _REFERENCE_PREFIX = _PORT_PACKAGE[:-len("_torch")] + "."
 
 #: where a class without a port stands in the ROADMAP (Queue 1 items), by
-#: module prefix under the port's package; the first match wins
-_ROADMAP_ITEMS = (("ml.", 11), ("graph.", 11), ("", 12))
+#: prefix of its path under the port's package; the first match wins
+#: (SQLTransformer parses through the SQL engine, the host-side layers')
+_ROADMAP_ITEMS = (("ml.feature.formula.SQLTransformer", 12), ("ml.", 11),
+                  ("", 12))
 
 
 def _metadata_path(path: str) -> str:
@@ -79,7 +81,7 @@ def _class_of(name: str):
     try:
         cls = getattr(importlib.import_module(module), cls_name)
     except (ImportError, AttributeError):
-        rest = module[len(_PORT_PREFIX):] + "."
+        rest = path[len(_PORT_PREFIX):]
         item = next(i for prefix, i in _ROADMAP_ITEMS
                     if rest.startswith(prefix))
         raise NotImplementedError(

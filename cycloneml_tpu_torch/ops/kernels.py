@@ -55,7 +55,15 @@ each tree's rows sorted stably by node and cut into pieces on the card,
 then one CTA a (piece, feature block), each lane adding its own rows into
 its own shared-memory copy of the table (or, for the widths whose copies
 do not fit, each lane its bins' rows), and the pieces added in piece
-order.
+order. And so does ``segment_reduce`` (``csrc/segment_reduce.cu``), the
+reduction of message rows by destination that GraphX's message merge and
+Word2Vec's updates make (the reference's ``jax.ops.segment_{sum,min,max}``
+and ``.at[].add`` scatters, not Pallas kernels): the rows sorted stably by
+destination (:func:`segment_order`) and cut into pieces of at most 512
+rows (:func:`segment_pieces`), then one warp a (piece, column tile) in a
+fixed order and a segment's pieces merged in piece order, float32 summed
+in double; also an accumulate form that adds each segment's sum into an
+existing output in place.
 
 X comes in at its storage width: float32, bfloat16 or float8_e4m3fn codes
 (the fp8 rung). K1/K2 upcast it to float32 inside the kernel. K1s, K3 and
@@ -98,7 +106,9 @@ lock since lanes launch from their own threads, in
 each replay of a bucket's CUDA graph one launch); the tree histogram in
 ``tree_hist.launches``, one a launch of a group of trees (every tree of a
 forest level while rows x trees stay below 2^31), and by instance in
-``tree_hist.launches_by_instance``.
+``tree_hist.launches_by_instance``; the segment reductions in
+``segment_reduce.launches`` and by instance (dtype, merge and the
+accumulate form) in ``segment_reduce.launches_by_instance``.
 """
 
 from __future__ import annotations
@@ -321,6 +331,10 @@ _SIGNATURES = {
         "serving_margins_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _P, _P],
         "serving_margins_plan": [_I, _I, _I, _I, _I, _P],
+    },
+    "segment_reduce": {
+        "segment_reduce_launch": [_I, _I, _I, _P, _LL, _I, _P, _P, _LL, _P,
+                                  _P, _LL, _I, _P, _LL, _P, _P, _LL, _P],
     },
     "tree_hist": {
         "tree_hist_plan": [_I, _I, _I, _I, _P],
@@ -564,6 +578,11 @@ def reset_launch_counts() -> None:
             for dt in _SERVING_DTYPE_CODE for q in (False, True)}
     tree_hist.launches = 0
     tree_hist.launches_by_instance = {LANE_A_ROW: 0, LANE_A_BIN: 0}
+    segment_reduce.launches = 0
+    segment_reduce.launches_by_instance = {
+        segment_instance(dt, merge, acc): 0
+        for dt in _SEGMENT_DTYPE_CODE for merge in SEGMENT_MERGES
+        for acc in (False, True) if merge == SUM or not acc}
 
 
 def fused_binary_logistic_scaled(x, y, w, inv_std, scaled_mean, coef,
@@ -2442,6 +2461,249 @@ def tree_hist(bins: torch.Tensor, chans: torch.Tensor, pos: torch.Tensor,
         tree_hist.launches += 1
         tree_hist.launches_by_instance[instance] += 1
     return out
+
+
+# -- segment_reduce: message rows reduced by destination ---------------------
+
+SUM, MIN, MAX = "sum", "min", "max"
+SEGMENT_MERGES = (SUM, MIN, MAX)
+_SEGMENT_MERGE_CODE = {SUM: 0, MIN: 1, MAX: 2}
+_SEGMENT_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.int32: 2}
+_SEGMENT_DTYPE_NAME = {torch.float32: "f32", torch.float64: "f64",
+                       torch.int32: "i32"}
+
+
+def segment_instance(dtype: torch.dtype, merge: str,
+                     accumulate: bool = False) -> str:
+    """The name a launch of ``csrc/segment_reduce.cu`` is counted under:
+    the rows' dtype, the merge and the accumulate form (e.g.
+    ``"f32_sum_accumulate"``)."""
+    name = f"{_SEGMENT_DTYPE_NAME[dtype]}_{merge}"
+    return name + "_accumulate" if accumulate else name
+
+
+def merge_identity(dtype: torch.dtype, merge: str):
+    """The merge's identity in ``dtype`` as a Python number: 0 for a sum;
+    +inf / -inf for a float min / max; the integer type's largest /
+    smallest value for an integer min / max (the reference's
+    ``merge_identity``, ``graph/graph.py:212-222``)."""
+    if merge not in _SEGMENT_MERGE_CODE:
+        raise ValueError(f"unknown merge {merge!r}; expected one of "
+                         f"{SEGMENT_MERGES}")
+    if merge == SUM:
+        return 0
+    if dtype.is_floating_point:
+        return float("inf") if merge == MIN else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if merge == MIN else info.min
+
+
+def segment_order(dst: torch.Tensor, n: int, check: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(perm, offsets)`` of destinations ``dst`` (m,) in [0, n), on
+    their device: ``perm`` (m,) int64, a stable ``torch.sort`` of ``dst``
+    (positions of equal destinations keep their order), and ``offsets``
+    (n + 1,) int64, destination v's rows at sorted positions
+    ``offsets[v]`` .. ``offsets[v + 1] - 1`` (a search of the sorted keys:
+    ``bincount`` and ``cumsum`` without a read back). Integer set-up, the
+    same on every run. ``check`` reads the ids' range back to the host and
+    raises for one out of [0, n) (the kernel reads the offsets unchecked)."""
+    d64 = dst.reshape(-1).to(torch.int64)
+    if check and d64.numel() and (int(d64.min()) < 0 or int(d64.max()) >= n):
+        raise ValueError(f"segment_order: destinations out of [0, {n})")
+    srt = torch.sort(d64, stable=True)
+    offsets = torch.searchsorted(srt.values, torch.arange(
+        n + 1, device=d64.device, dtype=torch.int64))
+    return srt.indices, offsets
+
+
+SEGMENT_PIECE_ROWS = 512  # a piece's rows at most (csrc/segment_reduce.cu)
+
+
+class SegmentPieces(NamedTuple):
+    """A segment order cut into pieces of at most ``piece_rows`` rows, in
+    row order, for ``csrc/segment_reduce.cu`` (one warp a piece, so a hub
+    segment's rows are walked by many warps): every segment has at least
+    one piece (an empty one, one empty piece). Sized from shapes, so that
+    building it reads nothing back: ``n_pieces`` is a bound (the segments
+    plus the rows over ``piece_rows``), the pieces past the real count
+    name segment n, and ``multi`` is padded with -1."""
+    offsets: torch.Tensor      # (n + 1,) int64: the segments' rows
+    piece_seg: torch.Tensor    # (n_pieces,) int32: each piece's segment
+    piece_start: torch.Tensor  # (n + 1,) int64: each segment's first piece
+    multi: torch.Tensor        # (rows // (piece_rows + 1),) int32
+    n_pieces: int
+    piece_rows: int
+
+
+def segment_pieces(offsets: torch.Tensor, rows: Optional[int] = None,
+                   piece_rows: int = SEGMENT_PIECE_ROWS) -> SegmentPieces:
+    """The :class:`SegmentPieces` of ``offsets`` on their device: each
+    segment's ceil(count / piece_rows) pieces (one at least), numbered in
+    segment order, and the segments of several pieces. ``rows`` is the
+    number of rows the offsets cover (``offsets[-1]``; read back from the
+    device when not given). Integer set-up by torch ops."""
+    if piece_rows < 1:
+        raise ValueError(f"segment_pieces: piece_rows must be at least 1, "
+                         f"got {piece_rows}")
+    n = offsets.shape[0] - 1
+    m = int(offsets[-1]) if rows is None else int(rows)
+    dev = offsets.device
+    pieces = ((torch.diff(offsets) + piece_rows - 1) // piece_rows).clamp(
+        min=1)
+    piece_start = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    piece_start[1:] = torch.cumsum(pieces, 0)
+    bound = n + m // piece_rows
+    piece_seg = (torch.searchsorted(piece_start, torch.arange(
+        bound, device=dev, dtype=torch.int64), right=True) - 1).to(
+            torch.int32)
+    multi = torch.nonzero_static(pieces > 1, size=m // (piece_rows + 1),
+                                 fill_value=-1).flatten().to(torch.int32)
+    return SegmentPieces(offsets.contiguous(), piece_seg, piece_start, multi,
+                         bound, piece_rows)
+
+
+def _offsets_of(offsets) -> torch.Tensor:
+    return offsets.offsets if isinstance(offsets, SegmentPieces) else offsets
+
+
+def _segment_rows(msgs: torch.Tensor, offsets: torch.Tensor, rows,
+                  what: str) -> torch.Tensor:
+    if offsets.dim() != 1 or offsets.shape[0] < 1:
+        raise ValueError(f"{what}: offsets must be (n + 1,), got "
+                         f"{tuple(offsets.shape)}")
+    if msgs.dim() < 1:
+        raise ValueError(f"{what}: messages must have a row dimension")
+    m = rows.shape[0] if rows is not None else msgs.shape[0]
+    return msgs.reshape(msgs.shape[0], -1), m
+
+
+def segment_reduce_plain(msgs: torch.Tensor, offsets: torch.Tensor,
+                         merge: str = SUM, rows: Optional[torch.Tensor] = None,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`segment_reduce` in plain PyTorch (``offsets`` a tensor or
+    a :class:`SegmentPieces`): segment v of the rows
+    ``msgs[rows[p]]`` (``msgs[p]`` without ``rows``) at positions
+    ``offsets[v]`` .. ``offsets[v + 1] - 1``, merged into row v of the
+    (n, ...) result; a segment with no rows holds
+    :func:`merge_identity`. Sums by ``index_add_`` in float64 (int64 for
+    int32 rows), rounded once to the rows' dtype; min and max by
+    ``scatter_reduce_`` (``amin``/``amax``) over the identity. With ``out``
+    (sums only) each segment's sum is added into ``out`` in place, in the
+    same float64 as out's own value, rounded once: the accumulate form.
+    On the CPU it adds in row order; on CUDA ``index_add_``'s float atomics
+    add in a run-dependent order, so there it serves only as the truth the
+    kernel is held against."""
+    offsets = _offsets_of(offsets)
+    x, m = _segment_rows(msgs, offsets, rows, "segment_reduce_plain")
+    if merge not in _SEGMENT_MERGE_CODE:
+        raise ValueError(f"segment_reduce_plain: unknown merge {merge!r}")
+    n = offsets.shape[0] - 1
+    dev, dt = x.device, x.dtype
+    if rows is not None:
+        x = x[rows]
+    k = x.shape[1]
+    seg = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  torch.diff(offsets), output_size=m)
+    if merge == SUM:
+        acc_dt = torch.float64 if dt.is_floating_point else torch.int64
+        acc = torch.zeros((n, k), dtype=acc_dt, device=dev).index_add_(
+            0, seg, x.to(acc_dt))
+        if out is not None:
+            o2 = out.view(n, k)
+            o2.copy_((o2.to(acc_dt) + acc).to(out.dtype))
+            return out
+        return acc.to(dt).reshape((n,) + msgs.shape[1:])
+    if out is not None:
+        raise ValueError("segment_reduce_plain: the accumulate form is a sum")
+    res = torch.full((n, k), merge_identity(dt, merge), dtype=dt, device=dev)
+    res.scatter_reduce_(0, seg[:, None].expand(-1, k), x,
+                        "amin" if merge == MIN else "amax", include_self=True)
+    return res.reshape((n,) + msgs.shape[1:])
+
+
+def segment_reduce(msgs: torch.Tensor, offsets: torch.Tensor,
+                   merge: str = SUM, rows: Optional[torch.Tensor] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The segment reduction of :func:`segment_reduce_plain`: msgs (m,
+    ...) float32, float64 or int32, ``offsets`` (n + 1,) int64 from
+    :func:`segment_order` (or the positions of rows already in segment
+    order) or their :class:`SegmentPieces` (built here when not given),
+    ``rows`` None or (m,) int64 row ids (the order's ``perm``), the result
+    (n, ...) in msgs' dtype; with ``out`` ((n, ...) of that dtype,
+    contiguous rows; sums only) each non-empty segment's sum is added into
+    it in place and ``out`` is returned. A CPU tensor runs the plain
+    version; a CUDA tensor launches ``csrc/segment_reduce.cu`` or raises:
+    one warp a (piece of at most :data:`SEGMENT_PIECE_ROWS` rows, tile of
+    up to 32 columns), a segment's pieces merged in piece order, each
+    output reduced in a fixed order (float32 sums in double, rounded once;
+    no float atomics), so two launches on the same inputs are bitwise
+    equal. Counted in ``segment_reduce.launches`` (the pieces' kernel and
+    the merge one launch) and by :func:`segment_instance` in
+    ``segment_reduce.launches_by_instance``."""
+    if msgs.device.type == "cpu":
+        return segment_reduce_plain(msgs, offsets, merge, rows, out)
+    if msgs.device.type != "cuda":
+        raise ValueError(f"segment_reduce: no kernel for device "
+                         f"{msgs.device}")
+    plan = offsets if isinstance(offsets, SegmentPieces) else None
+    offsets = _offsets_of(offsets)
+    x, m = _segment_rows(msgs, offsets, rows, "segment_reduce")
+    dt, dev = x.dtype, x.device
+    if dt not in _SEGMENT_DTYPE_CODE:
+        raise ValueError(f"segment_reduce: messages must be float32, float64 "
+                         f"or int32 on CUDA; got {dt}")
+    if merge not in _SEGMENT_MERGE_CODE:
+        raise ValueError(f"segment_reduce: unknown merge {merge!r}")
+    if offsets.dtype != torch.int64 or offsets.device != dev:
+        raise ValueError("segment_reduce: offsets must be int64 on the "
+                         "messages' device")
+    if rows is not None and (rows.dtype != torch.int64 or rows.device != dev
+                             or rows.dim() != 1):
+        raise ValueError("segment_reduce: rows must be (m,) int64 on the "
+                         "messages' device")
+    n, k = offsets.shape[0] - 1, x.shape[1]
+    if out is not None:
+        if merge != SUM:
+            raise ValueError("segment_reduce: the accumulate form is a sum")
+        if out.dtype != dt or out.device != dev or out.numel() != n * k \
+                or out.shape[0] != n:
+            raise ValueError(f"segment_reduce: out {tuple(out.shape)} "
+                             f"{out.dtype} does not take ({n}, {k}) {dt}")
+        o2 = out.view(n, k)
+        if o2.stride(1) != 1 and k > 1:
+            raise ValueError("segment_reduce: out's rows must be contiguous")
+        res = out
+    else:
+        o2 = torch.empty((n, k), dtype=dt, device=dev)
+        res = o2.reshape((n,) + msgs.shape[1:])
+    if x.stride(1) != 1 and k > 1:
+        x = x.contiguous()
+    if plan is None:
+        plan = segment_pieces(offsets, m)
+    if plan.offsets.device != dev or plan.piece_seg.device != dev:
+        raise ValueError("segment_reduce: the pieces lie on another device "
+                         "than the messages")
+    n_multi = plan.multi.shape[0]          # a bound, padded with -1
+    partial = None
+    if n_multi and k:
+        acc = (torch.float64 if dt.is_floating_point and merge == SUM
+               else torch.int64 if merge == SUM else dt)
+        partial = torch.empty(plan.n_pieces * k, dtype=acc, device=dev)
+    with torch.cuda.device(dev):
+        _cuda_check(_library("segment_reduce").segment_reduce_launch(
+            _SEGMENT_DTYPE_CODE[dt], _SEGMENT_MERGE_CODE[merge],
+            int(out is not None), x.data_ptr(), x.stride(0) if k else 0, k,
+            plan.offsets.data_ptr(), _ptr(rows), n,
+            plan.piece_seg.data_ptr(), plan.piece_start.data_ptr(),
+            plan.n_pieces, plan.piece_rows, plan.multi.data_ptr(), n_multi,
+            _ptr(partial), o2.data_ptr(), o2.stride(0) if k else 0,
+            torch.cuda.current_stream(dev).cuda_stream),
+            "segment_reduce launch")
+    segment_reduce.launches += 1
+    segment_reduce.launches_by_instance[
+        segment_instance(dt, merge, out is not None)] += 1
+    return res
 
 
 reset_launch_counts()  # every count starts at 0

@@ -28,7 +28,9 @@ def _port_sources():
                                         ROOT / "glm_phases.py",
                                         ROOT / "ell_phases.py",
                                         ROOT / "center_phases.py",
-                                        ROOT / "als_phases.py"]
+                                        ROOT / "als_phases.py",
+                                        ROOT / "serving_phases.py",
+                                        ROOT / "tree_phases.py"]
 
 
 def _run(code: str, **env):
@@ -96,7 +98,7 @@ def test_kernels_import_without_cuda():
 @pytest.mark.parametrize("name", ["glm_sweep", "kmeans_assign", "gramian",
                                   "glm_stacked", "center_sums", "ell_sweep",
                                   "als_normal", "serving_margins",
-                                  "tree_hist"])
+                                  "tree_hist", "segment_reduce"])
 def test_every_kernel_source_has_a_binding(name):
     """Each CUDA source the wrappers load exists, declares its C entry
     points with ``extern "C"``, and has its argument types declared."""
@@ -261,6 +263,43 @@ def test_als_wrapper_imports_and_runs_without_cuda():
              "assert kernels.als_normal.launches == 0\n"
              "assert n.tolist() == [2., 1., 1.] and torch.equal(a, a.transpose(1, 2))\n"
              "assert a[0].tolist() == [[3., 2.], [2., 3.]]\n",
+             CUDA_VISIBLE_DEVICES="")
+    assert r.returncode == 0, r.stderr
+
+
+def test_graph_and_feature_modules_are_guarded():
+    """GraphX's, the feature transformers' and ml/stat's modules are among
+    the modules whose imports are checked above."""
+    mods = _port_modules()
+    for name in ("cycloneml_tpu_torch.graph.graph",
+                 "cycloneml_tpu_torch.graph.pregel",
+                 "cycloneml_tpu_torch.graph.lib",
+                 "cycloneml_tpu_torch.ml.feature.word2vec",
+                 "cycloneml_tpu_torch.ml.feature.formula",
+                 "cycloneml_tpu_torch.ml.stat.tests"):
+        assert name in mods
+        assert PKG.joinpath(*name.split(".")[1:]).with_suffix(".py") in \
+            _port_sources()
+
+
+def test_segment_reduce_imports_and_runs_without_cuda():
+    """The segment reduction, its order and its piece table run their
+    plain versions on CPU tensors with no card and no nvcc, launching
+    nothing; a graph and Word2Vec run on them."""
+    r = _run("import numpy as np, torch\n"
+             "assert not torch.cuda.is_available()\n"
+             "from cycloneml_tpu_torch import CycloneConf, CycloneContext\n"
+             "from cycloneml_tpu_torch.graph import Graph, lib\n"
+             "from cycloneml_tpu_torch.ops import kernels\n"
+             "perm, off = kernels.segment_order(torch.tensor([2, 0, 2]), 3)\n"
+             "p = kernels.segment_pieces(off)\n"
+             "s = kernels.segment_reduce(torch.ones(3, 2), p, rows=perm)\n"
+             "assert s.tolist() == [[1., 1.], [0., 0.], [2., 2.]]\n"
+             "ctx = CycloneContext(CycloneConf().set('cyclone.master', 'cpu'))\n"
+             "g = Graph(ctx, np.array([0, 1]), np.array([1, 2]))\n"
+             "assert lib.connected_components(g).tolist() == [0, 0, 0]\n"
+             "assert kernels.segment_reduce.launches == 0\n"
+             "ctx.stop()\n",
              CUDA_VISIBLE_DEVICES="")
     assert r.returncode == 0, r.stderr
 

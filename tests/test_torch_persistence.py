@@ -304,9 +304,9 @@ def test_load_checks_the_class(pctx, tmp_path):
 
 def test_unported_class_raises_with_its_roadmap_item(tmp_path):
     for cls, item in (
-            ("cycloneml_tpu.ml.feature.scalers.MinMaxScalerModel", 11),
+            ("cycloneml_tpu.ml.fpm.fpm.FPGrowthModel", 11),
             ("cycloneml_tpu.ml.tree.random_forest.RandomForestModel", 11),
-            ("cycloneml_tpu.ml.feature.scalers.StandardScalerModel", 11),
+            ("cycloneml_tpu.ml.feature.formula.SQLTransformer", 12),
             ("cycloneml_tpu.streaming.query.StreamingQuery", 12),
             ("cycloneml_tpu.util.status.StatusStore", 12)):
         os.makedirs(tmp_path / "metadata", exist_ok=True)

@@ -281,15 +281,13 @@ def test_tree_determinism(pctx):
 
 
 def test_tree_in_pipeline(pctx):
-    """The reference's case scales first with its StandardScaler, which
-    the port does not have yet (ROADMAP Queue 1 item 11 b); the same
-    scaling is applied to the column here and the Pipeline holds the
-    tree."""
+    """The reference's case: the port's StandardScaler, then the tree, in
+    one Pipeline."""
     from cycloneml_tpu_torch.ml.base import Pipeline
+    from cycloneml_tpu_torch.ml.feature.scalers import StandardScaler
     frame, x, y = _cls_data(pctx)
-    scaled = (x - x.mean(0)) / x.std(0, ddof=1)
-    frame = frame.with_column("scaled", scaled)
     pipe = Pipeline(stages=[
+        StandardScaler(inputCol="features", outputCol="scaled"),
         DecisionTreeClassifier(featuresCol="scaled", maxDepth=4)])
     model = pipe.fit(frame)
     acc = (model.transform(frame)["prediction"] == y).mean()
